@@ -7,7 +7,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.  In
 order, it
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
-   three serving kernels from the sources under ``src/repro_torch``;
+   four serving kernels from the sources under ``src/repro_torch``;
 2. builds the ``paper_200ms`` cascade at one shard of 196,608 docs (the
    per-chip shard of the paper's ISN deployment) on the card, with Stage-0
    and LTR GBRTs of the spec's shapes made here from a NumPy seed (bin
@@ -17,19 +17,34 @@ order, it
 3. serves one batch of 32 queries on both (the CPU runs the kernels'
    plain versions) and requires ``topk``, ``final`` and the modeled
    ``latency`` to be equal, while recording every kernel call's inputs;
-4. kernel phase: runs each kernel on the recorded main-path inputs against
-   its plain version on the card (kernel 1 and the counts of kernel 3
-   exact, the float sums within 1e-5) and times both with CUDA events;
-5. serve phase: sets the launch counts to 0, serves 8 batches of 32
-   queries on the card, and requires both routes to take queries, Stage-2
-   to re-rank, and every kernel to have launched; prints the wall time per
-   batch and the device memory;
-6. prints the ``kernels`` JSON line, then the card line, then the result.
+4. builds the ``hybrid_fusion`` cascade (the dense Stage-1 modality) from
+   the same index, on the card and on the CPU, with the same kind of
+   GBRTs and one two-tower model drawn from the spec's seed; where the
+   preset's θ bands catch none of the calibration queries' top dense
+   scores, sets them from quantiles of those scores; serves one batch of
+   32 queries picked to reach the θ-skip and fallback branches on both
+   and requires ``topk``, ``final``, ``latency`` and the per-query
+   modality, θ-skip and fallback flags to be equal, recording the dense
+   kernel's inputs;
+5. kernel phase: runs each kernel on the recorded main-path inputs and on
+   edge cases against its plain version on the card (kernel 1, the counts
+   of kernel 3 and the dense top-k exact, the float sums within 1e-5) and
+   times the kernel, its plain version and, where one exists, the nearest
+   library call with CUDA events;
+6. serve phases: for each preset, sets the launch counts to 0, serves 8
+   batches of 32 queries on the card and reads the counts: for
+   ``paper_200ms`` both routes must take queries, Stage-2 must re-rank and
+   its three kernels must have launched; for ``hybrid_fusion`` lexical,
+   dense-only and fused rows must each occur and the dense kernel must
+   have launched; prints the wall time per batch and the device memory;
+7. prints the total elapsed time, the ``kernels`` JSON line, then the card
+   line, then the result.
 
 Any failed check exits non-zero without the result line.  ``--n-docs``
 and ``--batches`` shrink the run for a quick check; ``--profile`` adds a
-``torch.profiler`` breakdown of one more served batch (wall, device busy
-time, host time per cascade stage, busiest device kernels).
+``torch.profiler`` breakdown of one more served batch of each preset
+(wall, device busy time, host time per cascade stage, busiest device
+kernels).
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device-memory rate
+FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 rate outside the tensor cores
 # H100 SXM int32 rate: the published 67 TFLOP/s fp32 is 132 SMs x 128 fp32
 # lanes x 2 (an FMA) x 1.98 GHz; an SM issues 64 int32 operations a clock,
 # a quarter of that.  The kernels' work is int32 compares.
@@ -66,6 +82,9 @@ KERNELS = {
     "qd_feature_gather_lanes": dict(
         source="src/repro_torch/kernels/qd_feature_gather/qd_feature_gather.cu",
         replaces="src/repro/kernels/qd_feature_gather/kernel.py:67"),
+    "dense_topk_tiles": dict(
+        source="src/repro_torch/kernels/dense_topk/dense_topk.cu",
+        replaces="src/repro/kernels/dense_topk/kernel.py:61"),
 }
 
 
@@ -195,11 +214,13 @@ class Recorder:
 
     def __init__(self):
         from repro_torch.kernels.blockmax_score import ops as bm
+        from repro_torch.kernels.dense_topk import ops as dt
         from repro_torch.kernels.impact_accumulate import ops as ia
         from repro_torch.kernels.qd_feature_gather import ops as qd
         self.sites = {"impact_accumulate_batched": ia,
                       "blockmax_score_batched": bm,
-                      "qd_feature_gather_lanes": qd}
+                      "qd_feature_gather_lanes": qd,
+                      "dense_topk_tiles": dt}
         self.calls = {name: [] for name in self.sites}
         self.orig = {}
 
@@ -238,11 +259,19 @@ def cuda_ms(fn, reps):
 
 
 def work_of(name, args, kw):
-    """(bytes, ops) the call must move and do on these inputs: the live
-    lanes it needs read once, flags and query terms read once, the output
-    written once; one int32 compare per (query, live lane it scores, query
-    term) — per (live lane, candidate) for the Stage-2 gather."""
+    """(bytes, ops, ops per second) the call must move and do on these
+    inputs.  Lexical and Stage-2 kernels: the live lanes it needs read
+    once, flags and query terms read once, the output written once; one
+    int32 compare per (query, live lane it scores, query term) — per (live
+    lane, candidate) for the Stage-2 gather.  Dense top-k: the embeddings
+    and queries read once, (Q, k) scores and ids written once; two fp32
+    operations (one FMA) per (query, doc, dimension)."""
     import torch
+    if name == "dense_topk_tiles":
+        q_emb, doc_emb, k = args
+        (q, d), n = q_emb.shape, doc_emb.shape[0]
+        return (4 * (n * d + q * d) + 12 * q * k, 2 * q * n * d,
+                FP32_FLOPS_PER_S)
     if name == "impact_accumulate_batched":
         docs, terms, imps, qterms, lstar = args
         q, n_terms = qterms.shape
@@ -250,7 +279,7 @@ def work_of(name, args, kw):
         tile_d = kw["tile_d"]
         out = q * docs.shape[0] * tile_d * 4
         return (12 * live + 4 * qterms.numel() + 4 * q + out,
-                q * live * n_terms)
+                q * live * n_terms, INT32_OPS_PER_S)
     if name == "blockmax_score_batched":
         docs, terms, scores, qterms, sb, st = args
         q, n_terms = qterms.shape
@@ -260,16 +289,16 @@ def work_of(name, args, kw):
         scored = int(((st > 0).to(torch.int64) * per_tile[None]).sum())
         out = q * docs.shape[0] * kw["tile_d"] * 4
         return (12 * needed + 4 * (sb.numel() + st.numel() + qterms.numel())
-                + out, scored * n_terms)
+                + out, scored * n_terms, INT32_OPS_PER_S)
     lane_docs, lane_scores, cand = args
     live = int((lane_docs >= 0).sum())
     return (8 * live + 4 * cand.numel() + 12 * cand.numel(),
-            live * cand.shape[1])
+            live * cand.shape[1], INT32_OPS_PER_S)
 
 
-def compare(name, got, want):
+def compare(name, got, want, tol=1e-5):
     """Max abs error; raises if the kernel disagrees with its plain version
-    beyond the stated tolerance (integers exact, float sums 1e-5)."""
+    beyond the stated tolerance (integers exact, floats within ``tol``)."""
     import torch
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -280,7 +309,7 @@ def compare(name, got, want):
               f"{tuple(w.shape)} {w.dtype}")
         if g.dtype.is_floating_point:
             e = float((g - w).abs().max()) if g.numel() else 0.0
-            check(e <= 1e-5, f"{name}: max abs error {e} > 1e-5")
+            check(e <= tol, f"{name}: max abs error {e} > {tol}")
         else:
             e = float((g.long() - w.long()).abs().max()) if g.numel() else 0.0
             check(e == 0, f"{name}: integer outputs differ by {e}")
@@ -292,9 +321,12 @@ def edge_calls(device):
     """Small seeded inputs with the edge cases the main path rarely shows:
     -1 query slots, a repeated query term, an empty tile, a ghost tail
     tile, tiles whose survive_t is 0 under set block flags, dead lanes
-    and -1 candidates."""
+    and -1 candidates; for the dense top-k, exact ties (duplicated doc
+    rows), doc counts that are not a multiple of the kernel's chunk,
+    k in {1, 33, 128} and a single query.  Lists of (args, kwargs)."""
     import numpy as np
     import torch
+    from repro_torch.dense import embed_queries, synthetic_embeddings
     from repro_torch.index.builder import pack_tiles
     rng = np.random.RandomState(SEED)
     n_docs, vocab, tile_d, block = 1000, 40, 128, 64
@@ -318,17 +350,37 @@ def edge_calls(device):
     cand = rng.randint(0, 300, (q, 50)).astype(np.int32)
     cand[rng.rand(q, 50) < 0.15] = -1
 
+    doc_emb, table = synthetic_embeddings(3000, 512, d=32, seed=SEED % 997)
+    q_emb = embed_queries(table, rng.randint(0, 512, (24, 6)),
+                          np.ones((24, 6), np.float32))
+    ties = np.concatenate([doc_emb[:700]] * 3)          # 2,100 docs, 3x ties
+
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return {
-        "impact_accumulate_batched": (
+        "impact_accumulate_batched": [(
             (t(docs_b), t(terms_b), t(imps_b), t(qterms),
-             t(np.asarray([0, 40, 0, 1], np.int32))), dict(tile_d=tile_d)),
-        "blockmax_score_batched": (
+             t(np.asarray([0, 40, 0, 1], np.int32))), dict(tile_d=tile_d))],
+        "blockmax_score_batched": [(
             (t(docs_b), t(terms_b), t(scores_b), t(qterms), t(sb), t(st)),
-            dict(tile_d=tile_d, block_size=block)),
-        "qd_feature_gather_lanes": ((t(lanes), t(lane_sc), t(cand)), {}),
+            dict(tile_d=tile_d, block_size=block))],
+        "qd_feature_gather_lanes": [((t(lanes), t(lane_sc), t(cand)), {})],
+        "dense_topk_tiles": [
+            ((t(q_emb), t(ties), 128), {}),
+            ((t(q_emb), t(doc_emb[:1025]), 33), {}),
+            ((t(q_emb), t(doc_emb), 1), {}),
+            ((t(q_emb[:1]), t(doc_emb), 128), {}),
+            ((t(q_emb[:5]), t(doc_emb[:2999]), 33), {}),
+        ],
     }
+
+
+def dense_library_call(q_emb, doc_emb, k):
+    """The nearest PyTorch composition of the dense top-k, timed as its
+    library yardstick and used nowhere in the port: one fp32 product and
+    one stable descending sort."""
+    import torch
+    return torch.sort(q_emb @ doc_emb.T, dim=1, descending=True, stable=True)
 
 
 def kernel_phase(recorded):
@@ -336,40 +388,49 @@ def kernel_phase(recorded):
     version on the card."""
     import torch
     from repro_torch.kernels.blockmax_score import ops as bm
+    from repro_torch.kernels.dense_topk import ops as dt
     from repro_torch.kernels.impact_accumulate import ops as ia
     from repro_torch.kernels.qd_feature_gather import ops as qd
     plain = {"impact_accumulate_batched": ia.impact_accumulate_plain,
              "blockmax_score_batched": bm.blockmax_score_plain,
-             "qd_feature_gather_lanes": qd.qd_feature_gather_plain}
+             "qd_feature_gather_lanes": qd.qd_feature_gather_plain,
+             "dense_topk_tiles": dt.dense_topk_plain}
     kern = {"impact_accumulate_batched": ia.impact_accumulate_batched,
             "blockmax_score_batched": bm.blockmax_score_batched,
-            "qd_feature_gather_lanes": qd.qd_feature_gather_lanes}
+            "qd_feature_gather_lanes": qd.qd_feature_gather_lanes,
+            "dense_topk_tiles": dt.dense_topk_tiles}
+    library = {"dense_topk_tiles": dense_library_call}
+    # the dense top-k is exact on the grid-quantized embeddings
+    tols = {"dense_topk_tiles": 0.0}
     rows = {}
     edges = edge_calls(recorded["qd_feature_gather_lanes"][0][0][0].device)
-    for name, calls in recorded.items():
+    for name in KERNELS:
+        calls = recorded[name]
         check(calls, f"{name}: the main path never called it")
         err = 0.0
-        for args, kw in calls + [edges[name]]:
+        for args, kw in calls + edges[name]:
             got = kern[name](*args, **kw)
             want = plain[name](*args, **kw)
             torch.cuda.synchronize()
-            err = max(err, compare(name, got, want))
+            err = max(err, compare(name, got, want, tols.get(name, 1e-5)))
         # time the largest call of the batch (the one with most work)
         args, kw = max(calls, key=lambda c: work_of(name, *c)[0])
-        nbytes, ops = work_of(name, args, kw)
+        nbytes, ops, rate = work_of(name, args, kw)
         ms = cuda_ms(lambda: kern[name](*args, **kw), REPS)
         plain_ms = cuda_ms(lambda: plain[name](*args, **kw), REPS // 4)
+        library_ms = (cuda_ms(lambda: library[name](*args, **kw), REPS)
+                      if name in library else None)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / INT32_OPS_PER_S * 1e3
+        t_ops = ops / rate * 1e3
         rows[name] = dict(
             name=name, route="cuda", **KERNELS[name], launches=0,
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None)
-        log(f"kernel {name}: {len(calls)} main-path calls and the edge "
-            f"cases checked, max_abs_err={err}, "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            library_ms=library_ms)
+        log(f"kernel {name}: {len(calls)} main-path calls and "
+            f"{len(edges[name])} edge cases checked, max_abs_err={err}, "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms} "
             f"bound_ms={rows[name]['bound_ms']:.4f} "
             f"({rows[name]['bound_by']}: {nbytes} B, {ops} ops)")
     return rows
@@ -384,7 +445,8 @@ def profile_batch(system, terms, mask, topics):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    stages = ("stage0", "_stage1_full", "stage2")
+    stages = ("stage0", "_stage1_full", "stage2") + (
+        ("_stage1_dense",) if system.dense is not None else ())
     for name in stages:
         def timed(*a, _fn=getattr(system, name), _name=name, **kw):
             with record_function(f"stage:{_name}"):
@@ -442,14 +504,125 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def run(n_docs, n_batches, profile=False):
+def same_batch(label, a, b, dense=False):
+    """Card (a) against CPU (b) results of one served batch."""
+    import numpy as np
+    check(np.array_equal(a.topk, b.topk), f"{label}: topk differs")
+    check(np.array_equal(a.final, b.final), f"{label}: final differs")
+    check(np.array_equal(a.latency, b.latency),
+          f"{label}: modeled latency differs")
+    if dense:
+        for key in ("modality", "theta_skip", "fallback"):
+            check(np.array_equal(a.dense[key], b.dense[key]),
+                  f"{label}: {key} differs")
+
+
+def calibrate_thetas(system, calib):
+    """The ``hybrid_fusion`` θ bands: the preset's, unless a band catches
+    none of the calibration queries' top-1 dense scores; then that band
+    moves to a quantile of those scores (θ_high the 80th, θ_low the 30th
+    percentile), as the preset's own comment describes.  Returns the
+    spec."""
+    import numpy as np
+    ds = system.cascade_spec.dense
+    _, sc = system.dense.serve(system.dense.embed(calib.terms, calib.mask),
+                               system.k_serve)
+    top = sc[:, 0].astype(np.float64)
+    hi, lo = ds.theta_high, ds.theta_low
+    if not (top >= hi).any():
+        hi = float(np.percentile(top, 80))
+    if not (top < lo).any():
+        lo = float(np.percentile(top, 30))
+    log(f"hybrid_fusion: calibration top-1 dense scores "
+        f"p0/p30/p50/p80/p100 = "
+        + "/".join(f"{v:.4f}" for v in np.percentile(top, [0, 30, 50, 80,
+                                                           100]))
+        + f"; theta_high {ds.theta_high} -> {hi}, theta_low "
+        f"{ds.theta_low} -> {lo}")
+    return dataclasses.replace(system.cascade_spec, dense=dataclasses.replace(
+        ds, theta_high=hi, theta_low=min(lo, hi)))
+
+
+def cross_check_rows(system, ql):
+    """32 query rows for the hybrid_fusion cross-check that reach every
+    dense branch: up to 4 dense-only rows below θ_low (the lexical
+    fallback), up to 4 dense rows at or above θ_high (the Stage-2 skip),
+    the rest in log order.  Stage-0 and the dense scan change no state of
+    the system; the scheduler's route is decided when the batch is
+    served."""
+    import numpy as np
+    from repro_torch.dense import M_DENSE, M_LEX
+    ds = system.cascade_spec.dense
+    pt = system.stage0(ql.terms, ql.mask)[2]
+    modality = system._modality(pt)
+    d_rows = np.flatnonzero(modality != M_LEX)
+    _, sc = system.dense.serve(
+        system.dense.embed(ql.terms[d_rows], ql.mask[d_rows]),
+        system.k_serve)
+    top = sc[:, 0]
+    low = d_rows[(modality[d_rows] == M_DENSE) & (top < ds.theta_low)][:4]
+    high = d_rows[top >= ds.theta_high][:4]
+    rows = list(dict.fromkeys([*low, *high, *range(len(ql.terms))]))
+    return np.asarray(rows[:BATCH])
+
+
+def serve_phase(system, ql, n_batches, n_docs, spec):
+    """The counted main path: launch counts set to 0, ``n_batches``
+    batches of 32 served on the card, the counts read.  Returns (launches,
+    route counts, dense stat sums, walls, last result)."""
     import numpy as np
     import torch
     from repro_torch import kernels
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    routes = {"jass": 0, "bmw": 0, "reranked": 0}
+    dense = {}
+    for i in range(n_batches):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        jass0, bmw0 = system.sched.stats["jass"], system.sched.stats["bmw"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = system.serve(ql.terms[sl], ql.mask[sl], ql.topic[sl])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        routes["jass"] += system.sched.stats["jass"] - jass0
+        routes["bmw"] += system.sched.stats["bmw"] - bmw0
+        routes["reranked"] += int((res.candidates_used > 0).sum())
+        for key, n in res.stats.get("dense", {}).items():
+            dense[key] = dense.get(key, 0) + n
+        check(res.topk.shape == (BATCH, spec.stage2.k_serve)
+              and res.final.shape == (BATCH, spec.stage2.t_final),
+              f"{spec.name} serve: result shapes")
+        check(np.isfinite(res.latency).all() and (res.topk >= 0).all()
+              and (res.topk < n_docs).all(),
+              f"{spec.name} serve: ids or latency invalid")
+        check(float(res.latency.max()) <= system.worst_case_us() + 1e-9,
+              f"{spec.name} serve: latency above the worst-case bound")
+    launches = dict(kernels.LAUNCHES)
+    log(f"{spec.name}: served {n_batches} x {BATCH} queries: {routes} "
+        f"{dense}; launches {launches}")
+    log(f"{spec.name}: wall s per batch: "
+        + " ".join(f"{w:.4f}" for w in walls)
+        + f" (median {statistics.median(walls):.4f})")
+    log(f"{spec.name}: device memory: {torch.cuda.memory_allocated()} B in "
+        f"use, {torch.cuda.max_memory_allocated()} B peak during serving; "
+        f"modeled p99 {res.stats['p99']:.3f}, worst-case bound "
+        f"{system.worst_case_us():.3f}")
+    check(routes["reranked"] > 0, f"{spec.name} serve: Stage-2 re-ranked no "
+          "query")
+    return launches, routes, dense
+
+
+def run(n_docs, n_batches, profile=False):
+    import torch
+    from repro_torch import kernels
     from repro_torch.configs.cascade_presets import get_preset
+    from repro_torch.configs.two_tower_retrieval import REDUCED
     from repro_torch.index.builder import build_index
     from repro_torch.index.corpus import (CorpusParams, build_corpus,
                                           build_queries)
+    from repro_torch.models.recsys import TwoTower
     from repro_torch.serving.system import build_system
 
     card = card_line()
@@ -494,55 +667,66 @@ def run(n_docs, n_batches, profile=False):
     b = cpu.serve(ql.terms[sl], ql.mask[sl], ql.topic[sl])
     log(f"cross-check batch: card {t_first:.2f} s (first call), CPU "
         f"{time.perf_counter() - t:.2f} s")
-    check(np.array_equal(a.topk, b.topk), "cross-check: topk differs")
-    check(np.array_equal(a.final, b.final), "cross-check: final differs")
-    check(np.array_equal(a.latency, b.latency),
-          "cross-check: modeled latency differs")
+    same_batch("paper_200ms cross-check", a, b)
     log("cross-check: topk, final and latency equal on the card and CPU")
     del cpu
+    recorded = dict(rec.calls)
 
-    rows = kernel_phase(rec.calls)
+    # the dense modality: hybrid_fusion from the same index; one tower,
+    # drawn on the host, embeds the collection for both systems
+    t = time.perf_counter()
+    spec_h, models_h, ltr_h = make_models(get_preset("hybrid_fusion"), index,
+                                          corpus, dev, SEED)
+    tower = TwoTower.init(REDUCED, spec_h.dense.seed, device="cpu")
+    gpu_h = build_system(spec_h, index, corpus=corpus, models=models_h,
+                         ltr=ltr_h, tower=tower, device=dev)
+    calib = build_queries(corpus, 256, stop_k=spec_h.index.stop_k,
+                          seed=SEED % 10_000)
+    spec_h = calibrate_thetas(gpu_h, calib)
+    gpu_h.cascade_spec = spec_h
+    torch.cuda.synchronize()
+    log(f"hybrid_fusion on {dev} built in {time.perf_counter() - t:.1f} s: "
+        f"{gpu_h.dense.n_shards} shard of {gpu_h.dense.shard_docs[0]} docs x "
+        f"d={gpu_h.dense.d}, {gpu_h.dense.n_tiles(0)} tiles of "
+        f"{gpu_h.dense.tile_d}")
+    cpu_models, cpu_ltr = to_device(models_h, ltr_h, "cpu")
+    cpu_h = build_system(spec_h, index, corpus=corpus, models=cpu_models,
+                         ltr=cpu_ltr, tower=tower, device="cpu")
+    rows_h = cross_check_rows(gpu_h, ql)
+    with Recorder() as rec_h:
+        a = gpu_h.serve(ql.terms[rows_h], ql.mask[rows_h], ql.topic[rows_h])
+        torch.cuda.synchronize()
+    b = cpu_h.serve(ql.terms[rows_h], ql.mask[rows_h], ql.topic[rows_h])
+    same_batch("hybrid_fusion cross-check", a, b, dense=True)
+    log(f"hybrid_fusion cross-check: topk, final, latency, modality, "
+        f"theta_skip and fallback equal on the card and CPU "
+        f"({a.stats['dense']})")
+    del cpu_h
+    recorded["dense_topk_tiles"] = rec_h.calls["dense_topk_tiles"]
 
-    # serve phase: the main path, counted
-    kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    jass = bmw = reranked = 0
-    for i in range(n_batches):
-        sl = slice(i * BATCH, (i + 1) * BATCH)
-        jass0, bmw0 = gpu.sched.stats["jass"], gpu.sched.stats["bmw"]
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = gpu.serve(ql.terms[sl], ql.mask[sl], ql.topic[sl])
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-        jass += gpu.sched.stats["jass"] - jass0
-        bmw += gpu.sched.stats["bmw"] - bmw0
-        reranked += int((res.candidates_used > 0).sum())
-        check(res.topk.shape == (BATCH, spec.stage2.k_serve)
-              and res.final.shape == (BATCH, spec.stage2.t_final),
-              "serve: result shapes")
-        check(np.isfinite(res.latency).all() and (res.topk >= 0).all()
-              and (res.topk < n_docs).all(), "serve: ids or latency invalid")
-    launches = dict(kernels.LAUNCHES)
-    mem = torch.cuda.memory_allocated()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"served {n_batches} x {BATCH} queries: jass={jass} bmw={bmw} "
-        f"reranked={reranked}; launches {launches}")
-    log("wall s per batch: " + " ".join(f"{w:.4f}" for w in walls)
-        + f" (median {statistics.median(walls):.4f})")
-    log(f"device memory: {mem} B in use, {peak} B peak during serving; "
-        f"modeled p99 {res.stats['p99']:.3f}")
-    check(jass > 0 and bmw > 0, "serve: both routes must take queries")
-    check(reranked > 0, "serve: Stage-2 re-ranked no query")
-    for name, n in launches.items():
-        check(n > 0, f"serve: kernel {name} never launched")
-        rows[name]["launches"] = n
+    rows = kernel_phase(recorded)
+
+    # serve phases: each preset's main path, counted on its own
+    launches, routes, _ = serve_phase(gpu, ql, n_batches, n_docs, spec)
+    check(routes["jass"] > 0 and routes["bmw"] > 0,
+          "paper_200ms serve: both routes must take queries")
+    for name in ("impact_accumulate_batched", "blockmax_score_batched",
+                 "qd_feature_gather_lanes"):
+        check(launches[name] > 0, f"serve: kernel {name} never launched")
+        rows[name]["launches"] = launches[name]
+    launches, _, dense = serve_phase(gpu_h, ql, n_batches, n_docs, spec_h)
+    for key in ("lexical", "dense_only", "fused"):
+        check(dense[key] > 0, f"hybrid_fusion serve: no {key} rows")
+    log(f"hybrid_fusion: theta_skips={dense['theta_skips']} "
+        f"fallbacks={dense['fallbacks']}")
+    check(launches["dense_topk_tiles"] > 0,
+          "serve: kernel dense_topk_tiles never launched")
+    rows["dense_topk_tiles"]["launches"] = launches["dense_topk_tiles"]
     if profile:
-        sl = slice(0, BATCH)
-        profile_batch(gpu, ql.terms[sl], ql.mask[sl], ql.topic[sl])
-    print(json.dumps({"kernels": [rows[n] for n in KERNELS]}), flush=True)
-    return card
+        for system in (gpu, gpu_h):
+            log(f"profile of {system.cascade_spec.name}:")
+            profile_batch(system, ql.terms[sl], ql.mask[sl], ql.topic[sl])
+    return card, rows
 
 
 def main(argv=None):
@@ -552,6 +736,7 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (torch.profiler)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         log("FAIL: src/repro_torch not found: run from a checkout's root")
         return 2
@@ -567,10 +752,12 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        card = run(args.n_docs, args.batches, args.profile)
+        card, rows = run(args.n_docs, args.batches, args.profile)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
+    log(f"total elapsed {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [rows[n] for n in KERNELS]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,8 @@ CPU):
 * a reference ``GBRTModel`` (``.forest.feat/.thresh/.leaf``, ``.base``,
   ``.bin_edges``, ``.params``) → ``repro_torch.core.gbrt.GBRTModel``;
 * a reference ``LTRModel`` (``.model``) → ``repro_torch.ltr.ranker.LTRModel``;
+* the reference's two-tower params (``recsys.init(REDUCED, key)``: tables
+  and per-side MLP dicts) → ``repro_torch.models.recsys.TwoTower``;
 * a reference ``CascadeSpec`` → the port's, through its JSON.
 """
 
@@ -21,6 +23,7 @@ from repro_torch.core.gbrt import GBRTModel, GBRTParams
 from repro_torch.core.trees import Forest
 from repro_torch.isn.backend import resolve_device
 from repro_torch.ltr.ranker import LTRModel
+from repro_torch.models.recsys import SIDES, TwoTower
 from repro_torch.serving.spec import CascadeSpec
 
 
@@ -51,6 +54,18 @@ def stage0_models(ref_models: dict, device=None) -> dict:
 def ltr_model(ref_ltr, device=None) -> LTRModel:
     """A fitted reference LTR model as the port's ``LTRModel``."""
     return LTRModel(gbrt_model(ref_ltr.model, device))
+
+
+def two_tower_params(ref_params, device=None) -> TwoTower:
+    """The reference's two-tower parameter tree as the port's ``TwoTower``
+    on ``device`` (each leaf read by key, as float32)."""
+    params = {}
+    for side in SIDES:
+        params[f"{side}_table"] = np.asarray(ref_params[f"{side}_table"],
+                                             np.float32)
+        params[f"{side}_mlp"] = {k: np.asarray(v, np.float32)
+                                 for k, v in ref_params[f"{side}_mlp"].items()}
+    return TwoTower(params, device)
 
 
 def cascade_spec(ref_spec) -> CascadeSpec:

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for the first-stage and Stage-2 hot loops.
+"""Hand-written CUDA kernels for the first-stage (lexical and dense) and
+Stage-2 hot loops.
 
 Each package holds ``<name>.cu`` (the CUDA C++ kernel and a plain-C launch
 function) and ``ops.py`` (the wrapper the engines import, and the plain
@@ -6,8 +7,8 @@ PyTorch version of the same function over the same layout).  A wrapper
 launches the kernel for CUDA tensors and runs the plain version for CPU
 tensors; there is no fallback between the two.
 
-All three kernels are compiled together, on first use, by one
-``torch.utils.cpp_extension.load`` call: the three ``.cu`` sources plus one
+All the kernels are compiled together, on first use, by one
+``torch.utils.cpp_extension.load`` call: the ``.cu`` sources plus one
 small binding file (``binding.cpp``, the only source that includes
 PyTorch's headers), for ``sm_90a``, into ``build/kernels`` at the root of
 the checkout.  ``torch.utils.cpp_extension`` is imported inside
@@ -23,14 +24,15 @@ from __future__ import annotations
 from pathlib import Path
 
 KERNEL_NAMES = ("impact_accumulate_batched", "blockmax_score_batched",
-                "qd_feature_gather_lanes")
+                "qd_feature_gather_lanes", "dense_topk_tiles")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "binding.cpp",
            _HERE / "impact_accumulate" / "impact_accumulate.cu",
            _HERE / "blockmax_score" / "blockmax_score.cu",
-           _HERE / "qd_feature_gather" / "qd_feature_gather.cu")
+           _HERE / "qd_feature_gather" / "qd_feature_gather.cu",
+           _HERE / "dense_topk" / "dense_topk.cu")
 BUILD_DIR = _HERE.parents[2] / "build" / "kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 

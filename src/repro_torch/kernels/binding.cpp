@@ -1,4 +1,4 @@
-// Python binding of the three serving kernels.
+// Python binding of the serving kernels.
 //
 // The only source of the extension that includes PyTorch's headers; the
 // kernels live in plain CUDA files with C launch functions.  Each entry
@@ -27,6 +27,10 @@ void qd_feature_gather_launch(const int* lane_docs, const float* lane_scores,
                               const int* cand, float* bm25, float* mx,
                               int* cnt, int n_q, int n_lanes, int n_cand,
                               cudaStream_t stream);
+void dense_topk_launch(const float* q_emb, const float* doc_emb,
+                       int64_t* part, float* out_scores, int64_t* out_ids,
+                       int n_q, int n_docs, int d4, int k, int kp, int chunk,
+                       int n_chunks, cudaStream_t stream);
 
 namespace {
 
@@ -79,6 +83,21 @@ void qd_feature_gather(const torch::Tensor& lane_docs,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void dense_topk(const torch::Tensor& q_emb, const torch::Tensor& doc_emb,
+                torch::Tensor part, torch::Tensor out_scores,
+                torch::Tensor out_ids, int64_t chunk) {
+  const c10::cuda::CUDAGuard guard(q_emb.device());
+  dense_topk_launch(
+      q_emb.data_ptr<float>(), doc_emb.data_ptr<float>(),
+      part.data_ptr<int64_t>(), out_scores.data_ptr<float>(),
+      out_ids.data_ptr<int64_t>(), static_cast<int>(q_emb.size(0)),
+      static_cast<int>(doc_emb.size(0)), static_cast<int>(q_emb.size(1) / 4),
+      static_cast<int>(out_scores.size(1)), static_cast<int>(part.size(2)),
+      static_cast<int>(chunk), static_cast<int>(part.size(1)),
+      c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -88,4 +107,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "DAAT block-max masked scoring over the bucketed mirror");
   m.def("qd_feature_gather", &qd_feature_gather,
         "Stage-2 (sum, max, count) lane match-reduce");
+  m.def("dense_topk", &dense_topk,
+        "dense top-k of q_emb @ doc_emb^T, ties to the lower doc id");
 }

@@ -13,14 +13,18 @@ NumPy scheduler routes each query (Algorithm 2 plus hedging); Stage-1 fans
 each routed sub-batch out across every shard's SAAT or DAAT engine (the
 ``impact_accumulate`` and ``blockmax_score`` kernels) and merges the
 per-shard top-k; Stage-2 re-ranks the merged candidates with the LTR GBRT
-over the ``qd_feature_gather`` kernel.  Latency is the reference's modeled
-cost (``CostModel`` on the engines' work counters), so equal counters give
-equal latencies, bit for bit.
+over the ``qd_feature_gather`` kernel.  With ``spec.dense`` on, Stage-0
+also picks each query's modality: lexical, dense only (the ``dense_topk``
+kernel over the embedding shards) or both, fused.  Latency is the
+reference's modeled cost (``CostModel`` on the engines' work counters), so
+equal counters give equal latencies, bit for bit.
 
-Scope: the inert-node path.  A spec that turns on a node the port does
-not have yet (cache, fault schedule, dense modality, ingest, telemetry)
-raises ``NotImplementedError`` naming its ROADMAP item, as do ``fit`` and
-``serve_online``.  Models are fitted by the reference and converted.
+Scope: the inert-node path plus the dense modality.  A spec that turns on
+a node the port does not have yet (cache, fault schedule, ingest,
+telemetry) raises ``NotImplementedError`` naming its ROADMAP item, as do
+``fit`` and ``serve_online``.  Models are fitted by the reference and
+converted; so is the two-tower model of the dense modality
+(``convert.two_tower_params``), or the port draws its own.
 
 Multi-shard exactness is the reference's: DAAT is rank-safe per shard, and
 for SAAT the ρ budget resolves to a global impact-level cut that each shard
@@ -36,6 +40,8 @@ import torch
 
 from repro_torch.core import features as F
 from repro_torch.core import gbrt
+from repro_torch.dense import (M_BOTH, M_DENSE, M_LEX, DenseEngine,
+                               build_embeddings, fuse)
 from repro_torch.index.builder import InvertedIndex, build_index
 from repro_torch.index.corpus import Corpus
 from repro_torch.index.postings import shard_from_index, shard_ranges
@@ -45,11 +51,13 @@ from repro_torch.isn.daat import daat_serve
 from repro_torch.isn.saat import saat_serve
 from repro_torch.ltr.cascade import CascadeResult, rerank_batched
 from repro_torch.ltr.ranker import LTRModel, stage2_arrays
+from repro_torch.models.recsys import TwoTower
 from repro_torch.serving.latency import (CostModel, budget_attribution,
                                          over_budget, percentiles,
                                          resolve_level_cut, stage2_afford)
 from repro_torch.serving.replicas import BMW, JASS, PoolConfig, ReplicaPool
-from repro_torch.serving.scheduler import SchedulerConfig, StageZeroScheduler
+from repro_torch.serving.scheduler import (RoutedBatch, SchedulerConfig,
+                                           StageZeroScheduler)
 from repro_torch.serving.spec import CascadeSpec, RoutingSpec
 
 SCORE_FILL = float(np.finfo(np.float32).min)
@@ -70,6 +78,9 @@ class PipelineResult:
     latency: np.ndarray              # (Q,) full-cascade latency
     stage_latency: dict              # {"stage0"|"stage1"|"stage2": (Q,)}
     stats: dict
+    dense: dict | None = None        # {"modality", "theta_skip",
+                                     #  "fallback"} (Q,) vectors (None:
+                                     #  dense modality disabled)
 
 
 def scheduler_config(routing: RoutingSpec) -> SchedulerConfig:
@@ -99,6 +110,7 @@ def routing_spec(cfg: SchedulerConfig) -> RoutingSpec:
 def build_system(spec: CascadeSpec, corpus_or_index, *, corpus=None,
                  models: dict | None = None, ltr: LTRModel | None = None,
                  cost: CostModel | None = None,
+                 tower: TwoTower | None = None,
                  device: str | torch.device | None = None
                  ) -> "SearchSystem":
     """Instantiate the deployment a spec describes on ``device`` (the card
@@ -109,7 +121,11 @@ def build_system(spec: CascadeSpec, corpus_or_index, *, corpus=None,
     with the spec's ``IndexSpec``) or a pre-built :class:`InvertedIndex`
     (pass ``corpus=`` separately if Stage-2 needs doc topics).  ``models``
     (Stage-0 ``GBRTModel``s keyed "k"/"rho"/"t") and ``ltr`` come from
-    ``repro_torch.convert``.
+    ``repro_torch.convert``.  ``tower`` is the dense modality's two-tower
+    model (``convert.two_tower_params`` carries the reference's across);
+    with none given and a two-tower embedding source, the port draws its
+    own from ``DenseSpec.seed``, and its embeddings then differ from the
+    reference's.
     """
     if isinstance(corpus_or_index, InvertedIndex):
         index = corpus_or_index
@@ -122,7 +138,7 @@ def build_system(spec: CascadeSpec, corpus_or_index, *, corpus=None,
         raise TypeError("build_system needs a Corpus or an InvertedIndex, "
                         f"got {type(corpus_or_index).__name__}")
     return SearchSystem(spec, index, corpus=corpus, models=models, ltr=ltr,
-                        cost=cost, device=device)
+                        cost=cost, tower=tower, device=device)
 
 
 class SearchSystem:
@@ -131,6 +147,7 @@ class SearchSystem:
     def __init__(self, spec: CascadeSpec, index: InvertedIndex, *,
                  corpus=None, models: dict | None = None,
                  ltr: LTRModel | None = None, cost: CostModel | None = None,
+                 tower: TwoTower | None = None,
                  device: str | torch.device | None = None):
         if index.block_size != spec.index.block_size:
             # the built index is ground truth for its own layout; fold it
@@ -143,8 +160,6 @@ class SearchSystem:
                  "Result cache"),
                 (spec.fault.active, "fault schedules (FaultSpec)",
                  "Fault injection and failover"),
-                (spec.dense.enabled, "the dense modality (DenseSpec)",
-                 "Dense modality"),
                 (spec.ingest.active, "live ingest (IngestSpec)",
                  "Live ingest"),
                 (spec.telemetry.active, "telemetry (TelemetrySpec)",
@@ -161,8 +176,9 @@ class SearchSystem:
         self.t_final = spec.stage2.t_final
         self.budget = spec.routing.budget
         self._base_cfg = scheduler_config(spec.routing)
+        self._tower = tower
 
-        # ---- shard the index into doc-range partitions ----
+        # ---- shard the index (and the dense embeddings) by doc range ----
         self._attach_index(index)
 
         self.pool = ReplicaPool(
@@ -174,8 +190,7 @@ class SearchSystem:
         self._clock = 0.0
         self._batches = 0
         self._last_stats: dict = {}
-        self._budget_reserve = budget_attribution(self.budget, self.cost,
-                                                  None)
+        self._budget_reserve = self._attribute_budget(self.budget, None)
         self._adapt_last = {"late_hedged": 0, "bmw": 0}
         # rolling pinball loss of the t-predictor against observed BMW
         # engine times — drives the hedge_deadline adaptation
@@ -196,7 +211,7 @@ class SearchSystem:
 
     def _attach_index(self, index: InvertedIndex) -> None:
         """Build every index-derived serving structure: doc-range shards on
-        the device and the host-side df/level tables."""
+        the device, the host-side df/level tables and the dense engine."""
         spec = self.cascade_spec
         self.index = index
         ranges = shard_ranges(index.n_docs, spec.deploy.n_shards)
@@ -223,6 +238,32 @@ class SearchSystem:
         self.df = torch.from_numpy(
             np.ascontiguousarray(index.df, np.int32)).to(self.device)
 
+        # ---- dense Stage-1 modality (spec.dense; None when off) ----
+        # the embedding matrix is built once and partitioned by the SAME
+        # doc ranges as the inverted index, so merge_shard_topk applies to
+        # dense traffic unchanged
+        self.dense = None
+        if spec.dense.enabled:
+            doc_emb, term_table = build_embeddings(
+                spec.dense, corpus=self.corpus, n_docs=index.n_docs,
+                vocab=int(np.asarray(index.df).shape[0]), tower=self._tower,
+                device=self.device)
+            self.dense = DenseEngine(doc_emb, term_table, ranges,
+                                     tile_d=spec.dense.tile_d,
+                                     device=self.device)
+
+    def _attribute_budget(self, budget: float, k_serve: int | None) -> dict:
+        """``budget_attribution`` plus the dense modality's fusion reserve:
+        with dense enabled, ``fusion_us`` is carved out of the scheduler's
+        stage-1 share, so a both-routed query — max(lexical, dense) plus
+        the host-side merge — still lands inside the cascade budget."""
+        reserve = budget_attribution(budget, self.cost, k_serve)
+        if self.cascade_spec.dense.enabled:
+            reserve["fusion"] = self.cost.fusion_us
+            reserve["stage1"] = max(reserve["stage1"] - self.cost.fusion_us,
+                                    0.0)
+        return reserve
+
     # ------------------------------------------------------------------
     # lifecycle: attach models
     # ------------------------------------------------------------------
@@ -244,8 +285,8 @@ class SearchSystem:
                 raise ValueError("Stage-2 re-ranking needs the corpus "
                                  "(doc topic mixtures)")
             self.s2 = stage2_arrays(self.index, self.corpus, self.device)
-        self._budget_reserve = budget_attribution(
-            cfg.budget, self.cost, self.k_serve if ltr is not None else None)
+        self._budget_reserve = self._attribute_budget(
+            cfg.budget, self.k_serve if ltr is not None else None)
         cfg = replace(cfg, budget=self._budget_reserve["stage1"])
         self.sched = StageZeroScheduler(cfg, self.cost)
         return self
@@ -276,6 +317,36 @@ class SearchSystem:
             return p[0], p[1], p[2]
         return tuple(np.expm1(gbrt.predict(self.models[n], x).cpu().numpy())
                      for n in ("k", "rho", "t"))
+
+    def _modality(self, pt: np.ndarray) -> np.ndarray:
+        """Stage-0 modality dispatch from the predicted lexical time:
+        cheap queries stay lexical, predicted-expensive ones go dense only
+        (the dense cost is shape-static), and the uncertainty band in
+        between runs both engines and fuses."""
+        ds = self.cascade_spec.dense
+        td = ds.t_dense if ds.t_dense > 0 else self.sched.cfg.t_time
+        m = np.full(len(pt), M_BOTH, np.int64)
+        m[pt <= td * (1.0 - ds.fuse_band)] = M_LEX
+        m[pt > td * (1.0 + ds.fuse_band)] = M_DENSE
+        return m
+
+    def _restrict_lexical(self, routed: RoutedBatch,
+                          modality: np.ndarray) -> RoutedBatch:
+        """Strip dense-only rows from a routed batch: those queries never
+        touch the lexical engines, and the scheduler's mirror counters
+        (which drive pool rebalance and ``_adapt_routing``) must not claim
+        they did."""
+        lex = modality != M_DENSE
+
+        def keep(rows, stat):
+            kept = rows[lex[rows]]
+            self.sched.stats[stat] -= int(len(rows) - len(kept))
+            return kept
+
+        return replace(routed,
+                       jass_rows=keep(routed.jass_rows, "jass"),
+                       bmw_rows=keep(routed.bmw_rows, "bmw"),
+                       hedged_rows=keep(routed.hedged_rows, "hedged"))
 
     def _jass_split(self, terms, mask, rows, rho, cache: dict | None = None):
         """Resolve the ρ budget to the global impact-level cut and split the
@@ -476,15 +547,40 @@ class SearchSystem:
         now = float(self._clock if now is None else now)
         pk, pr, pt = self.stage0(terms, mask)
         routed = self.sched.route(pk, pr, pt)
+        modality = None
+        if self.dense is not None:
+            # modality dispatch: dense-only rows leave the lexical
+            # sub-batches entirely (their replica picks below still pin the
+            # co-located partition replicas the dense engine runs on)
+            modality = self._modality(pt)
+            routed = self._restrict_lexical(routed, modality)
         # route replicas before the engines run so the pool sees the whole
         # batch in flight (power-of-two-choices balances against inflight)
         picks, hedge_picks = self._pool_route(routed, q)
 
         split_cache: dict = {}
-        topk, _, t_bmw, t_shards = self._stage1_full(terms, mask, routed,
-                                                     split_cache)
+        topk, topk_sc, t_bmw, t_shards = self._stage1_full(
+            terms, mask, routed, split_cache)
+        theta_skip, fallback, fb_extra, t_dense_mat = self._stage1_dense(
+            terms, mask, routed, modality, topk, topk_sc, split_cache)
         lat01 = self.sched.resolve_times(
             routed, t_bmw, self._jass_time(terms, mask, split_cache))
+        t_pool = t_shards
+        if t_dense_mat is not None:
+            # a partition replica hosting both engines is busy for the max
+            # of its co-located work
+            t_pool = np.maximum(t_pool, t_dense_mat)
+            d_rows = np.flatnonzero(modality != M_LEX)
+            tdr = np.zeros(q)
+            tdr[d_rows] = self.cost.gather_time(t_dense_mat[:, d_rows])
+            # dense-only: predict + dense scatter-gather (+ any theta_low
+            # fallback); both: the two engines run in parallel, the query
+            # waits for the slower and pays the host-side fusion merge
+            pd = self.cost.predict_us
+            lat01 = np.where(modality == M_DENSE, pd + tdr + fb_extra, lat01)
+            lat01 = np.where(modality == M_BOTH,
+                             pd + np.maximum(lat01 - pd, tdr)
+                             + self.cost.fusion_us, lat01)
         t0 = np.full(q, self.cost.predict_us)
         stage_latency = {"stage0": t0, "stage1": lat01 - t0}
 
@@ -508,6 +604,11 @@ class SearchSystem:
             k2 = np.minimum(routed.k, self.k_serve)
             if stage2_cap is not None:
                 k2 = np.minimum(k2, np.asarray(stage2_cap, np.int64))
+            if theta_skip.any():
+                # dense confidence shortcut: the Stage-1 order is served
+                # directly (rank-safe), zeroed BEFORE enforcement so these
+                # rows never count as budget-driven skips
+                k2 = np.where(theta_skip, 0, k2)
             if enforce:
                 # a query whose Stage-1 time already ate the budget gets
                 # its candidate grid trimmed — or skipped — so ltr_time
@@ -529,19 +630,88 @@ class SearchSystem:
             stage_latency["stage2"] = np.zeros(q)
 
         self._pool_complete(terms, mask, routed, picks, hedge_picks,
-                            t_shards, split_cache)
+                            t_pool, split_cache)
         every = self.cascade_spec.routing.adapt_every
         if every and self._batches % every == 0:
             self._adapt_routing()
 
         lat = lat01 + stage_latency["stage2"]
         self._clock = now + (float(lat.max()) if q else 0.0)
-        stats = self._build_stats(lat, stage_latency, trimmed, skipped)
+        dense_info = None
+        if self.dense is not None:
+            dense_info = {"modality": modality, "theta_skip": theta_skip,
+                          "fallback": fallback}
+        stats = self._build_stats(lat, stage_latency, trimmed, skipped,
+                                  dense_info)
         return PipelineResult(topk=topk, final=final, candidates_used=used,
                               latency=lat, stage_latency=stage_latency,
-                              stats=stats)
+                              stats=stats, dense=dense_info)
 
-    def _build_stats(self, lat, stage_latency, trimmed, skipped) -> dict:
+    def _stage1_dense(self, terms, mask, routed, modality, topk, topk_sc,
+                      split_cache):
+        """The dense part of Stage-1, in place on the lexical ``topk`` and
+        ``topk_sc``: dense-only rows take the dense list, both-routed rows
+        the fused list, and low-confidence dense-only rows a ρ_late-capped
+        lexical re-issue (``theta_low``).
+
+        Returns (theta_skip, fallback, fb_extra, t_dense_mat): the rows
+        whose top dense score clears ``theta_high`` (Stage-2 skipped), the
+        fallback rows and their extra latency, and the (n_shards, Q)
+        per-shard dense time (None when no row went dense)."""
+        q = terms.shape[0]
+        theta_skip = np.zeros(q, bool)
+        fallback = np.zeros(q, bool)
+        fb_extra = np.zeros(q)
+        d_rows = (np.flatnonzero(modality != M_LEX) if self.dense is not None
+                  else np.zeros(0, np.int64))
+        if not len(d_rows):
+            return theta_skip, fallback, fb_extra, None
+        ds = self.cascade_spec.dense
+        q_emb = self.dense.embed(terms[d_rows], mask[d_rows])
+        d_ids, d_sc = self.dense.serve(q_emb, self.k_serve)
+        # shape-static per-shard dense time: every query scores every tile
+        # of every shard, so the matrix is query-independent
+        t_dense_mat = np.zeros((self.n_shards, q))
+        for s in range(self.n_shards):
+            t_dense_mat[s, d_rows] = float(
+                self.cost.dense_time(self.dense.n_tiles(s)))
+        dmod = modality[d_rows]
+        only_rows = d_rows[dmod == M_DENSE]
+        both_rows = d_rows[dmod == M_BOTH]
+        topk[only_rows] = d_ids[dmod == M_DENSE]
+        topk_sc[only_rows] = d_sc[dmod == M_DENSE]
+        if len(both_rows):
+            f_ids, f_sc = fuse(self.cascade_spec.fusion,
+                               topk[both_rows], topk_sc[both_rows],
+                               d_ids[dmod == M_BOTH], d_sc[dmod == M_BOTH],
+                               self.k_serve)
+            topk[both_rows] = f_ids
+            topk_sc[both_rows] = f_sc
+        top_dense = d_sc[:, 0].astype(np.float64)
+        if np.isfinite(ds.theta_high):
+            # high-confidence shortcut: Stage-2 is skipped rank-safely
+            theta_skip[d_rows] = top_dense >= ds.theta_high
+        if np.isfinite(ds.theta_low) and len(only_rows):
+            fb_rows = only_rows[top_dense[dmod == M_DENSE] < ds.theta_low]
+            if len(fb_rows):
+                # low-confidence dense-only rows re-issue a ρ-capped lexical
+                # traversal, priced like the scheduler's late hedge, so the
+                # route stays inside worst_case_us
+                fb_routed = RoutedBatch(
+                    jass_rows=fb_rows, bmw_rows=np.zeros(0, np.int64),
+                    hedged_rows=np.zeros(0, np.int64), k=routed.k,
+                    rho=np.minimum(routed.rho,
+                                   float(self.sched.cfg.resolved_late_rho())))
+                fb_topk, fb_sc, _, fb_tsh = self._stage1_full(
+                    terms, mask, fb_routed, split_cache)
+                topk[fb_rows] = fb_topk[fb_rows]
+                topk_sc[fb_rows] = fb_sc[fb_rows]
+                fb_extra[fb_rows] = self.cost.gather_time(fb_tsh[:, fb_rows])
+                fallback[fb_rows] = True
+        return theta_skip, fallback, fb_extra, t_dense_mat
+
+    def _build_stats(self, lat, stage_latency, trimmed, skipped,
+                     dense_info=None) -> dict:
         """The per-batch stats dict (the reference's, minus the sections of
         unported nodes)."""
         stats = dict(self.sched.stats)
@@ -554,7 +724,10 @@ class SearchSystem:
             if not np.any(t > 0):
                 continue
             entry = percentiles(t)
-            b = self._budget_reserve[name]
+            # fused routes spend the fusion reserve inside stage 1
+            b = (self._budget_reserve[name]
+                 + (self._budget_reserve.get("fusion", 0.0)
+                    if name == "stage1" else 0.0))
             entry["budget"] = b
             entry["over_budget"] = over_budget(t, b)[0]
             stats["stages"][name] = entry
@@ -568,16 +741,44 @@ class SearchSystem:
         }
         stats["n_shards"] = self.n_shards
         stats["pool"] = self.pool.stats()
+        if dense_info is not None:
+            modality = dense_info["modality"]
+            stats["dense"] = {
+                "lexical": int(np.sum(modality == M_LEX)),
+                "dense_only": int(np.sum(modality == M_DENSE)),
+                "fused": int(np.sum(modality == M_BOTH)),
+                "theta_skips": int(dense_info["theta_skip"].sum()),
+                "fallbacks": int(dense_info["fallback"].sum()),
+            }
         self._last_stats = stats
         return stats
 
     def worst_case_us(self) -> float:
         """The hard analytic bound on any served query's cascade latency:
         the scheduler's Stage-1 bound (which already pays ``predict_us``)
-        plus the reserved worst-case Stage-2 cost."""
+        plus the reserved worst-case Stage-2 cost.
+
+        With the dense modality enabled the bound is the max over the three
+        routes: lexical (the scheduler bound, whose stage-1 share already
+        had ``fusion_us`` carved out); dense only (``predict +
+        dense_time(max_tiles) + gather + retry``, plus the ρ_late-capped
+        fallback traversal when ``theta_low`` is armed); both + fused (the
+        slower engine plus the reserved ``fusion_us``)."""
         cfg = self.sched.cfg
-        return (cfg.worst_case_us(self.cost, self.n_shards)
-                + self._budget_reserve["stage2"])
+        base = cfg.worst_case_us(self.cost, self.n_shards)
+        if self.dense is not None:
+            ds = self.cascade_spec.dense
+            pd = self.cost.predict_us
+            gather = self.cost.gather_per_shard_us * (self.n_shards - 1)
+            td = (float(self.cost.dense_time(self.dense.max_tiles()))
+                  + gather + cfg.retry_us())
+            fb = (float(self.cost.saat_time(
+                      np.float64(cfg.resolved_late_rho()))) + gather
+                  if np.isfinite(ds.theta_low) else 0.0)
+            dense_bound = pd + td + fb
+            both_bound = pd + max(base - pd, td) + self.cost.fusion_us
+            base = max(base, dense_bound, both_bound)
+        return base + self._budget_reserve["stage2"]
 
     def _adapt_routing(self):
         """Close the routing feedback loop from pool EWMAs + scheduler

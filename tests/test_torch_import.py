@@ -26,6 +26,7 @@ from repro_torch.index.corpus import CorpusParams, build_corpus
 from repro_torch.index.postings import shard_from_index
 from repro_torch.isn.backend import resolve_backend, resolve_device
 from repro_torch.kernels.blockmax_score import ops as bm_ops
+from repro_torch.kernels.dense_topk import ops as dt_ops
 from repro_torch.kernels.impact_accumulate import ops as ia_ops
 from repro_torch.kernels.qd_feature_gather import ops as qd_ops
 from repro_torch.serving.system import build_system
@@ -141,6 +142,9 @@ def _calls():
              torch.empty((3, 512), dtype=i32, device=d),
              torch.empty((3, 512), device=d),
              torch.empty((3, 128), dtype=i32, device=d))),
+        (dt_ops, "dense_topk_plain", lambda d: dt_ops.dense_topk(
+            torch.empty((3, 32), device=d), torch.empty((1000, 32), device=d),
+            128)),
     ]
 
 
@@ -161,7 +165,7 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch):
     for mod, plain, call in _calls():
         call("meta")
     assert fake.calls == ["impact_accumulate", "blockmax_score",
-                          "qd_feature_gather"]
+                          "qd_feature_gather", "dense_topk"]
     assert all(n == 1 for n in kernels.LAUNCHES.values())
     kernels.reset_launches()
 

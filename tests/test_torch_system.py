@@ -9,6 +9,15 @@ packages, and ``topk``, ``final``, ``candidates_used`` and the modeled
 ``stage1_only``, ``throughput`` (no hedging, k_serve 64) and ``quality``
 (k_serve 256, wider than a tile, t_final 20).  The reference serves on its ``"jnp"`` backend, which its
 own tests hold to the Pallas kernels in interpret mode.
+
+The dense modality: ``hybrid_fusion`` at 1 and 3 shards, with the same
+fitted models and the reference's two-tower parameters carried across
+(``convert.two_tower_params``), and the ``source="synthetic"`` system cases
+of ``tests/test_dense.py`` (modality extremes, mixed dispatch under both
+fusion rules, the θ_high Stage-2 skip, the θ_low lexical fallback, the
+worst-case bound, one shard against three): ``topk``, ``final``,
+``candidates_used``, ``latency``, the per-query dense vectors,
+``stats["dense"]``, the stage budgets and ``worst_case_us`` must be equal.
 """
 
 import dataclasses
@@ -19,9 +28,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
+
 from repro.configs.cascade_presets import PRESETS as REF_PRESETS
 from repro.configs.cascade_presets import get_preset as ref_get_preset
-from repro.serving.spec import BackendSpec
+from repro.configs.two_tower_retrieval import REDUCED as REF_REDUCED
+from repro.dense import M_BOTH, M_DENSE, M_LEX
+from repro.models import recsys as ref_recsys
+from repro.serving.spec import BackendSpec, DeploySpec, DenseSpec, FusionSpec
 from repro.serving.system import build_system as ref_build_system
 from repro_torch import convert
 from repro_torch.configs.cascade_presets import PRESETS, get_preset
@@ -122,7 +136,7 @@ def test_spec_json_round_trips_between_packages():
 def test_unported_nodes_raise(fitted_reference):
     corpus, index, ql, ref, pcorpus, pindex, models, ltr = fitted_reference
     spec = CascadeSpec.from_json(ref.cascade_spec.to_json())
-    for preset in ("cached", "live_ingest", "hybrid_fusion"):
+    for preset in ("cached", "live_ingest"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_system(get_preset(preset), pindex, corpus=pcorpus,
                          device="cpu")
@@ -158,3 +172,190 @@ def test_stats_and_worst_case_match_reference(fitted_reference):
               "last_batch"):
         assert sb[k] == sa[k], k
     assert sb["device"] == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the dense modality
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ref_tower_params():
+    """The reference's two-tower init (DenseSpec.seed 0) as NumPy arrays."""
+    params, _ = ref_recsys.init(REF_REDUCED, jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, params)
+
+
+def _dense_pair(fitted, spec, ref_tower_params):
+    """The reference system for ``spec`` (a reference spec) and the port
+    built from its JSON, with the fitted models and the reference's tower
+    carried across."""
+    corpus, index, ql, ref, pcorpus, pindex, models, ltr = fitted
+    a = ref_build_system(spec, index, corpus=corpus, models=ref.models,
+                         ltr=ref.ltr)
+    b = build_system(convert.cascade_spec(spec), pindex, corpus=pcorpus,
+                     models=models, ltr=ltr,
+                     tower=convert.two_tower_params(ref_tower_params, "cpu"),
+                     device="cpu")
+    return a, b
+
+
+def _assert_same_batch(ra, rb):
+    np.testing.assert_array_equal(rb.topk, ra.topk)
+    np.testing.assert_array_equal(rb.final, ra.final)
+    np.testing.assert_array_equal(rb.candidates_used, ra.candidates_used)
+    np.testing.assert_array_equal(rb.latency, ra.latency)
+    for key in ("modality", "theta_skip", "fallback"):
+        np.testing.assert_array_equal(rb.dense[key], ra.dense[key])
+    for key in ("dense", "stages", "budget", "pool", "jass", "bmw", "hedged",
+                "late_hedged", "over_budget"):
+        assert rb.stats[key] == ra.stats[key], key
+
+
+def _hybrid_spec(fitted, n_shards):
+    ref = fitted[3]
+    preset = ref_get_preset("hybrid_fusion")
+    return dataclasses.replace(
+        ref.cascade_spec, name="hybrid_fusion", stage2=preset.stage2,
+        routing=dataclasses.replace(preset.routing,
+                                    t_k=ref.cascade_spec.routing.t_k,
+                                    t_time=ref.cascade_spec.routing.t_time),
+        deploy=dataclasses.replace(preset.deploy, n_shards=n_shards),
+        dense=preset.dense, fusion=preset.fusion)
+
+
+@pytest.mark.parametrize("n_shards", [1, 3])
+def test_hybrid_fusion_matches_reference(fitted_reference, ref_tower_params,
+                                         n_shards):
+    ql = fitted_reference[2]
+    a, b = _dense_pair(fitted_reference,
+                       _hybrid_spec(fitted_reference, n_shards),
+                       ref_tower_params)
+    assert b.dense is not None and b.dense.n_shards == n_shards
+    assert b.worst_case_us() == a.worst_case_us()
+    assert b._budget_reserve == a._budget_reserve
+    mix = np.zeros(3, np.int64)
+    for i in range(0, len(ql.terms), BATCH):
+        sl = slice(i, i + BATCH)
+        ra = a.serve(ql.terms[sl], ql.mask[sl], ql.topic[sl])
+        rb = b.serve(ql.terms[sl], ql.mask[sl], ql.topic[sl])
+        _assert_same_batch(ra, rb)
+        mix += np.bincount(rb.dense["modality"], minlength=3)
+    # every modality carried traffic
+    assert (mix > 0).all(), mix
+    sa, sb = a.stats(), b.stats()
+    for k in ("scheduler", "budget", "pool", "last_batch"):
+        assert sb[k] == sa[k], k
+
+
+def _dense_spec(fitted, dense, fusion=None, deploy=None):
+    """The system spec of ``tests/test_dense.py`` (budget 100, k_serve 32,
+    t_final 5) at the fitted routing thresholds."""
+    from repro.serving.spec import (CascadeSpec, OnlineSpec, RoutingSpec,
+                                    Stage2Spec)
+    ref = fitted[3]
+    return CascadeSpec(
+        routing=RoutingSpec(budget=100.0, rho_max=1 << 14,
+                            t_k=ref.cascade_spec.routing.t_k,
+                            t_time=ref.cascade_spec.routing.t_time,
+                            adapt_every=0),
+        stage2=Stage2Spec(enabled=True, k_serve=32, t_final=5),
+        backend=BackendSpec(backend="jnp"),
+        deploy=deploy if deploy is not None else DeploySpec(),
+        dense=dense, fusion=fusion if fusion is not None else FusionSpec(),
+        online=OnlineSpec(max_batch=8, batch_deadline_us=4.0),
+        name="dense_test")
+
+
+def _serve_both(fitted, ref_tower_params, dense, **kw):
+    ql = fitted[2]
+    a, b = _dense_pair(fitted, _dense_spec(fitted, dense, **kw),
+                       ref_tower_params)
+    ra = a.serve(ql.terms, ql.mask, ql.topic)
+    rb = b.serve(ql.terms, ql.mask, ql.topic)
+    _assert_same_batch(ra, rb)
+    assert b.worst_case_us() == a.worst_case_us()
+    assert float(np.max(rb.latency)) <= b.worst_case_us() + 1e-9
+    return b, rb
+
+
+SYNTH = DenseSpec(enabled=True, source="synthetic")
+
+
+def test_dense_modality_extremes_match_reference(fitted_reference,
+                                                 ref_tower_params):
+    q = len(fitted_reference[2].terms)
+    _, r = _serve_both(fitted_reference, ref_tower_params,
+                       dataclasses.replace(SYNTH, t_dense=1e9))
+    assert r.stats["dense"]["lexical"] == q
+    np.testing.assert_array_equal(r.dense["modality"], np.full(q, M_LEX))
+    b, r = _serve_both(fitted_reference, ref_tower_params,
+                       dataclasses.replace(SYNTH, t_dense=1e-6))
+    assert r.stats["dense"]["dense_only"] == q
+    ql = fitted_reference[2]
+    ids, _ = b.dense.serve(b.dense.embed(ql.terms, ql.mask), b.k_serve)
+    np.testing.assert_array_equal(r.topk, ids)
+
+
+@pytest.mark.parametrize("method", ["rrf", "weighted"])
+def test_dense_mixed_dispatch_matches_reference(fitted_reference,
+                                                ref_tower_params, method):
+    _, r = _serve_both(fitted_reference, ref_tower_params, SYNTH,
+                       fusion=FusionSpec(method=method))
+    d = r.stats["dense"]
+    assert d["lexical"] + d["dense_only"] + d["fused"] == \
+        len(fitted_reference[2].terms)
+    assert d["fused"] > 0 and r.stats["over_budget"] == 0
+    assert (r.dense["modality"] == M_BOTH).sum() == d["fused"]
+
+
+def test_dense_theta_high_skip_matches_reference(fitted_reference,
+                                                 ref_tower_params):
+    _, r = _serve_both(fitted_reference, ref_tower_params,
+                       dataclasses.replace(SYNTH, t_dense=1e-6,
+                                           theta_high=-1.0))
+    assert r.stats["dense"]["theta_skips"] == len(fitted_reference[2].terms)
+    np.testing.assert_array_equal(r.final, r.topk[:, : r.final.shape[1]])
+
+
+def test_dense_theta_low_fallback_matches_reference(fitted_reference,
+                                                    ref_tower_params):
+    b, r = _serve_both(fitted_reference, ref_tower_params,
+                       dataclasses.replace(SYNTH, t_dense=1e-6,
+                                           theta_low=10.0))
+    ql = fitted_reference[2]
+    assert r.stats["dense"]["fallbacks"] == len(ql.terms)
+    assert (r.dense["modality"] == M_DENSE).all()
+    d_ids, _ = b.dense.serve(b.dense.embed(ql.terms, ql.mask), b.k_serve)
+    assert not np.array_equal(r.topk, d_ids)
+    assert r.stats["over_budget"] == 0
+
+
+def test_dense_worst_case_bound_matches_reference(fitted_reference,
+                                                  ref_tower_params):
+    fb_spec = dataclasses.replace(SYNTH, theta_low=0.1)
+    pairs = [_dense_pair(fitted_reference,
+                         _dense_spec(fitted_reference, d), ref_tower_params)
+             for d in (DenseSpec(), SYNTH, fb_spec)]
+    for a, b in pairs:
+        assert b.worst_case_us() == a.worst_case_us()
+        assert b._budget_reserve == a._budget_reserve
+    (_, base), (_, dense), (_, with_fb) = pairs
+    assert base.dense is None and "fusion" not in base._budget_reserve
+    assert dense._budget_reserve["fusion"] == dense.cost.fusion_us
+    assert with_fb.worst_case_us() == dense.worst_case_us()
+    # once the dense route dominates, theta_low charges the fallback
+    for a, b in pairs[1:]:
+        a.dense.max_tiles = b.dense.max_tiles = lambda: 100_000
+    for a, b in pairs[1:]:
+        assert b.worst_case_us() == a.worst_case_us()
+    assert with_fb.worst_case_us() > dense.worst_case_us()
+
+
+def test_dense_multishard_matches_single_shard_and_reference(
+        fitted_reference, ref_tower_params):
+    _, r1 = _serve_both(fitted_reference, ref_tower_params, SYNTH)
+    _, r3 = _serve_both(fitted_reference, ref_tower_params, SYNTH,
+                        deploy=DeploySpec(n_shards=3, replicas=2))
+    np.testing.assert_array_equal(r1.topk, r3.topk)
+    np.testing.assert_array_equal(r1.final, r3.final)
