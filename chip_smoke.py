@@ -7,7 +7,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.  In
 order, it
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
-   four serving kernels from the sources under ``src/repro_torch``;
+   seven kernels from the sources under ``src/repro_torch``;
 2. builds the ``paper_200ms`` cascade at one shard of 196,608 docs (the
    per-chip shard of the paper's ISN deployment) on the card, with Stage-0
    and LTR GBRTs of the spec's shapes made here from a NumPy seed (bin
@@ -17,7 +17,14 @@ order, it
 3. serves one batch of 32 queries on both (the CPU runs the kernels'
    plain versions) and requires ``topk``, ``final`` and the modeled
    ``latency`` to be equal, while recording every kernel call's inputs;
-4. builds the ``hybrid_fusion`` cascade (the dense Stage-1 modality) from
+4. per-query phase: runs the per-query Stage-1 path
+   (``saat_serve_laxmap`` at two budgets, ``daat_serve_laxmap`` at two
+   θ) over the same 32 queries on both systems' shards, counted from 0 on
+   the card, and requires the card to equal the CPU and the batched
+   engines (DAAT scores of the batched engine within 1e-4), recording the
+   largest call of each of its three kernels; prints the wall time per
+   query on the card;
+5. builds the ``hybrid_fusion`` cascade (the dense Stage-1 modality) from
    the same index, on the card and on the CPU, with the same kind of
    GBRTs and one two-tower model drawn from the spec's seed; where the
    preset's θ bands catch none of the calibration queries' top dense
@@ -26,18 +33,18 @@ order, it
    and requires ``topk``, ``final``, ``latency`` and the per-query
    modality, θ-skip and fallback flags to be equal, recording the dense
    kernel's inputs;
-5. kernel phase: runs each kernel on the recorded main-path inputs and on
-   edge cases against its plain version on the card (kernel 1, the counts
-   of kernel 3 and the dense top-k exact, the float sums within 1e-5) and
-   times the kernel, its plain version and, where one exists, the nearest
-   library call with CUDA events;
-6. serve phases: for each preset, sets the launch counts to 0, serves 8
+6. kernel phase: runs each kernel on the recorded main-path inputs and on
+   edge cases against its plain version on the card (the integer kernels,
+   the dense top-k and the per-query float scoring exact, the batched
+   float sums within 1e-5) and times the kernel, its plain version and,
+   where one exists, the library call with CUDA events;
+7. serve phases: for each preset, sets the launch counts to 0, serves 8
    batches of 32 queries on the card and reads the counts: for
    ``paper_200ms`` both routes must take queries, Stage-2 must re-rank and
    its three kernels must have launched; for ``hybrid_fusion`` lexical,
    dense-only and fused rows must each occur and the dense kernel must
    have launched; prints the wall time per batch and the device memory;
-7. prints the total elapsed time, the ``kernels`` JSON line, then the card
+8. prints the total elapsed time, the ``kernels`` JSON line, then the card
    line, then the result.
 
 Any failed check exits non-zero without the result line.  ``--n-docs``
@@ -85,7 +92,21 @@ KERNELS = {
     "dense_topk_tiles": dict(
         source="src/repro_torch/kernels/dense_topk/dense_topk.cu",
         replaces="src/repro/kernels/dense_topk/kernel.py:61"),
+    "impact_accumulate_bucketed": dict(
+        source="src/repro_torch/kernels/impact_accumulate/impact_accumulate.cu",
+        replaces="src/repro/kernels/impact_accumulate/kernel.py:113"),
+    "blockmax_score_bucketed": dict(
+        source="src/repro_torch/kernels/blockmax_score/blockmax_score.cu",
+        replaces="src/repro/kernels/blockmax_score/kernel.py:143"),
+    "score_histogram": dict(
+        source="src/repro_torch/kernels/score_histogram/score_histogram.cu",
+        replaces="src/repro/kernels/score_histogram/kernel.py:47"),
 }
+# the kernels of the per-query Stage-1 path (saat/daat_serve_laxmap), and
+# those of the two served cascades
+LAXMAP_KERNELS = ("impact_accumulate_bucketed", "blockmax_score_bucketed",
+                  "score_histogram")
+SERVE_KERNELS = tuple(n for n in KERNELS if n not in LAXMAP_KERNELS)
 
 
 class SmokeFailure(Exception):
@@ -208,20 +229,29 @@ def to_device(models, ltr, device):
 # kernel phase helpers
 # ---------------------------------------------------------------------------
 
-class Recorder:
-    """Records the arguments of every kernel-wrapper call (the main path's
-    real inputs) while passing the call through."""
+def kernel_modules():
+    """The ops module of each kernel wrapper, by kernel name."""
+    from repro_torch.kernels.blockmax_score import ops as bm
+    from repro_torch.kernels.dense_topk import ops as dt
+    from repro_torch.kernels.impact_accumulate import ops as ia
+    from repro_torch.kernels.qd_feature_gather import ops as qd
+    from repro_torch.kernels.score_histogram import ops as sh
+    return {"impact_accumulate_batched": ia, "blockmax_score_batched": bm,
+            "qd_feature_gather_lanes": qd, "dense_topk_tiles": dt,
+            "impact_accumulate_bucketed": ia, "blockmax_score_bucketed": bm,
+            "score_histogram": sh}
 
-    def __init__(self):
-        from repro_torch.kernels.blockmax_score import ops as bm
-        from repro_torch.kernels.dense_topk import ops as dt
-        from repro_torch.kernels.impact_accumulate import ops as ia
-        from repro_torch.kernels.qd_feature_gather import ops as qd
-        self.sites = {"impact_accumulate_batched": ia,
-                      "blockmax_score_batched": bm,
-                      "qd_feature_gather_lanes": qd,
-                      "dense_topk_tiles": dt}
+
+class Recorder:
+    """Records the arguments of every call of the named kernel wrappers (the
+    main path's real inputs) while passing the call through; with
+    ``largest``, only the call that moves the most bytes is kept."""
+
+    def __init__(self, names=SERVE_KERNELS, largest=False):
+        mods = kernel_modules()
+        self.sites = {name: mods[name] for name in names}
         self.calls = {name: [] for name in self.sites}
+        self.largest = largest
         self.orig = {}
 
     def __enter__(self):
@@ -230,7 +260,11 @@ class Recorder:
             self.orig[name] = fn
 
             def wrapped(*args, _fn=fn, _name=name, **kw):
-                self.calls[_name].append((args, kw))
+                calls = self.calls[_name]
+                calls.append((args, kw))
+                if self.largest and len(calls) > 1:
+                    calls[:] = [max(calls,
+                                    key=lambda c: work_of(_name, *c)[0])]
                 return _fn(*args, **kw)
             setattr(mod, name, wrapped)
         return self
@@ -265,8 +299,28 @@ def work_of(name, args, kw):
     int32 compare per (query, live lane it scores, query term) — per (live
     lane, candidate) for the Stage-2 gather.  Dense top-k: the embeddings
     and queries read once, (Q, k) scores and ids written once; two fp32
-    operations (one FMA) per (query, doc, dimension)."""
+    operations (one FMA) per (query, doc, dimension).  Per-query bucketed
+    kernels: the live lanes the function needs (doc and value, 8 B; for
+    kernel 5 those of the surviving tiles and the residue), the flags and
+    offsets and the cut read once, the tiles written once; for kernel 4 one
+    int32 compare with the cut and one add per live lane, for kernel 5 one
+    fp32 add per lane.  Histogram: the scores read once, the bins written
+    once, one int32 increment per score."""
     import torch
+    if name == "impact_accumulate_bucketed":
+        docs_b, imps_b, lstar = args
+        tile_d = kw["tile_d"]
+        live = int(((docs_b >= 0) & (docs_b < tile_d)).sum())
+        return (8 * live + 4 + 4 * docs_b.shape[0] * tile_d, 2 * live,
+                INT32_OPS_PER_S)
+    if name == "blockmax_score_bucketed":
+        lanes = bucketed_score_lanes(*args)
+        n_tiles, tile_d = args[0].shape[0], kw["tile_d"]
+        return (8 * lanes + 4 * (2 * n_tiles + 1) + 4 * n_tiles * tile_d,
+                lanes, FP32_FLOPS_PER_S)
+    if name == "score_histogram":
+        n = args[0].shape[0]
+        return 4 * n + 4 * kw.get("n_bins", 2048), n, INT32_OPS_PER_S
     if name == "dense_topk_tiles":
         q_emb, doc_emb, k = args
         (q, d), n = q_emb.shape, doc_emb.shape[0]
@@ -375,39 +429,164 @@ def edge_calls(device):
     }
 
 
-def dense_library_call(q_emb, doc_emb, k):
-    """The nearest PyTorch composition of the dense top-k, timed as its
-    library yardstick and used nowhere in the port: one fp32 product and
-    one stable descending sort."""
-    import torch
-    return torch.sort(q_emb @ doc_emb.T, dim=1, descending=True, stable=True)
-
-
-def kernel_phase(recorded):
-    """Every recorded main-path call, and the edge cases: kernel vs plain
-    version on the card."""
+def laxmap_edge_calls(device):
+    """Edge inputs of the per-query kernels, driven through their flat
+    wrappers on the card, each flat result held to its plain counterpart:
+    for kernel 4 a ``cap`` below the densest tile (the overflow residue),
+    ``lstar`` > 0, ``n_docs`` not a multiple of ``tile_d`` and all lanes
+    dead, against the direct integer scatter (exact); for kernel 5 the
+    residue, every block pruned and a ragged ``n_docs``, against the same
+    wrapper on the CPU (bit-equal); for kernel 7 N not a multiple of 512
+    with scores >= n_bins, k above the count of non-negative scores and all
+    scores negative, ``histogram_topk`` against its selection over the
+    plain histogram (exact).  Returns the bucketed kernel calls the
+    wrappers made (lists of (args, kwargs)) and the largest error of the
+    flat checks, per kernel."""
+    import numpy as np
     import torch
     from repro_torch.kernels.blockmax_score import ops as bm
-    from repro_torch.kernels.dense_topk import ops as dt
     from repro_torch.kernels.impact_accumulate import ops as ia
-    from repro_torch.kernels.qd_feature_gather import ops as qd
-    plain = {"impact_accumulate_batched": ia.impact_accumulate_plain,
-             "blockmax_score_batched": bm.blockmax_score_plain,
-             "qd_feature_gather_lanes": qd.qd_feature_gather_plain,
-             "dense_topk_tiles": dt.dense_topk_plain}
-    kern = {"impact_accumulate_batched": ia.impact_accumulate_batched,
-            "blockmax_score_batched": bm.blockmax_score_batched,
-            "qd_feature_gather_lanes": qd.qd_feature_gather_lanes,
-            "dense_topk_tiles": dt.dense_topk_tiles}
-    library = {"dense_topk_tiles": dense_library_call}
-    # the dense top-k is exact on the grid-quantized embeddings
-    tols = {"dense_topk_tiles": 0.0}
+    from repro_torch.kernels.score_histogram import ops as sh
+    rng = np.random.RandomState(SEED + 1)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def flat_docs(n_docs, p, dead):
+        docs = rng.randint(0, n_docs, p).astype(np.int32)
+        docs[rng.rand(p) < dead] = -1
+        return docs
+
+    errs = dict.fromkeys(LAXMAP_KERNELS, 0.0)
+    with Recorder(LAXMAP_KERNELS) as rec:
+        name = "impact_accumulate_bucketed"
+        for n_docs, p, cap, lstar, dead in ((1000, 5000, 128, 0, 0.15),
+                                            (1000, 5000, 128, 128, 0.15),
+                                            (300, 700, 64, 0, 1.0)):
+            docs = t(flat_docs(n_docs, p, dead))
+            imps = t(rng.randint(1, 256, p).astype(np.int32))
+            got = ia.impact_accumulate(docs, imps, lstar, n_docs=n_docs,
+                                       cap=cap)
+            want = ia.impact_accumulate_ref(docs, imps, lstar, n_docs)
+            errs[name] = max(errs[name], compare(name + " (flat)", got, want))
+        name = "blockmax_score_bucketed"
+        for n_docs, p, frac, cap in ((1000, 6000, 0.8, 256),
+                                     (1000, 6000, 0.0, 256),
+                                     (700, 3000, 0.5, 1024)):
+            docs = flat_docs(n_docs, p, 0.1)
+            scores = (rng.rand(p) * 8).astype(np.float32)
+            survive = rng.rand(-(-n_docs // 64)) < frac
+            kw = dict(n_docs=n_docs, block_size=64, cap=cap)
+            got = bm.blockmax_score(t(docs), t(scores), t(survive), **kw)
+            want = bm.blockmax_score(
+                *(torch.from_numpy(a) for a in (docs, scores, survive)), **kw)
+            errs[name] = max(errs[name], compare(
+                name + " (flat)", got, want.to(device), tol=0.0))
+        name = "score_histogram"
+        for n, lo, hi, neg, k in ((1000, 0, 3000, 0.1, 100),
+                                  (777, 0, 2500, 0.99, 64),
+                                  (2048, -3, 0, 0.0, 5)):
+            s = rng.randint(lo, hi, n).astype(np.int32)
+            s[rng.rand(n) < neg] = -1
+            s = t(s)
+            got = sh.histogram_topk(s, k=k)
+            want = sh.topk_from_histogram(s, sh.score_histogram_ref(s, 2048),
+                                          k, 2048)
+            errs[name] = max(errs[name], compare("histogram_topk", got, want))
+    # the CPU run of the kernel-5 wrapper called its plain version
+    return ({n: [c for c in calls if c[0][0].is_cuda]
+             for n, calls in rec.calls.items()}, errs)
+
+
+def bucketed_score_lanes(docs_b, scores_b, survive_t, run_docs, run_scores,
+                         run_start):
+    """Lanes kernel 5 must add: the live bucket lanes of the surviving tiles
+    and every tile's overflow residue."""
+    cap = docs_b.shape[1]
+    bucket = int(((docs_b >= 0) & (survive_t[:, None] != 0)).sum())
+    res = (run_start[1:] - run_start[:-1] - cap).clamp(min=0)
+    return bucket + int(res.sum())
+
+
+def library_calls():
+    """Per kernel, a maker of the one PyTorch call that computes the same
+    function on a call's inputs (its operands prepared outside the timed
+    call), timed as the library yardstick and used nowhere in the port."""
+    import torch
+    from repro_torch.kernels.blockmax_score import ops as bm
+
+    def dense(args, kw):
+        # the nearest composition: one fp32 product, one stable sort
+        q_emb, doc_emb, k = args
+        return lambda: torch.sort(q_emb @ doc_emb.T, dim=1, descending=True,
+                                  stable=True)
+
+    def scatter(idx, val, n):
+        return lambda: torch.zeros(n, dtype=val.dtype,
+                                   device=val.device).index_add_(0, idx, val)
+
+    def impact(args, kw):
+        # integer index_add_ over the live lanes that reach the cut
+        docs_b, imps_b, lstar = args
+        tile_d = kw["tile_d"]
+        rows = torch.arange(docs_b.shape[0], device=docs_b.device)[:, None]
+        live = (docs_b >= 0) & (docs_b < tile_d) & (imps_b >= lstar)
+        idx = (rows * tile_d + docs_b)[live].long()
+        return scatter(idx, imps_b[live], docs_b.shape[0] * tile_d)
+
+    def score(args, kw):
+        # fp32 index_add_ over the lanes kernel 5 adds; its float atomics
+        # add in no fixed order, so the port never uses it
+        docs_b, scores_b, survive_t, run_docs, run_scores, run_start = args
+        tile_d = kw["tile_d"]
+        n_tiles, cap = docs_b.shape
+        rows = torch.arange(n_tiles, device=docs_b.device)[:, None]
+        live = (docs_b >= 0) & (survive_t[:, None] != 0)
+        j, tile_r = bm._residue_lanes(run_start, cap, run_docs.shape[0])
+        idx = torch.cat([(rows * tile_d + docs_b)[live].long(),
+                         tile_r * tile_d + run_docs[j].long()])
+        val = torch.cat([scores_b[live], run_scores[j]])
+        return scatter(idx, val, n_tiles * tile_d)
+
+    def histogram(args, kw):
+        (s,), n_bins = args, kw.get("n_bins", 2048)
+        return lambda: torch.bincount(torch.clamp(s[s >= 0], max=n_bins - 1),
+                                      minlength=n_bins)
+
+    return {"dense_topk_tiles": dense, "impact_accumulate_bucketed": impact,
+            "blockmax_score_bucketed": score, "score_histogram": histogram}
+
+
+def kernel_phase(recorded, k_topk):
+    """Every recorded main-path call, and the edge cases: kernel vs plain
+    version on the card.  ``k_topk`` is the per-query path's depth, at
+    which ``histogram_topk`` is also checked and timed on the recorded
+    histogram call."""
+    import torch
+    from repro_torch.kernels.score_histogram import ops as sh
+    mods = kernel_modules()
+    plain = {"impact_accumulate_batched": "impact_accumulate_plain",
+             "blockmax_score_batched": "blockmax_score_plain",
+             "qd_feature_gather_lanes": "qd_feature_gather_plain",
+             "dense_topk_tiles": "dense_topk_plain",
+             "impact_accumulate_bucketed": "impact_accumulate_bucketed_plain",
+             "blockmax_score_bucketed": "blockmax_score_bucketed_plain",
+             "score_histogram": "score_histogram_ref"}
+    plain = {name: getattr(mods[name], fn) for name, fn in plain.items()}
+    kern = {name: getattr(mods[name], name) for name in KERNELS}
+    library = library_calls()
+    # the dense top-k is exact on the grid-quantized embeddings; kernel 5
+    # adds each doc's lanes in the plain version's order
+    tols = {"dense_topk_tiles": 0.0, "blockmax_score_bucketed": 0.0}
     rows = {}
-    edges = edge_calls(recorded["qd_feature_gather_lanes"][0][0][0].device)
+    dev = recorded["qd_feature_gather_lanes"][0][0][0].device
+    edges = edge_calls(dev)
+    lax_edges, flat_errs = laxmap_edge_calls(dev)
+    edges.update(lax_edges)
     for name in KERNELS:
         calls = recorded[name]
         check(calls, f"{name}: the main path never called it")
-        err = 0.0
+        err = flat_errs.get(name, 0.0)
         for args, kw in calls + edges[name]:
             got = kern[name](*args, **kw)
             want = plain[name](*args, **kw)
@@ -418,7 +597,7 @@ def kernel_phase(recorded):
         nbytes, ops, rate = work_of(name, args, kw)
         ms = cuda_ms(lambda: kern[name](*args, **kw), REPS)
         plain_ms = cuda_ms(lambda: plain[name](*args, **kw), REPS // 4)
-        library_ms = (cuda_ms(lambda: library[name](*args, **kw), REPS)
+        library_ms = (cuda_ms(library[name](args, kw), REPS)
                       if name in library else None)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / rate * 1e3
@@ -433,6 +612,19 @@ def kernel_phase(recorded):
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms} "
             f"bound_ms={rows[name]['bound_ms']:.4f} "
             f"({rows[name]['bound_by']}: {nbytes} B, {ops} ops)")
+        if name == "score_histogram":
+            (s,) = args
+            got = sh.histogram_topk(s, k=k_topk)
+            want = sh.topk_from_histogram(
+                s, sh.score_histogram_ref(s, 2048), k_topk, 2048)
+            rows[name]["max_abs_err"] = max(
+                err, compare("histogram_topk", got, want))
+            topk_ms = cuda_ms(lambda: sh.histogram_topk(s, k=k_topk), REPS)
+            sort_ms = cuda_ms(lambda: torch.sort(
+                s, descending=True, stable=True).indices[:k_topk], REPS)
+            log(f"histogram_topk k={k_topk} over {s.shape[0]} scores: "
+                f"{topk_ms:.4f} ms (histogram kernel + selection sort); "
+                f"stable torch.sort top-k {sort_ms:.4f} ms")
     return rows
 
 
@@ -566,6 +758,96 @@ def cross_check_rows(system, ql):
     return np.asarray(rows[:BATCH])
 
 
+def laxmap_phase(gpu, cpu, ql, spec):
+    """The per-query Stage-1 path (``saat_serve_laxmap`` at ρ = 8,192 and
+    ρ_max with cap = ρ, ``daat_serve_laxmap`` at θ = 1.0 and 1.2 with cap =
+    max_df and bcap = max_blocks_per_term, k = k_serve) over the 32
+    cross-check queries on the systems' shards.  A first pass on the card
+    records each per-query kernel's largest call; then, counted from 0, a
+    timed pass on the card, the same on the CPU shard (plain versions) and
+    the card's batched engines on the same queries.  Requires SAAT equal on
+    the card and the CPU (ids, scores, work) and to the batched engine;
+    DAAT ids, work, blocks and scores bit-equal on the card and the CPU,
+    and ids, work and blocks equal to the batched engine with scores within
+    1e-4 (it sums phase 1 and the rest apart).  Returns (launches, the
+    recorded calls)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.isn.daat import daat_serve, daat_serve_laxmap
+    from repro_torch.isn.saat import saat_serve, saat_serve_laxmap
+    sp = gpu.shard_specs[0]
+    k = spec.stage2.k_serve
+    saat_kw = dict(n_docs=sp.n_docs, k=k)
+    daat_kw = dict(n_docs=sp.n_docs, n_blocks=sp.n_blocks,
+                   block_size=sp.block_size, k=k,
+                   bcap=sp.max_blocks_per_term)
+    runs = [("saat", rho) for rho in (8192, spec.routing.rho_max)] + [
+        ("daat", theta) for theta in (1.0, 1.2)]
+
+    def laxmap(shard, engine, x, walls=None):
+        dev = shard.offsets.device
+        terms = torch.from_numpy(ql.terms[:BATCH]).to(dev)
+        mask = torch.from_numpy(ql.mask[:BATCH]).to(dev)
+        full = torch.full((BATCH,), x, device=dev)
+        t = time.perf_counter()
+        if engine == "saat":
+            res = saat_serve_laxmap(shard, terms, mask, full, cap=x,
+                                    **saat_kw)
+        else:
+            res = daat_serve_laxmap(shard, terms, mask, full, cap=sp.max_df,
+                                    **daat_kw)
+        if walls is not None:
+            torch.cuda.synchronize()
+            walls[(engine, x)] = time.perf_counter() - t
+        return [np.asarray(f.cpu()) for f in res]
+
+    with Recorder(LAXMAP_KERNELS, largest=True) as rec:
+        for engine, x in runs:
+            laxmap(gpu.shards[0], engine, x)
+        torch.cuda.synchronize()
+    walls = {}
+    kernels.reset_launches()
+    card = {run: laxmap(gpu.shards[0], *run, walls) for run in runs}
+    launches = dict(kernels.LAUNCHES)
+    t = time.perf_counter()
+    host = {run: laxmap(cpu.shards[0], *run) for run in runs}
+    t_cpu = time.perf_counter() - t
+    dev = gpu.shards[0].offsets.device
+    terms = torch.from_numpy(ql.terms[:BATCH]).to(dev)
+    mask = torch.from_numpy(ql.mask[:BATCH]).to(dev)
+    for engine, x in runs:
+        label = f"laxmap {engine} {x}"
+        a, b = card[(engine, x)], host[(engine, x)]
+        for field, u, v in zip(("ids", "scores", "work", "blocks"), a, b):
+            check(np.array_equal(u, v),
+                  f"{label}: {field} differ on the card and the CPU")
+        full = torch.full((BATCH,), x, device=dev)
+        if engine == "saat":
+            bat = saat_serve(gpu.shards[0], terms, mask, full, **saat_kw)
+        else:
+            bat = daat_serve(gpu.shards[0], terms, mask, full, **daat_kw)
+        bat = [np.asarray(f.cpu()) for f in bat]
+        for field, u, v in zip(("ids", "scores", "work", "blocks"), a, bat):
+            if engine == "daat" and field == "scores":
+                err = float(np.abs(u - v).max())
+                check(err <= 1e-4, f"{label}: scores {err} from the batched "
+                      "engine's")
+            else:
+                check(np.array_equal(u, v), f"{label}: {field} differ from "
+                      "the batched engine's")
+        extra = (f", blocks mean {a[3].mean():.1f}" if engine == "daat"
+                 else "")
+        log(f"{label}: card {1e3 * walls[(engine, x)] / BATCH:.3f} ms per "
+            f"query ({BATCH} queries, k={k}); work mean {a[2].mean():.1f}"
+            f"{extra}; equal on the card and the CPU and to the batched "
+            f"engine")
+    log(f"laxmap: CPU shard runs {t_cpu:.1f} s; launches {launches}")
+    for name in LAXMAP_KERNELS:
+        check(launches[name] > 0, f"laxmap: kernel {name} never launched")
+    return launches, rec.calls
+
+
 def serve_phase(system, ql, n_batches, n_docs, spec):
     """The counted main path: launch counts set to 0, ``n_batches``
     batches of 32 served on the card, the counts read.  Returns (launches,
@@ -669,8 +951,12 @@ def run(n_docs, n_batches, profile=False):
         f"{time.perf_counter() - t:.2f} s")
     same_batch("paper_200ms cross-check", a, b)
     log("cross-check: topk, final and latency equal on the card and CPU")
-    del cpu
     recorded = dict(rec.calls)
+
+    # the per-query Stage-1 path on the same shard, card and CPU
+    lax_launches, lax_calls = laxmap_phase(gpu, cpu, ql, spec)
+    recorded.update(lax_calls)
+    del cpu
 
     # the dense modality: hybrid_fusion from the same index; one tower,
     # drawn on the host, embeds the collection for both systems
@@ -704,7 +990,9 @@ def run(n_docs, n_batches, profile=False):
     del cpu_h
     recorded["dense_topk_tiles"] = rec_h.calls["dense_topk_tiles"]
 
-    rows = kernel_phase(recorded)
+    rows = kernel_phase(recorded, spec.stage2.k_serve)
+    for name in LAXMAP_KERNELS:
+        rows[name]["launches"] = lax_launches[name]
 
     # serve phases: each preset's main path, counted on its own
     launches, routes, _ = serve_phase(gpu, ql, n_batches, n_docs, spec)

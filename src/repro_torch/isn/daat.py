@@ -22,6 +22,15 @@ the card and the CPU agree bit for bit.
 As in the reference's kernel backends, all postings of a matched term are
 scored (the bucketed mirror has no per-term gather cap), and a repeated
 query term scores once.
+
+``daat_serve_laxmap`` is the reference's one-query-at-a-time pipeline (its
+parity oracle and the batched engine's baseline), with a Python loop in
+place of ``lax.map``: per query, block bounds, the phase-1 blocks, and two
+full masked scoring passes over the query's gathered postings through the
+flat wrapper ``kernels.blockmax_score.ops.blockmax_score`` (the bucketed
+kernel on the card, which adds each doc's scores in the gathered lanes'
+term-major order).  As in the reference, a repeated query term scores once
+per occurrence there.
 """
 
 from __future__ import annotations
@@ -31,8 +40,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.index.postings import IndexShard
-from repro_torch.isn.backend import topk_from_tiles
-from repro_torch.kernels.blockmax_score.ops import blockmax_score_tiles
+from repro_torch.isn.backend import stable_topk, topk_from_tiles
+from repro_torch.kernels.blockmax_score.ops import (blockmax_score,
+                                                    blockmax_score_tiles)
 
 
 class DaatResult(NamedTuple):
@@ -141,3 +151,63 @@ def daat_serve(shard: IndexShard, terms: torch.Tensor, mask: torch.Tensor,
                           bcap=bcap, tile_d=tile_d)
             for i in range(0, max(terms.shape[0], 1), q_block)]
     return DaatResult(*(torch.cat(parts) for parts in zip(*outs)))
+
+
+# ---------------------------------------------------------------------------
+# one query at a time
+# ---------------------------------------------------------------------------
+
+def _block_bounds(shard: IndexShard, terms, mask, n_blocks: int, bcap: int):
+    """One query's ((L,) terms/mask) block upper bounds (n_blocks,) f32 and
+    candidate counts int32: the batched bounds at Q = 1, summed slot by slot
+    as the reference's scatter over its term-major lanes adds them."""
+    ub, ccnt = _block_bounds_batched(shard, terms[None], mask[None],
+                                     n_blocks, bcap)
+    return ub[0], ccnt[0]
+
+
+def _masked_score(shard: IndexShard, terms, mask, survive, n_docs: int,
+                  block_size: int, cap: int):
+    """Exact (n_docs,) f32 scores of one query's postings whose doc block
+    survives: the first ``cap`` postings of each query term gathered into
+    flat term-major lanes (dead lanes -1) and scored by the flat kernel
+    wrapper.  With at most 8 terms and unique (term, doc) postings a
+    128-doc tile holds at most 1,024 lanes, the bucket width."""
+    lanes = torch.arange(cap, device=terms.device)
+    t = terms.long()
+    base = shard.offsets[t].long()
+    df = shard.offsets[t + 1].long() - base
+    live = (lanes < df[:, None]) & (mask[:, None] > 0)
+    pos = torch.clamp(base[:, None] + lanes, max=shard.docs.shape[0] - 1)
+    docs = torch.where(live, shard.docs[pos], -1).reshape(-1)
+    scores = torch.where(live, shard.score[pos], 0.0).reshape(-1)
+    return blockmax_score(docs, scores, survive, n_docs=n_docs,
+                          block_size=block_size, tile_d=128, cap=1024)
+
+
+def daat_serve_laxmap(shard: IndexShard, terms: torch.Tensor,
+                      mask: torch.Tensor, theta: torch.Tensor, *,
+                      n_docs: int, n_blocks: int, block_size: int, k: int,
+                      cap: int, bcap: int) -> DaatResult:
+    """One-query-at-a-time pipeline: phase-1 blocks, τ, then a full rescan
+    of the surviving blocks (every surviving posting is scored twice) — the
+    reference's parity oracle and benchmark baseline.
+
+    cap: static per-term postings bound (``max_df``).
+    bcap: static per-term block-entry bound (``max_blocks_per_term``).
+    """
+    outs = []
+    for i in range(terms.shape[0]):
+        ub, ccnt = _block_bounds(shard, terms[i], mask[i], n_blocks, bcap)
+        in_p1 = _phase1_blocks(ub[None], ccnt[None], block_size, k,
+                               n_blocks)[0]
+        acc1 = _masked_score(shard, terms[i], mask[i], in_p1, n_docs,
+                             block_size, cap)
+        tau = stable_topk(acc1, k)[0][k - 1]
+        survive = (ub >= theta[i].to(torch.float32) * tau) | in_p1
+        acc = _masked_score(shard, terms[i], mask[i], survive, n_docs,
+                            block_size, cap)
+        sc, ids = stable_topk(acc, k)
+        outs.append((ids.to(torch.int32), sc,
+                     torch.where(survive, ccnt, 0).sum(), survive.sum()))
+    return DaatResult(*(torch.stack(parts) for parts in zip(*outs)))

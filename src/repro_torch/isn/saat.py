@@ -12,6 +12,14 @@ same function on the CPU.  Top-k is the tiled hierarchical merge from
 ``repro_torch.isn.backend``.  Accumulation is integer, so the result is
 bit-identical to the reference's ``repro.isn.saat.saat_serve`` on every
 backend.
+
+``saat_serve_laxmap`` is the reference's one-query-at-a-time pipeline (its
+parity oracle and the batched engine's baseline), with a Python loop in
+place of ``lax.map``: per query, the impact-ordered prefixes are gathered
+into flat lanes and accumulated by the flat wrapper
+``kernels.impact_accumulate.ops.impact_accumulate`` (the bucketed kernel on
+the card), and the top-k is ``histogram_topk`` (the histogram kernel on the
+card).
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ import torch
 
 from repro_torch.index.postings import IndexShard
 from repro_torch.isn.backend import topk_from_tiles
-from repro_torch.kernels.impact_accumulate.ops import impact_accumulate_tiles
+from repro_torch.kernels.impact_accumulate.ops import (impact_accumulate,
+                                                       impact_accumulate_tiles)
+from repro_torch.kernels.score_histogram.ops import histogram_topk
 
 
 class SaatResult(NamedTuple):
@@ -99,3 +109,41 @@ def saat_serve(shard: IndexShard, terms: torch.Tensor, mask: torch.Tensor,
                           tile_d=tile_d)
             for i in range(0, max(terms.shape[0], 1), q_block)]
     return SaatResult(*(torch.cat(parts) for parts in zip(*outs)))
+
+
+# ---------------------------------------------------------------------------
+# one query at a time
+# ---------------------------------------------------------------------------
+
+def _accumulate(shard: IndexShard, terms, prefix, n_docs: int, cap: int):
+    """Gather one query's per-term impact-ordered prefixes ((L,) lengths,
+    each at most ``cap``) into flat lanes, dead lanes -1, and accumulate
+    them into a dense (n_docs,) int32 accumulator through the flat kernel
+    wrapper.  The prefixes are the budget, so the cut passed is 0."""
+    lanes = torch.arange(cap, device=terms.device)
+    pos = shard.offsets[terms.long()].long()[:, None] + lanes
+    live = lanes < prefix[:, None]
+    pos = torch.clamp(pos, max=shard.docs_imp.shape[0] - 1)
+    docs = torch.where(live, shard.docs_imp[pos], -1).reshape(-1)
+    imps = torch.where(live, shard.imp[pos], 0).reshape(-1)
+    return impact_accumulate(docs, imps, 0, n_docs=n_docs, tile_d=128)
+
+
+def saat_serve_laxmap(shard: IndexShard, terms: torch.Tensor,
+                      mask: torch.Tensor, rho: torch.Tensor, *, n_docs: int,
+                      k: int, cap: int) -> SaatResult:
+    """One-query-at-a-time pipeline (level cut, flat accumulation, histogram
+    top-k) — the reference's parity oracle and benchmark baseline.
+
+    Args as ``saat_serve``; ``cap`` is the static per-term prefix bound (the
+    gather width, ρ_max).  The top-k of the non-negative integer
+    accumulator is ``lax.top_k``'s: score descending, then the lower id.
+    """
+    outs = []
+    for i in range(terms.shape[0]):
+        prefix, work, _ = _level_cut(shard, terms[i], mask[i], rho[i])
+        acc = _accumulate(shard, terms[i], torch.clamp(prefix, max=cap),
+                          n_docs, cap)
+        sc, ids = histogram_topk(acc, k=k)
+        outs.append((ids, sc.to(torch.float32), work))
+    return SaatResult(*(torch.stack(parts) for parts in zip(*outs)))

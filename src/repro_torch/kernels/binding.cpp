@@ -31,6 +31,18 @@ void dense_topk_launch(const float* q_emb, const float* doc_emb,
                        int64_t* part, float* out_scores, int64_t* out_ids,
                        int n_q, int n_docs, int d4, int k, int kp, int chunk,
                        int n_chunks, cudaStream_t stream);
+void impact_accumulate_bucketed_launch(const int* docs_b, const int* imps_b,
+                                       const int* lstar, int* out,
+                                       int n_tiles, int cap, int tile_d,
+                                       cudaStream_t stream);
+void blockmax_score_bucketed_launch(const int* docs_b, const float* scores_b,
+                                    const int* survive_t, const int* run_docs,
+                                    const float* run_scores,
+                                    const int* run_start, float* out,
+                                    int n_tiles, int cap, int tile_d,
+                                    cudaStream_t stream);
+void score_histogram_launch(const int* scores, int* out, long long n,
+                            int n_bins, cudaStream_t stream);
 
 namespace {
 
@@ -98,6 +110,46 @@ void dense_topk(const torch::Tensor& q_emb, const torch::Tensor& doc_emb,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void impact_accumulate_bucketed(const torch::Tensor& docs_b,
+                                const torch::Tensor& imps_b,
+                                const torch::Tensor& lstar,
+                                torch::Tensor out) {
+  const c10::cuda::CUDAGuard guard(docs_b.device());
+  impact_accumulate_bucketed_launch(
+      docs_b.data_ptr<int>(), imps_b.data_ptr<int>(), lstar.data_ptr<int>(),
+      out.data_ptr<int>(), static_cast<int>(docs_b.size(0)),
+      static_cast<int>(docs_b.size(1)), static_cast<int>(out.size(1)),
+      c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void blockmax_score_bucketed(const torch::Tensor& docs_b,
+                             const torch::Tensor& scores_b,
+                             const torch::Tensor& survive_t,
+                             const torch::Tensor& run_docs,
+                             const torch::Tensor& run_scores,
+                             const torch::Tensor& run_start,
+                             torch::Tensor out) {
+  const c10::cuda::CUDAGuard guard(docs_b.device());
+  blockmax_score_bucketed_launch(
+      docs_b.data_ptr<int>(), scores_b.data_ptr<float>(),
+      survive_t.data_ptr<int>(), run_docs.data_ptr<int>(),
+      run_scores.data_ptr<float>(), run_start.data_ptr<int>(),
+      out.data_ptr<float>(), static_cast<int>(docs_b.size(0)),
+      static_cast<int>(docs_b.size(1)), static_cast<int>(out.size(1)),
+      c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void score_histogram(const torch::Tensor& scores, torch::Tensor out) {
+  const c10::cuda::CUDAGuard guard(scores.device());
+  score_histogram_launch(scores.data_ptr<int>(), out.data_ptr<int>(),
+                         static_cast<long long>(scores.size(0)),
+                         static_cast<int>(out.size(0)),
+                         c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -109,4 +161,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Stage-2 (sum, max, count) lane match-reduce");
   m.def("dense_topk", &dense_topk,
         "dense top-k of q_emb @ doc_emb^T, ties to the lower doc id");
+  m.def("impact_accumulate_bucketed", &impact_accumulate_bucketed,
+        "single-query SAAT accumulation over a bucketed layout");
+  m.def("blockmax_score_bucketed", &blockmax_score_bucketed,
+        "single-query DAAT scoring over a bucketed layout, in lane order");
+  m.def("score_histogram", &score_histogram,
+        "histogram of int32 scores (negatives ignored, highs clipped)");
 }

@@ -1,18 +1,29 @@
-"""DAAT block-max scoring: the kernel wrapper, its plain version, and the
-shard-mirror entry point the DAAT engine imports.
+"""DAAT block-max scoring: the kernel wrappers, their plain versions, and
+the entry points the DAAT engine imports.
 
-``blockmax_score_batched`` launches ``blockmax_score.cu`` for CUDA tensors
-and runs ``blockmax_score_plain`` for CPU tensors. Both compute the
-function of the Pallas kernel ``blockmax_score_batched``
-(repro/kernels/blockmax_score/kernel.py): per (query, doc tile), the sum of
-the f32 BM25 scores of the tile's postings whose term is one of the query's
-terms (membership) and whose pruning block survives; tiles with
-``survive_t == 0`` are all zeros.
+Two kernels live in ``blockmax_score.cu``, each with a wrapper that
+launches it for CUDA tensors and runs its plain version for CPU tensors:
 
-Both paths give each live lane its own (first matching query-term slot,
-doc) cell and sum each doc's cells in slot order from 0.0, so they agree
-bit for bit.  ``blockmax_score_tiles`` derives the per-tile flags from
-per-block survival, as the reference's ``ops.blockmax_score_tiles`` does.
+* ``blockmax_score_batched`` (plain: ``blockmax_score_plain``), the Pallas
+  kernel ``blockmax_score_batched`` (repro/kernels/blockmax_score/kernel.py):
+  per (query, doc tile) of the shard's mirror, the sum of the f32 BM25
+  scores of the tile's postings whose term is one of the query's terms
+  (membership) and whose pruning block survives; tiles with
+  ``survive_t == 0`` are all zeros.  Both paths give each live lane its own
+  (first matching query-term slot, doc) cell and sum each doc's cells in
+  slot order from 0.0, so they agree bit for bit.
+  ``blockmax_score_tiles`` derives the per-tile flags from per-block
+  survival, as the reference's ``ops.blockmax_score_tiles`` does.
+* ``blockmax_score_bucketed`` (plain: ``blockmax_score_bucketed_plain``),
+  the Pallas kernel ``blockmax_score_bucketed``: one query's postings
+  bucketed by doc tile, per tile the f32 sum of each local doc's scores,
+  then the tile's overflow residue.  ``blockmax_score`` (the flat wrapper)
+  buckets flat lanes for it; the per-query DAAT path
+  (``isn.daat.daat_serve_laxmap``) calls it.  Both paths add each doc's
+  lanes in lane order from 0.0 (the bucket in order, then the residue in
+  order), with no float atomics, so they agree bit for bit, and with a
+  sequential scatter of the flat lanes in their own order
+  (``blockmax_score_ref`` on the CPU).
 """
 
 from __future__ import annotations
@@ -20,8 +31,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels.buckets import bucket_by_tile
 
 SMEM_LIMIT = 48 * 1024   # static shared-memory limit of one block
+MAX_TILE_D = 1024        # the bucketed kernel runs one thread per local doc
 
 
 def blockmax_score_plain(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
@@ -135,3 +148,151 @@ def blockmax_score_tiles(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
         tile_docs, tile_terms, tile_scores,
         qterms.to(torch.int32).contiguous(), sb, st, tile_d=tile_d,
         block_size=block_size)
+
+
+# ---------------------------------------------------------------------------
+# single query: flat lanes, bucketed by doc tile
+# ---------------------------------------------------------------------------
+
+def blockmax_score_ref(docs: torch.Tensor, scores: torch.Tensor,
+                       survive: torch.Tensor, n_docs: int, block_size: int
+                       ) -> torch.Tensor:
+    """Direct-scatter oracle: the (n_docs,) f32 sum of the scores of the
+    lanes with doc >= 0 whose block survives.  On the CPU ``index_add_``
+    adds in lane order; on the card it uses float atomics, whose order
+    varies, so the port never calls it there."""
+    live = docs >= 0
+    blk = torch.where(live, docs.long() // block_size, 0)
+    keep = live & (survive[blk] != 0)
+    acc = torch.zeros((n_docs,), dtype=torch.float32, device=docs.device)
+    return acc.index_add_(0, torch.where(keep, docs, 0).long(),
+                          torch.where(keep, scores, 0.0))
+
+
+def _residue_lanes(run_start: torch.Tensor, cap: int, n_lanes: int):
+    """(lane positions, tiles) of the overflow residue: the sorted-run lanes
+    [run_start[t] + cap, run_start[t + 1]) of every tile t, in run order."""
+    j = torch.arange(n_lanes, device=run_start.device)
+    tile = torch.searchsorted(run_start.long(), j, right=True) - 1
+    n_tiles = run_start.shape[0] - 1
+    res = (tile < n_tiles) & (j - run_start.long()[tile] >= cap)
+    return j[res], tile[res]
+
+
+def blockmax_score_bucketed_plain(docs_b: torch.Tensor, scores_b: torch.Tensor,
+                                  survive_t: torch.Tensor,
+                                  run_docs: torch.Tensor,
+                                  run_scores: torch.Tensor,
+                                  run_start: torch.Tensor, *, tile_d: int
+                                  ) -> torch.Tensor:
+    """Plain PyTorch version of the bucketed kernel, in the kernel's order.
+
+    Each lane (the surviving tiles' bucket lanes, tile by tile, then the
+    residue lanes in run order) gets its occurrence rank among the lanes of
+    its (tile, doc) cell; the lanes are placed in (rank, cell) slots with no
+    collisions and each cell is summed rank by rank from 0.0 — each doc's
+    lanes in lane order, as the kernel's one thread per doc adds them."""
+    n_tiles, cap = docs_b.shape
+    dev = docs_b.device
+    tiles = torch.arange(n_tiles, device=dev)[:, None].expand(n_tiles, cap)
+    live = (docs_b >= 0) & (docs_b < tile_d) & (survive_t[:, None] != 0)
+    j, tile_r = _residue_lanes(run_start, cap, run_docs.shape[0])
+    docs_r = run_docs[j].long()
+    ok = (docs_r >= 0) & (docs_r < tile_d)
+    cell = torch.cat([tiles[live] * tile_d + docs_b[live].long(),
+                      (tile_r * tile_d + docs_r)[ok]])
+    vals = torch.cat([scores_b[live], run_scores[j][ok]])
+    srt, order = torch.sort(cell, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = (torch.arange(cell.shape[0], device=dev)
+                   - torch.searchsorted(srt, srt))
+    n_rank = int(rank.max()) + 1 if cell.numel() else 0
+    slots = torch.zeros((max(n_rank, 1), n_tiles * tile_d),
+                        dtype=torch.float32, device=dev)
+    slots[rank, cell] = vals
+    acc = torch.zeros((n_tiles * tile_d,), dtype=torch.float32, device=dev)
+    for r in range(n_rank):
+        acc = acc + slots[r]
+    return acc.reshape(n_tiles, tile_d)
+
+
+def blockmax_score_bucketed(docs_b: torch.Tensor, scores_b: torch.Tensor,
+                            survive_t: torch.Tensor, run_docs: torch.Tensor,
+                            run_scores: torch.Tensor, run_start: torch.Tensor,
+                            *, tile_d: int) -> torch.Tensor:
+    """One query's masked scoring over a bucketed layout.
+
+    Args:
+      docs_b/scores_b: (n_tiles, CAP) bucket (int32 tile-local doc ids with
+        -1 padding, float32 scores).
+      survive_t: (n_tiles,) int32; a tile with 0 adds no bucket lane.
+      run_docs/run_scores: (P,) the lanes sorted by tile (tile-local ids),
+        of which row t of the bucket holds the first CAP of tile t.
+      run_start: (n_tiles + 1,) int32 first run position of each tile; the
+        run lanes [run_start[t] + CAP, run_start[t + 1]) are tile t's
+        overflow residue, added after its bucket in run order.
+    Returns:
+      (n_tiles, tile_d) float32 accumulator tiles.
+    """
+    n_tiles, cap = docs_b.shape
+    if scores_b.shape != docs_b.shape:
+        raise ValueError("docs_b/scores_b shapes differ")
+    if tuple(survive_t.shape) != (n_tiles,) or \
+            tuple(run_start.shape) != (n_tiles + 1,):
+        raise ValueError("survive_t must be (n_tiles,) and run_start "
+                         "(n_tiles + 1,)")
+    if run_scores.shape != run_docs.shape:
+        raise ValueError("run_docs/run_scores shapes differ")
+    if kernels.on_cpu(docs_b, scores_b, survive_t, run_docs, run_scores,
+                      run_start):
+        return blockmax_score_bucketed_plain(
+            docs_b, scores_b, survive_t, run_docs, run_scores, run_start,
+            tile_d=tile_d)
+    i32 = torch.int32
+    kernels.check_cuda_args(
+        "blockmax_score_bucketed",
+        dict(docs_b=docs_b, scores_b=scores_b, survive_t=survive_t,
+             run_docs=run_docs, run_scores=run_scores, run_start=run_start),
+        dict(docs_b=i32, scores_b=torch.float32, survive_t=i32,
+             run_docs=i32, run_scores=torch.float32, run_start=i32))
+    if not 1 <= tile_d <= MAX_TILE_D:
+        raise ValueError(f"tile_d={tile_d} must be in [1, {MAX_TILE_D}] "
+                         "(one thread per local doc)")
+    out = torch.empty((n_tiles, tile_d), dtype=torch.float32,
+                      device=docs_b.device)
+    kernels.extension().blockmax_score_bucketed(
+        docs_b, scores_b, survive_t, run_docs, run_scores, run_start, out)
+    kernels.LAUNCHES["blockmax_score_bucketed"] += 1
+    return out
+
+
+def blockmax_score(docs: torch.Tensor, scores: torch.Tensor,
+                   survive: torch.Tensor, *, n_docs: int, block_size: int,
+                   tile_d: int = 128, cap: int = 1024) -> torch.Tensor:
+    """Exact scoring of flat lanes restricted to surviving blocks: (n_docs,)
+    float32.
+
+    ``tile_d`` must be a multiple of ``block_size`` (a tile covers whole
+    pruning blocks).  Lanes in dead blocks are masked before bucketing; a
+    tile survives if any lane reached it.  A tile's lanes past ``cap`` are
+    its overflow residue, which the kernel adds after the bucket, in order.
+    """
+    if tile_d % block_size:
+        raise ValueError(f"tile_d={tile_d} must be a multiple of "
+                         f"block_size={block_size}")
+    live = docs >= 0
+    blk = torch.where(live, docs.long() // block_size, 0)
+    keep = live & (survive[blk] != 0)
+    docs_m = torch.where(keep, docs, -1)
+    b = bucket_by_tile(docs_m, scores.to(torch.float32), 0.0,
+                       n_docs=n_docs, tile_d=tile_d, cap=cap)
+    survive_t = (b.start[1:] > b.start[:-1]).to(torch.int32)
+    n_tiles = survive_t.shape[0]
+    run_docs = torch.where(b.tile_s < n_tiles,
+                           docs_m[b.order] - b.tile_s * tile_d, -1)
+    acc = blockmax_score_bucketed(
+        b.docs_b, b.vals_b, survive_t,
+        run_docs.to(torch.int32).contiguous(),
+        scores[b.order].to(torch.float32).contiguous(),
+        b.start.to(torch.int32).contiguous(), tile_d=tile_d)
+    return acc.reshape(-1)[:n_docs]

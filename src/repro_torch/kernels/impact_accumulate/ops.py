@@ -1,20 +1,34 @@
-"""SAAT impact accumulation: the kernel wrapper, its plain version, and the
-shard-mirror entry point the SAAT engine imports.
+"""SAAT impact accumulation: the kernel wrappers, their plain versions, and
+the entry points the SAAT engine imports.
 
-``impact_accumulate_batched`` launches ``impact_accumulate.cu`` for CUDA
-tensors and runs ``impact_accumulate_plain`` for CPU tensors. Both compute
-the function of the Pallas kernel ``impact_accumulate_batched``
-(repro/kernels/impact_accumulate/kernel.py): per (query, doc tile), the sum
-of the quantized impacts of the tile's postings whose term is one of the
-query's terms (membership: a repeated query term counts once) and whose
-impact reaches the query's level cut. Integer sums, so both paths agree
-with each other and with the TPU kernel exactly. """
+Two kernels live in ``impact_accumulate.cu``, each with a wrapper that
+launches it for CUDA tensors and runs its plain version for CPU tensors:
+
+* ``impact_accumulate_batched`` (plain: ``impact_accumulate_plain``), the
+  Pallas kernel ``impact_accumulate_batched``
+  (repro/kernels/impact_accumulate/kernel.py): per (query, doc tile) of the
+  shard's mirror, the sum of the quantized impacts of the tile's postings
+  whose term is one of the query's terms (membership: a repeated query term
+  counts once) and whose impact reaches the query's level cut.  The batched
+  SAAT engine's hot loop.
+* ``impact_accumulate_bucketed`` (plain:
+  ``impact_accumulate_bucketed_plain``), the Pallas kernel
+  ``impact_accumulate_bucketed``: one query's postings bucketed by doc tile,
+  per tile the sum of the impacts of lanes with doc >= 0 and impact >= a
+  scalar cut.  ``impact_accumulate`` (the flat wrapper) buckets flat lanes
+  for it and adds the overflow residue after it; the per-query SAAT path
+  (``isn.saat.saat_serve_laxmap``) calls it.
+
+Integer sums, so every path agrees with the others and with the TPU
+kernels exactly.  ``impact_accumulate_ref`` is the direct-scatter oracle.
+"""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels.buckets import bucket_by_tile
 
 # elements of one (queries, n_tiles, cap) working set of the plain version
 PLAIN_CHUNK_ELEMS = 1 << 24
@@ -102,3 +116,91 @@ def impact_accumulate_tiles(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
     return impact_accumulate_batched(
         tile_docs, tile_terms, tile_imps, qterms.to(torch.int32).contiguous(),
         lstar.to(torch.int32).contiguous(), tile_d=tile_d)
+
+
+# ---------------------------------------------------------------------------
+# single query: flat lanes, bucketed by doc tile
+# ---------------------------------------------------------------------------
+
+def impact_accumulate_ref(docs: torch.Tensor, imps: torch.Tensor, lstar,
+                          n_docs: int) -> torch.Tensor:
+    """Direct-scatter oracle: the (n_docs,) int32 sum of the impacts of the
+    lanes with doc >= 0 and impact >= ``lstar``."""
+    live = (docs >= 0) & (imps >= lstar)
+    acc = torch.zeros((n_docs,), dtype=torch.int32, device=docs.device)
+    return acc.index_add_(0, torch.where(live, docs, 0).long(),
+                          torch.where(live, imps, 0).to(torch.int32))
+
+
+def impact_accumulate_bucketed_plain(docs_b: torch.Tensor,
+                                     imps_b: torch.Tensor,
+                                     lstar: torch.Tensor, *, tile_d: int
+                                     ) -> torch.Tensor:
+    """Plain PyTorch version of the bucketed kernel: (n_tiles, tile_d)
+    int32, per tile the impacts of its lanes with 0 <= doc < tile_d and
+    impact >= lstar, summed by doc."""
+    n_tiles = docs_b.shape[0]
+    live = (docs_b >= 0) & (docs_b < tile_d) & (imps_b >= lstar)
+    # dead lanes scatter into a dump column past the tile, sliced off below
+    acc = torch.zeros((n_tiles, tile_d + 1), dtype=torch.int32,
+                      device=docs_b.device)
+    acc.scatter_add_(1, torch.where(live, docs_b, tile_d).long(),
+                     torch.where(live, imps_b, 0))
+    return acc[:, :tile_d]
+
+
+def impact_accumulate_bucketed(docs_b: torch.Tensor, imps_b: torch.Tensor,
+                               lstar: torch.Tensor, *, tile_d: int
+                               ) -> torch.Tensor:
+    """One query's impact accumulation over a bucketed layout.
+
+    Args:
+      docs_b: (n_tiles, CAP) int32 doc ids local to each tile, -1 padding.
+      imps_b: (n_tiles, CAP) int32 quantized impacts.
+      lstar: (1,) int32 impact-level cut.
+    Returns:
+      (n_tiles, tile_d) int32 accumulator tiles.
+    """
+    n_tiles, cap = docs_b.shape
+    if imps_b.shape != docs_b.shape:
+        raise ValueError("docs_b/imps_b shapes differ")
+    if lstar.numel() != 1:
+        raise ValueError(f"lstar must hold one cut, got {lstar.numel()}")
+    if kernels.on_cpu(docs_b, imps_b, lstar):
+        return impact_accumulate_bucketed_plain(docs_b, imps_b, lstar,
+                                                tile_d=tile_d)
+    i32 = torch.int32
+    kernels.check_cuda_args(
+        "impact_accumulate_bucketed",
+        dict(docs_b=docs_b, imps_b=imps_b, lstar=lstar),
+        dict(docs_b=i32, imps_b=i32, lstar=i32))
+    out = torch.empty((n_tiles, tile_d), dtype=i32, device=docs_b.device)
+    kernels.extension().impact_accumulate_bucketed(docs_b, imps_b, lstar, out)
+    kernels.LAUNCHES["impact_accumulate_bucketed"] += 1
+    return out
+
+
+def impact_accumulate(docs: torch.Tensor, imps: torch.Tensor, lstar, *,
+                      n_docs: int, tile_d: int = 128, cap: int | None = None
+                      ) -> torch.Tensor:
+    """Accumulate flat lanes (docs, imps) with impact >= ``lstar`` into a
+    (n_docs,) int32 accumulator through the bucketed kernel.
+
+    The lanes are bucketed by doc tile (``kernels.buckets``); ``cap``
+    (default ``tile_d * 8``, the bound for unique (term, doc) postings of an
+    8-term query) is the bucket width, and the lanes of a tile past it are
+    the overflow residue, added after the kernel with an integer
+    ``index_add_`` (exact on the card too).
+    """
+    cap = tile_d * 8 if cap is None else cap
+    dev = docs.device
+    lstar = torch.as_tensor(lstar, dtype=torch.int32, device=dev).reshape(1)
+    b = bucket_by_tile(docs, imps.to(torch.int32), 0, n_docs=n_docs,
+                       tile_d=tile_d, cap=cap)
+    acc = impact_accumulate_bucketed(b.docs_b, b.vals_b, lstar,
+                                     tile_d=tile_d).reshape(-1)[:n_docs]
+    # the overflow residue: lanes past their tile's cap, in sorted order
+    imps_s = imps[b.order]
+    sel = torch.nonzero(b.overflow(cap) & (imps_s >= lstar))[:, 0]
+    return acc.index_add_(0, docs[b.order[sel]].long(),
+                          imps_s[sel].to(torch.int32))

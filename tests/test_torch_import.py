@@ -29,6 +29,7 @@ from repro_torch.kernels.blockmax_score import ops as bm_ops
 from repro_torch.kernels.dense_topk import ops as dt_ops
 from repro_torch.kernels.impact_accumulate import ops as ia_ops
 from repro_torch.kernels.qd_feature_gather import ops as qd_ops
+from repro_torch.kernels.score_histogram import ops as sh_ops
 from repro_torch.serving.system import build_system
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -145,6 +146,19 @@ def _calls():
         (dt_ops, "dense_topk_plain", lambda d: dt_ops.dense_topk(
             torch.empty((3, 32), device=d), torch.empty((1000, 32), device=d),
             128)),
+        (ia_ops, "impact_accumulate_bucketed_plain", lambda d: ia_ops
+         .impact_accumulate_bucketed(
+             torch.empty(**tiles, device=d), torch.empty(**tiles, device=d),
+             torch.empty((1,), dtype=i32, device=d), tile_d=128)),
+        (bm_ops, "blockmax_score_bucketed_plain", lambda d: bm_ops
+         .blockmax_score_bucketed(
+             torch.empty(**tiles, device=d), torch.empty((4, 256), device=d),
+             torch.empty((4,), dtype=i32, device=d),
+             torch.empty((900,), dtype=i32, device=d),
+             torch.empty((900,), device=d),
+             torch.empty((5,), dtype=i32, device=d), tile_d=128)),
+        (sh_ops, "score_histogram_ref", lambda d: sh_ops.score_histogram(
+            torch.empty((1000,), dtype=i32, device=d))),
     ]
 
 
@@ -165,7 +179,9 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch):
     for mod, plain, call in _calls():
         call("meta")
     assert fake.calls == ["impact_accumulate", "blockmax_score",
-                          "qd_feature_gather", "dense_topk"]
+                          "qd_feature_gather", "dense_topk",
+                          "impact_accumulate_bucketed",
+                          "blockmax_score_bucketed", "score_histogram"]
     assert all(n == 1 for n in kernels.LAUNCHES.values())
     kernels.reset_launches()
 
