@@ -7,7 +7,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.  In
 order, it
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
-   seven kernels from the sources under ``src/repro_torch``;
+   nine kernels from the sources under ``src/repro_torch``;
 2. builds the ``paper_200ms`` cascade at one shard of 196,608 docs (the
    per-chip shard of the paper's ISN deployment) on the card, with Stage-0
    and LTR GBRTs of the spec's shapes made here from a NumPy seed (bin
@@ -44,14 +44,50 @@ order, it
    its three kernels must have launched; for ``hybrid_fusion`` lexical,
    dense-only and fused rows must each occur and the dense kernel must
    have launched; prints the wall time per batch and the device memory;
-8. prints the total elapsed time, the ``kernels`` JSON line, then the card
+8. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
+   the retrieval systems are freed:
+   a. cross-check: a 2-layer Yi-6B at full width in fp32, drawn once on
+      the host and copied to the card, runs ``prefill`` on 2 prompts of
+      1,024 tokens and 8 greedy ``decode_step``s on the card (kernels) and
+      the CPU (plain versions), recording every kernel call's inputs, and
+      the card's 8 steps once more from the CPU's prefill cache and
+      tokens.  Both sides sum in other orders, and the kernel scales the
+      logits after the dot, the plain path q before it; under the
+      reference's 1/√L weight scale the softmax is sharply peaked, so at
+      a near-tie a rounding difference moves a whole row of the attention
+      output.  Required: the final caches within 1e-3 of their largest
+      magnitude at any element and 1e-5 of it on average; the last-token
+      logits of the prefill, and of the steps from the same cache, within
+      1e-4 of their largest magnitude; the steps from each device's own
+      cache, which attend over those cache rows, within the caches' 1e-3;
+      equal greedy tokens;
+   b. serve: all 32 layers of Yi-6B in bf16 drawn on the card, a warm-up
+      and then a counted pass of prefill (4 x 4,096 tokens) and 32 greedy
+      decode steps on a 4,608-position cache, the launch counts set to 0
+      before the counted pass; requires one ``flash_attention`` launch a
+      layer and one ``flash_decode`` launch a layer and step, and finite
+      logits; prints the prefill wall, the per-step decode walls, tokens
+      per second and device memory;
+   c. kernel rows: each of the two kernels against the plain path the
+      model would take on the recorded calls (the serve warm-up's layer 0
+      and the cross-check's calls), and against ``attention_ref`` /
+      ``decode_ref`` on edge cases (ragged S and T, causal and not, GQA
+      groups 1/4/8, head widths 16-128, fp32 and bf16, kv_len 0, 1, 512,
+      513, T, the ``decode_32k`` cache of 8 x 32,768), timed beside the
+      plain path and ``scaled_dot_product_attention``.  Tolerances: fp32
+      1e-5 absolute on the edge cases, 5e-3 of the largest output (and
+      1e-5 of it on average) on the recorded fp32 model calls (the same
+      near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
+      above it (a one-ulp rounding flip is 2^-8 to 2^-7 relative);
+9. prints the total elapsed time, the ``kernels`` JSON line, then the card
    line, then the result.
 
 Any failed check exits non-zero without the result line.  ``--n-docs``
-and ``--batches`` shrink the run for a quick check; ``--profile`` adds a
-``torch.profiler`` breakdown of one more served batch of each preset
-(wall, device busy time, host time per cascade stage, busiest device
-kernels).
+and ``--batches`` shrink the retrieval phases for a quick check,
+``--lm-layers``, ``--lm-prompt`` and ``--lm-steps`` the LM phase;
+``--profile`` adds a ``torch.profiler`` breakdown of one more served batch
+of each preset (wall, device busy time, host time per cascade stage,
+busiest device kernels) and of one more LM prefill and decode step.
 """
 
 from __future__ import annotations
@@ -70,6 +106,10 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device-memory rate
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 rate outside the tensor cores
+# H100 SXM dense bf16 tensor-core rate: the least time for attention on
+# bf16 inputs (fp32 inputs are held to the fp32 rate: no TF32, ROADMAP
+# rule b)
+BF16_FLOPS_PER_S = 989e12
 # H100 SXM int32 rate: the published 67 TFLOP/s fp32 is 132 SMs x 128 fp32
 # lanes x 2 (an FMA) x 1.98 GHz; an SM issues 64 int32 operations a clock,
 # a quarter of that.  The kernels' work is int32 compares.
@@ -101,12 +141,30 @@ KERNELS = {
     "score_histogram": dict(
         source="src/repro_torch/kernels/score_histogram/score_histogram.cu",
         replaces="src/repro/kernels/score_histogram/kernel.py:47"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:77"),
+    "flash_decode": dict(
+        source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:136"),
 }
 # the kernels of the per-query Stage-1 path (saat/daat_serve_laxmap), and
 # those of the two served cascades
 LAXMAP_KERNELS = ("impact_accumulate_bucketed", "blockmax_score_bucketed",
                   "score_histogram")
-SERVE_KERNELS = tuple(n for n in KERNELS if n not in LAXMAP_KERNELS)
+LM_KERNELS = ("flash_attention", "flash_decode")
+SERVE_KERNELS = tuple(n for n in KERNELS
+                      if n not in LAXMAP_KERNELS + LM_KERNELS)
+RETRIEVAL_KERNELS = SERVE_KERNELS + LAXMAP_KERNELS
+
+# LM phase (Yi-6B)
+XC_PROMPTS, XC_LEN, XC_STEPS = 2, 1024, 8     # card-vs-CPU cross-check
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 4096, 32   # the bf16 serve
+DECODE_ROOM = 512             # cache positions past the prompt (4,608)
+XC_LOGIT_TOL = 1e-4           # of the largest |logit|, from one cache
+XC_CACHE_TOL, XC_CACHE_MEAN_TOL = 1e-3, 1e-5  # of the largest |cache|
+MODEL_F32_TOL = 5e-3          # of the largest |output|, recorded fp32 calls
+BF16_TOL = 2e-2               # below magnitude 1 absolute, above relative
 
 
 class SmokeFailure(Exception):
@@ -235,24 +293,36 @@ def kernel_modules():
     from repro_torch.kernels.dense_topk import ops as dt
     from repro_torch.kernels.impact_accumulate import ops as ia
     from repro_torch.kernels.qd_feature_gather import ops as qd
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.score_histogram import ops as sh
     return {"impact_accumulate_batched": ia, "blockmax_score_batched": bm,
             "qd_feature_gather_lanes": qd, "dense_topk_tiles": dt,
             "impact_accumulate_bucketed": ia, "blockmax_score_bucketed": bm,
-            "score_histogram": sh}
+            "score_histogram": sh, "flash_attention": fa,
+            "flash_decode": fa}
 
 
 class Recorder:
     """Records the arguments of every call of the named kernel wrappers (the
     main path's real inputs) while passing the call through; with
-    ``largest``, only the call that moves the most bytes is kept."""
+    ``largest``, only the call that moves the most bytes is kept, with
+    ``first`` only the first; ``clone`` records copies of the tensors (the
+    KV cache is written in place later)."""
 
-    def __init__(self, names=SERVE_KERNELS, largest=False):
+    def __init__(self, names=SERVE_KERNELS, largest=False, first=False,
+                 clone=False):
         mods = kernel_modules()
         self.sites = {name: mods[name] for name in names}
         self.calls = {name: [] for name in self.sites}
-        self.largest = largest
+        self.largest, self.first, self.clone = largest, first, clone
         self.orig = {}
+
+    def _copy(self, args):
+        import torch
+        if not self.clone:
+            return args
+        return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args)
 
     def __enter__(self):
         for name, mod in self.sites.items():
@@ -261,7 +331,8 @@ class Recorder:
 
             def wrapped(*args, _fn=fn, _name=name, **kw):
                 calls = self.calls[_name]
-                calls.append((args, kw))
+                if not (self.first and calls):
+                    calls.append((self._copy(args), kw))
                 if self.largest and len(calls) > 1:
                     calls[:] = [max(calls,
                                     key=lambda c: work_of(_name, *c)[0])]
@@ -292,6 +363,34 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+def lm_work(name, args, kw):
+    """(bytes, ops, ops per second) of an attention call.  Prefill: q, k, v
+    read once and the output written once; 4·D operations (two FMAs) per
+    (query, key) pair it must score — the pairs on or below the diagonal
+    when causal.  Decode: the cache positions below kv_len (k and v) read
+    once, q and the output once; 4·D operations per (query head, valid
+    position).  bf16 inputs at the bf16 tensor-core rate, fp32 at the fp32
+    rate."""
+    import torch
+    q = args[0]
+    rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    el = q.element_size()
+    if name == "flash_attention":
+        _, k, v = args
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        pairs = (b * h * sq * (sq + 1) // 2 if kw.get("causal", True)
+                 else b * h * sq * sk)
+        return el * (2 * q.numel() + k.numel() + v.numel()), 4 * pairs * d, \
+            rate
+    _, k, v, kv_len = args
+    b, h, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    valid = int(kv_len.long().clamp(0, t).sum())
+    return (el * (2 * valid * hkv * d + 2 * q.numel()) + 4 * b,
+            4 * h * d * valid, rate)
+
+
 def work_of(name, args, kw):
     """(bytes, ops, ops per second) the call must move and do on these
     inputs.  Lexical and Stage-2 kernels: the live lanes it needs read
@@ -307,6 +406,8 @@ def work_of(name, args, kw):
     fp32 add per lane.  Histogram: the scores read once, the bins written
     once, one int32 increment per score."""
     import torch
+    if name in LM_KERNELS:
+        return lm_work(name, args, kw)
     if name == "impact_accumulate_bucketed":
         docs_b, imps_b, lstar = args
         tile_d = kw["tile_d"]
@@ -557,6 +658,28 @@ def library_calls():
             "blockmax_score_bucketed": score, "score_histogram": histogram}
 
 
+def kernel_row(name, kern, plain, library, args, kw, err, note):
+    """The ``kernels`` line's row of one kernel: the kernel, its plain
+    version and (``library``, a maker of the call, or None) the library
+    call timed on one call's inputs, and the bound of that call."""
+    nbytes, ops, rate = work_of(name, args, kw)
+    ms = cuda_ms(lambda: kern(*args, **kw), REPS)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), REPS // 4)
+    library_ms = cuda_ms(library(args, kw), REPS) if library else None
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    row = dict(name=name, route="cuda", **KERNELS[name], launches=0,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=library_ms)
+    log(f"kernel {name}: {note}, max_abs_err={err}, ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}: {nbytes} B, "
+        f"{ops} ops)")
+    return row
+
+
 def kernel_phase(recorded, k_topk):
     """Every recorded main-path call, and the edge cases: kernel vs plain
     version on the card.  ``k_topk`` is the per-query path's depth, at
@@ -573,7 +696,7 @@ def kernel_phase(recorded, k_topk):
              "blockmax_score_bucketed": "blockmax_score_bucketed_plain",
              "score_histogram": "score_histogram_ref"}
     plain = {name: getattr(mods[name], fn) for name, fn in plain.items()}
-    kern = {name: getattr(mods[name], name) for name in KERNELS}
+    kern = {name: getattr(mods[name], name) for name in RETRIEVAL_KERNELS}
     library = library_calls()
     # the dense top-k is exact on the grid-quantized embeddings; kernel 5
     # adds each doc's lanes in the plain version's order
@@ -583,7 +706,7 @@ def kernel_phase(recorded, k_topk):
     edges = edge_calls(dev)
     lax_edges, flat_errs = laxmap_edge_calls(dev)
     edges.update(lax_edges)
-    for name in KERNELS:
+    for name in RETRIEVAL_KERNELS:
         calls = recorded[name]
         check(calls, f"{name}: the main path never called it")
         err = flat_errs.get(name, 0.0)
@@ -594,24 +717,10 @@ def kernel_phase(recorded, k_topk):
             err = max(err, compare(name, got, want, tols.get(name, 1e-5)))
         # time the largest call of the batch (the one with most work)
         args, kw = max(calls, key=lambda c: work_of(name, *c)[0])
-        nbytes, ops, rate = work_of(name, args, kw)
-        ms = cuda_ms(lambda: kern[name](*args, **kw), REPS)
-        plain_ms = cuda_ms(lambda: plain[name](*args, **kw), REPS // 4)
-        library_ms = (cuda_ms(library[name](args, kw), REPS)
-                      if name in library else None)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / rate * 1e3
-        rows[name] = dict(
-            name=name, route="cuda", **KERNELS[name], launches=0,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=library_ms)
-        log(f"kernel {name}: {len(calls)} main-path calls and "
-            f"{len(edges[name])} edge cases checked, max_abs_err={err}, "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms} "
-            f"bound_ms={rows[name]['bound_ms']:.4f} "
-            f"({rows[name]['bound_by']}: {nbytes} B, {ops} ops)")
+        rows[name] = kernel_row(name, kern[name], plain[name],
+                                library.get(name), args, kw, err,
+                                f"{len(calls)} main-path calls and "
+                                f"{len(edges[name])} edge cases checked")
         if name == "score_histogram":
             (s,) = args
             got = sh.histogram_topk(s, k=k_topk)
@@ -628,14 +737,61 @@ def kernel_phase(recorded, k_topk):
     return rows
 
 
+def run_profiled(fn):
+    """``fn()`` under ``torch.profiler`` (host and card activity), ending
+    in a synchronize: (the profile, the wall ms with the profiler on)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    return prof, wall_ms
+
+
+def log_profile(prof, wall_ms, label="profile"):
+    """Device busy time (the union of the card's own kernel and copy
+    intervals; the host-side aten ops that launched them are not counted
+    again) and idle share of the wall, host time per ``stage:``
+    annotation, and the busiest device kernels."""
+    from torch.autograd import DeviceType
+
+    def on_card(e):
+        # the card's kernels and copies; the stage annotations are mirrored
+        # onto the device timeline too, spanning whole stages
+        return (e.device_type == DeviceType.CUDA
+                and not e.key.startswith("stage:"))
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if on_card(e))
+    check(spans, f"{label}: the profiler recorded no device activity")
+    busy_us, last = 0.0, spans[0][0]
+    for start, end in spans:
+        busy_us += max(0.0, end - max(start, last))
+        last = max(last, end)
+    busy_ms = busy_us / 1e3
+    log(f"{label}: wall {wall_ms:.2f} ms (profiler on), device busy "
+        f"{busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f} % of wall, "
+        f"idle {100 - 100 * busy_ms / wall_ms:.1f} % ({len(spans)} device "
+        f"events)")
+    events = prof.key_averages()
+    for e in events:
+        if e.key.startswith("stage:") and e.cpu_time_total > 0:
+            log(f"{label}: {e.key} host {e.cpu_time_total / 1e3:.2f} ms")
+    device = [e for e in events if on_card(e)]
+    for e in sorted(device, key=lambda e: e.device_time_total,
+                    reverse=True)[:12]:
+        log(f"{label}: device {e.device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<4d} {e.key[:70]}")
+
+
 def profile_batch(system, terms, mask, topics):
     """One more served batch under ``torch.profiler``: wall time, device
-    busy time (the union of the card's own kernel and copy intervals; the
-    host-side aten ops that launched them are not counted again), host
-    time per cascade stage, and the busiest device kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    busy time, host time per cascade stage, and the busiest device
+    kernels."""
+    from torch.profiler import record_function
 
     stages = ("stage0", "_stage1_full", "stage2") + (
         ("_stage1_dense",) if system.dense is not None else ())
@@ -645,43 +801,379 @@ def profile_batch(system, terms, mask, topics):
                 return _fn(*a, **kw)
         setattr(system, name, timed)
     try:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            system.serve(terms, mask, topics)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
+        prof, wall_ms = run_profiled(lambda: system.serve(terms, mask,
+                                                          topics))
     finally:
         for name in stages:
             delattr(system, name)
+    log_profile(prof, wall_ms)
 
-    def on_card(e):
-        # the card's kernels and copies; the stage annotations are mirrored
-        # onto the device timeline too, spanning whole stages
-        return (e.device_type == DeviceType.CUDA
-                and not e.key.startswith("stage:"))
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if on_card(e))
-    check(spans, "profile: the profiler recorded no device activity")
-    busy_us, last = 0.0, spans[0][0]
-    for start, end in spans:
-        busy_us += max(0.0, end - max(start, last))
-        last = max(last, end)
-    busy_ms = busy_us / 1e3
-    log(f"profile: wall {wall_ms:.2f} ms (profiler on), device busy "
-        f"{busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f} % of wall, "
-        f"idle {100 - 100 * busy_ms / wall_ms:.1f} % ({len(spans)} device "
-        f"events)")
-    events = prof.key_averages()
-    for e in events:
-        if e.key.startswith("stage:") and e.cpu_time_total > 0:
-            log(f"profile: {e.key} host {e.cpu_time_total / 1e3:.2f} ms")
-    device = [e for e in events if on_card(e)]
-    for e in sorted(device, key=lambda e: e.device_time_total,
-                    reverse=True)[:12]:
-        log(f"profile: device {e.device_time_total / 1e3:8.3f} ms "
-            f"x{e.count:<4d} {e.key[:70]}")
+
+# ---------------------------------------------------------------------------
+# LM phase (Yi-6B prefill and KV-cache decode)
+# ---------------------------------------------------------------------------
+
+def tree_to(tree, device):
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _sync(x):
+    import torch
+    if x.is_cuda:
+        torch.cuda.synchronize()
+
+
+def prefill_padded(params, c, tokens):
+    """``prefill`` of ``tokens`` (B, S) with its cache padded by
+    ``DECODE_ROOM`` positions: (last-token logits, cache, wall s); the wall
+    on the host clock, ending in a synchronize on the card."""
+    import torch
+    from repro_torch.models import transformer as tr
+    _sync(tokens)
+    t = time.perf_counter()
+    logits, cache = tr.prefill(params, c, tokens)
+    _sync(tokens)
+    wall = time.perf_counter() - t
+    return logits, {k: torch.nn.functional.pad(v, (0, 0, 0, DECODE_ROOM))
+                    for k, v in cache.items()}, wall
+
+
+def decode_greedy(params, c, logits, cache, s, steps, feed=None):
+    """``steps`` decode steps from a prefill of length ``s``: each feeds the
+    argmax of the last logits (or ``feed[i]``).  Returns (the logits of
+    each step, the tokens fed, the cache, the step walls s)."""
+    import torch
+    from repro_torch.models import transformer as tr
+    kv = torch.full((logits.shape[0],), s, dtype=torch.int32,
+                    device=logits.device)
+    outs, fed, walls = [], [], []
+    for i in range(steps):
+        nxt = (feed[i].to(logits.device) if feed is not None
+               else logits[:, :c.vocab].argmax(dim=-1).to(torch.int32))
+        fed.append(nxt)
+        _sync(kv)
+        t = time.perf_counter()
+        logits, cache = tr.decode_step(params, c, nxt, cache, kv)
+        _sync(kv)
+        walls.append(time.perf_counter() - t)
+        outs.append(logits)
+        kv = kv + 1
+    return outs, fed, cache, walls
+
+
+def greedy(params, c, tokens, steps):
+    """A prefill then ``steps`` greedy steps: (the logits of the prefill and
+    of each step, the tokens fed, the final cache, the prefill wall, the
+    step walls)."""
+    logits, cache, t_prefill = prefill_padded(params, c, tokens)
+    outs, fed, cache, walls = decode_greedy(params, c, logits, cache,
+                                            tokens.shape[1], steps)
+    return [logits] + outs, fed, cache, t_prefill, walls
+
+
+def _rel_err(a, b):
+    """max |a - b| over the largest |b| (a moved to b's device)."""
+    return float((a.to(b.device) - b).abs().max() / b.abs().max())
+
+
+def lm_cross_check(dev, xc_len):
+    """A 2-layer Yi-6B at full width in fp32, drawn on the host, on the card
+    and on the CPU: prefill of 2 prompts and ``XC_STEPS`` greedy steps on
+    each, and the card's steps once more from the CPU's prefill cache and
+    tokens, which separates the decode path's own error from what it
+    inherits from the caches (module docstring, 8a).  Every number is
+    logged before any check.  Returns the card's recorded kernel calls."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import yi_6b
+    from repro_torch.models import transformer as tr
+    c = dataclasses.replace(yi_6b.CONFIG, n_layers=2, dtype="float32")
+    t = time.perf_counter()
+    host = tr.init(c, seed=SEED, device="cpu")
+    card = tree_to(host, dev)
+    log(f"LM cross-check: 2-layer Yi-6B fp32, {c.param_count()} parameters, "
+        f"drawn on the host and copied in {time.perf_counter() - t:.1f} s")
+    toks = np.random.RandomState(SEED).randint(0, c.vocab,
+                                               (XC_PROMPTS, xc_len))
+    toks = torch.from_numpy(toks)
+    with Recorder(LM_KERNELS, clone=True) as rec:
+        a_outs, a_fed, a_cache, a_prefill, _ = greedy(card, c, toks.to(dev),
+                                                      XC_STEPS)
+    t = time.perf_counter()
+    logits, cache, _ = prefill_padded(host, c, toks)
+    start = {k: v.clone() for k, v in cache.items()}
+    b_outs, b_fed, b_cache, _ = decode_greedy(host, c, logits, cache, xc_len,
+                                              XC_STEPS)
+    log(f"LM cross-check: card prefill {a_prefill:.3f} s (first call), CPU "
+        f"prefill and {XC_STEPS} steps {time.perf_counter() - t:.1f} s")
+    iso_outs, _, _, _ = decode_greedy(card, c, logits.to(dev),
+                                      tree_to(start, dev), xc_len, XC_STEPS,
+                                      feed=b_fed)
+    e_prefill = _rel_err(a_outs[0], logits)
+    e_own = [_rel_err(x, y) for x, y in zip(a_outs[1:], b_outs)]
+    e_iso = [_rel_err(x, y) for x, y in zip(iso_outs, b_outs)]
+    same = [torch.equal(x.cpu(), y) for x, y in zip(a_fed, b_fed)]
+    log(f"LM cross-check: logits error over their largest magnitude: "
+        f"prefill {e_prefill:.3e}; steps from each device's own cache "
+        + " ".join(f"{e:.3e}" for e in e_own)
+        + "; steps from the CPU's cache " + " ".join(f"{e:.3e}" for e in e_iso))
+    cache_errs = {}
+    for key in ("k", "v"):
+        y = b_cache[key]
+        d = (a_cache[key].cpu() - y).abs()
+        top = float(y.abs().max())
+        cache_errs[key] = (float(d.max()) / top, float(d.mean()) / top)
+        log(f"LM cross-check: {key} cache max error {cache_errs[key][0]:.3e},"
+            f" mean {cache_errs[key][1]:.3e} of its largest magnitude "
+            f"{top:.2f}")
+    log(f"LM cross-check: greedy tokens equal per step {same} "
+        f"({[x.tolist() for x in a_fed]})")
+    check(e_prefill <= XC_LOGIT_TOL, f"LM cross-check: prefill logits differ "
+          f"by {e_prefill} of their largest magnitude")
+    check(max(e_iso) <= XC_LOGIT_TOL, "LM cross-check: decode logits from "
+          "the same cache differ beyond the tolerance")
+    check(max(e_own) <= XC_CACHE_TOL, "LM cross-check: decode logits from "
+          "each device's cache differ beyond the caches' tolerance")
+    check(all(same), "LM cross-check: greedy tokens differ")
+    for key, (e, mean) in cache_errs.items():
+        check(e <= XC_CACHE_TOL and mean <= XC_CACHE_MEAN_TOL,
+              f"LM cross-check: {key} cache differs by {e} (mean {mean})")
+    return rec.calls
+
+
+def lm_serve(dev, n_layers, prompt, steps, profile=False):
+    """Yi-6B (``n_layers`` of it) in bf16 on the card: a warm-up pass
+    (prefill of ``LM_BATCH`` prompts, ``steps`` greedy steps) that records
+    layer 0's kernel calls, then the counted pass (module docstring, 8b);
+    with ``profile``, one more prefill and one more step under
+    ``torch.profiler``.  Returns (launches of the counted pass, the
+    recorded calls)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import yi_6b
+    from repro_torch.models import transformer as tr
+    c = dataclasses.replace(yi_6b.CONFIG, n_layers=n_layers)
+    t = time.perf_counter()
+    params = tr.init(c, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"LM serve: Yi-6B, {n_layers} layers, bf16, {c.param_count()} "
+        f"parameters drawn on the card in {time.perf_counter() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated()} B in use")
+    toks = np.random.RandomState(SEED + 1).randint(0, c.vocab,
+                                                   (LM_BATCH, prompt))
+    toks = torch.from_numpy(toks).to(dev)
+    with Recorder(LM_KERNELS, first=True, clone=True) as rec:
+        warm = greedy(params, c, toks, steps)
+    log(f"LM serve: warm-up prefill {warm[3]:.3f} s, first step "
+        f"{1e3 * warm[4][0]:.2f} ms")
+    del warm
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    outs, fed, cache, t_prefill, walls = greedy(params, c, toks, steps)
+    launches = dict(kernels.LAUNCHES)
+    log(f"LM serve: launches {launches}")
+    check(all(bool(torch.isfinite(o).all()) for o in outs),
+          "LM serve: non-finite logits")
+    check(launches["flash_attention"] == n_layers,
+          f"LM serve: flash_attention launched {launches['flash_attention']}"
+          f" times, not once a layer ({n_layers})")
+    check(launches["flash_decode"] == n_layers * steps,
+          f"LM serve: flash_decode launched {launches['flash_decode']} "
+          f"times, not once a layer and step ({n_layers * steps})")
+    med = statistics.median(walls)
+    log(f"LM serve: prefill {LM_BATCH} x {prompt} tokens in "
+        f"{t_prefill:.4f} s ({LM_BATCH * prompt / t_prefill:.0f} tokens/s)")
+    log(f"LM serve: decode ms per step ({LM_BATCH} sequences, cache "
+        f"{prompt + DECODE_ROOM}): "
+        + " ".join(f"{1e3 * w:.2f}" for w in walls)
+        + f" (median {1e3 * med:.3f}, {LM_BATCH / med:.1f} tokens/s)")
+    log(f"LM serve: device memory {torch.cuda.memory_allocated()} B in use, "
+        f"{torch.cuda.max_memory_allocated()} B peak in the counted pass; "
+        f"cache {sum(v.numel() * v.element_size() for v in cache.values())} "
+        f"B; last greedy tokens {fed[-1].tolist()}")
+    if profile:
+        prof, wall = run_profiled(lambda: tr.prefill(params, c, toks))
+        log_profile(prof, wall, "profile LM prefill")
+        nxt = outs[-1][:, :c.vocab].argmax(dim=-1).to(torch.int32)
+        kv = torch.full((LM_BATCH,), prompt + steps, dtype=torch.int32,
+                        device=dev)
+        prof, wall = run_profiled(lambda: tr.decode_step(params, c, nxt,
+                                                         cache, kv))
+        log_profile(prof, wall, "profile LM decode step")
+    return launches, rec.calls
+
+
+def lm_edge_calls(dev):
+    """Seeded edge inputs of the two attention kernels, drawn on the card:
+    ragged S (200, 700) causal and not, Sq != Sk, GQA groups 1, 4 and 8,
+    head widths 16 to 128, fp32 and bf16, a strided q/k/v as the model
+    passes them; for decode ragged T, kv_len 0, 1, 512, 513 and T, and
+    ``decode_32k``'s cache (B = 8, T = 32,768, bf16).  Lists of (args,
+    kwargs) per kernel."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+
+    def randn(shape, dt, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale).to(dt)
+
+    prefill = []
+    for b, h, hkv, sq, sk, d, dt, causal in (
+            (1, 8, 8, 200, 200, 64, f32, True),
+            (2, 8, 2, 200, 200, 128, bf16, False),
+            (1, 16, 2, 700, 700, 128, f32, True),
+            (1, 8, 1, 700, 700, 64, bf16, True),
+            (2, 4, 1, 700, 700, 64, f32, False),
+            (1, 8, 2, 100, 300, 64, f32, False),
+            (1, 4, 4, 64, 64, 16, f32, True),
+            (1, 4, 2, 96, 96, 32, bf16, True)):
+        prefill.append(((randn((b, h, sq, d), dt, 0.4),
+                      randn((b, hkv, sk, d), dt, 0.4),
+                      randn((b, hkv, sk, d), dt)), dict(causal=causal)))
+    # (B, S, H, D) viewed as (B, H, S, D), as the model passes q, k, v
+    prefill.append(((randn((1, 300, 8, 64), f32, 0.4).transpose(1, 2),
+                  randn((1, 300, 2, 64), f32, 0.4).transpose(1, 2),
+                  randn((1, 300, 2, 64), f32).transpose(1, 2)),
+                 dict(causal=True)))
+    decode = []
+    for b, h, hkv, t, d, dt, lens in (
+            (4, 8, 8, 700, 64, f32, (1, 512, 513, 700)),
+            (4, 32, 4, 1500, 128, bf16, (1, 512, 513, 1500)),
+            (2, 16, 4, 4608, 128, f32, (4608, 4097)),
+            (2, 8, 2, 300, 32, f32, (0, 300)),
+            (2, 8, 2, 520, 16, bf16, (2, 519))):
+        decode.append(((randn((b, h, d), dt, 0.4),
+                     randn((b, hkv, t, d), dt, 0.4), randn((b, hkv, t, d), dt),
+                     torch.tensor(lens, dtype=torch.int32, device=dev)), {}))
+    return {"flash_attention": prefill, "flash_decode": decode}
+
+
+def decode_32k_call(dev):
+    """``decode_32k``'s decode attention at B = 8 (cut from 128): a bf16
+    cache of 32,768 positions (537 MB of k and v), kv_len drawn in [1,
+    32,768] with one row full."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    b, h, hkv, t, d = 8, 32, 4, 32768, 128
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(
+            scale).to(torch.bfloat16)
+    kv_len = torch.randint(1, t + 1, (b,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    kv_len[-1] = t
+    return (randn((b, h, d), 0.4), randn((b, hkv, t, d), 0.4),
+            randn((b, hkv, t, d)), kv_len), {}
+
+
+def compare_attention(label, got, want, model=False):
+    """Max abs error of an attention output against its plain version or
+    oracle; raises beyond the stated tolerance (module docstring, 8c)."""
+    import torch
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{label}: kernel output {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{label}: non-finite output")
+    err = (g - w).abs()
+    e = float(err.max())
+    if got.dtype == torch.bfloat16:
+        rel = float((err / w.abs().clamp(min=1.0)).max())
+        check(rel <= BF16_TOL, f"{label}: bf16 error {rel} of max(1, |want|)"
+              f" > {BF16_TOL}")
+    elif model:
+        top = float(w.abs().max())
+        check(e <= MODEL_F32_TOL * top and float(err.mean()) <= 1e-5 * top,
+              f"{label}: max error {e} (mean {float(err.mean())}) against "
+              f"the largest output {top}")
+    else:
+        check(e <= 1e-5, f"{label}: max abs error {e} > 1e-05")
+    return e
+
+
+def attention_library_calls():
+    """The one PyTorch call computing each LM kernel's function:
+    ``scaled_dot_product_attention`` with GQA (and, for decode, a boolean
+    mask of the valid positions, built outside the timed call); a
+    yardstick, used nowhere in the port."""
+    import torch
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def prefill(args, kw):
+        q, k, v = args
+        return lambda: sdpa(q, k, v, is_causal=kw.get("causal", True),
+                            scale=kw.get("scale"), enable_gqa=True)
+
+    def decode(args, kw):
+        q, k, v, kv_len = args
+        pos = torch.arange(k.shape[2], device=k.device)
+        mask = (pos[None, :] < kv_len[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        return lambda: sdpa(q4, k, v, attn_mask=mask, scale=kw.get("scale"),
+                            enable_gqa=True)
+
+    return {"flash_attention": prefill, "flash_decode": decode}
+
+
+def lm_kernel_phase(recorded, launches, dev):
+    """Rows of kernels 8 and 9 (module docstring, 8c): every recorded call
+    against the model's plain path, the edge cases against the oracles, the
+    ``decode_32k`` call, and the timing of the largest recorded call."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import attention as attn
+    kern = {"flash_attention": fa.flash_attention,
+            "flash_decode": fa.flash_decode}
+    plain = {"flash_attention": attn.chunked_attention_plain,
+             "flash_decode": attn.gqa_decode_plain}
+    oracle = {"flash_attention": fa.attention_ref,
+              "flash_decode": fa.decode_ref}
+    library = attention_library_calls()
+    edges = lm_edge_calls(dev)
+    rows = {}
+    for name in LM_KERNELS:
+        calls = recorded[name]
+        check(calls, f"{name}: the LM path never called it")
+        err = 0.0
+        for args, kw in calls:
+            got = kern[name](*args, **kw)
+            want = plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            err = max(err, compare_attention(name, got, want, model=True))
+        for args, kw in edges[name]:
+            got = kern[name](*args, **kw)
+            want = oracle[name](*args, **kw)
+            torch.cuda.synchronize()
+            err = max(err, compare_attention(f"{name} edge", got, want))
+        note = f"{len(calls)} model calls and {len(edges[name])} edge cases"
+        if name == "flash_decode":
+            args, kw = decode_32k_call(dev)
+            err = max(err, compare_attention(
+                "flash_decode decode_32k", kern[name](*args, **kw),
+                oracle[name](*args, **kw)))
+            torch.cuda.synchronize()
+            kernel_row(name, kern[name], plain[name], library[name], args,
+                       kw, err, "decode_32k (B 8, T 32,768, bf16; timed "
+                       "apart from the row's call)")
+            note += " and decode_32k"
+        args, kw = max(calls, key=lambda c: work_of(name, *c)[0])
+        rows[name] = kernel_row(name, kern[name], plain[name], library[name],
+                                args, kw, err, note + " checked")
+        rows[name]["launches"] = launches[name]
+    return rows
+
+
+def lm_phase(dev, n_layers, prompt, steps, profile=False):
+    """The LM phase (module docstring, 8): cross-check, serve, kernel rows.
+    Returns the rows of kernels 8 and 9."""
+    xc_calls = lm_cross_check(dev, min(XC_LEN, prompt))
+    launches, serve_calls = lm_serve(dev, n_layers, prompt, steps, profile)
+    recorded = {n: serve_calls[n] + xc_calls[n] for n in LM_KERNELS}
+    return lm_kernel_phase(recorded, launches, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -896,7 +1388,7 @@ def serve_phase(system, ql, n_batches, n_docs, spec):
     return launches, routes, dense
 
 
-def run(n_docs, n_batches, profile=False):
+def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     import torch
     from repro_torch import kernels
     from repro_torch.configs.cascade_presets import get_preset
@@ -1014,6 +1506,11 @@ def run(n_docs, n_batches, profile=False):
         for system in (gpu, gpu_h):
             log(f"profile of {system.cascade_spec.name}:")
             profile_batch(system, ql.terms[sl], ql.mask[sl], ql.topic[sl])
+
+    # the LM serving path, with the retrieval systems freed
+    del gpu, gpu_h, recorded, lax_calls, rec, rec_h
+    torch.cuda.empty_cache()
+    rows.update(lm_phase(dev, lm_layers, lm_prompt, lm_steps, profile))
     return card, rows
 
 
@@ -1021,6 +1518,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=196_608)
     ap.add_argument("--batches", type=int, default=8)
+    ap.add_argument("--lm-layers", type=int, default=32,
+                    help="Yi-6B layers served in the LM phase")
+    ap.add_argument("--lm-prompt", type=int, default=LM_PROMPT,
+                    help="prompt tokens a request in the LM phase")
+    ap.add_argument("--lm-steps", type=int, default=LM_STEPS,
+                    help="greedy decode steps in the LM phase")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (torch.profiler)")
     args = ap.parse_args(argv)
@@ -1040,7 +1543,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        card, rows = run(args.n_docs, args.batches, args.profile)
+        card, rows = run(args.n_docs, args.batches, args.lm_layers,
+                         args.lm_prompt, args.lm_steps, args.profile)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1

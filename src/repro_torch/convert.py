@@ -11,6 +11,9 @@ CPU):
 * a reference ``LTRModel`` (``.model``) → ``repro_torch.ltr.ranker.LTRModel``;
 * the reference's two-tower params (``recsys.init(REDUCED, key)``: tables
   and per-side MLP dicts) → ``repro_torch.models.recsys.TwoTower``;
+* the reference's LM params (``transformer.init(c, key)``: ``embed``,
+  ``unembed``, ``final_ln``, stacked ``layers``) → the port's tree of
+  tensors (``repro_torch.models.transformer``);
 * a reference ``CascadeSpec`` → the port's, through its JSON.
 """
 
@@ -24,6 +27,7 @@ from repro_torch.core.trees import Forest
 from repro_torch.isn.backend import resolve_device
 from repro_torch.ltr.ranker import LTRModel
 from repro_torch.models.recsys import SIDES, TwoTower
+from repro_torch.models.transformer import LAYER_KEYS
 from repro_torch.serving.spec import CascadeSpec
 
 
@@ -66,6 +70,30 @@ def two_tower_params(ref_params, device=None) -> TwoTower:
         params[f"{side}_mlp"] = {k: np.asarray(v, np.float32)
                                  for k, v in ref_params[f"{side}_mlp"].items()}
     return TwoTower(params, device)
+
+
+def _lm_leaf(a, device, dtype) -> torch.Tensor:
+    """One leaf as a tensor of ``dtype`` (default: its own; a bfloat16 leaf
+    passes through float32, which holds it exactly)."""
+    a = np.asarray(a)
+    own = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+    t = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+    return t.to(device=device, dtype=dtype or own)
+
+
+def lm_params(ref_params, device=None, dtype=None) -> dict:
+    """The reference's dense-GQA LM parameter tree as the port's, on
+    ``device``, each leaf read by key (``dtype`` None keeps each leaf's)."""
+    dev = resolve_device(device)
+    lay = ref_params["layers"]
+    layers = {group: {k: _lm_leaf(lay[group][k], dev, dtype) for k in keys}
+              for group, keys in LAYER_KEYS.items()}
+    for k in ("ln1", "ln2"):
+        layers[k] = _lm_leaf(lay[k], dev, dtype)
+    params = {k: _lm_leaf(ref_params[k], dev, dtype)
+              for k in ("embed", "unembed", "final_ln")}
+    params["layers"] = layers
+    return params
 
 
 def cascade_spec(ref_spec) -> CascadeSpec:

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for the first-stage (lexical and dense) and
-Stage-2 hot loops, and for the per-query Stage-1 path.
+Stage-2 hot loops, for the per-query Stage-1 path, and for the LM serving
+path's attention (prefill and KV-cache decode).
 
 Each package holds ``<name>.cu`` (the CUDA C++ kernel and a plain-C launch
 function) and ``ops.py`` (the wrapper the engines import, and the plain
@@ -26,7 +27,7 @@ from pathlib import Path
 KERNEL_NAMES = ("impact_accumulate_batched", "blockmax_score_batched",
                 "qd_feature_gather_lanes", "dense_topk_tiles",
                 "impact_accumulate_bucketed", "blockmax_score_bucketed",
-                "score_histogram")
+                "score_histogram", "flash_attention", "flash_decode")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _HERE = Path(__file__).resolve().parent
@@ -35,7 +36,8 @@ SOURCES = (_HERE / "binding.cpp",
            _HERE / "blockmax_score" / "blockmax_score.cu",
            _HERE / "qd_feature_gather" / "qd_feature_gather.cu",
            _HERE / "dense_topk" / "dense_topk.cu",
-           _HERE / "score_histogram" / "score_histogram.cu")
+           _HERE / "score_histogram" / "score_histogram.cu",
+           _HERE / "flash_attention" / "flash_attention.cu")
 BUILD_DIR = _HERE.parents[2] / "build" / "kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 

@@ -1,4 +1,4 @@
-// Python binding of the serving kernels.
+// Python binding of the serving and LM attention kernels.
 //
 // The only source of the extension that includes PyTorch's headers; the
 // kernels live in plain CUDA files with C launch functions.  Each entry
@@ -43,6 +43,17 @@ void blockmax_score_bucketed_launch(const int* docs_b, const float* scores_b,
                                     cudaStream_t stream);
 void score_histogram_launch(const int* scores, int* out, long long n,
                             int n_bins, cudaStream_t stream);
+int flash_attention_launch(const void* q, const void* k, const void* v,
+                           void* out, int bf16, int b, int h, int hkv,
+                           int sq, int sk, int d, long long qsb,
+                           long long qsh, long long qss, long long ksb,
+                           long long ksh, long long kss, long long vsb,
+                           long long vsh, long long vss, float scale,
+                           int causal, cudaStream_t stream);
+int flash_decode_launch(const void* q, const void* k, const void* v,
+                        const int* kv_len, float* acc, float* m, float* l,
+                        int bf16, int b, int h, int hkv, int t_len, int d,
+                        float scale, cudaStream_t stream);
 
 namespace {
 
@@ -150,6 +161,39 @@ void score_histogram(const torch::Tensor& scores, torch::Tensor out) {
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
+                     const torch::Tensor& v, torch::Tensor out, double scale,
+                     bool causal) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int rc = flash_attention_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      q.scalar_type() == at::kBFloat16 ? 1 : 0, static_cast<int>(q.size(0)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(2)), static_cast<int>(k.size(2)),
+      static_cast<int>(q.size(3)), q.stride(0), q.stride(1), q.stride(2),
+      k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
+      v.stride(2), static_cast<float>(scale), causal ? 1 : 0,
+      c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc == 0, "flash_attention: launch refused (", rc, ")");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void flash_decode(const torch::Tensor& q, const torch::Tensor& k,
+                  const torch::Tensor& v, const torch::Tensor& kv_len,
+                  torch::Tensor acc, torch::Tensor m, torch::Tensor l,
+                  double scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int rc = flash_decode_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr<int>(),
+      acc.data_ptr<float>(), m.data_ptr<float>(), l.data_ptr<float>(),
+      q.scalar_type() == at::kBFloat16 ? 1 : 0, static_cast<int>(q.size(0)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(k.size(2)), static_cast<int>(q.size(2)),
+      static_cast<float>(scale), c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc == 0, "flash_decode: launch refused (", rc, ")");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -167,4 +211,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "single-query DAAT scoring over a bucketed layout, in lane order");
   m.def("score_histogram", &score_histogram,
         "histogram of int32 scores (negatives ignored, highs clipped)");
+  m.def("flash_attention", &flash_attention,
+        "tiled online-softmax attention (GQA, causal or not), fp32 math");
+  m.def("flash_decode", &flash_decode,
+        "split-KV single-token attention partials (acc, m, l) per split");
 }

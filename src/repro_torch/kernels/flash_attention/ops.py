@@ -1,0 +1,214 @@
+"""Attention of the LM serving path: the kernel wrappers, their plain
+versions, and the public ops the model code calls.
+
+``flash_attention`` launches the prefill kernel of ``flash_attention.cu``
+for CUDA tensors and runs ``attention_ref`` for CPU tensors;
+``flash_decode`` launches the split-KV decode kernel and merges its
+per-split partials, or runs ``decode_ref`` for CPU tensors.  Both compute
+the functions of the Pallas kernels ``flash_attention`` and
+``flash_decode`` (repro/kernels/flash_attention/kernel.py), which the
+reference holds to the same two oracles (``ref.py``): softmax attention in
+fp32 math with -1e30 masking, output in q's type, GQA by kv head
+``h // (H / Hkv)``.  Unlike the Pallas wrappers they take any sequence or
+cache length (those drop a ragged tail of S or T).
+
+``attention`` and ``decode_attention`` are the reference's public ops
+(``ops.py``); its ``use_kernel`` switch is replaced by the port's rule: the
+tensors' device decides.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)   # head widths the kernels are built for
+SPLIT = 512                     # cache positions a decode block reduces
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, Hkv, S, D) -> (B, H, S, D) by GQA head-group repeat."""
+    return torch.repeat_interleave(k, n_heads // k.shape[1], dim=1)
+
+
+def attention_ref(q, k, v, causal: bool = True, scale: float | None = None):
+    """(B, H, S, D) x (B, Hkv, S, D) -> (B, H, S, D), fp32 math; the plain
+    version of the prefill kernel (the reference's ``attention_ref``)."""
+    b, h, s, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
+    k = _expand_kv(k, h).float()
+    v = _expand_kv(v, h).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * scale
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask[None, None], logits, NEG_INF)
+    w = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    w = w / w.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v).to(q.dtype)
+
+
+def decode_ref(q, k, v, kv_len=None, scale: float | None = None):
+    """Single-token decode: q (B, H, D), caches (B, Hkv, T, D) -> (B, H, D);
+    positions >= ``kv_len`` (B,) masked.  The plain version of the decode
+    kernel (the reference's ``decode_ref``)."""
+    b, h, d = q.shape
+    t = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    k = _expand_kv(k, h).float()
+    v = _expand_kv(v, h).float()
+    logits = torch.einsum("bhd,bhkd->bhk", q.float(), k) * scale
+    if kv_len is not None:
+        pos = torch.arange(t, device=q.device)
+        logits = torch.where(pos[None, None, :] < kv_len[:, None, None],
+                             logits, NEG_INF)
+    w = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    w = w / w.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhk,bhkd->bhd", w, v).to(q.dtype)
+
+
+def decode_partials_plain(q, k, v, kv_len, scale: float | None = None):
+    """The decode kernel's per-split partials in plain PyTorch: for each
+    512-position split, (acc (B, H, n_sp, D), m, l (B, H, n_sp)) of its
+    masked scores; a split wholly at or past ``kv_len[b] > 0`` gives
+    (0, -1e30, 0), as the kernel writes without reading it."""
+    b, h, d = q.shape
+    t = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    n_sp = -(-t // SPLIT)
+    pad = n_sp * SPLIT - t
+    k = torch.nn.functional.pad(_expand_kv(k, h).float(), (0, 0, 0, pad))
+    v = torch.nn.functional.pad(_expand_kv(v, h).float(), (0, 0, 0, pad))
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), k) * scale
+    pos = torch.arange(n_sp * SPLIT, device=q.device)
+    s = torch.where(pos[None, None, :] < kv_len[:, None, None], s, NEG_INF)
+    # the padding past T is no position of the split: weight exactly 0
+    s = torch.where(pos < t, s, -torch.inf).reshape(b, h, n_sp, SPLIT)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bhsk,bhskd->bhsd", p, v.reshape(b, h, n_sp, SPLIT, d))
+    l = p.sum(dim=-1)
+    start = torch.arange(n_sp, device=q.device) * SPLIT
+    skip = ((kv_len[:, None] > 0) & (start[None, :] >= kv_len[:, None]))
+    skip = skip[:, None, :].expand(b, h, n_sp)
+    acc = torch.where(skip[..., None], 0.0, acc)
+    return acc, torch.where(skip, NEG_INF, m), torch.where(skip, 0.0, l)
+
+
+def merge_splits(acc, m, l, dtype):
+    """Stable log-sum-exp merge of per-split partials, as the reference's
+    ``flash_decode`` wrapper merges them: Σ e^{m_i - m*} acc_i / Σ e^{m_i -
+    m*} l_i, the denominator floored at 1e-30."""
+    m_star = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - m_star)
+    denom = torch.clamp((w * l).sum(dim=-1, keepdim=True), min=1e-30)
+    return ((acc * w[..., None]).sum(dim=2) / denom).to(dtype)
+
+
+def _check_kernel_inputs(name: str, q, k, v) -> None:
+    """Raise on what the kernels do not take: a dtype other than fp32 or
+    bf16 (or mixed), a head width outside ``HEAD_DIMS``, a v width other
+    than q's, a non-unit stride along the head width."""
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{name}: dtype must be float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k and v must share one dtype")
+    d = q.shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head width {d} is not one the kernel is "
+                         f"built for {HEAD_DIMS}")
+    if k.shape[-1] != d or v.shape[-1] != d:
+        raise ValueError(f"{name}: k and v widths must equal q's ({d}), got "
+                         f"{k.shape[-1]} and {v.shape[-1]}")
+    for key, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {key} must be a CUDA tensor")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {key} must have unit stride along D")
+        if t.device != q.device:
+            raise ValueError(f"{name}: all tensors must be on one device")
+
+
+def _check_heads(name: str, h: int, hkv: int) -> None:
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"{name}: {h} query heads are not a multiple of "
+                         f"{hkv} kv heads")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None):
+    """Attention of q (B, H, Sq, D) over k, v (B, Hkv, Sk, D) -> (B, H, Sq,
+    D) in q's type: the prefill kernel for CUDA tensors, ``attention_ref``
+    for CPU tensors.  Causal mode needs Sq == Sk."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be 4-D")
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    _check_heads("flash_attention", h, hkv)
+    if k.shape[0] != b or v.shape[:3] != k.shape[:3]:
+        raise ValueError("flash_attention: k and v must be (B, Hkv, Sk, .)")
+    if kernels.on_cpu(q, k, v):
+        return attention_ref(q, k, v, causal=causal, scale=scale)
+    if causal and sq != sk:
+        raise ValueError(f"flash_attention: causal mode needs Sq == Sk, got "
+                         f"{sq} and {sk}")
+    _check_kernel_inputs("flash_attention", q, k, v)
+    if sq < 1 or sk < 1:
+        raise ValueError("flash_attention: empty sequence")
+    if b > 65535 or h > 65535:
+        raise ValueError("flash_attention: B and H must fit the grid")
+    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    kernels.extension().flash_attention(
+        q, k, v, out, float(scale if scale is not None else d ** -0.5),
+        bool(causal))
+    kernels.LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_decode(q, k, v, kv_len, *, scale: float | None = None):
+    """Single-token attention of q (B, H, D) over caches (B, Hkv, T, D),
+    positions >= ``kv_len`` (B,) masked -> (B, H, D) in q's type: the
+    split-KV decode kernel and the log-sum-exp merge for CUDA tensors,
+    ``decode_ref`` for CPU tensors."""
+    if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_decode: q must be 3-D, k and v 4-D")
+    b, h, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    _check_heads("flash_decode", h, hkv)
+    if k.shape[0] != b or v.shape[:3] != k.shape[:3]:
+        raise ValueError("flash_decode: k and v must be (B, Hkv, T, .)")
+    if tuple(kv_len.shape) != (b,):
+        raise ValueError(f"flash_decode: kv_len must be ({b},)")
+    if kernels.on_cpu(q, k, v, kv_len):
+        return decode_ref(q, k, v, kv_len, scale=scale)
+    _check_kernel_inputs("flash_decode", q, k, v)
+    for key, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"flash_decode: {key} must be contiguous")
+    if t < 1 or b > 65535 or h > 65535:
+        raise ValueError("flash_decode: empty cache, or B / H beyond the "
+                         "grid")
+    kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    n_sp = -(-t // SPLIT)
+    acc = torch.empty((b, h, n_sp, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, n_sp), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, h, n_sp), dtype=torch.float32, device=q.device)
+    kernels.extension().flash_decode(
+        q, k, v, kv_len, acc, m, l,
+        float(scale if scale is not None else d ** -0.5))
+    kernels.LAUNCHES["flash_decode"] += 1
+    return merge_splits(acc, m, l, q.dtype)
+
+
+def attention(q, k, v, causal: bool = True):
+    """The reference's ``ops.attention``: the kernel on the card, the plain
+    version on the CPU."""
+    return flash_attention(q, k, v, causal=causal)
+
+
+def decode_attention(q, k, v, kv_len):
+    """The reference's ``ops.decode_attention``."""
+    return flash_decode(q, k, v, kv_len)

@@ -1,0 +1,256 @@
+"""The port's attention kernel wrappers against the reference's.
+
+``flash_attention`` / ``flash_decode`` of ``repro_torch.kernels.
+flash_attention.ops`` (on CPU tensors they run their plain versions
+``attention_ref`` / ``decode_ref``) against the reference's Pallas kernels
+run with ``interpret=True`` at the shapes of ``tests/test_kernels.py``, the
+public ``attention`` / ``decode_attention`` against the reference's ops,
+and, at a ragged sequence or cache length, against the reference's oracles
+— where the reference's kernels drop the tail (ROADMAP §3).  The decode
+kernel's split partials and their log-sum-exp merge (the wrapper's code on
+the card) are held to ``decode_ref`` through their plain version.
+
+Tolerances: fp32 2e-5 and bf16 2e-2, the reference's own bars
+(``tests/test_kernels.py``); the two sides sum in other orders.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+from repro.kernels.flash_attention import ops as ref_ops
+from repro.kernels.flash_attention.kernel import (
+    flash_attention as ref_flash_attention)
+from repro.kernels.flash_attention.kernel import (
+    flash_decode as ref_flash_decode)
+from repro.kernels.flash_attention.ref import attention_ref as ref_attention
+from repro.kernels.flash_attention.ref import decode_ref as ref_decode
+from repro_torch import kernels
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.models import attention as attn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: several pytest workers run side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(a, dtype):
+    """``a`` as a JAX array of ``dtype`` and the same values as a torch
+    tensor of the matching dtype (bf16 values pass through fp32 exactly)."""
+    j = jnp.asarray(a, dtype)
+    t = torch.from_numpy(np.array(j, np.float32))
+    return j, t.to(torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+def _qkv(b, h, hkv, s, d, dtype, seed, sk=None):
+    rng = np.random.RandomState(seed)
+    sk = sk or s
+    q = _pair(rng.randn(b, h, s, d) * 0.4, dtype)
+    k = _pair(rng.randn(b, hkv, sk, d) * 0.4, dtype)
+    v = _pair(rng.randn(b, hkv, sk, d), dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,dtype", [
+    (1, 4, 4, 128, 32, jnp.float32),     # MHA
+    (2, 8, 2, 256, 64, jnp.float32),     # GQA 4:1
+    (1, 8, 1, 128, 64, jnp.bfloat16),    # MQA bf16
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_reference_kernel(b, h, hkv, s, d, dtype,
+                                                  causal):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(b, h, hkv, s, d, dtype, h * s)
+    want = ref_flash_attention(qj, kj, vj, causal=causal, tq=64, tk=64,
+                               interpret=True)
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    tol = 2e-2 if dtype == jnp.bfloat16 else 2e-5
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,tk", [
+    (2, 8, 2, 256, 64, 64),
+    (1, 4, 4, 512, 32, 128),
+])
+def test_flash_decode_matches_reference_kernel(b, h, hkv, s, d, tk):
+    rng = np.random.RandomState(s)
+    qj, qt = _pair(rng.randn(b, h, d) * 0.4, jnp.float32)
+    kj, kt = _pair(rng.randn(b, hkv, s, d) * 0.4, jnp.float32)
+    vj, vt = _pair(rng.randn(b, hkv, s, d), jnp.float32)
+    kv_len = rng.randint(1, s, b).astype(np.int32)
+    want = ref_flash_decode(qj, kj, vj, jnp.asarray(kv_len), tk=tk,
+                            interpret=True)
+    got = ops.flash_decode(qt, kt, vt, torch.from_numpy(kv_len))
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_public_ops_match_reference_ops(dtype):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(2, 8, 2, 96, 32, dtype, 5)
+    tol = 2e-2 if dtype == jnp.bfloat16 else 2e-5
+    for causal in (True, False):
+        np.testing.assert_allclose(
+            _f32(ops.attention(qt, kt, vt, causal=causal)),
+            _f32(ref_ops.attention(qj, kj, vj, causal=causal)), atol=tol)
+    kv_len = np.asarray([1, 96], np.int32)
+    np.testing.assert_allclose(
+        _f32(ops.decode_attention(qt[:, :, 0], kt, vt,
+                                  torch.from_numpy(kv_len))),
+        _f32(ref_ops.decode_attention(qj[:, :, 0], kj, vj,
+                                      jnp.asarray(kv_len))), atol=tol)
+
+
+@pytest.mark.parametrize("s", [200, 700])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_sequence_matches_oracle(s, causal):
+    """Sequences that are not a multiple of the tile: the port's function
+    equals the reference's oracle; the reference's kernel returns NaN rows
+    past the last full tile, and (causal) the rows before it right, since
+    they see no dropped key (ROADMAP §3, fault 1)."""
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(1, 2, 1, s, 32, jnp.float32, s)
+    want = np.asarray(ref_attention(qj, kj, vj, causal=causal))
+    got = _f32(ops.flash_attention(qt, kt, vt, causal=causal))
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    assert np.isfinite(got).all()
+    kern = np.asarray(ref_flash_attention(qj, kj, vj, causal=causal,
+                                          interpret=True))
+    full = s // 128 * 128
+    if causal:
+        np.testing.assert_allclose(kern[:, :, :full], want[:, :, :full],
+                                   atol=2e-5)
+    assert np.isnan(kern[:, :, full:]).all()
+
+
+def test_ragged_cache_matches_oracle():
+    """A cache of 700 positions: the port equals ``decode_ref``; the
+    reference's kernel ignores the positions past its last full 512-split
+    (ROADMAP §3, fault 2): row 0 (kv_len 650) is off, row 1 (100) right."""
+    rng = np.random.RandomState(700)
+    qj, qt = _pair(rng.randn(2, 4, 32) * 0.4, jnp.float32)
+    kj, kt = _pair(rng.randn(2, 2, 700, 32) * 0.4, jnp.float32)
+    vj, vt = _pair(rng.randn(2, 2, 700, 32), jnp.float32)
+    kv_len = np.asarray([650, 100], np.int32)
+    want = np.asarray(ref_decode(qj, kj, vj, jnp.asarray(kv_len)))
+    got = _f32(ops.flash_decode(qt, kt, vt, torch.from_numpy(kv_len)))
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    kern = np.asarray(ref_flash_decode(qj, kj, vj, jnp.asarray(kv_len),
+                                       interpret=True))
+    assert np.abs(kern[0] - want[0]).max() > 1e-2
+    np.testing.assert_allclose(kern[1], want[1], atol=2e-5)
+
+
+@pytest.mark.parametrize("t,lens", [
+    (700, (1, 650)), (1024, (512, 513)), (1500, (1500, 1024)),
+    (512, (0, 511)), (4608, (4097, 4608)),
+])
+def test_split_partials_merge_to_the_oracle(t, lens):
+    """The card's decode path — per-split partials (skipped splits past
+    kv_len carry (0, -1e30, 0)) merged by log-sum-exp in the wrapper —
+    equals ``decode_ref``, through the kernel's plain version; kv_len 0
+    gives the reference's uniform average."""
+    rng = np.random.RandomState(t)
+    qj, qt = _pair(rng.randn(2, 8, 32) * 0.4, jnp.float32)
+    kj, kt = _pair(rng.randn(2, 2, t, 32) * 0.4, jnp.float32)
+    vj, vt = _pair(rng.randn(2, 2, t, 32), jnp.float32)
+    kv_len = np.asarray(lens, np.int32)
+    acc, m, l = ops.decode_partials_plain(qt, kt, vt,
+                                          torch.from_numpy(kv_len))
+    n_sp = -(-t // ops.SPLIT)
+    assert acc.shape == (2, 8, n_sp, 32) and m.shape == l.shape == (2, 8,
+                                                                    n_sp)
+    got = _f32(ops.merge_splits(acc, m, l, torch.float32))
+    want = np.asarray(ref_decode(qj, kj, vj, jnp.asarray(kv_len)))
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    for row, n in enumerate(lens):
+        skipped = np.arange(n_sp) * ops.SPLIT >= n if n > 0 else np.zeros(
+            n_sp, bool)
+        assert (l[row][:, skipped] == 0).all()
+        assert (m[row][:, skipped] == ops.NEG_INF).all()
+
+
+class _FakeExtension:
+    """Stands in for the compiled module: records launches."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append(name)
+        return launch
+
+
+def _meta_calls():
+    def empty(*shape):
+        return torch.empty(shape, device="meta")
+    kv_len = torch.empty((2,), dtype=torch.int32, device="meta")
+    return [
+        lambda: ops.flash_attention(empty(2, 8, 64, 64), empty(2, 2, 64, 64),
+                                    empty(2, 2, 64, 64)),
+        lambda: attn.chunked_attention(empty(2, 8, 64, 64),
+                                       empty(2, 2, 64, 64),
+                                       empty(2, 2, 64, 64), causal=True),
+        lambda: ops.flash_decode(empty(2, 8, 64), empty(2, 2, 600, 64),
+                                 empty(2, 2, 600, 64), kv_len),
+        lambda: attn.gqa_decode(empty(2, 8, 64), empty(2, 2, 600, 64),
+                                empty(2, 2, 600, 64), kv_len),
+    ]
+
+
+def test_device_tensors_never_reach_the_plain_versions(monkeypatch):
+    fake = _FakeExtension()
+    monkeypatch.setattr(kernels, "extension", lambda: fake)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version reached")
+    for name in ("attention_ref", "decode_ref", "decode_partials_plain"):
+        monkeypatch.setattr(ops, name, refuse)
+    monkeypatch.setattr(attn, "_repeat_kv", refuse)
+    # tensors off the CPU that are not CUDA tensors: refused, no plain path
+    for call in _meta_calls():
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    assert fake.calls == []
+    # past the device check the wrappers launch their kernels and count
+    monkeypatch.setattr(ops, "_check_kernel_inputs", lambda *a: None)
+    kernels.reset_launches()
+    outs = [call() for call in _meta_calls()]
+    assert fake.calls == ["flash_attention"] * 2 + ["flash_decode"] * 2
+    assert kernels.LAUNCHES["flash_attention"] == 2
+    assert kernels.LAUNCHES["flash_decode"] == 2
+    assert [tuple(o.shape) for o in outs] == [(2, 8, 64, 64)] * 2 + [
+        (2, 8, 64)] * 2
+    kernels.reset_launches()
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(d=48), "head width"),
+    (dict(dv=32), "widths must equal"),
+    (dict(dtype=torch.float16), "dtype"),
+    (dict(sk=128), "Sq == Sk"),
+])
+def test_card_wrapper_refuses_what_the_kernel_does_not_take(case, match):
+    d, sk = case.get("d", 64), case.get("sk", 64)
+    dt = case.get("dtype", torch.float32)
+    q = torch.empty((1, 4, 64, d), dtype=dt, device="meta")
+    k = torch.empty((1, 2, sk, d), dtype=dt, device="meta")
+    v = torch.empty((1, 2, sk, case.get("dv", d)), dtype=dt, device="meta")
+    with pytest.raises(ValueError, match=match):
+        ops.flash_attention(q, k, v, causal=True)
+    if "sk" not in case:
+        with pytest.raises(ValueError, match=match):
+            ops.flash_decode(q[:, :, 0], k, v,
+                             torch.ones(1, dtype=torch.int32, device="meta"))

@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels
+from repro_torch.configs import yi_6b
 from repro_torch.configs.cascade_presets import get_preset
 from repro_torch.index.builder import build_index
 from repro_torch.index.corpus import CorpusParams, build_corpus
@@ -27,9 +28,11 @@ from repro_torch.index.postings import shard_from_index
 from repro_torch.isn.backend import resolve_backend, resolve_device
 from repro_torch.kernels.blockmax_score import ops as bm_ops
 from repro_torch.kernels.dense_topk import ops as dt_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.impact_accumulate import ops as ia_ops
 from repro_torch.kernels.qd_feature_gather import ops as qd_ops
 from repro_torch.kernels.score_histogram import ops as sh_ops
+from repro_torch.models import transformer
 from repro_torch.serving.system import build_system
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -57,7 +60,7 @@ assert not bad, bad
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 25
+    assert n_modules >= 53
 
 
 def test_sources_import_nothing_of_jax_or_reference():
@@ -95,6 +98,10 @@ def test_entry_points_refuse_without_cuda(no_cuda):
         build_system(spec, index, corpus=corpus)
     system = build_system(spec, index, corpus=corpus, device="cpu")
     assert system.device == torch.device("cpu") and system.backend == "torch"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init(yi_6b.REDUCED, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_cache(yi_6b.REDUCED, 1, 8)
 
 
 def test_resolve_backend_follows_the_device():
@@ -159,6 +166,15 @@ def _calls():
              torch.empty((5,), dtype=i32, device=d), tile_d=128)),
         (sh_ops, "score_histogram_ref", lambda d: sh_ops.score_histogram(
             torch.empty((1000,), dtype=i32, device=d))),
+        (fa_ops, "attention_ref", lambda d: fa_ops.flash_attention(
+            torch.empty((1, 4, 64, 64), device=d),
+            torch.empty((1, 2, 64, 64), device=d),
+            torch.empty((1, 2, 64, 64), device=d))),
+        (fa_ops, "decode_ref", lambda d: fa_ops.flash_decode(
+            torch.empty((1, 4, 64), device=d),
+            torch.empty((1, 2, 600, 64), device=d),
+            torch.empty((1, 2, 600, 64), device=d),
+            torch.empty((1,), dtype=i32, device=d))),
     ]
 
 
@@ -175,13 +191,15 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch):
     assert fake.calls == []
     # past the argument checks the wrapper launches its kernel and counts it
     monkeypatch.setattr(kernels, "check_cuda_args", lambda *a: None)
+    monkeypatch.setattr(fa_ops, "_check_kernel_inputs", lambda *a: None)
     kernels.reset_launches()
     for mod, plain, call in _calls():
         call("meta")
     assert fake.calls == ["impact_accumulate", "blockmax_score",
                           "qd_feature_gather", "dense_topk",
                           "impact_accumulate_bucketed",
-                          "blockmax_score_bucketed", "score_histogram"]
+                          "blockmax_score_bucketed", "score_histogram",
+                          "flash_attention", "flash_decode"]
     assert all(n == 1 for n in kernels.LAUNCHES.values())
     kernels.reset_launches()
 
