@@ -7,7 +7,9 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.  In
 order, it
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
-   nine kernels from the sources under ``src/repro_torch``;
+   kernels from the sources under ``src/repro_torch``: one for each of the
+   nine TPU kernels, kernel 8 as two (bf16 on the tensor cores, fp32 on the
+   CUDA cores);
 2. builds the ``paper_200ms`` cascade at one shard of 196,608 docs (the
    per-chip shard of the paper's ISN deployment) on the card, with Stage-0
    and LTR GBRTs of the spec's shapes made here from a NumPy seed (bin
@@ -72,9 +74,16 @@ order, it
       model would take on the recorded calls (the serve warm-up's layer 0
       and the cross-check's calls), and against ``attention_ref`` /
       ``decode_ref`` on edge cases (ragged S and T, causal and not, GQA
-      groups 1/4/8, head widths 16-128, fp32 and bf16, kv_len 0, 1, 512,
-      513, T, the ``decode_32k`` cache of 8 x 32,768), timed beside the
-      plain path and ``scaled_dot_product_attention``.  Tolerances: fp32
+      groups 1/4/8, head widths 16-128, fp32 and bf16, the bf16 kernel's
+      tile edges S = 1, 127, 128, 129 and 4,097, kv_len 0, 1, 512, 513, T,
+      the ``decode_32k`` cache of 8 x 32,768), every bf16 prefill output
+      also against ``attention_tc_plain`` (the tensor-core kernel's
+      arithmetic: 128 x 128 tiles, P as bf16 hi + lo), timed beside the
+      plain path and ``scaled_dot_product_attention``; kernel 8's row is
+      the bf16 kernel on the recorded bf16 call, with its TFLOP/s and
+      share of the bound beside SDPA's on a line before, and the fp32
+      kernel is timed on the largest fp32 recorded call on a line of its
+      own.  Tolerances: fp32
       1e-5 absolute on the edge cases, 5e-3 of the largest output (and
       1e-5 of it on average) on the recorded fp32 model calls (the same
       near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
@@ -141,8 +150,11 @@ KERNELS = {
     "score_histogram": dict(
         source="src/repro_torch/kernels/score_histogram/score_histogram.cu",
         replaces="src/repro/kernels/score_histogram/kernel.py:47"),
+    # the row reports the bf16 kernel on the recorded bf16 call; the fp32
+    # kernel of flash_attention.cu is checked and timed on its own line
     "flash_attention": dict(
-        source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        source="src/repro_torch/kernels/flash_attention/"
+               "flash_attention_sm90.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:77"),
     "flash_decode": dict(
         source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
@@ -1009,8 +1021,10 @@ def lm_edge_calls(dev):
     """Seeded edge inputs of the two attention kernels, drawn on the card:
     ragged S (200, 700) causal and not, Sq != Sk, GQA groups 1, 4 and 8,
     head widths 16 to 128, fp32 and bf16, a strided q/k/v as the model
-    passes them; for decode ragged T, kv_len 0, 1, 512, 513 and T, and
-    ``decode_32k``'s cache (B = 8, T = 32,768, bf16).  Lists of (args,
+    passes them; in bf16 also the tensor-core kernel's 128-row and 128-key
+    tile edges (S = 1, 127, 128, 129, 4,097), D = 16 and 128, Sq != Sk and
+    a strided GQA-8 view; for decode ragged T, kv_len 0, 1, 512, 513 and T,
+    and ``decode_32k``'s cache (B = 8, T = 32,768, bf16).  Lists of (args,
     kwargs) per kernel."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1029,15 +1043,24 @@ def lm_edge_calls(dev):
             (2, 4, 1, 700, 700, 64, f32, False),
             (1, 8, 2, 100, 300, 64, f32, False),
             (1, 4, 4, 64, 64, 16, f32, True),
-            (1, 4, 2, 96, 96, 32, bf16, True)):
+            (1, 4, 2, 96, 96, 32, bf16, True),
+            (1, 8, 1, 1, 1, 128, bf16, True),
+            (2, 8, 8, 127, 127, 16, bf16, True),
+            (1, 8, 1, 128, 128, 128, bf16, True),
+            (2, 8, 2, 129, 129, 128, bf16, False),
+            (2, 4, 4, 129, 129, 16, bf16, True),
+            (1, 8, 1, 4097, 4097, 128, bf16, True),
+            (1, 8, 2, 100, 300, 128, bf16, False)):
         prefill.append(((randn((b, h, sq, d), dt, 0.4),
                       randn((b, hkv, sk, d), dt, 0.4),
                       randn((b, hkv, sk, d), dt)), dict(causal=causal)))
     # (B, S, H, D) viewed as (B, H, S, D), as the model passes q, k, v
-    prefill.append(((randn((1, 300, 8, 64), f32, 0.4).transpose(1, 2),
-                  randn((1, 300, 2, 64), f32, 0.4).transpose(1, 2),
-                  randn((1, 300, 2, 64), f32).transpose(1, 2)),
-                 dict(causal=True)))
+    for b, s, h, hkv, d, dt in ((1, 300, 8, 2, 64, f32),
+                                (2, 300, 32, 4, 128, bf16)):
+        prefill.append(((randn((b, s, h, d), dt, 0.4).transpose(1, 2),
+                         randn((b, s, hkv, d), dt, 0.4).transpose(1, 2),
+                         randn((b, s, hkv, d), dt).transpose(1, 2)),
+                        dict(causal=True)))
     decode = []
     for b, h, hkv, t, d, dt, lens in (
             (4, 8, 8, 700, 64, f32, (1, 512, 513, 700)),
@@ -1070,6 +1093,12 @@ def decode_32k_call(dev):
             randn((b, hkv, t, d)), kv_len), {}
 
 
+def bf16_rel_err(got, want):
+    """max |got - want| / max(1, |want|): what ``BF16_TOL`` bounds."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+
+
 def compare_attention(label, got, want, model=False):
     """Max abs error of an attention output against its plain version or
     oracle; raises beyond the stated tolerance (module docstring, 8c)."""
@@ -1082,7 +1111,7 @@ def compare_attention(label, got, want, model=False):
     err = (g - w).abs()
     e = float(err.max())
     if got.dtype == torch.bfloat16:
-        rel = float((err / w.abs().clamp(min=1.0)).max())
+        rel = bf16_rel_err(got, want)
         check(rel <= BF16_TOL, f"{label}: bf16 error {rel} of max(1, |want|)"
               f" > {BF16_TOL}")
     elif model:
@@ -1121,8 +1150,12 @@ def attention_library_calls():
 
 def lm_kernel_phase(recorded, launches, dev):
     """Rows of kernels 8 and 9 (module docstring, 8c): every recorded call
-    against the model's plain path, the edge cases against the oracles, the
-    ``decode_32k`` call, and the timing of the largest recorded call."""
+    against the model's plain path, the edge cases against the oracles,
+    every bf16 prefill call also against ``attention_tc_plain`` (the
+    tensor-core kernel's own arithmetic), the ``decode_32k`` call, and the
+    timing of the largest recorded call; for kernel 8 also the fp32
+    CUDA-core kernel on the largest fp32 recorded call, on a line of its
+    own."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import attention as attn
@@ -1138,17 +1171,41 @@ def lm_kernel_phase(recorded, launches, dev):
     for name in LM_KERNELS:
         calls = recorded[name]
         check(calls, f"{name}: the LM path never called it")
-        err = 0.0
+        errs = {torch.float32: 0.0, torch.bfloat16: 0.0}   # by dtype
+        worst_bf16 = 0.0     # of max(1, |want|), what BF16_TOL bounds
         for args, kw in calls:
             got = kern[name](*args, **kw)
             want = plain[name](*args, **kw)
             torch.cuda.synchronize()
-            err = max(err, compare_attention(name, got, want, model=True))
+            if got.dtype == torch.bfloat16:
+                worst_bf16 = max(worst_bf16, bf16_rel_err(got, want))
+            errs[got.dtype] = max(
+                errs[got.dtype], compare_attention(name, got, want, True),
+                tc_plain_error(name, got, args, kw))
+            if name == "flash_attention" and got.dtype == torch.bfloat16:
+                once = fa.attention_tc_plain(*args, **kw, p_halves=1)
+                log(f"flash_attention {tuple(args[0].shape)}: the kernel "
+                    f"(P as bf16 hi + lo) gives {bf16_rel_err(got, want)} "
+                    f"of max(1, |want|) against the plain path; P rounded "
+                    f"once to bf16 would give {bf16_rel_err(once, want)} "
+                    f"(BF16_TOL {BF16_TOL}); largest |want| "
+                    f"{float(want.float().abs().max())}")
         for args, kw in edges[name]:
             got = kern[name](*args, **kw)
             want = oracle[name](*args, **kw)
             torch.cuda.synchronize()
-            err = max(err, compare_attention(f"{name} edge", got, want))
+            if got.dtype == torch.bfloat16:
+                worst_bf16 = max(worst_bf16, bf16_rel_err(got, want))
+            errs[got.dtype] = max(
+                errs[got.dtype],
+                compare_attention(f"{name} edge", got, want),
+                tc_plain_error(f"{name} edge", got, args, kw))
+        if name == "flash_attention":
+            log(f"flash_attention bf16: worst error of max(1, |want|) over "
+                f"the recorded and edge calls {worst_bf16}")
+        # kernel 8's row holds the bf16 kernel; kernel 9 has one kernel
+        err = (errs[torch.bfloat16] if name == "flash_attention"
+               else max(errs.values()))
         note = f"{len(calls)} model calls and {len(edges[name])} edge cases"
         if name == "flash_decode":
             args, kw = decode_32k_call(dev)
@@ -1160,11 +1217,46 @@ def lm_kernel_phase(recorded, launches, dev):
                        kw, err, "decode_32k (B 8, T 32,768, bf16; timed "
                        "apart from the row's call)")
             note += " and decode_32k"
-        args, kw = max(calls, key=lambda c: work_of(name, *c)[0])
+        def largest(dtype=None):
+            return max((c for c in calls
+                        if dtype is None or c[0][0].dtype == dtype),
+                       key=lambda c: work_of(name, *c)[0])
+        if name == "flash_attention":
+            args, kw = largest(torch.float32)
+            kernel_row(name, kern[name], plain[name], library[name], args,
+                       kw, errs[torch.float32], "fp32 CUDA-core kernel "
+                       "(flash_attention.cu) on the largest fp32 recorded "
+                       "call, all fp32 calls checked")
+            args, kw = largest(torch.bfloat16)
+        else:
+            args, kw = largest()
         rows[name] = kernel_row(name, kern[name], plain[name], library[name],
                                 args, kw, err, note + " checked")
         rows[name]["launches"] = launches[name]
+        if name == "flash_attention":
+            row = rows[name]
+            ops = work_of(name, args, kw)[1]
+            log(f"kernel flash_attention ({args[0].dtype}, "
+                f"{tuple(args[0].shape)}, tensor cores): "
+                f"{ops / row['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; "
+                f"SDPA {ops / row['library_ms'] / 1e9:.1f} TFLOP/s, "
+                f"{100 * row['bound_ms'] / row['library_ms']:.1f} %")
     return rows
+
+
+def tc_plain_error(label, got, args, kw):
+    """For a bf16 prefill call: the kernel's output against
+    ``attention_tc_plain``, the tensor-core kernel's arithmetic in plain
+    PyTorch, under ``BF16_TOL`` (0 for any other call)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    if not label.startswith("flash_attention") or \
+            got.dtype != torch.bfloat16:
+        return 0.0
+    want = fa.attention_tc_plain(*args, **kw)
+    torch.cuda.synchronize()
+    return compare_attention(f"{label} (tensor-core plain)", got, want)
 
 
 def lm_phase(dev, n_layers, prompt, steps, profile=False):

@@ -3,8 +3,10 @@ Stage-2 hot loops, for the per-query Stage-1 path, and for the LM serving
 path's attention (prefill and KV-cache decode).
 
 Each package holds ``<name>.cu`` (the CUDA C++ kernel and a plain-C launch
-function) and ``ops.py`` (the wrapper the engines import, and the plain
-PyTorch version of the same function over the same layout).  A wrapper
+function; ``flash_attention`` has a second, ``flash_attention_sm90.cu``,
+for bf16 prefill on the tensor cores) and ``ops.py`` (the wrapper the
+engines import, and the plain PyTorch version of the same function over
+the same layout).  A wrapper
 launches the kernel for CUDA tensors and runs the plain version for CPU
 tensors; there is no fallback between the two.
 
@@ -37,7 +39,8 @@ SOURCES = (_HERE / "binding.cpp",
            _HERE / "qd_feature_gather" / "qd_feature_gather.cu",
            _HERE / "dense_topk" / "dense_topk.cu",
            _HERE / "score_histogram" / "score_histogram.cu",
-           _HERE / "flash_attention" / "flash_attention.cu")
+           _HERE / "flash_attention" / "flash_attention.cu",
+           _HERE / "flash_attention" / "flash_attention_sm90.cu")
 BUILD_DIR = _HERE.parents[2] / "build" / "kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 

@@ -44,12 +44,18 @@ void blockmax_score_bucketed_launch(const int* docs_b, const float* scores_b,
 void score_histogram_launch(const int* scores, int* out, long long n,
                             int n_bins, cudaStream_t stream);
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int bf16, int b, int h, int hkv,
-                           int sq, int sk, int d, long long qsb,
-                           long long qsh, long long qss, long long ksb,
-                           long long ksh, long long kss, long long vsb,
-                           long long vsh, long long vss, float scale,
-                           int causal, cudaStream_t stream);
+                           void* out, int b, int h, int hkv, int sq, int sk,
+                           int d, long long qsb, long long qsh, long long qss,
+                           long long ksb, long long ksh, long long kss,
+                           long long vsb, long long vsh, long long vss,
+                           float scale, int causal, cudaStream_t stream);
+int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
+                                void* out, int b, int h, int hkv, int sq,
+                                int sk, int d, long long qsb, long long qsh,
+                                long long qss, long long ksb, long long ksh,
+                                long long kss, long long vsb, long long vsh,
+                                long long vss, float scale, int causal,
+                                cudaStream_t stream);
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const int* kv_len, float* acc, float* m, float* l,
                         int bf16, int b, int h, int hkv, int t_len, int d,
@@ -161,21 +167,40 @@ void score_histogram(const torch::Tensor& scores, torch::Tensor out) {
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+using PrefillLaunch = int (*)(const void*, const void*, const void*, void*,
+                             int, int, int, int, int, int, long long,
+                             long long, long long, long long, long long,
+                             long long, long long, long long, long long,
+                             float, int, cudaStream_t);
+
+void prefill(PrefillLaunch launch, const char* name, const torch::Tensor& q,
+             const torch::Tensor& k, const torch::Tensor& v,
+             torch::Tensor out, double scale, bool causal) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int rc = launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(k.size(1)), static_cast<int>(q.size(2)),
+      static_cast<int>(k.size(2)), static_cast<int>(q.size(3)), q.stride(0),
+      q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+      v.stride(0), v.stride(1), v.stride(2), static_cast<float>(scale),
+      causal ? 1 : 0, c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc == 0, name, ": launch refused (", rc, ")");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
                      const torch::Tensor& v, torch::Tensor out, double scale,
                      bool causal) {
-  const c10::cuda::CUDAGuard guard(q.device());
-  const int rc = flash_attention_launch(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-      q.scalar_type() == at::kBFloat16 ? 1 : 0, static_cast<int>(q.size(0)),
-      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
-      static_cast<int>(q.size(2)), static_cast<int>(k.size(2)),
-      static_cast<int>(q.size(3)), q.stride(0), q.stride(1), q.stride(2),
-      k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
-      v.stride(2), static_cast<float>(scale), causal ? 1 : 0,
-      c10::cuda::getCurrentCUDAStream());
-  TORCH_CHECK(rc == 0, "flash_attention: launch refused (", rc, ")");
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  prefill(flash_attention_launch, "flash_attention", q, k, v, out, scale,
+          causal);
+}
+
+void flash_attention_sm90(const torch::Tensor& q, const torch::Tensor& k,
+                          const torch::Tensor& v, torch::Tensor out,
+                          double scale, bool causal) {
+  prefill(flash_attention_sm90_launch, "flash_attention_sm90", q, k, v, out,
+          scale, causal);
 }
 
 void flash_decode(const torch::Tensor& q, const torch::Tensor& k,
@@ -212,7 +237,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("score_histogram", &score_histogram,
         "histogram of int32 scores (negatives ignored, highs clipped)");
   m.def("flash_attention", &flash_attention,
-        "tiled online-softmax attention (GQA, causal or not), fp32 math");
+        "tiled online-softmax attention on fp32 inputs (GQA, causal or not)");
+  m.def("flash_attention_sm90", &flash_attention_sm90,
+        "online-softmax attention on bf16 inputs, wgmma fed by TMA");
   m.def("flash_decode", &flash_decode,
         "split-KV single-token attention partials (acc, m, l) per split");
 }

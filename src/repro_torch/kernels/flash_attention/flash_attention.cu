@@ -3,14 +3,15 @@
 //
 // Replaces the two Pallas kernels of repro/kernels/flash_attention/kernel.py:
 //
-// * `flash_attention` (body `_flash_kernel`): softmax(q kᵀ · scale) v for
-//   q (B, H, Sq, D) and k, v (B, Hkv, Sk, D), causal or not, GQA through
-//   the kv head h / (H / Hkv), fp32 math on fp32 or bf16 inputs, output in
-//   q's type.  The TPU kernel walks KV tiles along a sequential grid axis
-//   and carries (m, l, acc) in VMEM from one grid step to the next; blocks
-//   on the card run in no order, so here one block owns a 64-row query
-//   tile of one (b, h) and loops over the KV tiles itself, stopping at the
-//   diagonal when causal.  Q, each K tile (transposed) and then each V
+// * `flash_attention` (body `_flash_kernel`) on fp32 inputs:
+//   softmax(q kᵀ · scale) v for q (B, H, Sq, D) and k, v (B, Hkv, Sk, D),
+//   causal or not, GQA through the kv head h / (H / Hkv), fp32 math and
+//   output.  bf16 inputs go to the tensor-core kernel of
+//   flash_attention_sm90.cu.  The TPU kernel walks KV tiles along a
+//   sequential grid axis and carries (m, l, acc) in VMEM from one grid
+//   step to the next; blocks on the card run in no order, so here one
+//   block owns a 64-row query tile of one (b, h) and loops over the KV
+//   tiles itself, stopping at the diagonal when causal.  Q, each K tile (transposed) and then each V
 //   tile are staged in shared memory as fp32, K and V read straight from
 //   the kv head's rows, so no GQA copy is made.  Each of the 256 threads
 //   holds a 4 x 4 block of the 64 x 64 score tile and a 4-row x 4·⌈D/64⌉
@@ -35,13 +36,13 @@
 //   every split is read, which gives the reference's uniform average.
 //
 // What bounds them on this card.  Prefill is operations: 4·B·H·Sq·Sk·D
-// (halved when causal) — at the Yi-6B prefill shape (4 x 32 x 4,096² x
-// 128, bf16) 0.56 ms of bf16 tensor-core time a layer.  This kernel runs
-// on the fp32 CUDA cores (67 TFLOP/s) with shared-memory operands, so it
-// sits far above that bound; its design keeps every operand of the inner
-// products in shared memory or registers (16 FMAs per two 16-byte shared
-// loads in the score loop) and skips the tiles above the diagonal.  The
-// tensor-core design (wgmma, TMA) is later work.  Decode is bytes: the
+// (halved when causal), held on fp32 inputs to the 67 TFLOP/s of the fp32
+// CUDA cores, since the tensor cores would take fp32 only as TF32 (ROADMAP
+// rule b).  The kernel keeps every operand of the inner products in
+// shared memory or registers (16 FMAs per two 16-byte shared loads in the
+// score loop) and skips the tiles above the diagonal.  The bf16 prefill
+// of the served model runs on the tensor cores (wgmma fed by TMA) in
+// flash_attention_sm90.cu.  Decode is bytes: the
 // valid part of the cache read once (33.6 MB a layer at 4 x 4,100 Yi-6B
 // positions, 10 µs).  Here each block re-reads its kv head's split once
 // per query head of the group (8x for Yi-6B), through L2.
@@ -65,9 +66,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Reductions over the 16 lanes that share a row (lanes 0-15 or 16-31).
 __device__ __forceinline__ float row_max(float x) {
@@ -400,23 +398,19 @@ int decode_t(int d, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Prefill attention: one 256-thread block per (64-row query tile, h, b).
-// q, k, v: fp32 or bf16 (`bf16`), unit stride along D, the given element
-// strides along (B, H, S); out (B, H, Sq, D) contiguous, q's type.
+// Prefill attention on fp32 inputs: one 256-thread block per (64-row query
+// tile, h, b).  q, k, v: fp32, unit stride along D, the given element
+// strides along (B, H, S); out (B, H, Sq, D) contiguous fp32.
 // Returns 0 when launched (the caller checks the launch), -1 for a head
 // width it is not built for, or the CUDA error of the shared-memory
 // attribute.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int bf16, int b, int h, int hkv,
-                           int sq, int sk, int d, long long qsb,
-                           long long qsh, long long qss, long long ksb,
-                           long long ksh, long long kss, long long vsb,
-                           long long vsh, long long vss, float scale,
-                           int causal, cudaStream_t stream) {
+                           void* out, int b, int h, int hkv, int sq, int sk,
+                           int d, long long qsb, long long qsh, long long qss,
+                           long long ksb, long long ksh, long long kss,
+                           long long vsb, long long vsh, long long vss,
+                           float scale, int causal, cudaStream_t stream) {
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
-  if (bf16)
-    return attention_t<__nv_bfloat16>(d, q, k, v, out, b, h, hkv, sq, sk, qs,
-                                      ks, vs, scale, causal, stream);
   return attention_t<float>(d, q, k, v, out, b, h, hkv, sq, sk, qs, ks, vs,
                             scale, causal, stream);
 }

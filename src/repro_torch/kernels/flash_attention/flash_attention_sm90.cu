@@ -1,0 +1,629 @@
+// Prefill attention of the LM serving path on Hopper's bf16 tensor cores.
+//
+// Replaces the Pallas kernel `flash_attention` of
+// src/repro/kernels/flash_attention/kernel.py:77 (body `_flash_kernel`,
+// :34-70) for bf16 inputs: softmax(q kᵀ · scale) v for q (B, H, Sq, D) and
+// k, v (B, Hkv, Sk, D), causal or not, GQA through the kv head h / (H /
+// Hkv), output in bf16.  As there, the logits are scaled after the dot,
+// masked logits are -1e30, the running max and sum are carried in fp32
+// and the final sum is floored at 1e-30.  Rows and keys past Sq / Sk are
+// masked, so any S is taken (the TPU wrapper's `s // tq` drops a ragged
+// tail).  fp32 inputs stay on the CUDA-core kernel of flash_attention.cu:
+// the tensor cores would take them only as TF32 (ROADMAP rule b).
+//
+// What bounds it on this card: operations.  4·D per (query, key) pair it
+// must score, halved when causal — 5.4989e11 a layer at the Yi-6B prefill
+// shape (4 x 32 x 4,096² x 128) — at the 989 TFLOP/s dense bf16 rate is
+// 0.556 ms; its 302 MB of q, k, v and output take 0.090 ms at 3.35 TB/s.
+// So the design keeps the two products on the tensor cores and everything
+// else off their path:
+//
+// * One block per (128-row query tile, h, b), the query tile the slowest
+//   grid axis so that the heaviest causal tiles of every head start first.
+//   Three warpgroups: one warp of the first issues TMA loads and gives its
+//   registers away (`setmaxnreg`); the other two each own 64 query rows and
+//   take 240 registers a thread.
+// * TMA loads the query tile once and streams 128-key K and V tiles
+//   through a two-stage shared-memory ring with full and empty mbarriers,
+//   so the loads of tile j+1 overlap the math on tile j.  Operands stay
+//   bf16 in shared memory, in the swizzled layout the wgmma descriptors
+//   read (128-byte swizzle at D = 64 and 128, 64 and 32 bytes at D = 32
+//   and 16).  The tensor maps are 4-D over the caller's (B, H, S, D)
+//   strides (the model passes transposed views), K and V at the kv head:
+//   no GQA copy.  TMA zero-fills rows past Sq and Sk.
+// * S = Q·Kᵀ by wgmma m64n128k16 from shared memory into fp32 registers;
+//   scale, then mask only the tiles that cross the diagonal or Sk; online
+//   softmax in registers, the row max reduced over the 4 threads that
+//   share a row (the sum is reduced once, at the end).
+// * O += P·V by wgmma with P as the register A operand (the accumulator
+//   layout of S is the A-fragment layout of P·V), and V read from shared
+//   memory in its natural (keys, D) layout through the transpose bit; O
+//   accumulates in fp32 registers.  P is split into bf16 hi + lo halves,
+//   two wgmmas a k-step: P rounded once to bf16 (2^-9 relative) breaks
+//   the bf16 tolerance where a row's v values are large and its output
+//   small, which the model's 1/√L weight scale makes (PERF.md §6).
+//   The split costs one more P·V product, a third more tensor-core work.
+// * The epilogue divides by max(l, 1e-30), writes bf16 into the
+//   warpgroup's rows of the query tile's shared memory in the same swizzle
+//   and stores them with one TMA store, which clips rows past Sq.
+//
+// wgmma, TMA and mbarriers are written as inline PTX; no CuTe or CUTLASS.
+
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is looked up
+                   // at run time, so libcuda is not linked)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+
+#include <cstdint>
+#include <cstring>
+
+namespace {
+
+constexpr int kBM = 128;        // query rows of a block
+constexpr int kBN = 128;        // keys of a K / V tile
+constexpr int kThreads = 384;   // producer warpgroup + two consumers
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory geometry at head width D: a tile is `kAtoms` column blocks
+// of `kBox` elements, each [rows][kW bytes] with the kW-byte swizzle.
+template <int D>
+struct Geo {
+  static constexpr int kBox = D < 64 ? D : 64;
+  static constexpr int kW = kBox * 2;
+  static constexpr int kAtoms = D / kBox;
+  static constexpr int kTile = kBN * D * 2;  // a 128-row tile (Q, K or V)
+  static constexpr int kSmem = 5 * kTile + 1024 + 64;  // Q, 2 x (K, V)
+  // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
+  static constexpr uint64_t kLayout = kW == 128 ? 1 : kW == 64 ? 2 : 3;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 4-D TMA load of one box at (c0, c1, c2, c3) = (d, row, head, batch).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor (start, leading and stride byte offsets,
+// swizzle layout type).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Orders the compiler's use of accumulator registers after a wgmma wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 128, fp32) = a (64 x 16, shared, K-major) * b (16 x 128, shared,
+// K-major), added to d when `accumulate`
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, "
+      "%2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, "
+      "0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 16, fp32) += a (64 x 16, bf16 in registers) * b (16 x 16, shared,
+// MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, "
+      "%2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 32, fp32) += a (64 x 16, bf16 in registers) * b (16 x 32, shared,
+// MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, "
+      "%2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64, fp32) += a (64 x 16, bf16 in registers) * b (16 x 64, shared,
+// MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, "
+      "%2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, fp32) += a (64 x 16, bf16 in registers) * b (16 x 128, shared,
+// MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, "
+      "%2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "
+      "%67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 16) wgmma_rs_n16(o, a, b);
+  if constexpr (D == 32) wgmma_rs_n32(o, a, b);
+  if constexpr (D == 64) wgmma_rs_n64(o, a, b);
+  if constexpr (D == 128) wgmma_rs_n128(o, a, b);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
+}
+
+// (a, b) as bf16 pairs hi + lo: hi rounds them, lo rounds what hi leaves,
+// so hi + lo carries 16 bits of their mantissas.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  memcpy(&hi, &h, 4);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_o,
+                                int group, int sq, int sk, float scale,
+                                int causal) {
+  using G = Geo<D>;
+  constexpr int W = G::kW;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle patterns repeat every 1,024 bytes of shared address
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t kv_s = base + G::kTile;  // stage s: K at +2s, V at +2s+1
+  const uint32_t bars = base + 5 * G::kTile;
+  const uint32_t bar_q = bars;
+  // full_k[s] = bars + 8 (1 + s), full_v[s] = bars + 8 (3 + s),
+  // empty[s] = bars + 8 (5 + s)
+
+  const int hh = blockIdx.x, b = blockIdx.y;
+  const int n_q = gridDim.z;
+  const int qtile = causal ? n_q - 1 - static_cast<int>(blockIdx.z)
+                           : static_cast<int>(blockIdx.z);
+  const int q0 = qtile * kBM;
+  const int kvh = hh / group;
+  int n_tiles = (sk + kBN - 1) / kBN;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + kBM, sq) - 1) / kBN + 1);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bars + 8 * (1 + s), 1);
+      mbar_init(bars + 8 * (3 + s), 1);
+      mbar_init(bars + 8 * (5 + s), 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread issues every TMA load of the block
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, G::kTile);
+#pragma unroll
+      for (int a = 0; a < G::kAtoms; ++a)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          tma_load(q_s + a * kBM * W + half * 64 * W, &tm_q, a * G::kBox,
+                   q0 + 64 * half, hh, b, bar_q);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j & 1;
+        if (j >= 2) mbar_wait(bars + 8 * (5 + s), ((j >> 1) - 1) & 1);
+        const uint32_t k_dst = kv_s + 2 * s * G::kTile;
+        const uint32_t v_dst = k_dst + G::kTile;
+        mbar_expect_tx(bars + 8 * (1 + s), G::kTile);
+#pragma unroll
+        for (int a = 0; a < G::kAtoms; ++a)
+          tma_load(k_dst + a * kBN * W, &tm_k, a * G::kBox, j * kBN, kvh, b,
+                   bars + 8 * (1 + s));
+        mbar_expect_tx(bars + 8 * (3 + s), G::kTile);
+#pragma unroll
+        for (int a = 0; a < G::kAtoms; ++a)
+          tma_load(v_dst + a * kBN * W, &tm_v, a * G::kBox, j * kBN, kvh, b,
+                   bars + 8 * (3 + s));
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1;
+  const int t = threadIdx.x - 128 * wg;
+  const int warp = t >> 5, lane = t & 31;
+  // this thread's rows (r, r + 8) and first column pair in each 8-column
+  // chunk of a wgmma accumulator
+  const int r_loc = 64 * cw + 16 * warp + (lane >> 2);
+  const int row = q0 + r_loc;
+  const int c_loc = 2 * (lane & 3);
+  const uint32_t q_wg = q_s + 64 * cw * W;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j & 1;
+    const uint32_t parity = (j >> 1) & 1;
+    const uint32_t k_s = kv_s + 2 * s * G::kTile;
+    const uint32_t v_s = k_s + G::kTile;
+    const int k0 = j * kBN;
+
+    // S = Q Kᵀ (64 x 128 per warpgroup), fp32 accumulators
+    float sacc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
+    mbar_wait(bars + 8 * (1 + s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int a = kk / (G::kBox / 16);
+      const uint32_t off = a * kBM * W + (kk % (G::kBox / 16)) * 32;
+      wgmma_ss_n128(sacc, make_desc(q_wg + off, 16, 8 * W, G::kLayout),
+                    make_desc(k_s + off, 16, 8 * W, G::kLayout), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+
+    // logits = dot · scale; masked -1e30 only where the tile crosses the
+    // diagonal or Sk; running max over the row's 4 threads
+    const bool edge = k0 + kBN > sk || (causal && k0 + kBN > q0 + 64 * cw);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float x = sacc[i] * scale;
+      if (edge) {
+        const int col = k0 + 8 * (i >> 2) + c_loc + (i & 1);
+        const int r = row + 8 * ((i >> 1) & 1);
+        if (col >= sk || (causal && col > r)) x = kNegInf;
+      }
+      sacc[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float alpha[2], mb[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2_approx((m[h] - mx[h]) * kLog2e);
+      m[h] = mx[h];
+      mb[h] = mx[h] * kLog2e;
+      l[h] *= alpha[h];
+    }
+    // P = exp(logits - max), summed in fp32, split into bf16 hi + lo as
+    // the A operands: k-step kk takes accumulator chunks 2kk and 2kk+1
+    uint32_t pa[kBN / 16][4], pb[kBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int h = (e >> 1) & 1;
+        p[e] = exp2_approx(fmaf(sacc[8 * kk + e], kLog2e, -mb[h]));
+        l[h] += p[e];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_bf16(p[2 * r], p[2 * r + 1], pa[kk][r], pb[kk][r]);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V (64 x D per warpgroup); V tile [keys][D] is MN-major
+    mbar_wait(bars + 8 * (3 + s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint64_t dv =
+          make_desc(v_s + kk * 16 * W, kBN * W, 8 * W, G::kLayout);
+      wgmma_pv<D>(o, pa[kk], dv);
+      wgmma_pv<D>(o, pb[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      fence_regs(pa[kk]);
+      fence_regs(pb[kk]);
+    }
+    if (lane == 0) mbar_arrive(bars + 8 * (5 + s));
+  }
+
+  // epilogue: O / max(l, 1e-30) in bf16 into this warpgroup's rows of the
+  // query tile's shared memory (same swizzle), then one TMA store a column
+  // block, clipped at Sq
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int h = (i >> 1) & 1;
+    const int col = 8 * (i >> 2) + c_loc;
+    const uint32_t off = (col / G::kBox) * kBM * W + (r_loc + 8 * h) * W +
+                         (col % G::kBox) * 2;
+    const uint32_t phys = off ^ ((off >> 3) & (W - 16));
+    const uint32_t v = pack_bf16(o[i] * inv[h], o[i + 1] * inv[h]);
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(q_s + phys), "r"(v)
+                 : "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+  if (t == 0 && q0 + 64 * cw < sq) {
+#pragma unroll
+    for (int a = 0; a < G::kAtoms; ++a)
+      tma_store(&tm_o, q_wg + a * kBM * W, a * G::kBox, q0 + 64 * cw, hh, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in libcuda (which the CUDA runtime has
+// loaded) at the first call.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(
+          dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A 4-D bf16 tensor map over (D, S, H, B) with element strides (ss, sh, sb)
+// and a box of (box_d, rows, 1, 1).  A stride of an axis of extent 1 is
+// never used; it is replaced by a valid one.
+bool make_map(CUtensorMap* map, const void* ptr, int d, int s, int h, int b,
+              long long ss, long long sh, long long sb, int box_d, int rows,
+              CUtensorMapSwizzle swz) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  if (s == 1) ss = d;
+  if (h == 1) sh = ss * s;
+  if (b == 1) sb = sh * h;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int attention_sm90_d(const void* q, const void* k, const void* v, void* out,
+                     int b, int h, int hkv, int sq, int sk, long long qsb,
+                     long long qsh, long long qss, long long ksb,
+                     long long ksh, long long kss, long long vsb,
+                     long long vsh, long long vss, float scale, int causal,
+                     cudaStream_t stream) {
+  using G = Geo<D>;
+  const CUtensorMapSwizzle swz = G::kW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : G::kW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map(&tq, q, D, sq, h, b, qss, qsh, qsb, G::kBox, 64, swz) ||
+      !make_map(&tk, k, D, sk, hkv, b, kss, ksh, ksb, G::kBox, kBN, swz) ||
+      !make_map(&tv, v, D, sk, hkv, b, vss, vsh, vsb, G::kBox, kBN, swz) ||
+      !make_map(&to, out, D, sq, h, b, D, static_cast<long long>(sq) * D,
+                static_cast<long long>(h) * sq * D, G::kBox, 64, swz))
+    return -2;
+  auto kern = flash_attention_sm90_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(h, b, (sq + kBM - 1) / kBM);
+  kern<<<grid, kThreads, G::kSmem, stream>>>(tq, tk, tv, to, h / hkv, sq, sk,
+                                             scale, causal);
+  return 0;
+}
+
+}  // namespace
+
+// Prefill attention on bf16 inputs: one 384-thread block per (h, b,
+// 128-row query tile).  q, k, v bf16 with unit stride along D and the given
+// element strides along (B, H, S) — 16-byte-aligned bases and strides, as
+// TMA takes them (the wrapper checks); out (B, H, Sq, D) contiguous bf16.
+// Returns 0 when launched (the caller checks the launch), -1 for a head
+// width it is not built for, -2 when a tensor map cannot be made, or the
+// CUDA error of the shared-memory attribute.
+int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
+                                void* out, int b, int h, int hkv, int sq,
+                                int sk, int d, long long qsb, long long qsh,
+                                long long qss, long long ksb, long long ksh,
+                                long long kss, long long vsb, long long vsh,
+                                long long vss, float scale, int causal,
+                                cudaStream_t stream) {
+#define FA_SM90_CASE(D)                                                      \
+  case D:                                                                    \
+    return attention_sm90_d<D>(q, k, v, out, b, h, hkv, sq, sk, qsb, qsh,    \
+                               qss, ksb, ksh, kss, vsb, vsh, vss, scale,     \
+                               causal, stream);
+  switch (d) {
+    FA_SM90_CASE(16)
+    FA_SM90_CASE(32)
+    FA_SM90_CASE(64)
+    FA_SM90_CASE(128)
+    default: return -1;
+  }
+#undef FA_SM90_CASE
+}

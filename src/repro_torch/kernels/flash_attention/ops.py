@@ -1,8 +1,11 @@
 """Attention of the LM serving path: the kernel wrappers, their plain
 versions, and the public ops the model code calls.
 
-``flash_attention`` launches the prefill kernel of ``flash_attention.cu``
-for CUDA tensors and runs ``attention_ref`` for CPU tensors;
+``flash_attention`` launches a prefill kernel for CUDA tensors — the
+tensor-core kernel of ``flash_attention_sm90.cu`` for bf16, the CUDA-core
+kernel of ``flash_attention.cu`` for fp32, a fixed choice by dtype — and
+runs ``attention_ref`` for CPU tensors; ``attention_tc_plain`` repeats the
+bf16 kernel's arithmetic (its tiles, P as bf16 hi + lo) in plain PyTorch;
 ``flash_decode`` launches the split-KV decode kernel and merges its
 per-split partials, or runs ``decode_ref`` for CPU tensors.  Both compute
 the functions of the Pallas kernels ``flash_attention`` and
@@ -26,6 +29,7 @@ from repro_torch import kernels
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)   # head widths the kernels are built for
 SPLIT = 512                     # cache positions a decode block reduces
+TC_TILE = 128                   # query rows and keys of a bf16 prefill tile
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -48,6 +52,48 @@ def attention_ref(q, k, v, causal: bool = True, scale: float | None = None):
     w = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     w = w / w.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", w, v).to(q.dtype)
+
+
+def attention_tc_plain(q, k, v, causal: bool = True,
+                       scale: float | None = None, p_halves: int = 2):
+    """The bf16 prefill kernel's arithmetic in plain PyTorch: for each
+    128-row query block, an online softmax over 128-key tiles (up to the
+    block's diagonal when causal) with fp32 products of the operands,
+    logits scaled after the dot and masked to -1e30, P split into bf16 hi
+    + lo halves for P·V (``p_halves=1``: rounded once to bf16, which the
+    kernel does not do) while its fp32 values are summed, and the sum
+    floored at 1e-30; output in q's type."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    k = _expand_kv(k, h).float()
+    v = _expand_kv(v, h).float()
+    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, TC_TILE):
+        q1 = min(q0 + TC_TILE, sq)
+        rows = torch.arange(q0, q1, device=q.device)[:, None]
+        qf = q[:, :, q0:q1].float()
+        m = torch.full((b, h, q1 - q0), NEG_INF, device=q.device)
+        l = torch.zeros((b, h, q1 - q0), device=q.device)
+        acc = torch.zeros((b, h, q1 - q0, d), device=q.device)
+        for k0 in range(0, q1 if causal else sk, TC_TILE):
+            k1 = min(k0 + TC_TILE, sk)
+            s = torch.einsum("bhqd,bhkd->bhqk", qf, k[:, :, k0:k1]) * scale
+            if causal:
+                cols = torch.arange(k0, k1, device=q.device)[None, :]
+                s = torch.where(cols <= rows, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            hi = p.to(torch.bfloat16).float()
+            if p_halves == 2:
+                hi = hi + (p - hi).to(torch.bfloat16).float()
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", hi, v[:, :, k0:k1])
+            m = m_new
+        out[:, :, q0:q1] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
 
 
 def decode_ref(q, k, v, kv_len=None, scale: float | None = None):
@@ -132,6 +178,20 @@ def _check_kernel_inputs(name: str, q, k, v) -> None:
             raise ValueError(f"{name}: all tensors must be on one device")
 
 
+def _check_tma(name: str, q, k, v) -> None:
+    """Raise on what TMA does not take: a base address off a 16-byte
+    boundary, or a (B, H, S) stride that is not a multiple of 16 bytes
+    (an axis of extent 1 has no stride to check)."""
+    for key, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must start on a 16-byte "
+                             f"boundary for TMA")
+        for dim in range(3):
+            if t.shape[dim] > 1 and t.stride(dim) * t.element_size() % 16:
+                raise ValueError(f"{name}: {key}'s stride along axis {dim} "
+                                 f"must be a multiple of 16 bytes for TMA")
+
+
 def _check_heads(name: str, h: int, hkv: int) -> None:
     if hkv < 1 or h % hkv:
         raise ValueError(f"{name}: {h} query heads are not a multiple of "
@@ -141,8 +201,9 @@ def _check_heads(name: str, h: int, hkv: int) -> None:
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None):
     """Attention of q (B, H, Sq, D) over k, v (B, Hkv, Sk, D) -> (B, H, Sq,
-    D) in q's type: the prefill kernel for CUDA tensors, ``attention_ref``
-    for CPU tensors.  Causal mode needs Sq == Sk."""
+    D) in q's type: for CUDA tensors the tensor-core kernel on bf16 and the
+    CUDA-core kernel on fp32, ``attention_ref`` for CPU tensors.  Causal
+    mode needs Sq == Sk."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D")
     b, h, sq, d = q.shape
@@ -160,10 +221,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError("flash_attention: empty sequence")
     if b > 65535 or h > 65535:
         raise ValueError("flash_attention: B and H must fit the grid")
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        _check_tma("flash_attention", q, k, v)
+        if -(-sq // TC_TILE) > 65535:
+            raise ValueError("flash_attention: Sq must fit the grid")
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    kernels.extension().flash_attention(
-        q, k, v, out, float(scale if scale is not None else d ** -0.5),
-        bool(causal))
+    ext = kernels.extension()
+    launch = ext.flash_attention_sm90 if tensor_cores else ext.flash_attention
+    launch(q, k, v, out, float(scale if scale is not None else d ** -0.5),
+           bool(causal))
     kernels.LAUNCHES["flash_attention"] += 1
     return out
 

@@ -8,10 +8,15 @@ public ``attention`` / ``decode_attention`` against the reference's ops,
 and, at a ragged sequence or cache length, against the reference's oracles
 — where the reference's kernels drop the tail (ROADMAP §3).  The decode
 kernel's split partials and their log-sum-exp merge (the wrapper's code on
-the card) are held to ``decode_ref`` through their plain version.
+the card) are held to ``decode_ref`` through their plain version, and the
+bf16 tensor-core prefill kernel's arithmetic (``attention_tc_plain``: its
+128 x 128 tiles, P as bf16 hi + lo) to the reference's kernel and oracle.
 
 Tolerances: fp32 2e-5 and bf16 2e-2, the reference's own bars
-(``tests/test_kernels.py``); the two sides sum in other orders.
+(``tests/test_kernels.py``); the two sides sum in other orders.  Where a
+bf16 output can exceed magnitude 1, its 2e-2 is relative above 1 (a
+one-ulp rounding flip is 2^-8 to 2^-7 of the value), as ``chip_smoke.py``
+holds the kernel.
 """
 
 import numpy as np
@@ -79,6 +84,74 @@ def test_flash_attention_matches_reference_kernel(b, h, hkv, s, d, dtype,
     assert got.dtype == qt.dtype and got.shape == qt.shape
     tol = 2e-2 if dtype == jnp.bfloat16 else 2e-5
     np.testing.assert_allclose(_f32(got), _f32(want), atol=tol)
+
+
+def _bf16_close(got, want, tol=2e-2):
+    """|got - want| <= tol · max(1, |want|) everywhere."""
+    got, want = _f32(got), _f32(want)
+    assert np.isfinite(got).all()
+    err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+    assert err.max() <= tol, err.max()
+
+
+def _tc_against_reference(b, h, hkv, s, d, causal, seed, qk_scale=0.4):
+    """``attention_tc_plain`` on bf16 inputs against the reference's oracle
+    and, where it covers every row (S a multiple of its 128-row tile, or
+    one tile), its interpret-mode kernel."""
+    rng = np.random.RandomState(seed)
+    qj, qt = _pair(rng.randn(b, h, s, d) * qk_scale, jnp.bfloat16)
+    kj, kt = _pair(rng.randn(b, hkv, s, d) * qk_scale, jnp.bfloat16)
+    vj, vt = _pair(rng.randn(b, hkv, s, d), jnp.bfloat16)
+    got = ops.attention_tc_plain(qt, kt, vt, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == qt.shape
+    _bf16_close(got, ref_attention(qj, kj, vj, causal=causal))
+    if s <= 128 or s % 128 == 0:
+        _bf16_close(got, ref_flash_attention(qj, kj, vj, causal=causal,
+                                             interpret=True))
+    return got, (qt, kt, vt)
+
+
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 300])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_plain_matches_reference_on_tile_edges(s, causal):
+    """Sequences on and off the bf16 kernel's 128-row and 128-key tiles;
+    ragged ones against the oracle only (the reference's kernel drops
+    the tail)."""
+    _tc_against_reference(1, 8, 2, s, 64, causal, seed=s)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_tc_plain_matches_reference_across_gqa_and_head_widths(group, d):
+    _tc_against_reference(1, 8, 8 // group, 256, d, True, seed=group * d)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_plain_near_one_hot_softmax(causal):
+    """Logits with a std of ~40, as the reference's 1/√L weight scale makes
+    them in the model (module docstring of ``chip_smoke.py``): the softmax
+    is nearly one-hot and the output sits at the chosen v rows; the plain
+    version agrees with ``attention_ref`` of the port too."""
+    got, (qt, kt, vt) = _tc_against_reference(2, 8, 1, 256, 128, causal,
+                                              seed=17, qk_scale=6.3)
+    _bf16_close(got, ops.attention_ref(qt, kt, vt, causal=causal))
+
+
+@pytest.mark.parametrize("p_halves,within", [(1, False), (2, True)])
+def test_tc_plain_p_split_keeps_large_values_within_the_bar(p_halves,
+                                                            within):
+    """v values of magnitude ~20 beside outputs below 1, as the model's
+    weight scale makes them (the recorded Yi-6B call's outputs reach 58):
+    P rounded once to bf16 (2^-9 relative) moves such outputs by more
+    than 2e-2; its hi + lo split, which the kernel uses, does not."""
+    rng = np.random.RandomState(3)
+    qj, qt = _pair(rng.randn(1, 4, 256, 64), jnp.bfloat16)
+    kj, kt = _pair(rng.randn(1, 1, 256, 64), jnp.bfloat16)
+    vj, vt = _pair(rng.randn(1, 1, 256, 64) * 20, jnp.bfloat16)
+    got = _f32(ops.attention_tc_plain(qt, kt, vt, p_halves=p_halves))
+    want = np.asarray(ref_attention(qj, kj, vj, causal=True), np.float32)
+    err = (np.abs(got - want) / np.maximum(1.0, np.abs(want))).max()
+    assert (err <= 2e-2) == within, err
 
 
 @pytest.mark.parametrize("b,h,hkv,s,d,tk", [
@@ -193,9 +266,9 @@ class _FakeExtension:
         return launch
 
 
-def _meta_calls():
+def _meta_calls(dtype=torch.float32):
     def empty(*shape):
-        return torch.empty(shape, device="meta")
+        return torch.empty(shape, dtype=dtype, device="meta")
     kv_len = torch.empty((2,), dtype=torch.int32, device="meta")
     return [
         lambda: ops.flash_attention(empty(2, 8, 64, 64), empty(2, 2, 64, 64),
@@ -216,7 +289,8 @@ def test_device_tensors_never_reach_the_plain_versions(monkeypatch):
 
     def refuse(*a, **k):
         raise AssertionError("plain version reached")
-    for name in ("attention_ref", "decode_ref", "decode_partials_plain"):
+    for name in ("attention_ref", "attention_tc_plain", "decode_ref",
+                 "decode_partials_plain"):
         monkeypatch.setattr(ops, name, refuse)
     monkeypatch.setattr(attn, "_repeat_kv", refuse)
     # tensors off the CPU that are not CUDA tensors: refused, no plain path
@@ -224,15 +298,21 @@ def test_device_tensors_never_reach_the_plain_versions(monkeypatch):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
     assert fake.calls == []
-    # past the device check the wrappers launch their kernels and count
+    # past the device check the wrappers launch their kernels and count:
+    # the prefill launch by dtype, bf16 on the tensor cores, fp32 on the
+    # CUDA cores, one count a call either way
     monkeypatch.setattr(ops, "_check_kernel_inputs", lambda *a: None)
-    kernels.reset_launches()
-    outs = [call() for call in _meta_calls()]
-    assert fake.calls == ["flash_attention"] * 2 + ["flash_decode"] * 2
-    assert kernels.LAUNCHES["flash_attention"] == 2
-    assert kernels.LAUNCHES["flash_decode"] == 2
-    assert [tuple(o.shape) for o in outs] == [(2, 8, 64, 64)] * 2 + [
-        (2, 8, 64)] * 2
+    for dtype, prefill in ((torch.float32, "flash_attention"),
+                           (torch.bfloat16, "flash_attention_sm90")):
+        fake.calls.clear()
+        kernels.reset_launches()
+        outs = [call() for call in _meta_calls(dtype)]
+        assert fake.calls == [prefill] * 2 + ["flash_decode"] * 2
+        assert kernels.LAUNCHES["flash_attention"] == 2
+        assert kernels.LAUNCHES["flash_decode"] == 2
+        assert [tuple(o.shape) for o in outs] == [(2, 8, 64, 64)] * 2 + [
+            (2, 8, 64)] * 2
+        assert all(o.dtype == dtype for o in outs)
     kernels.reset_launches()
 
 
@@ -254,3 +334,34 @@ def test_card_wrapper_refuses_what_the_kernel_does_not_take(case, match):
         with pytest.raises(ValueError, match=match):
             ops.flash_decode(q[:, :, 0], k, v,
                              torch.ones(1, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("base", "16-byte boundary"),
+    ("stride", "multiple of 16 bytes"),
+])
+def test_card_wrapper_refuses_what_tma_does_not_take(monkeypatch, case,
+                                                      match):
+    """The bf16 route's TMA needs 16-byte-aligned bases and (B, H, S)
+    strides; the wrapper raises on either before any launch (no copy, no
+    fallback)."""
+    fake = _FakeExtension()
+    monkeypatch.setattr(kernels, "extension", lambda: fake)
+    monkeypatch.setattr(ops, "_check_kernel_inputs", lambda *a: None)
+    def view(dtype):
+        if case == "base":     # one element past an aligned start
+            t = torch.empty(4 * 64 * 64 + 1, dtype=dtype, device="meta")
+            return t[1:].view(1, 4, 64, 64)
+        # rows of 66 elements: 132 bytes in bf16
+        return torch.empty((1, 4, 64, 66), dtype=dtype,
+                           device="meta")[..., :64]
+
+    for dtype, taken in ((torch.bfloat16, False), (torch.float32, True)):
+        k = torch.empty((1, 2, 64, 64), dtype=dtype, device="meta")
+        if taken:   # the CUDA-core kernel takes the same view in fp32
+            ops.flash_attention(view(dtype), k, k.clone(), causal=True)
+            assert fake.calls == ["flash_attention"]
+        else:
+            with pytest.raises(ValueError, match=match):
+                ops.flash_attention(view(dtype), k, k.clone(), causal=True)
+            assert fake.calls == []
