@@ -7,9 +7,10 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.  In
 order, it
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
-   kernels from the sources under ``src/repro_torch``: one for each of the
-   nine TPU kernels, kernel 8 as two (bf16 on the tensor cores, fp32 on the
-   CUDA cores);
+   kernels from the sources under ``src/repro_torch``, in a thread while
+   the host builds the corpus and the index of step 2: one for each of the
+   nine TPU kernels, kernels 8 and 9 each with a bf16 kernel on the tensor
+   cores and an fp32 one on the CUDA cores;
 2. builds the ``paper_200ms`` cascade at one shard of 196,608 docs (the
    per-chip shard of the paper's ISN deployment) on the card, with Stage-0
    and LTR GBRTs of the spec's shapes made here from a NumPy seed (bin
@@ -38,8 +39,14 @@ order, it
 6. kernel phase: runs each kernel on the recorded main-path inputs and on
    edge cases against its plain version on the card (the integer kernels,
    the dense top-k and the per-query float scoring exact, the batched
-   float sums within 1e-5) and times the kernel, its plain version and,
-   where one exists, the library call with CUDA events;
+   float sums within 1e-5; kernel 5 also on hand-made bucketed layouts:
+   -1 lanes inside rows, a full row and a residue, a residue under
+   survive_t 0, one doc's 600 lanes whose order changes the sum, tile_d
+   48, every tile empty) and times the kernel, its plain version and,
+   where one exists, the library call with CUDA events; for the two
+   redesigned kernels (5 and 9) it logs the wrapper's time beside the
+   device time of a call (``torch.profiler``) and the earlier design's
+   time;
 7. serve phases: for each preset, sets the launch counts to 0, serves 8
    batches of 32 queries on the card and reads the counts: for
    ``paper_200ms`` both routes must take queries, Stage-2 must re-rank and
@@ -76,9 +83,12 @@ order, it
       ``decode_ref`` on edge cases (ragged S and T, causal and not, GQA
       groups 1/4/8, head widths 16-128, fp32 and bf16, the bf16 kernel's
       tile edges S = 1, 127, 128, 129 and 4,097, kv_len 0, 1, 512, 513, T,
-      the ``decode_32k`` cache of 8 x 32,768), every bf16 prefill output
-      also against ``attention_tc_plain`` (the tensor-core kernel's
-      arithmetic: 128 x 128 tiles, P as bf16 hi + lo), timed beside the
+      decode GQA groups 1 to 32, the ``decode_32k`` cache of 8 x 32,768),
+      every bf16 prefill output also against ``attention_tc_plain`` (the
+      tensor-core kernel's arithmetic: 128 x 128 tiles, P as bf16 hi +
+      lo), every decode output also against ``merge_splits`` of
+      ``decode_partials_plain`` (the split and merge kernels' arithmetic)
+      under the same tolerance, timed beside the
       plain path and ``scaled_dot_product_attention``; kernel 8's row is
       the bf16 kernel on the recorded bf16 call, with its TFLOP/s and
       share of the bound beside SDPA's on a line before, and the fp32
@@ -107,6 +117,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -177,6 +188,11 @@ XC_LOGIT_TOL = 1e-4           # of the largest |logit|, from one cache
 XC_CACHE_TOL, XC_CACHE_MEAN_TOL = 1e-3, 1e-5  # of the largest |cache|
 MODEL_F32_TOL = 5e-3          # of the largest |output|, recorded fp32 calls
 BF16_TOL = 2e-2               # below magnitude 1 absolute, above relative
+# the redesigned kernels' earlier designs, ms on the card (PERF.md §6, on
+# an NVIDIA H100 80GB HBM3 at 700 W), logged beside this run's
+EARLIER_MS = {"blockmax_score_bucketed": "0.0647-0.0723",
+              "flash_decode": "0.171-0.267",
+              "flash_decode decode_32k": "0.655-0.683"}
 
 
 class SmokeFailure(Exception):
@@ -373,6 +389,33 @@ def cuda_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps):
+    """Device time of one ``fn()``: the card's kernels and copies that
+    ``reps`` calls launch under ``torch.profiler``, summed and divided by
+    ``reps`` (the host's time between the launches left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3
+
+
+def log_redesign(label, ms, fn):
+    """A redesigned kernel's wrapper time beside its device time and the
+    earlier design's time (``EARLIER_MS``)."""
+    log(f"kernel {label}: wrapper {ms:.4f} ms, device {device_ms(fn, REPS):.4f}"
+        f" ms a call (profiler); the earlier design {EARLIER_MS[label]} ms "
+        f"(PERF.md)")
 
 
 def lm_work(name, args, kw):
@@ -611,6 +654,65 @@ def laxmap_edge_calls(device):
              for n, calls in rec.calls.items()}, errs)
 
 
+def bucketed_layout(tiles, cap, device):
+    """Kernel 5's inputs from per-tile lane lists [(docs, scores), ...]:
+    the bucket rows (each tile's first ``cap`` lanes, -1 padded), the run
+    (every tile's lanes in order) and the run's tile starts."""
+    import numpy as np
+    import torch
+    n_tiles = len(tiles)
+    docs_b = np.full((n_tiles, cap), -1, np.int32)
+    scores_b = np.zeros((n_tiles, cap), np.float32)
+    for i, (d, s) in enumerate(tiles):
+        docs_b[i, :min(cap, len(d))] = d[:cap]
+        scores_b[i, :min(cap, len(d))] = s[:cap]
+    run_start = np.concatenate([[0], np.cumsum([len(d) for d, _ in tiles])])
+    run_docs = np.concatenate([d for d, _ in tiles] + [[]]).astype(np.int32)
+    run_scores = np.concatenate([s for _, s in tiles] + [[]]
+                                ).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (docs_b, scores_b, run_docs, run_scores,
+                           run_start.astype(np.int32)))
+
+
+def bucketed_score_edge_calls(device):
+    """Kernel 5 on hand-made bucketed layouts (its redesign's edges): -1
+    lanes scattered inside rows; a full row plus a residue; a tile with
+    survive_t 0 but a residue; one doc hit by 600 lanes whose order
+    changes the f32 sum (1e8, 3, -1e8 ...); tile_d 48 with docs past it;
+    every tile empty.  Lists of (args, kwargs)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(SEED + 4)
+
+    def lanes(n, tile_d, dead=0.0):
+        d = rng.randint(0, tile_d, n).astype(np.int32)
+        d[rng.rand(n) < dead] = -1
+        return d, (rng.rand(n) * 8).astype(np.float32)
+
+    def call(tiles, cap, survive, tile_d=128):
+        docs_b, scores_b, run_docs, run_scores, run_start = bucketed_layout(
+            tiles, cap, device)
+        st = torch.tensor(survive, dtype=torch.int32, device=device)
+        return ((docs_b, scores_b, st, run_docs, run_scores, run_start),
+                dict(tile_d=tile_d))
+
+    big = np.tile(np.asarray([1e8, 3.0, 3.0, -1e8, 3.0], np.float32), 120)
+    return [
+        call([lanes(200, 128, 0.3) for _ in range(6)], 256, [1] * 6),
+        call([lanes(256, 128), lanes(556, 128, 0.1), lanes(40, 128)], 256,
+             [1, 1, 1]),
+        call([lanes(100, 128), lanes(356, 128), lanes(0, 128)], 256,
+             [1, 0, 0]),
+        call([(np.full(600, 7, np.int32), big), lanes(90, 128)], 256,
+             [1, 1]),
+        call([lanes(300, 50, 0.2) for _ in range(5)], 128, [1, 0, 1, 1, 1],
+             tile_d=48),
+        call([(np.zeros(0, np.int32), np.zeros(0, np.float32))] * 4, 64,
+             [1, 1, 0, 0]),
+    ]
+
+
 def bucketed_score_lanes(docs_b, scores_b, survive_t, run_docs, run_scores,
                          run_start):
     """Lanes kernel 5 must add: the live bucket lanes of the surviving tiles
@@ -718,6 +820,7 @@ def kernel_phase(recorded, k_topk):
     edges = edge_calls(dev)
     lax_edges, flat_errs = laxmap_edge_calls(dev)
     edges.update(lax_edges)
+    edges["blockmax_score_bucketed"] += bucketed_score_edge_calls(dev)
     for name in RETRIEVAL_KERNELS:
         calls = recorded[name]
         check(calls, f"{name}: the main path never called it")
@@ -733,6 +836,9 @@ def kernel_phase(recorded, k_topk):
                                 library.get(name), args, kw, err,
                                 f"{len(calls)} main-path calls and "
                                 f"{len(edges[name])} edge cases checked")
+        if name in EARLIER_MS:
+            log_redesign(name, rows[name]["ms"],
+                         lambda: kern[name](*args, **kw))
         if name == "score_histogram":
             (s,) = args
             got = sh.histogram_topk(s, k=k_topk)
@@ -1024,7 +1130,8 @@ def lm_edge_calls(dev):
     passes them; in bf16 also the tensor-core kernel's 128-row and 128-key
     tile edges (S = 1, 127, 128, 129, 4,097), D = 16 and 128, Sq != Sk and
     a strided GQA-8 view; for decode ragged T, kv_len 0, 1, 512, 513 and T,
-    and ``decode_32k``'s cache (B = 8, T = 32,768, bf16).  Lists of (args,
+    GQA groups 1 to 32 and head widths 16 to 128 in both types, and
+    ``decode_32k``'s cache (B = 8, T = 32,768, bf16).  Lists of (args,
     kwargs) per kernel."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1067,7 +1174,22 @@ def lm_edge_calls(dev):
             (4, 32, 4, 1500, 128, bf16, (1, 512, 513, 1500)),
             (2, 16, 4, 4608, 128, f32, (4608, 4097)),
             (2, 8, 2, 300, 32, f32, (0, 300)),
-            (2, 8, 2, 520, 16, bf16, (2, 519))):
+            (2, 8, 2, 520, 16, bf16, (2, 519)),
+            # the redesigned kernel's edges: groups 1 to 32 (a block takes
+            # 16 heads a pass in bf16, 8 in fp32: two passes at 32 and 16),
+            # every head width in both types, kv_len 0, 1, on a split
+            # boundary and T, T off the split
+            (3, 4, 2, 1100, 64, bf16, (0, 1024, 1100)),
+            (2, 4, 2, 1100, 64, f32, (1, 1024)),
+            (2, 16, 2, 513, 16, f32, (513, 1)),
+            (3, 4, 4, 1536, 32, bf16, (1536, 0, 1025)),
+            (2, 12, 2, 2049, 128, f32, (2048, 2049)),
+            (2, 12, 2, 2049, 128, bf16, (512, 2049)),
+            (1, 32, 2, 777, 64, bf16, (777,)),
+            (1, 32, 2, 777, 64, f32, (700,)),
+            (1, 32, 1, 600, 128, bf16, (600,)),
+            (2, 8, 1, 96, 32, f32, (96, 95)),
+            (2, 8, 8, 64, 16, bf16, (64, 0))):
         decode.append(((randn((b, h, d), dt, 0.4),
                      randn((b, hkv, t, d), dt, 0.4), randn((b, hkv, t, d), dt),
                      torch.tensor(lens, dtype=torch.int32, device=dev)), {}))
@@ -1181,7 +1303,8 @@ def lm_kernel_phase(recorded, launches, dev):
                 worst_bf16 = max(worst_bf16, bf16_rel_err(got, want))
             errs[got.dtype] = max(
                 errs[got.dtype], compare_attention(name, got, want, True),
-                tc_plain_error(name, got, args, kw))
+                tc_plain_error(name, got, args, kw),
+                split_merge_error(name, got, args, kw, True))
             if name == "flash_attention" and got.dtype == torch.bfloat16:
                 once = fa.attention_tc_plain(*args, **kw, p_halves=1)
                 log(f"flash_attention {tuple(args[0].shape)}: the kernel "
@@ -1199,7 +1322,8 @@ def lm_kernel_phase(recorded, launches, dev):
             errs[got.dtype] = max(
                 errs[got.dtype],
                 compare_attention(f"{name} edge", got, want),
-                tc_plain_error(f"{name} edge", got, args, kw))
+                tc_plain_error(f"{name} edge", got, args, kw),
+                split_merge_error(f"{name} edge", got, args, kw))
         if name == "flash_attention":
             log(f"flash_attention bf16: worst error of max(1, |want|) over "
                 f"the recorded and edge calls {worst_bf16}")
@@ -1209,13 +1333,17 @@ def lm_kernel_phase(recorded, launches, dev):
         note = f"{len(calls)} model calls and {len(edges[name])} edge cases"
         if name == "flash_decode":
             args, kw = decode_32k_call(dev)
+            got = kern[name](*args, **kw)
             err = max(err, compare_attention(
-                "flash_decode decode_32k", kern[name](*args, **kw),
-                oracle[name](*args, **kw)))
+                "flash_decode decode_32k", got, oracle[name](*args, **kw)),
+                split_merge_error("flash_decode decode_32k", got, args, kw))
+            del got
             torch.cuda.synchronize()
-            kernel_row(name, kern[name], plain[name], library[name], args,
-                       kw, err, "decode_32k (B 8, T 32,768, bf16; timed "
-                       "apart from the row's call)")
+            row = kernel_row(name, kern[name], plain[name], library[name],
+                             args, kw, err, "decode_32k (B 8, T 32,768, "
+                             "bf16; timed apart from the row's call)")
+            log_redesign("flash_decode decode_32k", row["ms"],
+                         lambda: kern[name](*args, **kw))
             note += " and decode_32k"
         def largest(dtype=None):
             return max((c for c in calls
@@ -1233,6 +1361,9 @@ def lm_kernel_phase(recorded, launches, dev):
         rows[name] = kernel_row(name, kern[name], plain[name], library[name],
                                 args, kw, err, note + " checked")
         rows[name]["launches"] = launches[name]
+        if name in EARLIER_MS:
+            log_redesign(name, rows[name]["ms"],
+                         lambda: kern[name](*args, **kw))
         if name == "flash_attention":
             row = rows[name]
             ops = work_of(name, args, kw)[1]
@@ -1243,6 +1374,21 @@ def lm_kernel_phase(recorded, launches, dev):
                 f"SDPA {ops / row['library_ms'] / 1e9:.1f} TFLOP/s, "
                 f"{100 * row['bound_ms'] / row['library_ms']:.1f} %")
     return rows
+
+
+def split_merge_error(label, got, args, kw, model=False):
+    """For a decode call: the kernel's output, merged on the card, against
+    ``merge_splits`` of ``decode_partials_plain`` (the split and merge
+    kernels' arithmetic in plain PyTorch), under the oracle's tolerance (0
+    for any other call)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    if not label.startswith("flash_decode"):
+        return 0.0
+    want = fa.merge_splits(*fa.decode_partials_plain(*args, **kw), got.dtype)
+    torch.cuda.synchronize()
+    return compare_attention(f"{label} (split partials + merge_splits)", got,
+                             want, model)
 
 
 def tc_plain_error(label, got, args, kw):
@@ -1495,9 +1641,19 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     print(card, flush=True)
     dev = torch.device(DEVICE)
 
-    t = time.perf_counter()
-    kernels.extension()
-    log(f"kernels built in {time.perf_counter() - t:.1f} s")
+    # the kernels build (nvcc, in subprocesses) while the host builds the
+    # corpus and the index; both are set-up
+    built = {}
+
+    def build():
+        t = time.perf_counter()
+        try:
+            kernels.extension()
+        except Exception as e:      # re-raised once the host work is done
+            built["error"] = e
+        built["s"] = time.perf_counter() - t
+    build_thread = threading.Thread(target=build)
+    build_thread.start()
 
     t = time.perf_counter()
     spec = get_preset("paper_200ms")
@@ -1508,6 +1664,10 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     log(f"corpus {n_docs} docs in {t_corpus:.1f} s, index "
         f"{index.n_postings} postings in "
         f"{time.perf_counter() - t - t_corpus:.1f} s")
+    build_thread.join()
+    if "error" in built:
+        raise built["error"]
+    log(f"kernels built in {built['s']:.1f} s, beside the host build")
     ql = build_queries(corpus, n_batches * BATCH, stop_k=spec.index.stop_k)
 
     spec, models, ltr = make_models(spec, index, corpus, dev, SEED)

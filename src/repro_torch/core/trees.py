@@ -9,9 +9,8 @@ ported yet: the port takes forests fitted by the reference
 
 Exactness: the per-row sum over trees follows the reference's compiled
 reduction order (``_sum_trees``), so boosted predictions agree bit for bit
-for the tree counts the presets use (48 and 64) — a route compares a
-prediction with a threshold that is itself one of the reference's
-predictions.
+at every tree count, at the repo's depths — a route compares a prediction with a threshold that
+is itself one of the reference's predictions.
 """
 
 from __future__ import annotations
@@ -47,24 +46,61 @@ def _seq_sum(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def _vector_sum(x: torch.Tensor) -> torch.Tensor:
+    """A row of at most 32 summed as XLA's compiled CPU loop does: below 16
+    elements, unless a multiple of 8, left to right; otherwise 8 lanes,
+    lane j taking elements j, j + 8, ... of the first 8 * (t // 8) in
+    order, the lanes folded by halving (lane j + 4 into j, then j + 2,
+    then j + 1), and the remaining t % 8 elements added left to right."""
+    t = x.shape[-1]
+    if t < 16 and t % 8:
+        return _seq_sum(x)
+    v = t // 8 * 8
+    lanes = x[..., 0:8]
+    for i in range(8, v, 8):
+        lanes = lanes + x[..., i:i + 8]
+    w = 8
+    while w > 1:
+        w //= 2
+        lanes = lanes[..., :w] + lanes[..., w:2 * w]
+    s = lanes[..., 0]
+    for i in range(v, t):
+        s = s + x[..., i]
+    return s
+
+
+def _window_sum(x: torch.Tensor) -> torch.Tensor:
+    """A row longer than 32 summed as XLA's tree-reduction rewrite does:
+    zero-padded to n = ceil(t / 32) windows of 32, floor(pad / 2) zeros
+    before and the rest after; each window summed left to right; the n
+    window sums then added left to right (windowed again if n > 32)."""
+    t = x.shape[-1]
+    n = -(-t // 32)
+    pad = n * 32 - t
+    x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+    parts = torch.stack([_seq_sum(x[..., 32 * i:32 * i + 32])
+                         for i in range(n)], dim=-1)
+    return _seq_sum(parts) if n <= 32 else _window_sum(parts)
+
+
 def _sum_trees(leaves: torch.Tensor) -> torch.Tensor:
-    """Sum over the last (tree) axis in the reference's compiled order:
-    up to 32 trees left to right; more are split into ceil(T/32) equal
-    chunks (zero-padded), each summed left to right, then the chunk sums
-    are added pairwise."""
-    t = leaves.shape[-1]
-    if t <= 32:
-        return _seq_sum(leaves)
-    n_chunks = -(-t // 32)
-    size = -(-t // n_chunks)
-    leaves = torch.nn.functional.pad(leaves, (0, n_chunks * size - t))
-    parts = torch.stack([_seq_sum(leaves[..., i * size:(i + 1) * size])
-                         for i in range(n_chunks)], dim=-1)
-    while parts.shape[-1] > 1:
-        if parts.shape[-1] % 2:
-            parts = torch.nn.functional.pad(parts, (0, 1))
-        parts = parts[..., 0::2] + parts[..., 1::2]
-    return parts[..., 0]
+    """Sum over the last (tree) axis in the reference's compiled order, so
+    boosted predictions equal ``repro.core.trees.forest_predict_binned`` /
+    ``forest_predict_stacked`` bit for bit at every tree count: up to 32
+    trees the reduction fused with the leaf gather (``_vector_sum``), more
+    the windowed rewrite (``_window_sum``).
+
+    The 8 lanes and the cut at 16 are the choices XLA's CPU compiler makes
+    for the loop that fuses the reduction with the leaf gather.  They were
+    found and tested on an x86-64 AVX-512 host at depths 3 to 5, which
+    cover the repo's GBRTs (Stage-0: depth 5; the LTR re-ranker: 4).  At
+    other depths the loop body's length changes the compiler's choices for
+    some counts of 4 to 32 trees (at depth 6, 20 to 23 trees end in a
+    second, 4-lane vector), and another host's vectors may change them
+    too."""
+    if leaves.shape[-1] <= 32:
+        return _vector_sum(leaves)
+    return _window_sum(leaves)
 
 
 def forest_leaves(forest: Forest, xb: torch.Tensor, depth: int

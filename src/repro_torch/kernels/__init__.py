@@ -82,16 +82,17 @@ def check_cuda_args(name: str, args: dict, dtypes: dict) -> None:
                              f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+        # the card's index: an int, cheaper on the host than a device object
         if dev is None:
-            dev = t.device
-        elif t.device != dev:
+            dev = t.get_device()
+        elif t.get_device() != dev:
             raise ValueError(f"{name}: all tensors must be on one device")
 
 
 def on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU (the plain-version path);
     False when every tensor is a CUDA tensor; raises on a mix."""
-    cpu = [t.device.type == "cpu" for t in tensors]
+    cpu = [t.is_cpu for t in tensors]
     if all(cpu):
         return True
     if not any(cpu):

@@ -57,9 +57,9 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 long long vss, float scale, int causal,
                                 cudaStream_t stream);
 int flash_decode_launch(const void* q, const void* k, const void* v,
-                        const int* kv_len, float* acc, float* m, float* l,
-                        int bf16, int b, int h, int hkv, int t_len, int d,
-                        float scale, cudaStream_t stream);
+                        const int* kv_len, float* part, void* out, int bf16,
+                        int b, int h, int hkv, int t_len, int d, float scale,
+                        cudaStream_t stream);
 
 namespace {
 
@@ -205,12 +205,11 @@ void flash_attention_sm90(const torch::Tensor& q, const torch::Tensor& k,
 
 void flash_decode(const torch::Tensor& q, const torch::Tensor& k,
                   const torch::Tensor& v, const torch::Tensor& kv_len,
-                  torch::Tensor acc, torch::Tensor m, torch::Tensor l,
-                  double scale) {
+                  torch::Tensor part, torch::Tensor out, double scale) {
   const c10::cuda::CUDAGuard guard(q.device());
   const int rc = flash_decode_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr<int>(),
-      acc.data_ptr<float>(), m.data_ptr<float>(), l.data_ptr<float>(),
+      part.data_ptr<float>(), out.data_ptr(),
       q.scalar_type() == at::kBFloat16 ? 1 : 0, static_cast<int>(q.size(0)),
       static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
       static_cast<int>(k.size(2)), static_cast<int>(q.size(2)),
@@ -241,5 +240,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_sm90", &flash_attention_sm90,
         "online-softmax attention on bf16 inputs, wgmma fed by TMA");
   m.def("flash_decode", &flash_decode,
-        "split-KV single-token attention partials (acc, m, l) per split");
+        "split-KV single-token attention and the merge of its splits");
 }

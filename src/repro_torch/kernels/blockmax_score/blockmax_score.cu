@@ -108,74 +108,102 @@ void blockmax_score_launch(const int* tile_docs, const int* tile_terms,
 // scores of the bucket's lanes by tile-local doc, skipping the bucket of a
 // tile with survive_t == 0, then adds the tile's overflow residue — the
 // sorted run's lanes [run_start[t] + cap, run_start[t + 1]) — which the
-// reference adds after its kernel with a scatter.  Output (n_tiles, tile_d)
-// f32.
-//
-// Determinism without float atomics: one thread per local doc (blockDim =
-// tile_d) owns that doc's sum.  The block stages the bucket into shared
-// memory STAGE lanes at a time and every thread walks the staged lanes in
-// order (a broadcast read), adding the scores of its own doc from 0.0f;
-// then the residue, the same way.  So each doc's lanes are added in lane
-// order — the bucket keeps the flat lanes' order inside a tile (stable
-// sort) and the residue follows it — whatever the scheduling.  The plain
-// version (ops.py) adds in the same order and agrees bit for bit; the TPU's
-// one-hot f32 matmul adds the same terms in another order.
+// reference adds after its kernel with a scatter.  Lanes whose doc is
+// outside [0, tile_d) (the bucket's -1 padding) add nothing.  Output
+// (n_tiles, tile_d) f32.
 //
 // What bounds it on the card: bytes.  The function needs each live lane of
-// the surviving tiles read once (doc and score, 8 B) and one f32 add per
-// lane.  This design spends instructions instead: every thread tests every
-// lane of its tile (tile_d x CAP compares a tile, from shared memory), a
-// cost the bound does not count; a later design can sort a tile's lanes
-// by doc and keep the order.
+// the surviving tiles and the residue read once (doc and score, 8 B) and
+// one f32 add per lane.  The design keeps the work proportional to the
+// lanes: one warp per tile reads the bucket row (and then the residue) 32
+// lanes a step with coalesced loads, kUnroll steps in flight; a step with
+// no live lane costs its loads and one ballot.  Within a step,
+// `__match_any_sync` groups the live lanes by doc, and the lowest lane of
+// each group adds the group's scores to the doc's running sum in shared
+// memory in lane order (the others' scores by shuffle); groups of distinct
+// docs add in parallel.
+//
+// Determinism without float atomics: steps run in order, lanes within a
+// step in lane order, the bucket before the residue; so each doc's lanes
+// are added in lane order from 0.0f whatever the scheduling — the bucket
+// keeps the flat lanes' order inside a tile (stable sort) and the residue
+// follows it.  The plain version (ops.py) adds in the same order and
+// agrees bit for bit; the TPU's one-hot f32 matmul adds the same terms in
+// another order.
 
 namespace {
 
-constexpr int STAGE = 1024;  // lanes staged in shared memory at a time
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTileWarps = 4;  // tiles (one warp each) of a block
+constexpr int kUnroll = 8;     // 32-lane steps loaded before they are added
 
-__device__ float walk_lanes(const int* __restrict__ docs,
-                            const float* __restrict__ scores, size_t lo,
-                            size_t hi, int me, float acc, int* s_doc,
-                            float* s_score) {
-  for (size_t base = lo; base < hi; base += STAGE) {
-    const size_t left = hi - base;
-    const int n = left < STAGE ? static_cast<int>(left) : STAGE;
-    __syncthreads();  // the previous stage has been read
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      s_doc[i] = docs[base + i];
-      s_score[i] = scores[base + i];
+// One 32-lane step: each live lane's score added to acc[doc], in lane order.
+__device__ __forceinline__ void add_step(int doc, float score, int tile_d,
+                                         float* acc, int lane) {
+  const bool live = doc >= 0 && doc < tile_d;
+  if (__ballot_sync(kFull, live) == 0) return;  // uniform over the warp
+  const unsigned peers = __match_any_sync(kFull, live ? doc : -1);
+  const bool leader = live && __ffs(peers) - 1 == lane;
+  unsigned rest = leader ? peers : 0u;  // the group, lowest lane first
+  float a = leader ? acc[doc] : 0.0f;
+  while (__any_sync(kFull, rest != 0u)) {
+    const float v = __shfl_sync(kFull, score, rest ? __ffs(rest) - 1 : lane);
+    if (rest) {
+      a += v;
+      rest &= rest - 1u;
     }
-    __syncthreads();
-    for (int i = 0; i < n; ++i)
-      if (s_doc[i] == me) acc += s_score[i];
   }
-  return acc;
+  if (leader) acc[doc] = a;
+  __syncwarp();  // the next step's leaders read what this one wrote
 }
 
-__global__ void blockmax_score_bucketed_kernel(
-    const int* __restrict__ docs_b, const float* __restrict__ scores_b,
-    const int* __restrict__ survive_t, const int* __restrict__ run_docs,
-    const float* __restrict__ run_scores, const int* __restrict__ run_start,
-    float* __restrict__ out, int cap, int tile_d) {
-  __shared__ int s_doc[STAGE];
-  __shared__ float s_score[STAGE];
-  const int t = blockIdx.x;
-  const int me = threadIdx.x;  // this thread's tile-local doc
-  float acc = 0.0f;
-  if (survive_t[t] != 0) {  // uniform over the block
-    const size_t row = static_cast<size_t>(t) * cap;
-    acc = walk_lanes(docs_b, scores_b, row, row + cap, me, acc, s_doc,
-                     s_score);
+// Lanes [lo, hi) of (docs, scores) added into acc by one warp, in order.
+__device__ void add_lanes(const int* __restrict__ docs,
+                          const float* __restrict__ scores, long long lo,
+                          long long hi, int tile_d, float* acc, int lane) {
+  for (long long base = lo; base < hi; base += 32 * kUnroll) {
+    int d[kUnroll];
+    float s[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = base + 32 * u + lane;
+      d[u] = j < hi ? docs[j] : -1;
+      s[u] = j < hi ? scores[j] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) add_step(d[u], s[u], tile_d, acc, lane);
   }
-  const size_t lo = static_cast<size_t>(run_start[t]) + cap;
-  const size_t hi = static_cast<size_t>(run_start[t + 1]);
-  acc = walk_lanes(run_docs, run_scores, lo, hi, me, acc, s_doc, s_score);
-  out[static_cast<size_t>(t) * tile_d + me] = acc;
+}
+
+__global__ void __launch_bounds__(kTileWarps * 32)
+    blockmax_score_bucketed_kernel(
+        const int* __restrict__ docs_b, const float* __restrict__ scores_b,
+        const int* __restrict__ survive_t, const int* __restrict__ run_docs,
+        const float* __restrict__ run_scores,
+        const int* __restrict__ run_start, float* __restrict__ out,
+        int n_tiles, int cap, int tile_d) {
+  extern __shared__ float acc_all[];  // kTileWarps x tile_d running sums
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kTileWarps + warp;
+  if (t >= n_tiles) return;  // the whole warp; no block barrier follows
+  float* acc = acc_all + warp * tile_d;
+  for (int i = lane; i < tile_d; i += 32) acc[i] = 0.0f;
+  __syncwarp();
+  if (survive_t[t] != 0) {
+    const long long row = static_cast<long long>(t) * cap;
+    add_lanes(docs_b, scores_b, row, row + cap, tile_d, acc, lane);
+  }
+  add_lanes(run_docs, run_scores, static_cast<long long>(run_start[t]) + cap,
+            run_start[t + 1], tile_d, acc, lane);
+  __syncwarp();
+  float* o = out + static_cast<long long>(t) * tile_d;
+  for (int i = lane; i < tile_d; i += 32) o[i] = acc[i];
 }
 
 }  // namespace
 
-// Launches one block of tile_d threads per tile on `stream`.  The caller
-// checks the launch.
+// Launches one warp per tile, kTileWarps tiles a block, on `stream`.  The
+// caller checks the launch.
 void blockmax_score_bucketed_launch(const int* docs_b, const float* scores_b,
                                     const int* survive_t, const int* run_docs,
                                     const float* run_scores,
@@ -183,7 +211,9 @@ void blockmax_score_bucketed_launch(const int* docs_b, const float* scores_b,
                                     int n_tiles, int cap, int tile_d,
                                     cudaStream_t stream) {
   if (n_tiles == 0) return;
-  blockmax_score_bucketed_kernel<<<n_tiles, tile_d, 0, stream>>>(
-      docs_b, scores_b, survive_t, run_docs, run_scores, run_start, out, cap,
-      tile_d);
+  const int blocks = (n_tiles + kTileWarps - 1) / kTileWarps;
+  const size_t smem = sizeof(float) * kTileWarps * tile_d;
+  blockmax_score_bucketed_kernel<<<blocks, kTileWarps * 32, smem, stream>>>(
+      docs_b, scores_b, survive_t, run_docs, run_scores, run_start, out,
+      n_tiles, cap, tile_d);
 }

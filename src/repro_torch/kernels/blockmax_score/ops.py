@@ -34,7 +34,8 @@ from repro_torch import kernels
 from repro_torch.kernels.buckets import bucket_by_tile
 
 SMEM_LIMIT = 48 * 1024   # static shared-memory limit of one block
-MAX_TILE_D = 1024        # the bucketed kernel runs one thread per local doc
+MAX_TILE_D = 1024        # the bucketed kernel's running sums of 4 tiles a
+                         # block stay in 16 KB of shared memory
 
 
 def blockmax_score_plain(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
@@ -191,7 +192,7 @@ def blockmax_score_bucketed_plain(docs_b: torch.Tensor, scores_b: torch.Tensor,
     residue lanes in run order) gets its occurrence rank among the lanes of
     its (tile, doc) cell; the lanes are placed in (rank, cell) slots with no
     collisions and each cell is summed rank by rank from 0.0 — each doc's
-    lanes in lane order, as the kernel's one thread per doc adds them."""
+    lanes in lane order, as the kernel's warp adds them step by step."""
     n_tiles, cap = docs_b.shape
     dev = docs_b.device
     tiles = torch.arange(n_tiles, device=dev)[:, None].expand(n_tiles, cap)
@@ -256,8 +257,7 @@ def blockmax_score_bucketed(docs_b: torch.Tensor, scores_b: torch.Tensor,
         dict(docs_b=i32, scores_b=torch.float32, survive_t=i32,
              run_docs=i32, run_scores=torch.float32, run_start=i32))
     if not 1 <= tile_d <= MAX_TILE_D:
-        raise ValueError(f"tile_d={tile_d} must be in [1, {MAX_TILE_D}] "
-                         "(one thread per local doc)")
+        raise ValueError(f"tile_d={tile_d} must be in [1, {MAX_TILE_D}]")
     out = torch.empty((n_tiles, tile_d), dtype=torch.float32,
                       device=docs_b.device)
     kernels.extension().blockmax_score_bucketed(

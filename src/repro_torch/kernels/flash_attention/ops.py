@@ -6,10 +6,13 @@ tensor-core kernel of ``flash_attention_sm90.cu`` for bf16, the CUDA-core
 kernel of ``flash_attention.cu`` for fp32, a fixed choice by dtype — and
 runs ``attention_ref`` for CPU tensors; ``attention_tc_plain`` repeats the
 bf16 kernel's arithmetic (its tiles, P as bf16 hi + lo) in plain PyTorch;
-``flash_decode`` launches the split-KV decode kernel and merges its
-per-split partials, or runs ``decode_ref`` for CPU tensors.  Both compute
-the functions of the Pallas kernels ``flash_attention`` and
-``flash_decode`` (repro/kernels/flash_attention/kernel.py), which the
+``flash_decode`` launches the split-KV decode kernel (bf16 on the tensor
+cores, fp32 on the CUDA cores, by dtype) and the kernel that merges its
+per-split partials (``merge_splits`` of ``decode_partials_plain`` is
+their arithmetic in plain PyTorch), or runs ``decode_ref`` for CPU
+tensors.  Both compute the functions of the Pallas kernels
+``flash_attention`` and ``flash_decode``
+(repro/kernels/flash_attention/kernel.py), which the
 reference holds to the same two oracles (``ref.py``): softmax attention in
 fp32 math with -1e30 masking, output in q's type, GQA by kv head
 ``h // (H / Hkv)``.  Unlike the Pallas wrappers they take any sequence or
@@ -237,8 +240,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 def flash_decode(q, k, v, kv_len, *, scale: float | None = None):
     """Single-token attention of q (B, H, D) over caches (B, Hkv, T, D),
-    positions >= ``kv_len`` (B,) masked -> (B, H, D) in q's type: the
-    split-KV decode kernel and the log-sum-exp merge for CUDA tensors,
+    positions >= ``kv_len`` (B,) masked -> (B, H, D) in q's type: for CUDA
+    tensors the split-KV decode kernel, one block per (split, kv head, b)
+    (bf16 on the tensor cores, fp32 on the CUDA cores), and its merge
+    kernel (what ``merge_splits`` of ``decode_partials_plain`` computes);
     ``decode_ref`` for CPU tensors."""
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_decode: q must be 3-D, k and v 4-D")
@@ -258,16 +263,20 @@ def flash_decode(q, k, v, kv_len, *, scale: float | None = None):
     if t < 1 or b > 65535 or h > 65535:
         raise ValueError("flash_decode: empty cache, or B / H beyond the "
                          "grid")
+    for key, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_decode: {key} must start on a 16-byte "
+                             "boundary")
     kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     n_sp = -(-t // SPLIT)
-    acc = torch.empty((b, h, n_sp, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, h, n_sp), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, h, n_sp), dtype=torch.float32, device=q.device)
+    part = torch.empty((b * h * n_sp * (d + 2),), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     kernels.extension().flash_decode(
-        q, k, v, kv_len, acc, m, l,
+        q, k, v, kv_len, part, out,
         float(scale if scale is not None else d ** -0.5))
     kernels.LAUNCHES["flash_decode"] += 1
-    return merge_splits(acc, m, l, q.dtype)
+    return out
 
 
 def attention(q, k, v, causal: bool = True):

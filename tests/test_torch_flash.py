@@ -7,8 +7,9 @@ run with ``interpret=True`` at the shapes of ``tests/test_kernels.py``, the
 public ``attention`` / ``decode_attention`` against the reference's ops,
 and, at a ragged sequence or cache length, against the reference's oracles
 — where the reference's kernels drop the tail (ROADMAP §3).  The decode
-kernel's split partials and their log-sum-exp merge (the wrapper's code on
-the card) are held to ``decode_ref`` through their plain version, and the
+kernel's split partials and their log-sum-exp merge (the merge kernel on
+the card) are held to ``decode_ref`` through their plain version, at the
+design's edges too, and ``merge_splits`` to the reference's merge; the
 bf16 tensor-core prefill kernel's arithmetic (``attention_tc_plain``: its
 128 x 128 tiles, P as bf16 hi + lo) to the reference's kernel and oracle.
 
@@ -254,6 +255,75 @@ def test_split_partials_merge_to_the_oracle(t, lens):
         assert (m[row][:, skipped] == ops.NEG_INF).all()
 
 
+def _bf16_err(got, want):
+    """max |got - want| / max(1, |want|): the bf16 bar."""
+    return (np.abs(got - want) / np.maximum(1.0, np.abs(want))).max()
+
+
+@pytest.mark.parametrize("b,h,hkv,t,d,dtype,lens", [
+    (3, 4, 4, 1536, 32, jnp.bfloat16, (1536, 0, 1025)),   # group 1
+    (3, 4, 2, 1100, 64, jnp.bfloat16, (0, 1024, 1100)),   # group 2
+    (2, 16, 4, 1024, 128, jnp.float32, (1024, 512)),      # group 4
+    (2, 12, 2, 2049, 128, jnp.float32, (2048, 2049)),     # group 6
+    (2, 16, 2, 513, 16, jnp.float32, (513, 1)),           # group 8
+    (1, 32, 2, 777, 64, jnp.bfloat16, (777,)),            # group 16
+    (1, 32, 2, 777, 64, jnp.float32, (700,)),
+    (1, 32, 1, 600, 128, jnp.bfloat16, (600,)),           # group 32
+    (2, 8, 8, 64, 16, jnp.bfloat16, (64, 0)),
+])
+def test_decode_edge_cases_match_the_reference(b, h, hkv, t, d, dtype, lens):
+    """The card's decode design at its edges — GQA groups 1 to 32 (a block
+    takes 16 heads a pass in bf16, 8 in fp32), every head width, fp32 and
+    bf16, kv_len 0, 1, on a split boundary and T, T off the split — through
+    its arithmetic in plain PyTorch (``decode_partials_plain`` merged by
+    ``merge_splits``) and the wrapper's CPU path, against the reference's
+    oracle and, where T is a whole number of 512-splits, its Pallas kernel
+    in interpret mode."""
+    rng = np.random.RandomState(t + h)
+    qj, qt = _pair(rng.randn(b, h, d) * 0.4, dtype)
+    kj, kt = _pair(rng.randn(b, hkv, t, d) * 0.4, dtype)
+    vj, vt = _pair(rng.randn(b, hkv, t, d), dtype)
+    kv_len = np.asarray(lens, np.int32)
+    want = _f32(ref_decode(qj, kj, vj, jnp.asarray(kv_len)))
+    acc, m, l = ops.decode_partials_plain(qt, kt, vt, torch.from_numpy(kv_len))
+    fused = ops.merge_splits(acc, m, l, qt.dtype)
+    cpu = ops.flash_decode(qt, kt, vt, torch.from_numpy(kv_len))
+    assert fused.dtype == cpu.dtype == qt.dtype and fused.shape == (b, h, d)
+    outs = [_f32(fused), _f32(cpu)]
+    if t % ops.SPLIT == 0:
+        outs.append(_f32(ref_flash_decode(qj, kj, vj, jnp.asarray(kv_len),
+                                          interpret=True)))
+    for got in outs:
+        if dtype == jnp.bfloat16:
+            assert _bf16_err(got, want) <= 2e-2
+        else:
+            np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_merge_splits_is_the_reference_merge():
+    """``merge_splits`` against the reference wrapper's merge of the split
+    partials (``repro/kernels/flash_attention/kernel.py``, the lines after
+    its ``pallas_call``), on partials that hold skipped splits (m = -1e30,
+    l = 0), an all-masked row (every m = -1e30) and m spread over 60."""
+    rng = np.random.RandomState(9)
+    b, h, n_sp, d = 3, 4, 7, 32
+    acc = rng.randn(b, h, n_sp, d).astype(np.float32) * 5
+    m = (rng.rand(b, h, n_sp) * 60 - 30).astype(np.float32)
+    l = (rng.rand(b, h, n_sp) * 40 + 1).astype(np.float32)
+    m[0, :, 4:] = ops.NEG_INF
+    l[0, :, 4:] = 0.0
+    acc[0, :, 4:] = 0.0
+    m[1] = ops.NEG_INF
+    accj, mj, lj = map(jnp.asarray, (acc, m, l))
+    m_star = jnp.max(mj, axis=-1, keepdims=True)
+    scale_sp = jnp.exp(mj - m_star)
+    denom = jnp.maximum(jnp.sum(scale_sp * lj, axis=-1, keepdims=True), 1e-30)
+    want = np.asarray(jnp.sum(accj * scale_sp[..., None], axis=2) / denom)
+    got = ops.merge_splits(*map(torch.from_numpy, (acc, m, l)),
+                           torch.float32).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
 class _FakeExtension:
     """Stands in for the compiled module: records launches."""
 
@@ -334,6 +404,26 @@ def test_card_wrapper_refuses_what_the_kernel_does_not_take(case, match):
         with pytest.raises(ValueError, match=match):
             ops.flash_decode(q[:, :, 0], k, v,
                              torch.ones(1, dtype=torch.int32, device="meta"))
+
+
+def test_card_decode_refuses_a_misaligned_cache(monkeypatch):
+    """The decode kernel stages q and the cache with 16-byte copies: the
+    wrapper raises on a base off a 16-byte boundary before any launch."""
+    fake = _FakeExtension()
+    monkeypatch.setattr(kernels, "extension", lambda: fake)
+    monkeypatch.setattr(ops, "_check_kernel_inputs", lambda *a: None)
+    kv_len = torch.ones((1,), dtype=torch.int32, device="meta")
+    q = torch.empty((1, 4, 64), device="meta")
+    cache = torch.empty((1, 2, 600, 64), device="meta")
+    off = torch.empty(2 * 600 * 64 + 1, device="meta")[1:].view(1, 2, 600,
+                                                                  64)
+    for args in ((q, off, cache), (q, cache, off)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ops.flash_decode(*args, kv_len)
+    assert fake.calls == []
+    ops.flash_decode(q, cache, cache, kv_len)
+    assert fake.calls == ["flash_decode"]
+    kernels.reset_launches()
 
 
 @pytest.mark.parametrize("case,match", [

@@ -224,6 +224,105 @@ def test_blockmax_score_adds_each_doc_in_lane_order():
     assert got[9].item() == 1.0
 
 
+def _bucketed_layout(tiles, cap):
+    """Kernel 5's inputs from per-tile lane lists [(docs, scores), ...]: the
+    bucket rows (each tile's first ``cap`` lanes, -1 padded), the run (every
+    tile's lanes in order) and the run's tile starts."""
+    n_tiles = len(tiles)
+    docs_b = np.full((n_tiles, cap), -1, np.int32)
+    scores_b = np.zeros((n_tiles, cap), np.float32)
+    for i, (d, s) in enumerate(tiles):
+        docs_b[i, :min(cap, len(d))] = d[:cap]
+        scores_b[i, :min(cap, len(d))] = s[:cap]
+    run_start = np.concatenate([[0], np.cumsum([len(d) for d, _ in tiles])])
+    run_docs = np.concatenate([d for d, _ in tiles] + [[]]).astype(np.int32)
+    run_scores = np.concatenate([s for _, s in tiles] + [[]]
+                                ).astype(np.float32)
+    return docs_b, scores_b, run_docs, run_scores, run_start.astype(np.int32)
+
+
+def _edge_tiles(case, rng):
+    """(tiles, cap, survive_t, tile_d) of one edge case of kernel 5."""
+    def lanes(n, tile_d=128, dead=0.0):
+        d = rng.randint(0, tile_d, n).astype(np.int32)
+        d[rng.random_sample(n) < dead] = -1
+        return d, (rng.random_sample(n) * 8).astype(np.float32)
+    if case == "dead_lanes_inside_rows":
+        return [lanes(200, dead=0.3) for _ in range(6)], 256, [1] * 6, 128
+    if case == "full_row_and_residue":
+        return [lanes(256), lanes(556, dead=0.1), lanes(40)], 256, [1] * 3, \
+            128
+    if case == "dead_tile_with_residue":
+        return [lanes(100), lanes(356), lanes(0)], 256, [1, 0, 0], 128
+    if case == "one_doc_many_lanes":
+        big = np.tile(np.asarray([1e8, 3.0, 3.0, -1e8, 3.0], np.float32),
+                      120)
+        return [(np.full(600, 7, np.int32), big), lanes(90)], 256, [1, 1], \
+            128
+    if case == "narrow_tile":          # docs 48 and 49 lie past the tile
+        return [lanes(300, 50, dead=0.2) for _ in range(5)], 128, \
+            [1, 0, 1, 1, 1], 48
+    assert case == "all_tiles_empty"
+    return [(np.zeros(0, np.int32), np.zeros(0, np.float32))] * 4, 64, \
+        [1, 1, 0, 0], 128
+
+
+@pytest.mark.parametrize("case", [
+    "dead_lanes_inside_rows", "full_row_and_residue",
+    "dead_tile_with_residue", "one_doc_many_lanes", "narrow_tile",
+    "all_tiles_empty"])
+def test_blockmax_score_bucketed_edge_cases(case):
+    """The edges of the card's kernel-5 design, which ``chip_smoke.py`` also
+    drives on the card: the plain version bit for bit against each doc's
+    lanes added in lane order from 0.0 — the bucket, then the residue —
+    and against the reference (its Pallas kernel in interpret mode, then
+    its scatter of the residue) within the bound on two orders of one f32
+    sum: the reference's one-hot matmul adds a doc's lanes in another
+    order, which shows where one doc's 600 lanes mix 1e8 and 3."""
+    rng = np.random.RandomState(len(case))
+    tiles, cap, survive, tile_d = _edge_tiles(case, rng)
+    docs_b, scores_b, run_docs, run_scores, run_start = _bucketed_layout(
+        tiles, cap)
+    survive_t = np.asarray(survive, np.int32)
+    got = blockmax_score_bucketed(
+        *map(_t, (docs_b, scores_b, survive_t, run_docs, run_scores,
+                  run_start)), tile_d=tile_d).numpy()
+
+    n_tiles = len(tiles)
+    res_doc, res_val = [], []
+    for t in range(n_tiles):
+        for j in range(run_start[t] + cap, run_start[t + 1]):
+            if 0 <= run_docs[j] < tile_d:
+                res_doc.append(t * tile_d + run_docs[j])
+                res_val.append(run_scores[j])
+    want = ref_bm_bucketed(jnp.asarray(docs_b), jnp.asarray(scores_b),
+                           jnp.asarray(survive_t), tile_d=tile_d,
+                           interpret=True).reshape(-1)
+    want = np.asarray(want.at[jnp.asarray(res_doc, jnp.int32)].add(
+        jnp.asarray(res_val, jnp.float32))).reshape(n_tiles, tile_d)
+
+    seq = np.zeros((n_tiles, tile_d), np.float32)
+    n = np.zeros((n_tiles, tile_d))
+    mag = np.zeros((n_tiles, tile_d))
+    for t in range(n_tiles):
+        row = list(zip(docs_b[t], scores_b[t])) if survive_t[t] else []
+        row += list(zip(run_docs[run_start[t] + cap:run_start[t + 1]],
+                        run_scores[run_start[t] + cap:run_start[t + 1]]))
+        for d, s in row:
+            if 0 <= d < tile_d:
+                seq[t, d] = np.float32(seq[t, d] + s)
+                n[t, d] += 1
+                mag[t, d] += abs(float(s))
+    np.testing.assert_array_equal(got, seq)
+    # two orders of one f32 sum differ by at most 2 (n - 1) 2^-24 sum |x|
+    bound = 2 * np.maximum(n - 1, 0) * 2.0 ** -24 * mag
+    assert (np.abs(got.astype(np.float64) - want) <= bound).all()
+    if case == "one_doc_many_lanes":     # the order shows in the sum
+        assert seq[0, 7] != np.float32(np.sum(tiles[0][1], dtype=np.float64))
+    if case == "all_tiles_empty":
+        assert not got.any()
+
+
 # ---------------------------------------------------------------------------
 # score_histogram and histogram_topk (kernel 7)
 # ---------------------------------------------------------------------------
