@@ -38,15 +38,17 @@ order, it
    kernel's inputs;
 6. kernel phase: runs each kernel on the recorded main-path inputs and on
    edge cases against its plain version on the card (the integer kernels,
-   the dense top-k and the per-query float scoring exact, the batched
-   float sums within 1e-5; kernel 5 also on hand-made bucketed layouts:
+   the dense top-k and the float scoring of kernels 2 and 5 exact, the
+   Stage-2 float sums within 1e-5; kernels 1 and 2 also against their
+   plain twins, exactly; kernel 5 also on hand-made bucketed layouts:
    -1 lanes inside rows, a full row and a residue, a residue under
    survive_t 0, one doc's 600 lanes whose order changes the sum, tile_d
    48, every tile empty) and times the kernel, its plain version and,
-   where one exists, the library call with CUDA events; for the two
-   redesigned kernels (5 and 9) it logs the wrapper's time beside the
-   device time of a call (``torch.profiler``) and the earlier design's
-   time;
+   where one exists, the library call with CUDA events; for the
+   redesigned kernels (1, 2, 5 and 9) it logs the wrapper's time beside
+   the device time of a call (``torch.profiler``) and the earlier
+   design's time, for kernels 4 and 6 the device times of the kernel and
+   of its library call;
 7. serve phases: for each preset, sets the launch counts to 0, serves 8
    batches of 32 queries on the card and reads the counts: for
    ``paper_200ms`` both routes must take queries, Stage-2 must re-rank and
@@ -176,6 +178,10 @@ KERNELS = {
 LAXMAP_KERNELS = ("impact_accumulate_bucketed", "blockmax_score_bucketed",
                   "score_histogram")
 LM_KERNELS = ("flash_attention", "flash_decode")
+# kernels 1 and 2 (one block per tile and query group over the shard's
+# mirror) and the plain twins of their arithmetic, in the same modules
+TWINS = {"impact_accumulate_batched": "impact_accumulate_grouped",
+         "blockmax_score_batched": "blockmax_score_grouped"}
 SERVE_KERNELS = tuple(n for n in KERNELS
                       if n not in LAXMAP_KERNELS + LM_KERNELS)
 RETRIEVAL_KERNELS = SERVE_KERNELS + LAXMAP_KERNELS
@@ -190,7 +196,9 @@ MODEL_F32_TOL = 5e-3          # of the largest |output|, recorded fp32 calls
 BF16_TOL = 2e-2               # below magnitude 1 absolute, above relative
 # the redesigned kernels' earlier designs, ms on the card (PERF.md §6, on
 # an NVIDIA H100 80GB HBM3 at 700 W), logged beside this run's
-EARLIER_MS = {"blockmax_score_bucketed": "0.0647-0.0723",
+EARLIER_MS = {"impact_accumulate_batched": "1.611-1.622",
+              "blockmax_score_batched": "0.780-0.788",
+              "blockmax_score_bucketed": "0.0647-0.0723",
               "flash_decode": "0.171-0.267",
               "flash_decode decode_32k": "0.655-0.683"}
 
@@ -392,9 +400,10 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(fn, reps):
-    """Device time of one ``fn()``: the card's kernels and copies that
-    ``reps`` calls launch under ``torch.profiler``, summed and divided by
-    ``reps`` (the host's time between the launches left out)."""
+    """Device time of one ``fn()`` as text: the card's kernels and copies
+    that ``reps`` calls launch under ``torch.profiler``, summed and divided
+    by ``reps`` (the host's time between the launches left out), in ms;
+    "not captured" when the profiler recorded no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -407,13 +416,13 @@ def device_ms(fn, reps):
         torch.cuda.synchronize()
     us = sum(e.device_time_total for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3
+    return f"{us / reps / 1e3:.4f}" if us > 0 else "not captured"
 
 
 def log_redesign(label, ms, fn):
     """A redesigned kernel's wrapper time beside its device time and the
     earlier design's time (``EARLIER_MS``)."""
-    log(f"kernel {label}: wrapper {ms:.4f} ms, device {device_ms(fn, REPS):.4f}"
+    log(f"kernel {label}: wrapper {ms:.4f} ms, device {device_ms(fn, REPS)}"
         f" ms a call (profiler); the earlier design {EARLIER_MS[label]} ms "
         f"(PERF.md)")
 
@@ -448,10 +457,9 @@ def lm_work(name, args, kw):
 
 def work_of(name, args, kw):
     """(bytes, ops, ops per second) the call must move and do on these
-    inputs.  Lexical and Stage-2 kernels: the live lanes it needs read
-    once, flags and query terms read once, the output written once; one
-    int32 compare per (query, live lane it scores, query term) — per (live
-    lane, candidate) for the Stage-2 gather.  Dense top-k: the embeddings
+    inputs.  Kernels 1 and 2: ``batched_work``.  Stage-2 gather: the live
+    lanes and candidates read once, the output written once; one int32
+    compare per (live lane, candidate).  Dense top-k: the embeddings
     and queries read once, (Q, k) scores and ids written once; two fp32
     operations (one FMA) per (query, doc, dimension).  Per-query bucketed
     kernels: the live lanes the function needs (doc and value, 8 B; for
@@ -482,28 +490,63 @@ def work_of(name, args, kw):
         (q, d), n = q_emb.shape, doc_emb.shape[0]
         return (4 * (n * d + q * d) + 12 * q * k, 2 * q * n * d,
                 FP32_FLOPS_PER_S)
-    if name == "impact_accumulate_batched":
-        docs, terms, imps, qterms, lstar = args
-        q, n_terms = qterms.shape
-        live = int((docs >= 0).sum())
-        tile_d = kw["tile_d"]
-        out = q * docs.shape[0] * tile_d * 4
-        return (12 * live + 4 * qterms.numel() + 4 * q + out,
-                q * live * n_terms, INT32_OPS_PER_S)
-    if name == "blockmax_score_batched":
-        docs, terms, scores, qterms, sb, st = args
-        q, n_terms = qterms.shape
-        per_tile = (docs >= 0).sum(dim=1).to(torch.int64)      # (n_tiles,)
-        # the mirror's lanes of every tile some query needs, read once
-        needed = int(per_tile[(st > 0).any(dim=0)].sum())
-        scored = int(((st > 0).to(torch.int64) * per_tile[None]).sum())
-        out = q * docs.shape[0] * kw["tile_d"] * 4
-        return (12 * needed + 4 * (sb.numel() + st.numel() + qterms.numel())
-                + out, scored * n_terms, INT32_OPS_PER_S)
+    if name in TWINS:
+        return batched_work(name, args, kw)[:3]
     lane_docs, lane_scores, cand = args
     live = int((lane_docs >= 0).sum())
     return (8 * live + 4 * cand.numel() + 12 * cand.numel(),
             live * cand.shape[1], INT32_OPS_PER_S)
+
+
+def batched_work(name, args, kw):
+    """(bytes, ops, ops per second, the TPU design's compares) of a call of
+    kernel 1 or 2 on these inputs.  Bytes: 4 for each live term lane of the
+    tiles the call must read (every tile for kernel 1; for kernel 2 those
+    some query keeps), 8 (doc and impact or score) for each of those lanes
+    whose term a query holds (for kernel 2 a query that keeps the tile),
+    the flags, query terms and cuts read once, the output written once.
+    Operations: one term lookup a lane read, plus one add per (lane, query)
+    match that adds (kernel 1: the impact reaches the query's cut; kernel
+    2: the query keeps the tile and the lane's block).  The TPU design's
+    count: one int32 compare per (query, live lane it scans, query slot)."""
+    import torch
+    from repro_torch.kernels import term_table as tt
+    docs, terms, vals, qterms = args[:4]
+    q, n_terms = qterms.shape
+    n_tiles, tile_d = docs.shape[0], kw["tile_d"]
+    live = docs >= 0
+    per_tile = live.sum(dim=1).to(torch.int64)
+    if name == "blockmax_score_batched":
+        sb, st = args[4:]
+        read = (st > 0).any(dim=0)
+        flags = sb.numel() + st.numel()
+        scanned = int(((st > 0).to(torch.int64) * per_tile[None]).sum())
+    else:
+        read = torch.ones(n_tiles, dtype=torch.bool, device=docs.device)
+        flags = q
+        scanned = q * int(per_tile.sum())
+    needed = torch.zeros_like(live)
+    adds = 0
+    for g0 in range(0, q, tt.GROUP):
+        qt = qterms[g0:g0 + tt.GROUP]
+        keys, mask, _ = tt.group_table(qt)
+        tile, j, entry = tt.matched_lanes(keys, docs, terms, tile_d)
+        held = tt.mask_bits(mask[entry], qt.shape[0])
+        if name == "blockmax_score_batched":
+            held &= st[g0:g0 + tt.GROUP].T[tile] > 0
+            blk = docs[tile, j].long() // kw["block_size"]
+            hit = held & (sb[g0:g0 + tt.GROUP].permute(1, 2, 0)[tile, blk]
+                          > 0)
+        else:
+            hit = held & (vals[tile, j].unsqueeze(1)
+                          >= args[4][g0:g0 + tt.GROUP].unsqueeze(0))
+        some = held.any(dim=1)
+        needed[tile[some], j[some]] = True
+        adds += int(hit.sum())
+    lanes = int(per_tile[read].sum())
+    nbytes = (4 * lanes + 8 * int(needed.sum())
+              + 4 * (flags + qterms.numel()) + 4 * q * n_tiles * tile_d)
+    return nbytes, lanes + adds, INT32_OPS_PER_S, scanned * n_terms
 
 
 def compare(name, got, want, tol=1e-5):
@@ -531,7 +574,10 @@ def edge_calls(device):
     """Small seeded inputs with the edge cases the main path rarely shows:
     -1 query slots, a repeated query term, an empty tile, a ghost tail
     tile, tiles whose survive_t is 0 under set block flags, dead lanes
-    and -1 candidates; for the dense top-k, exact ties (duplicated doc
+    and -1 candidates; for kernels 1 and 2 also Q = 1, 33 and 64 (one
+    group, a group of one, two full groups of 8 slots) with a term held by
+    every query at different slots, and at Q = 33 a group that prunes
+    every tile; for the dense top-k, exact ties (duplicated doc
     rows), doc counts that are not a multiple of the kernel's chunk,
     k in {1, 33, 128} and a single query.  Lists of (args, kwargs)."""
     import numpy as np
@@ -567,13 +613,31 @@ def edge_calls(device):
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def groups(q):
+        # L = 8 slots, 40 % of them -1; term 13 in every query, at slot
+        # q % 8; at Q = 33 the second group prunes every tile
+        qt = rng.randint(0, vocab, (q, 8)).astype(np.int32)
+        qt[rng.rand(q, 8) < 0.4] = -1
+        qt[np.arange(q), np.arange(q) % 8] = 13
+        cut = rng.randint(0, 128, q).astype(np.int32)
+        sbq = (rng.rand(q, n_tiles, tile_d // block) < 0.7).astype(np.int32)
+        stq = (rng.rand(q, n_tiles) < 0.7).astype(np.int32)
+        if q == 33:
+            stq[32:] = 0
+        return ((t(docs_b), t(terms_b), t(imps_b), t(qt), t(cut)),
+                (t(docs_b), t(terms_b), t(scores_b), t(qt), t(sbq), t(stq)))
+
+    grouped = [groups(q) for q in (1, 33, 64)]
     return {
         "impact_accumulate_batched": [(
             (t(docs_b), t(terms_b), t(imps_b), t(qterms),
-             t(np.asarray([0, 40, 0, 1], np.int32))), dict(tile_d=tile_d))],
+             t(np.asarray([0, 40, 0, 1], np.int32))), dict(tile_d=tile_d))]
+        + [(a, dict(tile_d=tile_d)) for a, _ in grouped],
         "blockmax_score_batched": [(
             (t(docs_b), t(terms_b), t(scores_b), t(qterms), t(sb), t(st)),
-            dict(tile_d=tile_d, block_size=block))],
+            dict(tile_d=tile_d, block_size=block))]
+        + [(b, dict(tile_d=tile_d, block_size=block)) for _, b in grouped],
         "qd_feature_gather_lanes": [((t(lanes), t(lane_sc), t(cand)), {})],
         "dense_topk_tiles": [
             ((t(q_emb), t(ties), 128), {}),
@@ -812,9 +876,11 @@ def kernel_phase(recorded, k_topk):
     plain = {name: getattr(mods[name], fn) for name, fn in plain.items()}
     kern = {name: getattr(mods[name], name) for name in RETRIEVAL_KERNELS}
     library = library_calls()
-    # the dense top-k is exact on the grid-quantized embeddings; kernel 5
-    # adds each doc's lanes in the plain version's order
-    tols = {"dense_topk_tiles": 0.0, "blockmax_score_bucketed": 0.0}
+    # the dense top-k is exact on the grid-quantized embeddings; kernels 2
+    # and 5 add each doc's terms in the plain version's order
+    tols = {"dense_topk_tiles": 0.0, "blockmax_score_batched": 0.0,
+            "blockmax_score_bucketed": 0.0}
+    twin = {name: getattr(mods[name], fn) for name, fn in TWINS.items()}
     rows = {}
     dev = recorded["qd_feature_gather_lanes"][0][0][0].device
     edges = edge_calls(dev)
@@ -830,15 +896,28 @@ def kernel_phase(recorded, k_topk):
             want = plain[name](*args, **kw)
             torch.cuda.synchronize()
             err = max(err, compare(name, got, want, tols.get(name, 1e-5)))
+            if name in TWINS:
+                err = max(err, compare(name + " (twin)", got,
+                                       twin[name](*args, **kw), 0.0))
         # time the largest call of the batch (the one with most work)
         args, kw = max(calls, key=lambda c: work_of(name, *c)[0])
+        note = (f"{len(calls)} main-path calls and {len(edges[name])} edge "
+                "cases checked")
+        if name in TWINS:
+            note += (f" (and against {TWINS[name]}), Q={args[3].shape[0]}; "
+                     f"the TPU design's compares "
+                     f"{batched_work(name, args, kw)[3]}")
         rows[name] = kernel_row(name, kern[name], plain[name],
-                                library.get(name), args, kw, err,
-                                f"{len(calls)} main-path calls and "
-                                f"{len(edges[name])} edge cases checked")
+                                library.get(name), args, kw, err, note)
         if name in EARLIER_MS:
             log_redesign(name, rows[name]["ms"],
                          lambda: kern[name](*args, **kw))
+        if name in ("impact_accumulate_bucketed", "dense_topk_tiles"):
+            # rows 4 and 6: the kernel's and the library call's device time
+            lib_ms = device_ms(library[name](args, kw), REPS)
+            log(f"kernel {name}: device "
+                f"{device_ms(lambda: kern[name](*args, **kw), REPS)} ms "
+                f"a call, library call device {lib_ms} ms (profiler)")
         if name == "score_histogram":
             (s,) = args
             got = sh.histogram_topk(s, k=k_topk)

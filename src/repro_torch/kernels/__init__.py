@@ -8,7 +8,10 @@ for bf16 prefill on the tensor cores) and ``ops.py`` (the wrapper the
 engines import, and the plain PyTorch version of the same function over
 the same layout).  A wrapper
 launches the kernel for CUDA tensors and runs the plain version for CPU
-tensors; there is no fallback between the two.
+tensors; there is no fallback between the two.  ``term_table.cuh`` and
+``term_table.py`` hold the query-group term table that the batched mirror
+kernels (``impact_accumulate``, ``blockmax_score``) build in shared
+memory, and its PyTorch form for their plain twins.
 
 All the kernels are compiled together, on first use, by one
 ``torch.utils.cpp_extension.load`` call: the ``.cu`` sources plus one

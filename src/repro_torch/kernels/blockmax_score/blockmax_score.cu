@@ -9,82 +9,189 @@
 // `_score_kernel_batched`) of repro/kernels/blockmax_score/kernel.py.  Per
 // (query q, doc tile t) it sums the f32 BM25 scores of the tile's postings
 // whose term is one of the query's terms and whose 64-doc pruning block
-// survives (survive_b), into a (Q, n_tiles, tile_d) f32 output.  A tile
-// with survive_t == 0 writes its zeros without reading the mirror (the
-// output comes from torch.empty, so the zeros must be written).
+// survives (survive_b), into a (Q, n_tiles, tile_d) f32 output; a tile
+// with survive_t == 0 gives zeros.
 //
-// What bounds it on the card: integer operations and bytes about equally.
-// Each surviving (query, tile) block streams its tile's doc, term and score
-// lanes once and tests each lane against the query's L terms (int32
-// compares, 64 a clock per SM); pruned tiles cost one flag read and a
-// 512-byte store.  Blocks run query-fastest (blockIdx.x = query) so the
-// queries that share a tile read it through L2, and device memory sees
-// about one pass over the tiles some query needs.
+// What bounds it on the card: bytes.  The function needs, of the tiles
+// some query keeps, each live term lane read once (4 B) and the doc and
+// score (8 B) of the lanes whose term a keeping query holds, the flags
+// once, and the output written once.  The TPU design's grid step is one
+// (query, tile) pair that tests every lane of a kept tile against the
+// query's L terms: a pass over the mirror's three arrays and lanes x L
+// compares per query.  Here the term lanes are read once per group of 32
+// queries; the per-lane lookup and the blocks' shared memory, which
+// limits them to one or two an SM, cost more time than the stream of the
+// term rows alone (PERF.md, kernel table).
 //
-// Determinism without float atomics: postings are unique (term, doc) pairs,
-// so a doc gets at most one lane per query term.  Each live lane writes its
-// score to its own (query-term slot, doc) cell in shared memory, claimed by
-// the FIRST slot holding its term (membership: a repeated query term scores
-// once); no two lanes share a cell.  Each doc's sum is then taken over the
-// slots in slot order, starting from 0.0f.  The result does not depend on
-// scheduling, and it is the order the plain version (ops.py) sums in, bit
-// for bit.  The TPU's one-hot f32 matmul adds the same terms in another
-// order, so the two agree to float rounding.
+// The design: one block per (tile, group of up to 32 queries); blockIdx.x
+// is the tile, blockIdx.y the group.  The block first reads the group's
+// survive_t flags; if no query keeps the tile it writes the group's zero
+// rows and returns without touching the mirror.  Otherwise it builds the
+// group's term table in shared memory (term_table.cuh, behind a 64 Kbit
+// filter), each entry holding beside the query mask a 4-bit code per
+// query: the FIRST slot of the query that holds the term (membership: a
+// repeated term scores once).  It walks the tile's term lanes with
+// coalesced 4-byte loads, 8 a thread in flight, the next step's loads
+// issued before this step's lookups; a lane whose term no query holds
+// costs its load and one filter test.  A matching lane of a keeping query
+// reads its doc and score and, for each keeping query whose survive_b
+// block flag is set, writes the score to that query's cell (first slot,
+// doc).
+//
+// Shared memory: the cells take qg x L x tile_d x 4 B, 128 KB at a group
+// of 32, L = 8 and tile_d = 128, so the launch opts in to dynamic shared
+// memory above 48 KB (cudaFuncSetAttribute; 227 KB a block on the H100).
+// Groups of 32 keep one read of the term lanes per 32 queries, as in the
+// SAAT kernel, at the cost of one 512-thread block per SM for a full
+// group (two at the main path's 10-20 queries).  Only the kept queries'
+// cells are cleared and summed.
+//
+// Determinism without float atomics: postings are unique (term, doc)
+// pairs, so no cell is written twice.  The epilogue sums each (query, doc)
+// over its L cells in slot order, starting from 0.0f, empty cells
+// included: the order of blockmax_score_plain (ops.py), which the kernel
+// equals bit for bit, whatever the scheduling.  The TPU's one-hot f32
+// matmul adds the same terms in another order, so the two agree to float
+// rounding.
 
 #include <cuda_runtime.h>
 
+#include "../term_table.cuh"
+
 namespace {
 
-__global__ void blockmax_score_kernel(
+using term_table::kEmpty;
+using term_table::kGroup;
+
+constexpr int kBatchThreads = 512;
+constexpr int kBatchUnroll = 8;          // term loads of a thread in flight
+constexpr int kCodeWords = kGroup / 8;   // 4-bit first-slot codes of a term
+
+__global__ void __launch_bounds__(kBatchThreads) blockmax_score_kernel(
     const int* __restrict__ tile_docs, const int* __restrict__ tile_terms,
     const float* __restrict__ tile_scores, const int* __restrict__ qterms,
     const int* __restrict__ survive_b, const int* __restrict__ survive_t,
-    float* __restrict__ out, int n_tiles, int cap, int n_terms, int tile_d,
-    int block_size) {
-  extern __shared__ float smem_f[];
-  const int q = blockIdx.x;
-  const int t = blockIdx.y;
-  const size_t qt_idx = static_cast<size_t>(q) * n_tiles + t;
-  float* o = out + qt_idx * tile_d;
-  if (survive_t[qt_idx] == 0) {
-    for (int i = threadIdx.x; i < tile_d; i += blockDim.x) o[i] = 0.0f;
+    float* __restrict__ out, int n_q, int n_tiles, int cap, int n_terms,
+    int tile_d, int block_size, int bits) {
+  extern __shared__ int smem[];
+  const int t = blockIdx.x;
+  const int q0 = blockIdx.y * kGroup;
+  const int qg = min(kGroup, n_q - q0);
+  unsigned* kept_s = reinterpret_cast<unsigned*>(smem);
+  if (threadIdx.x < 32) {
+    const bool keep = static_cast<int>(threadIdx.x) < qg
+        && survive_t[static_cast<size_t>(q0 + threadIdx.x) * n_tiles + t] > 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (threadIdx.x == 0) *kept_s = ballot;
+  }
+  __syncthreads();
+  const unsigned kept = *kept_s;   // bit i: the group's query i keeps t
+  if (kept == 0u) {                // the group's zero rows, no mirror read
+    for (int i = threadIdx.x; i < qg * tile_d; i += kBatchThreads) {
+      const int qi = i / tile_d;
+      out[(static_cast<size_t>(q0 + qi) * n_tiles + t) * tile_d
+          + (i - qi * tile_d)] = 0.0f;
+    }
     return;
   }
+
+  const int size = 1 << bits;
   const int bpt = tile_d / block_size;
-  float* contrib = smem_f;                                     // n_terms x tile_d
-  int* qt = reinterpret_cast<int*>(contrib + n_terms * tile_d);  // n_terms
-  int* sb = qt + n_terms;                                      // bpt
-  for (int i = threadIdx.x; i < n_terms * tile_d; i += blockDim.x)
-    contrib[i] = 0.0f;
-  for (int i = threadIdx.x; i < n_terms; i += blockDim.x)
-    qt[i] = qterms[q * n_terms + i];
-  for (int i = threadIdx.x; i < bpt; i += blockDim.x)
-    sb[i] = survive_b[qt_idx * bpt + i];
+  const int row_cells = n_terms * tile_d;                      // a query's
+  int* keys = smem + 1;                                        // size
+  unsigned* masks = reinterpret_cast<unsigned*>(keys + size);  // size
+  unsigned* codes = masks + size;                    // size x kCodeWords
+  unsigned* filt = codes + size * kCodeWords;              // kFilterWords
+  int* sb = reinterpret_cast<int*>(filt + term_table::kFilterWords);
+  float* cells = reinterpret_cast<float*>(sb + qg * bpt);  // qg x L x tile_d
+  for (int i = threadIdx.x; i < size; i += kBatchThreads) {
+    keys[i] = kEmpty;
+    masks[i] = 0u;
+  }
+  for (int i = threadIdx.x; i < term_table::kFilterWords; i += kBatchThreads)
+    filt[i] = 0u;
+  for (int i = threadIdx.x; i < size * kCodeWords; i += kBatchThreads)
+    codes[i] = 0u;
+  for (int i = threadIdx.x; i < qg * bpt; i += kBatchThreads) {
+    const int qi = i / bpt;
+    sb[i] = survive_b[(static_cast<size_t>(q0 + qi) * n_tiles + t) * bpt
+                      + (i - qi * bpt)];
+  }
+  for (int i = threadIdx.x; i < qg * row_cells; i += kBatchThreads)
+    if ((kept >> (i / row_cells)) & 1u) cells[i] = 0.0f;
   __syncthreads();
 
-  const size_t row = static_cast<size_t>(t) * cap;
-  for (int j = threadIdx.x; j < cap; j += blockDim.x) {
-    const int d = tile_docs[row + j];
-    if (d < 0) continue;  // padding lane
-    if (sb[d / block_size] == 0) continue;
-    const int term = tile_terms[row + j];
-    int slot = -1;
-    for (int l = n_terms - 1; l >= 0; --l)
-      if (qt[l] == term) slot = l;
-    if (slot >= 0) contrib[slot * tile_d + d] = tile_scores[row + j];
+  // the group's term table: every (query, slot) in parallel; the first
+  // slot of a query holding a term sets the query's bit and code
+  const int* qt = qterms + static_cast<size_t>(q0) * n_terms;
+  for (int i = threadIdx.x; i < qg * n_terms; i += kBatchThreads) {
+    const int term = qt[i];
+    if (term < 0) continue;
+    const int qi = i / n_terms;
+    const int slot = i - qi * n_terms;
+    bool first = true;
+    for (int l = 0; l < slot; ++l) first &= qt[qi * n_terms + l] != term;
+    if (!first) continue;
+    const int e = term_table::insert(keys, term, bits);
+    atomicOr(&masks[e], 1u << qi);
+    atomicOr(&codes[e * kCodeWords + (qi >> 3)],
+             static_cast<unsigned>(slot) << (4 * (qi & 7)));
+    term_table::filter_add(filt, term);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < tile_d; i += blockDim.x) {
+
+  // the tile's term lanes: the next step's loads go out before this
+  // step's lanes are looked up
+  const size_t row = static_cast<size_t>(t) * cap;
+  const int* terms = tile_terms + row;
+  constexpr int kStep = kBatchUnroll * kBatchThreads;
+  int cur[kBatchUnroll];
+  term_table::load_terms<kBatchThreads>(cur, terms, threadIdx.x, cap);
+  for (int j0 = threadIdx.x; j0 < cap; j0 += kStep) {
+    int nxt[kBatchUnroll];
+    term_table::load_terms<kBatchThreads>(nxt, terms, j0 + kStep, cap);
+#pragma unroll
+    for (int u = 0; u < kBatchUnroll; ++u) {
+      if (!term_table::filter_test(filt, cur[u])) continue;
+      const int e = term_table::find(keys, cur[u], bits);
+      if (e < 0) continue;
+      const unsigned held = masks[e] & kept;
+      if (held == 0u) continue;
+      const size_t j = row + j0 + u * kBatchThreads;
+      const int d = tile_docs[j];
+      const float s = tile_scores[j];
+      if (static_cast<unsigned>(d) >= static_cast<unsigned>(tile_d)) continue;
+      const int blk = d / block_size;
+      for (unsigned m = held; m != 0u; m &= m - 1u) {
+        const int qi = __ffs(m) - 1;
+        if (sb[qi * bpt + blk] <= 0) continue;
+        const int slot = (codes[e * kCodeWords + (qi >> 3)] >> (4 * (qi & 7)))
+                         & 15u;
+        cells[qi * row_cells + slot * tile_d + d] = s;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatchUnroll; ++u) cur[u] = nxt[u];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < qg * tile_d; i += kBatchThreads) {
+    const int qi = i / tile_d;
+    const int d = i - qi * tile_d;
     float s = 0.0f;
-    for (int l = 0; l < n_terms; ++l) s += contrib[l * tile_d + i];
-    o[i] = s;
+    if ((kept >> qi) & 1u) {
+      const float* c = cells + qi * row_cells + d;
+      for (int l = 0; l < n_terms; ++l) s += c[l * tile_d];
+    }
+    out[(static_cast<size_t>(q0 + qi) * n_tiles + t) * tile_d + d] = s;
   }
 }
 
 }  // namespace
 
-// Launches one block per (query, tile) on `stream`.  The caller checks the
-// launch (C10_CUDA_KERNEL_LAUNCH_CHECK in binding.cpp).
+// Launches one block per (tile, group of up to 32 queries) on `stream`,
+// with the shared memory the group needs (opted in above 48 KB).  The
+// caller checks the launch (C10_CUDA_KERNEL_LAUNCH_CHECK in binding.cpp);
+// the wrapper (ops.py) raises first on what the card cannot hold.
 void blockmax_score_launch(const int* tile_docs, const int* tile_terms,
                            const float* tile_scores, const int* qterms,
                            const int* survive_b, const int* survive_t,
@@ -92,12 +199,20 @@ void blockmax_score_launch(const int* tile_docs, const int* tile_terms,
                            int n_terms, int tile_d, int block_size,
                            cudaStream_t stream) {
   if (n_q == 0 || n_tiles == 0) return;
-  const dim3 grid(n_q, n_tiles);
-  const size_t smem = sizeof(float) * n_terms * tile_d
-                      + sizeof(int) * (n_terms + tile_d / block_size);
-  blockmax_score_kernel<<<grid, 256, smem, stream>>>(
+  const int gq = n_q < kGroup ? n_q : kGroup;
+  const int bits = term_table::bits_for(gq * n_terms);
+  const size_t smem = sizeof(int) * (1 + (size_t{1} << bits) * (2 + kCodeWords)
+                                     + term_table::kFilterWords
+                                     + size_t{1} * gq * (tile_d / block_size)
+                                     + size_t{1} * gq * n_terms * tile_d);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(blockmax_score_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  const dim3 grid(n_tiles, (n_q + kGroup - 1) / kGroup);
+  blockmax_score_kernel<<<grid, kBatchThreads, smem, stream>>>(
       tile_docs, tile_terms, tile_scores, qterms, survive_b, survive_t, out,
-      n_tiles, cap, n_terms, tile_d, block_size);
+      n_q, n_tiles, cap, n_terms, tile_d, block_size, bits);
 }
 
 // ---------------------------------------------------------------------------

@@ -12,8 +12,11 @@ launches it for CUDA tensors and runs its plain version for CPU tensors:
   ``survive_t == 0`` are all zeros.  Both paths give each live lane its own
   (first matching query-term slot, doc) cell and sum each doc's cells in
   slot order from 0.0, so they agree bit for bit.
-  ``blockmax_score_tiles`` derives the per-tile flags from per-block
-  survival, as the reference's ``ops.blockmax_score_tiles`` does.
+  ``blockmax_score_grouped`` is the CUDA kernel's arithmetic in PyTorch
+  (one term table per group of 32 queries, ``term_table``), for the tests
+  and ``chip_smoke.py``.  ``blockmax_score_tiles`` derives the per-tile
+  flags from per-block survival, as the reference's
+  ``ops.blockmax_score_tiles`` does.
 * ``blockmax_score_bucketed`` (plain: ``blockmax_score_bucketed_plain``),
   the Pallas kernel ``blockmax_score_bucketed``: one query's postings
   bucketed by doc tile, per tile the f32 sum of each local doc's scores,
@@ -31,9 +34,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import term_table
 from repro_torch.kernels.buckets import bucket_by_tile
 
-SMEM_LIMIT = 48 * 1024   # static shared-memory limit of one block
+MAX_TERMS = 16           # query slots the batched kernel's 4-bit codes hold
 MAX_TILE_D = 1024        # the bucketed kernel's running sums of 4 tiles a
                          # block stay in 16 KB of shared memory
 
@@ -71,6 +75,56 @@ def blockmax_score_plain(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
             acc = acc + cells[:, l, :tile_d]
         out[i, tiles] = acc
     return out
+
+
+def blockmax_score_grouped(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
+                           tile_scores: torch.Tensor, qterms: torch.Tensor,
+                           survive_b: torch.Tensor, survive_t: torch.Tensor,
+                           *, tile_d: int, block_size: int) -> torch.Tensor:
+    """The CUDA kernel's arithmetic in PyTorch (for the tests and
+    ``chip_smoke.py``): per group of ``term_table.GROUP`` queries, the
+    group's term table (query mask and first slot), one lookup per lane,
+    each matching lane's score written to the (first slot, doc) cell of
+    every query that keeps its tile and block, and each (query, doc) summed
+    over its cells in slot order from 0.0.  Equal to
+    ``blockmax_score_plain`` bit for bit."""
+    n_tiles = tile_docs.shape[0]
+    q, n_terms = qterms.shape
+    dev = tile_docs.device
+    out = torch.zeros((q, n_tiles * tile_d), dtype=torch.float32, device=dev)
+    for g0 in range(0, q, term_table.GROUP):
+        qt = qterms[g0:g0 + term_table.GROUP]
+        g = qt.shape[0]
+        keys, mask, first = term_table.group_table(qt)
+        tile, j, entry = term_table.matched_lanes(keys, tile_docs, tile_terms,
+                                                  tile_d)
+        d = tile_docs[tile, j].long()
+        sb = survive_b[g0:g0 + g].permute(1, 2, 0)[tile, d // block_size]
+        kept = survive_t[g0:g0 + g].T[tile]                     # (lanes, g)
+        writes = term_table.mask_bits(mask[entry], g) & (kept > 0) & (sb > 0)
+        lane, qi = torch.nonzero(writes, as_tuple=True)
+        cells = torch.zeros((g, n_terms, n_tiles * tile_d),
+                            dtype=torch.float32, device=dev)
+        cells[qi, first[entry[lane], qi], tile[lane] * tile_d + d[lane]] = \
+            tile_scores[tile[lane], j[lane]]
+        acc = torch.zeros((g, n_tiles * tile_d), dtype=torch.float32,
+                          device=dev)
+        for l in range(n_terms):
+            acc = acc + cells[:, l]
+        out[g0:g0 + g] = acc
+    return out.view(q, n_tiles, tile_d)
+
+
+def score_smem_bytes(q: int, n_terms: int, tile_d: int, block_size: int
+                     ) -> int:
+    """Shared memory of one block of the CUDA kernel: the keep mask, the
+    group's term table (keys, masks and 4-bit slot codes of 32 queries)
+    and filter, its block flags and its (query, slot, doc) f32 cells."""
+    gq = min(q, term_table.GROUP)
+    size = 1 << term_table.table_bits(gq * n_terms)
+    return 4 * (1 + size * (2 + term_table.GROUP // 8)
+                + term_table.FILTER_WORDS + gq * (tile_d // block_size)
+                + gq * n_terms * tile_d)
 
 
 def blockmax_score_batched(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
@@ -113,9 +167,16 @@ def blockmax_score_batched(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
              survive_t=survive_t),
         dict(tile_docs=i32, tile_terms=i32, tile_scores=torch.float32,
              qterms=i32, survive_b=i32, survive_t=i32))
-    if n_tiles > 65535:
-        raise ValueError(f"n_tiles={n_tiles} exceeds the grid's y limit")
-    if 4 * (n_terms * tile_d + n_terms + bpt) > SMEM_LIMIT:
+    if -(-q // term_table.GROUP) > 65535:
+        raise ValueError(f"{q} queries exceed the grid's y limit")
+    if n_terms > MAX_TERMS:
+        raise ValueError(f"{n_terms} query terms exceed the kernel's "
+                         f"{MAX_TERMS} slot codes")
+    if bpt < 1 or bpt * block_size != tile_d:
+        raise ValueError(f"tile_d={tile_d} must be a multiple of "
+                         f"block_size={block_size}")
+    if score_smem_bytes(q, n_terms, tile_d, block_size) > \
+            term_table.SMEM_OPTIN:
         raise ValueError(f"{n_terms} query terms x tile_d={tile_d} exceed "
                          "one block's shared memory")
     out = torch.empty((q, n_tiles, tile_d), dtype=torch.float32,

@@ -11,72 +11,143 @@
 // postings whose term is one of the query's terms and whose impact reaches
 // the query's level cut lstar[q], into a (Q, n_tiles, tile_d) int32 output.
 //
-// What bounds it on the card: integer operations.  Every (query, tile)
-// block tests each lane of its tile against the query's L terms: Q x lanes
-// x L int32 compares a batch, which the card issues at 64 a clock per SM (a
-// quarter of its fp32 FMA rate); on a full batch that takes about twice as
-// long as one pass over the mirror (three (n_tiles, cap) int32 arrays).
-// Bytes stay near that one pass: blocks are launched query-fastest
-// (blockIdx.x = query), so the Q blocks that read one tile run close
-// together and all but the first find the tile in L2.
+// What bounds it on the card: bytes.  The function needs each live term
+// lane of the mirror read once (4 B), the doc and impact (8 B) of only the
+// lanes whose term some query holds (a batch holds ~130 of 32,768 terms),
+// and the output written once.  The TPU design's grid step is one (query,
+// tile) pair that tests every lane of the tile against the query's L
+// terms: Q passes over the mirror's three arrays and Q x lanes x L
+// compares.  Here the term lanes are read once per group of 32 queries;
+// the per-lane lookup's instructions cost about as much time again as
+// the stream of the term rows alone (PERF.md, kernel table).
+//
+// The design: one block per (tile, group of up to 32 queries); blockIdx.x
+// is the tile, blockIdx.y the group.  The block builds the group's term
+// table in shared memory (term_table.cuh: term -> mask of the group's
+// queries holding it, behind a 64 Kbit filter; a repeated term sets its
+// bit once, -1 slots are skipped), then walks the tile's term lanes with
+// coalesced 4-byte loads, 8 a thread in flight, the next step's loads
+// issued before this step's lookups.  A lane whose term no query holds
+// costs its load and one filter test.  A matching lane loads its doc and
+// impact and, if the doc lies in [0, tile_d), for each query bit whose
+// cut it reaches adds the impact to that query's row of int32
+// accumulators in shared memory (32 x tile_d x 4 B = 16 KB at tile_d
+// 128).  The epilogue writes the group's rows with coalesced stores.
 //
 // The TPU kernel reduces with a one-hot f32 matmul and casts to int32
 // (exact while sums stay below 2^24: impacts <= 255, at most L terms per
 // doc).  Here the sum is kept in int32 from the start, with shared-memory
 // integer atomics: integer addition is exact in any order, so the result
-// does not depend on scheduling.
+// does not depend on scheduling and equals the plain versions bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "../term_table.cuh"
+
 namespace {
 
-__global__ void impact_accumulate_kernel(
+using term_table::kEmpty;
+using term_table::kGroup;
+
+constexpr int kBatchThreads = 256;
+constexpr int kBatchUnroll = 8;   // term loads of a thread in flight
+
+__global__ void __launch_bounds__(kBatchThreads) impact_accumulate_kernel(
     const int* __restrict__ tile_docs, const int* __restrict__ tile_terms,
     const int* __restrict__ tile_imps, const int* __restrict__ qterms,
-    const int* __restrict__ lstar, int* __restrict__ out, int n_tiles,
-    int cap, int n_terms, int tile_d) {
+    const int* __restrict__ lstar, int* __restrict__ out, int n_q,
+    int n_tiles, int cap, int n_terms, int tile_d, int bits) {
   extern __shared__ int smem[];
-  int* acc = smem;            // tile_d accumulators
-  int* qt = smem + tile_d;    // the query's terms, -1 in empty slots
-  const int q = blockIdx.x;
-  const int t = blockIdx.y;
-  for (int i = threadIdx.x; i < tile_d; i += blockDim.x) acc[i] = 0;
-  for (int i = threadIdx.x; i < n_terms; i += blockDim.x)
-    qt[i] = qterms[q * n_terms + i];
+  const int t = blockIdx.x;
+  const int q0 = blockIdx.y * kGroup;
+  const int qg = min(kGroup, n_q - q0);
+  const int size = 1 << bits;
+  int* keys = smem;                                            // size
+  unsigned* masks = reinterpret_cast<unsigned*>(keys + size);  // size
+  unsigned* filt = masks + size;                         // kFilterWords
+  int* cut = reinterpret_cast<int*>(filt + term_table::kFilterWords);
+  int* acc = cut + kGroup;                                     // qg x tile_d
+  for (int i = threadIdx.x; i < size; i += kBatchThreads) {
+    keys[i] = kEmpty;
+    masks[i] = 0u;
+  }
+  for (int i = threadIdx.x; i < term_table::kFilterWords; i += kBatchThreads)
+    filt[i] = 0u;
+  for (int i = threadIdx.x; i < qg * tile_d; i += kBatchThreads) acc[i] = 0;
+  if (threadIdx.x < qg) cut[threadIdx.x] = lstar[q0 + threadIdx.x];
   __syncthreads();
 
-  const int cut = lstar[q];
-  const size_t row = static_cast<size_t>(t) * cap;
-  for (int j = threadIdx.x; j < cap; j += blockDim.x) {
-    const int d = tile_docs[row + j];
-    if (d < 0) continue;  // padding lane
-    const int imp = tile_imps[row + j];
-    if (imp < cut) continue;
-    const int term = tile_terms[row + j];
-    bool hit = false;
-    for (int l = 0; l < n_terms; ++l) hit |= (qt[l] == term);
-    if (hit) atomicAdd(&acc[d], imp);
+  // the group's term table: every (query, slot) in parallel
+  const int* qt = qterms + static_cast<size_t>(q0) * n_terms;
+  for (int i = threadIdx.x; i < qg * n_terms; i += kBatchThreads) {
+    const int term = qt[i];
+    if (term < 0) continue;
+    atomicOr(&masks[term_table::insert(keys, term, bits)],
+             1u << (i / n_terms));
+    term_table::filter_add(filt, term);
   }
   __syncthreads();
-  int* o = out + (static_cast<size_t>(q) * n_tiles + t) * tile_d;
-  for (int i = threadIdx.x; i < tile_d; i += blockDim.x) o[i] = acc[i];
+
+  // the tile's term lanes: the next step's loads go out before this
+  // step's lanes are looked up
+  const size_t row = static_cast<size_t>(t) * cap;
+  const int* terms = tile_terms + row;
+  constexpr int kStep = kBatchUnroll * kBatchThreads;
+  int cur[kBatchUnroll];
+  term_table::load_terms<kBatchThreads>(cur, terms, threadIdx.x, cap);
+  for (int j0 = threadIdx.x; j0 < cap; j0 += kStep) {
+    int nxt[kBatchUnroll];
+    term_table::load_terms<kBatchThreads>(nxt, terms, j0 + kStep, cap);
+#pragma unroll
+    for (int u = 0; u < kBatchUnroll; ++u) {
+      if (!term_table::filter_test(filt, cur[u])) continue;
+      const int e = term_table::find(keys, cur[u], bits);
+      if (e < 0) continue;
+      const size_t j = row + j0 + u * kBatchThreads;
+      const int d = tile_docs[j];
+      const int imp = tile_imps[j];
+      if (static_cast<unsigned>(d) >= static_cast<unsigned>(tile_d)) continue;
+      for (unsigned m = masks[e]; m != 0u; m &= m - 1u) {
+        const int i = __ffs(m) - 1;
+        if (imp >= cut[i]) atomicAdd(&acc[i * tile_d + d], imp);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatchUnroll; ++u) cur[u] = nxt[u];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < qg * tile_d; i += kBatchThreads) {
+    const int qi = i / tile_d;
+    out[(static_cast<size_t>(q0 + qi) * n_tiles + t) * tile_d
+        + (i - qi * tile_d)] = acc[i];
+  }
 }
 
 }  // namespace
 
-// Launches one block per (query, tile) on `stream`.  The caller checks the
-// launch (C10_CUDA_KERNEL_LAUNCH_CHECK in binding.cpp).
+// Launches one block per (tile, group of up to 32 queries) on `stream`,
+// with the shared memory the group needs (opted in above 48 KB).  The
+// caller checks the launch (C10_CUDA_KERNEL_LAUNCH_CHECK in binding.cpp);
+// the wrapper (ops.py) raises first on what the card cannot hold.
 void impact_accumulate_launch(const int* tile_docs, const int* tile_terms,
                               const int* tile_imps, const int* qterms,
                               const int* lstar, int* out, int n_q, int n_tiles,
                               int cap, int n_terms, int tile_d,
                               cudaStream_t stream) {
   if (n_q == 0 || n_tiles == 0) return;
-  const dim3 grid(n_q, n_tiles);
-  const size_t smem = sizeof(int) * (tile_d + n_terms);
-  impact_accumulate_kernel<<<grid, 256, smem, stream>>>(
-      tile_docs, tile_terms, tile_imps, qterms, lstar, out, n_tiles, cap,
-      n_terms, tile_d);
+  const int gq = n_q < kGroup ? n_q : kGroup;
+  const int bits = term_table::bits_for(gq * n_terms);
+  const size_t smem =
+      sizeof(int) * ((size_t{2} << bits) + term_table::kFilterWords + kGroup
+                     + size_t{1} * gq * tile_d);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(impact_accumulate_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  const dim3 grid(n_tiles, (n_q + kGroup - 1) / kGroup);
+  impact_accumulate_kernel<<<grid, kBatchThreads, smem, stream>>>(
+      tile_docs, tile_terms, tile_imps, qterms, lstar, out, n_q, n_tiles, cap,
+      n_terms, tile_d, bits);
 }
 
 // ---------------------------------------------------------------------------

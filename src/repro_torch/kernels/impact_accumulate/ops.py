@@ -10,7 +10,9 @@ launches it for CUDA tensors and runs its plain version for CPU tensors:
   shard's mirror, the sum of the quantized impacts of the tile's postings
   whose term is one of the query's terms (membership: a repeated query term
   counts once) and whose impact reaches the query's level cut.  The batched
-  SAAT engine's hot loop.
+  SAAT engine's hot loop.  ``impact_accumulate_grouped`` is the CUDA
+  kernel's arithmetic in PyTorch (one term table per group of 32 queries,
+  ``term_table``), for the tests and ``chip_smoke.py``.
 * ``impact_accumulate_bucketed`` (plain:
   ``impact_accumulate_bucketed_plain``), the Pallas kernel
   ``impact_accumulate_bucketed``: one query's postings bucketed by doc tile,
@@ -28,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import term_table
 from repro_torch.kernels.buckets import bucket_by_tile
 
 # elements of one (queries, n_tiles, cap) working set of the plain version
@@ -67,6 +70,44 @@ def impact_accumulate_plain(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
     return out
 
 
+def impact_accumulate_grouped(tile_docs: torch.Tensor,
+                              tile_terms: torch.Tensor,
+                              tile_imps: torch.Tensor, qterms: torch.Tensor,
+                              lstar: torch.Tensor, *, tile_d: int
+                              ) -> torch.Tensor:
+    """The CUDA kernel's arithmetic in PyTorch (for the tests and
+    ``chip_smoke.py``): per group of ``term_table.GROUP`` queries, the
+    group's term table, one lookup per lane, and for each matching lane
+    with a doc in [0, tile_d) its impact added to the row of every query
+    bit whose cut it reaches.  Equal to ``impact_accumulate_plain``."""
+    n_tiles = tile_docs.shape[0]
+    q = qterms.shape[0]
+    out = torch.zeros((q, n_tiles * tile_d), dtype=torch.int32,
+                      device=tile_docs.device)
+    for g0 in range(0, q, term_table.GROUP):
+        qt = qterms[g0:g0 + term_table.GROUP]
+        g = qt.shape[0]
+        keys, mask, _ = term_table.group_table(qt)
+        tile, j, entry = term_table.matched_lanes(keys, tile_docs, tile_terms,
+                                                  tile_d)
+        imp = tile_imps[tile, j]
+        adds = (term_table.mask_bits(mask[entry], g)
+                & (imp.unsqueeze(1) >= lstar[g0:g0 + g].unsqueeze(0)))
+        lane, qi = torch.nonzero(adds, as_tuple=True)
+        cell = tile[lane] * tile_d + tile_docs[tile[lane], j[lane]]
+        out[g0:g0 + g].index_put_((qi, cell), imp[lane], accumulate=True)
+    return out.view(q, n_tiles, tile_d)
+
+
+def impact_smem_bytes(q: int, n_terms: int, tile_d: int) -> int:
+    """Shared memory of one block of the CUDA kernel: the group's term
+    table (keys and masks) and filter, its cuts and its int32 accumulator
+    rows."""
+    gq = min(q, term_table.GROUP)
+    return 4 * (2 * (1 << term_table.table_bits(gq * n_terms))
+                + term_table.FILTER_WORDS + term_table.GROUP + gq * tile_d)
+
+
 def impact_accumulate_batched(tile_docs: torch.Tensor,
                               tile_terms: torch.Tensor,
                               tile_imps: torch.Tensor, qterms: torch.Tensor,
@@ -98,8 +139,11 @@ def impact_accumulate_batched(tile_docs: torch.Tensor,
              qterms=qterms, lstar=lstar),
         dict(tile_docs=i32, tile_terms=i32, tile_imps=i32, qterms=i32,
              lstar=i32))
-    if n_tiles > 65535:
-        raise ValueError(f"n_tiles={n_tiles} exceeds the grid's y limit")
+    if -(-q // term_table.GROUP) > 65535:
+        raise ValueError(f"{q} queries exceed the grid's y limit")
+    if impact_smem_bytes(q, n_terms, tile_d) > term_table.SMEM_OPTIN:
+        raise ValueError(f"{n_terms} query terms x tile_d={tile_d} exceed "
+                         "one block's shared memory")
     out = torch.empty((q, n_tiles, tile_d), dtype=i32, device=tile_docs.device)
     kernels.extension().impact_accumulate(tile_docs, tile_terms, tile_imps,
                                           qterms, lstar, out)
