@@ -38,17 +38,20 @@ order, it
    kernel's inputs;
 6. kernel phase: runs each kernel on the recorded main-path inputs and on
    edge cases against its plain version on the card (the integer kernels,
-   the dense top-k and the float scoring of kernels 2 and 5 exact, the
-   Stage-2 float sums within 1e-5; kernels 1 and 2 also against their
-   plain twins, exactly; kernel 5 also on hand-made bucketed layouts:
-   -1 lanes inside rows, a full row and a residue, a residue under
-   survive_t 0, one doc's 600 lanes whose order changes the sum, tile_d
-   48, every tile empty) and times the kernel, its plain version and,
-   where one exists, the library call with CUDA events; for the
-   redesigned kernels (1, 2, 5 and 9) it logs the wrapper's time beside
-   the device time of a call (``torch.profiler``) and the earlier
-   design's time, for kernels 4 and 6 the device times of the kernel and
-   of its library call;
+   the dense top-k and the float sums of kernels 2, 3 and 5 exact;
+   kernels 1, 2 and 3 also against their plain twins, exactly; kernel 3
+   also on a candidate whose matches overflow its records, duplicate
+   candidates, C = 50 and 300, Q = 1 and all lanes dead; kernel 4, given
+   each row's live length, also against its plain version without the
+   lengths, and on full rows, empty rows and a call without lengths;
+   kernel 5 also on hand-made bucketed layouts: -1 lanes inside rows, a
+   full row and a residue, a residue under survive_t 0, one doc's 600
+   lanes whose order changes the sum, tile_d 48, every tile empty) and
+   times the kernel, its plain version and, where one exists, the
+   library call with CUDA events; for the redesigned kernels (1–5 and 9)
+   it logs the wrapper's time beside the device time of a call
+   (``torch.profiler``) and the earlier design's time, for kernels 4 and
+   6 the device times of the kernel and of its library call;
 7. serve phases: for each preset, sets the launch counts to 0, serves 8
    batches of 32 queries on the card and reads the counts: for
    ``paper_200ms`` both routes must take queries, Stage-2 must re-rank and
@@ -179,9 +182,12 @@ LAXMAP_KERNELS = ("impact_accumulate_bucketed", "blockmax_score_bucketed",
                   "score_histogram")
 LM_KERNELS = ("flash_attention", "flash_decode")
 # kernels 1 and 2 (one block per tile and query group over the shard's
-# mirror) and the plain twins of their arithmetic, in the same modules
+# mirror) and 3 (one cluster per query, match records), and the plain twins
+# of their arithmetic, in the same modules
+BATCHED = ("impact_accumulate_batched", "blockmax_score_batched")
 TWINS = {"impact_accumulate_batched": "impact_accumulate_grouped",
-         "blockmax_score_batched": "blockmax_score_grouped"}
+         "blockmax_score_batched": "blockmax_score_grouped",
+         "qd_feature_gather_lanes": "qd_feature_gather_recorded"}
 SERVE_KERNELS = tuple(n for n in KERNELS
                       if n not in LAXMAP_KERNELS + LM_KERNELS)
 RETRIEVAL_KERNELS = SERVE_KERNELS + LAXMAP_KERNELS
@@ -198,6 +204,8 @@ BF16_TOL = 2e-2               # below magnitude 1 absolute, above relative
 # an NVIDIA H100 80GB HBM3 at 700 W), logged beside this run's
 EARLIER_MS = {"impact_accumulate_batched": "1.611-1.622",
               "blockmax_score_batched": "0.780-0.788",
+              "qd_feature_gather_lanes": "0.742-0.754",
+              "impact_accumulate_bucketed": "device 0.0040-0.0041",
               "blockmax_score_bucketed": "0.0647-0.0723",
               "flash_decode": "0.171-0.267",
               "flash_decode decode_32k": "0.655-0.683"}
@@ -457,14 +465,13 @@ def lm_work(name, args, kw):
 
 def work_of(name, args, kw):
     """(bytes, ops, ops per second) the call must move and do on these
-    inputs.  Kernels 1 and 2: ``batched_work``.  Stage-2 gather: the live
-    lanes and candidates read once, the output written once; one int32
-    compare per (live lane, candidate).  Dense top-k: the embeddings
-    and queries read once, (Q, k) scores and ids written once; two fp32
-    operations (one FMA) per (query, doc, dimension).  Per-query bucketed
-    kernels: the live lanes the function needs (doc and value, 8 B; for
-    kernel 5 those of the surviving tiles and the residue), the flags and
-    offsets and the cut read once, the tiles written once; for kernel 4 one
+    inputs.  Kernels 1 and 2: ``batched_work``.  Stage-2 gather:
+    ``gather_work``.  Dense top-k: the embeddings and queries read once,
+    (Q, k) scores and ids written once; two fp32 operations (one FMA) per
+    (query, doc, dimension).  Per-query bucketed kernels: the live lanes
+    the function needs (doc and value, 8 B; for kernel 5 those of the
+    surviving tiles and the residue), the flags, offsets or row lengths
+    and the cut read once, the tiles written once; for kernel 4 one
     int32 compare with the cut and one add per live lane, for kernel 5 one
     fp32 add per lane.  Histogram: the scores read once, the bins written
     once, one int32 increment per score."""
@@ -472,10 +479,10 @@ def work_of(name, args, kw):
     if name in LM_KERNELS:
         return lm_work(name, args, kw)
     if name == "impact_accumulate_bucketed":
-        docs_b, imps_b, lstar = args
-        tile_d = kw["tile_d"]
+        docs_b, imps_b, lstar, *lens = args     # the row lengths, if given
+        n_tiles, tile_d = docs_b.shape[0], kw["tile_d"]
         live = int(((docs_b >= 0) & (docs_b < tile_d)).sum())
-        return (8 * live + 4 + 4 * docs_b.shape[0] * tile_d, 2 * live,
+        return (8 * live + 4 + 4 * n_tiles * (len(lens) + tile_d), 2 * live,
                 INT32_OPS_PER_S)
     if name == "blockmax_score_bucketed":
         lanes = bucketed_score_lanes(*args)
@@ -490,12 +497,31 @@ def work_of(name, args, kw):
         (q, d), n = q_emb.shape, doc_emb.shape[0]
         return (4 * (n * d + q * d) + 12 * q * k, 2 * q * n * d,
                 FP32_FLOPS_PER_S)
-    if name in TWINS:
+    if name in BATCHED:
         return batched_work(name, args, kw)[:3]
-    lane_docs, lane_scores, cand = args
+    return gather_work(*args)[:3]
+
+
+def gather_work(lane_docs, lane_scores, cand):
+    """(bytes, ops, ops per second, the TPU design's compares) of a call of
+    kernel 3 on these inputs.  Bytes: the doc of each live lane (4 B), the
+    score of each lane that matches a candidate (4 B), the candidates read
+    once, the three outputs written once.  Operations: one table lookup
+    per live lane plus one add per (lane, candidate column) match, at the
+    int32 rate.  The TPU design's count: one int32 compare per (live lane,
+    candidate column)."""
+    import torch
+    from repro_torch.kernels.qd_feature_gather import ops as qd
     live = int((lane_docs >= 0).sum())
-    return (8 * live + 4 * cand.numel() + 12 * cand.numel(),
-            live * cand.shape[1], INT32_OPS_PER_S)
+    cnt = qd.qd_feature_gather_plain(lane_docs, lane_scores, cand)[2]
+    # a lane's score is read once, whichever columns hold its doc
+    c = cand.shape[1]
+    earlier = torch.ones((c, c), dtype=torch.bool,
+                         device=cand.device).tril(-1)
+    dup = ((cand[:, :, None] == cand[:, None, :]) & earlier).any(dim=2)
+    lanes_matched = int(cnt[~dup].sum())
+    return (4 * live + 4 * lanes_matched + 16 * cand.numel(),
+            live + int(cnt.sum()), INT32_OPS_PER_S, live * c)
 
 
 def batched_work(name, args, kw):
@@ -638,7 +664,8 @@ def edge_calls(device):
             (t(docs_b), t(terms_b), t(scores_b), t(qterms), t(sb), t(st)),
             dict(tile_d=tile_d, block_size=block))]
         + [(b, dict(tile_d=tile_d, block_size=block)) for _, b in grouped],
-        "qd_feature_gather_lanes": [((t(lanes), t(lane_sc), t(cand)), {})],
+        "qd_feature_gather_lanes": [((t(lanes), t(lane_sc), t(cand)), {})]
+        + gather_edge_calls(device),
         "dense_topk_tiles": [
             ((t(q_emb), t(ties), 128), {}),
             ((t(q_emb), t(doc_emb[:1025]), 33), {}),
@@ -647,6 +674,83 @@ def edge_calls(device):
             ((t(q_emb[:5]), t(doc_emb[:2999]), 33), {}),
         ],
     }
+
+
+def gather_edge_calls(device):
+    """Kernel 3's edges (its redesign's): a candidate matched by 600 lanes
+    whose order changes the f32 sum (1e8, 3, 3, -1e8, 3, ...), past the
+    records of every block, and a duplicate column of it; 20 matches in
+    one lane chunk (past a block's records, inside a warp's); duplicate
+    and -1 candidates; C = 77 (not a multiple of 32) and C = 300 (three
+    column groups) at P = 333; nine lane chunks at P = 9,001 (the ninth
+    walked by the first block again); Q = 1; all lanes dead.
+    Lists of (args, kwargs)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(SEED + 5)
+
+    def lanes(q, p, c, n, dead=0.2):
+        docs = rng.randint(0, n, (q, p)).astype(np.int32)
+        docs[rng.rand(q, p) < dead] = -1
+        scores = np.where(docs >= 0, rng.rand(q, p) * 5, 0).astype(np.float32)
+        cand = rng.randint(0, n, (q, c)).astype(np.int32)
+        cand[rng.rand(q, c) < 0.15] = -1
+        return [docs, scores, cand]
+
+    over = lanes(2, 1000, 128, 300)
+    hot = rng.rand(1000) < 0.6
+    over[0][:, hot] = 7
+    over[1][:, hot] = np.tile(np.float32([1e8, 3.0, 3.0, -1e8, 3.0]),
+                              200)[:int(hot.sum())]
+    over[2][:, 3] = 7
+    over[2][1, 90] = 7
+    seg = lanes(2, 1600, 50, 300)
+    seg[0][:, 200:][seg[0][:, 200:] == 9] = -1
+    seg[0][:, :200:10] = 9
+    seg[2][:, 0] = 9
+    dup = lanes(4, 800, 64, 60)
+    dup[2][:, 10:20] = dup[2][:, :10]
+    dup[2][1] = -1
+    dead = lanes(3, 600, 50, 100, dead=1.0)
+    dead[1][:] = 0.0
+    calls = [over, seg, dup, lanes(3, 333, 77, 200), lanes(3, 333, 300, 200),
+             lanes(2, 9001, 128, 2000), lanes(1, 1000, 128, 120), dead]
+    return [(tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                   for a in c), {}) for c in calls]
+
+
+def bucketed_impact_edge_calls(device):
+    """Kernel 4's edges with row lengths (its redesign's): every row full
+    (``cap`` live lanes), every row empty (length 0), rows prefix-packed
+    to random lengths (0, ``cap`` and 1 among them); and a call without
+    lengths (whole rows, -1 padding inside them).  Lists of (args,
+    kwargs)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(SEED + 6)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def call(docs_b, lens, lstar, tile_d=128):
+        imps_b = rng.randint(1, 256, docs_b.shape).astype(np.int32)
+        args = (t(docs_b), t(imps_b), t(np.asarray([lstar], np.int32)))
+        if lens is not None:
+            args += (t(np.asarray(lens, np.int32)),)
+        return args, dict(tile_d=tile_d)
+
+    n_tiles, cap = 40, 256
+    full = rng.randint(0, 128, (n_tiles, cap)).astype(np.int32)
+    lens = rng.randint(0, cap + 1, n_tiles)
+    lens[:3] = (0, cap, 1)
+    packed = np.where(np.arange(cap)[None, :] < lens[:, None],
+                      rng.randint(0, 128, (n_tiles, cap)), -1
+                      ).astype(np.int32)
+    holes = rng.randint(-1, 128, (n_tiles, cap)).astype(np.int32)
+    return [call(full, [cap] * n_tiles, 0),
+            call(np.full((n_tiles, cap), -1, np.int32), [0] * n_tiles, 0),
+            call(packed, lens, 100),
+            call(holes, None, 50)]
 
 
 def laxmap_edge_calls(device):
@@ -806,7 +910,7 @@ def library_calls():
 
     def impact(args, kw):
         # integer index_add_ over the live lanes that reach the cut
-        docs_b, imps_b, lstar = args
+        docs_b, imps_b, lstar = args[:3]
         tile_d = kw["tile_d"]
         rows = torch.arange(docs_b.shape[0], device=docs_b.device)[:, None]
         live = (docs_b >= 0) & (docs_b < tile_d) & (imps_b >= lstar)
@@ -876,10 +980,10 @@ def kernel_phase(recorded, k_topk):
     plain = {name: getattr(mods[name], fn) for name, fn in plain.items()}
     kern = {name: getattr(mods[name], name) for name in RETRIEVAL_KERNELS}
     library = library_calls()
-    # the dense top-k is exact on the grid-quantized embeddings; kernels 2
-    # and 5 add each doc's terms in the plain version's order
+    # the dense top-k is exact on the grid-quantized embeddings; kernels 2,
+    # 3 and 5 add each sum's terms in the plain version's order
     tols = {"dense_topk_tiles": 0.0, "blockmax_score_batched": 0.0,
-            "blockmax_score_bucketed": 0.0}
+            "qd_feature_gather_lanes": 0.0, "blockmax_score_bucketed": 0.0}
     twin = {name: getattr(mods[name], fn) for name, fn in TWINS.items()}
     rows = {}
     dev = recorded["qd_feature_gather_lanes"][0][0][0].device
@@ -887,6 +991,7 @@ def kernel_phase(recorded, k_topk):
     lax_edges, flat_errs = laxmap_edge_calls(dev)
     edges.update(lax_edges)
     edges["blockmax_score_bucketed"] += bucketed_score_edge_calls(dev)
+    edges["impact_accumulate_bucketed"] += bucketed_impact_edge_calls(dev)
     for name in RETRIEVAL_KERNELS:
         calls = recorded[name]
         check(calls, f"{name}: the main path never called it")
@@ -899,14 +1004,27 @@ def kernel_phase(recorded, k_topk):
             if name in TWINS:
                 err = max(err, compare(name + " (twin)", got,
                                        twin[name](*args, **kw), 0.0))
+            if name == "impact_accumulate_bucketed" and len(args) == 4:
+                # the rows are prefix-packed: the whole rows give the same
+                err = max(err, compare(name + " (plain, whole rows)", got,
+                                       plain[name](*args[:3], **kw)))
         # time the largest call of the batch (the one with most work)
         args, kw = max(calls, key=lambda c: work_of(name, *c)[0])
         note = (f"{len(calls)} main-path calls and {len(edges[name])} edge "
                 "cases checked")
         if name in TWINS:
-            note += (f" (and against {TWINS[name]}), Q={args[3].shape[0]}; "
-                     f"the TPU design's compares "
+            note += f" (and against {TWINS[name]})"
+        if name in BATCHED:
+            note += (f", Q={args[3].shape[0]}; the TPU design's compares "
                      f"{batched_work(name, args, kw)[3]}")
+        if name == "qd_feature_gather_lanes":
+            note += (f", Q x P x C = {tuple(args[0].shape)} x "
+                     f"{args[2].shape[1]}; the TPU design's compares "
+                     f"{gather_work(*args)[3]}")
+        if name == "impact_accumulate_bucketed":
+            note += (f", with row lengths: {len(args) == 4}, live lanes "
+                     f"{int((args[0] >= 0).sum())} of {args[0].numel()} "
+                     "slots")
         rows[name] = kernel_row(name, kern[name], plain[name],
                                 library.get(name), args, kw, err, note)
         if name in EARLIER_MS:

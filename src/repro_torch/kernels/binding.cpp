@@ -8,6 +8,8 @@
 
 #include <torch/extension.h>
 
+#include <optional>
+
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -24,17 +26,16 @@ void blockmax_score_launch(const int* tile_docs, const int* tile_terms,
                            int n_terms, int tile_d, int block_size,
                            cudaStream_t stream);
 void qd_feature_gather_launch(const int* lane_docs, const float* lane_scores,
-                              const int* cand, float* bm25, float* mx,
-                              int* cnt, int n_q, int n_lanes, int n_cand,
-                              cudaStream_t stream);
+                              const int* cand, float* out, int n_q,
+                              int n_lanes, int n_cand, cudaStream_t stream);
 void dense_topk_launch(const float* q_emb, const float* doc_emb,
                        int64_t* part, float* out_scores, int64_t* out_ids,
                        int n_q, int n_docs, int d4, int k, int kp, int chunk,
                        int n_chunks, cudaStream_t stream);
 void impact_accumulate_bucketed_launch(const int* docs_b, const int* imps_b,
-                                       const int* lstar, int* out,
-                                       int n_tiles, int cap, int tile_d,
-                                       cudaStream_t stream);
+                                       const int* lstar, const int* lens,
+                                       int* out, int n_tiles, int cap,
+                                       int tile_d, cudaStream_t stream);
 void blockmax_score_bucketed_launch(const int* docs_b, const float* scores_b,
                                     const int* survive_t, const int* run_docs,
                                     const float* run_scores,
@@ -100,15 +101,13 @@ void blockmax_score(const torch::Tensor& tile_docs,
 
 void qd_feature_gather(const torch::Tensor& lane_docs,
                        const torch::Tensor& lane_scores,
-                       const torch::Tensor& cand, torch::Tensor bm25,
-                       torch::Tensor mx, torch::Tensor cnt) {
+                       const torch::Tensor& cand, torch::Tensor out) {
   const c10::cuda::CUDAGuard guard(lane_docs.device());
   qd_feature_gather_launch(
       lane_docs.data_ptr<int>(), lane_scores.data_ptr<float>(),
-      cand.data_ptr<int>(), bm25.data_ptr<float>(), mx.data_ptr<float>(),
-      cnt.data_ptr<int>(), static_cast<int>(lane_docs.size(0)),
-      static_cast<int>(lane_docs.size(1)), static_cast<int>(cand.size(1)),
-      c10::cuda::getCurrentCUDAStream());
+      cand.data_ptr<int>(), out.data_ptr<float>(),
+      static_cast<int>(lane_docs.size(0)), static_cast<int>(lane_docs.size(1)),
+      static_cast<int>(cand.size(1)), c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -130,13 +129,14 @@ void dense_topk(const torch::Tensor& q_emb, const torch::Tensor& doc_emb,
 void impact_accumulate_bucketed(const torch::Tensor& docs_b,
                                 const torch::Tensor& imps_b,
                                 const torch::Tensor& lstar,
+                                const std::optional<torch::Tensor>& lens,
                                 torch::Tensor out) {
   const c10::cuda::CUDAGuard guard(docs_b.device());
   impact_accumulate_bucketed_launch(
       docs_b.data_ptr<int>(), imps_b.data_ptr<int>(), lstar.data_ptr<int>(),
-      out.data_ptr<int>(), static_cast<int>(docs_b.size(0)),
-      static_cast<int>(docs_b.size(1)), static_cast<int>(out.size(1)),
-      c10::cuda::getCurrentCUDAStream());
+      lens.has_value() ? lens->data_ptr<int>() : nullptr, out.data_ptr<int>(),
+      static_cast<int>(docs_b.size(0)), static_cast<int>(docs_b.size(1)),
+      static_cast<int>(out.size(1)), c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -230,7 +230,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dense_topk", &dense_topk,
         "dense top-k of q_emb @ doc_emb^T, ties to the lower doc id");
   m.def("impact_accumulate_bucketed", &impact_accumulate_bucketed,
-        "single-query SAAT accumulation over a bucketed layout");
+        "single-query SAAT accumulation over a bucketed layout, each row's "
+        "live prefix (all of it without lengths)");
   m.def("blockmax_score_bucketed", &blockmax_score_bucketed,
         "single-query DAAT scoring over a bucketed layout, in lane order");
   m.def("score_histogram", &score_histogram,

@@ -161,51 +161,86 @@ void impact_accumulate_launch(const int* tile_docs, const int* tile_terms,
 // lanes with a stable sort and adds the lanes past a tile's CAP after the
 // kernel.
 //
-// What bounds it on the card: bytes.  It streams each bucket lane once
-// (doc and impact, 8 B) and does one compare and one add per live lane;
-// the bucket is one query's, read by no other block, so there is no reuse
-// to exploit.  One block per tile (1,536 at 196,608 docs), 256 threads
-// walking the tile's CAP lanes with coalesced loads; the tile's tile_d
-// accumulators live in shared memory.
+// What bounds it on the card: bytes.  The function needs each live lane
+// of the bucket read once (doc and impact, 8 B), the cut, and the output
+// written once; one compare and one add per live lane.  The bucket's rows
+// are prefix-packed (kernels/buckets.py: slot j of row t holds the tile's
+// j-th sorted lane, then -1), and at the per-query path's largest call 6 %
+// of the slots are live: a design that scans every slot spends half its
+// time reading padding.  So the launch takes each row's live length
+// (`lens`, min(lanes of the tile, CAP), from the bucketing's tile starts)
+// and reads only that prefix; without `lens` it reads whole rows, which
+// is the reference's function for a bucket of unknown packing.
+//
+// The design: one warp per tile, kTileWarps tiles a block, so a row of
+// ~60 live lanes occupies one warp for two 32-lane steps instead of
+// idling a 256-thread block.  A warp issues kUnroll steps' coalesced
+// loads of doc and impact before it adds them; a live lane with doc in
+// [0, tile_d) and impact >= cut adds into the warp's tile_d int32
+// accumulators in shared memory.  The epilogue writes every tile's row,
+// empty rows included, with coalesced stores.
 //
 // The TPU kernel reduces with a one-hot f32 matmul and casts to int32,
 // which is exact only while a tile-doc sum stays below 2^24.  Here the sum
 // is int32 from the start, with shared-memory integer atomics: exact in any
-// order, so the result does not depend on scheduling.
+// order, so the result does not depend on scheduling and equals the plain
+// version bit for bit.
 
 namespace {
 
-__global__ void impact_accumulate_bucketed_kernel(
-    const int* __restrict__ docs_b, const int* __restrict__ imps_b,
-    const int* __restrict__ lstar, int* __restrict__ out, int cap,
-    int tile_d) {
-  extern __shared__ int acc_b[];  // tile_d accumulators
-  const int t = blockIdx.x;
-  for (int i = threadIdx.x; i < tile_d; i += blockDim.x) acc_b[i] = 0;
-  __syncthreads();
+constexpr int kTileWarps = 8;  // tiles (one warp each) of a block
+constexpr int kUnroll = 4;     // 32-lane steps loaded before they are added
+
+__global__ void __launch_bounds__(kTileWarps * 32)
+    impact_accumulate_bucketed_kernel(const int* __restrict__ docs_b,
+                                      const int* __restrict__ imps_b,
+                                      const int* __restrict__ lstar,
+                                      const int* __restrict__ lens,
+                                      int* __restrict__ out, int n_tiles,
+                                      int cap, int tile_d) {
+  extern __shared__ int acc_all[];  // kTileWarps x tile_d accumulators
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kTileWarps + warp;
+  if (t >= n_tiles) return;  // the whole warp; no block barrier follows
+  int* acc = acc_all + warp * tile_d;
+  for (int i = lane; i < tile_d; i += 32) acc[i] = 0;
+  __syncwarp();
 
   const int cut = *lstar;
-  const size_t row = static_cast<size_t>(t) * cap;
-  for (int j = threadIdx.x; j < cap; j += blockDim.x) {
-    const int d = docs_b[row + j];
-    if (d < 0 || d >= tile_d) continue;  // padding lane
-    const int imp = imps_b[row + j];
-    if (imp >= cut) atomicAdd(&acc_b[d], imp);
+  const int len = lens == nullptr ? cap : min(max(lens[t], 0), cap);
+  const int* docs = docs_b + static_cast<size_t>(t) * cap;
+  const int* imps = imps_b + static_cast<size_t>(t) * cap;
+  for (int base = 0; base < len; base += 32 * kUnroll) {
+    int d[kUnroll], v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = base + 32 * u + lane;
+      d[u] = j < len ? docs[j] : -1;
+      v[u] = j < len ? imps[j] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (static_cast<unsigned>(d[u]) < static_cast<unsigned>(tile_d)
+          && v[u] >= cut)
+        atomicAdd(&acc[d[u]], v[u]);
   }
-  __syncthreads();
+  __syncwarp();
   int* o = out + static_cast<size_t>(t) * tile_d;
-  for (int i = threadIdx.x; i < tile_d; i += blockDim.x) o[i] = acc_b[i];
+  for (int i = lane; i < tile_d; i += 32) o[i] = acc[i];
 }
 
 }  // namespace
 
-// Launches one block per tile on `stream`.  The caller checks the launch.
+// Launches one warp per tile, kTileWarps tiles a block, on `stream`;
+// `lens` may be null (whole rows).  The caller checks the launch.
 void impact_accumulate_bucketed_launch(const int* docs_b, const int* imps_b,
-                                       const int* lstar, int* out,
-                                       int n_tiles, int cap, int tile_d,
-                                       cudaStream_t stream) {
+                                       const int* lstar, const int* lens,
+                                       int* out, int n_tiles, int cap,
+                                       int tile_d, cudaStream_t stream) {
   if (n_tiles == 0) return;
-  impact_accumulate_bucketed_kernel<<<n_tiles, 256, sizeof(int) * tile_d,
-                                      stream>>>(docs_b, imps_b, lstar, out,
-                                                cap, tile_d);
+  const int blocks = (n_tiles + kTileWarps - 1) / kTileWarps;
+  const size_t smem = sizeof(int) * kTileWarps * tile_d;
+  impact_accumulate_bucketed_kernel<<<blocks, kTileWarps * 32, smem,
+                                      stream>>>(docs_b, imps_b, lstar, lens,
+                                                out, n_tiles, cap, tile_d);
 }

@@ -18,8 +18,9 @@ launches it for CUDA tensors and runs its plain version for CPU tensors:
   ``impact_accumulate_bucketed``: one query's postings bucketed by doc tile,
   per tile the sum of the impacts of lanes with doc >= 0 and impact >= a
   scalar cut.  ``impact_accumulate`` (the flat wrapper) buckets flat lanes
-  for it and adds the overflow residue after it; the per-query SAAT path
-  (``isn.saat.saat_serve_laxmap``) calls it.
+  for it, passes each row's live length so the kernel reads only the
+  row's prefix, and adds the overflow residue after it; the per-query SAAT
+  path (``isn.saat.saat_serve_laxmap``) calls it.
 
 Integer sums, so every path agrees with the others and with the TPU
 kernels exactly.  ``impact_accumulate_ref`` is the direct-scatter oracle.
@@ -35,6 +36,8 @@ from repro_torch.kernels.buckets import bucket_by_tile
 
 # elements of one (queries, n_tiles, cap) working set of the plain version
 PLAIN_CHUNK_ELEMS = 1 << 24
+MAX_TILE_D = 1536        # the bucketed kernel's int32 sums of 8 tiles a
+                         # block stay in 48 KB of shared memory
 
 
 def impact_accumulate_plain(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
@@ -178,13 +181,18 @@ def impact_accumulate_ref(docs: torch.Tensor, imps: torch.Tensor, lstar,
 
 def impact_accumulate_bucketed_plain(docs_b: torch.Tensor,
                                      imps_b: torch.Tensor,
-                                     lstar: torch.Tensor, *, tile_d: int
-                                     ) -> torch.Tensor:
+                                     lstar: torch.Tensor,
+                                     lens: torch.Tensor | None = None, *,
+                                     tile_d: int) -> torch.Tensor:
     """Plain PyTorch version of the bucketed kernel: (n_tiles, tile_d)
     int32, per tile the impacts of its lanes with 0 <= doc < tile_d and
-    impact >= lstar, summed by doc."""
-    n_tiles = docs_b.shape[0]
+    impact >= lstar, summed by doc; with ``lens``, only each row's first
+    ``lens[t]`` slots count."""
+    n_tiles, cap = docs_b.shape
     live = (docs_b >= 0) & (docs_b < tile_d) & (imps_b >= lstar)
+    if lens is not None:
+        live &= (torch.arange(cap, device=docs_b.device)[None, :]
+                 < lens.view(n_tiles, 1))
     # dead lanes scatter into a dump column past the tile, sliced off below
     acc = torch.zeros((n_tiles, tile_d + 1), dtype=torch.int32,
                       device=docs_b.device)
@@ -194,14 +202,19 @@ def impact_accumulate_bucketed_plain(docs_b: torch.Tensor,
 
 
 def impact_accumulate_bucketed(docs_b: torch.Tensor, imps_b: torch.Tensor,
-                               lstar: torch.Tensor, *, tile_d: int
-                               ) -> torch.Tensor:
+                               lstar: torch.Tensor,
+                               lens: torch.Tensor | None = None, *,
+                               tile_d: int) -> torch.Tensor:
     """One query's impact accumulation over a bucketed layout.
 
     Args:
       docs_b: (n_tiles, CAP) int32 doc ids local to each tile, -1 padding.
       imps_b: (n_tiles, CAP) int32 quantized impacts.
       lstar: (1,) int32 impact-level cut.
+      lens: optional (n_tiles,) int32 live length of each row: the kernel
+        reads only the first ``min(lens[t], CAP)`` slots of row t (the
+        bucket rows are prefix-packed, ``kernels.buckets``).  Without it,
+        whole rows.
     Returns:
       (n_tiles, tile_d) int32 accumulator tiles.
     """
@@ -210,16 +223,24 @@ def impact_accumulate_bucketed(docs_b: torch.Tensor, imps_b: torch.Tensor,
         raise ValueError("docs_b/imps_b shapes differ")
     if lstar.numel() != 1:
         raise ValueError(f"lstar must hold one cut, got {lstar.numel()}")
-    if kernels.on_cpu(docs_b, imps_b, lstar):
-        return impact_accumulate_bucketed_plain(docs_b, imps_b, lstar,
+    if lens is not None and lens.shape != (n_tiles,):
+        raise ValueError(f"lens must be ({n_tiles},), got "
+                         f"{tuple(lens.shape)}")
+    extra = () if lens is None else (lens,)
+    if kernels.on_cpu(docs_b, imps_b, lstar, *extra):
+        return impact_accumulate_bucketed_plain(docs_b, imps_b, lstar, lens,
                                                 tile_d=tile_d)
     i32 = torch.int32
     kernels.check_cuda_args(
         "impact_accumulate_bucketed",
-        dict(docs_b=docs_b, imps_b=imps_b, lstar=lstar),
-        dict(docs_b=i32, imps_b=i32, lstar=i32))
+        dict(docs_b=docs_b, imps_b=imps_b, lstar=lstar,
+             **({} if lens is None else dict(lens=lens))),
+        dict(docs_b=i32, imps_b=i32, lstar=i32, lens=i32))
+    if not 1 <= tile_d <= MAX_TILE_D:
+        raise ValueError(f"tile_d={tile_d} must be in [1, {MAX_TILE_D}]")
     out = torch.empty((n_tiles, tile_d), dtype=i32, device=docs_b.device)
-    kernels.extension().impact_accumulate_bucketed(docs_b, imps_b, lstar, out)
+    kernels.extension().impact_accumulate_bucketed(docs_b, imps_b, lstar,
+                                                   lens, out)
     kernels.LAUNCHES["impact_accumulate_bucketed"] += 1
     return out
 
@@ -241,7 +262,9 @@ def impact_accumulate(docs: torch.Tensor, imps: torch.Tensor, lstar, *,
     lstar = torch.as_tensor(lstar, dtype=torch.int32, device=dev).reshape(1)
     b = bucket_by_tile(docs, imps.to(torch.int32), 0, n_docs=n_docs,
                        tile_d=tile_d, cap=cap)
-    acc = impact_accumulate_bucketed(b.docs_b, b.vals_b, lstar,
+    # each row's live prefix: its tile's lanes, at most cap
+    lens = torch.clamp(torch.diff(b.start), max=cap).to(torch.int32)
+    acc = impact_accumulate_bucketed(b.docs_b, b.vals_b, lstar, lens,
                                      tile_d=tile_d).reshape(-1)[:n_docs]
     # the overflow residue: lanes past their tile's cap, in sorted order
     imps_s = imps[b.order]
