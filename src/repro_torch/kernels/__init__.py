@@ -11,7 +11,10 @@ launches the kernel for CUDA tensors and runs the plain version for CPU
 tensors; there is no fallback between the two.  ``term_table.cuh`` and
 ``term_table.py`` hold the query-group term table that the batched mirror
 kernels (``impact_accumulate``, ``blockmax_score``) build in shared
-memory, and its PyTorch form for their plain twins.
+memory, and its PyTorch form for their plain twins; ``topk_select.cuh``
+and ``topk_select.py`` the exact top-k select (one thread-block cluster a
+row of keys) that ``dense_topk`` and ``score_histogram`` share, and its
+PyTorch form.
 
 All the kernels are compiled together, on first use, by one
 ``torch.utils.cpp_extension.load`` call: the ``.cu`` sources plus one

@@ -28,10 +28,9 @@ void blockmax_score_launch(const int* tile_docs, const int* tile_terms,
 void qd_feature_gather_launch(const int* lane_docs, const float* lane_scores,
                               const int* cand, float* out, int n_q,
                               int n_lanes, int n_cand, cudaStream_t stream);
-void dense_topk_launch(const float* q_emb, const float* doc_emb,
-                       int64_t* part, float* out_scores, int64_t* out_ids,
-                       int n_q, int n_docs, int d4, int k, int kp, int chunk,
-                       int n_chunks, cudaStream_t stream);
+int dense_topk_launch(const float* q_emb, const float* doc_emb, int* keys,
+                      float* out_scores, int64_t* out_ids, int n_q,
+                      int n_docs, int d4, int k, int kp, cudaStream_t stream);
 void impact_accumulate_bucketed_launch(const int* docs_b, const int* imps_b,
                                        const int* lstar, const int* lens,
                                        int* out, int n_tiles, int cap,
@@ -42,8 +41,9 @@ void blockmax_score_bucketed_launch(const int* docs_b, const float* scores_b,
                                     const int* run_start, float* out,
                                     int n_tiles, int cap, int tile_d,
                                     cudaStream_t stream);
-void score_histogram_launch(const int* scores, int* out, long long n,
-                            int n_bins, cudaStream_t stream);
+int histogram_topk_launch(const int* scores, int* hist, int* values,
+                          int* idx, int n, int n_bins, int k, int kp,
+                          cudaStream_t stream);
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int b, int h, int hkv, int sq, int sk,
                            int d, long long qsb, long long qsh, long long qss,
@@ -112,17 +112,17 @@ void qd_feature_gather(const torch::Tensor& lane_docs,
 }
 
 void dense_topk(const torch::Tensor& q_emb, const torch::Tensor& doc_emb,
-                torch::Tensor part, torch::Tensor out_scores,
-                torch::Tensor out_ids, int64_t chunk) {
+                torch::Tensor keys, torch::Tensor out_scores,
+                torch::Tensor out_ids, int64_t kp) {
   const c10::cuda::CUDAGuard guard(q_emb.device());
-  dense_topk_launch(
+  const int rc = dense_topk_launch(
       q_emb.data_ptr<float>(), doc_emb.data_ptr<float>(),
-      part.data_ptr<int64_t>(), out_scores.data_ptr<float>(),
+      keys.data_ptr<int>(), out_scores.data_ptr<float>(),
       out_ids.data_ptr<int64_t>(), static_cast<int>(q_emb.size(0)),
       static_cast<int>(doc_emb.size(0)), static_cast<int>(q_emb.size(1) / 4),
-      static_cast<int>(out_scores.size(1)), static_cast<int>(part.size(2)),
-      static_cast<int>(chunk), static_cast<int>(part.size(1)),
+      static_cast<int>(out_scores.size(1)), static_cast<int>(kp),
       c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc == 0, "dense_topk: launch refused (", rc, ")");
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -158,12 +158,15 @@ void blockmax_score_bucketed(const torch::Tensor& docs_b,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void score_histogram(const torch::Tensor& scores, torch::Tensor out) {
+void score_histogram(const torch::Tensor& scores, torch::Tensor hist,
+                     torch::Tensor values, torch::Tensor idx, int64_t kp) {
   const c10::cuda::CUDAGuard guard(scores.device());
-  score_histogram_launch(scores.data_ptr<int>(), out.data_ptr<int>(),
-                         static_cast<long long>(scores.size(0)),
-                         static_cast<int>(out.size(0)),
-                         c10::cuda::getCurrentCUDAStream());
+  const int rc = histogram_topk_launch(
+      scores.data_ptr<int>(), hist.data_ptr<int>(), values.data_ptr<int>(),
+      idx.data_ptr<int>(), static_cast<int>(scores.size(0)),
+      static_cast<int>(hist.size(0)), static_cast<int>(values.size(0)),
+      static_cast<int>(kp), c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc == 0, "score_histogram: launch refused (", rc, ")");
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -235,7 +238,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("blockmax_score_bucketed", &blockmax_score_bucketed,
         "single-query DAAT scoring over a bucketed layout, in lane order");
   m.def("score_histogram", &score_histogram,
-        "histogram of int32 scores (negatives ignored, highs clipped)");
+        "histogram of int32 scores (negatives ignored, highs clipped) and, "
+        "for k > 0, their exact top-k by histogram threshold");
   m.def("flash_attention", &flash_attention,
         "tiled online-softmax attention on fp32 inputs (GQA, causal or not)");
   m.def("flash_attention_sm90", &flash_attention_sm90,

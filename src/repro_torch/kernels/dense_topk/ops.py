@@ -1,5 +1,6 @@
-"""Dense similarity top-k: the kernel wrapper, its plain version, and the
-entry point the dense engine imports.
+"""Dense similarity top-k: the kernel wrapper, its plain version, the plain
+twin of the kernel's arithmetic, and the entry point the dense engine
+imports.
 
 ``dense_topk_tiles`` launches ``dense_topk.cu`` for CUDA tensors and runs
 ``dense_topk_plain`` for CPU tensors.  Both compute the function of the
@@ -8,6 +9,9 @@ per query, the k best docs of ``q_emb @ doc_embᵀ``, score descending, ties
 to the lower doc id.  On grid-quantized embeddings
 (``repro_torch.dense.embeddings``) every dot product is exact in fp32 in
 any order, so the two paths and the reference agree bit for bit.
+``dense_topk_selected`` is the CUDA kernel's arithmetic in PyTorch (tile
+keys, then the shared select of ``kernels.topk_select``), for the tests and
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -15,10 +19,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import topk_select
 
-CHUNK = 1024      # docs a block of the kernel's first pass scores and sorts
-MAX_K = 2048      # largest k the kernel takes (its sort lists live in
-                  # shared memory)
+TILE_DOCS = 256   # docs a block of the kernel's first pass scores
+MAX_K = topk_select.MAX_K   # largest k the kernel takes (its selection
+                            # lives in one block's shared memory)
 
 
 def dense_topk_plain(q_emb: torch.Tensor, doc_emb: torch.Tensor, k: int):
@@ -27,6 +32,42 @@ def dense_topk_plain(q_emb: torch.Tensor, doc_emb: torch.Tensor, k: int):
     scores = q_emb @ doc_emb.T
     order = torch.sort(-scores, dim=1, stable=True).indices[:, :k]
     return torch.gather(scores, 1, order), order
+
+
+def score_key(scores: torch.Tensor) -> torch.Tensor:
+    """The kernel's order-preserving uint32 key of f32 scores, as int64:
+    unsigned order is the scores' order, -0.0 keys as +0.0."""
+    u = torch.where(scores == 0, 0.0, scores).contiguous().view(
+        torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, 0xFFFFFFFF - u, u | (1 << 31))
+
+
+def key_score(key: torch.Tensor) -> torch.Tensor:
+    """The f32 score of an int64-held key (``score_key``'s inverse, +0.0 for
+    a zero)."""
+    u = torch.where(key >= 1 << 31, key & 0x7FFFFFFF, 0xFFFFFFFF - key)
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32).view(
+        torch.float32)
+
+
+def dense_topk_selected(q_emb: torch.Tensor, doc_emb: torch.Tensor, k: int):
+    """The CUDA kernel's arithmetic in PyTorch (for the tests and
+    ``chip_smoke.py``; nothing on the main path calls it).
+
+    Pass 1: each tile of ``TILE_DOCS`` docs is scored against every query
+    and keyed (``score_key``).  Pass 2: per query, the shared select of
+    ``topk_select`` (radix rounds for the k-th key over the blocks' index
+    ranges, the ordered compaction, the sort), decoded back to scores.
+    Equal to ``dense_topk_plain`` bit for bit on grid-quantized embeddings.
+    """
+    n = doc_emb.shape[0]
+    keys = torch.empty((q_emb.shape[0], n), dtype=torch.int64,
+                       device=q_emb.device)
+    for d0 in range(0, n, TILE_DOCS):
+        keys[:, d0:d0 + TILE_DOCS] = score_key(
+            q_emb @ doc_emb[d0:d0 + TILE_DOCS].T)
+    sel_key, sel_idx = topk_select.topk(keys, k)
+    return key_score(sel_key), sel_idx
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -63,18 +104,15 @@ def dense_topk_tiles(q_emb: torch.Tensor, doc_emb: torch.Tensor, k: int):
     if k > MAX_K:
         raise ValueError(f"dense_topk_tiles: k={k} exceeds the kernel's "
                          f"limit of {MAX_K}")
-    kp = 1 << (k - 1).bit_length()
-    chunk = max(CHUNK, kp)
-    n_chunks = -(-n // chunk)
-    if n_chunks > 65535:
-        raise ValueError(f"n_docs={n} exceeds the grid's y limit")
     q = q_emb.shape[0]
+    if q > 65535:
+        raise ValueError(f"Q={q} exceeds the grid's y limit")
     dev = q_emb.device
-    part = torch.empty((q, n_chunks, kp), dtype=torch.int64, device=dev)
+    keys = torch.empty((q, n), dtype=torch.int32, device=dev)
     scores = torch.empty((q, k), dtype=f32, device=dev)
     ids = torch.empty((q, k), dtype=torch.int64, device=dev)
-    kernels.extension().dense_topk(_aligned(q_emb), _aligned(doc_emb), part,
-                                   scores, ids, chunk)
+    kernels.extension().dense_topk(_aligned(q_emb), _aligned(doc_emb), keys,
+                                   scores, ids, 1 << (k - 1).bit_length())
     kernels.LAUNCHES["dense_topk_tiles"] += 1
     return scores, ids
 
