@@ -10,13 +10,17 @@ order, it
    kernels from the sources under ``src/repro_torch``, in a thread while
    the host builds the corpus and the index of step 2: one for each of the
    nine TPU kernels, kernels 8 and 9 each with a bf16 kernel on the tensor
-   cores and an fp32 one on the CUDA cores;
+   cores and an fp32 one on the CUDA cores, and the fit's two;
 2. builds the ``paper_200ms`` cascade at one shard of 196,608 docs (the
-   per-chip shard of the paper's ISN deployment) on the card, with Stage-0
-   and LTR GBRTs of the spec's shapes made here from a NumPy seed (bin
-   edges from quantiles of a calibration query log, routing thresholds
-   from the 60th/75th percentiles of the predictions, as ``fit`` sets
-   them), and the same system on the CPU;
+   per-chip shard of the paper's ISN deployment) on the card and on the
+   CPU and fits each on its own device (``SearchSystem.fit`` from 4,096
+   queries, seed 5: three Stage-0 quantile GBRTs and the LTR GBRT, the
+   routing thresholds from the 60th/75th percentiles of the predictions),
+   the card's fit counted from 0 and its ``level_histogram`` and
+   ``boost_update`` calls recorded; requires the four forests (feat,
+   thresh, leaf, base, bin edges) and ``t_k``/``t_time`` bit-equal, and
+   prints both fit walls (``--profile``: one more card fit under the
+   profiler, host time per fit stage);
 3. serves one batch of 32 queries on both (the CPU runs the kernels'
    plain versions) and requires ``topk``, ``final`` and the modeled
    ``latency`` to be equal, while recording every kernel call's inputs;
@@ -28,8 +32,9 @@ order, it
    largest call of each of its three kernels; prints the wall time per
    query on the card;
 5. builds the ``hybrid_fusion`` cascade (the dense Stage-1 modality) from
-   the same index, on the card and on the CPU, with the same kind of
-   GBRTs and one two-tower model drawn from the spec's seed; where the
+   the same index, on the card and on the CPU, with the models fitted on
+   each (its Stage-0 and LTR specs and budget are ``paper_200ms``'s) and
+   one two-tower model drawn from the spec's seed; where the
    preset's θ bands catch none of the calibration queries' top dense
    scores, sets them from quantiles of those scores; serves one batch of
    32 queries picked to reach the θ-skip and fallback branches on both
@@ -61,14 +66,28 @@ order, it
    and 7 the device times of the kernel and of its library call (kernel 7:
    a stable ``torch.sort``, whose first k it checks against the kernel's
    on the recorded accumulator), and kernel 7's histogram alone beside
-   ``torch.bincount``;
+   ``torch.bincount``; ``level_histogram`` against its plain version
+   (tolerance 0.0) on a sample of the card fit's calls, its largest call
+   and edge cases (a constant feature, rows of weight 0, n off the tile,
+   1 to 32 nodes, 256 bins), timed beside the plain version and an fp32
+   ``index_add_`` (float atomics; how many of its sums differ from the
+   ordered ones is logged), and ``boost_update`` against its plain
+   version;
 7. serve phases: for each preset, sets the launch counts to 0, serves 8
    batches of 32 queries on the card and reads the counts: for
    ``paper_200ms`` both routes must take queries, Stage-2 must re-rank and
    its three kernels must have launched; for ``hybrid_fusion`` lexical,
    dense-only and fused rows must each occur and the dense kernel must
    have launched; prints the wall time per batch and the device memory;
-8. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
+8. tail phase: the BENCH_tail flow of ``benchmarks/bench_tail.py:43-130``
+   (``tail_flow``: 8,192 docs, a system fitted from 256 queries with seed
+   7, the raw tail, budgets at its 85th/70th/50th percentiles until the
+   seed scheduler leaks through a BMW late hedge, the seed scheduler
+   against the enforced one) on the card, counted from 0, and on the CPU;
+   requires every figure equal on both, 0 over budget when enforced, a
+   leak without, and identical ``topk``/``final``; logs each figure
+   against ``results/BENCH_tail.json``, read at run time;
+9. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
    the retrieval systems are freed:
    a. cross-check: a 2-layer Yi-6B at full width in fp32, drawn once on
       the host and copied to the card, runs ``prefill`` on 2 prompts of
@@ -113,8 +132,9 @@ order, it
       1e-5 of it on average) on the recorded fp32 model calls (the same
       near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
       above it (a one-ulp rounding flip is 2^-8 to 2^-7 relative);
-9. prints the total elapsed time, the ``kernels`` JSON line, then the card
-   line, then the result.
+10. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
+    the nine TPU kernels and ``level_histogram``), then the card line,
+    then the result.
 
 Any failed check exits non-zero without the result line.  ``--n-docs``
 and ``--batches`` shrink the retrieval phases for a quick check,
@@ -185,12 +205,19 @@ KERNELS = {
     "flash_decode": dict(
         source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:136"),
+    # the fit's split histograms: no TPU kernel, but a float scatter-add
+    # whose order the card must keep (ROADMAP rule d)
+    "level_histogram": dict(
+        source="src/repro_torch/kernels/level_histogram/level_histogram.cu",
+        replaces="src/repro/core/trees.py:69 (jax.ops.segment_sum; no "
+                 "Pallas kernel)"),
 }
 # the kernels of the per-query Stage-1 path (saat/daat_serve_laxmap), and
 # those of the two served cascades
 LAXMAP_KERNELS = ("impact_accumulate_bucketed", "blockmax_score_bucketed",
                   "score_histogram")
 LM_KERNELS = ("flash_attention", "flash_decode")
+FIT_KERNELS = ("level_histogram", "boost_update")
 # kernels 1 and 2 (one block per tile and query group over the shard's
 # mirror) and 3 (one cluster per query, match records), and the plain twins
 # of their arithmetic, in the same modules
@@ -205,7 +232,7 @@ TWINS = {"impact_accumulate_batched": "impact_accumulate_grouped",
 # histogram alone), behind score_histogram and histogram_topk
 WRAPPERS = {"score_histogram": "histogram_select"}
 SERVE_KERNELS = tuple(n for n in KERNELS
-                      if n not in LAXMAP_KERNELS + LM_KERNELS)
+                      if n not in LAXMAP_KERNELS + LM_KERNELS + FIT_KERNELS)
 RETRIEVAL_KERNELS = SERVE_KERNELS + LAXMAP_KERNELS
 
 # LM phase (Yi-6B)
@@ -216,6 +243,15 @@ XC_LOGIT_TOL = 1e-4           # of the largest |logit|, from one cache
 XC_CACHE_TOL, XC_CACHE_MEAN_TOL = 1e-3, 1e-5  # of the largest |cache|
 MODEL_F32_TOL = 5e-3          # of the largest |output|, recorded fp32 calls
 BF16_TOL = 2e-2               # below magnitude 1 absolute, above relative
+# fit phase: the query log the systems are fitted from, and the fit's seed
+FIT_QUERIES, FIT_SEED = 4096, 5
+# the BENCH_tail flow (benchmarks/bench_tail.py:43-130) and the figures it
+# reports, as results/BENCH_tail.json names them
+TAIL_ARTIFACT = ROOT / "results" / "BENCH_tail.json"
+TAIL_FIGURES = ("budget", "late_rho", "raw_max", "worst_case_bound",
+                "bound_holds", "identical_topk", "identical_final",
+                "regression_demonstrated", "bmw_late_hedge_exercised",
+                "guarantee_holds")
 # the redesigned kernels' earlier designs, ms on the card (PERF.md §6, on
 # an NVIDIA H100 80GB HBM3 at 700 W), logged beside this run's
 EARLIER_MS = {"impact_accumulate_batched": "1.611-1.622",
@@ -244,109 +280,6 @@ def log(msg):
 
 
 # ---------------------------------------------------------------------------
-# models of the spec's shapes from a NumPy seed
-# ---------------------------------------------------------------------------
-
-def quantile_edges(x, n_bins):
-    """(F, n_bins - 1) strictly increasing quantile bin edges."""
-    import numpy as np
-    qs = np.linspace(0.0, 100.0, n_bins + 1)[1:-1]
-    edges = np.percentile(x, qs, axis=0).T.astype(np.float32)
-    return np.maximum.accumulate(edges + 1e-9 * np.arange(edges.shape[1]),
-                                 axis=1).astype(np.float32)
-
-
-def random_gbrt(rng, x_calib, *, n_trees, depth, base, leaf_scale, device,
-                tau=0.5, loss="quantile"):
-    import numpy as np
-    import torch
-    from repro_torch.core.gbrt import GBRTModel, GBRTParams
-    from repro_torch.core.trees import Forest
-    params = GBRTParams(n_trees=n_trees, depth=depth, loss=loss, tau=tau)
-    n_feat = x_calib.shape[1]
-    width = 2 ** (depth - 1)
-    feat = rng.randint(0, n_feat, (n_trees, depth, width)).astype(np.int32)
-    thresh = rng.randint(0, params.n_bins - 1,
-                         (n_trees, depth, width)).astype(np.int32)
-    leaf = (rng.randn(n_trees, 2 ** depth) * leaf_scale).astype(np.float32)
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return GBRTModel(forest=Forest(dev(feat), dev(thresh), dev(leaf)),
-                     base=torch.tensor(base, dtype=torch.float32,
-                                       device=device),
-                     bin_edges=dev(quantile_edges(x_calib, params.n_bins)),
-                     params=params)
-
-
-def make_models(spec, index, corpus, device, seed):
-    """Stage-0 (k, rho, t) and LTR GBRTs of the spec's shapes, and the spec
-    with t_k/t_time set from the predictions as ``fit`` sets them."""
-    import numpy as np
-    import torch
-    from repro_torch.core import features as F
-    from repro_torch.core import gbrt
-    from repro_torch.index.corpus import build_queries
-    from repro_torch.isn.backend import query_lane_budget
-    from repro_torch.ltr.ranker import LTRModel, qd_features_batched
-    from repro_torch.ltr.ranker import stage2_arrays
-
-    rng = np.random.RandomState(seed)
-    calib = build_queries(corpus, 256, stop_k=spec.index.stop_k,
-                          seed=seed % 10_000)
-    term_stats = torch.from_numpy(index.term_stats).to(device)
-    df = torch.from_numpy(index.df).to(device)
-    x = F.extract(term_stats, df, torch.from_numpy(calib.terms).to(device),
-                  torch.from_numpy(calib.mask).to(device))
-    x_np = x.cpu().numpy()
-    s0 = spec.stage0
-    models = {}
-    # bases put the median prediction near k=500, rho=50k postings and
-    # t=60 modeled units, so both routes take traffic
-    for name, base, tau in (("k", 500.0, s0.tau_k), ("rho", 5e4, s0.tau_rho),
-                            ("t", 60.0, s0.tau_t)):
-        models[name] = random_gbrt(rng, x_np, n_trees=s0.n_trees,
-                                   depth=s0.depth,
-                                   base=float(np.log1p(base)),
-                                   leaf_scale=0.05, device=device, tau=tau)
-
-    # LTR: edges from the features of calibration (query, doc) pairs
-    s2 = stage2_arrays(index, corpus, device)
-    cand = rng.randint(0, index.n_docs, (64, 64)).astype(np.int32)
-    qcap = query_lane_budget(index.df, calib.terms[:64], calib.mask[:64])
-    lf = qd_features_batched(
-        s2, torch.from_numpy(calib.terms[:64]).to(device),
-        torch.from_numpy(calib.mask[:64]).to(device),
-        torch.from_numpy(calib.topic[:64]).to(device),
-        torch.from_numpy(cand).to(device), qcap=qcap)
-    ltr = LTRModel(random_gbrt(rng, lf.reshape(-1, 8).cpu().numpy(),
-                               n_trees=spec.stage2.ltr_trees, depth=4,
-                               base=0.1, leaf_scale=0.02, device=device,
-                               loss="l2"))
-
-    # routing thresholds from the predictions' own distribution
-    pk = np.expm1(gbrt.predict(models["k"], x).cpu().numpy())
-    pt = np.expm1(gbrt.predict(models["t"], x).cpu().numpy())
-    t_k = float(np.percentile(pk, 60))
-    t_time = float(min(spec.routing.budget * 0.75, np.percentile(pt, 75)))
-    spec = dataclasses.replace(spec, routing=dataclasses.replace(
-        spec.routing, t_k=t_k, t_time=t_time))
-    return spec, models, ltr
-
-
-def to_device(models, ltr, device):
-    from repro_torch.core.gbrt import GBRTModel
-    from repro_torch.core.trees import Forest
-    from repro_torch.ltr.ranker import LTRModel
-
-    def move(m):
-        return GBRTModel(Forest(*(t.to(device) for t in m.forest)),
-                         m.base.to(device), m.bin_edges.to(device), m.params)
-    return {n: move(m) for n, m in models.items()}, LTRModel(move(ltr.model))
-
-
-# ---------------------------------------------------------------------------
 # kernel phase helpers
 # ---------------------------------------------------------------------------
 
@@ -357,12 +290,13 @@ def kernel_modules():
     from repro_torch.kernels.impact_accumulate import ops as ia
     from repro_torch.kernels.qd_feature_gather import ops as qd
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.level_histogram import ops as lh
     from repro_torch.kernels.score_histogram import ops as sh
     return {"impact_accumulate_batched": ia, "blockmax_score_batched": bm,
             "qd_feature_gather_lanes": qd, "dense_topk_tiles": dt,
             "impact_accumulate_bucketed": ia, "blockmax_score_bucketed": bm,
             "score_histogram": sh, "flash_attention": fa,
-            "flash_decode": fa}
+            "flash_decode": fa, "level_histogram": lh, "boost_update": lh}
 
 
 class Recorder:
@@ -494,8 +428,16 @@ def work_of(name, args, kw):
     int32 compare with the cut and one add per live lane, for kernel 5 one
     fp32 add per lane.  Histogram top-k (kernel 7's fused call): the scores
     read once, the bins and the k values and indices written once, one int32
-    increment and one compare per score."""
+    increment and one compare per score.  Level histogram: the (F, n) uint8
+    bins, the node ids, g·w and w read once, the two float histograms
+    written once; two fp32 adds per (row, feature)."""
     import torch
+    if name == "level_histogram":
+        xbt, node, gw, w = args
+        n_feat, n = xbt.shape
+        cells = kw["n_nodes"] * n_feat * kw["n_bins"]
+        return (n_feat * n + 12 * n + 8 * cells, 2 * n * n_feat,
+                FP32_FLOPS_PER_S)
     if name in LM_KERNELS:
         return lm_work(name, args, kw)
     if name == "impact_accumulate_bucketed":
@@ -1699,6 +1641,333 @@ def lm_phase(dev, n_layers, prompt, steps, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# training: the fit phase, its kernels, and the BENCH_tail flow
+# ---------------------------------------------------------------------------
+
+def fitted_models(system):
+    """The four fitted GBRTs of a system, by name."""
+    return {**system.models, "ltr": system.ltr.model}
+
+
+def same_models(label, a, b):
+    """Require two systems' fitted forests (feat, thresh, leaf, base, bin
+    edges) and routing thresholds to be equal bit for bit."""
+    import torch
+
+    def bits(t):
+        t = t.cpu()
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    ma, mb = fitted_models(a), fitted_models(b)
+    for name in ma:
+        x, y = ma[name], mb[name]
+        for field, u, v in (("feat", x.forest.feat, y.forest.feat),
+                            ("thresh", x.forest.thresh, y.forest.thresh),
+                            ("leaf", x.forest.leaf, y.forest.leaf),
+                            ("base", x.base, y.base),
+                            ("bin_edges", x.bin_edges, y.bin_edges)):
+            check(u.dtype == v.dtype and torch.equal(bits(u), bits(v)),
+                  f"{label}: {name} {field} differs")
+    ra, rb = a.cascade_spec.routing, b.cascade_spec.routing
+    check(ra.t_k == rb.t_k and ra.t_time == rb.t_time,
+          f"{label}: t_k/t_time {ra.t_k}/{ra.t_time} vs {rb.t_k}/{rb.t_time}")
+
+
+def profile_fit(spec, index, corpus, ql, dev):
+    """One more card fit, of a fresh system, under ``torch.profiler``: wall,
+    device busy time, host time per ``stage:`` (the features, each tree's
+    builder, its leaf values, the level histograms and the boosting update
+    inside them, the LTR set), the busiest device kernels."""
+    from torch.profiler import record_function
+    from repro_torch.core import features, gbrt, trees
+    from repro_torch.kernels.level_histogram import ops as lh
+    from repro_torch.serving import system as system_mod
+    from repro_torch.serving.system import build_system
+    sites = [(features, "extract"), (trees, "build_tree"),
+             (gbrt, "_leaf_values"), (lh, "level_histogram"),
+             (lh, "boost_update"), (system_mod, "qd_features")]
+    orig = [getattr(mod, name) for mod, name in sites]
+    for (mod, name), fn in zip(sites, orig):
+        def timed(*a, _fn=fn, _name=name, **kw):
+            with record_function(f"stage:{_name}"):
+                return _fn(*a, **kw)
+        setattr(mod, name, timed)
+    system = build_system(spec, index, corpus=corpus, device=dev)
+    try:
+        prof, wall_ms = run_profiled(lambda: system.fit(ql, None,
+                                                        seed=FIT_SEED))
+    finally:
+        for (mod, name), fn in zip(sites, orig):
+            setattr(mod, name, fn)
+    log_profile(prof, wall_ms, "profile of fit")
+
+
+def fit_phase(spec, index, corpus, dev, profile=False):
+    """``SearchSystem.fit(ql, None, seed=FIT_SEED)`` from a log of
+    FIT_QUERIES queries on the card (counted from 0, every kernel call
+    recorded) and on the CPU (plain versions); requires the four forests
+    and the routing thresholds bit-equal.  With ``profile``, one more card
+    fit under the profiler.  Returns (card system, CPU system, launches,
+    recorded calls)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.index.corpus import build_queries
+    from repro_torch.serving.system import build_system
+    ql = build_queries(corpus, FIT_QUERIES, stop_k=spec.index.stop_k,
+                       seed=FIT_SEED)
+    gpu = build_system(spec, index, corpus=corpus, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with Recorder(FIT_KERNELS) as rec:
+        t = time.perf_counter()
+        gpu.fit(ql, None, seed=FIT_SEED)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t
+    launches = {name: kernels.LAUNCHES[name] for name in FIT_KERNELS}
+    cpu = build_system(spec, index, corpus=corpus, device="cpu")
+    t = time.perf_counter()
+    cpu.fit(ql, None, seed=FIT_SEED)
+    t_cpu = time.perf_counter() - t
+    same_models("fit", gpu, cpu)
+    r = gpu.cascade_spec.routing
+    log(f"fit ({FIT_QUERIES} queries, seed {FIT_SEED}; LTR set "
+        f"{min(FIT_QUERIES, 32)} x 64): card {t_card:.2f} s, CPU "
+        f"{t_cpu:.2f} s; launches {launches}; t_k {r.t_k!r}, t_time "
+        f"{r.t_time!r}; the four forests bit-equal on the card and the CPU")
+    for name in FIT_KERNELS:
+        check(launches[name] > 0, f"fit: kernel {name} never launched")
+    if profile:
+        profile_fit(spec, index, corpus, ql, dev)
+    return gpu, cpu, launches, rec.calls
+
+
+def level_histogram_edge_calls(device):
+    """Seeded edge cases: a constant feature (every row in one bin, also at
+    depth 0 where one cell takes every row), rows of weight 0, n not a
+    multiple of the 1,024-row tile (37, 1,000, 1,025, 4,097), depth 1 and
+    depth 5 levels (1 and 16 nodes), 32 nodes (two blocks of cells a
+    feature), 256 bins."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(SEED % 1000)
+
+    def call(n, n_feat, n_nodes, n_bins=64, constant=False, zeros=0.0):
+        xb = rng.randint(0, n_bins, (n_feat, n)).astype(np.uint8)
+        if constant:
+            xb[0] = n_bins // 2
+        node = rng.randint(0, n_nodes, n).astype(np.int32)
+        g = (rng.standard_cauchy(n) * 10).astype(np.float32)
+        w = (rng.rand(n) >= zeros).astype(np.float32)
+        t = [torch.from_numpy(a).to(device) for a in (xb, node, g * w, w)]
+        return tuple(t), dict(n_nodes=n_nodes, n_bins=n_bins)
+
+    return [call(4096, 147, 1, constant=True),
+            call(4096, 147, 16, constant=True, zeros=0.3),
+            call(37, 5, 2), call(1000, 8, 1, zeros=0.5),
+            call(1025, 147, 16), call(4097, 3, 32), call(600, 4, 4, 256)]
+
+
+def index_add_histograms(args, kw):
+    """The library call: both histograms by one fp32 ``index_add_`` on the
+    card (float atomics, in no fixed order), its keys and values formed
+    outside the timed call."""
+    import torch
+    xbt, node, gw, w = args
+    n_feat, n = xbt.shape
+    n_bins = kw["n_bins"]
+    n_seg = kw["n_nodes"] * n_feat * n_bins
+    feat = torch.arange(n_feat, device=xbt.device)
+    keys = ((node.long()[:, None] * n_feat + feat[None, :]) * n_bins
+            + xbt.T.long()).reshape(-1)
+    vals = torch.stack([gw, w], dim=1)[:, None, :].expand(
+        n, n_feat, 2).reshape(-1, 2)
+    return lambda: torch.zeros((n_seg, 2), device=xbt.device).index_add_(
+        0, keys, vals)
+
+
+def fit_kernel_phase(calls):
+    """``level_histogram`` against its plain version (tolerance 0.0) on a
+    sample of the card fit's own calls, its largest and the edge cases,
+    timed beside the plain version and ``index_add_`` (whose sums are
+    counted where they differ from the ordered ones); ``boost_update``
+    against its plain version on a sample of its calls.  Returns the
+    ``level_histogram`` row."""
+    import torch
+    from repro_torch.kernels.level_histogram import ops as lh
+    hist = calls["level_histogram"]
+    check(hist, "level_histogram: the fit never called it")
+    largest = max(hist, key=lambda c: work_of("level_histogram", *c)[0])
+    dev = largest[0][0].device
+    edges = level_histogram_edge_calls(dev)
+    sample = hist[::40] + [largest]
+    err = 0.0
+    for args, kw in sample + edges:
+        got = lh.level_histogram(*args, **kw)
+        want = lh.level_histogram_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, compare("level_histogram", got, want, 0.0))
+    args, kw = largest
+    note = (f"{len(sample)} of the fit's {len(hist)} calls and "
+            f"{len(edges)} edge cases checked; (nodes, F, n) = "
+            f"({kw['n_nodes']}, {args[0].shape[0]}, {args[0].shape[1]})")
+    row = kernel_row("level_histogram", lh.level_histogram,
+                     lh.level_histogram_plain, index_add_histograms, args, kw,
+                     err, note)
+    want = torch.stack(lh.level_histogram(*args, **kw), dim=-1).reshape(-1, 2)
+    lib = index_add_histograms(args, kw)
+    diff = [int((lib() != want).any(dim=1).sum()) for _ in range(REPS)]
+    kern = lambda: lh.level_histogram(*args, **kw)
+    log(f"kernel level_histogram: device {device_ms(kern, REPS)} ms a call, "
+        f"index_add_ device {device_ms(lib, REPS)} ms (profiler); "
+        f"index_add_'s sums differ from the ordered ones in {diff} of "
+        f"{want.shape[0]} cells over {REPS} calls")
+    boost = calls["boost_update"]
+    for args, kw in boost[::16] + boost[-1:]:
+        got = lh.boost_update(*args, **kw)
+        torch.cuda.synchronize()
+        compare("boost_update", got, lh.boost_update_plain(*args, **kw), 0.0)
+    log(f"kernel boost_update: {len(boost[::16]) + 1} of the fit's "
+        f"{len(boost)} calls equal to the plain version (tolerance 0.0)")
+    return row
+
+
+def tail_figures(payload):
+    """The figures of a BENCH_tail payload (``benchmarks/bench_tail.py``'s
+    or ``tail_flow``'s), flat."""
+    out = {k: payload[k] for k in TAIL_FIGURES}
+    out["budget_percentile"] = payload["config"]["budget_percentile"]
+    for side in ("seed_scheduler", "enforced"):
+        for k, v in payload[side].items():
+            out[f"{side}.{k}"] = v
+    return out
+
+
+def tail_flow(device, q_batch=256, n_docs=8192, seed=7, pcts=(85, 70, 50)):
+    """The BENCH_tail flow of ``benchmarks/bench_tail.py:43-130`` with the
+    port on ``device``: a system fitted from ``q_batch`` queries with
+    ``seed``, the raw latency tail, then per budget percentile the seed
+    scheduler (the no-op late hedge, no enforcement) against the enforced
+    one, on one trace and the same models.  Returns ``tail_figures``."""
+    import numpy as np
+    from repro_torch.configs.cascade_presets import get_preset
+    from repro_torch.index.corpus import (CorpusParams, build_corpus,
+                                          build_queries)
+    from repro_torch.serving.latency import budget_attribution
+    from repro_torch.serving.scheduler import SchedulerConfig
+    from repro_torch.serving.system import build_system
+
+    t0 = time.perf_counter()
+    corpus = build_corpus(CorpusParams(n_docs=n_docs,
+                                       vocab=max(n_docs // 2, 2048),
+                                       avg_doclen=96, zipf_a=1.05, seed=seed))
+    base = get_preset("paper_200ms")
+    ql = build_queries(corpus, q_batch, stop_k=base.index.stop_k,
+                       seed=seed + 4)
+    fit_sys = build_system(base, corpus, device=device)
+    t = time.perf_counter()
+    fit_sys.fit(ql, None, seed=seed)
+    t_fit = time.perf_counter() - t
+    index, models, ltr = fit_sys.index, fit_sys.models, fit_sys.ltr
+    cost = fit_sys.cost
+    base = dataclasses.replace(
+        base, routing=dataclasses.replace(
+            base.routing, t_k=fit_sys._base_cfg.t_k,
+            t_time=fit_sys._base_cfg.t_time, calibrate=False,
+            adapt_every=0))
+
+    def system(**routing_kw):
+        spec = dataclasses.replace(
+            base, routing=dataclasses.replace(base.routing, **routing_kw))
+        return build_system(spec, index, corpus=corpus, models=models,
+                            ltr=ltr, device=device)
+
+    probe = system(budget=1e9, enable_hedging=False, enforce_budget=False)
+    lat_raw = probe.serve(ql.terms, ql.mask, ql.topic).latency
+    chosen = None
+    for pct in pcts:
+        budget = float(np.percentile(lat_raw, pct))
+        budget1 = budget_attribution(budget, cost,
+                                     base.stage2.k_serve)["stage1"]
+        if budget1 <= 0:
+            continue
+        probe_cfg = SchedulerConfig(budget=budget1,
+                                    hedge_deadline=base.routing.hedge_deadline)
+        late_rho = min(probe_cfg.max_late_rho(cost), base.routing.rho_min)
+        if late_rho < 1:
+            continue
+        seed_sys = system(budget=budget, late_rho=base.routing.rho_max,
+                          enforce_budget=False)
+        enf_sys = system(budget=budget, late_rho=late_rho,
+                         enforce_budget=True)
+        res_seed = seed_sys.serve(ql.terms, ql.mask, ql.topic)
+        res_enf = enf_sys.serve(ql.terms, ql.mask, ql.topic)
+        cand = (pct, budget, late_rho, enf_sys, res_seed, res_enf)
+        if res_seed.stats["over_budget"] >= 1 and chosen is None:
+            chosen = cand
+        if (res_seed.stats["over_budget"] >= 1
+                and res_seed.stats["late_hedged"] >= 1):
+            chosen = cand
+            break
+    check(chosen is not None, f"tail on {device}: no feasible budget")
+    pct, budget, late_rho, enf_sys, res_seed, res_enf = chosen
+    bound = enf_sys.worst_case_us()
+
+    def side(res, jass):
+        out = {"over_budget": int(res.stats["over_budget"]),
+               "over_budget_pct": float(res.stats["over_budget_pct"]),
+               "max": float(res.latency.max()),
+               "late_hedged": int(res.stats["late_hedged"])}
+        if jass:
+            out.update(
+                late_hedged_jass=int(res.stats["late_hedged_jass"]),
+                stage2_trimmed=int(res.stats["budget"]["stage2_trimmed"]),
+                stage2_skipped=int(res.stats["budget"]["stage2_skipped"]))
+        return out
+
+    figures = tail_figures({
+        "config": {"budget_percentile": pct},
+        "budget": budget, "late_rho": int(late_rho),
+        "raw_max": float(lat_raw.max()), "worst_case_bound": float(bound),
+        "bound_holds": bool(res_enf.latency.max() <= bound + 1e-9),
+        "seed_scheduler": side(res_seed, False),
+        "enforced": side(res_enf, True),
+        "identical_topk": bool(np.array_equal(res_seed.topk, res_enf.topk)),
+        "identical_final": bool(np.array_equal(res_seed.final,
+                                               res_enf.final)),
+        "regression_demonstrated": int(res_seed.stats["over_budget"]) >= 1,
+        "bmw_late_hedge_exercised": int(res_seed.stats["late_hedged"]) >= 1,
+        "guarantee_holds": int(res_enf.stats["over_budget"]) == 0})
+    log(f"tail on {device}: fit {t_fit:.2f} s, whole flow "
+        f"{time.perf_counter() - t0:.2f} s")
+    return figures
+
+
+def tail_phase(dev):
+    """The BENCH_tail flow on the card (counted from 0) and on the CPU:
+    every figure equal on both; each held against
+    ``results/BENCH_tail.json``, read here, and logged."""
+    from repro_torch import kernels
+    kernels.reset_launches()
+    card = tail_flow(dev)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    host = tail_flow("cpu")
+    for key, v in card.items():
+        check(host[key] == v, f"tail: {key} {v!r} on the card, "
+              f"{host[key]!r} on the CPU")
+    check(card["guarantee_holds"] and card["regression_demonstrated"]
+          and card["identical_topk"] and card["identical_final"],
+          "tail: the enforced run must hold the budget at identical output "
+          "while the seed scheduler leaks")
+    art = tail_figures(json.loads(TAIL_ARTIFACT.read_text()))
+    same = [k for k in art if card.get(k) == art[k]]
+    differ = {k: (card.get(k), art[k]) for k in art if k not in same}
+    log(f"tail: figures equal on the card and the CPU: {card}; launches "
+        f"{launches}")
+    log(f"tail: against {TAIL_ARTIFACT.relative_to(ROOT)}: equal {same}; "
+        f"differ (this run, the file) {differ}")
+
+
+# ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
 
@@ -1954,16 +2223,11 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     log(f"kernels built in {built['s']:.1f} s, beside the host build")
     ql = build_queries(corpus, n_batches * BATCH, stop_k=spec.index.stop_k)
 
-    spec, models, ltr = make_models(spec, index, corpus, dev, SEED)
-    t = time.perf_counter()
-    gpu = build_system(spec, index, corpus=corpus, models=models, ltr=ltr,
-                       device=dev)
-    torch.cuda.synchronize()
-    log(f"system on {dev} built in {time.perf_counter() - t:.1f} s; "
-        f"shard {gpu.shard_specs[0]}")
-    cpu_models, cpu_ltr = to_device(models, ltr, "cpu")
-    cpu = build_system(spec, index, corpus=corpus, models=cpu_models,
-                       ltr=cpu_ltr, device="cpu")
+    # fit: the card's and the CPU's systems, each fitted on its own device
+    gpu, cpu, fit_launches, fit_calls = fit_phase(spec, index, corpus, dev,
+                                                  profile)
+    spec = gpu.cascade_spec
+    log(f"system on {dev}: shard {gpu.shard_specs[0]}")
 
     # cross-check: one batch through fresh systems on the card and the CPU;
     # the card's kernel calls are recorded for the kernel phase
@@ -1984,16 +2248,23 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     # the per-query Stage-1 path on the same shard, card and CPU
     lax_launches, lax_calls = laxmap_phase(gpu, cpu, ql, spec)
     recorded.update(lax_calls)
+    cpu_models, cpu_ltr = cpu.models, cpu.ltr
     del cpu
 
     # the dense modality: hybrid_fusion from the same index; one tower,
     # drawn on the host, embeds the collection for both systems
     t = time.perf_counter()
-    spec_h, models_h, ltr_h = make_models(get_preset("hybrid_fusion"), index,
-                                          corpus, dev, SEED)
+    # the card-fitted models serve hybrid_fusion too (its Stage-0 and LTR
+    # specs and budget are paper_200ms's, so fit() would give the same)
+    spec_h = get_preset("hybrid_fusion")
+    check(spec_h.stage0 == spec.stage0 and spec_h.stage2 == spec.stage2
+          and spec_h.routing.budget == spec.routing.budget,
+          "hybrid_fusion: its fit would differ from paper_200ms's")
+    spec_h = dataclasses.replace(spec_h, routing=dataclasses.replace(
+        spec_h.routing, t_k=spec.routing.t_k, t_time=spec.routing.t_time))
     tower = TwoTower.init(REDUCED, spec_h.dense.seed, device="cpu")
-    gpu_h = build_system(spec_h, index, corpus=corpus, models=models_h,
-                         ltr=ltr_h, tower=tower, device=dev)
+    gpu_h = build_system(spec_h, index, corpus=corpus, models=gpu.models,
+                         ltr=gpu.ltr, tower=tower, device=dev)
     calib = build_queries(corpus, 256, stop_k=spec_h.index.stop_k,
                           seed=SEED % 10_000)
     spec_h = calibrate_thetas(gpu_h, calib)
@@ -2003,7 +2274,6 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
         f"{gpu_h.dense.n_shards} shard of {gpu_h.dense.shard_docs[0]} docs x "
         f"d={gpu_h.dense.d}, {gpu_h.dense.n_tiles(0)} tiles of "
         f"{gpu_h.dense.tile_d}")
-    cpu_models, cpu_ltr = to_device(models_h, ltr_h, "cpu")
     cpu_h = build_system(spec_h, index, corpus=corpus, models=cpu_models,
                          ltr=cpu_ltr, tower=tower, device="cpu")
     rows_h = cross_check_rows(gpu_h, ql)
@@ -2021,6 +2291,9 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     rows = kernel_phase(recorded)
     for name in LAXMAP_KERNELS:
         rows[name]["launches"] = lax_launches[name]
+    rows["level_histogram"] = fit_kernel_phase(fit_calls)
+    rows["level_histogram"]["launches"] = fit_launches["level_histogram"]
+    del fit_calls
 
     # serve phases: each preset's main path, counted on its own
     launches, routes, _ = serve_phase(gpu, ql, n_batches, n_docs, spec)
@@ -2043,8 +2316,12 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
             log(f"profile of {system.cascade_spec.name}:")
             profile_batch(system, ql.terms[sl], ql.mask[sl], ql.topic[sl])
 
-    # the LM serving path, with the retrieval systems freed
+    # the BENCH_tail flow, fitted and served on its own collection
     del gpu, gpu_h, recorded, lax_calls, rec, rec_h
+    torch.cuda.empty_cache()
+    tail_phase(dev)
+
+    # the LM serving path, with the retrieval systems freed
     torch.cuda.empty_cache()
     rows.update(lm_phase(dev, lm_layers, lm_prompt, lm_steps, profile))
     return card, rows

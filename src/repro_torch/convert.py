@@ -1,10 +1,11 @@
 """Carry fitted models and specs from the JAX reference to the port.
 
-Training is not ported yet, so the port serves models the reference
-(``repro``) fitted.  This module reads them by attribute and ``np.asarray``
-alone — it imports nothing of the reference package and no JAX — and builds
-the port's tensors on ``device`` (the card unless the caller asks for the
-CPU):
+The port fits its own models (``SearchSystem.fit``, bit-equal to the
+reference's); this module carries the reference's across where a test or a
+run compares the two or serves what ``repro`` fitted.  It reads them by
+attribute and ``np.asarray`` alone — it imports nothing of the reference
+package and no JAX — and builds the port's tensors on ``device`` (the card
+unless the caller asks for the CPU):
 
 * a reference ``GBRTModel`` (``.forest.feat/.thresh/.leaf``, ``.base``,
   ``.bin_edges``, ``.params``) → ``repro_torch.core.gbrt.GBRTModel``;

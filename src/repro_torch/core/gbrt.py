@@ -1,19 +1,27 @@
-"""Gradient-boosted regression trees — inference in PyTorch.
+"""Gradient-boosted regression trees with L2 or quantile (pinball) loss.
 
-The reference (``repro.core.gbrt``) fits quantile (pinball-loss) and L2
-GBRTs; the paper's Stage-0 predictors are the quantile ones.  The port
-serves models fitted there (training is not ported yet): a ``GBRTModel``
-holds the forest, the base prediction and the bin edges as tensors on one
-device, built by ``repro_torch.convert``.
+The paper's preferred predictor ("QR") is a GBRT minimizing the pinball loss
+ξ_τ(y - f) = (y - f)(τ - 1{y < f}); each boosting round fits a histogram tree
+to the negative gradient and then refits every leaf to the exact in-leaf
+τ-quantile of the residuals, which makes the ensemble estimate the
+conditional τ-quantile rather than the mean.  The port of
+``repro.core.gbrt``: ``fit`` runs on the card (the ``level_histogram`` and
+``boost_update`` kernels) unless the caller names the CPU, and its forests
+are the reference's bit for bit; ``repro_torch.convert`` also carries
+fitted reference models across.  A ``GBRTModel`` holds the forest, the
+base prediction and the bin edges as tensors on one device.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import trees as T
+from repro_torch.isn.backend import resolve_device
+from repro_torch.kernels.level_histogram import ops as lh
 
 
 class GBRTParams(NamedTuple):
@@ -34,6 +42,100 @@ class GBRTModel(NamedTuple):
     base: torch.Tensor          # () float32 initial prediction
     bin_edges: torch.Tensor     # (F, n_bins - 1) float32
     params: GBRTParams
+
+
+def _pseudo_gradient(y, f, loss, tau):
+    if loss == "l2":
+        return y - f
+    # pinball: -dξ/df = tau - 1{y < f}; both constants rounded to float32
+    # from doubles, as jnp.where rounds its Python operands
+    return torch.where(y >= f, float(np.float32(tau)),
+                       float(np.float32(tau - 1.0)))
+
+
+def _leaf_values(leaf_id, y, f, w, n_leaves, p: GBRTParams):
+    if p.loss == "l2":
+        return T.leaf_means(leaf_id, y - f, w, n_leaves, p.l2)
+    return T.leaf_quantiles(leaf_id, y - f, w, n_leaves, p.tau)
+
+
+def _quantile(y: torch.Tensor, tau: float) -> torch.Tensor:
+    """``jnp.quantile(y, tau)`` ("linear") as the reference's jit computes
+    it: the position τ·(n - 1) in float32, and the interpolation
+    lo·(1 - w) + hi·w with the first product fused into the add (the
+    contraction XLA makes).  Returns a () float32 tensor on y's device."""
+    s = torch.sort(y).values
+    n = np.float32(y.shape[0])
+    q = np.float32(tau) * (n - np.float32(1.0))
+    lo, hi = np.floor(q), np.ceil(q)
+    hw = np.float32(q - lo)
+    lw = np.float32(np.float32(1.0) - hw)
+    lo = int(np.clip(lo, 0, n - 1))
+    hi = int(np.clip(hi, 0, n - 1))
+    vals = s[[lo, hi]].cpu()
+    t = torch.tensor([lw, hw], dtype=torch.float32)
+    base = lh.fma32(vals[0], t[0], vals[1] * t[1])
+    return base.to(y.device)
+
+
+def _fit_binned(xbt: torch.Tensor, y: torch.Tensor, p: GBRTParams
+                ) -> tuple[T.Forest, torch.Tensor]:
+    """The boosting loop on pre-binned, transposed (F, n) features, a
+    Python loop over trees in place of the reference's ``lax.scan``."""
+    if p.colsample < 1.0 or p.subsample < 1.0:
+        raise NotImplementedError(
+            "GBRT column or row sampling (colsample/subsample < 1) is not "
+            "ported to repro_torch yet (ROADMAP.md, section 1: "
+            "LM/GNN/recsys/training stack, item 11)")
+    n_feat, n = xbt.shape
+    dev = xbt.device
+    tp = T.TreeParams(p.depth, p.n_bins, p.min_child_weight, p.l2)
+    n_leaves = 2 ** p.depth
+    if p.loss == "l2":
+        # jnp.mean: the tree-sum order over the rows, then / n
+        base = T._sum_trees(y[None])[0] / n
+    else:
+        base = _quantile(y, p.tau)
+    fmask = torch.ones((n_feat,), dtype=torch.bool, device=dev)
+    w = torch.ones((n,), dtype=torch.float32, device=dev)
+    lr = float(np.float32(p.learning_rate))
+    f = base.expand(n).contiguous()
+    feats, threshs, leaves = [], [], []
+    for _ in range(p.n_trees):
+        g = _pseudo_gradient(y, f, p.loss, p.tau)
+        feat, thresh, leaf_id = T.build_tree(xbt, g, w, fmask, tp)
+        raw = _leaf_values(leaf_id, y, f, w, n_leaves, p)
+        # the stored leaves round raw·lr once; the running prediction takes
+        # raw·lr + f as one fused multiply-add, as the reference's jit does
+        f = lh.boost_update(f, raw, leaf_id, lr)
+        feats.append(feat)
+        threshs.append(thresh)
+        leaves.append(raw * lr)
+    forest = T.Forest(torch.stack(feats), torch.stack(threshs),
+                      torch.stack(leaves))
+    return forest, base
+
+
+def fit(x, y, params: GBRTParams, seed: int = 0,
+        device: str | torch.device | None = None) -> GBRTModel:
+    """Fit a GBRT to (n, F) features ``x`` and (n,) targets ``y`` (arrays
+    or tensors) on ``device`` (the card unless the caller names the CPU;
+    raises when no CUDA device is present and none is named).  ``seed`` is
+    the reference's; no random draw enters while ``colsample`` and
+    ``subsample`` are 1."""
+    dev = resolve_device(device)
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    if isinstance(y, torch.Tensor):
+        y = y.detach().cpu().numpy()
+    x = np.ascontiguousarray(x, np.float32)
+    # float32 edges, as the reference's jnp.asarray makes them
+    edges = torch.from_numpy(
+        T.fit_bins(x, params.n_bins).astype(np.float32)).to(dev)
+    xb = T.apply_bins(torch.from_numpy(x).to(dev), edges)
+    yt = torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(dev)
+    forest, base = _fit_binned(xb.T.contiguous(), yt, params)
+    return GBRTModel(forest, base, edges, params)
 
 
 def predict(model: GBRTModel, x: torch.Tensor) -> torch.Tensor:

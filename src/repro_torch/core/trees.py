@@ -1,23 +1,40 @@
-"""Array-based decision-tree ensembles — inference in PyTorch.
+"""Array-based decision-tree ensembles in PyTorch: fit and inference.
 
 The reference (``repro.core.trees``) stores LightGBM-style complete binary
 trees of fixed depth as dense arrays, so inference is a branch-free
 O(depth) gather chain.  Feature values are quantile-binned to uint8
-(``apply_bins``) and split thresholds are bin indices.  Training is not
-ported yet: the port takes forests fitted by the reference
-(``repro_torch.convert``).
+(``fit_bins`` / ``apply_bins``) and split thresholds are bin indices.
+Trees are built level by level from split histograms (``build_tree``):
+the ``level_histogram`` kernel on the card, its plain version on the CPU.
 
-Exactness: the per-row sum over trees follows the reference's compiled
-reduction order (``_sum_trees``), so boosted predictions agree bit for bit
-at every tree count, at the repo's depths — a route compares a prediction with a threshold that
-is itself one of the reference's predictions.
+Exactness: every sum a fit compares or stores follows the reference's
+compiled order, so fitted trees are the reference's bit for bit — the
+histograms add each cell's rows in row order (``_level_histograms``), the
+cumulative sums over the bins run in XLA-CPU's windows of 16
+(``_bin_cumsum``), and ties between splits go to the lowest flat index.
+The per-row sum over trees follows the reference's compiled reduction
+order (``_sum_trees``), so boosted predictions agree bit for bit at every
+tree count, at the repo's depths — a route compares a prediction with a
+threshold that is itself one of the reference's predictions.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from repro_torch.kernels.level_histogram import ops as lh
+
+NEG_INF = -1e30
+
+
+class TreeParams(NamedTuple):
+    depth: int = 6              # number of split levels; 2**depth leaves
+    n_bins: int = 64
+    min_child_weight: float = 10.0
+    l2: float = 1.0             # ridge term on leaf scores
 
 
 class Forest(NamedTuple):
@@ -33,10 +50,152 @@ class Forest(NamedTuple):
     leaf: torch.Tensor
 
 
+# ---------------------------------------------------------------------------
+# Binning
+# ---------------------------------------------------------------------------
+
+def fit_bins(x: np.ndarray, n_bins: int) -> np.ndarray:
+    """Quantile bin edges, shape (F, n_bins - 1). Host-side (NumPy)."""
+    qs = np.linspace(0.0, 100.0, n_bins + 1)[1:-1]
+    edges = np.percentile(np.asarray(x), qs, axis=0).T.astype(np.float32)
+    # strictly increasing edges keep the bin count well-behaved on constant
+    # columns
+    edges = np.maximum.accumulate(edges + 1e-9 * np.arange(edges.shape[1]),
+                                  axis=1)
+    return edges
+
+
 def apply_bins(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """(n, F) raw floats -> (n, F) uint8 bin ids (count of edges below)."""
     bins = (x[:, :, None] > edges[None, :, :]).sum(dim=-1)
     return bins.to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Level-wise histogram tree builder
+# ---------------------------------------------------------------------------
+
+def _level_histograms(xbt: torch.Tensor, node: torch.Tensor,
+                      grad: torch.Tensor, weight: torch.Tensor, n_nodes: int,
+                      n_bins: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted gradient / weight histograms per (node, feature, bin), each
+    cell's rows added in row order; ``xbt`` is the (F, n) uint8 bins,
+    transposed."""
+    return lh.level_histogram(xbt, node, grad * weight, weight,
+                              n_nodes=n_nodes, n_bins=n_bins)
+
+
+def _seq_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis, left to right."""
+    out = [x[..., 0]]
+    for i in range(1, x.shape[-1]):
+        out.append(out[-1] + x[..., i])
+    return torch.stack(out, dim=-1)
+
+
+def _bin_cumsum(h: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis in the order of the
+    reference's compiled ``jnp.cumsum`` (XLA-CPU rewrites a long cumulative
+    sum into windows of 16): each window scanned left to right, the
+    windows' totals scanned the same way, and the running total of the
+    earlier windows added to each element of the next."""
+    n = h.shape[-1]
+    if n <= 16:
+        return _seq_scan(h)
+    pad = -n % 16
+    hp = torch.nn.functional.pad(h, (0, pad))
+    local = _seq_scan(hp.reshape(*h.shape[:-1], -1, 16))
+    carry = _bin_cumsum(local[..., -1])
+    out = torch.cat([local[..., :1, :],
+                     local[..., 1:, :] + carry[..., :-1, None]], dim=-2)
+    return out.reshape(*h.shape[:-1], -1)[..., :n]
+
+
+def build_tree(xbt: torch.Tensor, target: torch.Tensor, weight: torch.Tensor,
+               feat_mask: torch.Tensor, params: TreeParams):
+    """Fit one regression tree to ``target`` with variance-reduction splits.
+
+    Args:
+      xbt: (F, n) uint8 binned features, transposed.
+      target: (n,) float32 regression target (the boosting pseudo-gradient).
+      weight: (n,) float32 sample weights (0 excludes a row).
+      feat_mask: (F,) bool — features eligible for splitting.
+    Returns:
+      (feat, thresh) int32 arrays of shape (depth, 2**(depth-1)) and the
+      final (n,) int32 leaf assignment in [0, 2**depth).  A node no split
+      can satisfy passes every row left (feature 0, the last bin); among
+      equal gains the lowest (feature, bin) wins.
+    """
+    n_feat, n = xbt.shape
+    nb = params.n_bins
+    width = 2 ** (params.depth - 1)
+    dev = xbt.device
+    rows = torch.arange(n, device=dev)
+    node = torch.zeros((n,), dtype=torch.int32, device=dev)
+    feats, threshs = [], []
+    for d in range(params.depth):
+        n_nodes = 2 ** d
+        hg, hw = _level_histograms(xbt, node, target, weight, n_nodes, nb)
+        cg, cw = _bin_cumsum(torch.stack([hg, hw]))
+        tg = cg[..., -1:]
+        tw = cw[..., -1:]
+        lam = params.l2
+        gain = (cg * cg / (cw + lam) + (tg - cg) * (tg - cg) / (tw - cw + lam)
+                - tg * tg / (tw + lam))
+        ok = ((cw >= params.min_child_weight)
+              & (tw - cw >= params.min_child_weight)
+              & feat_mask[None, :, None])
+        flat = torch.where(ok, gain, NEG_INF).reshape(n_nodes, -1)
+        best = torch.argmax(flat, dim=-1)      # the first maximum
+        best_gain = flat.gather(1, best[:, None])[:, 0]
+        dead = best_gain <= NEG_INF / 2
+        bf = torch.where(dead, 0, best // nb).to(torch.int32)
+        bb = torch.where(dead, nb - 1, best % nb).to(torch.int32)
+        nl = node.long()
+        fx = xbt[bf[nl].long(), rows]
+        node = node * 2 + (fx.to(torch.int32) > bb[nl]).to(torch.int32)
+        feats.append(torch.nn.functional.pad(bf, (0, width - n_nodes)))
+        threshs.append(torch.nn.functional.pad(bb, (0, width - n_nodes)))
+    return torch.stack(feats), torch.stack(threshs), node
+
+
+def leaf_means(leaf_id: torch.Tensor, values: torch.Tensor,
+               weight: torch.Tensor, n_leaves: int, l2: float = 1.0
+               ) -> torch.Tensor:
+    """(n_leaves,) Σ values·w / (Σ w + l2) per leaf, rows summed in order
+    (one ``level_histogram`` call: one feature, the leaf as its bin)."""
+    zero = torch.zeros_like(leaf_id)
+    sv, sw = lh.level_histogram(leaf_id.to(torch.uint8)[None], zero,
+                                values * weight, weight, n_nodes=1,
+                                n_bins=n_leaves)
+    return sv[0, 0] / (sw[0, 0] + l2)
+
+
+def leaf_quantiles(leaf_id: torch.Tensor, values: torch.Tensor,
+                   weight: torch.Tensor, n_leaves: int, tau: float
+                   ) -> torch.Tensor:
+    """Exact per-leaf τ-quantile of ``values`` (weight a 0/1 mask): the
+    value at rank floor(τ · (count - 1)) of the leaf's sorted values, 0.0
+    for an empty leaf.  The reference's lexsort by (leaf, value) is two
+    stable sorts; exactly one row a leaf hits its rank."""
+    n = values.shape[0]
+    dev = values.device
+    lid = torch.where(weight > 0, leaf_id, n_leaves).long()
+    by_value = torch.sort(values, stable=True).indices
+    order = by_value[torch.sort(lid[by_value], stable=True).indices]
+    s_leaf = lid[order]
+    s_val = values[order]
+    counts = torch.bincount(lid, minlength=n_leaves + 1).float()
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(n, device=dev, dtype=torch.float32) - starts[s_leaf]
+    # τ rounded to float32 first: its product with a float32 is then the
+    # reference's float32 product whatever precision the multiply runs in
+    target_rank = torch.floor(float(np.float32(tau))
+                              * torch.clamp(counts - 1.0, min=0.0))
+    hit = pos == target_rank[s_leaf]
+    out = torch.zeros((n_leaves + 1,), dtype=torch.float32, device=dev)
+    out[s_leaf[hit]] = s_val[hit] + 0.0
+    return out[:n_leaves]
 
 
 def _seq_sum(x: torch.Tensor) -> torch.Tensor:

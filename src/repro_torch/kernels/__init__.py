@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for the first-stage (lexical and dense) and
-Stage-2 hot loops, for the per-query Stage-1 path, and for the LM serving
-path's attention (prefill and KV-cache decode).
+Stage-2 hot loops, for the per-query Stage-1 path, for the LM serving
+path's attention (prefill and KV-cache decode), and for the GBRT fit's
+level histograms and boosting update (``level_histogram``).
 
 Each package holds ``<name>.cu`` (the CUDA C++ kernel and a plain-C launch
 function; ``flash_attention`` has a second, ``flash_attention_sm90.cu``,
@@ -35,7 +36,8 @@ from pathlib import Path
 KERNEL_NAMES = ("impact_accumulate_batched", "blockmax_score_batched",
                 "qd_feature_gather_lanes", "dense_topk_tiles",
                 "impact_accumulate_bucketed", "blockmax_score_bucketed",
-                "score_histogram", "flash_attention", "flash_decode")
+                "score_histogram", "flash_attention", "flash_decode",
+                "level_histogram", "boost_update")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _HERE = Path(__file__).resolve().parent
@@ -46,7 +48,8 @@ SOURCES = (_HERE / "binding.cpp",
            _HERE / "dense_topk" / "dense_topk.cu",
            _HERE / "score_histogram" / "score_histogram.cu",
            _HERE / "flash_attention" / "flash_attention.cu",
-           _HERE / "flash_attention" / "flash_attention_sm90.cu")
+           _HERE / "flash_attention" / "flash_attention_sm90.cu",
+           _HERE / "level_histogram" / "level_histogram.cu")
 BUILD_DIR = _HERE.parents[2] / "build" / "kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 

@@ -57,6 +57,12 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 long long kss, long long vsb, long long vsh,
                                 long long vss, float scale, int causal,
                                 cudaStream_t stream);
+void level_histogram_launch(const uint8_t* xbt, const int* node,
+                            const float* gw, const float* w, float* hist_g,
+                            float* hist_w, int n, int n_feat, int n_nodes,
+                            int n_bins, cudaStream_t stream);
+void boost_update_launch(const float* f, const float* raw, const int* leaf,
+                         float lr, float* out, int n, cudaStream_t stream);
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const int* kv_len, float* part, void* out, int bf16,
                         int b, int h, int hkv, int t_len, int d, float scale,
@@ -170,6 +176,29 @@ void score_histogram(const torch::Tensor& scores, torch::Tensor hist,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void level_histogram(const torch::Tensor& xbt, const torch::Tensor& node,
+                     const torch::Tensor& gw, const torch::Tensor& w,
+                     torch::Tensor hist_g, torch::Tensor hist_w) {
+  const c10::cuda::CUDAGuard guard(xbt.device());
+  level_histogram_launch(
+      xbt.data_ptr<uint8_t>(), node.data_ptr<int>(), gw.data_ptr<float>(),
+      w.data_ptr<float>(), hist_g.data_ptr<float>(), hist_w.data_ptr<float>(),
+      static_cast<int>(xbt.size(1)), static_cast<int>(xbt.size(0)),
+      static_cast<int>(hist_g.size(0)), static_cast<int>(hist_g.size(2)),
+      c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void boost_update(const torch::Tensor& f, const torch::Tensor& raw,
+                  const torch::Tensor& leaf, double lr, torch::Tensor out) {
+  const c10::cuda::CUDAGuard guard(f.device());
+  boost_update_launch(f.data_ptr<float>(), raw.data_ptr<float>(),
+                      leaf.data_ptr<int>(), static_cast<float>(lr),
+                      out.data_ptr<float>(), static_cast<int>(f.size(0)),
+                      c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 using PrefillLaunch = int (*)(const void*, const void*, const void*, void*,
                              int, int, int, int, int, int, long long,
                              long long, long long, long long, long long,
@@ -240,6 +269,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("score_histogram", &score_histogram,
         "histogram of int32 scores (negatives ignored, highs clipped) and, "
         "for k > 0, their exact top-k by histogram threshold");
+  m.def("level_histogram", &level_histogram,
+        "per (node, feature, bin) sums of g*w and w, each cell's rows added "
+        "in row order");
+  m.def("boost_update", &boost_update,
+        "f + raw[leaf] * lr as one fused multiply-add a row");
   m.def("flash_attention", &flash_attention,
         "tiled online-softmax attention on fp32 inputs (GQA, causal or not)");
   m.def("flash_attention_sm90", &flash_attention_sm90,

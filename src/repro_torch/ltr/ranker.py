@@ -10,6 +10,11 @@ lanes and reduced against the candidate grid by
 its plain version on the CPU.  The sums are taken lane by lane in term
 order from 0.0, the order of the reference's term-by-term CSR search, so
 every feature matches the reference bit for bit.
+
+Training: ``qd_features`` is the reference's per-query NumPy loop (one CSR
+``searchsorted`` per query term), which the pseudo-label training set of
+``SearchSystem.fit`` uses, and ``train_ltr`` fits the point-wise L2 GBRT
+(``gbrt.fit``, on the card unless the caller names the CPU).
 """
 
 from __future__ import annotations
@@ -25,6 +30,39 @@ from repro_torch.isn.backend import compact_lanes
 from repro_torch.kernels.qd_feature_gather.ops import qd_feature_gather
 
 N_LTR_FEATURES = 8
+
+
+def qd_features(index, corpus, terms_row, mask_row, topic, doc_ids):
+    """Per-(query, doc) LTR features for a candidate list (NumPy, the
+    reference's per-query loop)."""
+    t = terms_row[mask_row > 0]
+    feats = np.zeros((len(doc_ids), N_LTR_FEATURES), np.float32)
+    dl = index.doclen[doc_ids].astype(np.float32)
+    feats[:, 0] = np.log1p(dl)
+    # per-term exact scores via CSR binary search
+    bm25 = np.zeros(len(doc_ids), np.float32)
+    n_match = np.zeros(len(doc_ids), np.float32)
+    mx = np.zeros(len(doc_ids), np.float32)
+    for tt in t:
+        lo, hi = index.offsets[tt], index.offsets[tt + 1]
+        if hi <= lo:
+            continue                      # term absent from this shard
+        seg = index.docs[lo:hi]
+        pos = np.searchsorted(seg, doc_ids)
+        pos = np.minimum(pos, hi - lo - 1)
+        hit = seg[pos] == doc_ids
+        sc = np.where(hit, index.bm25_score[lo:hi][pos], 0.0)
+        bm25 += sc
+        mx = np.maximum(mx, sc)
+        n_match += hit
+    feats[:, 1] = bm25
+    feats[:, 2] = mx
+    feats[:, 3] = n_match / max(len(t), 1)
+    feats[:, 4] = bm25 / np.maximum(dl, 1.0)
+    feats[:, 5] = corpus.doc_topics[doc_ids, topic]
+    feats[:, 6] = corpus.doc_topics[doc_ids].max(axis=1)
+    feats[:, 7] = len(t)
+    return feats
 
 
 class Stage2Arrays(NamedTuple):
@@ -124,3 +162,13 @@ class LTRModel:
 
     def score(self, feats: torch.Tensor) -> torch.Tensor:
         return gbrt.predict(self.model, feats)
+
+
+def train_ltr(feats: np.ndarray, gains: np.ndarray, n_trees: int = 48,
+              device: str | torch.device | None = None) -> LTRModel:
+    """The point-wise LTR GBRT (L2 loss, depth 4, learning rate 0.2) fitted
+    on ``device`` (the card unless the caller names the CPU)."""
+    m = gbrt.fit(feats, gains.astype(np.float32),
+                 gbrt.GBRTParams(n_trees=n_trees, depth=4, loss="l2",
+                                 learning_rate=0.2), device=device)
+    return LTRModel(m)

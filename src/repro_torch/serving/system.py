@@ -5,7 +5,8 @@ The port of ``repro.serving.system`` for the paper's three-stage cascade:
 
     spec = get_preset("paper_200ms")
     system = build_system(spec, index, corpus=corpus)   # device="cuda"
-    system.set_models(models, ltr)      # converted with repro_torch.convert
+    system.fit(ql, None, seed=0)        # or set_models(models, ltr) from
+                                        # repro_torch.convert
     res = system.serve(ql.terms, ql.mask, ql.topic)
 
 Stage-0 features and the stacked quantile GBRTs run on the device; the
@@ -19,12 +20,15 @@ kernel over the embedding shards) or both, fused.  Latency is the
 reference's modeled cost (``CostModel`` on the engines' work counters), so
 equal counters give equal latencies, bit for bit.
 
-Scope: the inert-node path plus the dense modality.  A spec that turns on
-a node the port does not have yet (cache, fault schedule, ingest,
-telemetry) raises ``NotImplementedError`` naming its ROADMAP item, as do
-``fit`` and ``serve_online``.  Models are fitted by the reference and
-converted; so is the two-tower model of the dense modality
-(``convert.two_tower_params``), or the port draws its own.
+Scope: the inert-node path plus the dense modality, and ``fit`` with the
+reference's pseudo-labels (Stage-0 quantile GBRTs, the LTR GBRT and the
+routing calibration, fitted on the system's device bit-equal to the
+reference's).  A spec that turns on a node the port does not have yet
+(cache, fault schedule, ingest, telemetry) raises ``NotImplementedError``
+naming its ROADMAP item, as do ``fit(labels=...)`` and ``serve_online``.
+Models fitted by the reference can also be converted
+(``repro_torch.convert``); so can the two-tower model of the dense
+modality (``convert.two_tower_params``), or the port draws its own.
 
 Multi-shard exactness is the reference's: DAAT is rank-safe per shard, and
 for SAAT the ρ budget resolves to a global impact-level cut that each shard
@@ -50,7 +54,8 @@ from repro_torch.isn.backend import (merge_shard_topk, query_lane_budget,
 from repro_torch.isn.daat import daat_serve
 from repro_torch.isn.saat import saat_serve
 from repro_torch.ltr.cascade import CascadeResult, rerank_batched
-from repro_torch.ltr.ranker import LTRModel, stage2_arrays
+from repro_torch.ltr.ranker import (LTRModel, qd_features, stage2_arrays,
+                                   train_ltr)
 from repro_torch.models.recsys import TwoTower
 from repro_torch.serving.latency import (CostModel, budget_attribution,
                                          over_budget, percentiles,
@@ -121,7 +126,8 @@ def build_system(spec: CascadeSpec, corpus_or_index, *, corpus=None,
     with the spec's ``IndexSpec``) or a pre-built :class:`InvertedIndex`
     (pass ``corpus=`` separately if Stage-2 needs doc topics).  ``models``
     (Stage-0 ``GBRTModel``s keyed "k"/"rho"/"t") and ``ltr`` come from
-    ``repro_torch.convert``.  ``tower`` is the dense modality's two-tower
+    another system's ``fit`` or from ``repro_torch.convert``; without them,
+    call ``fit``.  ``tower`` is the dense modality's two-tower
     model (``convert.two_tower_params`` carries the reference's across);
     with none given and a two-tower embedding source, the port draws its
     own from ``DenseSpec.seed``, and its embeddings then differ from the
@@ -291,8 +297,65 @@ class SearchSystem:
         self.sched = StageZeroScheduler(cfg, self.cost)
         return self
 
-    def fit(self, ql, labels=None, *, seed: int = 0):
-        raise _unported("SearchSystem.fit (training)", "Training")
+    def fit(self, ql, labels=None, *, seed: int = 0) -> "SearchSystem":
+        """Train the spec's Stage-0 predictors (and the Stage-2 LTR model
+        when enabled) from a query log, on the system's device.
+
+        The labels are the reference's cheap pseudo-labels, derived from
+        posting-list mass with noise from ``np.random.RandomState(seed)``,
+        drawn in the reference's order, so the fitted forests are the
+        reference's bit for bit.  Oracle ``labels`` (and the cost-model
+        regression they feed) are not ported yet.
+        """
+        if labels is not None:
+            raise _unported("SearchSystem.fit(labels=...) (the label oracle "
+                            "and calibrate_cost)", "Training labels")
+        s0 = self.cascade_spec.stage0
+        x = F.extract(self.term_stats, self.df, self._to_device(ql.terms),
+                      self._to_device(ql.mask))
+        rng = np.random.RandomState(seed)
+        eff = ((self.index.df[ql.terms] * (ql.mask > 0))
+               .sum(axis=1).astype(np.float64))
+        targets = {n: eff * sc * np.exp(rng.randn(len(eff)) * 0.3)
+                   for n, sc in (("k", 0.05), ("rho", 0.5), ("t", 0.002))}
+        taus = {"k": s0.tau_k, "rho": s0.tau_rho, "t": s0.tau_t}
+        models = {
+            name: gbrt.fit(
+                x, np.log1p(y.astype(np.float32)),
+                gbrt.GBRTParams(n_trees=s0.n_trees, depth=s0.depth,
+                                loss="quantile", tau=taus[name]),
+                device=self.device)
+            for name, y in targets.items()}
+
+        ltr = None
+        if self.cascade_spec.stage2.enabled:
+            if self.corpus is None:
+                raise ValueError("Stage-2 training needs the corpus")
+            feats = []
+            for q in range(min(len(ql.terms), 32)):
+                docs = rng.randint(0, self.index.n_docs, 64)
+                feats.append(qd_features(self.index, self.corpus,
+                                         ql.terms[q], ql.mask[q],
+                                         ql.topic[q], docs.astype(np.int64)))
+            lf = np.concatenate(feats)
+            lg = (lf[:, 5] + 0.2 * lf[:, 1]).astype(np.float32)
+            ltr = train_ltr(lf, lg, n_trees=self.cascade_spec.stage2.ltr_trees,
+                            device=self.device)
+
+        if self.cascade_spec.routing.calibrate:
+            # route on the trained predictors' own distribution, and fold
+            # the thresholds back into the spec so to_json() names the
+            # operating point
+            pk = np.expm1(gbrt.predict(models["k"], x).cpu().numpy())
+            pt = np.expm1(gbrt.predict(models["t"], x).cpu().numpy())
+            t_k = float(np.percentile(pk, 60))
+            t_time = float(min(self.budget * 0.75, np.percentile(pt, 75)))
+            self._base_cfg = replace(self._base_cfg, t_k=t_k, t_time=t_time)
+            self.cascade_spec = replace(
+                self.cascade_spec,
+                routing=replace(self.cascade_spec.routing, t_k=t_k,
+                                t_time=t_time))
+        return self.set_models(models, ltr)
 
     def serve_online(self, *args, **kwargs):
         raise _unported("SearchSystem.serve_online (the online simulator)",
@@ -308,7 +371,8 @@ class SearchSystem:
     def stage0(self, terms: np.ndarray, mask: np.ndarray):
         """All three predictions for the batch: (pk, pr, pt) NumPy arrays."""
         if self.models is None:
-            raise RuntimeError("no Stage-0 models: call set_models() first")
+            raise RuntimeError("no Stage-0 models: call fit() or "
+                               "set_models() first")
         x = F.extract(self.term_stats, self.df, self._to_device(terms),
                       self._to_device(mask))
         if self._stacked is not None:

@@ -30,6 +30,7 @@ from repro_torch.kernels.blockmax_score import ops as bm_ops
 from repro_torch.kernels.dense_topk import ops as dt_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.impact_accumulate import ops as ia_ops
+from repro_torch.kernels.level_histogram import ops as lh_ops
 from repro_torch.kernels.qd_feature_gather import ops as qd_ops
 from repro_torch.kernels.score_histogram import ops as sh_ops
 from repro_torch.models import transformer
@@ -175,6 +176,14 @@ def _calls():
             torch.empty((1, 2, 600, 64), device=d),
             torch.empty((1, 2, 600, 64), device=d),
             torch.empty((1,), dtype=i32, device=d))),
+        (lh_ops, "level_histogram_plain", lambda d: lh_ops.level_histogram(
+            torch.empty((3, 100), dtype=torch.uint8, device=d),
+            torch.empty((100,), dtype=i32, device=d),
+            torch.empty((100,), device=d), torch.empty((100,), device=d),
+            n_nodes=2, n_bins=64)),
+        (lh_ops, "boost_update_plain", lambda d: lh_ops.boost_update(
+            torch.empty((100,), device=d), torch.empty((32,), device=d),
+            torch.empty((100,), dtype=i32, device=d), 0.15)),
     ]
 
 
@@ -199,7 +208,8 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch):
                           "qd_feature_gather", "dense_topk",
                           "impact_accumulate_bucketed",
                           "blockmax_score_bucketed", "score_histogram",
-                          "flash_attention", "flash_decode"]
+                          "flash_attention", "flash_decode",
+                          "level_histogram", "boost_update"]
     assert all(n == 1 for n in kernels.LAUNCHES.values())
     kernels.reset_launches()
 

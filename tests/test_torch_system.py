@@ -150,8 +150,9 @@ def test_unported_nodes_raise(fitted_reference):
             device="cpu")
     system = build_system(spec, pindex, corpus=pcorpus, models=models,
                           ltr=ltr, device="cpu")
-    with pytest.raises(NotImplementedError, match="Training"):
-        system.fit(ql)
+    # fit(ql) is ported (tests/test_torch_fit.py); oracle labels are not
+    with pytest.raises(NotImplementedError, match="Training labels"):
+        system.fit(ql, labels=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         system.serve_online(ql.terms, ql.mask, ql.topic, traffic=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
