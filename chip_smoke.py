@@ -87,7 +87,24 @@ order, it
    requires every figure equal on both, 0 over budget when enforced, a
    leak without, and identical ``topk``/``final``; logs each figure
    against ``results/BENCH_tail.json``, read at run time;
-9. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
+9. cli phase: the serving CLI (``repro_torch.launch.serve.run``) at the
+   reference CLI's defaults on the card, counted from 0: ``paper_200ms``
+   at 1 shard, 16,384 docs (vocab 8,192), 2,000 queries, the oracle labels
+   (``LabelConfig(max_k=4096, batch=256)``, computed once on the host),
+   the labelled fit and one serve of the whole trace; prints the
+   ``[serve]`` lines, the walls of the labels, the fit and the serve and
+   the launches of kernels 1-3, ``level_histogram`` and ``boost_update``
+   (each must launch); then fits a CPU system from the same index, query
+   log and labels and requires the four forests, the routing thresholds,
+   the regressed cost model and the budget reservation bit-equal to the
+   card's; serves the first 256 queries as their own call on the CPU and
+   on a fresh card system with the card's fit (the CPU's plain kernels
+   would take about 90 s for all 2,000) and requires ``topk``, ``final``,
+   latency, routes and over-budget count equal; requires the CLI's
+   ``--dryrun`` dict equal to a direct ``dryrun`` call on the same spec
+   and corpus, a post-build dry run costed from the index, and a
+   ``--spec-json`` spec that loads back equal to the one served;
+10. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
    the retrieval systems are freed:
    a. cross-check: a 2-layer Yi-6B at full width in fp32, drawn once on
       the host and copied to the card, runs ``prefill`` on 2 prompts of
@@ -132,7 +149,7 @@ order, it
       1e-5 of it on average) on the recorded fp32 model calls (the same
       near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
       above it (a one-ulp rounding flip is 2^-8 to 2^-7 relative);
-10. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
+11. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
     the nine TPU kernels and ``level_histogram``), then the card line,
     then the result.
 
@@ -245,6 +262,13 @@ MODEL_F32_TOL = 5e-3          # of the largest |output|, recorded fp32 calls
 BF16_TOL = 2e-2               # below magnitude 1 absolute, above relative
 # fit phase: the query log the systems are fitted from, and the fit's seed
 FIT_QUERIES, FIT_SEED = 4096, 5
+# cli phase: the serving CLI at the reference CLI's defaults (paper_200ms,
+# 1 shard, 16,384 docs, vocab 8,192, 2,000 queries, oracle labels), its
+# kernels, and the queries of its card-vs-CPU serve (the CPU's plain
+# kernels serve 2,000 queries in about 90 s, past the run's time)
+CLI_KERNELS = ("impact_accumulate_batched", "blockmax_score_batched",
+               "qd_feature_gather_lanes") + FIT_KERNELS
+CLI_CROSS = 256
 # the BENCH_tail flow (benchmarks/bench_tail.py:43-130) and the figures it
 # reports, as results/BENCH_tail.json names them
 TAIL_ARTIFACT = ROOT / "results" / "BENCH_tail.json"
@@ -1968,6 +1992,112 @@ def tail_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# the serving CLI
+# ---------------------------------------------------------------------------
+
+def cli_phase(dev):
+    """``repro_torch.launch.serve.run`` at the reference CLI's defaults on
+    the card (counted from 0): corpus, build, the oracle labels (on the
+    host), the labelled fit and one serve of the whole trace; prints its
+    ``[serve]`` lines, walls and launches.  Then, from the same index,
+    corpus, query log and labels, a CPU fit (the four forests, the
+    regressed cost model and the budget reservation bit-equal to the
+    card's) and the first CLI_CROSS queries served as their own call on
+    the CPU and on a fresh card system with the card's fitted models
+    (``topk``, ``final``, latency, routes and over-budget count equal);
+    the ``--dryrun`` dict through the CLI equal to a direct call on the
+    same spec and corpus, and post-build on the index; a ``--spec-json``
+    spec loading back equal to the one served."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun_cascade, serve
+    from repro_torch.serving.spec import CascadeSpec
+    from repro_torch.serving.system import build_system
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    card = serve.run(["--device", str(dev)], say=print)
+    launches = {name: kernels.LAUNCHES[name] for name in CLI_KERNELS}
+    for line in serve.report(card):
+        print(line, flush=True)
+    g, labels, ql = card.system, card.labels, card.ql
+    w = card.walls
+    log(f"cli: {len(ql.terms)} queries, {g.index.n_docs} docs; walls s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in w.items())
+        + f" (labels on the host); launches {launches}")
+    log(f"cli: labels keep {int(labels.keep.sum())}, median oracle_k "
+        f"{np.median(labels.oracle_k)}, oracle_rho "
+        + str(dict(zip(*(a.tolist() for a in np.unique(
+            labels.oracle_rho, return_counts=True))))))
+    for name in CLI_KERNELS:
+        check(launches[name] > 0, f"cli: kernel {name} never launched")
+    res = card.result
+    check(res.topk.shape == (len(ql.terms), card.spec.stage2.k_serve)
+          and np.isfinite(res.latency).all() and (res.topk >= 0).all(),
+          "cli: served result invalid")
+
+    t = time.perf_counter()
+    cpu = build_system(card.spec, g.index, corpus=card.corpus,
+                       device="cpu")
+    cpu.fit(ql, labels)
+    t_fit = time.perf_counter() - t
+    # a fresh card system with the card's fit (serving has adapted the
+    # served one's thresholds since)
+    gpu = build_system(card.fitted, g.index, corpus=card.corpus,
+                       models=g.models, ltr=g.ltr, cost=g.cost, device=dev)
+    same_models("cli fit", gpu, cpu)
+    check(dataclasses.asdict(g.cost) == dataclasses.asdict(cpu.cost),
+          "cli: the regressed cost models differ")
+    check(g._budget_reserve == cpu._budget_reserve
+          and gpu._budget_reserve == cpu._budget_reserve,
+          "cli: the budget reservations differ")
+    sub = slice(0, CLI_CROSS)
+    topics = ql.topic[sub]
+    t = time.perf_counter()
+    a = gpu.serve(ql.terms[sub], ql.mask[sub], topics)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t
+    t = time.perf_counter()
+    b = cpu.serve(ql.terms[sub], ql.mask[sub], topics)
+    t_cpu = time.perf_counter() - t
+    same_batch("cli", a, b)
+    for key in ("jass", "bmw", "hedged", "late_hedged", "late_hedged_jass",
+                "over_budget"):
+        check(a.stats[key] == b.stats[key],
+              f"cli: {key} {a.stats[key]} on the card, {b.stats[key]} on "
+              "the CPU")
+    log(f"cli: CPU fit {t_fit:.2f} s, forests, cost model and budget "
+        f"reservation bit-equal to the card's; first {CLI_CROSS} queries "
+        f"served as their own call: card {t_card:.2f} s, CPU {t_cpu:.2f} s, "
+        f"topk, final, latency, routes and over-budget equal (p99 "
+        f"{a.stats['p99']:.3f}, over budget {a.stats['over_budget']})")
+
+    dry = serve.run(["--device", str(dev), "--dryrun"],
+                    say=lambda line: None).dryrun
+    check(dry == dryrun_cascade.dryrun(card.spec, card.corpus,
+                                       n_queries=len(ql.terms)),
+          "cli: the --dryrun dict differs from a direct call")
+    post = dryrun_cascade.dryrun(card.spec, card.corpus,
+                                 n_queries=len(ql.terms), index=g.index)
+    check(post["config"]["costing"] == "index"
+          and np.isfinite(post["config"]["worst_case_bound"]),
+          "cli: post-build dry run")
+    for label, d in (("pre-build", dry), ("post-build", post)):
+        p = d["enforced"]["percentiles"]
+        log(f"cli: dryrun {label}: enforced p99 {p['p99']:.3f} max "
+            f"{p['max']:.3f}, over budget {d['enforced']['over_budget']}, "
+            f"bound {d['config']['worst_case_bound']:.3f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "spec.json")
+        serve.run(["--spec-json", path], say=lambda line: None)
+        check(CascadeSpec.from_json(Path(path).read_text()) == card.spec,
+              "cli: the --spec-json spec differs from the one served")
+    log("cli: --dryrun equal to a direct call, --spec-json loads back "
+        f"equal to the spec served; phase {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
 
@@ -2320,6 +2450,10 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     del gpu, gpu_h, recorded, lax_calls, rec, rec_h
     torch.cuda.empty_cache()
     tail_phase(dev)
+
+    # the serving CLI at its defaults, on the card and the CPU
+    torch.cuda.empty_cache()
+    cli_phase(dev)
 
     # the LM serving path, with the retrieval systems freed
     torch.cuda.empty_cache()

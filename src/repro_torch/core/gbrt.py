@@ -92,8 +92,12 @@ def _fit_binned(xbt: torch.Tensor, y: torch.Tensor, p: GBRTParams
     tp = T.TreeParams(p.depth, p.n_bins, p.min_child_weight, p.l2)
     n_leaves = 2 ** p.depth
     if p.loss == "l2":
-        # jnp.mean: the tree-sum order over the rows, then / n
-        base = T._sum_trees(y[None])[0] / n
+        # jnp.mean as the reference's program compiles it: the rows summed
+        # left to right (up to 32) or in the windowed rewrite, then
+        # multiplied by the float32 reciprocal of n (the rewrite of the
+        # division; the two differ unless n is a power of two)
+        total = T._seq_sum(y) if n <= 32 else T._window_sum(y)
+        base = total * (torch.ones((), dtype=torch.float32) / n).to(dev)
     else:
         base = _quantile(y, p.tau)
     fmask = torch.ones((n_feat,), dtype=torch.bool, device=dev)

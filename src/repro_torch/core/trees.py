@@ -237,8 +237,7 @@ def _window_sum(x: torch.Tensor) -> torch.Tensor:
     n = -(-t // 32)
     pad = n * 32 - t
     x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
-    parts = torch.stack([_seq_sum(x[..., 32 * i:32 * i + 32])
-                         for i in range(n)], dim=-1)
+    parts = _seq_sum(x.reshape(*x.shape[:-1], n, 32))
     return _seq_sum(parts) if n <= 32 else _window_sum(parts)
 
 

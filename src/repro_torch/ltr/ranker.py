@@ -12,9 +12,10 @@ order from 0.0, the order of the reference's term-by-term CSR search, so
 every feature matches the reference bit for bit.
 
 Training: ``qd_features`` is the reference's per-query NumPy loop (one CSR
-``searchsorted`` per query term), which the pseudo-label training set of
-``SearchSystem.fit`` uses, and ``train_ltr`` fits the point-wise L2 GBRT
-(``gbrt.fit``, on the card unless the caller names the CPU).
+``searchsorted`` per query term), which both training sets of
+``SearchSystem.fit`` use (the pseudo-label one, and ``ltr_training_set``
+from the oracle's reference lists), and ``train_ltr`` fits the point-wise
+L2 GBRT (``gbrt.fit``, on the card unless the caller names the CPU).
 """
 
 from __future__ import annotations
@@ -172,3 +173,22 @@ def train_ltr(feats: np.ndarray, gains: np.ndarray, n_trees: int = 48,
                  gbrt.GBRTParams(n_trees=n_trees, depth=4, loss="l2",
                                  learning_rate=0.2), device=device)
     return LTRModel(m)
+
+
+def ltr_training_set(index, corpus, ql, ref_lists, rows,
+                     n_pos: int = 24, n_neg: int = 24, seed: int = 0):
+    """(features, gains) pairs from reference lists: graded gains for the
+    top reference docs, zero for random negatives (NumPy, the reference's
+    loop and its ``RandomState(seed)`` draws)."""
+    rng = np.random.RandomState(seed)
+    feats, gains = [], []
+    for q in rows:
+        pos = ref_lists[q][:n_pos]
+        neg = rng.randint(0, index.n_docs, n_neg)
+        docs = np.concatenate([pos, neg]).astype(np.int64)
+        g = np.concatenate([1.0 / np.log2(np.arange(len(pos)) + 2),
+                            np.zeros(len(neg))])
+        feats.append(qd_features(index, corpus, ql.terms[q], ql.mask[q],
+                                 ql.topic[q], docs))
+        gains.append(g)
+    return np.concatenate(feats), np.concatenate(gains).astype(np.float32)

@@ -5,7 +5,9 @@ The port of ``repro.serving.system`` for the paper's three-stage cascade:
 
     spec = get_preset("paper_200ms")
     system = build_system(spec, index, corpus=corpus)   # device="cuda"
-    system.fit(ql, None, seed=0)        # or set_models(models, ltr) from
+    labels = generate_labels(system.index, corpus, ql, cost=system.cost)
+    system.fit(ql, labels, seed=0)      # labels=None: pseudo-labels; or
+                                        # set_models(models, ltr) from
                                         # repro_torch.convert
     res = system.serve(ql.terms, ql.mask, ql.topic)
 
@@ -20,12 +22,13 @@ kernel over the embedding shards) or both, fused.  Latency is the
 reference's modeled cost (``CostModel`` on the engines' work counters), so
 equal counters give equal latencies, bit for bit.
 
-Scope: the inert-node path plus the dense modality, and ``fit`` with the
-reference's pseudo-labels (Stage-0 quantile GBRTs, the LTR GBRT and the
-routing calibration, fitted on the system's device bit-equal to the
-reference's).  A spec that turns on a node the port does not have yet
-(cache, fault schedule, ingest, telemetry) raises ``NotImplementedError``
-naming its ROADMAP item, as do ``fit(labels=...)`` and ``serve_online``.
+Scope: the inert-node path plus the dense modality, and ``fit`` from the
+label oracle's labels or the reference's pseudo-labels (Stage-0 quantile
+GBRTs, the LTR GBRT, the cost-model regression and the routing
+calibration, fitted on the system's device bit-equal to the reference's).
+A spec that turns on a node the port does not have yet (cache, fault
+schedule, ingest, telemetry) raises ``NotImplementedError`` naming its
+ROADMAP item, as does ``serve_online``.
 Models fitted by the reference can also be converted
 (``repro_torch.convert``); so can the two-tower model of the dense
 modality (``convert.two_tower_params``), or the port draws its own.
@@ -54,8 +57,8 @@ from repro_torch.isn.backend import (merge_shard_topk, query_lane_budget,
 from repro_torch.isn.daat import daat_serve
 from repro_torch.isn.saat import saat_serve
 from repro_torch.ltr.cascade import CascadeResult, rerank_batched
-from repro_torch.ltr.ranker import (LTRModel, qd_features, stage2_arrays,
-                                   train_ltr)
+from repro_torch.ltr.ranker import (LTRModel, ltr_training_set, qd_features,
+                                   stage2_arrays, train_ltr)
 from repro_torch.models.recsys import TwoTower
 from repro_torch.serving.latency import (CostModel, budget_attribution,
                                          over_budget, percentiles,
@@ -299,25 +302,34 @@ class SearchSystem:
 
     def fit(self, ql, labels=None, *, seed: int = 0) -> "SearchSystem":
         """Train the spec's Stage-0 predictors (and the Stage-2 LTR model
-        when enabled) from a query log, on the system's device.
+        when enabled) from a query log, on the system's device, in the
+        reference's order of work, so the fitted forests are the
+        reference's bit for bit.
 
-        The labels are the reference's cheap pseudo-labels, derived from
-        posting-list mass with noise from ``np.random.RandomState(seed)``,
-        drawn in the reference's order, so the fitted forests are the
-        reference's bit for bit.  Oracle ``labels`` (and the cost-model
-        regression they feed) are not ported yet.
+        ``labels`` is a ``repro_torch.core.labels.generate_labels`` result:
+        the oracle k/ρ/t targets, and the reference lists of the kept
+        queries for the LTR set (``ltr_training_set``).  With
+        ``spec.backend.calibrate_cost`` the labels' (work, latency) pairs
+        are then regressed into the ``CostModel`` (``CostModel.regressed``;
+        a rejected fit keeps the prior), and the scheduler's budget
+        reservation is rebuilt on the result.  ``labels=None`` falls back
+        to the reference's cheap pseudo-labels, derived from posting-list
+        mass with noise from ``np.random.RandomState(seed)``, drawn in the
+        reference's order.
         """
-        if labels is not None:
-            raise _unported("SearchSystem.fit(labels=...) (the label oracle "
-                            "and calibrate_cost)", "Training labels")
         s0 = self.cascade_spec.stage0
         x = F.extract(self.term_stats, self.df, self._to_device(ql.terms),
                       self._to_device(ql.mask))
         rng = np.random.RandomState(seed)
-        eff = ((self.index.df[ql.terms] * (ql.mask > 0))
-               .sum(axis=1).astype(np.float64))
-        targets = {n: eff * sc * np.exp(rng.randn(len(eff)) * 0.3)
-                   for n, sc in (("k", 0.05), ("rho", 0.5), ("t", 0.002))}
+        if labels is not None:
+            targets = {"k": labels.oracle_k, "rho": labels.oracle_rho,
+                       "t": labels.t_bmw}
+        else:
+            eff = ((self.index.df[ql.terms] * (ql.mask > 0))
+                   .sum(axis=1).astype(np.float64))
+            targets = {n: eff * sc * np.exp(rng.randn(len(eff)) * 0.3)
+                       for n, sc in (("k", 0.05), ("rho", 0.5),
+                                     ("t", 0.002))}
         taus = {"k": s0.tau_k, "rho": s0.tau_rho, "t": s0.tau_t}
         models = {
             name: gbrt.fit(
@@ -331,16 +343,34 @@ class SearchSystem:
         if self.cascade_spec.stage2.enabled:
             if self.corpus is None:
                 raise ValueError("Stage-2 training needs the corpus")
-            feats = []
-            for q in range(min(len(ql.terms), 32)):
-                docs = rng.randint(0, self.index.n_docs, 64)
-                feats.append(qd_features(self.index, self.corpus,
-                                         ql.terms[q], ql.mask[q],
-                                         ql.topic[q], docs.astype(np.int64)))
-            lf = np.concatenate(feats)
-            lg = (lf[:, 5] + 0.2 * lf[:, 1]).astype(np.float32)
-            ltr = train_ltr(lf, lg, n_trees=self.cascade_spec.stage2.ltr_trees,
-                            device=self.device)
+            s2 = self.cascade_spec.stage2
+            if labels is not None:
+                rows = np.flatnonzero(labels.keep)[:s2.n_train_queries]
+                lf, lg = ltr_training_set(self.index, self.corpus, ql,
+                                          labels.ref_lists, rows)
+            else:
+                feats = []
+                for q in range(min(len(ql.terms), 32)):
+                    docs = rng.randint(0, self.index.n_docs, 64)
+                    feats.append(qd_features(self.index, self.corpus,
+                                             ql.terms[q], ql.mask[q],
+                                             ql.topic[q],
+                                             docs.astype(np.int64)))
+                lf = np.concatenate(feats)
+                lg = (lf[:, 5] + 0.2 * lf[:, 1]).astype(np.float32)
+            ltr = train_ltr(lf, lg, n_trees=s2.ltr_trees, device=self.device)
+
+        if labels is not None and self.cascade_spec.backend.calibrate_cost:
+            # close the cost-model loop: regress the engine rates from the
+            # label oracle's per-query (work, latency) pairs (set_models
+            # below rebuilds the budget reservation on them)
+            keep = labels.keep
+            self.cost = self.cost.regressed(
+                work_saat=labels.work_exhaustive[keep],
+                t_saat=labels.t_exh[keep],
+                work_daat=labels.work_bmw[keep],
+                blocks_daat=labels.blocks_bmw[keep],
+                t_daat=labels.t_bmw[keep])
 
         if self.cascade_spec.routing.calibrate:
             # route on the trained predictors' own distribution, and fold

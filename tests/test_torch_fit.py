@@ -14,7 +14,9 @@ CPU, its fit compiled as it compiles it) at tolerance 0.0:
 * ``qd_features`` and ``train_ltr``;
 * ``SearchSystem.fit(ql, None, seed=5)`` for ``paper_200ms`` and
   ``hybrid_fusion`` at 1 and 3 shards: the four forests, ``t_k``/``t_time``
-  and the spec's routing, then the serve that follows;
+  and the spec's routing, then the serve that follows; and
+  ``fit(ql, labels, seed=5)`` on each package's oracle labels (the rest of
+  the label oracle is in ``tests/test_torch_labels.py``);
 * the BENCH_tail flow of ``chip_smoke.tail_flow`` on the CPU against the
   reference's ``benchmarks/bench_tail.run_tail``, figure for figure.
 """
@@ -351,13 +353,41 @@ def test_search_system_fit_matches_reference(small_collection,
     assert b.stats()["scheduler"] == a.stats()["scheduler"]
 
 
-def test_fit_with_labels_is_not_ported(port_collection, small_collection):
+def test_fit_with_labels_is_not_ported(port_collection, small_collection,
+                                       ref_tower_params):
+    """``fit(ql, labels)`` is ported: ``hybrid_fusion`` at 3 shards fitted
+    on each package's own oracle labels gives the reference's forests, cost
+    model, budget reservation and routing, then the same serve."""
+    from repro.core.labels import LabelConfig as RefLabelConfig
+    from repro.core.labels import generate_labels as ref_generate_labels
+    from repro_torch.core.labels import LabelConfig, generate_labels
+    corpus, index, ql = small_collection
     pcorpus, pindex = port_collection
-    ql = small_collection[2]
-    b = build_system(convert.cascade_spec(ref_get_preset("paper_200ms")),
-                     pindex, corpus=pcorpus, device="cpu")
-    with pytest.raises(NotImplementedError, match="Training labels"):
-        b.fit(ql, labels=object(), seed=5)
+    preset = ref_get_preset("hybrid_fusion")
+    spec = dataclasses.replace(
+        preset, backend=BackendSpec(backend="jnp"),
+        deploy=dataclasses.replace(preset.deploy, n_shards=3))
+    a = ref_build_system(spec, index, corpus=corpus)
+    b = build_system(convert.cascade_spec(spec), pindex, corpus=pcorpus,
+                     tower=convert.two_tower_params(ref_tower_params, "cpu"),
+                     device="cpu")
+    cfg = dict(max_k=512, batch=48, rho_grid=(512, 2048, 8192))
+    a.fit(ql, ref_generate_labels(index, corpus, ql, RefLabelConfig(**cfg),
+                                  cost=a.cost), seed=5)
+    b.fit(ql, generate_labels(pindex, pcorpus, ql, LabelConfig(**cfg),
+                              cost=b.cost), seed=5)
+    for n in ("k", "rho", "t"):
+        _assert_same_model(b.models[n], a.models[n])
+    _assert_same_model(b.ltr.model, a.ltr.model)
+    assert dataclasses.asdict(b.cost) == dataclasses.asdict(a.cost)
+    assert b._budget_reserve == a._budget_reserve
+    assert b.cascade_spec.to_json() == a.cascade_spec.to_json()
+    ra = a.serve(ql.terms[:BATCH], ql.mask[:BATCH], ql.topic[:BATCH])
+    rb = b.serve(ql.terms[:BATCH], ql.mask[:BATCH], ql.topic[:BATCH])
+    for key in ("topk", "final", "latency"):
+        np.testing.assert_array_equal(getattr(rb, key), getattr(ra, key))
+    for key in ("modality", "theta_skip", "fallback"):
+        np.testing.assert_array_equal(rb.dense[key], ra.dense[key])
 
 
 # ---------------------------------------------------------------------------

@@ -61,7 +61,7 @@ assert not bad, bad
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 53
+    assert n_modules >= 63
 
 
 def test_sources_import_nothing_of_jax_or_reference():

@@ -150,9 +150,6 @@ def test_unported_nodes_raise(fitted_reference):
             device="cpu")
     system = build_system(spec, pindex, corpus=pcorpus, models=models,
                           ltr=ltr, device="cpu")
-    # fit(ql) is ported (tests/test_torch_fit.py); oracle labels are not
-    with pytest.raises(NotImplementedError, match="Training labels"):
-        system.fit(ql, labels=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         system.serve_online(ql.terms, ql.mask, ql.topic, traffic=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
