@@ -104,7 +104,25 @@ order, it
    ``--dryrun`` dict equal to a direct ``dryrun`` call on the same spec
    and corpus, a post-build dry run costed from the index, and a
    ``--spec-json`` spec that loads back equal to the one served;
-10. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
+10. predict phase (the paper's Stage-0 prediction framework, §4 and Table
+   2) on the cli phase's index, query log, oracle labels and the Stage-0
+   features of its 2,000 queries: ``cross_val_predict`` at the
+   reference's defaults (10 folds, 64 trees; QR depth 5 at τ 0.5, RF
+   depth 6, LR l2 1.0) of each method on the response-time target
+   ``t_bmw`` on the card, the launch counts set to 0 before each method
+   (QR must launch ``level_histogram`` and ``boost_update``, RF
+   ``level_histogram`` alone); prints each method's ``regression_report``
+   (tail quantile 0.95) as ``benchmarks/bench_predict_time.py`` renders
+   it, and the walls; fits fold 0 of each method again on the CPU from
+   the same rows and requires the QR and RF forests and predictions
+   bit-equal to the card's and LR's within 1e-5 of max(1, |prediction|);
+   serves the first 256 queries on the card through ``HybridServer`` and
+   ``CascadePipeline`` (with the LTR model; kernels 1-3 counted from 0,
+   each must launch) and through systems built from the equivalent
+   one-shard specs, requiring ``topk``, ``final`` and latency equal, and
+   runs ``rerank_loop`` over the pipeline's Stage-1 candidates, requiring
+   its ``final`` equal to the batched one;
+11. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
    the retrieval systems are freed:
    a. cross-check: a 2-layer Yi-6B at full width in fp32, drawn once on
       the host and copied to the card, runs ``prefill`` on 2 prompts of
@@ -149,7 +167,7 @@ order, it
       1e-5 of it on average) on the recorded fp32 model calls (the same
       near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
       above it (a one-ulp rounding flip is 2^-8 to 2^-7 relative);
-11. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
+12. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
     the nine TPU kernels and ``level_histogram``), then the card line,
     then the result.
 
@@ -266,9 +284,18 @@ FIT_QUERIES, FIT_SEED = 4096, 5
 # 1 shard, 16,384 docs, vocab 8,192, 2,000 queries, oracle labels), its
 # kernels, and the queries of its card-vs-CPU serve (the CPU's plain
 # kernels serve 2,000 queries in about 90 s, past the run's time)
-CLI_KERNELS = ("impact_accumulate_batched", "blockmax_score_batched",
-               "qd_feature_gather_lanes") + FIT_KERNELS
+CASCADE_KERNELS = ("impact_accumulate_batched", "blockmax_score_batched",
+                   "qd_feature_gather_lanes")
+CLI_KERNELS = CASCADE_KERNELS + FIT_KERNELS
 CLI_CROSS = 256
+# predict phase: the Stage-0 prediction framework at the reference's
+# defaults on the cli phase's run, its Table 2 columns, the tolerance of
+# the ridge model's card-vs-CPU predictions (of max(1, |prediction|))
+PREDICT_METHODS = ("qr", "rf", "lr")
+PREDICT_TAIL = 0.95
+REPORT_COLUMNS = ("rmse", "precision", "recall", "f1", "macro_precision",
+                  "macro_recall", "macro_f1", "auc")
+LR_TOL = 1e-5
 # the BENCH_tail flow (benchmarks/bench_tail.py:43-130) and the figures it
 # reports, as results/BENCH_tail.json names them
 TAIL_ARTIFACT = ROOT / "results" / "BENCH_tail.json"
@@ -1673,25 +1700,30 @@ def fitted_models(system):
     return {**system.models, "ltr": system.ltr.model}
 
 
-def same_models(label, a, b):
-    """Require two systems' fitted forests (feat, thresh, leaf, base, bin
-    edges) and routing thresholds to be equal bit for bit."""
+def same_forest(label, a, b):
+    """Require two fitted tree models' forests (feat, thresh, leaf), bin
+    edges and, for a GBRT, base to be equal bit for bit."""
     import torch
 
     def bits(t):
         t = t.cpu()
         return t.view(torch.int32) if t.is_floating_point() else t
 
+    pairs = [(f, getattr(a.forest, f), getattr(b.forest, f))
+             for f in ("feat", "thresh", "leaf")]
+    pairs += [(f, getattr(a, f), getattr(b, f))
+              for f in ("base", "bin_edges") if hasattr(a, f)]
+    for field, u, v in pairs:
+        check(u.dtype == v.dtype and torch.equal(bits(u), bits(v)),
+              f"{label}: {field} differs")
+
+
+def same_models(label, a, b):
+    """Require two systems' fitted forests (feat, thresh, leaf, base, bin
+    edges) and routing thresholds to be equal bit for bit."""
     ma, mb = fitted_models(a), fitted_models(b)
     for name in ma:
-        x, y = ma[name], mb[name]
-        for field, u, v in (("feat", x.forest.feat, y.forest.feat),
-                            ("thresh", x.forest.thresh, y.forest.thresh),
-                            ("leaf", x.forest.leaf, y.forest.leaf),
-                            ("base", x.base, y.base),
-                            ("bin_edges", x.bin_edges, y.bin_edges)):
-            check(u.dtype == v.dtype and torch.equal(bits(u), bits(v)),
-                  f"{label}: {name} {field} differs")
+        same_forest(f"{label}: {name}", ma[name], mb[name])
     ra, rb = a.cascade_spec.routing, b.cascade_spec.routing
     check(ra.t_k == rb.t_k and ra.t_time == rb.t_time,
           f"{label}: t_k/t_time {ra.t_k}/{ra.t_time} vs {rb.t_k}/{rb.t_time}")
@@ -2095,6 +2127,158 @@ def cli_phase(dev):
               "cli: the --spec-json spec differs from the one served")
     log("cli: --dryrun equal to a direct call, --spec-json loads back "
         f"equal to the spec served; phase {time.perf_counter() - t0:.1f} s")
+    return card
+
+
+# ---------------------------------------------------------------------------
+# the Stage-0 prediction framework and the serve-path shims
+# ---------------------------------------------------------------------------
+
+def predict_phase(card, dev):
+    """The Stage-0 prediction framework on the cli phase's run (its index,
+    query log, oracle labels and the Stage-0 features of its 2,000
+    queries): ``cross_val_predict`` at the reference's defaults (10 folds,
+    64 trees; QR depth 5 at τ 0.5, RF depth 6, LR l2 1.0) for each method
+    on the response-time target ``t_bmw``, counted from 0 on the card, with
+    its Table 2 report; fold 0 of each method fitted again on the CPU from
+    the same rows (QR and RF forests and predictions bit-equal to the
+    card's, LR within LR_TOL); the first CLI_CROSS queries served through
+    ``HybridServer`` and ``CascadePipeline`` (with the LTR model) and
+    through systems built from the equivalent one-shard specs (``topk``,
+    ``final`` and latency equal; kernels 1-3 counted from 0), and
+    ``rerank_loop`` over the pipeline's Stage-1 candidates (its ``final``
+    equal to the batched one)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import features as F
+    from repro_torch.core import gbrt, linreg, predictors, random_forest
+    from repro_torch.ltr.cascade import rerank_loop
+    from repro_torch.serving.pipeline import CascadePipeline
+    from repro_torch.serving.server import HybridServer
+    from repro_torch.serving.spec import (CascadeSpec, DeploySpec, IndexSpec,
+                                          Stage2Spec)
+    from repro_torch.serving.system import (build_system, routing_spec,
+                                            scheduler_config)
+    t0 = time.perf_counter()
+    g, labels, ql = card.system, card.labels, card.ql
+    x = F.extract(g.term_stats, g.df, torch.as_tensor(ql.terms, device=dev),
+                  torch.as_tensor(ql.mask, device=dev)).cpu().numpy()
+    rows = np.flatnonzero(labels.keep)
+    x, y = x[rows], labels.t_bmw[rows]
+    check(x.shape[1] == F.N_FEATURES and np.isfinite(x).all(),
+          "predict: Stage-0 features invalid")
+    predict = {"qr": gbrt.predict, "rf": random_forest.predict,
+               "lr": linreg.predict}
+    print("system," + ",".join(REPORT_COLUMNS), flush=True)
+    for method in PREDICT_METHODS:
+        cfg = predictors.PredictorConfig(method=method, tau=0.5)
+        kernels.reset_launches()
+        t = time.perf_counter()
+        cv = predictors.cross_val_predict(x, y, cfg, device=dev)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t
+        launches = {name: kernels.LAUNCHES[name] for name in FIT_KERNELS}
+        check(cv.pred.shape == y.shape and np.isfinite(cv.pred).all()
+              and len(cv.models) == cfg.n_folds,
+              f"predict {method}: cross-validated predictions invalid")
+        want = {"qr": (True, True), "rf": (True, False),
+                "lr": (False, False)}[method]
+        for name, launched in zip(FIT_KERNELS, want):
+            check((launches[name] > 0) == launched,
+                  f"predict {method}: {launches[name]} {name} launches")
+        report = predictors.regression_report(y, cv.pred,
+                                              tail_quantile=PREDICT_TAIL)
+        print(method.upper() + ","
+              + ",".join(f"{report[c]:.3f}" for c in REPORT_COLUMNS),
+              flush=True)
+
+        # fold 0 again on the CPU, from the same rows
+        fold = np.random.RandomState(cfg.seed).randint(0, cfg.n_folds,
+                                                       size=len(y))
+        te = fold == 0
+        target = np.log1p(np.maximum(y, 0))
+        t = time.perf_counter()
+        m_cpu, p_cpu = predictors._fit_predict(
+            method, x[~te], target[~te], x[te], cfg, seed=cfg.seed * 100,
+            device="cpu")
+        t_cpu = time.perf_counter() - t
+        m_card = cv.models[0]
+        p_card = predict[method](
+            m_card, torch.from_numpy(x[te]).to(dev)).cpu().numpy()
+        check(np.array_equal(np.maximum(np.expm1(p_card), 0), cv.pred[te]),
+              f"predict {method}: fold 0's predictions changed")
+        if method == "lr":
+            err = float(np.max(np.abs(p_card - p_cpu)
+                               / np.maximum(1.0, np.abs(p_cpu))))
+            check(err <= LR_TOL, f"predict lr: fold 0 card vs CPU {err:.3g}"
+                  f" > {LR_TOL} of max(1, |prediction|)")
+            same = f"within {err:.3g} of max(1, |prediction|)"
+        else:
+            same_forest(f"predict {method} fold 0", m_card, m_cpu)
+            check(np.array_equal(p_card, p_cpu),
+                  f"predict {method}: fold 0's predictions differ")
+            same = "forest and predictions bit-equal"
+        log(f"predict {method}: 10 card fits and predictions {t_card:.2f} s,"
+            f" launches {launches}; CPU fold 0 {t_cpu:.2f} s, {same} "
+            f"({int(te.sum())} held-out queries)")
+
+    # the shims and the per-query Stage-2 loop, on the card
+    cfg = scheduler_config(card.fitted.routing)
+    s2 = card.fitted.stage2
+    sub = slice(0, CLI_CROSS)
+    terms, mask, topics = ql.terms[sub], ql.mask[sub], ql.topic[sub]
+    kw = dict(cost=g.cost, device=dev)
+    t = time.perf_counter()
+    kernels.reset_launches()
+    pipe = CascadePipeline(g.index, g.models, cfg, corpus=card.corpus,
+                           ltr=g.ltr, k_serve=s2.k_serve, t_final=s2.t_final,
+                           **kw)
+    a = pipe.serve(terms, mask, topics)
+    server = HybridServer(g.index, g.models, cfg, k_serve=s2.k_serve, **kw)
+    h = server.serve(terms, mask)
+    torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in CASCADE_KERNELS}
+    for name in CASCADE_KERNELS:
+        check(launches[name] > 0, f"shims: kernel {name} never launched")
+    one = CascadeSpec(
+        index=IndexSpec(block_size=g.index.block_size),
+        routing=routing_spec(cfg),
+        stage2=Stage2Spec(enabled=True, k_serve=s2.k_serve,
+                          t_final=s2.t_final),
+        deploy=DeploySpec(n_shards=1, replicas=2, rebalance_every=0),
+        name="one_shard")
+    b = build_system(one, g.index, corpus=card.corpus, models=g.models,
+                     ltr=g.ltr, **kw).serve(terms, mask, topics)
+    same_batch("shims: CascadePipeline vs SearchSystem", a, b)
+    stage1 = dataclasses.replace(
+        one, stage2=Stage2Spec(enabled=False, k_serve=s2.k_serve))
+    c = build_system(stage1, g.index, models=g.models, **kw).serve(terms,
+                                                                   mask)
+    check(np.array_equal(h.topk, c.topk)
+          and np.array_equal(h.latency, c.latency),
+          "shims: HybridServer vs SearchSystem: topk or latency differs")
+    t_shims = time.perf_counter() - t
+    # the per-query loop over the pipeline's Stage-1 candidates, each
+    # query's Stage-0 k as Stage-2 took it (clipped to k_serve and to the
+    # budget); queries whose Stage-2 was skipped serve their Stage-1 order
+    t = time.perf_counter()
+    used = a.candidates_used
+    rr = np.flatnonzero(used > 0)
+    loop = rerank_loop(g.index, card.corpus, ql, rr, a.topk[rr], used[rr],
+                       g.ltr, t_final=s2.t_final)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t
+    check(np.array_equal(loop.final, a.final[rr])
+          and np.array_equal(loop.candidates_used, used[rr]),
+          "rerank_loop: final differs from the batched Stage-2")
+    log(f"shims: first {CLI_CROSS} queries through CascadePipeline (LTR) "
+        f"and HybridServer equal to the one-shard SearchSystems (topk, "
+        f"final, latency; p99 {a.stats['p99']:.3f}, jass {a.stats['jass']} "
+        f"/ bmw {a.stats['bmw']}), {t_shims:.2f} s, launches {launches}; "
+        f"rerank_loop over {len(rr)} queries equal to the batched final, "
+        f"{t_loop:.2f} s")
+    log(f"predict: phase {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2323,6 +2507,12 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     card = card_line()
     print(card, flush=True)
     dev = torch.device(DEVICE)
+    walls, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name] = now - mark[0]
+        mark[0] = now
 
     # the kernels build (nvcc, in subprocesses) while the host builds the
     # corpus and the index; both are set-up
@@ -2352,12 +2542,14 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
         raise built["error"]
     log(f"kernels built in {built['s']:.1f} s, beside the host build")
     ql = build_queries(corpus, n_batches * BATCH, stop_k=spec.index.stop_k)
+    lap("build")
 
     # fit: the card's and the CPU's systems, each fitted on its own device
     gpu, cpu, fit_launches, fit_calls = fit_phase(spec, index, corpus, dev,
                                                   profile)
     spec = gpu.cascade_spec
     log(f"system on {dev}: shard {gpu.shard_specs[0]}")
+    lap("fit")
 
     # cross-check: one batch through fresh systems on the card and the CPU;
     # the card's kernel calls are recorded for the kernel phase
@@ -2418,6 +2610,7 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     del cpu_h
     recorded["dense_topk_tiles"] = rec_h.calls["dense_topk_tiles"]
 
+    lap("cross-checks")
     rows = kernel_phase(recorded)
     for name in LAXMAP_KERNELS:
         rows[name]["launches"] = lax_launches[name]
@@ -2445,19 +2638,29 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
         for system in (gpu, gpu_h):
             log(f"profile of {system.cascade_spec.name}:")
             profile_batch(system, ql.terms[sl], ql.mask[sl], ql.topic[sl])
+    lap("kernels and serve")
 
     # the BENCH_tail flow, fitted and served on its own collection
     del gpu, gpu_h, recorded, lax_calls, rec, rec_h
     torch.cuda.empty_cache()
     tail_phase(dev)
+    lap("tail")
 
-    # the serving CLI at its defaults, on the card and the CPU
+    # the serving CLI at its defaults, on the card and the CPU; then the
+    # Stage-0 prediction framework and the shims on its run
     torch.cuda.empty_cache()
-    cli_phase(dev)
+    served = cli_phase(dev)
+    lap("cli")
+    predict_phase(served, dev)
+    del served
+    lap("predict")
 
     # the LM serving path, with the retrieval systems freed
     torch.cuda.empty_cache()
     rows.update(lm_phase(dev, lm_layers, lm_prompt, lm_steps, profile))
+    lap("lm")
+    log("phase walls s: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                      walls.items()))
     return card, rows
 
 

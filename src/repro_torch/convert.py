@@ -10,6 +10,9 @@ unless the caller asks for the CPU):
 * a reference ``GBRTModel`` (``.forest.feat/.thresh/.leaf``, ``.base``,
   ``.bin_edges``, ``.params``) → ``repro_torch.core.gbrt.GBRTModel``;
 * a reference ``LTRModel`` (``.model``) → ``repro_torch.ltr.ranker.LTRModel``;
+* a reference ``RFModel`` (``.forest``, ``.bin_edges``, ``.params``) and
+  ``LinRegModel`` (``.w``, ``.b``, ``.mu``, ``.sigma``) → the port's
+  ``core.random_forest.RFModel`` and ``core.linreg.LinRegModel``;
 * the reference's two-tower params (``recsys.init(REDUCED, key)``: tables
   and per-side MLP dicts) → ``repro_torch.models.recsys.TwoTower``;
 * the reference's LM params (``transformer.init(c, key)``: ``embed``,
@@ -24,6 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.gbrt import GBRTModel, GBRTParams
+from repro_torch.core.linreg import LinRegModel
+from repro_torch.core.random_forest import RFModel, RFParams
 from repro_torch.core.trees import Forest
 from repro_torch.isn.backend import resolve_device
 from repro_torch.ltr.ranker import LTRModel
@@ -36,19 +41,38 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(device)
 
 
+def _forest(f, dev) -> Forest:
+    return Forest(feat=_tensor(f.feat, np.int32, dev),
+                  thresh=_tensor(f.thresh, np.int32, dev),
+                  leaf=_tensor(f.leaf, np.float32, dev))
+
+
+def _params(cls, ref_params):
+    return cls(**{name: getattr(ref_params, name) for name in cls._fields})
+
+
 def gbrt_model(ref_model, device=None) -> GBRTModel:
     """A fitted reference GBRT as the port's ``GBRTModel`` on ``device``."""
     dev = resolve_device(device)
-    f = ref_model.forest
-    forest = Forest(feat=_tensor(f.feat, np.int32, dev),
-                    thresh=_tensor(f.thresh, np.int32, dev),
-                    leaf=_tensor(f.leaf, np.float32, dev))
-    params = GBRTParams(**{name: getattr(ref_model.params, name)
-                           for name in GBRTParams._fields})
-    return GBRTModel(forest=forest,
+    return GBRTModel(forest=_forest(ref_model.forest, dev),
                      base=_tensor(ref_model.base, np.float32, dev).reshape(()),
                      bin_edges=_tensor(ref_model.bin_edges, np.float32, dev),
-                     params=params)
+                     params=_params(GBRTParams, ref_model.params))
+
+
+def rf_model(ref_model, device=None) -> RFModel:
+    """A fitted reference random forest as the port's ``RFModel``."""
+    dev = resolve_device(device)
+    return RFModel(forest=_forest(ref_model.forest, dev),
+                   bin_edges=_tensor(ref_model.bin_edges, np.float32, dev),
+                   params=_params(RFParams, ref_model.params))
+
+
+def linreg_model(ref_model, device=None) -> LinRegModel:
+    """A fitted reference ridge model as the port's ``LinRegModel``."""
+    dev = resolve_device(device)
+    return LinRegModel(*(_tensor(getattr(ref_model, name), np.float32, dev)
+                         for name in LinRegModel._fields))
 
 
 def stage0_models(ref_models: dict, device=None) -> dict:

@@ -69,12 +69,12 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
             + torch.as_tensor(c, dtype=torch.float64)).float()
 
 
-def xla_log1p(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``log1p`` as the reference's compiled program evaluates it
+def xla_log(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` as the reference's compiled program evaluates it
     (Cephes-style range reduction and polynomial, fused multiply-adds where
-    the compiled program fuses them), bit for bit."""
-    x = x.float()
-    v = x + 1.0
+    the compiled program fuses them), bit for bit: 0 → -inf, a negative
+    value → nan, inf → inf."""
+    v = v.float()
     bits = torch.clamp(v, min=_MIN_NORMAL).view(torch.int32)
     e = ((bits >> 23) - 127).float() + 1.0
     m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
@@ -89,10 +89,18 @@ def xla_log1p(x: torch.Tensor) -> torch.Tensor:
     y2 = _fma(_fma(z, p[6], p[7]), z, p[8])
     y = _fma(_fma(y, z3, y1), z3, y2)
     y = _fma(y, z3, e * _LOG_Q1)
-    big = _fma(e, _LOG_Q2, _fma(z2, -0.5, z) + y)
-    big = torch.where(v == float("inf"), v, big)
-    big = torch.where(v == 0, float("-inf"), big)
-    big = torch.where(v < 0, float("nan"), big)
+    out = _fma(e, _LOG_Q2, _fma(z2, -0.5, z) + y)
+    out = torch.where(v == float("inf"), v, out)
+    out = torch.where(v == 0, float("-inf"), out)
+    return torch.where(v < 0, float("nan"), out)
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log1p`` as the reference's compiled program evaluates it,
+    bit for bit: ``xla_log(x + 1)``, and a rational approximation where
+    |x| is small."""
+    x = x.float()
+    big = xla_log(x + 1.0)
     num = torch.full_like(x, _L1P_NUM[0])
     for c in _L1P_NUM[1:]:
         num = _fma(num, x, c)

@@ -97,7 +97,7 @@ def _fit_binned(xbt: torch.Tensor, y: torch.Tensor, p: GBRTParams
         # multiplied by the float32 reciprocal of n (the rewrite of the
         # division; the two differ unless n is a power of two)
         total = T._seq_sum(y) if n <= 32 else T._window_sum(y)
-        base = total * (torch.ones((), dtype=torch.float32) / n).to(dev)
+        base = T.times_reciprocal(total, n)
     else:
         base = _quantile(y, p.tau)
     fmask = torch.ones((n_feat,), dtype=torch.bool, device=dev)
@@ -127,18 +127,9 @@ def fit(x, y, params: GBRTParams, seed: int = 0,
     raises when no CUDA device is present and none is named).  ``seed`` is
     the reference's; no random draw enters while ``colsample`` and
     ``subsample`` are 1."""
-    dev = resolve_device(device)
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    if isinstance(y, torch.Tensor):
-        y = y.detach().cpu().numpy()
-    x = np.ascontiguousarray(x, np.float32)
-    # float32 edges, as the reference's jnp.asarray makes them
-    edges = torch.from_numpy(
-        T.fit_bins(x, params.n_bins).astype(np.float32)).to(dev)
-    xb = T.apply_bins(torch.from_numpy(x).to(dev), edges)
-    yt = torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(dev)
-    forest, base = _fit_binned(xb.T.contiguous(), yt, params)
+    xbt, yt, edges = T.fit_inputs(x, y, params.n_bins,
+                                  resolve_device(device))
+    forest, base = _fit_binned(xbt, yt, params)
     return GBRTModel(forest, base, edges, params)
 
 

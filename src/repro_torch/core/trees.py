@@ -65,6 +65,24 @@ def fit_bins(x: np.ndarray, n_bins: int) -> np.ndarray:
     return edges
 
 
+def fit_inputs(x, y, n_bins: int, device: torch.device
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A fit's inputs on ``device`` from (n, F) features and (n,) targets
+    (arrays or tensors): the (F, n) uint8 bins, transposed, the float32
+    targets and the (F, n_bins - 1) float32 bin edges (float32, as the
+    reference's ``jnp.asarray`` makes them)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    if isinstance(y, torch.Tensor):
+        y = y.detach().cpu().numpy()
+    x = np.ascontiguousarray(x, np.float32)
+    edges = torch.from_numpy(
+        fit_bins(x, n_bins).astype(np.float32)).to(device)
+    xb = apply_bins(torch.from_numpy(x).to(device), edges)
+    yt = torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(device)
+    return xb.T.contiguous(), yt, edges
+
+
 def apply_bins(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """(n, F) raw floats -> (n, F) uint8 bin ids (count of edges below)."""
     bins = (x[:, :, None] > edges[None, :, :]).sum(dim=-1)
@@ -261,6 +279,13 @@ def _sum_trees(leaves: torch.Tensor) -> torch.Tensor:
     return _window_sum(leaves)
 
 
+def times_reciprocal(total: torch.Tensor, n: int) -> torch.Tensor:
+    """``total / n`` as the reference's compiled ``jnp.mean`` divides: a
+    multiply by the float32 reciprocal of n (the two differ unless n is a
+    power of two)."""
+    return total * (torch.ones((), dtype=torch.float32) / n).to(total.device)
+
+
 def forest_leaves(forest: Forest, xb: torch.Tensor, depth: int
                   ) -> torch.Tensor:
     """(n, T) leaf value reached by every row in every tree."""
@@ -277,18 +302,25 @@ def forest_leaves(forest: Forest, xb: torch.Tensor, depth: int
     return forest.leaf[tree, node]
 
 
-def forest_predict_binned(forest: Forest, xb: torch.Tensor, depth: int
-                          ) -> torch.Tensor:
-    """Boosted prediction (sum over trees) from pre-binned features."""
-    return _sum_trees(forest_leaves(forest, xb, depth))
+def forest_predict_binned(forest: Forest, xb: torch.Tensor, depth: int,
+                          reduce: str = "sum") -> torch.Tensor:
+    """Predict from pre-binned features.  reduce: "sum" (boosting) or
+    "mean" (bagging: the sum times the float32 reciprocal of the tree
+    count, as the reference's compiled ``jnp.mean`` takes it)."""
+    s = _sum_trees(forest_leaves(forest, xb, depth))
+    if reduce == "sum":
+        return s
+    if reduce == "mean":
+        return times_reciprocal(s, forest.leaf.shape[0])
+    raise ValueError(f"reduce must be 'sum' or 'mean', got {reduce!r}")
 
 
-def forest_predict_stacked(forests: Forest, xb: torch.Tensor, depth: int
-                           ) -> torch.Tensor:
+def forest_predict_stacked(forests: Forest, xb: torch.Tensor, depth: int,
+                           reduce: str = "sum") -> torch.Tensor:
     """Predict M stacked ensembles: ``forests`` arrays carry a leading (M,)
     model axis, ``xb`` is (M, n, F) with one binning per model.  Returns
     (M, n)."""
     return torch.stack([
         forest_predict_binned(Forest(forests.feat[i], forests.thresh[i],
-                                     forests.leaf[i]), xb[i], depth)
+                                     forests.leaf[i]), xb[i], depth, reduce)
         for i in range(xb.shape[0])])

@@ -1,10 +1,14 @@
-"""Batched Stage-2 of the cascade: featurize the (Q, C) candidate grid,
-score every (query, candidate) row with the LTR GBRT, and select the final
-top-t per query.
+"""Stage-2 of the cascade: featurize the (Q, C) candidate grid, score every
+(query, candidate) row with the LTR GBRT, and select the final top-t per
+query.
 
-The selection breaks score ties toward the lower candidate rank (a stable
+``rerank_batched`` is the serving path, one pass over the whole grid; its
+selection breaks score ties toward the lower candidate rank (a stable
 descending sort), the order ``lax.top_k`` gives in the reference's
-``repro.ltr.cascade.rerank_batched``.
+``repro.ltr.cascade.rerank_batched``.  ``rerank_loop`` keeps the
+reference's one-query-at-a-time path (NumPy ``qd_features`` and one GBRT
+call a query, on the model's device) as the batched path's parity oracle:
+the two give the same ``final`` lists.
 """
 
 from __future__ import annotations
@@ -16,13 +20,41 @@ import torch
 
 from repro_torch.core import gbrt
 from repro_torch.isn.backend import stable_topk
-from repro_torch.ltr.ranker import LTRModel, Stage2Arrays, qd_features_batched
+from repro_torch.ltr.ranker import (LTRModel, Stage2Arrays, qd_features,
+                                   qd_features_batched)
 
 
 @dataclass
 class CascadeResult:
     final: np.ndarray           # (Q, t) doc ids
     candidates_used: np.ndarray  # (Q,) candidate count entering stage 2
+
+
+def rerank_loop(index, corpus, ql, rows, candidate_lists, k_per_query,
+                ltr: LTRModel, t_final: int = 10) -> CascadeResult:
+    """One-query-at-a-time cascade: for query ``rows[i]``, the first
+    ``k_per_query[i]`` of ``candidate_lists[i]`` (-1 entries dropped) are
+    featurized, scored, and the top ``t_final`` kept by a stable descending
+    sort, the row padded with -1 (left 0 when no candidate is left)."""
+    dev = ltr.model.base.device
+    out = np.zeros((len(rows), t_final), np.int64)
+    used = np.zeros(len(rows), np.int64)
+    for i, q in enumerate(rows):
+        k = int(k_per_query[i])
+        cand = candidate_lists[i][:k]
+        cand = cand[cand >= 0]
+        used[i] = len(cand)
+        if len(cand) == 0:
+            continue
+        f = qd_features(index, corpus, ql.terms[q], ql.mask[q],
+                        ql.topic[q], cand)
+        sc = ltr.score(torch.from_numpy(f).to(dev)).cpu().numpy()
+        order = np.argsort(-sc, kind="stable")[:t_final]
+        picks = cand[order]
+        out[i, :len(picks)] = picks
+        if len(picks) < t_final:
+            out[i, len(picks):] = -1
+    return CascadeResult(final=out, candidates_used=used)
 
 
 def rerank_batched(arrs: Stage2Arrays, ltr: LTRModel, terms, mask, topics,

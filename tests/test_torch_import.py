@@ -22,6 +22,8 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels
 from repro_torch.configs import yi_6b
 from repro_torch.configs.cascade_presets import get_preset
+from repro_torch.core import linreg, predictors, random_forest
+from repro_torch.core.random_forest import RFParams
 from repro_torch.index.builder import build_index
 from repro_torch.index.corpus import CorpusParams, build_corpus
 from repro_torch.index.postings import shard_from_index
@@ -34,6 +36,9 @@ from repro_torch.kernels.level_histogram import ops as lh_ops
 from repro_torch.kernels.qd_feature_gather import ops as qd_ops
 from repro_torch.kernels.score_histogram import ops as sh_ops
 from repro_torch.models import transformer
+from repro_torch.serving.pipeline import CascadePipeline
+from repro_torch.serving.scheduler import SchedulerConfig
+from repro_torch.serving.server import HybridServer
 from repro_torch.serving.system import build_system
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -61,7 +66,7 @@ assert not bad, bad
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 63
+    assert n_modules >= 69
 
 
 def test_sources_import_nothing_of_jax_or_reference():
@@ -99,6 +104,15 @@ def test_entry_points_refuse_without_cuda(no_cuda):
         build_system(spec, index, corpus=corpus)
     system = build_system(spec, index, corpus=corpus, device="cpu")
     assert system.device == torch.device("cpu") and system.backend == "torch"
+    x = np.random.RandomState(0).rand(40, 5).astype(np.float32)
+    for fit in (lambda: random_forest.fit(x, x[:, 0], RFParams(n_trees=2)),
+                lambda: linreg.fit(x, x[:, 0]),
+                lambda: predictors.cross_val_predict(
+                    x, x[:, 0], predictors.PredictorConfig(n_folds=2)),
+                lambda: CascadePipeline(index, {}, SchedulerConfig()),
+                lambda: HybridServer(index, {}, SchedulerConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fit()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init(yi_6b.REDUCED, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
