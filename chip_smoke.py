@@ -122,7 +122,40 @@ order, it
    one-shard specs, requiring ``topk``, ``final`` and latency equal, and
    runs ``rerank_loop`` over the pipeline's Stage-1 candidates, requiring
    its ``final`` equal to the batched one;
-11. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
+11. online phase (``SearchSystem.serve_online``: seeded arrivals, the
+   micro-batcher, the admission ladder; each dispatched batch padded to a
+   power of two and served on the card): on step 2's shard with the card's
+   fitted models and spec (``max_batch`` 32, deadline 5, admission and
+   degrade on, routing adapted after every batch), (a) the capacity
+   ``estimate_capacity`` measures on a ``fresh_probe`` (fresh serving
+   state, the shard shared), (b) a poisson and a bursty trace of the fit
+   log's first 512 queries at 0.8 x capacity, each on a fresh probe
+   with the launch counts set to 0: 0 over the
+   response budget, every served row's timing as the loop defines it
+   (``wait == start - arrival``, ``completion == start + dispatch +
+   service``, ``response == completion - arrival`` bit for bit; ``response``
+   within 1e-12 of ``wait + dispatch + service``, the same sum grouped the
+   other way), batches of at most 32, kernels 1-3 launched; it prints the
+   modes, the response tail and the host wall a batch and a query.  Then
+   on the cli phase's index, query log and models: (c) the baseline (no
+   admission, ``max_batch`` 1) over a bursty trace of the first 256
+   queries must go over the response budget and shed nothing; (d) a
+   poisson trace of the first 128 queries on a fresh card system and on
+   a CPU system: event log, ``response``, ``mode``, ``batch_of``,
+   ``topk``, ``final`` and stats equal, at every padded width the batches
+   took; (e) micro-batch parity with adaptation off, as
+   ``benchmarks/bench_online.py:128-149``: the first 64 served queries
+   served alone equal to their online rows (``topk``; ``final`` where
+   served at full); (f) the 4-shard x 3-replica deployment with 5 units of
+   gather a shard (the routing of ``tests/test_torch_online.py``'s fixture
+   deployment: budget 100, ``late_rho`` 8,192, ``hedge_deadline`` 0.6, no
+   adaptation): a batch with ``shard_cap`` cycling 1-4 equal on the card
+   and the CPU (coverage and fault counters too), then a bursty trace of
+   the first 128 queries at twice that deployment's capacity under a
+   response budget of the full bound plus the shard bounds' spread: the
+   partial-coverage rung must fire with 0 over budget and coverage below
+   1, card = CPU;
+12. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
    the retrieval systems are freed:
    a. cross-check: a 2-layer Yi-6B at full width in fp32, drawn once on
       the host and copied to the card, runs ``prefill`` on 2 prompts of
@@ -167,9 +200,9 @@ order, it
       1e-5 of it on average) on the recorded fp32 model calls (the same
       near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
       above it (a one-ulp rounding flip is 2^-8 to 2^-7 relative);
-12. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
-    the nine TPU kernels and ``level_histogram``), then the card line,
-    then the result.
+13. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
+    the nine TPU kernels and ``level_histogram``; the launches of kernels
+    1-3 are step 7's), then the card line, then the result.
 
 Any failed check exits non-zero without the result line.  ``--n-docs``
 and ``--batches`` shrink the retrieval phases for a quick check,
@@ -296,6 +329,31 @@ PREDICT_TAIL = 0.95
 REPORT_COLUMNS = ("rmse", "precision", "recall", "f1", "macro_precision",
                   "macro_recall", "macro_f1", "auc")
 LR_TOL = 1e-5
+# online phase: the serving loop (SearchSystem.serve_online) on the fit's
+# shard (the first ONLINE_QUERIES queries of the fit's log a trace, at
+# ONLINE_LOAD x capacity, TrafficSpec seed ONLINE_SEED), then on the cli
+# phase's index: the baseline and the parity run over its first
+# ONLINE_CROSS queries, card = CPU over the first ONLINE_CPU, the
+# partial-coverage runs over the first PARTIAL_CROSS, micro-batch parity
+# over the first ONLINE_PARITY served queries.  ONLINE_QUERIES and
+# ONLINE_CPU are cut from 1,024 and 256 to keep the run near 300 s.  The partial-coverage system
+# takes the routing of the reference's 4 x 3 fixture deployment: its shard
+# bounds shrink with the shard count only under a 100-unit budget (at 200
+# the late-hedge chain stays under the budget and every bound is the
+# budget's) and with the hedge deadline fixed (adaptation lowers it until
+# the bounds are the budget's again)
+ONLINE_QUERIES, ONLINE_CROSS, ONLINE_CPU = 512, 256, 128
+ONLINE_PARITY, PARTIAL_CROSS = 64, 128
+ONLINE_LOAD, ONLINE_SEED = 0.8, 8
+PARTIAL_DEPLOY = dict(n_shards=4, replicas=3)
+PARTIAL_ROUTING = dict(budget=100.0, late_rho=8192, hedge_deadline=0.6,
+                       adapt_every=0)
+PARTIAL_GATHER_US = 5.0
+PARTIAL_OVERLOAD = 2.0        # offered load / capacity of the overload trace
+# the BENCH_online flow's figures (benchmarks/bench_online.py:36-187)
+ONLINE_FIGURES = ("capacity_qps", "response_budget", "worst_case_bound",
+                  "guarantee_holds", "regression_demonstrated", "rows",
+                  "parity")
 # the BENCH_tail flow (benchmarks/bench_tail.py:43-130) and the figures it
 # reports, as results/BENCH_tail.json names them
 TAIL_ARTIFACT = ROOT / "results" / "BENCH_tail.json"
@@ -1764,7 +1822,7 @@ def fit_phase(spec, index, corpus, dev, profile=False):
     recorded) and on the CPU (plain versions); requires the four forests
     and the routing thresholds bit-equal.  With ``profile``, one more card
     fit under the profiler.  Returns (card system, CPU system, launches,
-    recorded calls)."""
+    recorded calls, the query log)."""
     import torch
     from repro_torch import kernels
     from repro_torch.index.corpus import build_queries
@@ -1794,7 +1852,7 @@ def fit_phase(spec, index, corpus, dev, profile=False):
         check(launches[name] > 0, f"fit: kernel {name} never launched")
     if profile:
         profile_fit(spec, index, corpus, ql, dev)
-    return gpu, cpu, launches, rec.calls
+    return gpu, cpu, launches, rec.calls, ql
 
 
 def level_histogram_edge_calls(device):
@@ -2039,7 +2097,8 @@ def cli_phase(dev):
     (``topk``, ``final``, latency, routes and over-budget count equal);
     the ``--dryrun`` dict through the CLI equal to a direct call on the
     same spec and corpus, and post-build on the index; a ``--spec-json``
-    spec loading back equal to the one served."""
+    spec loading back equal to the one served.  Returns the CLI's run and
+    the CPU system."""
     import tempfile
     import numpy as np
     import torch
@@ -2127,7 +2186,7 @@ def cli_phase(dev):
               "cli: the --spec-json spec differs from the one served")
     log("cli: --dryrun equal to a direct call, --spec-json loads back "
         f"equal to the spec served; phase {time.perf_counter() - t0:.1f} s")
-    return card
+    return card, cpu
 
 
 # ---------------------------------------------------------------------------
@@ -2279,6 +2338,368 @@ def predict_phase(card, dev):
         f"rerank_loop over {len(rr)} queries equal to the batched final, "
         f"{t_loop:.2f} s")
     log(f"predict: phase {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# online serving: arrivals, micro-batching, admission
+# ---------------------------------------------------------------------------
+
+def microbatch_parity(on, system, terms, mask, topics, n):
+    """The first ``n`` served queries of the online run ``on``, each served
+    alone (Q = 1) on ``system``: ``topk`` must equal the online row's, and
+    ``final`` too where the row was served at FULL
+    (``benchmarks/bench_online.py:128-149``)."""
+    import numpy as np
+    from repro_torch.serving.online import FULL, SHED
+    served = np.flatnonzero(on.mode != SHED)
+    ok_topk = ok_final = True
+    for qid in served[:n]:
+        r1 = system.serve(terms[qid:qid + 1], mask[qid:qid + 1],
+                          topics[qid:qid + 1])
+        ok_topk &= bool(np.array_equal(r1.topk[0], on.topk[qid]))
+        if int(on.mode[qid]) == FULL:
+            ok_final &= bool(np.array_equal(r1.final[0], on.final[qid]))
+    return {"checked": int(min(len(served), n)), "identical_topk": ok_topk,
+            "identical_final": ok_final}
+
+
+def online_figures(payload):
+    """The figures of a BENCH_online payload (``bench_online.run_online``'s
+    or ``online_flow``'s)."""
+    return {k: payload[k] for k in ONLINE_FIGURES}
+
+
+def online_flow(device, q_batch=384, n_docs=4096, seed=7,
+                loads=(0.5, 0.8, 0.95), arrivals=("poisson", "bursty"),
+                max_batch=16):
+    """The BENCH_online flow of ``benchmarks/bench_online.py:36-187`` with
+    the port on ``device``: ``paper_200ms`` fitted from ``q_batch``
+    queries with ``seed`` and frozen (thresholds fixed, no adaptation),
+    capacity from ``estimate_capacity``; per arrival process and load, the
+    online front door against the no-admission ``max_batch`` 1 baseline on
+    one trace; then micro-batch parity over 64 served queries.  Returns
+    ``online_figures``."""
+    from repro_torch.configs.cascade_presets import get_preset
+    from repro_torch.index.corpus import (CorpusParams, build_corpus,
+                                          build_queries)
+    from repro_torch.serving.online import estimate_capacity
+    from repro_torch.serving.spec import TrafficSpec
+    from repro_torch.serving.system import build_system
+
+    corpus = build_corpus(CorpusParams(n_docs=n_docs,
+                                       vocab=max(n_docs // 2, 1024),
+                                       avg_doclen=96, zipf_a=1.05, seed=seed))
+    base = get_preset("paper_200ms")
+    base = dataclasses.replace(
+        base, online=dataclasses.replace(base.online, max_batch=max_batch))
+    ql = build_queries(corpus, q_batch, stop_k=base.index.stop_k,
+                       seed=seed + 4)
+    fit_sys = build_system(base, corpus, device=device)
+    fit_sys.fit(ql, None, seed=seed)
+    base = dataclasses.replace(
+        base, routing=dataclasses.replace(
+            base.routing, t_k=fit_sys._base_cfg.t_k,
+            t_time=fit_sys._base_cfg.t_time, calibrate=False,
+            adapt_every=0))
+    index, models, ltr = fit_sys.index, fit_sys.models, fit_sys.ltr
+    cost = fit_sys.cost
+
+    def system(**online_kw):
+        spec = dataclasses.replace(
+            base, online=dataclasses.replace(base.online, **online_kw))
+        return build_system(spec, index, corpus=corpus, models=models,
+                            ltr=ltr, cost=cost, device=device)
+
+    capacity = estimate_capacity(system(), ql.terms, ql.mask, ql.topic)
+    budget_r = None
+    rows = []
+    for arrival in arrivals:
+        for load in loads:
+            traffic = TrafficSpec(arrival=arrival, qps=load * capacity,
+                                  seed=seed + 1)
+            s_on = system().serve_online(ql.terms, ql.mask, ql.topic,
+                                         traffic=traffic).stats
+            s_off = system(admission=False, max_batch=1,
+                           batch_deadline_us=0.0).serve_online(
+                ql.terms, ql.mask, ql.topic, traffic=traffic).stats
+            budget_r = s_on["response_budget"]
+
+            def tail(st, key):
+                return st["response"][key] if "response" in st else None
+
+            rows.append({
+                "arrival": arrival, "load": load,
+                "qps": float(load * capacity),
+                "online": {
+                    "over_budget": s_on["over_budget"],
+                    "served": s_on["served"], "shed": s_on["shed"],
+                    "modes": s_on["modes"],
+                    "p99.99": tail(s_on, "p99.99"), "max": tail(s_on, "max"),
+                    "mean_batch": (s_on["batch"]["mean_size"]
+                                   if "batch" in s_on else None),
+                },
+                "baseline": {
+                    "over_budget": s_off["over_budget"],
+                    "served": s_off["served"],
+                    "p99.99": tail(s_off, "p99.99"),
+                    "max": tail(s_off, "max"),
+                },
+            })
+    on = system().serve_online(
+        ql.terms, ql.mask, ql.topic,
+        traffic=TrafficSpec(arrival="poisson", qps=0.8 * capacity,
+                            seed=seed + 1))
+    parity = microbatch_parity(on, system(), ql.terms, ql.mask, ql.topic, 64)
+    certified = [r for r in rows if r["load"] <= 0.8 + 1e-9
+                 and r["arrival"] in ("poisson", "bursty")]
+    return {"capacity_qps": float(capacity),
+            "response_budget": float(budget_r),
+            "worst_case_bound": float(fit_sys.worst_case_us()),
+            "guarantee_holds": all(r["online"]["over_budget"] == 0
+                                   for r in rows),
+            "regression_demonstrated": bool(certified) and all(
+                r["baseline"]["over_budget"] >= 1 for r in certified),
+            "rows": rows, "parity": parity}
+
+
+def check_response_accounting(label, on, online):
+    """Every served row's timing as the loop defines it, bit for bit:
+    ``wait == start - arrival``, ``completion == start + dispatch_us +
+    service``, ``response == completion - arrival``; and ``response``
+    against ``wait + dispatch_us + service``, the same sum grouped the
+    other way, within 1e-12 of it (they may round apart); batches at most
+    ``max_batch`` wide."""
+    import numpy as np
+    from repro_torch.serving.online import SHED
+    d = online.dispatch_us
+    for qid, bid, arrival, start, w, svc, done, m in on.event_log:
+        if m == SHED:
+            continue
+        check(w == start - arrival and done == start + d + svc
+              and on.response[qid] == done - arrival
+              and on.wait[qid] == w and on.service[qid] == svc,
+              f"{label}: query {qid}'s timing differs from the loop's")
+    sv = np.flatnonzero(on.mode != SHED)
+    err = float(np.max(np.abs(on.response[sv]
+                              - (on.wait[sv] + d + on.service[sv]))
+                       / on.response[sv]))
+    check(err <= 1e-12, f"{label}: response - (wait + dispatch + service) "
+          f"{err:.3g} of the response")
+    check(on.stats["batch"]["max_size"] <= online.max_batch,
+          f"{label}: a batch wider than max_batch")
+    return err
+
+
+def same_online(label, a, b):
+    """Card (a) against CPU (b) results of one online run."""
+    import numpy as np
+    check(a.event_log == b.event_log, f"{label}: event logs differ")
+    for key in ("response", "mode", "batch_of", "topk", "final",
+                "coverage"):
+        u, v = getattr(a, key), getattr(b, key)
+        check((u is None and v is None) or np.array_equal(u, v),
+              f"{label}: {key} differs")
+    check(a.stats == b.stats, f"{label}: stats differ")
+
+
+def online_line(label, on, wall, launches=None):
+    """One log line of an online run: modes, response tail, batches, the
+    host wall per simulated batch and per query."""
+    s = on.stats
+    r = s.get("response", {})
+    n_batch = s["batches"]
+    log(f"{label}: modes {s['modes']}, over budget {s['over_budget']} of "
+        f"{s['served']} served (response budget {s['response_budget']}); "
+        f"response p50/p99/p99.99/max {r.get('p50', 0):.3f}/"
+        f"{r.get('p99', 0):.3f}/{r.get('p99.99', 0):.3f}/"
+        f"{r.get('max', 0):.3f}; {n_batch} batches, mean size "
+        f"{s['batch']['mean_size'] if n_batch else 0:.2f}; wall {wall:.2f} s"
+        f" ({1e3 * wall / max(n_batch, 1):.2f} ms a batch, "
+        f"{1e3 * wall / s['n_queries']:.3f} ms a query)"
+        + (f"; launches {launches}" if launches is not None else ""))
+
+
+def timed_online(system, terms, mask, topics, traffic, online=None):
+    """``serve_online`` and its host wall, ending on a synchronized
+    device."""
+    import torch
+    t = time.perf_counter()
+    on = system.serve_online(terms, mask, topics, traffic=traffic,
+                             online=online)
+    if system.device.type == "cuda":
+        torch.cuda.synchronize()
+    return on, time.perf_counter() - t
+
+
+def online_phase(dev, fitted_shard, fit_ql, card, cpu):
+    """The online serving loop on the card.  Every system below that is
+    not built from a new spec is a ``fresh_probe`` (fresh serving state,
+    the index's device structures shared).
+
+    Part 1, on the fit's 196,608-doc shard (``fitted_shard``: the fit
+    phase's card system as fitted, before serving adapted it; ``max_batch``
+    32, deadline 5, admission and degrade on, ``adapt_every`` 1): (a)
+    capacity from ``estimate_capacity`` on a fresh probe; (b) a poisson and
+    a bursty trace of the fit log's first ONLINE_QUERIES queries at
+    ONLINE_LOAD x capacity, each on a fresh probe with the launch counts
+    set to 0: 0 over budget, the loop's timing
+    (``check_response_accounting``), kernels 1-3 launched.
+
+    Part 2, on the cli phase's index, query log and models (the card's, and
+    the CPU system's bit-equal ones for the CPU side): (c) the baseline (no
+    admission, ``max_batch`` 1, deadline 0) over a bursty trace of the
+    first ONLINE_CROSS queries at ONLINE_LOAD x capacity must go over the
+    response budget and shed nothing; (d) a poisson trace of the first
+    ONLINE_CPU queries on the card and on the CPU: event log,
+    ``response``, ``mode``, ``batch_of``, ``topk``, ``final`` and stats
+    equal; (e) micro-batch parity over the first ONLINE_PARITY served
+    queries of a poisson run of the first ONLINE_CROSS with adaptation
+    off, each served alone on a fresh card system; (f) the
+    4 x 3 partial-coverage deployment (PARTIAL_*): a batch of 32 with
+    ``shard_cap`` cycling 1-4 on the card and the CPU (``topk``, ``final``,
+    latency, coverage, the stats' coverage and faults equal), then a bursty
+    trace of the first PARTIAL_CROSS queries at PARTIAL_OVERLOAD x capacity
+    under a response budget picked from the printed shard bounds (the full
+    bound plus the bounds' spread): the partial rung fires, 0 over budget,
+    coverage below 1, card = CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serving.online import (SHED, bucket_size,
+                                            estimate_capacity, fresh_probe)
+    from repro_torch.serving.spec import TrafficSpec
+    from repro_torch.serving.system import build_system
+    t0 = time.perf_counter()
+
+    # ---- part 1: the fit's shard
+    spec = fitted_shard.cascade_spec
+    n_docs = fitted_shard.index.n_docs
+    sub = slice(0, ONLINE_QUERIES)
+    terms, mask, topics = fit_ql.terms[sub], fit_ql.mask[sub], fit_ql.topic[sub]
+    t = time.perf_counter()
+    capacity = estimate_capacity(fresh_probe(fitted_shard), terms, mask,
+                                 topics)
+    torch.cuda.synchronize()
+    log(f"online: {n_docs}-doc shard; capacity {capacity!r} queries a 1000 "
+        f"units (estimate_capacity, {time.perf_counter() - t:.2f} s); "
+        f"worst-case bound {fitted_shard.worst_case_us():.4f}, response "
+        f"budget {spec.online.response_budget_us or 2.0 * spec.routing.budget}")
+    for arrival in ("poisson", "bursty"):
+        system = fresh_probe(fitted_shard)
+        kernels.reset_launches()
+        traffic = TrafficSpec(arrival=arrival, qps=ONLINE_LOAD * capacity,
+                              seed=ONLINE_SEED)
+        on, wall = timed_online(system, terms, mask, topics, traffic)
+        launches = {name: kernels.LAUNCHES[name] for name in CASCADE_KERNELS}
+        label = f"online {arrival} {len(on.mode)} queries"
+        online_line(label, on, wall, launches)
+        for name in CASCADE_KERNELS:
+            check(launches[name] > 0, f"{label}: kernel {name} never "
+                  "launched")
+        check(on.stats["over_budget"] == 0, f"{label}: over budget")
+        check_response_accounting(label, on, spec.online)
+        served = on.mode != SHED
+        check(np.isfinite(on.response[served]).all()
+              and (on.topk[served] >= 0).all()
+              and (on.topk[served] < n_docs).all(),
+              f"{label}: served rows invalid")
+
+    # ---- part 2: the cli phase's index, models and query log
+    g, ql, fitted = card.system, card.ql, card.fitted
+
+    def cli_system(device, spec_=fitted, gather=None):
+        src = g if device != "cpu" else cpu
+        cost = (src.cost if gather is None else dataclasses.replace(
+            src.cost, gather_per_shard_us=gather))
+        return build_system(spec_, g.index, corpus=card.corpus,
+                            models=src.models, ltr=src.ltr, cost=cost,
+                            device=device)
+
+    sub = slice(0, ONLINE_CROSS)
+    terms, mask, topics = ql.terms[sub], ql.mask[sub], ql.topic[sub]
+    base, base_cpu = cli_system(dev), cli_system("cpu")
+    cap_cli = estimate_capacity(fresh_probe(base), ql.terms, ql.mask,
+                                ql.topic)
+    log(f"online cli: {g.index.n_docs}-doc index, capacity {cap_cli!r}")
+    bursty = TrafficSpec(arrival="bursty", qps=ONLINE_LOAD * cap_cli,
+                         seed=ONLINE_SEED)
+    on, wall = timed_online(
+        fresh_probe(base), terms, mask, topics, bursty,
+        online=dataclasses.replace(fitted.online, admission=False,
+                                   max_batch=1, batch_deadline_us=0.0))
+    online_line("online baseline (no admission, max_batch 1)", on, wall)
+    check(on.stats["over_budget"] >= 1 and on.stats["shed"] == 0,
+          "online baseline: it must answer every query and go over budget")
+    poisson = TrafficSpec(arrival="poisson", qps=ONLINE_LOAD * cap_cli,
+                          seed=ONLINE_SEED)
+    cpu_rows = slice(0, ONLINE_CPU)
+    a, wall = timed_online(base, terms[cpu_rows], mask[cpu_rows],
+                           topics[cpu_rows], poisson)
+    online_line("online cli poisson on the card", a, wall)
+    b, wall_cpu = timed_online(base_cpu, terms[cpu_rows], mask[cpu_rows],
+                               topics[cpu_rows], poisson)
+    same_online("online card vs CPU", a, b)
+    check(a.stats["over_budget"] == 0, "online cli poisson: over budget")
+    check_response_accounting("online cli poisson", a, fitted.online)
+    sizes = np.bincount(a.batch_of[a.batch_of >= 0])
+    widths = sorted({bucket_size(int(n), fitted.online.max_batch)
+                     for n in sizes})
+    log(f"online card vs CPU: event log ({len(a.event_log)} rows), response,"
+        f" mode, batch_of, topk, final and stats equal; CPU {wall_cpu:.2f} s;"
+        f" batch sizes {sorted(set(sizes.tolist()))}, padded widths {widths}")
+
+    frozen = cli_system(dev, dataclasses.replace(
+        fitted, routing=dataclasses.replace(fitted.routing, adapt_every=0)))
+    on, _ = timed_online(fresh_probe(frozen), terms, mask, topics, poisson)
+    t = time.perf_counter()
+    parity = microbatch_parity(on, frozen, terms, mask, topics,
+                               ONLINE_PARITY)
+    check(parity["identical_topk"] and parity["identical_final"],
+          f"online micro-batch parity: {parity}")
+    log(f"online micro-batch parity (adapt_every 0): {parity}, "
+        f"{time.perf_counter() - t:.2f} s")
+
+    spec4 = dataclasses.replace(
+        fitted,
+        deploy=dataclasses.replace(fitted.deploy, **PARTIAL_DEPLOY),
+        routing=dataclasses.replace(fitted.routing, **PARTIAL_ROUTING))
+    pair = [cli_system(d, spec4, PARTIAL_GATHER_US) for d in (dev, "cpu")]
+    bounds = [pair[0].sched.cfg.worst_case_us(pair[0].cost, m)
+              for m in range(1, PARTIAL_DEPLOY["n_shards"] + 1)]
+    full = pair[0].worst_case_us()
+    budget_r = full + (bounds[-1] - bounds[0])
+    cap = (np.arange(BATCH) % PARTIAL_DEPLOY["n_shards"]) + 1
+    x, y = (fresh_probe(s).serve(ql.terms[:BATCH], ql.mask[:BATCH],
+                                 ql.topic[:BATCH], shard_cap=cap)
+            for s in pair)
+    same_batch("online shard_cap", x, y)
+    check(np.array_equal(x.coverage, y.coverage)
+          and x.stats["coverage"] == y.stats["coverage"]
+          and x.stats["faults"] == y.stats["faults"],
+          "online shard_cap: coverage or fault counters differ")
+    log(f"online shard_cap 1-4: card = CPU (coverage {x.stats['coverage']}, "
+        f"faults {x.stats['faults']}); shard bounds {bounds}, full bound "
+        f"{full!r}: response budget {budget_r!r}")
+    cap4 = estimate_capacity(fresh_probe(pair[0]), ql.terms, ql.mask,
+                             ql.topic)
+    sub = slice(0, PARTIAL_CROSS)
+    overload = TrafficSpec(arrival="bursty", qps=PARTIAL_OVERLOAD * cap4,
+                           seed=ONLINE_SEED)
+    online4 = dataclasses.replace(spec4.online, response_budget_us=budget_r)
+    a, wall = timed_online(pair[0], ql.terms[sub], ql.mask[sub],
+                           ql.topic[sub], overload, online4)
+    online_line(f"online partial (4 x 3, capacity {cap4:.3f})", a, wall)
+    b, _ = timed_online(pair[1], ql.terms[sub], ql.mask[sub], ql.topic[sub],
+                        overload, online4)
+    same_online("online partial card vs CPU", a, b)
+    check(pair[0].stats()["faults"] == pair[1].stats()["faults"],
+          "online partial: fault counters differ")
+    check(a.stats["modes"]["partial"] > 0 and a.stats["over_budget"] == 0
+          and a.stats["coverage"]["min"] < 1.0,
+          f"online partial: the rung must fire inside the budget "
+          f"({a.stats['modes']}, coverage {a.stats['coverage']})")
+    log(f"online partial: card = CPU; coverage {a.stats['coverage']}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2502,6 +2923,7 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     from repro_torch.index.corpus import (CorpusParams, build_corpus,
                                           build_queries)
     from repro_torch.models.recsys import TwoTower
+    from repro_torch.serving.online import fresh_probe
     from repro_torch.serving.system import build_system
 
     card = card_line()
@@ -2545,9 +2967,12 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     lap("build")
 
     # fit: the card's and the CPU's systems, each fitted on its own device
-    gpu, cpu, fit_launches, fit_calls = fit_phase(spec, index, corpus, dev,
-                                                  profile)
+    gpu, cpu, fit_launches, fit_calls, fit_ql = fit_phase(spec, index, corpus,
+                                                          dev, profile)
     spec = gpu.cascade_spec
+    # the card system as fitted, kept for the online phase (its shard is
+    # shared, not copied)
+    fitted_shard = fresh_probe(gpu)
     log(f"system on {dev}: shard {gpu.shard_specs[0]}")
     lap("fit")
 
@@ -2649,11 +3074,15 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     # the serving CLI at its defaults, on the card and the CPU; then the
     # Stage-0 prediction framework and the shims on its run
     torch.cuda.empty_cache()
-    served = cli_phase(dev)
+    served, cli_cpu = cli_phase(dev)
     lap("cli")
     predict_phase(served, dev)
-    del served
     lap("predict")
+
+    # online serving on the fit's shard and on the cli phase's index
+    online_phase(dev, fitted_shard, fit_ql, served, cli_cpu)
+    del served, cli_cpu, fit_ql, fitted_shard
+    lap("online")
 
     # the LM serving path, with the retrieval systems freed
     torch.cuda.empty_cache()

@@ -16,11 +16,15 @@ the system's cost model, on the host), ``SearchSystem.fit`` on the labels
 (``--pseudo-labels``: the cheap pseudo-labels), then one ``serve`` of the
 whole trace.  ``--dryrun`` costs the spec from the corpus alone
 (``repro_torch.launch.dryrun_cascade``) and ``--spec-json`` writes the
-resolved spec, both before anything is built.  Flags that need a node the
-port does not have yet (online serving, the result cache, fault scenarios,
-live ingest, telemetry) raise ``NotImplementedError`` naming its ROADMAP
-item, when set to anything but their defaults; ``--spec-json`` still
-writes the spec they describe, as the reference does.
+resolved spec, both before anything is built.  ``--online`` serves the
+trace under load instead (``SearchSystem.serve_online``: seeded arrivals,
+micro-batching, admission control), at ``--qps`` or at ``--load`` times
+the capacity ``estimate_capacity`` measures on a ``fresh_probe`` of the
+fitted system, and prints the reference's online lines.  Flags that need a
+node the port does not have yet (the result cache, fault scenarios, live
+ingest, telemetry) raise ``NotImplementedError`` naming its ROADMAP item,
+when set to anything but their defaults; ``--spec-json`` still writes the
+spec they describe, as the reference does.
 
 ``run(argv)`` does the work and returns a :class:`Served`; ``main`` prints
 its result.  Tests and ``chip_smoke.py`` call ``run`` in-process.
@@ -42,15 +46,15 @@ from repro_torch.index.corpus import (Corpus, CorpusParams, QueryLog,
                                       build_corpus, build_queries)
 from repro_torch.isn.backend import resolve_device
 from repro_torch.launch.dryrun_cascade import dryrun, render
-from repro_torch.serving.spec import CascadeSpec, FaultSpec
+from repro_torch.serving.online import (OnlineResult, estimate_capacity,
+                                        fresh_probe)
+from repro_torch.serving.spec import CascadeSpec, FaultSpec, TrafficSpec
 from repro_torch.serving.system import (PipelineResult, SearchSystem,
                                         _unported, build_system)
 
 # flags whose nodes are not ported, by the ROADMAP item that ports them;
 # each raises when set to anything but its default
 UNPORTED = {
-    "Online serving": ("online", "arrival", "qps", "load", "zipf_skew",
-                       "trace_path", "traffic_seed"),
     "Result cache": ("cache", "cache_entries", "cache_bytes"),
     "Live ingest": ("ingest", "feed_qps", "delta_docs", "delta_postings"),
     "Telemetry": ("metrics_json", "metrics_prom", "trace_slowest"),
@@ -69,7 +73,8 @@ class Served:
     ql: QueryLog | None = None
     system: SearchSystem | None = None
     labels: LabelSet | None = None        # None: pseudo-labels
-    result: PipelineResult | None = None
+    result: PipelineResult | None = None  # the offline serve
+    online: OnlineResult | None = None    # the --online serve
     dryrun: dict | None = None
     walls: dict = dataclasses.field(default_factory=dict)   # seconds
 
@@ -106,18 +111,25 @@ def _parser() -> argparse.ArgumentParser:
                          "WITHOUT building the index (repro_torch.launch."
                          "dryrun_cascade) and exit")
     ap.add_argument("--online", action="store_true",
-                    help="online serving: not ported (raises)")
+                    help="serve the trace under load through the online "
+                         "subsystem (event-driven arrivals, micro-batching,"
+                         " admission control) and report response-time "
+                         "percentiles, queueing included")
     ap.add_argument("--arrival", default="poisson",
-                    help="online arrival process (not ported)")
+                    help="online arrival process: poisson | bursty | "
+                         "diurnal | trace")
     ap.add_argument("--qps", type=float, default=None,
-                    help="online offered load (not ported)")
+                    help="offered load (queries per 1000 cost units, i.e. "
+                         "QPS at paper scale); default: --load x measured "
+                         "capacity")
     ap.add_argument("--load", type=float, default=0.8,
-                    help="online load fraction (not ported)")
+                    help="offered load as a fraction of measured capacity "
+                         "(used when --qps is not given)")
     ap.add_argument("--max-batch", type=int, default=None,
                     help="override the preset's micro-batch width cap "
                          "(a spec field)")
     ap.add_argument("--no-admission", action="store_true",
-                    help="disable admission control (a spec field)")
+                    help="disable admission control (baseline mode)")
     ap.add_argument("--cache", action="store_true",
                     help="the result cache: not ported (raises)")
     ap.add_argument("--cache-entries", type=int, default=None,
@@ -147,11 +159,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--delta-postings", type=int, default=None,
                     help="delta tile-set postings capacity (not ported)")
     ap.add_argument("--zipf-skew", type=float, default=0.0,
-                    help="online query-repetition skew (not ported)")
+                    help="Zipfian query-repetition skew for --online "
+                         "traffic (0 = every query distinct, in order)")
     ap.add_argument("--trace-path", default="",
-                    help="online trace replay timestamps (not ported)")
-    ap.add_argument("--traffic-seed", type=int, default=0,
-                    help="online traffic seed (not ported)")
+                    help="recorded arrival timestamps (.npy or JSON list) "
+                         "for --arrival trace")
+    ap.add_argument("--traffic-seed", type=int, default=0)
     ap.add_argument("--fault-scenario", default=None,
                     help="named fault schedule: not ported (raises)")
     ap.add_argument("--fault-json", default=None,
@@ -263,8 +276,8 @@ def run(argv=None, say=print) -> Served:
     """Parse ``argv``, then build, fit and serve as the reference's CLI
     does; ``say`` gets each progress line.  Returns the run's
     :class:`Served` (``walls``: host seconds of the corpus, the build,
-    the labels, the fit and the serve, each ending on a synchronized
-    device)."""
+    the labels, the fit, the capacity probe (``--online``) and the serve,
+    each ending on a synchronized device)."""
     ap = _parser()
     args = ap.parse_args(argv)
     spec = _resolve_spec(args)
@@ -317,6 +330,34 @@ def run(argv=None, say=print) -> Served:
     lap("fit", t)
     out.fitted = system.cascade_spec
 
+    if args.online:
+        topics = ql.topic if system.ltr is not None else None
+        qps = args.qps
+        if qps is None and args.arrival != "trace":
+            say(f"[serve] measuring capacity (max_batch="
+                f"{spec.online.max_batch}) ...")
+            # a throwaway clone of the FITTED operating point, so the probe
+            # batches leave the measured system's pool and thresholds alone
+            t = time.perf_counter()
+            qps = args.load * estimate_capacity(fresh_probe(system),
+                                                ql.terms, ql.mask, topics)
+            lap("capacity", t)
+        qps = qps if qps is not None else 1.0  # unused by trace replay
+        traffic = TrafficSpec(arrival=args.arrival, qps=qps,
+                              seed=args.traffic_seed, skew=args.zipf_skew,
+                              trace_path=args.trace_path)
+        src = (f"trace {args.trace_path}" if args.arrival == "trace"
+               else f"qps={qps:.1f}")
+        say(f"[serve] online: {args.arrival} arrivals @ {src}, "
+            f"max_batch={spec.online.max_batch} "
+            f"deadline={spec.online.batch_deadline_us:.1f} "
+            f"admission={spec.online.admission}")
+        t = time.perf_counter()
+        out.online = system.serve_online(ql.terms, ql.mask, topics,
+                                         traffic=traffic)
+        lap("serve", t)
+        return out
+
     say("[serve] serving trace through the cascade ...")
     t = time.perf_counter()
     out.result = system.serve(ql.terms, ql.mask,
@@ -325,8 +366,43 @@ def run(argv=None, say=print) -> Served:
     return out
 
 
+def report_online(s: dict) -> list[str]:
+    """The reference's ``[serve]`` summary lines of an online run's stats
+    (the cache, ingest and faults lines wait for their items)."""
+    line = (f"[serve] served {s['served']}/{s['n_queries']} "
+            f"(shed {s['shed']}, {s['shed_pct']:.2f}%) in "
+            f"{s['batches']} batches")
+    if s.get("batch"):
+        line += f" (mean size {s['batch']['mean_size']:.1f})"
+    lines = [line, f"[serve] modes: {s['modes']}"]
+    if "response" in s:
+        p = s["response"]
+        lines.append(f"[serve] response ms (queueing included): "
+                     f"p50={p['p50']:.1f} p99={p['p99']:.1f} "
+                     f"p99.99={p['p99.99']:.1f} max={p['max']:.1f}")
+        for name, sp in s["stages"].items():
+            lines.append(f"[serve] {name:7s} ms: p50={sp['p50']:.2f} "
+                         f"p99={sp['p99']:.2f} max={sp['max']:.2f}")
+    if "dense" in s:
+        d = s["dense"]
+        lines.append(f"[serve] dense: lex={d['lexical']} "
+                     f"dense={d['dense_only']} fused={d['fused']} "
+                     f"theta_skips={d['theta_skips']} "
+                     f"fallbacks={d['fallbacks']}")
+    if "coverage" in s:
+        c = s["coverage"]
+        lines.append(f"[serve] coverage: min={c['min']:.2f} "
+                     f"mean={c['mean']:.3f} degraded={c['degraded']}")
+    lines.append(f"[serve] over response budget "
+                 f"({s['response_budget']:.0f}): {s['over_budget']} "
+                 f"({s['over_budget_pct']:.4f}%)")
+    return lines
+
+
 def report(out: Served) -> list[str]:
     """The reference's ``[serve]`` summary lines of a served trace."""
+    if out.online is not None:
+        return report_online(out.online.stats)
     system, res = out.system, out.result
     s = res.stats
     lines = [f"[serve] routed: jass={s['jass']} bmw={s['bmw']} "
@@ -369,7 +445,7 @@ def main(argv=None) -> None:
     out = run(argv)
     if out.dryrun is not None:
         print(render(out.dryrun))
-    elif out.result is not None:
+    elif out.system is not None:
         for line in report(out):
             print(line)
 

@@ -22,13 +22,15 @@ kernel over the embedding shards) or both, fused.  Latency is the
 reference's modeled cost (``CostModel`` on the engines' work counters), so
 equal counters give equal latencies, bit for bit.
 
-Scope: the inert-node path plus the dense modality, and ``fit`` from the
+Scope: the inert-node path plus the dense modality, ``fit`` from the
 label oracle's labels or the reference's pseudo-labels (Stage-0 quantile
 GBRTs, the LTR GBRT, the cost-model regression and the routing
-calibration, fitted on the system's device bit-equal to the reference's).
-A spec that turns on a node the port does not have yet (cache, fault
-schedule, ingest, telemetry) raises ``NotImplementedError`` naming its
-ROADMAP item, as does ``serve_online``.
+calibration, fitted on the system's device bit-equal to the reference's),
+and online serving (``serve_online``: ``repro_torch.serving.online``'s
+event loop around ``serve``, whose ``shard_cap`` serves admission's
+partial-coverage rung).  A spec that turns on a node the port does not
+have yet (cache, fault schedule, ingest, telemetry) raises
+``NotImplementedError`` naming its ROADMAP item.
 Models fitted by the reference can also be converted
 (``repro_torch.convert``); so can the two-tower model of the dense
 modality (``convert.two_tower_params``), or the port draws its own.
@@ -40,6 +42,7 @@ applies to its own slice, so the merged top-k equals the single-shard one.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -77,6 +80,21 @@ def _unported(what: str, item: str):
         f"(ROADMAP.md, section 1: {item})")
 
 
+def refuse_unported_nodes(spec: CascadeSpec) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item for the first
+    node of ``spec`` the port does not have yet."""
+    for active, what, item in (
+            (spec.cache.active, "the result cache (CacheSpec)",
+             "Result cache"),
+            (spec.fault.active, "fault schedules (FaultSpec)",
+             "Fault injection and failover"),
+            (spec.ingest.active, "live ingest (IngestSpec)", "Live ingest"),
+            (spec.telemetry.active, "telemetry (TelemetrySpec)",
+             "Telemetry")):
+        if active:
+            raise _unported(what, item)
+
+
 @dataclass
 class PipelineResult:
     """One served batch, end to end."""
@@ -86,6 +104,9 @@ class PipelineResult:
     latency: np.ndarray              # (Q,) full-cascade latency
     stage_latency: dict              # {"stage0"|"stage1"|"stage2": (Q,)}
     stats: dict
+    coverage: np.ndarray | None = None   # (Q,) fraction of partitions that
+                                         # answered (None: full coverage,
+                                         # no partial path engaged)
     dense: dict | None = None        # {"modality", "theta_skip",
                                      #  "fallback"} (Q,) vectors (None:
                                      #  dense modality disabled)
@@ -164,17 +185,7 @@ class SearchSystem:
             spec = replace(spec, index=replace(spec.index,
                                                block_size=index.block_size))
         spec.validate()
-        for active, what, item in (
-                (spec.cache.active, "the result cache (CacheSpec)",
-                 "Result cache"),
-                (spec.fault.active, "fault schedules (FaultSpec)",
-                 "Fault injection and failover"),
-                (spec.ingest.active, "live ingest (IngestSpec)",
-                 "Live ingest"),
-                (spec.telemetry.active, "telemetry (TelemetrySpec)",
-                 "Telemetry")):
-            if active:
-                raise _unported(what, item)
+        refuse_unported_nodes(spec)
         self.device = resolve_device(device)
         self.backend = resolve_backend(spec.backend.backend, self.device)
         self.cascade_spec = spec
@@ -190,25 +201,11 @@ class SearchSystem:
         # ---- shard the index (and the dense embeddings) by doc range ----
         self._attach_index(index)
 
-        self.pool = ReplicaPool(
-            PoolConfig(n_partitions=spec.deploy.n_shards,
-                       replicas_per_partition=spec.deploy.replicas,
-                       jass_fraction=spec.deploy.jass_fraction),
-            seed=spec.deploy.seed)
-        # the serving clock: serve() advances it by each batch's occupancy
-        self._clock = 0.0
-        self._batches = 0
-        self._last_stats: dict = {}
-        self._budget_reserve = self._attribute_budget(self.budget, None)
-        self._adapt_last = {"late_hedged": 0, "bmw": 0}
-        # rolling pinball loss of the t-predictor against observed BMW
-        # engine times — drives the hedge_deadline adaptation
-        self._pinball_ewma: float | None = None
-
+        self._init_serving_state()
         self.models: dict | None = None
         self.ltr: LTRModel | None = None
         self._stacked = None
-        self.sched = StageZeroScheduler(self._base_cfg, self.cost)
+        self._init_routing()
         if models is not None:
             self.set_models(models, ltr)
         elif ltr is not None:
@@ -217,6 +214,63 @@ class SearchSystem:
     @property
     def n_shards(self) -> int:
         return len(self.shards)
+
+    def _init_serving_state(self) -> None:
+        """The state serving moves: the replica pool, the serving clock,
+        the fault counters and the routing feedback."""
+        deploy = self.cascade_spec.deploy
+        self.pool = ReplicaPool(
+            PoolConfig(n_partitions=deploy.n_shards,
+                       replicas_per_partition=deploy.replicas,
+                       jass_fraction=deploy.jass_fraction),
+            seed=deploy.seed)
+        # the serving clock: serve() advances it by each batch's occupancy;
+        # the online simulator drives it explicitly (now=dispatch time)
+        self._clock = 0.0
+        # the reference's fault counters; with no fault schedule only the
+        # partial-coverage path moves them
+        self._fault_counters = {
+            "retries": 0,        # failover re-issues after a shard timeout
+            "transient": 0,      # attempts killed by the timeout storm
+            "down_requests": 0,  # attempts sent to a crashed/outaged replica
+            "lost_partitions": 0,   # (query, shard) slots lost after retries
+            "no_route": 0,       # partitions with no healthy replica at all
+            "degraded_queries": 0,  # queries served with partial coverage
+            "probes": 0,         # health probes sent to unhealthy replicas
+            "recovered": 0,      # probes that re-admitted a replica
+        }
+        self._batches = 0
+        self._last_stats: dict = {}
+        self._adapt_last = {"late_hedged": 0, "bmw": 0}
+        # rolling pinball loss of the t-predictor against observed BMW
+        # engine times — drives the hedge_deadline adaptation
+        self._pinball_ewma: float | None = None
+
+    def _init_routing(self) -> None:
+        """The budget reservation and the scheduler for the attached
+        stages: with Stage-0 models the scheduler routes on the stage-1
+        share of the budget (Stage-2's reserve carved out when the LTR
+        model is attached)."""
+        cfg = self._base_cfg
+        self._budget_reserve = self._attribute_budget(
+            cfg.budget, self.k_serve if self.ltr is not None else None)
+        if self.models is not None:
+            cfg = replace(cfg, budget=self._budget_reserve["stage1"])
+        self.sched = StageZeroScheduler(cfg, self.cost)
+
+    def _fresh_copy(self) -> "SearchSystem":
+        """The system ``build_system(self.cascade_spec, self.index,
+        corpus=..., models=..., ltr=..., cost=..., tower=..., device=...)``
+        builds, without building it: the serving state (pool, clock,
+        counters, routing feedback) starts anew at the live spec, and the
+        structures derived from the index and the models (shards, dense
+        engine, Stage-2 arrays, stacked forests), which serving only
+        reads, are shared."""
+        new = copy.copy(self)
+        new._base_cfg = scheduler_config(self.cascade_spec.routing)
+        new._init_serving_state()
+        new._init_routing()
+        return new
 
     def _attach_index(self, index: InvertedIndex) -> None:
         """Build every index-derived serving structure: doc-range shards on
@@ -288,16 +342,12 @@ class SearchSystem:
         except ValueError:
             self._stacked = None
         self.ltr = ltr
-        cfg = self._base_cfg
         if ltr is not None:
             if self.corpus is None:
                 raise ValueError("Stage-2 re-ranking needs the corpus "
                                  "(doc topic mixtures)")
             self.s2 = stage2_arrays(self.index, self.corpus, self.device)
-        self._budget_reserve = self._attribute_budget(
-            cfg.budget, self.k_serve if ltr is not None else None)
-        cfg = replace(cfg, budget=self._budget_reserve["stage1"])
-        self.sched = StageZeroScheduler(cfg, self.cost)
+        self._init_routing()
         return self
 
     def fit(self, ql, labels=None, *, seed: int = 0) -> "SearchSystem":
@@ -387,9 +437,20 @@ class SearchSystem:
                                 t_time=t_time))
         return self.set_models(models, ltr)
 
-    def serve_online(self, *args, **kwargs):
-        raise _unported("SearchSystem.serve_online (the online simulator)",
-                        "Online serving")
+    def serve_online(self, terms: np.ndarray, mask: np.ndarray,
+                     topics: np.ndarray | None = None, *,
+                     traffic, online=None):
+        """Serve the query log under load: event-driven arrivals
+        (:class:`~repro_torch.serving.spec.TrafficSpec`), dynamic
+        micro-batching, and admission control, reporting end-to-end
+        **response-time** percentiles (queueing included) up to p99.99.
+        Every dispatched batch is a :meth:`serve` on the system's device.
+
+        ``online`` overrides the spec's :class:`~repro_torch.serving.spec.
+        OnlineSpec`.  Returns an :class:`~repro_torch.serving.online.
+        simulator.OnlineResult`."""
+        from repro_torch.serving.online import simulate
+        return simulate(self, terms, mask, topics, traffic, online)
 
     # ------------------------------------------------------------------
     # stages
@@ -477,20 +538,37 @@ class SearchSystem:
             return self.cost.gather_time(t)
         return fn
 
-    def _merge(self, sc_list, id_list):
+    def _merge(self, rows, sc_list, id_list, topk, topk_sc, drop):
+        """Merge one route's per-shard lists into ``topk``/``topk_sc`` at
+        ``rows``, the ``drop`` slots excluded."""
         if len(sc_list) == 1:
-            return id_list[0], sc_list[0]
-        return merge_shard_topk(sc_list, id_list, self.k_serve)
+            ids, sc = id_list[0], sc_list[0]
+        else:
+            ids, sc = merge_shard_topk(
+                sc_list, id_list, self.k_serve,
+                drop=None if drop is None else drop[:, rows])
+        topk[rows] = ids.cpu().numpy()
+        topk_sc[rows] = sc.cpu().numpy().astype(np.float32)
+        if len(sc_list) == 1 and drop is not None and drop[0, rows].any():
+            dead = rows[drop[0, rows]]
+            topk[dead] = -1
+            topk_sc[dead] = SCORE_FILL
 
     def _stage1_full(self, terms: np.ndarray, mask: np.ndarray, routed,
-                     cache: dict | None = None):
+                     cache: dict | None = None, drop=None):
         """Fan the routed sub-batches out across every shard's engine and
         merge the per-shard top-k.
 
         Returns (topk, topk_sc, t_bmw, t_shards): merged global candidates
-        and their scores, the scatter-gather BMW time per query, and the
-        (n_shards, Q) per-shard engine-time matrix that feeds the replica
-        pool's EWMA estimates.
+        and their scores (``SCORE_FILL`` marks dropped slots), the
+        scatter-gather BMW time per query, and the (n_shards, Q) per-shard
+        engine-time matrix that feeds the replica pool's EWMA estimates.
+
+        ``drop`` ((n_shards, Q) bool, optional) marks (shard, query) slots
+        never requested (partial-coverage admission): their candidates are
+        left out of the merge (``-1`` ids where fewer than ``k_serve``
+        survive), so a degraded query's list is exactly the merge over its
+        queried partitions.
         """
         q = terms.shape[0]
         ns = self.n_shards
@@ -524,9 +602,7 @@ class SearchSystem:
                 id_list.append(res.topk_docs + self.doc_lo[s])
                 t_shards[s, rows] = self.cost.saat_time(
                     res.work.cpu().numpy().astype(np.float64))
-            ids, sc = self._merge(sc_list, id_list)
-            topk[rows] = ids.cpu().numpy()
-            topk_sc[rows] = sc.cpu().numpy().astype(np.float32)
+            self._merge(rows, sc_list, id_list, topk, topk_sc, drop)
 
         if len(routed.bmw_rows):
             rows = routed.bmw_rows
@@ -548,9 +624,7 @@ class SearchSystem:
                 id_list.append(res.topk_docs + self.doc_lo[s])
                 t_shards[s, rows] = self.cost.daat_time(
                     res.work.cpu().numpy(), res.blocks.cpu().numpy())
-            ids, sc = self._merge(sc_list, id_list)
-            topk[rows] = ids.cpu().numpy()
-            topk_sc[rows] = sc.cpu().numpy().astype(np.float32)
+            self._merge(rows, sc_list, id_list, topk, topk_sc, drop)
             t_bmw[rows] = self.cost.gather_time(t_shards[:, rows])
         return topk, topk_sc, t_bmw, t_shards
 
@@ -576,6 +650,23 @@ class SearchSystem:
         hedge_picks = {int(i): self.pool.route_query(JASS)
                        for i in routed.hedged_rows}
         return picks, hedge_picks
+
+    def _partial_plan(self, picks):
+        """The reference's ``_fault_plan`` (``repro.serving.system``) under
+        an inert fault schedule: every routed replica serves, so there is
+        no timeout wait (delay 0), no straggler (slowdown 1.0) and no
+        draw; a slot is lost only where its pick is ``None``, which the
+        reference counts as ``no_route`` -- the admission-dropped slots
+        among them, whose picks were released first.  Returns ``(delay,
+        mult, lost)``, each (n_shards, Q)."""
+        ns, q = self.n_shards, len(picks)
+        lost = np.zeros((ns, q), bool)
+        for i, reps in enumerate(picks):
+            for s in range(ns):
+                if reps[s] is None:
+                    lost[s, i] = True
+                    self._fault_counters["no_route"] += 1
+        return np.zeros((ns, q)), np.ones((ns, q)), lost
 
     def _pool_complete(self, terms, mask, routed, picks, hedge_picks,
                        t_shards, cache: dict | None = None):
@@ -620,25 +711,31 @@ class SearchSystem:
 
         ``stage2_cap`` is an optional per-query hard cap on the Stage-2
         candidate grid (``0`` serves the rank-safe Stage-1 order directly).
-        ``now`` pins the serving clock (default: the system's own clock,
-        advanced by each batch's occupancy).  ``shard_cap`` (admission's
-        partial coverage) belongs to the online path, not ported yet.
+        ``shard_cap`` is an optional per-query cap on the number of
+        partitions queried (admission's partial-coverage rung: query ``i``
+        asks only its first ``shard_cap[i]`` partitions, trading coverage
+        for gather overhead); the result then carries ``coverage`` and its
+        stats the ``faults`` and ``coverage`` sections.  ``now`` pins the
+        serving clock (default: the system's own clock, advanced by each
+        batch's occupancy; the online simulator passes its dispatch time).
         """
-        if shard_cap is not None:
-            raise _unported("partial-coverage serving (shard_cap)",
-                            "Online serving")
-        return self._serve_direct(terms, mask, topics,
-                                  stage2_cap=stage2_cap, now=now)
+        return self._serve_direct(terms, mask, topics, stage2_cap=stage2_cap,
+                                  shard_cap=shard_cap, now=now)
 
     def _serve_direct(self, terms: np.ndarray, mask: np.ndarray,
                       topics: np.ndarray | None = None, *,
                       stage2_cap: np.ndarray | None = None,
+                      shard_cap: np.ndarray | None = None,
                       now: float | None = None) -> PipelineResult:
-        """The uncached, fault-free cascade (see :meth:`serve`)."""
+        """The uncached cascade with no fault schedule (see :meth:`serve`);
+        ``shard_cap`` takes the reference's faulted branch under an inert
+        schedule (``_partial_plan``)."""
         terms = np.asarray(terms)
         mask = np.asarray(mask)
         q = terms.shape[0]
+        ns = self.n_shards
         now = float(self._clock if now is None else now)
+        faulted = shard_cap is not None
         pk, pr, pt = self.stage0(terms, mask)
         routed = self.sched.route(pk, pr, pt)
         modality = None
@@ -652,21 +749,90 @@ class SearchSystem:
         # batch in flight (power-of-two-choices balances against inflight)
         picks, hedge_picks = self._pool_route(routed, q)
 
+        drop = None
+        coverage = None
+        if faulted:
+            # admission-chosen partial coverage: the trailing partitions
+            # are never requested -- release their routed picks
+            dropped = np.zeros((ns, q), bool)
+            cap = np.clip(np.asarray(shard_cap, np.int64), 1, ns)
+            for i in range(q):
+                for s in range(int(cap[i]), ns):
+                    r = picks[i][s]
+                    if r is not None:
+                        r.inflight = max(r.inflight - 1, 0)
+                        picks[i][s] = None
+                    dropped[s, i] = True
+            delay, mult, lost = self._partial_plan(picks)
+            lost &= ~dropped
+            drop = lost | dropped
+            coverage = 1.0 - drop.sum(axis=0) / ns
+            self._fault_counters["degraded_queries"] += int(
+                (coverage < 1.0).sum())
+
         split_cache: dict = {}
         topk, topk_sc, t_bmw, t_shards = self._stage1_full(
-            terms, mask, routed, split_cache)
+            terms, mask, routed, split_cache, drop=drop)
         theta_skip, fallback, fb_extra, t_dense_mat = self._stage1_dense(
-            terms, mask, routed, modality, topk, topk_sc, split_cache)
-        lat01 = self.sched.resolve_times(
-            routed, t_bmw, self._jass_time(terms, mask, split_cache))
-        t_pool = t_shards
+            terms, mask, routed, modality, topk, topk_sc, split_cache, drop)
+        d_rows = (np.flatnonzero(modality != M_LEX)
+                  if t_dense_mat is not None else None)
+        if faulted:
+            # per-shard completion time under the plan: a served slot pays
+            # its retry wait plus its (slowed) engine time, a dropped slot
+            # was never requested; the query waits for its slowest slot and
+            # pays merge fan-out only over the partitions that answered
+            t_fault = np.where(dropped, 0.0,
+                               delay + np.where(lost, 0.0, t_shards * mult))
+            n_live = ns - drop.sum(axis=0)
+            gather_ov = (self.cost.gather_per_shard_us
+                         * np.maximum(n_live - 1, 0))
+
+            def _gather_fault(tmat, rows):
+                return tmat.max(axis=0) + gather_ov[rows]
+
+            t_bmw = np.zeros(q)
+            if len(routed.bmw_rows):
+                rows = routed.bmw_rows
+                t_bmw[rows] = _gather_fault(t_fault[:, rows], rows)
+
+            def jass_fault_fn(rows, rho):
+                work_s, _ = self._jass_split(terms, mask, rows, rho,
+                                             split_cache)
+                t = np.stack([self.cost.saat_time(w.astype(np.float64))
+                              for w in work_s[:ns]])
+                tf = np.where(dropped[:, rows], 0.0,
+                              delay[:, rows]
+                              + np.where(lost[:, rows], 0.0,
+                                         t * mult[:, rows]))
+                return _gather_fault(tf, rows)
+
+            # the deadline re-issue goes to a fresh replica at nominal JASS
+            # cost
+            lat01 = self.sched.resolve_times(
+                routed, t_bmw, jass_fault_fn,
+                late_jass_fn=self._jass_time(terms, mask, split_cache))
+            t_pool = t_fault
+            if t_dense_mat is not None:
+                # dense requests ride the same plan as the lexical ones
+                t_dense_eff = np.where(dropped, 0.0,
+                                       delay + np.where(lost, 0.0,
+                                                        t_dense_mat * mult))
+                t_pool = np.maximum(t_pool, t_dense_eff)
+                tdr = np.zeros(q)
+                tdr[d_rows] = (t_dense_eff[:, d_rows].max(axis=0)
+                               + gather_ov[d_rows])
+        else:
+            lat01 = self.sched.resolve_times(
+                routed, t_bmw, self._jass_time(terms, mask, split_cache))
+            t_pool = t_shards
+            if t_dense_mat is not None:
+                # a partition replica hosting both engines is busy for the
+                # max of its co-located work
+                t_pool = np.maximum(t_pool, t_dense_mat)
+                tdr = np.zeros(q)
+                tdr[d_rows] = self.cost.gather_time(t_dense_mat[:, d_rows])
         if t_dense_mat is not None:
-            # a partition replica hosting both engines is busy for the max
-            # of its co-located work
-            t_pool = np.maximum(t_pool, t_dense_mat)
-            d_rows = np.flatnonzero(modality != M_LEX)
-            tdr = np.zeros(q)
-            tdr[d_rows] = self.cost.gather_time(t_dense_mat[:, d_rows])
             # dense-only: predict + dense scatter-gather (+ any theta_low
             # fallback); both: the two engines run in parallel, the query
             # waits for the slower and pays the host-side fusion merge
@@ -698,6 +864,11 @@ class SearchSystem:
             k2 = np.minimum(routed.k, self.k_serve)
             if stage2_cap is not None:
                 k2 = np.minimum(k2, np.asarray(stage2_cap, np.int64))
+            if drop is not None:
+                # degraded queries may hold fewer than k_serve real
+                # candidates (-1 padding from the masked merge): never ask
+                # Stage-2 to rank the padding
+                k2 = np.minimum(k2, (topk >= 0).sum(axis=1))
             if theta_skip.any():
                 # dense confidence shortcut: the Stage-1 order is served
                 # directly (rank-safe), zeroed BEFORE enforcement so these
@@ -712,7 +883,8 @@ class SearchSystem:
                 trimmed = int(np.sum((0 < afford) & (afford < k2)))
                 skipped = int(np.sum((afford == 0) & (k2 > 0)))
                 k2 = np.minimum(k2, afford)
-            res2 = self.stage2(terms, mask, topics, topk.astype(np.int32), k2)
+            cand = topk if drop is None else np.where(topk >= 0, topk, 0)
+            res2 = self.stage2(terms, mask, topics, cand.astype(np.int32), k2)
             final, used = res2.final, res2.candidates_used
             skip_rows = np.flatnonzero(k2 == 0)
             if len(skip_rows):
@@ -736,17 +908,19 @@ class SearchSystem:
             dense_info = {"modality": modality, "theta_skip": theta_skip,
                           "fallback": fallback}
         stats = self._build_stats(lat, stage_latency, trimmed, skipped,
-                                  dense_info)
+                                  faulted, coverage, now, dense_info)
         return PipelineResult(topk=topk, final=final, candidates_used=used,
                               latency=lat, stage_latency=stage_latency,
-                              stats=stats, dense=dense_info)
+                              stats=stats, coverage=coverage,
+                              dense=dense_info)
 
     def _stage1_dense(self, terms, mask, routed, modality, topk, topk_sc,
-                      split_cache):
+                      split_cache, drop=None):
         """The dense part of Stage-1, in place on the lexical ``topk`` and
-        ``topk_sc``: dense-only rows take the dense list, both-routed rows
-        the fused list, and low-confidence dense-only rows a ρ_late-capped
-        lexical re-issue (``theta_low``).
+        ``topk_sc``: dense-only rows take the dense list (over the
+        partitions ``drop`` leaves), both-routed rows the fused list, and
+        low-confidence dense-only rows a ρ_late-capped lexical re-issue
+        (``theta_low``).
 
         Returns (theta_skip, fallback, fb_extra, t_dense_mat): the rows
         whose top dense score clears ``theta_high`` (Stage-2 skipped), the
@@ -762,7 +936,9 @@ class SearchSystem:
             return theta_skip, fallback, fb_extra, None
         ds = self.cascade_spec.dense
         q_emb = self.dense.embed(terms[d_rows], mask[d_rows])
-        d_ids, d_sc = self.dense.serve(q_emb, self.k_serve)
+        d_ids, d_sc = self.dense.serve(
+            q_emb, self.k_serve,
+            drop=None if drop is None else drop[:, d_rows])
         # shape-static per-shard dense time: every query scores every tile
         # of every shard, so the matrix is query-independent
         t_dense_mat = np.zeros((self.n_shards, q))
@@ -804,8 +980,8 @@ class SearchSystem:
                 fallback[fb_rows] = True
         return theta_skip, fallback, fb_extra, t_dense_mat
 
-    def _build_stats(self, lat, stage_latency, trimmed, skipped,
-                     dense_info=None) -> dict:
+    def _build_stats(self, lat, stage_latency, trimmed, skipped, faulted,
+                     coverage, now, dense_info=None) -> dict:
         """The per-batch stats dict (the reference's, minus the sections of
         unported nodes)."""
         stats = dict(self.sched.stats)
@@ -835,6 +1011,15 @@ class SearchSystem:
         }
         stats["n_shards"] = self.n_shards
         stats["pool"] = self.pool.stats()
+        if faulted:
+            q = len(lat)
+            stats["faults"] = dict(self._fault_counters)
+            stats["faults"]["clock"] = now
+            stats["coverage"] = {
+                "min": float(coverage.min()) if q else 1.0,
+                "mean": float(coverage.mean()) if q else 1.0,
+                "degraded": int((coverage < 1.0).sum()),
+            }
         if dense_info is not None:
             modality = dense_info["modality"]
             stats["dense"] = {
@@ -936,6 +1121,8 @@ class SearchSystem:
                        "worst_case_bound": self.worst_case_us()},
             "pool": self.pool.stats(),
         }
+        if any(self._fault_counters.values()):
+            s["faults"] = dict(self._fault_counters, clock=self._clock)
         if self._last_stats:
             s["last_batch"] = {k: self._last_stats[k]
                                for k in ("p50", "p99", "p99.99", "max",

@@ -2,11 +2,12 @@
 
 ``python -m repro_torch.launch.serve --device cpu`` against
 ``repro.launch.serve`` at ``--n-docs 2048 --vocab 1024 --queries 128``: the
-printed lines equal, line for line, in six modes (the default labelled
+printed lines equal, line for line, in eleven modes (the default labelled
 path, ``--pseudo-labels``, ``--no-ltr``, ``--shards 3``, ``--preset
-hybrid_fusion``, ``--dryrun``); ``--spec-json`` files byte-identical; each
-unported flag raising with its ROADMAP item; no card and no ``--device``
-raising.  ``launch/dryrun_cascade``: ``corpus_df``, ``WorkProxies`` and the
+hybrid_fusion``, ``--dryrun``, and ``--online`` under poisson, bursty and
+trace arrivals, at a given ``--qps`` and with ``--zipf-skew``);
+``--spec-json`` files byte-identical; each unported flag raising with its
+ROADMAP item; no card and no ``--device`` raising.  ``launch/dryrun_cascade``: ``corpus_df``, ``WorkProxies`` and the
 ``dryrun`` dict equal to the reference's, pre-build and post-build, and
 its CLI's output equal.
 
@@ -77,10 +78,23 @@ def _port_main(main, argv, capsys):
 @pytest.mark.parametrize("flags", [[], ["--pseudo-labels"], ["--no-ltr"],
                                    ["--shards", "3"],
                                    ["--preset", "hybrid_fusion"],
-                                   ["--dryrun"]],
+                                   ["--dryrun"], ["--online"],
+                                   ["--online", "--arrival", "bursty"],
+                                   ["--online", "--qps", "12"],
+                                   ["--online", "--zipf-skew", "1.2"],
+                                   ["--online", "--arrival", "trace",
+                                    "--trace-path", None]],
                          ids=["labels", "pseudo", "no_ltr", "shards3",
-                              "hybrid_fusion", "dryrun"])
-def test_serve_lines_match_reference(flags, monkeypatch, capsys, ref_tower):
+                              "hybrid_fusion", "dryrun", "online",
+                              "online_bursty", "online_qps",
+                              "online_zipf_skew", "online_trace"])
+def test_serve_lines_match_reference(flags, tmp_path, monkeypatch, capsys,
+                                     ref_tower):
+    if None in flags:
+        trace = tmp_path / "trace.npy"
+        np.save(trace, np.cumsum(np.random.RandomState(0).exponential(
+            20.0, 200)))
+        flags = [str(trace) if f is None else f for f in flags]
     want = _ref_main(ref_serve, SMALL + flags, monkeypatch, capsys)
     got = _port_main(serve.main, ["--device", "cpu"] + SMALL + flags, capsys)
     assert got == want
@@ -134,9 +148,6 @@ def test_spec_json_bytes_match_reference(flags, tmp_path, fault_json,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--online"], "Online serving"),
-    (["--qps", "12"], "Online serving"),
-    (["--zipf-skew", "1.2"], "Online serving"),
     (["--cache"], "Result cache"),
     (["--cache-bytes", "4096"], "Result cache"),
     (["--fault-scenario", "crash_one"], "Fault injection and failover"),

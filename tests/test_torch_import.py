@@ -56,6 +56,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+assert set("repro_torch.serving.online." + m for m in
+           ("admission", "batcher", "simulator", "traffic")) <= set(names)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -66,7 +68,7 @@ assert not bad, bad
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 69
+    assert n_modules >= 74
 
 
 def test_sources_import_nothing_of_jax_or_reference():

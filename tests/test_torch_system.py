@@ -134,7 +134,7 @@ def test_spec_json_round_trips_between_packages():
 
 
 def test_unported_nodes_raise(fitted_reference):
-    corpus, index, ql, ref, pcorpus, pindex, models, ltr = fitted_reference
+    _, _, _, ref, pcorpus, pindex, _, _ = fitted_reference
     spec = CascadeSpec.from_json(ref.cascade_spec.to_json())
     for preset in ("cached", "live_ingest"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -148,13 +148,6 @@ def test_unported_nodes_raise(fitted_reference):
         build_system(dataclasses.replace(spec, telemetry=dataclasses.replace(
             spec.telemetry, enabled=True)), pindex, corpus=pcorpus,
             device="cpu")
-    system = build_system(spec, pindex, corpus=pcorpus, models=models,
-                          ltr=ltr, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        system.serve_online(ql.terms, ql.mask, ql.topic, traffic=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        system.serve(ql.terms[:4], ql.mask[:4], ql.topic[:4],
-                     shard_cap=np.ones(4, np.int64))
 
 
 def test_stats_and_worst_case_match_reference(fitted_reference):
