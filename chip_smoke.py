@@ -13,7 +13,9 @@ order, it
    cores and an fp32 one on the CUDA cores, and the fit's two;
 2. builds the ``paper_200ms`` cascade at one shard of 196,608 docs (the
    per-chip shard of the paper's ISN deployment) on the card and on the
-   CPU and fits each on its own device (``SearchSystem.fit`` from 4,096
+   CPU from one host layout of the shard (``postings.shard_layouts``, built
+   once and copied to each device; ``hybrid_fusion``'s two systems of step
+   5 take it too) and fits each on its own device (``SearchSystem.fit`` from 4,096
    queries, seed 5: three Stage-0 quantile GBRTs and the LTR GBRT, the
    routing thresholds from the 60th/75th percentiles of the predictions),
    the card's fit counted from 0 and its ``level_histogram`` and
@@ -155,7 +157,43 @@ order, it
    response budget of the full bound plus the shard bounds' spread: the
    partial-coverage rung must fire with 0 over budget and coverage below
    1, card = CPU;
-12. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
+12. cache phase (the two-level result cache, ``SearchSystem.serve`` through
+   its cached path, ``cache_peek`` and the loop's cache branches) on the
+   cli phase's index, query log and fit: (a) the ``cached`` preset against
+   ``paper_200ms`` served cache-off over the first 256 queries: the cold
+   serve equal (``topk``, ``final``; each row's stage-1 time the probe
+   ``cache_hit_us`` more), the warm serve 256 L1 hits, bit-identical, each
+   at ``predict_us + cache_hit_us``, with kernels 1-3 launched 0 times;
+   (b) a serve at ``stage2_cap`` = ``k_serve`` / 2: 256 L2 hits, kernels 1
+   and 2 launched 0 times and kernel 3 launched, ``final`` equal to the
+   cache-off recompute at that cap; (c) ``cache_peek`` moves nothing (LRU
+   order, counters, scheduler and pool stats); (d) disabled and
+   zero-capacity specs build no cache and equal cache-off; (e)
+   ``serve_online`` of the first 128 queries at Zipf skew 1.2 (poisson,
+   0.8 x capacity) on the card and the CPU: event log, arrays, stats and
+   cache contents equal, front-door hits, 0 over budget; (f) the
+   BENCH_cache flow (``cache_flow``, ``benchmarks/bench_cache.py:62-206``)
+   at a reduced size on the card, its gates required and its figures
+   logged beside ``results/BENCH_cache.json``; (g) ``hybrid_fusion`` with
+   the cache: the warm serve's L1 replay equal to the cold serve, kernel 6
+   launched on the cold serve and no kernel on the warm one;
+13. faults phase (``serving/faults``, the retry chain, the health probes)
+   on the cli phase's index, query log and fit: the ``fault_tolerant``
+   preset (4 partitions x 3 replicas, 4 units of merge a shard), (a) for
+   each named schedule of ``fault_scenario`` sized to the trace, a
+   poisson trace of the first 128 queries at 0.8 x capacity through
+   ``serve_online`` on the card: 0 over the response budget, coverage at
+   least the surviving fraction at each batch's dispatch, kernels 1-3
+   launched, and the counters each schedule implies (retries, probes,
+   transient timeouts, lost partitions); (b) ``timeout_storm`` and
+   ``partition_outage`` on the CPU too: event log, arrays, stats,
+   ``stats()`` and the injector's draws equal; (c) the empty schedule
+   replays the fault-free run, and the armed failover equals the disarmed
+   one offline; (d) the cache's fault epochs (a partition out over [0,
+   50)): a result filled healthy never hits inside the outage, results
+   inside it are never filled, and after it heals the cache refills and
+   hits;
+14. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
    the retrieval systems are freed:
    a. cross-check: a 2-layer Yi-6B at full width in fp32, drawn once on
       the host and copied to the card, runs ``prefill`` on 2 prompts of
@@ -200,9 +238,11 @@ order, it
       1e-5 of it on average) on the recorded fp32 model calls (the same
       near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
       above it (a one-ulp rounding flip is 2^-8 to 2^-7 relative);
-13. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
+15. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
     the nine TPU kernels and ``level_histogram``; the launches of kernels
-    1-3 are step 7's), then the card line, then the result.
+    1-3 are step 7's; the library time of kernels 1 and 2 an
+    ``index_add_`` over the (query, lane) pairs each adds), then the card
+    line, then the result.
 
 Any failed check exits non-zero without the result line.  ``--n-docs``
 and ``--batches`` shrink the retrieval phases for a quick check,
@@ -354,6 +394,28 @@ PARTIAL_OVERLOAD = 2.0        # offered load / capacity of the overload trace
 ONLINE_FIGURES = ("capacity_qps", "response_budget", "worst_case_bound",
                   "guarantee_holds", "regression_demonstrated", "rows",
                   "parity")
+# cache phase: the first CACHE_CROSS queries of the cli phase's log offline,
+# the first CACHE_ONLINE online at Zipf skew CACHE_SKEW (card = CPU), and
+# the BENCH_cache flow at CACHE_FLOW (cut from 384 queries, three skews and
+# ten loads: each cached arrival's front-door peek runs Stage-0 on the card
+# at Q = 1, about 20 ms of host wall, so at 192 queries and seven loads the
+# flow alone took 26.8 s); faults phase: the fault_tolerant
+# preset with FAULT_GATHER_US of merge a shard (bench_faults' 4.0), traces
+# of the first FAULT_QUERIES queries, the epoch check over the first
+# FAULT_EPOCH_QUERIES
+CACHE_CROSS, CACHE_ONLINE, CACHE_SKEW = 256, 128, 1.2
+CACHE_FLOW = dict(q_batch=96, skews=(0.0, 1.2), loads_off=(0.8, 1.2, 2.0),
+                  loads_on=(1.5, 3.0))
+CACHE_ARTIFACT = ROOT / "results" / "BENCH_cache.json"
+FAULT_GATHER_US, FAULT_QUERIES, FAULT_EPOCH_QUERIES = 4.0, 128, 64
+# the BENCH_cache and BENCH_faults flows' figures
+# (benchmarks/bench_cache.py:62-206, bench_faults.py:94-212)
+CACHE_FIGURES = ("parity", "capacity_off_qps", "inert", "sweep", "grid",
+                 "certified_qps", "hit_ratio_at_hot_skew", "gates")
+FAULT_FIGURES = ("rows", "capacity_qps", "response_budget",
+                 "worst_case_bound", "guarantee_holds", "coverage_certified",
+                 "inert_replay_identical", "inert_offline_identical",
+                 "faults_demonstrated")
 # the BENCH_tail flow (benchmarks/bench_tail.py:43-130) and the figures it
 # reports, as results/BENCH_tail.json names them
 TAIL_ARTIFACT = ROOT / "results" / "BENCH_tail.json"
@@ -1012,10 +1074,45 @@ def bucketed_score_lanes(docs_b, scores_b, survive_t, run_docs, run_scores,
     return bucket + int(res.sum())
 
 
+def batched_pairs(name, args, kw):
+    """The (query, lane) pairs a call of kernel 1 or 2 adds, as the flat
+    output index (query, tile, doc) and the value added (impact or score):
+    per group of queries, the lanes whose term a query of the group holds
+    (``term_table``), kept where the lane reaches the query's cut (kernel
+    1) or the query keeps the lane's tile and block (kernel 2)."""
+    import torch
+    from repro_torch.kernels import term_table as tt
+    docs, terms, vals, qterms = args[:4]
+    q = qterms.shape[0]
+    n_tiles, tile_d = docs.shape[0], kw["tile_d"]
+    idx, val = [], []
+    for g0 in range(0, q, tt.GROUP):
+        qt = qterms[g0:g0 + tt.GROUP]
+        keys, mask, _ = tt.group_table(qt)
+        tile, j, entry = tt.matched_lanes(keys, docs, terms, tile_d)
+        hit = tt.mask_bits(mask[entry], qt.shape[0])
+        if name == "blockmax_score_batched":
+            sb, st = args[4:]
+            hit &= st[g0:g0 + tt.GROUP].T[tile] > 0
+            blk = docs[tile, j].long() // kw["block_size"]
+            hit &= sb[g0:g0 + tt.GROUP].permute(1, 2, 0)[tile, blk] > 0
+        else:
+            hit &= (vals[tile, j].unsqueeze(1)
+                    >= args[4][g0:g0 + tt.GROUP].unsqueeze(0))
+        lane, g = torch.nonzero(hit, as_tuple=True)
+        idx.append(((g0 + g) * n_tiles + tile[lane]) * tile_d
+                   + docs[tile[lane], j[lane]].long())
+        val.append(vals[tile[lane], j[lane]])
+    return torch.cat(idx), torch.cat(val), q * n_tiles * tile_d
+
+
 def library_calls():
     """Per kernel, a maker of the one PyTorch call that computes the same
     function on a call's inputs (its operands prepared outside the timed
-    call), timed as the library yardstick and used nowhere in the port."""
+    call), timed as the library yardstick and used nowhere in the port.
+    Kernel 3 has none: its three features (a count, a max and a sum per
+    candidate over the lanes that match it) take three reductions after a
+    join of lanes against candidates, and no one call does that."""
     import torch
     from repro_torch.kernels.blockmax_score import ops as bm
 
@@ -1058,7 +1155,17 @@ def library_calls():
         s = args[0]
         return lambda: torch.sort(s, descending=True, stable=True)
 
-    return {"dense_topk_tiles": dense, "impact_accumulate_bucketed": impact,
+    def batched(name):
+        # rows 1 and 2: index_add_ over the (query, lane) pairs the kernel
+        # adds -- integer impacts for kernel 1; fp32 scores for kernel 2,
+        # whose float atomics add in no fixed order, and which leaves out
+        # the block-max pruning that picks the pairs (the survive flags
+        # are its inputs)
+        return lambda args, kw: scatter(*batched_pairs(name, args, kw))
+
+    return {"impact_accumulate_batched": batched("impact_accumulate_batched"),
+            "blockmax_score_batched": batched("blockmax_score_batched"),
+            "dense_topk_tiles": dense, "impact_accumulate_bucketed": impact,
             "blockmax_score_bucketed": score,
             "score_histogram": histogram_topk}
 
@@ -1816,12 +1923,13 @@ def profile_fit(spec, index, corpus, ql, dev):
     log_profile(prof, wall_ms, "profile of fit")
 
 
-def fit_phase(spec, index, corpus, dev, profile=False):
+def fit_phase(spec, index, corpus, dev, layouts, profile=False):
     """``SearchSystem.fit(ql, None, seed=FIT_SEED)`` from a log of
     FIT_QUERIES queries on the card (counted from 0, every kernel call
-    recorded) and on the CPU (plain versions); requires the four forests
-    and the routing thresholds bit-equal.  With ``profile``, one more card
-    fit under the profiler.  Returns (card system, CPU system, launches,
+    recorded) and on the CPU (plain versions), both systems built from the
+    shard's shared host ``layouts``; requires the four forests and the
+    routing thresholds bit-equal.  With ``profile``, one more card fit
+    under the profiler.  Returns (card system, CPU system, launches,
     recorded calls, the query log)."""
     import torch
     from repro_torch import kernels
@@ -1829,8 +1937,11 @@ def fit_phase(spec, index, corpus, dev, profile=False):
     from repro_torch.serving.system import build_system
     ql = build_queries(corpus, FIT_QUERIES, stop_k=spec.index.stop_k,
                        seed=FIT_SEED)
-    gpu = build_system(spec, index, corpus=corpus, device=dev)
+    t = time.perf_counter()
+    gpu = build_system(spec, index, corpus=corpus, device=dev,
+                       layouts=layouts)
     torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
     kernels.reset_launches()
     with Recorder(FIT_KERNELS) as rec:
         t = time.perf_counter()
@@ -1838,12 +1949,17 @@ def fit_phase(spec, index, corpus, dev, profile=False):
         torch.cuda.synchronize()
         t_card = time.perf_counter() - t
     launches = {name: kernels.LAUNCHES[name] for name in FIT_KERNELS}
-    cpu = build_system(spec, index, corpus=corpus, device="cpu")
+    t = time.perf_counter()
+    cpu = build_system(spec, index, corpus=corpus, device="cpu",
+                       layouts=layouts)
+    t_build_cpu = time.perf_counter() - t
     t = time.perf_counter()
     cpu.fit(ql, None, seed=FIT_SEED)
     t_cpu = time.perf_counter() - t
     same_models("fit", gpu, cpu)
     r = gpu.cascade_spec.routing
+    log(f"fit: systems built from the shared layout: card {t_build:.2f} s, "
+        f"CPU {t_build_cpu:.2f} s")
     log(f"fit ({FIT_QUERIES} queries, seed {FIT_SEED}; LTR set "
         f"{min(FIT_QUERIES, 32)} x 64): card {t_card:.2f} s, CPU "
         f"{t_cpu:.2f} s; launches {launches}; t_k {r.t_k!r}, t_time "
@@ -2369,27 +2485,21 @@ def online_figures(payload):
     return {k: payload[k] for k in ONLINE_FIGURES}
 
 
-def online_flow(device, q_batch=384, n_docs=4096, seed=7,
-                loads=(0.5, 0.8, 0.95), arrivals=("poisson", "bursty"),
-                max_batch=16):
-    """The BENCH_online flow of ``benchmarks/bench_online.py:36-187`` with
-    the port on ``device``: ``paper_200ms`` fitted from ``q_batch``
-    queries with ``seed`` and frozen (thresholds fixed, no adaptation),
-    capacity from ``estimate_capacity``; per arrival process and load, the
-    online front door against the no-admission ``max_batch`` 1 baseline on
-    one trace; then micro-batch parity over 64 served queries.  Returns
-    ``online_figures``."""
+def bench_build(device, preset, q_batch, n_docs, seed, max_batch):
+    """The fitted system the online, cache and fault benches share
+    (``benchmarks/bench_online.py:40-66``, ``bench_faults.py:48-76``): a
+    corpus of ``n_docs`` (vocab ``n_docs // 2``, at least 1,024), ``preset``
+    with ``max_batch``, ``q_batch`` queries, fitted with ``seed`` on
+    ``device``.  Returns (corpus, the spec with the fit's thresholds frozen
+    and adaptation off, the query log, the fitted system)."""
     from repro_torch.configs.cascade_presets import get_preset
     from repro_torch.index.corpus import (CorpusParams, build_corpus,
                                           build_queries)
-    from repro_torch.serving.online import estimate_capacity
-    from repro_torch.serving.spec import TrafficSpec
     from repro_torch.serving.system import build_system
-
     corpus = build_corpus(CorpusParams(n_docs=n_docs,
                                        vocab=max(n_docs // 2, 1024),
                                        avg_doclen=96, zipf_a=1.05, seed=seed))
-    base = get_preset("paper_200ms")
+    base = get_preset(preset)
     base = dataclasses.replace(
         base, online=dataclasses.replace(base.online, max_batch=max_batch))
     ql = build_queries(corpus, q_batch, stop_k=base.index.stop_k,
@@ -2401,6 +2511,25 @@ def online_flow(device, q_batch=384, n_docs=4096, seed=7,
             base.routing, t_k=fit_sys._base_cfg.t_k,
             t_time=fit_sys._base_cfg.t_time, calibrate=False,
             adapt_every=0))
+    return corpus, base, ql, fit_sys
+
+
+def online_flow(device, q_batch=384, n_docs=4096, seed=7,
+                loads=(0.5, 0.8, 0.95), arrivals=("poisson", "bursty"),
+                max_batch=16):
+    """The BENCH_online flow of ``benchmarks/bench_online.py:36-187`` with
+    the port on ``device``: ``paper_200ms`` fitted from ``q_batch``
+    queries with ``seed`` and frozen (thresholds fixed, no adaptation),
+    capacity from ``estimate_capacity``; per arrival process and load, the
+    online front door against the no-admission ``max_batch`` 1 baseline on
+    one trace; then micro-batch parity over 64 served queries.  Returns
+    ``online_figures``."""
+    from repro_torch.serving.online import estimate_capacity
+    from repro_torch.serving.spec import TrafficSpec
+    from repro_torch.serving.system import build_system
+
+    corpus, base, ql, fit_sys = bench_build(device, "paper_200ms", q_batch,
+                                            n_docs, seed, max_batch)
     index, models, ltr = fit_sys.index, fit_sys.models, fit_sys.ltr
     cost = fit_sys.cost
 
@@ -2568,7 +2697,6 @@ def online_phase(dev, fitted_shard, fit_ql, card, cpu):
     from repro_torch.serving.online import (SHED, bucket_size,
                                             estimate_capacity, fresh_probe)
     from repro_torch.serving.spec import TrafficSpec
-    from repro_torch.serving.system import build_system
     t0 = time.perf_counter()
 
     # ---- part 1: the fit's shard
@@ -2590,7 +2718,7 @@ def online_phase(dev, fitted_shard, fit_ql, card, cpu):
         traffic = TrafficSpec(arrival=arrival, qps=ONLINE_LOAD * capacity,
                               seed=ONLINE_SEED)
         on, wall = timed_online(system, terms, mask, topics, traffic)
-        launches = {name: kernels.LAUNCHES[name] for name in CASCADE_KERNELS}
+        launches = launched()
         label = f"online {arrival} {len(on.mode)} queries"
         online_line(label, on, wall, launches)
         for name in CASCADE_KERNELS:
@@ -2607,17 +2735,9 @@ def online_phase(dev, fitted_shard, fit_ql, card, cpu):
     # ---- part 2: the cli phase's index, models and query log
     g, ql, fitted = card.system, card.ql, card.fitted
 
-    def cli_system(device, spec_=fitted, gather=None):
-        src = g if device != "cpu" else cpu
-        cost = (src.cost if gather is None else dataclasses.replace(
-            src.cost, gather_per_shard_us=gather))
-        return build_system(spec_, g.index, corpus=card.corpus,
-                            models=src.models, ltr=src.ltr, cost=cost,
-                            device=device)
-
     sub = slice(0, ONLINE_CROSS)
     terms, mask, topics = ql.terms[sub], ql.mask[sub], ql.topic[sub]
-    base, base_cpu = cli_system(dev), cli_system("cpu")
+    base, base_cpu = (cli_build(card, cpu, d, fitted) for d in (dev, "cpu"))
     cap_cli = estimate_capacity(fresh_probe(base), ql.terms, ql.mask,
                                 ql.topic)
     log(f"online cli: {g.index.n_docs}-doc index, capacity {cap_cli!r}")
@@ -2648,7 +2768,7 @@ def online_phase(dev, fitted_shard, fit_ql, card, cpu):
         f" mode, batch_of, topk, final and stats equal; CPU {wall_cpu:.2f} s;"
         f" batch sizes {sorted(set(sizes.tolist()))}, padded widths {widths}")
 
-    frozen = cli_system(dev, dataclasses.replace(
+    frozen = cli_build(card, cpu, dev, dataclasses.replace(
         fitted, routing=dataclasses.replace(fitted.routing, adapt_every=0)))
     on, _ = timed_online(fresh_probe(frozen), terms, mask, topics, poisson)
     t = time.perf_counter()
@@ -2663,7 +2783,8 @@ def online_phase(dev, fitted_shard, fit_ql, card, cpu):
         fitted,
         deploy=dataclasses.replace(fitted.deploy, **PARTIAL_DEPLOY),
         routing=dataclasses.replace(fitted.routing, **PARTIAL_ROUTING))
-    pair = [cli_system(d, spec4, PARTIAL_GATHER_US) for d in (dev, "cpu")]
+    pair = [cli_build(card, cpu, d, spec4, PARTIAL_GATHER_US)
+            for d in (dev, "cpu")]
     bounds = [pair[0].sched.cfg.worst_case_us(pair[0].cost, m)
               for m in range(1, PARTIAL_DEPLOY["n_shards"] + 1)]
     full = pair[0].worst_case_us()
@@ -2700,6 +2821,652 @@ def online_phase(dev, fitted_shard, fit_ql, card, cpu):
           f"({a.stats['modes']}, coverage {a.stats['coverage']})")
     log(f"online partial: card = CPU; coverage {a.stats['coverage']}; "
         f"phase {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the result cache and fault injection
+# ---------------------------------------------------------------------------
+
+def cache_figures(payload):
+    """The figures of a BENCH_cache payload (``bench_cache.run_cache``'s or
+    ``cache_flow``'s)."""
+    return {k: payload[k] for k in CACHE_FIGURES}
+
+
+def cache_cell(res):
+    """One online run's BENCH_cache cell (``bench_cache._cell``)."""
+    s = res.stats
+    out = {
+        "served": s["served"], "shed": s["shed"],
+        "over_budget": s["over_budget"],
+        "modes": s["modes"],
+        "p50": s["response"]["p50"] if "response" in s else None,
+        "p99.99": s["response"]["p99.99"] if "response" in s else None,
+        "achieved_qps": s.get("achieved_qps"),
+    }
+    if "cache" in s:
+        c = s["cache"]
+        out["hit_ratio"] = c["hit_ratio"]
+        out["l1_hits"] = c["l1"]["hits"] if c.get("l1") else 0
+        out["front_door_hits"] = c["front_door_hits"]
+        out["hit_ewma"] = c.get("hit_ewma")
+    return out
+
+
+def certified_qps(cells):
+    """Highest offered QPS at which every query was served FULL with no
+    budget violation and no shed (``bench_cache._certified``)."""
+    ok = [c["qps"] for c in cells
+          if c["over_budget"] == 0 and c["shed"] == 0
+          and c["modes"]["full"] == c["served"]]
+    return float(max(ok)) if ok else 0.0
+
+
+def cache_flow(device, q_batch=384, n_docs=4096, seed=7,
+               skews=(0.0, 0.8, 1.2), sweep_load=0.8,
+               loads_off=(0.8, 1.0, 1.2, 1.5, 2.0),
+               loads_on=(1.2, 1.5, 2.0, 2.5, 3.0), max_batch=16):
+    """The BENCH_cache flow of ``benchmarks/bench_cache.py:62-206`` with
+    the port on ``device``: ``bench_build``'s ``paper_200ms`` system; hit
+    parity (cold and warm cache-on against cache-off, offline), the inert
+    zero-capacity spec (offline, and a bursty online trace), the skew sweep
+    at ``sweep_load`` x the cache-off capacity, and the overload grid at
+    the hottest skew, from which the certified QPS of each side.  Returns
+    ``cache_figures``."""
+    import numpy as np
+    from repro_torch.serving.online import estimate_capacity
+    from repro_torch.serving.spec import CacheSpec, TrafficSpec
+    from repro_torch.serving.system import build_system
+
+    corpus, base, ql, fit_sys = bench_build(device, "paper_200ms", q_batch,
+                                            n_docs, seed, max_batch)
+    index, models, ltr = fit_sys.index, fit_sys.models, fit_sys.ltr
+    cost = fit_sys.cost
+    cache_spec = CacheSpec(enabled=True)
+
+    def system(cache=None):
+        spec = base if cache is None else dataclasses.replace(base,
+                                                              cache=cache)
+        return build_system(spec, index, corpus=corpus, models=models,
+                            ltr=ltr, cost=cost, device=device)
+
+    def serve(sys_):
+        return sys_.serve(ql.terms, ql.mask, ql.topic)
+
+    def online(sys_, traffic):
+        return sys_.serve_online(ql.terms, ql.mask, ql.topic,
+                                 traffic=traffic)
+
+    off_sys = system()
+    res_off = serve(off_sys)
+    b_off = res_off.stats["budget"]
+    on_sys = system(cache_spec)
+    cold = serve(on_sys)
+    warm = serve(on_sys)
+    parity = {
+        "no_trims_in_reference": bool(b_off["stage2_trimmed"] == 0
+                                      and b_off["stage2_skipped"] == 0),
+        "cold_topk_identical": bool(np.array_equal(cold.topk, res_off.topk)),
+        "cold_final_identical": bool(np.array_equal(cold.final,
+                                                    res_off.final)),
+        "warm_topk_identical": bool(np.array_equal(warm.topk, res_off.topk)),
+        "warm_final_identical": bool(np.array_equal(warm.final,
+                                                    res_off.final)),
+        "warm_all_l1_hits": bool(on_sys.cache.counters["l1_hits"]
+                                 == q_batch),
+        "p50_off": res_off.stats["p50"], "p50_warm": warm.stats["p50"],
+        "hit_speedup_p50": float(res_off.stats["p50"]
+                                 / max(warm.stats["p50"], 1e-9)),
+        "worst_case_off": float(off_sys.worst_case_us()),
+        "worst_case_on": float(on_sys.worst_case_us()),
+    }
+
+    inert_spec = CacheSpec(enabled=True, l1_entries=0, l2_entries=0)
+    sys_a, sys_b = system(), system(inert_spec)
+    ra, rb = serve(sys_a), serve(sys_b)
+    traffic_i = TrafficSpec(arrival="bursty", qps=0.8 * 500.0, skew=0.8,
+                            seed=seed + 1)
+    oa = online(system(), traffic_i)
+    ob = online(system(inert_spec), traffic_i)
+    inert = {
+        "cache_absent": bool(sys_b.cache is None),
+        "offline_topk_identical": bool(np.array_equal(ra.topk, rb.topk)),
+        "offline_final_identical": bool(np.array_equal(ra.final, rb.final)),
+        "offline_latency_identical": bool(np.array_equal(ra.latency,
+                                                         rb.latency)),
+        "online_event_log_identical": bool(oa.event_log == ob.event_log),
+    }
+
+    capacity_off = estimate_capacity(system(), ql.terms, ql.mask, ql.topic)
+    sweep = []
+    for skew in skews:
+        traffic = TrafficSpec(arrival="poisson",
+                              qps=sweep_load * capacity_off, skew=skew,
+                              seed=seed + 1)
+        r_on = online(system(cache_spec), traffic)
+        r_off = online(system(), traffic)
+        sweep.append({"skew": skew, "load": sweep_load,
+                      "qps": float(sweep_load * capacity_off),
+                      "on": cache_cell(r_on), "off": cache_cell(r_off)})
+
+    skew_hot = float(max(skews))
+    grid = {"on": [], "off": []}
+    for name, spec_c, loads in (("off", None, loads_off),
+                                ("on", cache_spec, loads_on)):
+        for load in loads:
+            traffic = TrafficSpec(arrival="poisson",
+                                  qps=load * capacity_off, skew=skew_hot,
+                                  seed=seed + 1)
+            r = online(system(spec_c), traffic)
+            grid[name].append({"load": load,
+                               "qps": float(load * capacity_off),
+                               **cache_cell(r)})
+
+    certified_off = certified_qps(grid["off"])
+    certified_on = certified_qps(grid["on"])
+    hot_on = [r["on"] for r in sweep if r["skew"] == skew_hot]
+    hit_ratio_hot = hot_on[0]["hit_ratio"] if hot_on else 0.0
+    enforced = ([r["on"] for r in sweep] + [r["off"] for r in sweep]
+                + grid["on"] + grid["off"])
+    gates = {
+        "hits_bit_identical": (parity["no_trims_in_reference"]
+                               and parity["cold_topk_identical"]
+                               and parity["cold_final_identical"]
+                               and parity["warm_topk_identical"]
+                               and parity["warm_final_identical"]
+                               and parity["warm_all_l1_hits"]),
+        "inert_bit_identical": all(inert.values()),
+        "guarantee_holds": all(r["over_budget"] == 0 for r in enforced),
+        "capacity_speedup": (certified_off > 0
+                             and certified_on
+                             >= 1.2 * certified_off - 1e-9),
+        "hits_nonvacuous": hit_ratio_hot >= 0.2,
+    }
+    return {"parity": parity, "capacity_off_qps": float(capacity_off),
+            "inert": inert, "sweep": sweep, "grid": grid,
+            "certified_qps": {"off": certified_off, "on": certified_on,
+                              "speedup": (certified_on
+                                          / max(certified_off, 1e-9))},
+            "hit_ratio_at_hot_skew": float(hit_ratio_hot), "gates": gates}
+
+
+def fault_figures(payload):
+    """The figures of a BENCH_faults payload (``bench_faults.run_faults``'s
+    or ``fault_flow``'s)."""
+    return {k: payload[k] for k in FAULT_FIGURES}
+
+
+def coverage_floor_ok(res, injector, replicas, ns):
+    """Every served query's coverage at least the fraction of partitions
+    the schedule left reachable at its batch's dispatch
+    (``bench_faults._coverage_floor_ok``).  Returns (ok, the largest
+    shortfall seen)."""
+    worst = 0.0
+    for qid, bid, _, start, _, _, _, _ in res.event_log:
+        if bid < 0:
+            continue
+        floor = injector.surviving(replicas, start) / ns
+        cov = 1.0 if res.coverage is None else float(res.coverage[qid])
+        worst = max(worst, floor - cov)
+        if cov < floor - 1e-9:
+            return False, worst
+    return True, worst
+
+
+def fault_flow(device, q_batch=256, n_docs=4096, seed=7, loads=(0.5, 0.8),
+               max_batch=16, gather_us=4.0):
+    """The BENCH_faults flow of ``benchmarks/bench_faults.py:94-212`` with
+    the port on ``device``: ``bench_build``'s ``fault_tolerant`` system (4
+    partitions x 3 replicas) with ``gather_us`` of merge a shard; per load,
+    a poisson trace under every named scenario (``fault_scenario``, sized
+    to the trace's span): over-budget count, coverage floor, counters and
+    the FULL rows' final lists against the fault-free run; then the empty
+    schedule's replay and the failover-disabled build offline.  Returns
+    ``fault_figures``."""
+    import numpy as np
+    from repro_torch.serving.faults import (SCENARIOS, FaultInjector,
+                                            fault_scenario)
+    from repro_torch.serving.online import FULL, estimate_capacity
+    from repro_torch.serving.spec import FaultSpec, TrafficSpec
+    from repro_torch.serving.system import build_system
+
+    corpus, base, ql, fit_sys = bench_build(device, "fault_tolerant",
+                                            q_batch, n_docs, seed, max_batch)
+    cost = dataclasses.replace(fit_sys.cost, gather_per_shard_us=gather_us)
+    index, models, ltr = fit_sys.index, fit_sys.models, fit_sys.ltr
+    ns, replicas = base.deploy.n_shards, base.deploy.replicas
+
+    def system(fault=None, failover=True):
+        spec = base
+        if not failover:
+            spec = dataclasses.replace(spec, routing=dataclasses.replace(
+                spec.routing, failover_timeout=0.0, max_retries=0))
+        if fault is not None:
+            spec = dataclasses.replace(spec, fault=fault)
+        return build_system(spec.validate(), index, corpus=corpus,
+                            models=models, ltr=ltr, cost=cost, device=device)
+
+    capacity = estimate_capacity(system(), ql.terms, ql.mask, ql.topic)
+    budget_r = None
+    rows = []
+    none_runs = {}
+    floors_hold = True
+    for load in loads:
+        qps = load * capacity
+        horizon = 1000.0 * q_batch / qps
+        traffic = TrafficSpec(arrival="poisson", qps=qps, seed=seed + 1)
+        for scenario in SCENARIOS:
+            fspec = fault_scenario(scenario, n_partitions=ns,
+                                   replicas=replicas, horizon=horizon,
+                                   seed=seed)
+            res = system(fault=fspec).serve_online(ql.terms, ql.mask,
+                                                   ql.topic, traffic=traffic)
+            s = res.stats
+            budget_r = s["response_budget"]
+            if scenario == "none":
+                none_runs[load] = res
+            ok_floor, _ = coverage_floor_ok(res, FaultInjector(fspec, ns),
+                                            replicas, ns)
+            floors_hold &= ok_floor
+            ctrl = none_runs[load]
+            both = np.flatnonzero((res.mode == FULL) & (ctrl.mode == FULL))
+            same = (float(np.mean(np.all(
+                res.final[both] == ctrl.final[both], axis=1)))
+                if len(both) and res.final is not None else None)
+            cov = s.get("coverage", {})
+            rows.append({
+                "load": load, "qps": float(qps), "scenario": scenario,
+                "over_budget": s["over_budget"],
+                "served": s["served"], "shed": s["shed"],
+                "modes": s["modes"],
+                "p99.99": (s["response"]["p99.99"]
+                           if "response" in s else None),
+                "max": s["response"]["max"] if "response" in s else None,
+                "coverage": {"min": cov.get("min", 1.0),
+                             "mean": cov.get("mean", 1.0),
+                             "degraded": cov.get("degraded", 0)},
+                "coverage_floor_ok": ok_floor,
+                "faults": s.get("faults"),
+                "full_final_match_vs_none": same,
+            })
+
+    load0 = loads[-1]
+    traffic = TrafficSpec(arrival="poisson", qps=load0 * capacity,
+                          seed=seed + 1)
+    a = none_runs[load0]
+    b = system(fault=FaultSpec()).serve_online(ql.terms, ql.mask, ql.topic,
+                                               traffic=traffic)
+    replay_identical = (
+        a.event_log == b.event_log
+        and bool(np.array_equal(a.topk, b.topk))
+        and (a.final is None or bool(np.array_equal(a.final, b.final))))
+    r_on = system().serve(ql.terms, ql.mask, ql.topic)
+    r_off = system(failover=False).serve(ql.terms, ql.mask, ql.topic)
+    offline_identical = (
+        bool(np.array_equal(r_on.topk, r_off.topk))
+        and bool(np.array_equal(r_on.latency, r_off.latency))
+        and (r_on.final is None
+             or bool(np.array_equal(r_on.final, r_off.final))))
+    return {
+        "rows": rows,
+        "capacity_qps": float(capacity),
+        "response_budget": float(budget_r),
+        "worst_case_bound": float(system().worst_case_us()),
+        "guarantee_holds": all(r["over_budget"] == 0 for r in rows),
+        "coverage_certified": floors_hold,
+        "inert_replay_identical": replay_identical,
+        "inert_offline_identical": offline_identical,
+        "faults_demonstrated": any(
+            r["faults"] and (r["faults"]["retries"] > 0
+                             or r["faults"]["lost_partitions"] > 0
+                             or r["faults"]["transient"] > 0)
+            for r in rows if r["scenario"] != "none"),
+    }
+
+
+def cli_build(card, cpu, device, spec, gather=None, layouts=None):
+    """A system of the cli phase's index and corpus for ``spec`` on
+    ``device`` with the card's fit (on the CPU, the CPU system's, which is
+    bit-equal); ``gather`` overrides the cost model's merge cost a shard,
+    ``layouts`` are the index's shards laid out on the host."""
+    from repro_torch.serving.system import build_system
+    g = card.system
+    src = g if str(device) != "cpu" else cpu
+    cost = (src.cost if gather is None else dataclasses.replace(
+        src.cost, gather_per_shard_us=gather))
+    return build_system(spec, g.index, corpus=card.corpus,
+                        models=src.models, ltr=src.ltr, cost=cost,
+                        device=device, layouts=layouts)
+
+
+def launched(names=CASCADE_KERNELS):
+    """The launch counts of ``names`` since the last reset."""
+    from repro_torch import kernels
+    return {name: kernels.LAUNCHES[name] for name in names}
+
+
+def lru_state(system):
+    """A cache's counters, each level's MRU order, bytes and stats."""
+    c = system.cache
+    return (c.stats(), [None if lru is None else lru.keys_mru()
+                        for lru in (c.l1, c.l2)])
+
+
+def cache_phase(dev, card, cpu):
+    """The result cache on the card, on the cli phase's index, query log
+    and fit (module docstring, step 12): hit parity, an L2 serve, the peek,
+    inert specs, the online loop card = CPU, the BENCH_cache flow and
+    ``hybrid_fusion`` with the cache.  Every system of the index is built
+    from one host layout of its shard."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.cascade_presets import get_preset
+    from repro_torch.configs.two_tower_retrieval import REDUCED
+    from repro_torch.index.postings import shard_layouts
+    from repro_torch.models.recsys import TwoTower
+    from repro_torch.serving.online import estimate_capacity, fresh_probe
+    from repro_torch.serving.spec import CacheSpec, TrafficSpec
+    from repro_torch.serving.system import build_system
+    t0 = time.perf_counter()
+    ql, fitted = card.ql, card.fitted
+
+    def at_fit(name):
+        spec = get_preset(name)
+        return dataclasses.replace(spec, routing=dataclasses.replace(
+            spec.routing, t_k=fitted.routing.t_k,
+            t_time=fitted.routing.t_time))
+
+    cached = at_fit("cached")
+    layouts = shard_layouts(card.system.index, 1, cached.index.tile_d)
+    sub = slice(0, CACHE_CROSS)
+    terms, mask, topics = ql.terms[sub], ql.mask[sub], ql.topic[sub]
+    n = len(terms)
+
+    # (a) hit parity: cold cache-on = cache-off, warm = L1 hits
+    off = cli_build(card, cpu, dev, fitted, layouts=layouts)
+    wc_off = off.worst_case_us()
+    r_off = off.serve(terms, mask, topics)
+    on = cli_build(card, cpu, dev, cached, layouts=layouts)
+    hit = on.cost.cache_hit_us
+    kernels.reset_launches()
+    cold = on.serve(terms, mask, topics)
+    cold_launches = launched()
+    kernels.reset_launches()
+    warm = on.serve(terms, mask, topics)
+    torch.cuda.synchronize()
+    warm_launches = launched()
+    check(np.array_equal(cold.topk, r_off.topk)
+          and np.array_equal(cold.final, r_off.final),
+          "cache: cold cache-on topk/final differ from cache-off")
+    sl_on, sl_off = cold.stage_latency, r_off.stage_latency
+    check(np.array_equal(sl_on["stage0"], sl_off["stage0"])
+          and np.array_equal(sl_on["stage1"], sl_off["stage1"] + hit)
+          and np.array_equal(sl_on["stage2"], sl_off["stage2"])
+          and np.array_equal(cold.latency, sl_off["stage0"]
+                             + (sl_off["stage1"] + hit) + sl_off["stage2"]),
+          "cache: a cold row's latency is not cache-off's plus the probe")
+    check(all(v > 0 for v in cold_launches.values()),
+          f"cache: the cold serve launched {cold_launches}")
+    check(on.cache.counters["l1_hits"] == n
+          and np.array_equal(warm.topk, r_off.topk)
+          and np.array_equal(warm.final, r_off.final)
+          and np.array_equal(warm.latency,
+                             np.full(n, on.cost.predict_us) + hit),
+          "cache: the warm serve is not all L1 hits equal to cache-off")
+    check(all(v == 0 for v in warm_launches.values()),
+          f"cache: the warm serve launched {warm_launches}")
+    check(on.worst_case_us() == wc_off + hit,
+          "cache: the probe is not charged into the worst case")
+    log(f"cache (a): {n} queries, cold = cache-off (topk, final; latency "
+        f"the probe more, {hit}), launches {cold_launches}; warm: {n} L1 "
+        f"hits, bit-identical, each {warm.latency[0]!r}, launches "
+        f"{warm_launches}; budget trims cache-off "
+        f"{r_off.stats['budget']['stage2_trimmed']}")
+
+    # (b) an L2 serve below k_serve, against the cache-off recompute
+    cap = np.full(n, on.k_serve // 2, np.int64)
+    kernels.reset_launches()
+    l2 = on.serve(terms, mask, topics, stage2_cap=cap)
+    torch.cuda.synchronize()
+    l2_launches = launched()
+    recompute = cli_build(card, cpu, dev, fitted, layouts=layouts).serve(
+        terms, mask, topics, stage2_cap=cap)
+    b = recompute.stats["budget"]
+    check(on.cache.counters["l2_hits"] == n
+          and np.array_equal(l2.topk, r_off.topk)
+          and b["stage2_trimmed"] == 0 and b["stage2_skipped"] == 0
+          and np.array_equal(l2.final, recompute.final),
+          "cache: L2 hits differ from the cache-off recompute at the cap")
+    check(l2_launches["impact_accumulate_batched"] == 0
+          and l2_launches["blockmax_score_batched"] == 0
+          and l2_launches["qd_feature_gather_lanes"] > 0,
+          f"cache: the L2 serve launched {l2_launches}")
+    log(f"cache (b): stage2_cap {int(cap[0])}: {n} L2 hits, final = the "
+        f"cache-off recompute, launches {l2_launches}")
+
+    # (c) the peek changes nothing
+    before = (lru_state(on), dict(on.sched.stats), on.pool.stats())
+    peek = on.cache_peek(terms, mask, topics)
+    check(peek.all() and (lru_state(on), dict(on.sched.stats),
+                          on.pool.stats()) == before,
+          "cache: cache_peek changed the cache, the scheduler or the pool")
+
+    # (d) inert specs
+    for label, inert in (("disabled", CacheSpec()),
+                         ("zero capacity", CacheSpec(enabled=True,
+                                                     l1_entries=0,
+                                                     l2_entries=0))):
+        sys_i = cli_build(card, cpu, dev,
+                          dataclasses.replace(cached, cache=inert),
+                          layouts=layouts)
+        r = sys_i.serve(terms, mask, topics)
+        check(sys_i.cache is None, f"cache: a {label} spec built a cache")
+        same_batch(f"cache inert ({label})", r, r_off)
+    log("cache (c, d): the peek changed nothing (all hits); disabled and "
+        "zero-capacity specs build no cache and equal cache-off")
+
+    # (e) serve_online, Zipf skew 1.2, card = CPU
+    cap_on = estimate_capacity(fresh_probe(off), ql.terms, ql.mask,
+                               ql.topic)
+    traffic = TrafficSpec(arrival="poisson", qps=ONLINE_LOAD * cap_on,
+                          seed=ONLINE_SEED, skew=CACHE_SKEW)
+    rows = slice(0, CACHE_ONLINE)
+    pair = [cli_build(card, cpu, d, cached, layouts=layouts)
+            for d in (dev, "cpu")]
+    kernels.reset_launches()
+    a, wall = timed_online(pair[0], ql.terms[rows], ql.mask[rows],
+                           ql.topic[rows], traffic)
+    online_line(f"cache online (skew {CACHE_SKEW})", a, wall, launched())
+    b, wall_cpu = timed_online(pair[1], ql.terms[rows], ql.mask[rows],
+                               ql.topic[rows], traffic)
+    same_online("cache online card vs CPU", a, b)
+    check(lru_state(pair[0]) == lru_state(pair[1]),
+          "cache online: the caches differ on the card and the CPU")
+    c = a.stats["cache"]
+    check(c["front_door_hits"] > 0 and a.stats["over_budget"] == 0,
+          f"cache online: front-door hits {c['front_door_hits']}, over "
+          f"budget {a.stats['over_budget']}")
+    log(f"cache (e): card = CPU (CPU {wall_cpu:.2f} s); hit ratio "
+        f"{c['hit_ratio']:.3f}, front door {c['front_door_hits']}, L2 "
+        f"{c['l2_hits']}, EWMA {c['hit_ewma']:.3f}")
+
+    # (f) the BENCH_cache flow at a reduced size
+    t = time.perf_counter()
+    flow = cache_flow(dev, **CACHE_FLOW)
+    for gate, ok in flow["gates"].items():
+        check(ok, f"cache flow: gate {gate} fails")
+    want = json.loads(CACHE_ARTIFACT.read_text())
+    log(f"cache (f): BENCH_cache flow {CACHE_FLOW} in "
+        f"{time.perf_counter() - t:.2f} s: gates {flow['gates']}; certified "
+        f"QPS {flow['certified_qps']} (results/BENCH_cache.json, "
+        f"q_batch {want['config']['q_batch']}: {want['certified_qps']}); "
+        f"capacity off {flow['capacity_off_qps']!r} (the file's "
+        f"{want['capacity_off_qps']!r}); hit ratio at skew "
+        f"{max(CACHE_FLOW['skews'])} {flow['hit_ratio_at_hot_skew']!r} (the "
+        f"file's {want['hit_ratio_at_hot_skew']!r})")
+
+    # (g) hybrid_fusion with the cache: L1 replay of the dense rows
+    spec_h = dataclasses.replace(at_fit("hybrid_fusion"),
+                                 cache=CacheSpec(enabled=True))
+    tower = TwoTower.init(REDUCED, spec_h.dense.seed, device="cpu")
+    g = card.system
+    sys_h = build_system(spec_h, g.index, corpus=card.corpus,
+                         models=g.models, ltr=g.ltr, cost=g.cost,
+                         tower=tower, device=dev, layouts=layouts)
+    kernels.reset_launches()
+    cold = sys_h.serve(terms, mask, topics)
+    cold_launches = launched(CASCADE_KERNELS + ("dense_topk_tiles",))
+    kernels.reset_launches()
+    warm = sys_h.serve(terms, mask, topics)
+    torch.cuda.synchronize()
+    warm_launches = launched(CASCADE_KERNELS + ("dense_topk_tiles",))
+    check(cold_launches["dense_topk_tiles"] > 0
+          and sys_h.cache.counters["l1_hits"] == n
+          and all(v == 0 for v in warm_launches.values()),
+          f"cache hybrid_fusion: launches cold {cold_launches}, warm "
+          f"{warm_launches}, L1 hits {sys_h.cache.counters['l1_hits']}")
+    check(np.array_equal(cold.topk, warm.topk)
+          and np.array_equal(cold.final, warm.final)
+          and np.array_equal(cold.dense["modality"], warm.dense["modality"]),
+          "cache hybrid_fusion: the L1 replay differs from the cold serve")
+    log(f"cache (g): hybrid_fusion {cold.stats['dense']}: L1 replay equal "
+        f"to the cold serve; launches cold {cold_launches}, warm "
+        f"{warm_launches}; phase {time.perf_counter() - t0:.1f} s")
+
+
+def faults_phase(dev, card, cpu):
+    """Fault injection and failover on the card, on the cli phase's index,
+    query log and fit (module docstring, step 13): the five named schedules
+    online, card = CPU under two of them, the empty schedule, and the
+    cache's fault epochs."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.cascade_presets import get_preset
+    from repro_torch.index.postings import shard_layouts
+    from repro_torch.serving.faults import (SCENARIOS, FaultInjector,
+                                            fault_scenario)
+    from repro_torch.serving.online import SHED, estimate_capacity
+    from repro_torch.serving.spec import CacheSpec, FaultSpec, TrafficSpec
+    t0 = time.perf_counter()
+    ql, fitted = card.ql, card.fitted
+    preset = get_preset("fault_tolerant")
+    spec = dataclasses.replace(preset, routing=dataclasses.replace(
+        preset.routing, t_k=fitted.routing.t_k,
+        t_time=fitted.routing.t_time))
+    ns, replicas = spec.deploy.n_shards, spec.deploy.replicas
+    layouts = shard_layouts(card.system.index, ns, spec.index.tile_d)
+
+    def build(device, fault=None, **routing_kw):
+        spec_ = dataclasses.replace(spec, routing=dataclasses.replace(
+            spec.routing, **routing_kw))
+        if fault is not None:
+            spec_ = dataclasses.replace(spec_, fault=fault)
+        return cli_build(card, cpu, device, spec_.validate(),
+                         FAULT_GATHER_US, layouts)
+
+    rows = slice(0, FAULT_QUERIES)
+    terms, mask, topics = ql.terms[rows], ql.mask[rows], ql.topic[rows]
+    capacity = estimate_capacity(build(dev), terms, mask, topics)
+    qps = ONLINE_LOAD * capacity
+    horizon = 1000.0 * FAULT_QUERIES / qps
+    traffic = TrafficSpec(arrival="poisson", qps=qps, seed=ONLINE_SEED)
+    log(f"faults: fault_tolerant {ns} x {replicas} on the "
+        f"{card.system.index.n_docs}-doc index, gather {FAULT_GATHER_US}; "
+        f"capacity {capacity!r}, trace {FAULT_QUERIES} queries over "
+        f"{horizon:.3f} units")
+
+    # (a) each named schedule online on the card
+    runs = {}
+    for name in SCENARIOS:
+        fspec = fault_scenario(name, n_partitions=ns, replicas=replicas,
+                               horizon=horizon, seed=ONLINE_SEED)
+        system = build(dev, fspec)
+        kernels.reset_launches()
+        on, wall = timed_online(system, terms, mask, topics, traffic)
+        launches = launched()
+        runs[name] = (fspec, system, on)
+        ok, worst = coverage_floor_ok(on, FaultInjector(fspec, ns),
+                                      replicas, ns)
+        f = system.stats().get("faults", {})
+        label = f"faults {name}"
+        online_line(label, on, wall, launches)
+        log(f"{label}: counters {f}, coverage {on.stats.get('coverage')}, "
+            f"floor shortfall {worst!r}, draws {system.faults.draws}")
+        check(on.stats["over_budget"] == 0, f"{label}: over budget")
+        check(ok, f"{label}: coverage below the surviving fraction")
+        check(all(v > 0 for v in launches.values()),
+              f"{label}: launches {launches}")
+        implied = {"crash_one": ("retries",),
+                   "rolling_restart": ("retries", "probes"),
+                   "timeout_storm": ("transient", "retries"),
+                   "partition_outage": ("lost_partitions",)}.get(name, ())
+        for key in implied:
+            check(f.get(key, 0) > 0, f"{label}: no {key}")
+    check(min(runs["partition_outage"][2].coverage[
+        runs["partition_outage"][2].mode != SHED]) < 1.0,
+          "faults partition_outage: no query degraded")
+
+    # (b) card = CPU under the storm and the outage
+    t = time.perf_counter()
+    for name in ("timeout_storm", "partition_outage"):
+        fspec, system, a = runs[name]
+        host = build("cpu", fspec)
+        b, _ = timed_online(host, terms, mask, topics, traffic)
+        same_online(f"faults {name} card vs CPU", a, b)
+        sa, sb = system.stats(), host.stats()
+        sa.pop("device"), sb.pop("device")
+        check(sa == sb and system.faults.draws == host.faults.draws,
+              f"faults {name}: stats() or draws differ on the card and the "
+              "CPU")
+    log(f"faults (b): timeout_storm and partition_outage card = CPU (event "
+        f"logs, arrays, stats, stats(), draws "
+        f"{runs['timeout_storm'][1].faults.draws}); CPU "
+        f"{time.perf_counter() - t:.2f} s")
+
+    # (c) the empty schedule
+    again = build(dev, FaultSpec())
+    e, _ = timed_online(again, terms, mask, topics, traffic)
+    same_online("faults empty schedule replay", runs["none"][2], e)
+    x = build(dev).serve(terms, mask, topics)
+    y = build(dev, failover_timeout=0.0, max_retries=0).serve(terms, mask,
+                                                              topics)
+    same_batch("faults armed vs disarmed", x, y)
+    check(x.coverage is None and again.faults.draws == 0,
+          "faults: the empty schedule took the faulted path")
+
+    # (d) the cache's fault epochs
+    q = FAULT_EPOCH_QUERIES
+    # routing frozen, as the cached preset freezes it: adaptation would
+    # change the routes, and so the keys, between the serves
+    sys_c = dataclasses.replace(
+        spec, cache=CacheSpec(enabled=True),
+        fault=FaultSpec(outages=((0, 0.0, 50.0),)),
+        routing=dataclasses.replace(spec.routing, adapt_every=0))
+    sys_c = cli_build(card, cpu, dev, sys_c, FAULT_GATHER_US, layouts)
+    tq, mq, pq = ql.terms[:q], ql.mask[:q], ql.topic[:q]
+    ctr = sys_c.cache.counters
+    r_h = sys_c.serve(tq, mq, pq, now=60.0)
+    fills = sys_c.cache.l1.stats["fills"]
+    r_f = sys_c.serve(tq, mq, pq, now=10.0)
+    check(fills == q and (r_f.coverage < 1.0).all()
+          and ctr["l1_hits"] == 0
+          and sys_c.cache.l1.stats["epoch_misses"] == q
+          and ctr["skipped_partial"] == q,
+          f"faults epoch: inside the outage {ctr}")
+    sys_c.serve(tq, mq, pq, now=10.0)
+    r_h2 = sys_c.serve(tq, mq, pq, now=70.0)
+    check(ctr["l1_hits"] == 0 and ctr["skipped_partial"] == 2 * q
+          and np.array_equal(r_h2.topk, r_h.topk),
+          f"faults epoch: an outage-window result hit after healing {ctr}")
+    r_h3 = sys_c.serve(tq, mq, pq, now=80.0)
+    torch.cuda.synchronize()
+    check(ctr["l1_hits"] == q and np.array_equal(r_h3.topk, r_h.topk),
+          f"faults epoch: the healed epoch does not hit {ctr}")
+    log(f"faults (c, d): the empty schedule replays the fault-free run and "
+        f"armed = disarmed offline; the cache's epochs: {ctr}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2922,6 +3689,7 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     from repro_torch.index.builder import build_index
     from repro_torch.index.corpus import (CorpusParams, build_corpus,
                                           build_queries)
+    from repro_torch.index.postings import shard_layouts
     from repro_torch.models.recsys import TwoTower
     from repro_torch.serving.online import fresh_probe
     from repro_torch.serving.system import build_system
@@ -2964,11 +3732,17 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
         raise built["error"]
     log(f"kernels built in {built['s']:.1f} s, beside the host build")
     ql = build_queries(corpus, n_batches * BATCH, stop_k=spec.index.stop_k)
+    # the shard's host layout, built once: the card and CPU systems of the
+    # fit and of hybrid_fusion each copy it to their device
+    t = time.perf_counter()
+    layouts = shard_layouts(index, spec.deploy.n_shards, spec.index.tile_d)
+    log(f"host layout of the shard: {time.perf_counter() - t:.1f} s, shared "
+        "by the four systems built from it")
     lap("build")
 
     # fit: the card's and the CPU's systems, each fitted on its own device
-    gpu, cpu, fit_launches, fit_calls, fit_ql = fit_phase(spec, index, corpus,
-                                                          dev, profile)
+    gpu, cpu, fit_launches, fit_calls, fit_ql = fit_phase(
+        spec, index, corpus, dev, layouts, profile)
     spec = gpu.cascade_spec
     # the card system as fitted, kept for the online phase (its shard is
     # shared, not copied)
@@ -3011,7 +3785,8 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
         spec_h.routing, t_k=spec.routing.t_k, t_time=spec.routing.t_time))
     tower = TwoTower.init(REDUCED, spec_h.dense.seed, device="cpu")
     gpu_h = build_system(spec_h, index, corpus=corpus, models=gpu.models,
-                         ltr=gpu.ltr, tower=tower, device=dev)
+                         ltr=gpu.ltr, tower=tower, device=dev,
+                         layouts=layouts)
     calib = build_queries(corpus, 256, stop_k=spec_h.index.stop_k,
                           seed=SEED % 10_000)
     spec_h = calibrate_thetas(gpu_h, calib)
@@ -3022,7 +3797,8 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
         f"d={gpu_h.dense.d}, {gpu_h.dense.n_tiles(0)} tiles of "
         f"{gpu_h.dense.tile_d}")
     cpu_h = build_system(spec_h, index, corpus=corpus, models=cpu_models,
-                         ltr=cpu_ltr, tower=tower, device="cpu")
+                         ltr=cpu_ltr, tower=tower, device="cpu",
+                         layouts=layouts)
     rows_h = cross_check_rows(gpu_h, ql)
     with Recorder() as rec_h:
         a = gpu_h.serve(ql.terms[rows_h], ql.mask[rows_h], ql.topic[rows_h])
@@ -3032,7 +3808,7 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     log(f"hybrid_fusion cross-check: topk, final, latency, modality, "
         f"theta_skip and fallback equal on the card and CPU "
         f"({a.stats['dense']})")
-    del cpu_h
+    del cpu_h, layouts
     recorded["dense_topk_tiles"] = rec_h.calls["dense_topk_tiles"]
 
     lap("cross-checks")
@@ -3081,8 +3857,15 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
 
     # online serving on the fit's shard and on the cli phase's index
     online_phase(dev, fitted_shard, fit_ql, served, cli_cpu)
-    del served, cli_cpu, fit_ql, fitted_shard
+    del fit_ql, fitted_shard
     lap("online")
+
+    # the result cache and fault injection on the cli phase's index
+    cache_phase(dev, served, cli_cpu)
+    lap("cache")
+    faults_phase(dev, served, cli_cpu)
+    del served, cli_cpu
+    lap("faults")
 
     # the LM serving path, with the retrieval systems freed
     torch.cuda.empty_cache()

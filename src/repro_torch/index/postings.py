@@ -17,6 +17,13 @@ mirrors (the layout of ``repro.index.postings``, as torch tensors):
 
 Integer fields stay int32 as in the reference; callers cast to int64 where
 torch indexes with them.
+
+A shard is built in two steps: ``shard_layout`` lays it out on the host
+with NumPy (the costly step: seconds per million postings), and
+``shard_to_device`` copies that layout to a device.  ``shard_from_index``
+is the two in one; a caller that builds several systems of one index
+(one on the card, one on the CPU) lays it out once (``shard_layouts``) and
+hands the layouts to each build.
 """
 
 from __future__ import annotations
@@ -89,6 +96,17 @@ def shard_ranges(n_docs: int, n_shards: int) -> list[tuple[int, int]]:
     return list(zip(bounds[:-1], bounds[1:]))
 
 
+class ShardLayout(NamedTuple):
+    """One shard laid out on the host: ``arrays`` holds, field for field of
+    :class:`IndexShard`, the NumPy array (int32 or float32, contiguous)
+    that ``shard_to_device`` copies; the shard covers docs [doc_lo,
+    doc_hi) of its index at ``spec.tile_d``."""
+    arrays: IndexShard
+    spec: IndexShardSpec
+    doc_lo: int
+    doc_hi: int
+
+
 def shard_from_index(index: InvertedIndex, doc_lo: int = 0,
                      doc_hi: int | None = None,
                      tile_d: int = 128, *,
@@ -96,11 +114,38 @@ def shard_from_index(index: InvertedIndex, doc_lo: int = 0,
                      ) -> tuple[IndexShard, IndexShardSpec]:
     """Materialize the device structures for docs in [doc_lo, doc_hi).
 
-    The layout is built on the host with NumPy and copied once to
-    ``device`` (the card unless the caller asks for the CPU).  Capacities
-    (postings, lanes per tile, per-term gather caps) are the data's own.
+    The layout is built on the host with NumPy (``shard_layout``) and
+    copied once to ``device`` (the card unless the caller asks for the
+    CPU).  Capacities (postings, lanes per tile, per-term gather caps) are
+    the data's own.
     """
     dev = resolve_device(device)
+    return shard_to_device(shard_layout(index, doc_lo, doc_hi, tile_d), dev)
+
+
+def shard_layouts(index: InvertedIndex, n_shards: int,
+                  tile_d: int = 128) -> list[ShardLayout]:
+    """The host layouts of the ``n_shards`` doc-range shards of ``index``
+    (``shard_ranges``), in ascending doc order."""
+    return [shard_layout(index, lo, hi, tile_d)
+            for lo, hi in shard_ranges(index.n_docs, n_shards)]
+
+
+def shard_to_device(layout: ShardLayout, device: str | torch.device | None
+                    = None) -> tuple[IndexShard, IndexShardSpec]:
+    """Copy a host layout to ``device`` (the card unless the caller asks
+    for the CPU, where the tensors share the layout's memory)."""
+    dev = resolve_device(device)
+    shard = IndexShard._make(torch.from_numpy(a).to(dev)
+                             for a in layout.arrays)
+    return shard, layout.spec
+
+
+def shard_layout(index: InvertedIndex, doc_lo: int = 0,
+                 doc_hi: int | None = None,
+                 tile_d: int = 128) -> ShardLayout:
+    """Lay out the shard of docs [doc_lo, doc_hi) on the host: every array
+    of :class:`IndexShard` as NumPy, and the shard's spec."""
     doc_hi = index.n_docs if doc_hi is None else doc_hi
     n_local = doc_hi - doc_lo
     v = index.vocab
@@ -161,20 +206,19 @@ def shard_from_index(index: InvertedIndex, doc_lo: int = 0,
         quant_scale=index.quant_scale,
         tile_d=tile_d, tile_cap=tcap, n_tiles=n_tiles)
 
-    def dev_i32(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    def i32(a):
+        return np.ascontiguousarray(a, np.int32)
 
-    def dev_f32(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    def f32(a):
+        return np.ascontiguousarray(a, np.float32)
 
-    shard = IndexShard(
-        df=dev_i32(df), offsets=dev_i32(offsets),
-        docs_imp=dev_i32(docs_imp), imp=dev_i32(imp),
-        level_cum=dev_i32(level_cum),
-        docs=dev_i32(docs), score=dev_f32(score),
-        bm_offsets=dev_i32(bm_offsets), bm_block_id=dev_i32(b_id),
-        bm_block_max=dev_f32(b_max), bm_block_cnt=dev_i32(b_cnt),
-        tile_docs=dev_i32(tile_docs), tile_terms=dev_i32(tile_terms),
-        tile_scores=dev_f32(tile_scores), tile_imps=dev_i32(tile_imps),
+    arrays = IndexShard(
+        df=i32(df), offsets=i32(offsets),
+        docs_imp=i32(docs_imp), imp=i32(imp), level_cum=i32(level_cum),
+        docs=i32(docs), score=f32(score),
+        bm_offsets=i32(bm_offsets), bm_block_id=i32(b_id),
+        bm_block_max=f32(b_max), bm_block_cnt=i32(b_cnt),
+        tile_docs=i32(tile_docs), tile_terms=i32(tile_terms),
+        tile_scores=f32(tile_scores), tile_imps=i32(tile_imps),
     )
-    return shard, spec
+    return ShardLayout(arrays, spec, doc_lo, doc_hi)

@@ -20,11 +20,14 @@ resolved spec, both before anything is built.  ``--online`` serves the
 trace under load instead (``SearchSystem.serve_online``: seeded arrivals,
 micro-batching, admission control), at ``--qps`` or at ``--load`` times
 the capacity ``estimate_capacity`` measures on a ``fresh_probe`` of the
-fitted system, and prints the reference's online lines.  Flags that need a
-node the port does not have yet (the result cache, fault scenarios, live
-ingest, telemetry) raise ``NotImplementedError`` naming its ROADMAP item,
-when set to anything but their defaults; ``--spec-json`` still writes the
-spec they describe, as the reference does.
+fitted system, and prints the reference's online lines.  ``--cache``
+(``--cache-entries``, ``--cache-bytes``) puts the two-level result cache
+in front of the cascade, and ``--fault-scenario`` / ``--fault-json`` serve
+under a fault schedule; both print the reference's cache and fault lines.
+Flags that need a node the port does not have yet (live ingest,
+telemetry) raise ``NotImplementedError`` naming its ROADMAP item, when set
+to anything but their defaults; ``--spec-json`` still writes the spec they
+describe, as the reference does.
 
 ``run(argv)`` does the work and returns a :class:`Served`; ``main`` prints
 its result.  Tests and ``chip_smoke.py`` call ``run`` in-process.
@@ -46,6 +49,7 @@ from repro_torch.index.corpus import (Corpus, CorpusParams, QueryLog,
                                       build_corpus, build_queries)
 from repro_torch.isn.backend import resolve_device
 from repro_torch.launch.dryrun_cascade import dryrun, render
+from repro_torch.serving.faults import fault_scenario
 from repro_torch.serving.online import (OnlineResult, estimate_capacity,
                                         fresh_probe)
 from repro_torch.serving.spec import CascadeSpec, FaultSpec, TrafficSpec
@@ -55,7 +59,6 @@ from repro_torch.serving.system import (PipelineResult, SearchSystem,
 # flags whose nodes are not ported, by the ROADMAP item that ports them;
 # each raises when set to anything but its default
 UNPORTED = {
-    "Result cache": ("cache", "cache_entries", "cache_bytes"),
     "Live ingest": ("ingest", "feed_qps", "delta_docs", "delta_postings"),
     "Telemetry": ("metrics_json", "metrics_prom", "trace_slowest"),
 }
@@ -131,11 +134,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-admission", action="store_true",
                     help="disable admission control (baseline mode)")
     ap.add_argument("--cache", action="store_true",
-                    help="the result cache: not ported (raises)")
+                    help="put the two-level result cache in front of the "
+                         "cascade (L1 exact results + L2 Stage-1 "
+                         "candidates; repro_torch.serving.cache)")
     ap.add_argument("--cache-entries", type=int, default=None,
-                    help="cache entry cap (not ported)")
+                    help="entry cap for each cache level (implies --cache)")
     ap.add_argument("--cache-bytes", type=int, default=None,
-                    help="cache byte cap (not ported)")
+                    help="byte cap for each cache level (implies --cache)")
     ap.add_argument("--dense", action="store_true",
                     help="enable the dense Stage-1 modality: Stage-0 "
                          "dispatches each query lexical / dense / "
@@ -166,17 +171,23 @@ def _parser() -> argparse.ArgumentParser:
                          "for --arrival trace")
     ap.add_argument("--traffic-seed", type=int, default=0)
     ap.add_argument("--fault-scenario", default=None,
-                    help="named fault schedule: not ported (raises)")
+                    help="inject a named deterministic fault schedule: "
+                         "none | crash_one | rolling_restart | stragglers |"
+                         " timeout_storm | partition_outage "
+                         "(repro_torch.serving.faults)")
     ap.add_argument("--fault-json", default=None,
-                    help="a FaultSpec from a JSON file (overrides "
-                         "--fault-scenario); the system raises on an "
-                         "active schedule")
+                    help="inject a FaultSpec from a JSON file (overrides "
+                         "--fault-scenario)")
     ap.add_argument("--failover-timeout", type=float, default=None,
-                    help="scatter-gather shard timeout (cost units)")
+                    help="scatter-gather shard timeout (cost units); "
+                         "required (directly or via the preset) when the "
+                         "fault schedule can kill requests")
     ap.add_argument("--max-retries", type=int, default=None,
-                    help="bounded failover re-issues per (query, shard)")
+                    help="bounded failover re-issues per (query, shard); "
+                         "charged into the worst-case bound")
     ap.add_argument("--fault-horizon", type=float, default=10_000.0,
-                    help="horizon of a named fault scenario (not ported)")
+                    help="trace horizon (cost units) named scenarios are "
+                         "sized against")
     ap.add_argument("--metrics-json", default=None,
                     help="telemetry snapshot: not ported (raises)")
     ap.add_argument("--metrics-prom", default=None,
@@ -208,8 +219,10 @@ def _resolve_spec(args) -> CascadeSpec:
         with open(args.fault_json) as f:
             fault = FaultSpec(**json.load(f))
     elif args.fault_scenario:
-        raise _unported("--fault-scenario (the named schedules of "
-                        "serving.faults)", "Fault injection and failover")
+        fault = fault_scenario(args.fault_scenario, n_partitions=args.shards,
+                               replicas=args.replicas,
+                               horizon=args.fault_horizon,
+                               seed=args.traffic_seed)
     cache = spec.cache
     if (args.cache or args.cache_entries is not None
             or args.cache_bytes is not None):
@@ -368,7 +381,7 @@ def run(argv=None, say=print) -> Served:
 
 def report_online(s: dict) -> list[str]:
     """The reference's ``[serve]`` summary lines of an online run's stats
-    (the cache, ingest and faults lines wait for their items)."""
+    (the ingest line waits for its item)."""
     line = (f"[serve] served {s['served']}/{s['n_queries']} "
             f"(shed {s['shed']}, {s['shed_pct']:.2f}%) in "
             f"{s['batches']} batches")
@@ -383,6 +396,14 @@ def report_online(s: dict) -> list[str]:
         for name, sp in s["stages"].items():
             lines.append(f"[serve] {name:7s} ms: p50={sp['p50']:.2f} "
                          f"p99={sp['p99']:.2f} max={sp['max']:.2f}")
+    if "cache" in s:
+        c = s["cache"]
+        lines.append(f"[serve] cache: hit_ratio={c['hit_ratio']:.3f} "
+                     f"(l1={c['l1_hits']} l2={c['l2_hits']} "
+                     f"miss={c['full_misses']}), front-door "
+                     f"hits={c['front_door_hits']}"
+                     + (f", ewma={c['hit_ewma']:.3f}" if "hit_ewma" in c
+                        else ""))
     if "dense" in s:
         d = s["dense"]
         lines.append(f"[serve] dense: lex={d['lexical']} "
@@ -393,6 +414,12 @@ def report_online(s: dict) -> list[str]:
         c = s["coverage"]
         lines.append(f"[serve] coverage: min={c['min']:.2f} "
                      f"mean={c['mean']:.3f} degraded={c['degraded']}")
+    if "faults" in s:
+        f = s["faults"]
+        lines.append(f"[serve] faults: retries={f['retries']} "
+                     f"lost={f['lost_partitions']} no_route={f['no_route']} "
+                     f"transient={f['transient']} probes={f['probes']} "
+                     f"recovered={f['recovered']}")
     lines.append(f"[serve] over response budget "
                  f"({s['response_budget']:.0f}): {s['over_budget']} "
                  f"({s['over_budget_pct']:.4f}%)")
@@ -415,6 +442,11 @@ def report(out: Served) -> list[str]:
                  f"{b['reserve']['stage1']:.1f}); "
                  f"stage-2 trimmed={b['stage2_trimmed']} "
                  f"skipped={b['stage2_skipped']}")
+    if "cache" in s:
+        c = s["cache"]
+        lines.append(f"[serve] cache: hit_ratio={c['hit_ratio']:.3f} "
+                     f"(l1={c['l1_hits']} l2={c['l2_hits']} "
+                     f"miss={c['full_misses']})")
     if "dense" in s:
         d = s["dense"]
         lines.append(f"[serve] dense: lex={d['lexical']} "
@@ -429,6 +461,13 @@ def report(out: Served) -> list[str]:
                  f"max={s['max']:.1f}")
     lines.append(f"[serve] over budget ({system.budget:.0f}): "
                  f"{s['over_budget']} ({s['over_budget_pct']:.4f}%)")
+    if "coverage" in s:
+        c = s["coverage"]
+        f = s["faults"]
+        lines.append(f"[serve] faults: coverage min={c['min']:.2f} "
+                     f"mean={c['mean']:.3f} degraded={c['degraded']}; "
+                     f"retries={f['retries']} lost={f['lost_partitions']} "
+                     f"probes={f['probes']} recovered={f['recovered']}")
     if res.final is not None:
         lines.append(f"[serve] stage-2: mean candidates="
                      f"{res.candidates_used.mean():.1f} "

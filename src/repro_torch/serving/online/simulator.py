@@ -25,12 +25,17 @@ completions land at ``start + dispatch_us + service_i``.  Everything is
 deterministic in ``(TrafficSpec.seed, DeploySpec.seed)``: same spec pair →
 bit-identical event log and percentiles, on the card and on the CPU.
 
+With a result cache attached, each arrival is first peeked at the front
+door: a guaranteed L1 hit is answered there at once (``batch_of`` -2) and
+never takes a batch slot; each dispatch peeks again and admission admits
+proven hits on the cache rung, its hit-ratio EWMA fed from every batch.
+
 The port of ``repro.serving.online.simulator``: the loop, its event-log
 tuples and its sums in the reference's order, so the event log equals the
-reference's tuple for tuple.  The reference's result-cache, live-ingest
-and telemetry branches are not here: a system whose spec turns one of
-those nodes on raises ``NotImplementedError`` naming its ROADMAP item.
-The ``INGEST_EVENT`` / ``MERGE_EVENT`` markers keep their values for the
+reference's tuple for tuple.  The reference's live-ingest and telemetry
+branches are not here: a system whose spec turns one of those nodes on
+raises ``NotImplementedError`` naming its ROADMAP item.  The
+``INGEST_EVENT`` / ``MERGE_EVENT`` markers keep their values for the
 ingest item.
 """
 
@@ -62,7 +67,8 @@ class OnlineResult:
     completion: np.ndarray       # (Q,) completion timestamp (-1 = shed)
     response: np.ndarray         # (Q,) completion - arrival (-1 = shed)
     mode: np.ndarray             # (Q,) FULL|TRIM|STAGE1|PARTIAL|SHED
-    batch_of: np.ndarray         # (Q,) batch id (-1 = shed)
+    batch_of: np.ndarray         # (Q,) batch id (-1 = shed, -2 = answered
+                                 # at the front door by an L1 cache hit)
     topk: np.ndarray             # (Q, k_serve) Stage-1 candidates (-1 = shed)
     final: np.ndarray | None     # (Q, t_final) re-ranked (None: no LTR)
     event_log: list = field(default_factory=list)
@@ -71,7 +77,7 @@ class OnlineResult:
     stats: dict = field(default_factory=dict)
     coverage: np.ndarray | None = None   # (Q,) fraction of partitions that
                                          # answered (-1 = shed; None: the
-                                         # partial path never engaged)
+                                         # fault/partial path never engaged)
 
 
 def simulate(system, terms: np.ndarray, mask: np.ndarray,
@@ -106,9 +112,17 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
     if ns > 1 and system.cost.gather_per_shard_us > 0:
         partial_bounds = [system.sched.cfg.worst_case_us(system.cost, m)
                           for m in range(1, ns + 1)]
+    cache_on = system.cache is not None
     dense_on = system.dense is not None
+    # a guaranteed L1 hit bypasses the cascade: its hard service bound is
+    # just prediction + lookup — the cache rung of the admission ladder
+    hit_bound = (system.cost.predict_us + system.cost.cache_hit_us
+                 if cache_on else None)
     adm = (AdmissionController(online, system.cost, stage1_bound, k_serve,
-                               budget_r, partial_bounds=partial_bounds)
+                               budget_r, partial_bounds=partial_bounds,
+                               cache_bound=hit_bound,
+                               hit_alpha=(system.cache.spec.hit_alpha
+                                          if cache_on else 0.2))
            if online.admission else None)
 
     mode = np.full(q, SHED, np.int64)
@@ -119,7 +133,7 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
     topk = np.full((q, system.k_serve), -1, np.int64)
     final = (np.full((q, system.t_final), -1, np.int64)
              if system.ltr is not None else None)
-    faulted = partial_bounds is not None
+    faulted = system.faults.active or partial_bounds is not None
     coverage = np.full(q, _NOT_SERVED) if faulted else None
     stage_acc: dict = {}
     events: list = []
@@ -141,8 +155,44 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
     pending: list[int] = []
     t_free = 0.0
     i = 0
+    n_front = 0
 
     def admit(qid: int) -> None:
+        nonlocal n_front
+        if cache_on:
+            # front-door lookup at arrival: an exact-result L1 hit is
+            # answered from the broker's memory (prediction + probe) and
+            # never consumes an engine-batch slot.  The peek and the serve
+            # share the clock ``arr[qid]`` (same fault epoch, no fills in
+            # between), so the peek's verdict is binding.
+            t_arr = float(arr[qid])
+            tq = topics[qid:qid + 1] if system.ltr is not None else None
+            hit = system.cache_peek(terms[qid:qid + 1], mask[qid:qid + 1],
+                                    tq, now=t_arr)
+            if bool(hit[0]):
+                res = system.serve(terms[qid:qid + 1], mask[qid:qid + 1],
+                                   tq, now=t_arr)
+                svc = float(res.latency[0])
+                mode[qid] = FULL
+                wait[qid] = 0.0
+                service[qid] = svc
+                completion[qid] = t_arr + svc
+                batch_of[qid] = -2          # -2 = served at the front door
+                topk[qid] = res.topk[0]
+                if final is not None and res.final is not None:
+                    final[qid] = res.final[0]
+                if coverage is not None:
+                    coverage[qid] = 1.0
+                for name, t in res.stage_latency.items():
+                    stage_acc.setdefault(name, []).append(
+                        np.asarray(t, np.float64))
+                count_dense(res.dense, 1)
+                events.append((qid, -2, t_arr, t_arr, 0.0, svc,
+                               float(completion[qid]), FULL))
+                n_front += 1
+                if adm is not None:
+                    adm.observe_hits(1, 1)
+                return
         ok = (adm.at_arrival(float(arr[qid]), t_free, len(pending))
               if adm is not None else True)
         if ok:
@@ -157,8 +207,16 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
         # ingest pauses push it back here; the close already waits for it)
         t_start = max(t_start, t_free)
         waits = t_start - arr[rows]
+        hits = None
+        if cache_on:
+            # dispatch-time peek at the clock serve() will run at — no
+            # recency moves, no RNG, so replay stays deterministic
+            hits = system.cache_peek(
+                terms[rows], mask[rows],
+                topics[rows] if system.ltr is not None else None,
+                now=float(t_start))
         if adm is not None:
-            m, cap, scap = adm.at_dispatch(waits)
+            m, cap, scap = adm.at_dispatch(waits, hits)
         else:
             m = np.full(len(rows), FULL, np.int64)
             cap = None
@@ -183,10 +241,18 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
             sc_k = scap[keep]
             shard_p = np.concatenate(
                 [sc_k, np.full(len(padded) - n_real, sc_k[0], np.int64)])
+        if cache_on:
+            c_pre = (system.cache.counters["l1_hits"],
+                     system.cache.counters["lookups"])
         res = system.serve(terms[padded], mask[padded],
                            topics[padded] if system.ltr is not None
                            else None, stage2_cap=cap_p, shard_cap=shard_p,
                            now=float(t_start))
+        if cache_on and adm is not None:
+            # feed the batch's realized hit ratio into the admission EWMA
+            adm.observe_hits(
+                system.cache.counters["l1_hits"] - c_pre[0],
+                system.cache.counters["lookups"] - c_pre[1])
         bid = len(batch_meta)
         svc = np.asarray(res.latency[:n_real], np.float64)
         occupancy = online.dispatch_us + float(np.max(res.latency))
@@ -253,9 +319,16 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
         "admission": dict(adm.stats) if adm is not None else None,
         "worst_case_bound": float(system.worst_case_us()),
     }
+    if cache_on:
+        stats["cache"] = system.cache.stats()
+        stats["cache"]["front_door_hits"] = n_front
+        if adm is not None:
+            stats["cache"]["hit_ewma"] = float(adm.hit_ewma)
     if dense_on:
         stats["dense"] = dense_acc
     if faulted:
+        if system.faults.active:
+            stats["faults"] = dict(system._fault_counters)
         cov = coverage[served_rows]
         stats["coverage"] = {
             "min": float(cov.min()) if len(cov) else 1.0,
@@ -302,7 +375,9 @@ def fresh_probe(system):
     is that system without the build (``SearchSystem._fresh_copy``): fresh
     serving state over the shards, dense engine and Stage-2 arrays it
     shares with ``system``, which serving only reads, so a probe of a
-    196,608-doc shard costs no host layout pass and no copy to the card."""
+    196,608-doc shard costs no host layout pass and no copy to the card.
+    Like the reference's fresh build, the probe gets an empty cache and a
+    fault injector of its own, whose transient draws start anew."""
     return system._fresh_copy()
 
 

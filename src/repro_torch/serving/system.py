@@ -26,11 +26,15 @@ Scope: the inert-node path plus the dense modality, ``fit`` from the
 label oracle's labels or the reference's pseudo-labels (Stage-0 quantile
 GBRTs, the LTR GBRT, the cost-model regression and the routing
 calibration, fitted on the system's device bit-equal to the reference's),
-and online serving (``serve_online``: ``repro_torch.serving.online``'s
-event loop around ``serve``, whose ``shard_cap`` serves admission's
-partial-coverage rung).  A spec that turns on a node the port does not
-have yet (cache, fault schedule, ingest, telemetry) raises
-``NotImplementedError`` naming its ROADMAP item.
+online serving (``serve_online``: ``repro_torch.serving.online``'s event
+loop around ``serve``, whose ``shard_cap`` serves admission's
+partial-coverage rung), the two-level result cache (``spec.cache``:
+``repro_torch.serving.cache`` in front of the cascade, ``cache_peek``) and
+fault injection with scatter-gather failover (``spec.fault``:
+``repro_torch.serving.faults``, the retry chain of ``_fault_plan``, the
+health probes).  A spec that turns on a node the port does not have yet
+(ingest, telemetry) raises ``NotImplementedError`` naming its ROADMAP
+item.
 Models fitted by the reference can also be converted
 (``repro_torch.convert``); so can the two-tower model of the dense
 modality (``convert.two_tower_params``), or the port draws its own.
@@ -54,7 +58,8 @@ from repro_torch.dense import (M_BOTH, M_DENSE, M_LEX, DenseEngine,
                                build_embeddings, fuse)
 from repro_torch.index.builder import InvertedIndex, build_index
 from repro_torch.index.corpus import Corpus
-from repro_torch.index.postings import shard_from_index, shard_ranges
+from repro_torch.index.postings import (ShardLayout, shard_layouts,
+                                        shard_ranges, shard_to_device)
 from repro_torch.isn.backend import (merge_shard_topk, query_lane_budget,
                                      resolve_backend, resolve_device)
 from repro_torch.isn.daat import daat_serve
@@ -63,6 +68,9 @@ from repro_torch.ltr.cascade import CascadeResult, rerank_batched
 from repro_torch.ltr.ranker import (LTRModel, ltr_training_set, qd_features,
                                    stage2_arrays, train_ltr)
 from repro_torch.models.recsys import TwoTower
+from repro_torch.serving.cache import (HEALTHY_EPOCH, ServingCache, l1_key,
+                                       l2_key, normalize_query, route_sig)
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.latency import (CostModel, budget_attribution,
                                          over_budget, percentiles,
                                          resolve_level_cut, stage2_afford)
@@ -84,10 +92,6 @@ def refuse_unported_nodes(spec: CascadeSpec) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for the first
     node of ``spec`` the port does not have yet."""
     for active, what, item in (
-            (spec.cache.active, "the result cache (CacheSpec)",
-             "Result cache"),
-            (spec.fault.active, "fault schedules (FaultSpec)",
-             "Fault injection and failover"),
             (spec.ingest.active, "live ingest (IngestSpec)", "Live ingest"),
             (spec.telemetry.active, "telemetry (TelemetrySpec)",
              "Telemetry")):
@@ -106,7 +110,7 @@ class PipelineResult:
     stats: dict
     coverage: np.ndarray | None = None   # (Q,) fraction of partitions that
                                          # answered (None: full coverage,
-                                         # no partial path engaged)
+                                         # no fault/partial path engaged)
     dense: dict | None = None        # {"modality", "theta_skip",
                                      #  "fallback"} (Q,) vectors (None:
                                      #  dense modality disabled)
@@ -140,7 +144,8 @@ def build_system(spec: CascadeSpec, corpus_or_index, *, corpus=None,
                  models: dict | None = None, ltr: LTRModel | None = None,
                  cost: CostModel | None = None,
                  tower: TwoTower | None = None,
-                 device: str | torch.device | None = None
+                 device: str | torch.device | None = None,
+                 layouts: list[ShardLayout] | None = None
                  ) -> "SearchSystem":
     """Instantiate the deployment a spec describes on ``device`` (the card
     unless the caller asks for the CPU; raises when no CUDA device is
@@ -155,7 +160,10 @@ def build_system(spec: CascadeSpec, corpus_or_index, *, corpus=None,
     model (``convert.two_tower_params`` carries the reference's across);
     with none given and a two-tower embedding source, the port draws its
     own from ``DenseSpec.seed``, and its embeddings then differ from the
-    reference's.
+    reference's.  ``layouts`` are the index's shards already laid out on
+    the host (``postings.shard_layouts(index, n_shards, tile_d)``), for
+    callers that build several systems of one index: each build then only
+    copies them to its device.
     """
     if isinstance(corpus_or_index, InvertedIndex):
         index = corpus_or_index
@@ -168,7 +176,8 @@ def build_system(spec: CascadeSpec, corpus_or_index, *, corpus=None,
         raise TypeError("build_system needs a Corpus or an InvertedIndex, "
                         f"got {type(corpus_or_index).__name__}")
     return SearchSystem(spec, index, corpus=corpus, models=models, ltr=ltr,
-                        cost=cost, tower=tower, device=device)
+                        cost=cost, tower=tower, device=device,
+                        layouts=layouts)
 
 
 class SearchSystem:
@@ -178,7 +187,8 @@ class SearchSystem:
                  corpus=None, models: dict | None = None,
                  ltr: LTRModel | None = None, cost: CostModel | None = None,
                  tower: TwoTower | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 layouts: list[ShardLayout] | None = None):
         if index.block_size != spec.index.block_size:
             # the built index is ground truth for its own layout; fold it
             # back so spec.to_json() describes the deployed system
@@ -199,7 +209,7 @@ class SearchSystem:
         self._tower = tower
 
         # ---- shard the index (and the dense embeddings) by doc range ----
-        self._attach_index(index)
+        self._attach_index(index, layouts)
 
         self._init_serving_state()
         self.models: dict | None = None
@@ -216,19 +226,28 @@ class SearchSystem:
         return len(self.shards)
 
     def _init_serving_state(self) -> None:
-        """The state serving moves: the replica pool, the serving clock,
-        the fault counters and the routing feedback."""
-        deploy = self.cascade_spec.deploy
+        """The state serving moves: the replica pool, the fault injector
+        (its transient-draw stream) and the serving clock, the result
+        cache, the fault counters and the routing feedback."""
+        spec = self.cascade_spec
+        deploy = spec.deploy
         self.pool = ReplicaPool(
             PoolConfig(n_partitions=deploy.n_shards,
                        replicas_per_partition=deploy.replicas,
                        jass_fraction=deploy.jass_fraction),
             seed=deploy.seed)
-        # the serving clock: serve() advances it by each batch's occupancy;
-        # the online simulator drives it explicitly (now=dispatch time)
+        # deterministic fault injection (spec.fault; inert by default) and
+        # the serving clock fault windows are evaluated against: serve()
+        # advances it by each batch's occupancy; the online simulator
+        # drives it explicitly (now=dispatch time)
+        self.faults = FaultInjector(spec.fault, deploy.n_shards)
         self._clock = 0.0
-        # the reference's fault counters; with no fault schedule only the
-        # partial-coverage path moves them
+        # the two-level result/candidate cache (spec.cache; inert by
+        # default): None keeps every serve path bit-identical to the
+        # uncached system
+        self.cache = ServingCache(spec.cache) if spec.cache.active else None
+        self._debug_shard_lists = None   # tests: set to [] to capture the
+                                         # per-shard candidate lists
         self._fault_counters = {
             "retries": 0,        # failover re-issues after a shard timeout
             "transient": 0,      # attempts killed by the timeout storm
@@ -261,8 +280,9 @@ class SearchSystem:
     def _fresh_copy(self) -> "SearchSystem":
         """The system ``build_system(self.cascade_spec, self.index,
         corpus=..., models=..., ltr=..., cost=..., tower=..., device=...)``
-        builds, without building it: the serving state (pool, clock,
-        counters, routing feedback) starts anew at the live spec, and the
+        builds, without building it: the serving state (pool, fault
+        injector and its draws, clock, an empty cache, counters, routing
+        feedback) starts anew at the live spec, and the
         structures derived from the index and the models (shards, dense
         engine, Stage-2 arrays, stacked forests), which serving only
         reads, are shared."""
@@ -272,16 +292,24 @@ class SearchSystem:
         new._init_routing()
         return new
 
-    def _attach_index(self, index: InvertedIndex) -> None:
+    def _attach_index(self, index: InvertedIndex,
+                      layouts: list[ShardLayout] | None = None) -> None:
         """Build every index-derived serving structure: doc-range shards on
-        the device, the host-side df/level tables and the dense engine."""
+        the device (from ``layouts``, the host layouts of this index's
+        shards, where given), the host-side df/level tables and the dense
+        engine."""
         spec = self.cascade_spec
         self.index = index
         ranges = shard_ranges(index.n_docs, spec.deploy.n_shards)
         self.doc_lo = [lo for lo, _ in ranges]
-        built = [shard_from_index(index, lo, hi, tile_d=spec.index.tile_d,
-                                  device=self.device)
-                 for lo, hi in ranges]
+        if layouts is None:
+            layouts = shard_layouts(index, spec.deploy.n_shards,
+                                    tile_d=spec.index.tile_d)
+        elif ([(lay.doc_lo, lay.doc_hi, lay.spec.tile_d) for lay in layouts]
+              != [(lo, hi, spec.index.tile_d) for lo, hi in ranges]):
+            raise ValueError("layouts do not match the spec's shards "
+                             f"{ranges} at tile_d={spec.index.tile_d}")
+        built = [shard_to_device(lay, self.device) for lay in layouts]
         self.shards = [s for s, _ in built]
         self.shard_specs = [sp for _, sp in built]
         min_docs = min(sp.n_docs for sp in self.shard_specs)
@@ -294,8 +322,8 @@ class SearchSystem:
         # deterministic JASS cost) are resolved against the full collection,
         # then split per shard
         self._level_cum_host = ([index.level_cum] if len(self.shards) == 1
-                                else [s.level_cum.cpu().numpy()
-                                      for s in self.shards])
+                                else [lay.arrays.level_cum
+                                      for lay in layouts])
         self.term_stats = torch.from_numpy(
             np.ascontiguousarray(index.term_stats, np.float32)).to(self.device)
         self.df = torch.from_numpy(
@@ -541,6 +569,10 @@ class SearchSystem:
     def _merge(self, rows, sc_list, id_list, topk, topk_sc, drop):
         """Merge one route's per-shard lists into ``topk``/``topk_sc`` at
         ``rows``, the ``drop`` slots excluded."""
+        if self._debug_shard_lists is not None:
+            self._debug_shard_lists.append(
+                (rows, [a.cpu().numpy() for a in sc_list],
+                 [a.cpu().numpy() for a in id_list]))
         if len(sc_list) == 1:
             ids, sc = id_list[0], sc_list[0]
         else:
@@ -565,10 +597,11 @@ class SearchSystem:
         engine-time matrix that feeds the replica pool's EWMA estimates.
 
         ``drop`` ((n_shards, Q) bool, optional) marks (shard, query) slots
-        never requested (partial-coverage admission): their candidates are
-        left out of the merge (``-1`` ids where fewer than ``k_serve``
-        survive), so a degraded query's list is exactly the merge over its
-        queried partitions.
+        whose response was lost (fault injection) or never requested
+        (partial-coverage admission): their candidates are left out of the
+        merge (``-1`` ids where fewer than ``k_serve`` survive), so a
+        degraded query's list is exactly the merge over its surviving
+        partitions.
         """
         q = terms.shape[0]
         ns = self.n_shards
@@ -651,22 +684,70 @@ class SearchSystem:
                        for i in routed.hedged_rows}
         return picks, hedge_picks
 
-    def _partial_plan(self, picks):
-        """The reference's ``_fault_plan`` (``repro.serving.system``) under
-        an inert fault schedule: every routed replica serves, so there is
-        no timeout wait (delay 0), no straggler (slowdown 1.0) and no
-        draw; a slot is lost only where its pick is ``None``, which the
-        reference counts as ``no_route`` -- the admission-dropped slots
-        among them, whose picks were released first.  Returns ``(delay,
-        mult, lost)``, each (n_shards, Q)."""
+    def _fault_plan(self, picks, routed, now: float):
+        """Run the scatter-gather failure protocol for one batch against
+        the fault schedule at clock ``now``.
+
+        For every (query, shard) request: an attempt to a crashed/outaged
+        replica — or one killed by a transient-timeout draw — is detected
+        after ``failover_timeout``, reported ``ok=False`` to the pool (so
+        ``fail_after`` can trip), and re-issued to a different healthy
+        replica of the same partition, at most ``max_retries`` times.  When
+        the chain is exhausted the slot is declared lost and the query
+        degrades to partial coverage.  A slot whose pick is ``None`` (no
+        healthy replica, or dropped by admission) is lost at once.
+
+        Mutates ``picks`` in place (final serving replica, or ``None`` for
+        a lost slot) and returns ``(delay, mult, lost)``: per-(shard,
+        query) accumulated timeout wait, straggler slowdown of the serving
+        replica, and the lost mask.  Transient draws are taken per (query,
+        shard, attempt) in this loop's order, the reference's."""
+        cfg = self.sched.cfg
+        timeout, max_retries = cfg.failover_timeout, cfg.max_retries
         ns, q = self.n_shards, len(picks)
+        delay = np.zeros((ns, q))
+        mult = np.ones((ns, q))
         lost = np.zeros((ns, q), bool)
+        ctr = self._fault_counters
+        is_jass = np.zeros(q, bool)
+        is_jass[routed.jass_rows] = True
         for i, reps in enumerate(picks):
+            mirror = JASS if is_jass[i] else BMW
             for s in range(ns):
-                if reps[s] is None:
+                r = reps[s]
+                if r is None:            # no healthy replica to even try
                     lost[s, i] = True
-                    self._fault_counters["no_route"] += 1
-        return np.zeros((ns, q)), np.ones((ns, q)), lost
+                    ctr["no_route"] += 1
+                    continue
+                tried = {id(r)}
+                failures = 0
+                while True:
+                    if not self.faults.is_up(s, r.replica_id, now):
+                        ctr["down_requests"] += 1
+                    elif self.faults.transient(now):
+                        ctr["transient"] += 1
+                    else:                # attempt serves
+                        mult[s, i] = self.faults.slowdown(s, r.replica_id,
+                                                          now)
+                        reps[s] = r
+                        break
+                    # attempt dead: detected at the timeout, charged to the
+                    # query's wait and to the replica's health record
+                    self.pool.complete(r, latency=timeout, ok=False)
+                    delay[s, i] += timeout
+                    failures += 1
+                    nxt = (self.pool.pick_retry(s, mirror, tried)
+                           if failures <= max_retries else None)
+                    if nxt is None:      # retry budget / pool exhausted
+                        lost[s, i] = True
+                        reps[s] = None
+                        ctr["lost_partitions"] += 1
+                        break
+                    ctr["retries"] += 1
+                    nxt.inflight += 1
+                    tried.add(id(nxt))
+                    r = nxt
+        return delay, mult, lost
 
     def _pool_complete(self, terms, mask, routed, picks, hedge_picks,
                        t_shards, cache: dict | None = None):
@@ -714,12 +795,25 @@ class SearchSystem:
         ``shard_cap`` is an optional per-query cap on the number of
         partitions queried (admission's partial-coverage rung: query ``i``
         asks only its first ``shard_cap[i]`` partitions, trading coverage
-        for gather overhead); the result then carries ``coverage`` and its
-        stats the ``faults`` and ``coverage`` sections.  ``now`` pins the
-        serving clock (default: the system's own clock, advanced by each
-        batch's occupancy; the online simulator passes its dispatch time).
+        for gather overhead).  ``now`` pins the serving clock the fault
+        schedule is evaluated against (default: the system's own clock,
+        advanced by each batch's occupancy; the online simulator passes its
+        dispatch time).  With an active fault schedule or a ``shard_cap``
+        the result carries ``coverage`` and its stats the ``faults`` and
+        ``coverage`` sections; with an inert schedule and no ``shard_cap``
+        the path is bit-identical to fault-free serving.
+
+        With an active ``CacheSpec`` every query is first looked up in the
+        two-level serving cache (L1 exact results bypass the cascade, L2
+        candidates skip retrieval and re-run Stage-2) and full-coverage
+        results are filled back; with the cache off (the default) this
+        method IS the direct cascade.
         """
-        return self._serve_direct(terms, mask, topics, stage2_cap=stage2_cap,
+        if self.cache is None:
+            return self._serve_direct(terms, mask, topics,
+                                      stage2_cap=stage2_cap,
+                                      shard_cap=shard_cap, now=now)
+        return self._serve_cached(terms, mask, topics, stage2_cap=stage2_cap,
                                   shard_cap=shard_cap, now=now)
 
     def _serve_direct(self, terms: np.ndarray, mask: np.ndarray,
@@ -727,15 +821,20 @@ class SearchSystem:
                       stage2_cap: np.ndarray | None = None,
                       shard_cap: np.ndarray | None = None,
                       now: float | None = None) -> PipelineResult:
-        """The uncached cascade with no fault schedule (see :meth:`serve`);
-        ``shard_cap`` takes the reference's faulted branch under an inert
-        schedule (``_partial_plan``)."""
+        """The uncached cascade (see :meth:`serve` for the contract)."""
         terms = np.asarray(terms)
         mask = np.asarray(mask)
         q = terms.shape[0]
         ns = self.n_shards
         now = float(self._clock if now is None else now)
-        faulted = shard_cap is not None
+        faulted = self.faults.active or shard_cap is not None
+        if self.faults.active:
+            # drive recovery from the serve loop: probe unhealthy replicas
+            # against the schedule (a cleared window re-admits the replica)
+            probes, rec = self.pool.probe_unhealthy(
+                lambda r: self.faults.is_up(r.partition, r.replica_id, now))
+            self._fault_counters["probes"] += probes
+            self._fault_counters["recovered"] += rec
         pk, pr, pt = self.stage0(terms, mask)
         routed = self.sched.route(pk, pr, pt)
         modality = None
@@ -755,15 +854,17 @@ class SearchSystem:
             # admission-chosen partial coverage: the trailing partitions
             # are never requested -- release their routed picks
             dropped = np.zeros((ns, q), bool)
-            cap = np.clip(np.asarray(shard_cap, np.int64), 1, ns)
-            for i in range(q):
-                for s in range(int(cap[i]), ns):
-                    r = picks[i][s]
-                    if r is not None:
-                        r.inflight = max(r.inflight - 1, 0)
-                        picks[i][s] = None
-                    dropped[s, i] = True
-            delay, mult, lost = self._partial_plan(picks)
+            if shard_cap is not None:
+                cap = np.clip(np.asarray(shard_cap, np.int64), 1, ns)
+                for i in range(q):
+                    for s in range(int(cap[i]), ns):
+                        r = picks[i][s]
+                        if r is not None:
+                            r.inflight = max(r.inflight - 1, 0)
+                            picks[i][s] = None
+                        dropped[s, i] = True
+            # injected faults: timeout detection, bounded failover, loss
+            delay, mult, lost = self._fault_plan(picks, routed, now)
             lost &= ~dropped
             drop = lost | dropped
             coverage = 1.0 - drop.sum(axis=0) / ns
@@ -779,9 +880,10 @@ class SearchSystem:
                   if t_dense_mat is not None else None)
         if faulted:
             # per-shard completion time under the plan: a served slot pays
-            # its retry wait plus its (slowed) engine time, a dropped slot
-            # was never requested; the query waits for its slowest slot and
-            # pays merge fan-out only over the partitions that answered
+            # its retry wait plus its (straggler-slowed) engine time, a lost
+            # slot the full detection chain, a dropped slot was never
+            # requested; the query waits for its slowest slot and pays
+            # merge fan-out only over the partitions that answered
             t_fault = np.where(dropped, 0.0,
                                delay + np.where(lost, 0.0, t_shards * mult))
             n_live = ns - drop.sum(axis=0)
@@ -807,8 +909,9 @@ class SearchSystem:
                                          t * mult[:, rows]))
                 return _gather_fault(tf, rows)
 
-            # the deadline re-issue goes to a fresh replica at nominal JASS
-            # cost
+            # the deadline re-issue goes to a fresh healthy replica, so it
+            # pays nominal JASS cost (the retry wait it could still incur
+            # is charged analytically via SchedulerConfig.retry_us())
             lat01 = self.sched.resolve_times(
                 routed, t_bmw, jass_fault_fn,
                 late_jass_fn=self._jass_time(terms, mask, split_cache))
@@ -908,7 +1011,8 @@ class SearchSystem:
             dense_info = {"modality": modality, "theta_skip": theta_skip,
                           "fallback": fallback}
         stats = self._build_stats(lat, stage_latency, trimmed, skipped,
-                                  faulted, coverage, now, dense_info)
+                                  faulted, coverage, now,
+                                  dense_info=dense_info)
         return PipelineResult(topk=topk, final=final, candidates_used=used,
                               latency=lat, stage_latency=stage_latency,
                               stats=stats, coverage=coverage,
@@ -980,10 +1084,297 @@ class SearchSystem:
                 fallback[fb_rows] = True
         return theta_skip, fallback, fb_extra, t_dense_mat
 
+    # ------------------------------------------------------------------
+    # result/candidate caching
+    # ------------------------------------------------------------------
+
+    def _cache_epoch(self, now: float):
+        """The coverage/fault epoch cache entries are tagged with at clock
+        ``now``: the per-partition reachability vector plus the transient-
+        storm window flag.  Entries only hit inside the epoch they were
+        filled in, so serving across a fault transition re-derives from
+        the live cascade.  With an inert fault spec this is one constant,
+        and no transient draw is ever consumed here.  (The reference folds
+        the live-ingest counter in too; that waits for the ingest item.)"""
+        if not self.faults.active:
+            return HEALTHY_EPOCH
+        reps = self.cascade_spec.deploy.replicas
+        up = tuple(self.faults.partition_up(p, reps, now)
+                   for p in range(self.n_shards))
+        sp = self.faults.spec
+        storm = bool(sp.timeout_p > 0
+                     and sp.timeout_start <= now < sp.timeout_end)
+        return up + (storm,)
+
+    def _pure_route(self, pk, pr, pt):
+        """Route a batch WITHOUT counting it: ``StageZeroScheduler.route``
+        accumulates routing stats, but cache-key derivation must not double
+        count rows the miss sub-batch re-routes for real."""
+        saved = dict(self.sched.stats)
+        routed = self.sched.route(pk, pr, pt)
+        self.sched.stats.clear()
+        self.sched.stats.update(saved)
+        return routed
+
+    def _route_sigs(self, terms, mask, topics):
+        """Stage-0 and the uncounted route of a batch, and each row's
+        normalized query and route signature: (routed, modality, qkeys,
+        route sigs).  The keys are built from the host arrays."""
+        q = terms.shape[0]
+        pk, pr, pt = self.stage0(terms, mask)
+        routed = self._pure_route(pk, pr, pt)
+        # the resolved modality is part of the route: lexical, dense and
+        # fused entries for the same query must never collide (with dense
+        # off the suffix is b"" and keys are byte-identical)
+        modality = self._modality(pt) if self.dense is not None else None
+        is_jass = np.zeros(q, bool)
+        is_jass[routed.jass_rows] = True
+        qkeys, sigs = [], []
+        for i in range(q):
+            qkeys.append(normalize_query(
+                terms[i], mask[i], None if topics is None else topics[i]))
+            sigs.append(route_sig(bool(is_jass[i]), float(routed.rho[i]),
+                                  float(routed.k[i]),
+                                  b"" if modality is None
+                                  else b"|M%d" % modality[i]))
+        return routed, modality, qkeys, sigs
+
+    def cache_peek(self, terms: np.ndarray, mask: np.ndarray,
+                   topics: np.ndarray | None = None, *,
+                   now: float | None = None) -> np.ndarray:
+        """Per-query bool mask of *guaranteed* L1 hits at clock ``now`` —
+        rows for which :meth:`serve` (called at the same clock, before any
+        other serve) will bypass the cascade at full service.  Probes only
+        the FULL-mode key (``cap = k_serve``) and mutates nothing (no
+        recency moves, no stats, no RNG), so admission can peek at dispatch
+        time without perturbing replay determinism."""
+        terms = np.asarray(terms)
+        mask = np.asarray(mask)
+        out = np.zeros(terms.shape[0], bool)
+        if self.cache is None or self.cache.l1 is None:
+            return out
+        now = float(self._clock if now is None else now)
+        epoch = self._cache_epoch(now)
+        _, _, qkeys, sigs = self._route_sigs(terms, mask, topics)
+        for i, (qk, rs) in enumerate(zip(qkeys, sigs)):
+            out[i] = self.cache.l1_contains(
+                l1_key(qk, rs, self.k_serve, self.t_final, self.k_serve),
+                epoch)
+        return out
+
+    def _serve_cached(self, terms: np.ndarray, mask: np.ndarray,
+                      topics: np.ndarray | None = None, *,
+                      stage2_cap: np.ndarray | None = None,
+                      shard_cap: np.ndarray | None = None,
+                      now: float | None = None) -> PipelineResult:
+        """serve() with the two-level cache in front of the cascade.
+
+        Per query: L1 hit → the cached (topk, final, used) row at
+        ``predict_us + cache_hit_us``; L2 hit → cached Stage-1 candidates,
+        fresh Stage-2 re-rank; miss → the full cascade via
+        :meth:`_serve_direct` on the miss sub-batch (the kernels' rows do
+        not depend on their neighbours, so sub-batch results equal the
+        full-batch ones bit for bit).  Every query pays the
+        ``cache_hit_us`` lookup — the term :meth:`worst_case_us` charges.
+
+        Rows admitted at partial coverage (``shard_cap < n_shards``) bypass
+        the cache, results with ``coverage < 1`` are never filled, and
+        every entry carries the fill-time fault epoch
+        (:meth:`_cache_epoch`).  Cached values are host NumPy copies."""
+        terms = np.asarray(terms)
+        mask = np.asarray(mask)
+        q = terms.shape[0]
+        ns = self.n_shards
+        now = float(self._clock if now is None else now)
+        cache = self.cache
+        epoch = self._cache_epoch(now)
+        routed, modality, qkeys, sigs = self._route_sigs(terms, mask, topics)
+
+        cap = np.full(q, self.k_serve, np.int64)
+        if stage2_cap is not None:
+            cap = np.minimum(np.asarray(stage2_cap, np.int64), self.k_serve)
+        # the partial-coverage rung deliberately queries fewer partitions:
+        # those rows neither look up nor fill (a full-coverage cached
+        # result would silently upgrade the admission decision)
+        eligible = (np.ones(q, bool) if shard_cap is None
+                    else np.asarray(shard_cap, np.int64) >= ns)
+
+        keys1 = [None] * q
+        keys2 = [None] * q
+        l1_hit = np.zeros(q, bool)
+        l2_hit = np.zeros(q, bool)
+        l1_vals: dict = {}
+        l2_vals: dict = {}
+        for i in range(q):
+            if not eligible[i]:
+                cache.counters["skipped_partial"] += 1
+                continue
+            cache.counters["lookups"] += 1
+            keys1[i] = l1_key(qkeys[i], sigs[i], self.k_serve, self.t_final,
+                              int(cap[i]))
+            v = cache.l1_get(keys1[i], epoch)
+            if v is not None:
+                l1_hit[i] = True
+                l1_vals[i] = v
+                cache.counters["l1_hits"] += 1
+                continue
+            keys2[i] = l2_key(qkeys[i], sigs[i])
+            if self.ltr is not None:
+                v2 = cache.l2_get(keys2[i], epoch)
+                if v2 is not None:
+                    l2_hit[i] = True
+                    l2_vals[i] = v2
+                    cache.counters["l2_hits"] += 1
+                    continue
+            cache.counters["full_misses"] += 1
+
+        hit_us = self.cost.cache_hit_us
+        topk = np.zeros((q, self.k_serve), np.int64)
+        final_rows: list = [None] * q
+        used = np.zeros(q, np.int64) if self.ltr is not None else None
+        t0 = np.full(q, self.cost.predict_us)
+        t1 = np.zeros(q)
+        t2 = np.zeros(q)
+        faulted = self.faults.active or shard_cap is not None
+        coverage = np.ones(q) if faulted else None
+        trimmed = skipped = 0
+
+        rows1 = np.flatnonzero(l1_hit)
+        for i in rows1:
+            tk, f, u = l1_vals[i]
+            topk[i] = tk
+            if self.ltr is not None:
+                final_rows[i] = f
+                used[i] = u
+        t1[rows1] = hit_us
+
+        rows2 = np.flatnonzero(l2_hit)
+        skip_flags = None
+        if len(rows2):
+            vals = [l2_vals[i] for i in rows2]
+            if self.dense is not None:
+                # dense-mode L2 entries carry the fill-time theta-skip
+                # decision, so a hit replays the cold serve's shortcut
+                cand = np.stack([v[0] for v in vals])
+                skip_flags = np.array([bool(v[1]) for v in vals])
+            else:
+                cand = np.stack(vals)
+            topk[rows2] = cand
+            t1[rows2] = hit_us
+            k2 = np.minimum(np.minimum(routed.k[rows2], self.k_serve),
+                            cap[rows2]).astype(np.int64)
+            if skip_flags is not None:
+                k2[skip_flags] = 0
+            if self.sched.cfg.enforce_budget:
+                # the cold path's enforcement, priced at the hit's actual
+                # stage-1 cost
+                afford = stage2_afford(
+                    self.cost,
+                    self.budget - (self.cost.predict_us + hit_us),
+                    self.k_serve)
+                trimmed += int(np.sum((0 < afford) & (afford < k2)))
+                skipped += int(np.sum((afford == 0) & (k2 > 0)))
+                k2 = np.minimum(k2, afford)
+            # (the reference indexes topics here unguarded too: an LTR
+            # system served without topics fails on an L2 hit)
+            res2 = self.stage2(terms[rows2], mask[rows2], topics[rows2],
+                               cand.astype(np.int32), k2)
+            f2, u2 = res2.final, res2.candidates_used
+            skip = np.flatnonzero(k2 == 0)
+            if len(skip):
+                f2[skip] = cand[skip, :self.t_final]
+            for j, i in enumerate(rows2):
+                final_rows[i] = f2[j]
+                used[i] = u2[j]
+            t2[rows2] = np.where(u2 > 0, self.cost.ltr_time(u2), 0.0)
+            # promote: the fresh full-coverage re-rank is exactly an L1
+            # entry for this (query, route, stage-2 params) point
+            for j, i in enumerate(rows2):
+                cache.l1_put(keys1[i],
+                             (topk[i].copy(), f2[j].copy(), int(u2[j])),
+                             epoch)
+
+        miss_rows = np.flatnonzero(~(l1_hit | l2_hit))
+        sub = None
+        if len(miss_rows):
+            sub = self._serve_direct(
+                terms[miss_rows], mask[miss_rows],
+                None if topics is None else topics[miss_rows],
+                stage2_cap=(None if stage2_cap is None
+                            else np.asarray(stage2_cap)[miss_rows]),
+                shard_cap=(None if shard_cap is None
+                           else np.asarray(shard_cap)[miss_rows]),
+                now=now)
+            topk[miss_rows] = sub.topk
+            if self.ltr is not None:
+                for j, i in enumerate(miss_rows):
+                    final_rows[i] = sub.final[j]
+                used[miss_rows] = sub.candidates_used
+            t0[miss_rows] = sub.stage_latency["stage0"]
+            # misses pay the failed lookup on top of the cascade
+            t1[miss_rows] = sub.stage_latency["stage1"] + hit_us
+            t2[miss_rows] = sub.stage_latency["stage2"]
+            if coverage is not None and sub.coverage is not None:
+                coverage[miss_rows] = sub.coverage
+            sb = sub.stats["budget"]
+            trimmed += sb["stage2_trimmed"]
+            skipped += sb["stage2_skipped"]
+            for j, i in enumerate(miss_rows):
+                if not eligible[i]:
+                    continue
+                if sub.coverage is not None and sub.coverage[j] < 1.0:
+                    cache.counters["skipped_partial"] += 1
+                    continue   # partial coverage is never cached
+                if self.ltr is not None:
+                    v2 = sub.topk[j].copy()
+                    if self.dense is not None:
+                        v2 = (v2, bool(sub.dense["theta_skip"][j]))
+                    cache.l2_put(keys2[i], v2, epoch)
+                    cache.l1_put(keys1[i],
+                                 (sub.topk[j].copy(), sub.final[j].copy(),
+                                  int(sub.candidates_used[j])), epoch)
+                else:
+                    cache.l1_put(keys1[i],
+                                 (sub.topk[j].copy(), None, None), epoch)
+
+        final = np.stack(final_rows) if self.ltr is not None else None
+        lat = t0 + t1 + t2
+        stage_latency = {"stage0": t0, "stage1": t1, "stage2": t2}
+        # the batch advances the serving clock like the direct path (the
+        # miss sub-serve's advance is overridden: the batch's occupancy is
+        # the max over ALL its rows)
+        self._clock = now + (float(lat.max()) if q else 0.0)
+
+        dense_info = None
+        if self.dense is not None:
+            theta_all = np.zeros(q, bool)
+            fb_all = np.zeros(q, bool)
+            if sub is not None:
+                theta_all[miss_rows] = sub.dense["theta_skip"]
+                fb_all[miss_rows] = sub.dense["fallback"]
+            if skip_flags is not None:
+                theta_all[rows2] = skip_flags
+            # L1 rows keep False flags: their final list already baked in
+            # whatever shortcut the fill-time serve took
+            dense_info = {"modality": modality, "theta_skip": theta_all,
+                          "fallback": fb_all}
+        stats = self._build_stats(
+            lat, stage_latency, trimmed, skipped, faulted, coverage, now,
+            dense_info=dense_info, cache_stats=cache.stats())
+        return PipelineResult(topk=topk, final=final, candidates_used=used,
+                              latency=lat, stage_latency=stage_latency,
+                              stats=stats, coverage=coverage,
+                              dense=dense_info)
+
+    # ------------------------------------------------------------------
+    # batch stats
+    # ------------------------------------------------------------------
+
     def _build_stats(self, lat, stage_latency, trimmed, skipped, faulted,
-                     coverage, now, dense_info=None) -> dict:
-        """The per-batch stats dict (the reference's, minus the sections of
-        unported nodes)."""
+                     coverage, now, *, dense_info=None,
+                     cache_stats=None) -> dict:
+        """The per-batch stats dict both serve paths report (the
+        reference's, minus the telemetry feed)."""
         stats = dict(self.sched.stats)
         stats.update(percentiles(lat))
         n_over, pct = over_budget(lat, self.budget)
@@ -1020,6 +1411,8 @@ class SearchSystem:
                 "mean": float(coverage.mean()) if q else 1.0,
                 "degraded": int((coverage < 1.0).sum()),
             }
+        if cache_stats is not None:
+            stats["cache"] = cache_stats
         if dense_info is not None:
             modality = dense_info["modality"]
             stats["dense"] = {
@@ -1042,7 +1435,9 @@ class SearchSystem:
         had ``fusion_us`` carved out); dense only (``predict +
         dense_time(max_tiles) + gather + retry``, plus the ρ_late-capped
         fallback traversal when ``theta_low`` is armed); both + fused (the
-        slower engine plus the reserved ``fusion_us``)."""
+        slower engine plus the reserved ``fusion_us``).  With a serving
+        cache attached every query also pays the lookup
+        (``cache_hit_us``)."""
         cfg = self.sched.cfg
         base = cfg.worst_case_us(self.cost, self.n_shards)
         if self.dense is not None:
@@ -1057,7 +1452,9 @@ class SearchSystem:
             dense_bound = pd + td + fb
             both_bound = pd + max(base - pd, td) + self.cost.fusion_us
             base = max(base, dense_bound, both_bound)
-        return base + self._budget_reserve["stage2"]
+        return (base + self._budget_reserve["stage2"]
+                + (self.cost.cache_hit_us if self.cache is not None
+                   else 0.0))
 
     def _adapt_routing(self):
         """Close the routing feedback loop from pool EWMAs + scheduler
@@ -1121,7 +1518,7 @@ class SearchSystem:
                        "worst_case_bound": self.worst_case_us()},
             "pool": self.pool.stats(),
         }
-        if any(self._fault_counters.values()):
+        if self.faults.active or any(self._fault_counters.values()):
             s["faults"] = dict(self._fault_counters, clock=self._clock)
         if self._last_stats:
             s["last_batch"] = {k: self._last_stats[k]

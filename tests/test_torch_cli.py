@@ -2,12 +2,16 @@
 
 ``python -m repro_torch.launch.serve --device cpu`` against
 ``repro.launch.serve`` at ``--n-docs 2048 --vocab 1024 --queries 128``: the
-printed lines equal, line for line, in eleven modes (the default labelled
-path, ``--pseudo-labels``, ``--no-ltr``, ``--shards 3``, ``--preset
-hybrid_fusion``, ``--dryrun``, and ``--online`` under poisson, bursty and
-trace arrivals, at a given ``--qps`` and with ``--zipf-skew``);
-``--spec-json`` files byte-identical; each unported flag raising with its
-ROADMAP item; no card and no ``--device`` raising.  ``launch/dryrun_cascade``: ``corpus_df``, ``WorkProxies`` and the
+printed lines equal, line for line, in seventeen modes (the default
+labelled path, ``--pseudo-labels``, ``--no-ltr``, ``--shards 3``,
+``--preset hybrid_fusion``, ``--dryrun``, ``--online`` under poisson,
+bursty and trace arrivals, at a given ``--qps`` and with ``--zipf-skew``,
+the result cache offline and online (``--preset cached --online
+--zipf-skew 1.2``, ``--cache-bytes``), and fault schedules
+(``--fault-scenario crash_one`` offline, ``timeout_storm`` online on 4
+shards, ``--fault-json``)); ``--spec-json`` files byte-identical; each
+unported flag (live ingest, telemetry) raising with its ROADMAP item; no
+card and no ``--device`` raising.  ``launch/dryrun_cascade``: ``corpus_df``, ``WorkProxies`` and the
 ``dryrun`` dict equal to the reference's, pre-build and post-build, and
 its CLI's output equal.
 
@@ -83,11 +87,26 @@ def _port_main(main, argv, capsys):
                                    ["--online", "--qps", "12"],
                                    ["--online", "--zipf-skew", "1.2"],
                                    ["--online", "--arrival", "trace",
-                                    "--trace-path", None]],
+                                    "--trace-path", None],
+                                   ["--preset", "cached", "--online",
+                                    "--zipf-skew", "1.2"],
+                                   ["--cache", "--pseudo-labels",
+                                    "--cache-bytes", "4096"],
+                                   ["--fault-scenario", "crash_one",
+                                    "--fault-horizon", "0",
+                                    "--failover-timeout", "25",
+                                    "--max-retries", "1", "--pseudo-labels"],
+                                   ["--fault-scenario", "timeout_storm",
+                                    "--shards", "4", "--replicas", "3",
+                                    "--failover-timeout", "25",
+                                    "--max-retries", "2", "--fault-horizon",
+                                    "400", "--online", "--pseudo-labels"]],
                          ids=["labels", "pseudo", "no_ltr", "shards3",
                               "hybrid_fusion", "dryrun", "online",
                               "online_bursty", "online_qps",
-                              "online_zipf_skew", "online_trace"])
+                              "online_zipf_skew", "online_trace",
+                              "cached_online_zipf", "cache_bytes",
+                              "fault_crash_one", "fault_storm_online"])
 def test_serve_lines_match_reference(flags, tmp_path, monkeypatch, capsys,
                                      ref_tower):
     if None in flags:
@@ -99,6 +118,10 @@ def test_serve_lines_match_reference(flags, tmp_path, monkeypatch, capsys,
     got = _port_main(serve.main, ["--device", "cpu"] + SMALL + flags, capsys)
     assert got == want
     assert len(got) >= (6 if "--dryrun" in flags else 12)
+    if "cached" in flags or "--cache" in flags:
+        assert any(line.startswith("[serve] cache:") for line in got)
+    if "--fault-scenario" in flags:
+        assert any(line.startswith("[serve] faults:") for line in got)
 
 
 def test_run_returns_the_served_system():
@@ -148,13 +171,13 @@ def test_spec_json_bytes_match_reference(flags, tmp_path, fault_json,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--cache"], "Result cache"),
-    (["--cache-bytes", "4096"], "Result cache"),
-    (["--fault-scenario", "crash_one"], "Fault injection and failover"),
-    (["--ingest"], "Live ingest"),
-    (["--delta-postings", "9000"], "Live ingest"),
-    (["--metrics-json", "m.json"], "Telemetry"),
-    (["--trace-slowest", "3"], "Telemetry")])
+    pytest.param(["--ingest"], "Live ingest", id="flags3-Live ingest"),
+    pytest.param(["--delta-postings", "9000"], "Live ingest",
+                 id="flags4-Live ingest"),
+    pytest.param(["--metrics-json", "m.json"], "Telemetry",
+                 id="flags5-Telemetry"),
+    pytest.param(["--trace-slowest", "3"], "Telemetry",
+                 id="flags6-Telemetry")])
 def test_unported_flags_raise_with_their_item(flags, item, capsys):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md, section 1: {item}\)"):
@@ -164,11 +187,16 @@ def test_unported_flags_raise_with_their_item(flags, item, capsys):
 
 
 def test_active_fault_json_raises_and_no_card_raises(fault_json,
-                                                     monkeypatch):
-    with pytest.raises(NotImplementedError, match="Fault injection"):
-        serve.run(["--device", "cpu", "--fault-json", fault_json,
-                   "--failover-timeout", "25"] + SMALL,
-                  say=lambda line: None)
+                                                     monkeypatch, capsys):
+    """An active ``--fault-json`` schedule is served (its lines equal the
+    reference's, the faults line included); no card and no ``--device``
+    raises."""
+    flags = ["--fault-json", fault_json, "--failover-timeout", "25",
+             "--pseudo-labels"] + SMALL
+    want = _ref_main(ref_serve, flags, monkeypatch, capsys)
+    got = _port_main(serve.main, ["--device", "cpu"] + flags, capsys)
+    assert got == want
+    assert any(line.startswith("[serve] faults: coverage") for line in got)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.run(SMALL, say=lambda line: None)

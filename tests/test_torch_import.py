@@ -58,6 +58,8 @@ for name in names:
 import chip_smoke
 assert set("repro_torch.serving.online." + m for m in
            ("admission", "batcher", "simulator", "traffic")) <= set(names)
+assert set("repro_torch.serving." + m for m in ("cache", "faults")) \
+    <= set(names)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -68,7 +70,7 @@ assert not bad, bad
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 74
+    assert n_modules >= 76
 
 
 def test_sources_import_nothing_of_jax_or_reference():

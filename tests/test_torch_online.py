@@ -27,6 +27,9 @@
 * the reference's own claims of ``tests/test_online.py`` on the port:
   determinism, micro-batch parity, response accounting, overload sheds but
   never violates; ``fresh_probe`` keeps the device and the tower;
+* the loop's cache branches (front door, dispatch peek, hit EWMA) and its
+  fault branch on both packages; its refusal of live ingest and
+  telemetry;
 * ``chip_smoke.online_flow("cpu")`` against the reference's
   ``benchmarks/bench_online.run_online`` (its artifact write stubbed), at
   a reduced size.
@@ -606,15 +609,47 @@ def test_fresh_probe_is_a_fresh_build(small_collection, port_collection,
 
 
 def test_unported_nodes_raise_in_the_loop(small_collection, port_system):
+    """The loop refuses a spec whose live-ingest or telemetry node is on
+    (the cache and fault branches are served: ``test_cached_and_faulted
+    _online_match_reference``)."""
     ql = small_collection[2]
-    system = port_system()
-    system.cascade_spec = dataclasses.replace(
-        system.cascade_spec,
-        cache=dataclasses.replace(system.cascade_spec.cache, enabled=True))
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md, section 1: Result cache\)"):
-        system.serve_online(ql.terms, ql.mask, ql.topic,
-                            traffic=port_spec.TrafficSpec())
+    for node, item in (("ingest", "Live ingest"),
+                       ("telemetry", "Telemetry")):
+        system = port_system()
+        spec = system.cascade_spec
+        system.cascade_spec = dataclasses.replace(spec, **{
+            node: dataclasses.replace(getattr(spec, node), enabled=True)})
+        with pytest.raises(NotImplementedError,
+                           match=rf"ROADMAP\.md, section 1: {item}\)"):
+            system.serve_online(ql.terms, ql.mask, ql.topic,
+                                traffic=port_spec.TrafficSpec())
+
+
+@pytest.mark.parametrize("node", ["cache", "fault"])
+def test_cached_and_faulted_online_match_reference(small_collection,
+                                                   port_collection, fitted,
+                                                   node):
+    """The loop's cache branches (front door, dispatch peek, hit EWMA,
+    ``stats["cache"]``) and its fault branch (``stats["faults"]``): the
+    event log, arrays and stats equal the reference's."""
+    kw = ({"cache": ref_spec.CacheSpec(enabled=True)} if node == "cache"
+          else {"fault": ref_spec.FaultSpec(timeout_p=0.2, seed=3,
+                                            crashes=((0, 1, 0.0, 60.0),)),
+                "deploy": ref_spec.DeploySpec(n_shards=2, replicas=2)})
+    spec = dataclasses.replace(_online_spec(ref_spec), **kw)
+    if node == "fault":
+        spec = dataclasses.replace(spec, routing=dataclasses.replace(
+            spec.routing, failover_timeout=10.0, max_retries=2))
+    a, b = _pair(small_collection, port_collection, fitted, spec)
+    ra, rb = _serve_online_pair(a, b, small_collection[2],
+                                dict(arrival="poisson", qps=300.0, seed=5,
+                                     skew=1.2))
+    assert rb.stats["over_budget"] == 0
+    if node == "cache":
+        assert rb.stats["cache"]["front_door_hits"] > 0
+    else:
+        assert rb.stats["faults"]["retries"] > 0
+        assert b.faults.draws == a.faults.draws > 0
 
 
 def test_online_flow_matches_reference_bench(monkeypatch, smoke):

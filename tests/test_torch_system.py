@@ -18,6 +18,9 @@ fusion rules, the θ_high Stage-2 skip, the θ_low lexical fallback, the
 worst-case bound, one shard against three): ``topk``, ``final``,
 ``candidates_used``, ``latency``, the per-query dense vectors,
 ``stats["dense"]``, the stage budgets and ``worst_case_us`` must be equal.
+
+The ``cached`` preset and ``fault_tolerant`` under two named fault
+schedules serve equal to the reference; live ingest and telemetry raise.
 """
 
 import dataclasses
@@ -35,13 +38,14 @@ from repro.configs.cascade_presets import get_preset as ref_get_preset
 from repro.configs.two_tower_retrieval import REDUCED as REF_REDUCED
 from repro.dense import M_BOTH, M_DENSE, M_LEX
 from repro.models import recsys as ref_recsys
+from repro.serving.faults import fault_scenario as ref_fault_scenario
 from repro.serving.spec import BackendSpec, DeploySpec, DenseSpec, FusionSpec
 from repro.serving.system import build_system as ref_build_system
 from repro_torch import convert
 from repro_torch.configs.cascade_presets import PRESETS, get_preset
 from repro_torch.index.builder import build_index
 from repro_torch.index.corpus import CorpusParams, build_corpus
-from repro_torch.serving.spec import CascadeSpec, FaultSpec
+from repro_torch.serving.spec import CascadeSpec
 from repro_torch.serving.system import build_system
 
 BATCH = 32
@@ -134,20 +138,69 @@ def test_spec_json_round_trips_between_packages():
 
 
 def test_unported_nodes_raise(fitted_reference):
+    """Live ingest and telemetry still raise, naming their items (the
+    cache and fault nodes are served:
+    ``test_cached_and_fault_tolerant_presets_match_reference``)."""
     _, _, _, ref, pcorpus, pindex, _, _ = fitted_reference
     spec = CascadeSpec.from_json(ref.cascade_spec.to_json())
-    for preset in ("cached", "live_ingest"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_system(get_preset(preset), pindex, corpus=pcorpus,
-                         device="cpu")
-    faulty = dataclasses.replace(get_preset("fault_tolerant"),
-                                 fault=FaultSpec(crashes=((0, 0, 0.0, 50.0),)))
-    with pytest.raises(NotImplementedError, match="Fault"):
-        build_system(faulty, pindex, corpus=pcorpus, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Live ingest"):
+        build_system(get_preset("live_ingest"), pindex, corpus=pcorpus,
+                     device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*Telemetry"):
         build_system(dataclasses.replace(spec, telemetry=dataclasses.replace(
             spec.telemetry, enabled=True)), pindex, corpus=pcorpus,
             device="cpu")
+
+
+@pytest.mark.parametrize("name,scenario", [("cached", None),
+                                           ("fault_tolerant",
+                                            "timeout_storm"),
+                                           ("fault_tolerant",
+                                            "partition_outage")])
+def test_cached_and_fault_tolerant_presets_match_reference(fitted_reference,
+                                                           name, scenario):
+    """The ``cached`` preset and ``fault_tolerant`` under a named schedule,
+    at the fitted thresholds, served three times over the fixture's
+    queries in batches of 32 on the serving clock: ``topk``, ``final``,
+    latency, coverage, the batch stats, ``stats()`` and the injector's
+    draws equal the reference's."""
+    corpus, index, ql, ref, pcorpus, pindex, models, ltr = fitted_reference
+    preset = ref_get_preset(name)
+    spec = dataclasses.replace(
+        preset, backend=BackendSpec(backend="jnp"),
+        routing=dataclasses.replace(preset.routing,
+                                    t_k=ref.cascade_spec.routing.t_k,
+                                    t_time=ref.cascade_spec.routing.t_time))
+    if scenario is not None:
+        spec = dataclasses.replace(spec, fault=ref_fault_scenario(
+            scenario, n_partitions=spec.deploy.n_shards,
+            replicas=spec.deploy.replicas, horizon=40.0, seed=3))
+    a = ref_build_system(spec, index, corpus=corpus, models=ref.models,
+                         ltr=ref.ltr)
+    b = build_system(convert.cascade_spec(spec), pindex, corpus=pcorpus,
+                     models=models, ltr=ltr, device="cpu")
+    assert (b.cache is not None) == (name == "cached")
+    assert b.faults.active == (scenario is not None)
+    for _ in range(3):
+        for i in range(0, len(ql.terms), BATCH):
+            sl = slice(i, i + BATCH)
+            ra = a.serve(ql.terms[sl], ql.mask[sl], ql.topic[sl])
+            rb = b.serve(ql.terms[sl], ql.mask[sl], ql.topic[sl])
+            for key in ("topk", "final", "latency", "coverage"):
+                u, v = getattr(ra, key), getattr(rb, key)
+                assert (u is None) == (v is None), key
+                if u is not None:
+                    np.testing.assert_array_equal(v, u, err_msg=key)
+            assert rb.stats == ra.stats
+    sb = b.stats()
+    assert sb.pop("device") == "cpu"
+    assert sb == a.stats()
+    assert b.faults.draws == a.faults.draws
+    if name == "cached":
+        assert b.cache.counters["l1_hits"] == 2 * len(ql.terms)
+    else:
+        assert sum(sb["faults"][k] for k in ("retries", "lost_partitions")) \
+            > 0
 
 
 def test_stats_and_worst_case_match_reference(fitted_reference):
