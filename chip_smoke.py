@@ -60,7 +60,10 @@ order, it
    lengths, and on full rows, empty rows and a call without lengths;
    kernel 5 also on hand-made bucketed layouts: -1 lanes inside rows, a
    full row and a residue, a residue under survive_t 0, one doc's 600
-   lanes whose order changes the sum, tile_d 48, every tile empty) and
+   lanes whose order changes the sum, tile_d 48, every tile empty;
+   kernels 1 and 2 also on the live delta's shapes (``delta_edge_calls``:
+   2 tiles at a lane capacity of 8,192, empty and one tile full) and
+   kernel 6 at k = n = 256 and 300 over zero ghost rows) and
    times the kernel, its plain version and, where one exists, the
    library call with CUDA events; for the redesigned kernels (1–7 and 9)
    it logs the wrapper's time beside the device time of a call
@@ -193,7 +196,29 @@ order, it
    50)): a result filled healthy never hits inside the outage, results
    inside it are never filled, and after it heals the cache refills and
    hits;
-14. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
+14. ingest phase (live ingest: ``index/delta``, the delta segments of
+   both engines and of the dense engine, ``add_documents``, ``merge``):
+   (a) on the fit's 196,608-doc shard, ``live_ingest``'s delta (256 docs,
+   8,192 postings) on the card and the CPU systems (the shared host
+   layout, the fit's models), ``worst_case_us`` the delta-off bound plus
+   ``delta_time(8192)``; 128 feed docs (``synthesize_feed_docs``) in
+   batches of 16, after each a batch of 32 queries served on the card
+   with the launch counts set to 0: kernel 1 launched once more a SAAT
+   route and kernel 2 twice more a BMW route (its two scoring passes) for
+   the delta segment, live candidates > 0, card = CPU on the last batch,
+   the delta at its fullest (topk, final, latency), and that batch's
+   delta-segment kernel calls against their plain versions; (b) the
+   BENCH_ingest flow (``ingest_flow``,
+   ``benchmarks/bench_ingest.py:74-212``) at its 4,096 docs, 128 queries
+   and two loads on the card, every gate (post-merge bit parity against
+   a from-scratch rebuild, the worst case covering the delta, the inert
+   spec, 0 violations while feeding, feed applied), ``worst_case_on``
+   266.2592, and its parity and accounting figures equal to the CPU's;
+   (c) ``hybrid_fusion`` with the delta on the cli phase's
+   index: 64 feed docs, 64 queries card = CPU (modality flags too),
+   kernel 6 launched on the delta at k = n (against its plain version), no
+   ghost row surfacing, and one merge clearing the delta;
+15. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
    the retrieval systems are freed:
    a. cross-check: a 2-layer Yi-6B at full width in fp32, drawn once on
       the host and copied to the card, runs ``prefill`` on 2 prompts of
@@ -238,7 +263,7 @@ order, it
       1e-5 of it on average) on the recorded fp32 model calls (the same
       near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
       above it (a one-ulp rounding flip is 2^-8 to 2^-7 relative);
-15. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
+16. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
     the nine TPU kernels and ``level_histogram``; the launches of kernels
     1-3 are step 7's; the library time of kernels 1 and 2 an
     ``index_add_`` over the (query, lane) pairs each adds), then the card
@@ -255,6 +280,7 @@ busiest device kernels) and of one more LM prefill and decode step.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -416,6 +442,27 @@ FAULT_FIGURES = ("rows", "capacity_qps", "response_budget",
                  "worst_case_bound", "guarantee_holds", "coverage_certified",
                  "inert_replay_identical", "inert_offline_identical",
                  "faults_demonstrated")
+# ingest phase: (a) on the fit's shard, live_ingest's delta (256 docs,
+# 8,192 postings) fed INGEST_FEED docs of synthesize_feed_docs(seed
+# INGEST_SEED) in batches of INGEST_FEED_BATCH, a batch of 32 queries served
+# after each, card = CPU on the batches INGEST_CHECKED (a CPU serve of the
+# 196,608-doc shard with the delta takes about 8 s: the last batch only,
+# the delta full); (b) the BENCH_ingest flow at INGEST_FLOW
+# (benchmarks/bench_ingest.py:74-212 at its 4,096 docs; cut from 384
+# queries and three loads for time) on the card, its parity and accounting
+# parts also on the CPU (the CPU's plain kernels over the delta's
+# 8,192-lane tiles would take most of the phase on the online parts);
+# (c) hybrid_fusion with the delta on the cli phase's index over its first
+# INGEST_DENSE queries, fed INGEST_DENSE_FEED docs
+INGEST_FEED, INGEST_FEED_BATCH, INGEST_SEED = 128, 16, 10
+INGEST_CHECKED = (7,)
+INGEST_FLOW = dict(q_batch=128, n_docs=4096, loads=(0.5, 0.8))
+INGEST_DENSE, INGEST_DENSE_FEED = 64, 64
+INGEST_ARTIFACT = ROOT / "results" / "BENCH_ingest.json"
+# the BENCH_ingest flow's figures (benchmarks/bench_ingest.py:74-212)
+INGEST_FIGURES = ("parity", "capacity_qps", "accounting", "inert", "sweep",
+                  "gates")
+WORST_CASE_ON = 266.2592      # results/BENCH_ingest.json, accounting
 # the BENCH_tail flow (benchmarks/bench_tail.py:43-130) and the figures it
 # reports, as results/BENCH_tail.json names them
 TAIL_ARTIFACT = ROOT / "results" / "BENCH_tail.json"
@@ -827,6 +874,62 @@ def edge_calls(device):
     }
 
 
+def delta_edge_calls(device):
+    """The live delta's shapes (padded lanes, k = n): kernels 1 and 2 on a delta shard of 2 tiles of 128 docs at a lane
+    capacity of 8,192 (``live_ingest``'s), empty (every lane -1) and full
+    (one tile's 8,192 lanes all live: 128 docs x 64 terms); kernel 6 at k =
+    n = 256 and 300 (the wrapper rounds k up to 512 > n) over capacity
+    matrices whose rows past the live ones are zero ghosts, against queries
+    that score some live rows below zero.  A dict of lists of (args,
+    kwargs)."""
+    import numpy as np
+    import torch
+    from repro_torch.dense import embed_queries, synthetic_embeddings
+    from repro_torch.index.builder import pack_tiles
+    rng = np.random.RandomState(SEED + 25)
+    n_docs, tile_d, block, cap = 256, 128, 64, 8192
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def layout(doc, term):
+        score = (rng.rand(len(doc)) * 8).astype(np.float32)
+        imp = rng.randint(1, 256, len(doc)).astype(np.int32)
+        docs_b, terms_b, (scores_b, imps_b), got = pack_tiles(
+            doc, term, [(score, 0.0, np.float32), (imp, 0, np.int32)],
+            n_docs, tile_d, tile_cap=cap)
+        check(got == cap, "delta edge layout: lane capacity")
+        return docs_b, terms_b, scores_b, imps_b
+
+    empty = layout(np.zeros(0, np.int64), np.zeros(0, np.int64))
+    term, doc = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    full = layout(doc.ravel(), term.ravel() * 3)      # (term, doc) order
+    check(int((full[0][0] >= 0).sum()) == cap
+          and int((empty[0] >= 0).sum()) == 0, "delta edge layout: fill")
+    q = 40
+    qt = rng.randint(0, 200, (q, 8)).astype(np.int32)
+    qt[rng.rand(q, 8) < 0.3] = -1
+    cut = rng.randint(0, 200, q).astype(np.int32)
+    sb = (rng.rand(q, 2, tile_d // block) < 0.8).astype(np.int32)
+    st = (rng.rand(q, 2) < 0.9).astype(np.int32)
+    k1, k2 = [], []
+    for docs_b, terms_b, scores_b, imps_b in (empty, full):
+        k1.append(((t(docs_b), t(terms_b), t(imps_b), t(qt), t(cut)),
+                   dict(tile_d=tile_d)))
+        k2.append(((t(docs_b), t(terms_b), t(scores_b), t(qt), t(sb),
+                    t(st)), dict(tile_d=tile_d, block_size=block)))
+    emb, table = synthetic_embeddings(300, 512, d=32, seed=SEED % 983)
+    q_emb = embed_queries(table, rng.randint(0, 512, (24, 6)),
+                          np.ones((24, 6), np.float32))
+    k6 = []
+    for n, live in ((256, 100), (300, 120)):
+        ghosts = emb[:n].copy()
+        ghosts[live:] = 0.0
+        k6.append(((t(q_emb), t(ghosts), n), {}))
+    return {"impact_accumulate_batched": k1, "blockmax_score_batched": k2,
+            "dense_topk_tiles": k6}
+
+
 def gather_edge_calls(device):
     """Kernel 3's edges (its redesign's): a candidate matched by 600 lanes
     whose order changes the f32 sum (1e8, 3, 3, -1e8, 3, ...), past the
@@ -1235,6 +1338,8 @@ def kernel_phase(recorded):
     edges.update(lax_edges)
     edges["blockmax_score_bucketed"] += bucketed_score_edge_calls(dev)
     edges["impact_accumulate_bucketed"] += bucketed_impact_edge_calls(dev)
+    for name, calls in delta_edge_calls(dev).items():
+        edges[name] += calls
     for name in RETRIEVAL_KERNELS:
         calls = recorded[name]
         check(calls, f"{name}: the main path never called it")
@@ -3124,6 +3229,181 @@ def fault_flow(device, q_batch=256, n_docs=4096, seed=7, loads=(0.5, 0.8),
     }
 
 
+def ingest_figures(payload):
+    """The figures of a BENCH_ingest payload (``bench_ingest.run_ingest``'s
+    or ``ingest_flow``'s)."""
+    return {k: payload[k] for k in INGEST_FIGURES}
+
+
+def index_identical(a, b):
+    """Every field of two ``InvertedIndex``es equal, arrays bit for bit
+    (``bench_ingest._index_identical``)."""
+    import numpy as np
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, np.ndarray) or isinstance(vb, np.ndarray):
+            if not np.array_equal(np.asarray(va), np.asarray(vb)):
+                return False
+        elif va != vb:
+            return False
+    return True
+
+
+def ingest_cell(res):
+    """One online run's BENCH_ingest cell (``bench_ingest._cell``)."""
+    s = res.stats
+    out = {
+        "served": s["served"], "shed": s["shed"],
+        "over_budget": s["over_budget"],
+        "modes": s["modes"],
+        "p50": s["response"]["p50"] if "response" in s else None,
+        "p99.99": s["response"]["p99.99"] if "response" in s else None,
+        "achieved_qps": s.get("achieved_qps"),
+    }
+    if "ingest" in s:
+        i = s["ingest"]
+        out["ingest"] = {
+            "feed_batches_applied": i["feed_batches_applied"],
+            "feed_batches_due": i["feed_batches_due"],
+            "feed_throttled": i.get("feed_throttled", 0),
+            "docs_ingested": i["docs_ingested"],
+            "merges": i["merges"],
+            "merge_deferred": i.get("merge_deferred", 0),
+            "merges_forced": i.get("merges_forced", 0),
+            "fill": i["fill"],
+        }
+    return out
+
+
+def ingest_flow(device, q_batch=384, n_docs=4096, seed=7,
+                loads=(0.5, 0.8, 0.95), feed_docs=128, max_batch=16,
+                offline_only=False):
+    """The BENCH_ingest flow of ``benchmarks/bench_ingest.py:74-212`` with
+    the port on ``device``: ``bench_build``'s ``paper_200ms`` system with
+    ``live_ingest``'s delta; post-merge bit parity (serve, ingest a feed,
+    serve, merge, serve) against a system built from scratch over the
+    extended collection, the worst case with and without the delta, the
+    inert spec (offline, and a bursty online trace), and the
+    serve-while-ingesting sweep at each load x the live capacity, ingest on
+    and off.  Returns ``ingest_figures``; with ``offline_only`` only the
+    parity and accounting figures (the CPU's side of the card-vs-CPU
+    check)."""
+    import numpy as np
+    from repro_torch.configs.cascade_presets import get_preset
+    from repro_torch.index.builder import build_index
+    from repro_torch.index.corpus import (extend_corpus, slice_feed,
+                                          synthesize_feed_docs)
+    from repro_torch.serving.online import estimate_capacity
+    from repro_torch.serving.spec import IngestSpec, TrafficSpec
+    from repro_torch.serving.system import build_system
+
+    corpus, base, ql, fit_sys = bench_build(device, "paper_200ms", q_batch,
+                                            n_docs, seed, max_batch)
+    index, models, ltr = fit_sys.index, fit_sys.models, fit_sys.ltr
+    cost = fit_sys.cost
+    ing = get_preset("live_ingest").ingest
+
+    def system(ingest=None, idx=None, corp=None):
+        spec = base if ingest is None else dataclasses.replace(base,
+                                                               ingest=ingest)
+        return build_system(spec, idx if idx is not None else index,
+                            corpus=corp if corp is not None else corpus,
+                            models=models, ltr=ltr, cost=cost, device=device)
+
+    def online(sys_, traffic):
+        return sys_.serve_online(ql.terms, ql.mask, ql.topic,
+                                 traffic=traffic)
+
+    # post-merge bit parity against the from-scratch rebuild
+    on_sys = system(ing)
+    feed = synthesize_feed_docs(corpus, feed_docs, seed=seed + 3)
+    took = on_sys.add_documents(feed)
+    mid = on_sys.serve(ql.terms, ql.mask, ql.topic)
+    live_hits = int((np.asarray(mid.topk) >= index.n_docs).sum())
+    merged = on_sys.merge()
+    after = on_sys.serve(ql.terms, ql.mask, ql.topic)
+    ext = extend_corpus(corpus, slice_feed(feed, 0, took))
+    oracle_idx = build_index(ext, stop_k=base.index.stop_k)
+    ref = system(ing, idx=oracle_idx, corp=ext).serve(ql.terms, ql.mask,
+                                                      ql.topic)
+    parity = {
+        "docs_ingested": int(took), "docs_merged": int(merged),
+        "live_candidate_slots": live_hits,
+        "index_identical": index_identical(on_sys.index, oracle_idx),
+        "topk_identical": bool(np.array_equal(after.topk, ref.topk)),
+        "final_identical": bool(np.array_equal(after.final, ref.final)),
+        "latency_identical": bool(np.array_equal(after.latency,
+                                                 ref.latency)),
+    }
+
+    # worst-case accounting of the live delta scan
+    wc_off = float(system().worst_case_us())
+    wc_on = float(system(ing).worst_case_us())
+    delta_term = float(cost.delta_time(ing.delta_postings))
+    accounting = {
+        "worst_case_off": wc_off, "worst_case_on": wc_on,
+        "delta_scan_term": delta_term,
+        "budget": float(base.routing.budget),
+        "covers_delta": bool(wc_on >= wc_off + delta_term - 1e-9),
+    }
+    if offline_only:
+        return {"parity": parity, "accounting": accounting}
+
+    # inert mode: enabled=False == no ingest node, bit for bit
+    inert_spec = IngestSpec(enabled=False, delta_docs=ing.delta_docs,
+                            feed_qps=ing.feed_qps)
+    sys_a, sys_b = system(), system(inert_spec)
+    ra = sys_a.serve(ql.terms, ql.mask, ql.topic)
+    rb = sys_b.serve(ql.terms, ql.mask, ql.topic)
+    capacity = estimate_capacity(system(), ql.terms, ql.mask, ql.topic)
+    traffic_i = TrafficSpec(arrival="bursty", qps=0.8 * capacity,
+                            seed=seed + 1)
+    oa = online(system(), traffic_i)
+    ob = online(system(inert_spec), traffic_i)
+    inert = {
+        "delta_absent": bool(sys_b.delta is None),
+        "offline_topk_identical": bool(np.array_equal(ra.topk, rb.topk)),
+        "offline_final_identical": bool(np.array_equal(ra.final, rb.final)),
+        "offline_latency_identical": bool(np.array_equal(ra.latency,
+                                                         rb.latency)),
+        "online_event_log_identical": bool(oa.event_log == ob.event_log),
+        "worst_case_identical": bool(sys_a.worst_case_us()
+                                     == sys_b.worst_case_us()),
+    }
+
+    # serve-while-ingesting sweep, at loads of the live capacity
+    capacity_live = estimate_capacity(system(ing), ql.terms, ql.mask,
+                                      ql.topic)
+    sweep = []
+    for load in loads:
+        traffic = TrafficSpec(arrival="bursty", qps=load * capacity_live,
+                              seed=seed + 1)
+        r_on = online(system(ing), traffic)
+        r_off = online(system(), traffic)
+        sweep.append({"load": load, "qps": float(load * capacity_live),
+                      "on": ingest_cell(r_on), "off": ingest_cell(r_off)})
+
+    enforced = [r[s] for r in sweep for s in ("on", "off")]
+    applied = sum(r["on"]["ingest"]["feed_batches_applied"] for r in sweep)
+    ingested = sum(r["on"]["ingest"]["docs_ingested"] for r in sweep)
+    gates = {
+        "post_merge_bit_parity": (parity["index_identical"]
+                                  and parity["topk_identical"]
+                                  and parity["final_identical"]
+                                  and parity["latency_identical"]),
+        "worst_case_covers_delta": accounting["covers_delta"],
+        "inert_bit_identical": all(inert.values()),
+        "zero_violations": all(c["over_budget"] == 0 for c in enforced),
+        "ingest_nonvacuous": (applied > 0 and ingested > 0
+                              and parity["live_candidate_slots"] > 0),
+    }
+    return {"parity": parity,
+            "capacity_qps": {"sealed": float(capacity),
+                             "live": float(capacity_live)},
+            "accounting": accounting, "inert": inert, "sweep": sweep,
+            "gates": gates}
+
+
 def cli_build(card, cpu, device, spec, gather=None, layouts=None):
     """A system of the cli phase's index and corpus for ``spec`` on
     ``device`` with the card's fit (on the CPU, the CPU system's, which is
@@ -3469,6 +3749,240 @@ def faults_phase(dev, card, cpu):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def delta_call_times(name, kern, args, kw):
+    """A delta-segment call's wrapper ms (CUDA events), device ms
+    (profiler) and bound ms (``work_of``), as a dict for the log."""
+    nbytes, ops, rate = work_of(name, args, kw)
+    return {"name": name, "ms": round(cuda_ms(lambda: kern(*args, **kw),
+                                               REPS), 4),
+            "device_ms": device_ms(lambda: kern(*args, **kw), REPS),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / rate) * 1e3}
+
+
+def ingest_phase(dev, shard, card, cpu):
+    """Live ingest on the card (module docstring, step 14): (a) the
+    ``live_ingest`` delta on the fit's 196,608-doc shard, fed and served
+    batch by batch, card = CPU on the checked batches; (b) the
+    BENCH_ingest flow on the card, its offline figures on the CPU too;
+    (c) ``hybrid_fusion`` with the delta on the cli phase's index.  ``shard`` holds the fit's index,
+    corpus, host layouts, fitted spec, query log and both devices'
+    models."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.cascade_presets import get_preset
+    from repro_torch.configs.two_tower_retrieval import REDUCED
+    from repro_torch.dense import M_LEX
+    from repro_torch.index.corpus import slice_feed, synthesize_feed_docs
+    from repro_torch.index.postings import shard_layouts
+    from repro_torch.models.recsys import TwoTower
+    from repro_torch.serving.spec import IngestSpec
+    from repro_torch.serving.system import build_system
+    t0 = time.perf_counter()
+    index, corpus, ql = shard["index"], shard["corpus"], shard["ql"]
+    fitted = shard["spec"]
+    live = get_preset("live_ingest")
+    check(live.stage0 == fitted.stage0 and live.stage2 == fitted.stage2
+          and live.routing.budget == fitted.routing.budget,
+          "ingest: live_ingest's fit would differ from paper_200ms's")
+    spec = dataclasses.replace(live, routing=dataclasses.replace(
+        live.routing, t_k=fitted.routing.t_k, t_time=fitted.routing.t_time))
+
+    # (a) the delta on the fit's shard, card and CPU fed alike
+    def build(device, models, ingest=None):
+        spec_ = spec if ingest is None else dataclasses.replace(
+            spec, ingest=ingest)
+        return build_system(spec_, index, corpus=corpus, models=models[0],
+                            ltr=models[1], device=device,
+                            layouts=shard["layouts"])
+    on = build(dev, shard["card_models"])
+    host = build("cpu", shard["cpu_models"])
+    off = build("cpu", shard["cpu_models"], IngestSpec())
+    term = on.cost.delta_time(spec.ingest.delta_postings)
+    check(abs(on.worst_case_us() - (off.worst_case_us() + term)) <= 1e-9
+          and host.worst_case_us() == on.worst_case_us(),
+          f"ingest: worst case {on.worst_case_us()!r}, off "
+          f"{off.worst_case_us()!r} + delta_time {term!r}")
+    feed = synthesize_feed_docs(corpus, INGEST_FEED, seed=INGEST_SEED)
+    fb = INGEST_FEED_BATCH
+    took, walls_feed, walls_serve = [], [], []
+    delta_launches = {"impact_accumulate_batched": 0,
+                      "blockmax_score_batched": 0}
+    live_slots, t_cpu, rec = 0, 0.0, None
+    for b in range(INGEST_FEED // fb):
+        part = slice_feed(feed, b * fb, (b + 1) * fb)
+        t = time.perf_counter()
+        took.append(on.add_documents(part))
+        torch.cuda.synchronize()
+        walls_feed.append(time.perf_counter() - t)
+        check(host.add_documents(part) == took[-1],
+              "ingest: the CPU delta took other docs")
+        rows = (np.arange(BATCH) + b * BATCH) % len(ql.terms)
+        jass0, bmw0 = on.sched.stats["jass"], on.sched.stats["bmw"]
+        last = b == INGEST_FEED // fb - 1
+        kernels.reset_launches()
+        # the last batch's calls are recorded, to hold the delta segment's
+        # against the plain versions
+        with (Recorder(names=BATCHED) if last
+              else contextlib.nullcontext()) as r:
+            t = time.perf_counter()
+            res = on.serve(ql.terms[rows], ql.mask[rows], ql.topic[rows])
+            torch.cuda.synchronize()
+            walls_serve.append(time.perf_counter() - t)
+        rec = r if last else rec
+        got = launched()
+        n_j = on.sched.stats["jass"] - jass0
+        n_b = on.sched.stats["bmw"] - bmw0
+        want = {"impact_accumulate_batched": 2 * (n_j > 0),
+                "blockmax_score_batched": 4 * (n_b > 0),
+                "qd_feature_gather_lanes": 1}
+        check(got == want, f"ingest batch {b}: launches {got}, want {want} "
+              f"(jass {n_j}, bmw {n_b}: for the delta segment kernel 1 once "
+              "more a SAAT route, kernel 2 twice more a BMW route)")
+        delta_launches["impact_accumulate_batched"] += int(n_j > 0)
+        delta_launches["blockmax_score_batched"] += 2 * int(n_b > 0)
+        live_slots += int((res.topk >= index.n_docs).sum())
+        check(np.isfinite(res.latency).all()
+              and (res.topk < index.n_docs + on.delta.n_docs).all()
+              and float(res.latency.max()) <= on.worst_case_us() + 1e-9,
+              f"ingest batch {b}: ids, latency or bound invalid")
+        if b in INGEST_CHECKED:
+            t = time.perf_counter()
+            same_batch(f"ingest batch {b} card vs CPU", res,
+                       host.serve(ql.terms[rows], ql.mask[rows],
+                                  ql.topic[rows]))
+            t_cpu += time.perf_counter() - t
+    check(sum(took) > 0 and live_slots > 0,
+          f"ingest: took {took}, live candidate slots {live_slots}")
+    check(on.stats()["ingest"] == host.stats()["ingest"],
+          "ingest: the card's and the CPU's ingest stats differ")
+    # the last batch's delta-segment calls (the mirror at the delta's lane
+    # capacity) against the plain versions
+    cap = on.delta.shard_spec.tile_cap
+    mods = kernel_modules()
+    n_delta, timed = 0, []
+    for name, calls in rec.calls.items():
+        kern = getattr(mods[name], name)
+        plain = getattr(mods[name], name.replace("_batched", "_plain"))
+        for args, kw in calls:
+            if args[0].shape[1] == cap:
+                n_delta += 1
+                compare(f"{name} (delta segment)", kern(*args, **kw),
+                        plain(*args, **kw), 0.0)
+                timed.append(delta_call_times(name, kern, args, kw))
+    check(n_delta == got["impact_accumulate_batched"] // 2
+          + got["blockmax_score_batched"] // 2,
+          f"ingest: {n_delta} delta-segment calls recorded, launches {got}")
+    i = on.stats()["ingest"]
+    log(f"ingest (a): live_ingest's delta on the {index.n_docs}-doc shard: "
+        f"fed {INGEST_FEED} docs in batches of {fb}, took {took} (delta "
+        f"{i['delta_docs']} docs, {i['delta_postings']} postings, fill "
+        f"{i['fill']:.3f}); {len(took)} batches of {BATCH} served, launches "
+        f"on the delta segment {delta_launches}, live candidate slots "
+        f"{live_slots}; worst case {on.worst_case_us()!r} = off "
+        f"{off.worst_case_us()!r} + delta_time {term!r}; batches "
+        f"{INGEST_CHECKED} card = CPU (CPU {t_cpu:.2f} s); the last batch's "
+        f"{n_delta} delta-segment calls equal the plain versions ({timed}); "
+        "walls s "
+        "feed " + " ".join(f"{w:.3f}" for w in walls_feed) + ", serve "
+        + " ".join(f"{w:.4f}" for w in walls_serve)
+        + f"; part {time.perf_counter() - t0:.1f} s")
+    del on, host, off
+    t1 = time.perf_counter()
+
+    # (b) the BENCH_ingest flow, card and CPU
+    t = time.perf_counter()
+    flow = ingest_flow(dev, **INGEST_FLOW)
+    t_card = time.perf_counter() - t
+    t = time.perf_counter()
+    flow_cpu = ingest_flow("cpu", **INGEST_FLOW, offline_only=True)
+    t_host = time.perf_counter() - t
+    check({k: flow[k] for k in flow_cpu} == flow_cpu,
+          "ingest flow: the card's parity or accounting differs from the "
+          "CPU's")
+    for gate, ok in flow["gates"].items():
+        check(ok, f"ingest flow: gate {gate} fails")
+    wc = flow["accounting"]["worst_case_on"]
+    check(abs(wc - WORST_CASE_ON) <= 1e-9,
+          f"ingest flow: worst case on {wc!r}, not {WORST_CASE_ON}")
+    want = json.loads(INGEST_ARTIFACT.read_text())
+    log(f"ingest (b): BENCH_ingest flow {INGEST_FLOW}: card {t_card:.2f} s, "
+        f"CPU (parity and accounting) {t_host:.2f} s, equal; gates "
+        f"{flow['gates']}; parity "
+        f"{flow['parity']}; accounting {flow['accounting']} (the file's "
+        f"worst_case_on {want['accounting']['worst_case_on']!r}); capacity "
+        f"{flow['capacity_qps']} (the file's, at "
+        f"{want['config']['q_batch']} queries and "
+        f"{want['config']['n_docs']} docs: {want['capacity_qps']}); sweep on "
+        f"{[r['on'] for r in flow['sweep']]}; part "
+        f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+
+    # (c) hybrid_fusion with the delta on the cli phase's index
+    g = card.system
+    spec_h = get_preset("hybrid_fusion")
+    spec_h = dataclasses.replace(
+        spec_h, ingest=live.ingest, routing=dataclasses.replace(
+            spec_h.routing, t_k=card.fitted.routing.t_k,
+            t_time=card.fitted.routing.t_time))
+    tower = TwoTower.init(REDUCED, spec_h.dense.seed, device="cpu")
+    layouts = shard_layouts(g.index, 1, spec_h.index.tile_d)
+    pair = [build_system(spec_h, g.index, corpus=card.corpus,
+                         models=src.models, ltr=src.ltr, cost=src.cost,
+                         tower=tower, device=d, layouts=layouts)
+            for src, d in ((g, dev), (cpu, "cpu"))]
+    feed = synthesize_feed_docs(card.corpus, INGEST_DENSE_FEED,
+                                seed=INGEST_SEED)
+    took_h = [s_.add_documents(feed) for s_ in pair]
+    check(took_h[0] == took_h[1] > 0, f"ingest hybrid_fusion: took {took_h}")
+    rows = slice(0, INGEST_DENSE)
+    terms, mask, topics = card.ql.terms[rows], card.ql.mask[rows], \
+        card.ql.topic[rows]
+    kernels.reset_launches()
+    with Recorder(names=("dense_topk_tiles",)) as rec6:
+        a = pair[0].serve(terms, mask, topics)
+        torch.cuda.synchronize()
+    l6 = kernels.LAUNCHES["dense_topk_tiles"]
+    b = pair[1].serve(terms, mask, topics)
+    same_batch("ingest hybrid_fusion card vs CPU", a, b, dense=True)
+    n_dense = int((a.dense["modality"] != M_LEX).sum())
+    n_live = g.index.n_docs + pair[0].delta.n_docs
+    delta_calls = [(args, kw) for args, kw in rec6.calls["dense_topk_tiles"]
+                   if args[2] == args[1].shape[0]
+                   == spec_h.ingest.delta_docs]
+    check(n_dense > 0 and l6 == 2 and len(delta_calls) == 1,
+          f"ingest hybrid_fusion: {n_dense} dense rows, kernel 6 launched "
+          f"{l6} times, {len(delta_calls)} delta calls")
+    mod6 = kernel_modules()["dense_topk_tiles"]
+    err6 = compare("dense_topk_tiles (delta, k = n)",
+                   mod6.dense_topk_tiles(*delta_calls[0][0]),
+                   mod6.dense_topk_plain(*delta_calls[0][0]), 0.0)
+    t6 = delta_call_times("dense_topk_tiles", mod6.dense_topk_tiles,
+                          *delta_calls[0])
+    check((a.topk < n_live).all(), "ingest hybrid_fusion: a ghost row of "
+          "the dense delta surfaced")
+    delta_ids = int((a.topk >= g.index.n_docs).sum())
+    merged = pair[0].merge()
+    kernels.reset_launches()
+    c = pair[0].serve(terms, mask, topics)
+    torch.cuda.synchronize()
+    check(merged == took_h[0] and pair[0].delta.n_docs == 0
+          and pair[0].dense.delta_emb is None
+          and kernels.LAUNCHES["dense_topk_tiles"] == 1
+          and (c.topk < pair[0].index.n_docs).all()
+          and pair[0].index.n_docs == n_live,
+          "ingest hybrid_fusion: the merge did not clear the delta")
+    log(f"ingest (c): hybrid_fusion with the delta on the "
+        f"{g.index.n_docs}-doc index, {took_h[0]} docs fed: {a.stats['dense']},"
+        f" kernel 6 launched {l6} times (the delta at k = n = "
+        f"{spec_h.ingest.delta_docs}, max_abs_err {err6}, {t6}), "
+        f"{delta_ids} "
+        f"candidate slots from the delta, card = CPU (topk, final, latency, "
+        f"modality, theta_skip, fallback); one merge ({merged} docs) clears "
+        f"it; part {time.perf_counter() - t1:.1f} s, phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
@@ -3808,7 +4322,7 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     log(f"hybrid_fusion cross-check: topk, final, latency, modality, "
         f"theta_skip and fallback equal on the card and CPU "
         f"({a.stats['dense']})")
-    del cpu_h, layouts
+    del cpu_h
     recorded["dense_topk_tiles"] = rec_h.calls["dense_topk_tiles"]
 
     lap("cross-checks")
@@ -3841,8 +4355,13 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
             profile_batch(system, ql.terms[sl], ql.mask[sl], ql.topic[sl])
     lap("kernels and serve")
 
+    # what the ingest phase serves the fit's shard with
+    shard = dict(index=index, corpus=corpus, layouts=layouts, spec=spec,
+                 ql=ql, card_models=(gpu.models, gpu.ltr),
+                 cpu_models=(cpu_models, cpu_ltr))
+
     # the BENCH_tail flow, fitted and served on its own collection
-    del gpu, gpu_h, recorded, lax_calls, rec, rec_h
+    del gpu, gpu_h, recorded, lax_calls, rec, rec_h, layouts
     torch.cuda.empty_cache()
     tail_phase(dev)
     lap("tail")
@@ -3864,8 +4383,12 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     cache_phase(dev, served, cli_cpu)
     lap("cache")
     faults_phase(dev, served, cli_cpu)
-    del served, cli_cpu
     lap("faults")
+
+    # live ingest on the fit's shard and on the cli phase's index
+    ingest_phase(dev, shard, served, cli_cpu)
+    del served, cli_cpu, shard
+    lap("ingest")
 
     # the LM serving path, with the retrieval systems freed
     torch.cuda.empty_cache()

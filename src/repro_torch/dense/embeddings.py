@@ -114,8 +114,38 @@ def build_embeddings(dense_spec, corpus=None, *, n_docs: int, vocab: int,
 
 def delta_doc_embeddings(dense_spec, *, n_sealed: int, n_new: int,
                          vocab: int, topics: np.ndarray | None = None,
-                         corpus=None) -> np.ndarray:
-    """Rows for docs appended by live ingest: not ported yet."""
-    raise NotImplementedError(
-        "delta doc embeddings belong to Live ingest, which is not ported to "
-        "repro_torch yet (ROADMAP.md, section 1: Live ingest)")
+                         corpus=None, tower: TwoTower | None = None,
+                         device=None) -> np.ndarray:
+    """(n_new, d) rows for docs appended at global ids >= ``n_sealed``.
+
+    Both sources are per-row functions of the (global doc id, doc features)
+    pair — the synthetic table because RandomState fills row-major (the
+    first ``n`` rows of a grown draw equal the ``n``-doc draw bitwise), the
+    two-tower path because the item tower sees only (dominant topic,
+    doc id).  So embedding the delta through the same quantized source
+    equals slicing a full rebuild at the grown size.
+
+    The two-tower path runs ``tower``, the model the system's sealed
+    embeddings came from (``build_embeddings``'s); with none given it
+    draws its own from ``dense_spec.seed`` on ``device``, as
+    ``build_embeddings`` does.  (The reference re-draws its tower from
+    ``jax.random`` here; the port takes the one it was built with.)
+    """
+    source = dense_spec.source
+    if source == "auto":
+        source = "two_tower" if corpus is not None else "synthetic"
+    if source == "two_tower":
+        if topics is None:
+            raise ValueError("two_tower delta embeddings need the feed "
+                             "docs' topic mixtures")
+        c = REDUCED
+        if tower is None:
+            tower = TwoTower.init(c, dense_spec.seed, device)
+        topic = np.argmax(np.asarray(topics), axis=1)
+        gids = np.arange(n_sealed, n_sealed + n_new, dtype=np.int64)
+        doc_ids = np.stack([topic % c.n_items, gids % c.n_items], axis=1)
+        return quantize(_tower_rows(tower, "item", doc_ids, 4096))
+    full, _ = synthetic_embeddings(n_sealed + n_new, vocab,
+                                   d=dense_spec.embed_dim,
+                                   seed=dense_spec.seed)
+    return full[n_sealed:]

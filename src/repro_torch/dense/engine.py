@@ -13,6 +13,11 @@ Each shard's scan is one call of ``repro_torch.kernels.dense_topk``: the
 hand-written CUDA kernel on the card, its plain version on the CPU.  On
 grid-quantized embeddings ``serve`` equals the unsharded brute force
 (``oracle``) bit for bit.
+
+Live ingest attaches a capacity-padded delta matrix (``set_delta``) that
+every query also scans: the whole capacity is ranked (k = its row count,
+one more kernel call), ghost rows are masked after the ranking, and the
+delta's list joins the merge last, never dropped.
 """
 
 from __future__ import annotations
@@ -53,6 +58,10 @@ class DenseEngine:
         full = torch.from_numpy(self.doc_emb).to(self.device)
         self.shard_emb = [full[lo:hi] for lo, hi in ranges]
         self.shard_docs = [hi - lo for lo, hi in ranges]
+        # live delta segment (capacity-padded, appended above the ranges)
+        self.delta_emb = None
+        self.delta_live = 0
+        self.delta_lo = 0
 
     @property
     def n_shards(self) -> int:
@@ -73,9 +82,29 @@ class DenseEngine:
         return embed_queries(self.term_table, terms, mask)
 
     def set_delta(self, emb: np.ndarray, n_live: int, doc_lo: int) -> None:
-        raise NotImplementedError(
-            "the dense delta segment belongs to Live ingest, which is not "
-            "ported to repro_torch yet (ROADMAP.md, section 1: Live ingest)")
+        """Attach/refresh the live delta segment.
+
+        ``emb`` is the capacity-padded (cap, d) quantized matrix (rows
+        >= ``n_live`` are ghosts), ``doc_lo`` the global id of delta doc 0.
+        The shape is the fixed delta capacity, whatever the fill.  The
+        matrix is copied to the engine's device as a new tensor.
+        """
+        self.delta_emb = torch.from_numpy(
+            np.ascontiguousarray(emb, np.float32)).to(self.device)
+        self.delta_live = int(n_live)
+        self.delta_lo = int(doc_lo)
+
+    def clear_delta(self) -> None:
+        self.delta_emb = None
+        self.delta_live = 0
+        self.delta_lo = 0
+
+    def delta_tiles(self) -> int:
+        """Tiles the delta scan adds to every query's cost (the reference
+        kernel's grid over the delta capacity)."""
+        if self.delta_emb is None:
+            return 0
+        return -(-int(self.delta_emb.shape[0]) // self.tile_d)
 
     def serve(self, q_emb: np.ndarray, k: int, drop=None):
         """Scatter-gather dense top-k: host (ids int64, scores f32), each
@@ -84,6 +113,10 @@ class DenseEngine:
         Ids are global; ``drop`` ((n_shards, Q) bool) excludes lost or
         never-requested shard responses like the lexical merge (surviving-
         shard merge, ``-1`` padding).  Requires ``k <= min(shard docs)``.
+        With a delta attached its whole capacity is ranked and ghost rows
+        are masked to id -1 / float32-min after the ranking: a ghost's
+        zero vector scores 0, which would outrank genuinely negative live
+        scores, and asking for only k could let ghosts displace live docs.
         """
         q_t = torch.from_numpy(np.ascontiguousarray(q_emb, np.float32)
                                ).to(self.device)
@@ -92,13 +125,23 @@ class DenseEngine:
             sc, ids = dense_topk(q_t, self.shard_emb[s], k)
             sc_list.append(sc)
             id_list.append(ids + self.doc_lo[s])
-        if self.n_shards == 1:
+        if self.n_shards == 1 and self.delta_emb is None:
             ids = id_list[0].cpu().numpy()
             sc = sc_list[0].cpu().numpy()
             if drop is not None and drop[0].any():
                 ids[drop[0]] = -1
                 sc[drop[0]] = SCORE_FILL
             return ids, sc
+        if self.delta_emb is not None:
+            cap = int(self.delta_emb.shape[0])
+            dsc, dids = dense_topk(q_t, self.delta_emb, cap)
+            ghost = dids >= self.delta_live
+            sc_list.append(torch.where(ghost, SCORE_FILL, dsc))
+            id_list.append(torch.where(ghost, -1, dids + self.delta_lo))
+            if drop is not None:
+                drop = np.concatenate(
+                    [np.asarray(drop),
+                     np.zeros((1, np.asarray(drop).shape[1]), bool)])
         ids, sc = merge_shard_topk(sc_list, id_list, k, drop=drop)
         return ids.cpu().numpy(), sc.cpu().numpy()
 

@@ -5,9 +5,9 @@ Mirrors the paper's setup: one corpus, two physical index layouts serving as
 "index mirrors" on different ISN replicas — a BMW-style block-max index for
 rank-safe DAAT and an ATIRE/JASS-style impact-ordered index for anytime SAAT.
 
-Host-side NumPy copy of ``repro.index.builder`` for the sealed build (the
-port imports nothing of the reference package).  The live delta segment's
-frozen-statistics path is not ported yet.
+Host-side NumPy copy of ``repro.index.builder`` (the port imports nothing
+of the reference package), the live delta segment's frozen statistics
+(``CollectionStats``, ``assemble_index(..., frozen=)``) included.
 """
 
 from __future__ import annotations
@@ -62,6 +62,33 @@ class InvertedIndex:
         return self.docs.shape[0]
 
 
+@dataclass(frozen=True)
+class CollectionStats:
+    """Collection-level quantities that price a posting.
+
+    A live delta segment scores its postings with the *sealed* index's stats
+    (frozen at seal time) rather than its own — otherwise per-posting scores
+    would drift as the delta grows and live results could never match the
+    post-merge rebuild posting-for-posting.
+    """
+    n_docs: int
+    avg_dl: float
+    total_tokens: float
+    df: np.ndarray                 # (V,) float64
+    cf: np.ndarray                 # (V,) float64
+    quant_scale: float             # frozen impact quantization scale
+
+
+def frozen_stats(index: InvertedIndex) -> CollectionStats:
+    """Snapshot the scoring statistics of a sealed index."""
+    return CollectionStats(
+        n_docs=index.n_docs, avg_dl=index.avg_dl,
+        total_tokens=index.total_tokens,
+        df=np.asarray(index.df, np.float64),
+        cf=np.asarray(index.cf, np.float64),
+        quant_scale=index.quant_scale)
+
+
 def _per_term_stats(term_ids, scores, offsets, df, vocab):
     """{max, amean, gmean, hmean, median, std} per term for one sim column."""
     eps = 1e-3
@@ -78,9 +105,15 @@ def _per_term_stats(term_ids, scores, offsets, df, vocab):
     hmean = nz / np.maximum(sinv, 1e-12)
     std = np.sqrt(np.maximum(s2 / nz - amean ** 2, 0.0))
 
-    # max + median from a per-term sort
-    order = np.lexsort((shifted, term_ids))
-    sorted_s = shifted[order]
+    # max + median from a per-term sort of the values: each value's global
+    # rank under the term id gives one int64 key, so one integer sort stands
+    # in for the (term, value) lexsort (tied values are interchangeable)
+    p = len(shifted)
+    by_value = np.argsort(shifted)
+    rank = np.empty(p, np.int64)
+    rank[by_value] = np.arange(p)
+    key = term_ids.astype(np.int64) * p + rank
+    sorted_s = shifted[by_value[np.sort(key) % p]]
     has = df > 0
     last = np.maximum(offsets[1:] - 1, 0)
     mx = np.where(has, sorted_s[np.minimum(last, len(sorted_s) - 1)], 0.0)
@@ -98,7 +131,8 @@ LANE_MULTIPLE = 128
 
 def pack_tiles(docs: np.ndarray, terms: np.ndarray,
                values: list[tuple[np.ndarray, float, np.dtype]],
-               n_docs: int, tile_d: int):
+               n_docs: int, tile_d: int,
+               tile_cap: int | None = None):
     """Pre-tile postings into ``(n_tiles, cap)`` doc-local buckets.
 
     This is the build-time half of the serving kernels' one-doc-tile-per-
@@ -107,6 +141,9 @@ def pack_tiles(docs: np.ndarray, terms: np.ndarray,
     a common lane-aligned ``cap`` so the whole structure is a dense
     ``(n_tiles, cap)`` array the kernels can view with zero per-query copies.
 
+    The one tiling helper shared by the sealed build, the append-only delta
+    tile-set, and the merge re-tile.
+
     Args:
       docs: (P,) doc ids local to the shard.
       terms: (P,) term id of each posting.
@@ -114,6 +151,9 @@ def pack_tiles(docs: np.ndarray, terms: np.ndarray,
         (e.g. exact scores, quantized impacts).
       n_docs: shard size (defines the tile count).
       tile_d: docs per tile; must match the kernels' accumulator tile.
+      tile_cap: pin the lane capacity to this value instead of the
+        data-derived one — the delta tile-set passes its postings capacity
+        so every rebuild keeps the same shapes as documents stream in.
 
     Returns:
       (tile_docs, tile_terms, bucketed_values, cap) where ``tile_docs`` is
@@ -127,6 +167,10 @@ def pack_tiles(docs: np.ndarray, terms: np.ndarray,
     counts = np.bincount(tile, minlength=n_tiles)
     cap = max(int(counts.max()) if p else 0, 1)
     cap = -(-cap // LANE_MULTIPLE) * LANE_MULTIPLE
+    if tile_cap is not None:
+        if tile_cap < cap:
+            raise ValueError(f"tile_cap={tile_cap} below required cap={cap}")
+        cap = tile_cap
 
     order = np.argsort(tile, kind="stable")   # keeps (term, doc) order in-tile
     tsort = tile[order]
@@ -153,22 +197,37 @@ def impact_order_layout(term: np.ndarray, doc: np.ndarray,
     per-shard slicer: the per-term impact-descending (doc-ascending within a
     level) permutation plus the (V, 256) cumulative level table
     ``level_cum[t, l] = # postings of t with impact >= l``."""
-    order = np.lexsort((doc, -impact.astype(np.int32), term))
-    lvl = np.bincount(term.astype(np.int64) * 256 + impact,
-                      minlength=vocab * 256).reshape(vocab, 256)
-    level_cum = np.flip(np.cumsum(np.flip(lvl, axis=1), axis=1),
-                        axis=1).astype(np.int32)
+    # one int64 key (term, impact descending, doc) in place of the lexsort:
+    # V * 256 * n_docs stays far below 2**63
+    n = int(doc.max()) + 1 if len(doc) else 1
+    key = ((term.astype(np.int64) * 256 + (255 - impact.astype(np.int64)))
+           * n + doc.astype(np.int64))
+    order = np.argsort(key, kind="stable")
+    # the level table is counted over the terms present only (a delta
+    # segment, rebuilt on every feed batch, holds a few thousand of them)
+    df = np.bincount(term, minlength=vocab)
+    present = np.flatnonzero(df)
+    row = (np.cumsum(df > 0) - 1)[term]
+    lvl = np.bincount(row * 256 + impact,
+                      minlength=len(present) * 256).reshape(-1, 256)
+    level_cum = np.zeros((vocab, 256), np.int32)
+    level_cum[present] = np.flip(np.cumsum(np.flip(lvl, axis=1), axis=1),
+                                 axis=1)
     return order, level_cum
 
 
 def assemble_index(term: np.ndarray, doc: np.ndarray, tf: np.ndarray,
                    doclen: np.ndarray, vocab: int, *,
                    block_size: int = 64, n_levels: int = 255,
-                   stoplist: np.ndarray | None = None) -> InvertedIndex:
+                   stoplist: np.ndarray | None = None,
+                   frozen: CollectionStats | None = None) -> InvertedIndex:
     """Assemble every index mirror from prepared postings.
 
     ``term``/``doc``/``tf`` must already be stoplist-filtered and
-    (term, doc)-sorted; ``tf`` float64.
+    (term, doc)-sorted; ``tf`` float64.  With ``frozen`` set, per-posting
+    scores and impact quantization use those sealed collection statistics
+    instead of the combined ones — the live-delta discipline.  Structural
+    quantities (df, offsets, layouts) always describe the postings given.
     """
     n, v = len(doclen), vocab
     p = len(term)
@@ -180,13 +239,25 @@ def assemble_index(term: np.ndarray, doc: np.ndarray, tf: np.ndarray,
 
     doclen_f = doclen.astype(np.float64)
     dl = doclen_f[doc]
-    avg_dl = float(doclen_f.mean())
-    total_tokens = float(doclen_f.sum())
-    sims = scoring.all_similarity_scores(tf, df[term].astype(np.float64),
-                                         cf[term], dl, n, avg_dl,
+    if frozen is None:
+        score_n = n
+        avg_dl = float(doclen_f.mean())
+        total_tokens = float(doclen_f.sum())
+        df_p = df[term].astype(np.float64)
+        cf_p = cf[term]
+        smax = None
+    else:
+        score_n = frozen.n_docs
+        avg_dl = frozen.avg_dl
+        total_tokens = frozen.total_tokens
+        df_p = frozen.df[term]
+        cf_p = frozen.cf[term]
+        smax = frozen.quant_scale
+
+    sims = scoring.all_similarity_scores(tf, df_p, cf_p, dl, score_n, avg_dl,
                                          total_tokens)  # (P, 6)
     bm25_sc = sims[:, 1].astype(np.float32)
-    impact, qmax = scoring.quantize_impacts(bm25_sc, n_levels)
+    impact, qmax = scoring.quantize_impacts(bm25_sc, n_levels, smax=smax)
 
     # ---- block-max structure ----
     n_blocks = (n + block_size - 1) // block_size

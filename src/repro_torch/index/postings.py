@@ -141,11 +141,39 @@ def shard_to_device(layout: ShardLayout, device: str | torch.device | None
     return shard, layout.spec
 
 
+def _pad_to(arr: np.ndarray, size: int, fill) -> np.ndarray:
+    """Right-pad a 1-D postings column to a static capacity.
+
+    Pads are inert by construction: every serving gather is offsets/df
+    addressed (dead lanes mask ``lane < df``), so a padded tail is never
+    combined into a score.
+    """
+    if size < len(arr):
+        raise ValueError(f"pad size {size} below array length {len(arr)}")
+    out = np.full(size, fill, arr.dtype)
+    out[:len(arr)] = arr
+    return out
+
+
 def shard_layout(index: InvertedIndex, doc_lo: int = 0,
                  doc_hi: int | None = None,
-                 tile_d: int = 128) -> ShardLayout:
+                 tile_d: int = 128, *,
+                 tile_cap: int | None = None,
+                 pad_postings: int | None = None,
+                 max_df: int | None = None,
+                 max_blocks_per_term: int | None = None) -> ShardLayout:
     """Lay out the shard of docs [doc_lo, doc_hi) on the host: every array
-    of :class:`IndexShard` as NumPy, and the shard's spec."""
+    of :class:`IndexShard` as NumPy, and the shard's spec.
+
+    The keyword overrides pin *capacity* shapes and static caps instead of
+    the data-derived ones, so a delta tile-set rebuilt on every ingest batch
+    keeps its shapes while it fills: ``pad_postings`` pads every postings
+    column (and the sparse block-max CSR) to that length, ``tile_cap`` pins
+    the bucketed mirror's lane capacity, and ``max_df`` /
+    ``max_blocks_per_term`` pin the per-term gather caps.  Left at None
+    (the sealed shards', ``shard_layouts``), every capacity is the data's
+    own.
+    """
     doc_hi = index.n_docs if doc_hi is None else doc_hi
     n_local = doc_hi - doc_lo
     v = index.vocab
@@ -192,17 +220,30 @@ def shard_layout(index: InvertedIndex, doc_lo: int = 0,
     bm_offsets = np.zeros(v + 1, np.int64)
     np.cumsum(bm_df, out=bm_offsets[1:])
 
+    if pad_postings is not None:
+        docs = _pad_to(docs, pad_postings, 0)
+        score = _pad_to(score, pad_postings, 0.0)
+        docs_imp = _pad_to(docs_imp, pad_postings, 0)
+        imp = _pad_to(imp, pad_postings, 0)
+        b_id = _pad_to(b_id, pad_postings, 0)
+        b_max = _pad_to(b_max, pad_postings, 0.0)
+        b_cnt = _pad_to(b_cnt, pad_postings, 0)
+
     # bucketed doc-tile-major mirror for the serving kernels
     tile_docs, tile_terms, (tile_scores, tile_imps), tcap = pack_tiles(
-        d, t, [(s, 0.0, np.float32), (im, 0, np.int32)], n_local, tile_d)
+        d, t, [(s, 0.0, np.float32), (im, 0, np.int32)], n_local, tile_d,
+        tile_cap=tile_cap)
 
     n_blocks = (n_local + bs - 1) // bs
     n_tiles = max(1, (n_local + tile_d - 1) // tile_d)
     spec = IndexShardSpec(
         n_docs=n_local, vocab=v, n_postings=len(docs), n_blocks=n_blocks,
         n_block_entries=len(b_id), n_levels=256, block_size=bs,
-        max_df=int(df.max()) if len(df) else 1,
-        max_blocks_per_term=int(bm_df.max()) if len(bm_df) else 1,
+        max_df=(max_df if max_df is not None
+                else int(df.max()) if len(df) else 1),
+        max_blocks_per_term=(max_blocks_per_term
+                             if max_blocks_per_term is not None
+                             else int(bm_df.max()) if len(bm_df) else 1),
         quant_scale=index.quant_scale,
         tile_d=tile_d, tile_cap=tcap, n_tiles=n_tiles)
 

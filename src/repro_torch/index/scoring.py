@@ -63,10 +63,17 @@ def all_similarity_scores(tf, df, cf, dl, n_docs, avg_dl, total_tokens):
     return np.stack([c.astype(np.float32) for c in cols], axis=1)
 
 
-def quantize_impacts(scores: np.ndarray, n_levels: int = 255
-                     ) -> tuple[np.ndarray, float]:
-    """ATIRE-style linear impact quantization to [1, n_levels] (uint8),
-    scaled by the score maximum; returns (impacts, scale)."""
-    smax = float(scores.max()) if len(scores) else 1.0
+def quantize_impacts(scores: np.ndarray, n_levels: int = 255,
+                     smax: float | None = None) -> tuple[np.ndarray, float]:
+    """ATIRE-style linear impact quantization to [1, n_levels] (uint8);
+    returns (impacts, scale).
+
+    ``smax`` pins the quantization scale (the live-delta path quantizes feed
+    postings on the sealed index's frozen scale so impacts stay comparable
+    across segments); by default the scale is the score maximum.  Scores
+    above a pinned ``smax`` clip to ``n_levels``.
+    """
+    if smax is None:
+        smax = float(scores.max()) if len(scores) else 1.0
     q = np.ceil(scores / smax * n_levels).astype(np.int32)
     return np.clip(q, 1, n_levels).astype(np.uint8), smax

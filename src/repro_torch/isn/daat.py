@@ -40,7 +40,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.index.postings import IndexShard
-from repro_torch.isn.backend import stable_topk, topk_from_tiles
+from repro_torch.isn.backend import (merge_shard_topk, stable_topk,
+                                     topk_from_tiles)
 from repro_torch.kernels.blockmax_score.ops import (blockmax_score,
                                                     blockmax_score_tiles)
 
@@ -151,6 +152,51 @@ def daat_serve(shard: IndexShard, terms: torch.Tensor, mask: torch.Tensor,
                           bcap=bcap, tile_d=tile_d)
             for i in range(0, max(terms.shape[0], 1), q_block)]
     return DaatResult(*(torch.cat(parts) for parts in zip(*outs)))
+
+
+def daat_scan_segments(segments, terms, mask, theta, *, k: int):
+    """Scan one batch over sealed + delta segments, unmerged.
+
+    ``segments`` is a list of ``(shard, spec, doc_lo)`` in ascending
+    global-doc order — sealed shards first, then (optionally) the live
+    delta pseudo-shard, whose ``doc_lo`` is the sealed collection size.
+    Each segment is scanned with its own static caps (a delta segment's
+    capacity padding is inert: padded lanes hold term -1 and padded block
+    entries sit past every term's range).  Returns ``(scores, ids, works,
+    blocks)``, one entry per segment, ids global.  The one segment loop
+    the serve path (``SearchSystem._stage1_full``) and
+    ``daat_serve_segments`` share.
+    """
+    sc_list, id_list, works, blocks = [], [], [], []
+    for shard, spec, doc_lo in segments:
+        r = daat_serve(shard, terms, mask, theta, n_docs=spec.n_docs,
+                       n_blocks=spec.n_blocks, block_size=spec.block_size,
+                       k=k, bcap=spec.max_blocks_per_term,
+                       tile_d=spec.tile_d)
+        sc_list.append(r.topk_scores)
+        id_list.append(r.topk_docs + doc_lo)
+        works.append(r.work)
+        blocks.append(r.blocks)
+    return sc_list, id_list, works, blocks
+
+
+def daat_serve_segments(segments, terms, mask, theta, *, k: int, drop=None):
+    """Serve one batch over sealed + delta segments and merge the top-k.
+
+    ``segments`` as for :func:`daat_scan_segments`; the candidates merge
+    through ``merge_shard_topk``'s lower-global-doc-id tie policy.
+    ``drop[i]`` (optional) masks segment ``i`` out of a query's merge;
+    ``drop`` rows follow segment order.  Returns ``(ids, scores, works,
+    blocks)``: the merged (Q, k) global result plus per-segment work/block
+    counters.  The reference's per-segment ``qcaps`` size its gather paths;
+    the kernel path takes none.
+    """
+    sc_list, id_list, works, blocks = daat_scan_segments(
+        segments, terms, mask, theta, k=k)
+    if len(segments) == 1 and drop is None:
+        return id_list[0], sc_list[0], works, blocks
+    ids, sc = merge_shard_topk(sc_list, id_list, k, drop=drop)
+    return ids, sc, works, blocks
 
 
 # ---------------------------------------------------------------------------

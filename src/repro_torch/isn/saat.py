@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.index.postings import IndexShard
-from repro_torch.isn.backend import topk_from_tiles
+from repro_torch.isn.backend import merge_shard_topk, topk_from_tiles
 from repro_torch.kernels.impact_accumulate.ops import (impact_accumulate,
                                                        impact_accumulate_tiles)
 from repro_torch.kernels.score_histogram.ops import histogram_topk
@@ -109,6 +109,47 @@ def saat_serve(shard: IndexShard, terms: torch.Tensor, mask: torch.Tensor,
                           tile_d=tile_d)
             for i in range(0, max(terms.shape[0], 1), q_block)]
     return SaatResult(*(torch.cat(parts) for parts in zip(*outs)))
+
+
+def saat_scan_segments(segments, terms, mask, rhos, *, k: int):
+    """Scan one batch over sealed + delta segments, unmerged.
+
+    ``segments`` is a list of ``(shard, spec, doc_lo)`` in ascending
+    global-doc order (delta pseudo-shard last); ``rhos[i]`` is segment
+    ``i``'s per-query postings budget.  Returns ``(scores, ids, works)``,
+    one entry per segment, ids global.  The one segment loop the serve
+    path (``SearchSystem._stage1_full``) and ``saat_serve_segments`` share.
+    """
+    sc_list, id_list, works = [], [], []
+    for i, (shard, spec, doc_lo) in enumerate(segments):
+        r = saat_serve(shard, terms, mask, rhos[i], n_docs=spec.n_docs,
+                       k=k, tile_d=spec.tile_d)
+        sc_list.append(r.topk_scores)
+        id_list.append(r.topk_docs + doc_lo)
+        works.append(r.work)
+    return sc_list, id_list, works
+
+
+def saat_serve_segments(segments, terms, mask, rhos, *, k: int, drop=None):
+    """Serve one batch over sealed + delta segments and merge the top-k.
+
+    ``segments`` and ``rhos`` as for :func:`saat_scan_segments` — the
+    caller resolves the global ρ → level-cut split across *all* segments
+    (delta included) so the combined scanned prefix is exactly the
+    budgeted work.  Integer impact accumulation keeps the merge bit-exact
+    on both paths; a delta segment's capacity padding contributes zero
+    impact and is outranked by the sealed segments' real candidates.
+    ``drop`` ((n_segments, Q) bool, optional) masks segments out of a
+    query's merge.
+
+    Returns ``(ids, scores, works)`` with per-segment work counters.
+    """
+    sc_list, id_list, works = saat_scan_segments(segments, terms, mask,
+                                                 rhos, k=k)
+    if len(segments) == 1 and drop is None:
+        return id_list[0], sc_list[0], works
+    ids, sc = merge_shard_topk(sc_list, id_list, k, drop=drop)
+    return ids, sc, works
 
 
 # ---------------------------------------------------------------------------

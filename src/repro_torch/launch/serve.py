@@ -23,11 +23,14 @@ the capacity ``estimate_capacity`` measures on a ``fresh_probe`` of the
 fitted system, and prints the reference's online lines.  ``--cache``
 (``--cache-entries``, ``--cache-bytes``) puts the two-level result cache
 in front of the cascade, and ``--fault-scenario`` / ``--fault-json`` serve
-under a fault schedule; both print the reference's cache and fault lines.
-Flags that need a node the port does not have yet (live ingest,
-telemetry) raise ``NotImplementedError`` naming its ROADMAP item, when set
-to anything but their defaults; ``--spec-json`` still writes the spec they
-describe, as the reference does.
+under a fault schedule; ``--ingest`` (``--feed-qps``, ``--delta-docs``,
+``--delta-postings``) serves while a seeded document feed lands in the
+live delta and background merges reseal the index (online mode); each
+prints the reference's cache, fault or ingest line.  Flags that need a
+node the port does not have yet (telemetry) raise ``NotImplementedError``
+naming its ROADMAP item, when set to anything but their defaults;
+``--spec-json`` still writes the spec they describe, as the reference
+does.
 
 ``run(argv)`` does the work and returns a :class:`Served`; ``main`` prints
 its result.  Tests and ``chip_smoke.py`` call ``run`` in-process.
@@ -59,7 +62,6 @@ from repro_torch.serving.system import (PipelineResult, SearchSystem,
 # flags whose nodes are not ported, by the ROADMAP item that ports them;
 # each raises when set to anything but its default
 UNPORTED = {
-    "Live ingest": ("ingest", "feed_qps", "delta_docs", "delta_postings"),
     "Telemetry": ("metrics_json", "metrics_prom", "trace_slowest"),
 }
 
@@ -156,13 +158,20 @@ def _parser() -> argparse.ArgumentParser:
                          "lexical fallback replaces the dense candidates "
                          "(implies --dense)")
     ap.add_argument("--ingest", action="store_true",
-                    help="live ingest: not ported (raises)")
+                    help="serve while the collection mutates: a seeded "
+                         "document feed lands in a capacity-bounded delta "
+                         "tile-set, background merges reseal the index "
+                         "(repro_torch.index.delta); online mode only")
     ap.add_argument("--feed-qps", type=float, default=None,
-                    help="live ingest feed rate (not ported)")
+                    help="feed-batch arrivals per 1000 cost units "
+                         "(implies --ingest)")
     ap.add_argument("--delta-docs", type=int, default=None,
-                    help="delta tile-set doc capacity (not ported)")
+                    help="delta tile-set doc capacity; must be >= k_serve "
+                         "(implies --ingest)")
     ap.add_argument("--delta-postings", type=int, default=None,
-                    help="delta tile-set postings capacity (not ported)")
+                    help="delta tile-set postings capacity — sizes the "
+                         "worst-case delta-scan term charged into every "
+                         "query's bound (implies --ingest)")
     ap.add_argument("--zipf-skew", type=float, default=0.0,
                     help="Zipfian query-repetition skew for --online "
                          "traffic (0 = every query distinct, in order)")
@@ -380,8 +389,8 @@ def run(argv=None, say=print) -> Served:
 
 
 def report_online(s: dict) -> list[str]:
-    """The reference's ``[serve]`` summary lines of an online run's stats
-    (the ingest line waits for its item)."""
+    """The reference's ``[serve]`` summary lines of an online run's
+    stats."""
     line = (f"[serve] served {s['served']}/{s['n_queries']} "
             f"(shed {s['shed']}, {s['shed_pct']:.2f}%) in "
             f"{s['batches']} batches")
@@ -410,6 +419,17 @@ def report_online(s: dict) -> list[str]:
                      f"dense={d['dense_only']} fused={d['fused']} "
                      f"theta_skips={d['theta_skips']} "
                      f"fallbacks={d['fallbacks']}")
+    if "ingest" in s:
+        i = s["ingest"]
+        lines.append(f"[serve] ingest: docs={i['docs_ingested']} in "
+                     f"{i['feed_batches']} batches "
+                     f"(due {i.get('feed_batches_due', '?')}, throttled "
+                     f"{i.get('feed_throttled', 0)}), merges={i['merges']} "
+                     f"(deferred {i.get('merge_deferred', 0)}, forced "
+                     f"{i.get('merges_forced', 0)}), delta "
+                     f"{i['delta_docs']}/{i['capacity_docs']} docs "
+                     f"fill={i['fill']:.2f}, "
+                     f"delta_us={i['delta_us']:.1f}")
     if "coverage" in s:
         c = s["coverage"]
         lines.append(f"[serve] coverage: min={c['min']:.2f} "

@@ -133,13 +133,19 @@ def qd_features_batched(arrs: Stage2Arrays, terms: torch.Tensor,
       terms/mask: (Q, L) padded query terms.
       topics: (Q,) query topic ids.
       cand: (Q, C) candidate doc ids, -1 padding (padded rows yield garbage
-        features — mask downstream, as ``rerank_batched`` does).
+        features — mask downstream, as ``rerank_batched`` does); ids past
+        the sealed collection (live delta docs) read the last sealed doc's
+        per-doc features, as the reference's clamped gathers do.
       qcap: static lane budget; must bound the batch's per-query postings.
     Returns:
       (Q, C, 8) float32 feature grid.
     """
     tmask = mask > 0
-    c_safe = torch.clamp(cand.long(), min=0)
+    # the reference's gathers clamp out-of-range ids as JAX does (-1 padding
+    # to doc 0; a live delta doc, whose global id is past the sealed
+    # collection until a merge, to the last sealed doc), so its Stage-2
+    # prices an unmerged delta doc with that doc's length and topics
+    c_safe = torch.clamp(cand.long(), min=0, max=arrs.doclen.shape[0] - 1)
     bm25, mx, nm = _lane_term_stats(arrs.offsets, arrs.docs, arrs.score,
                                     terms, tmask, cand, qcap, p_tile)
     dl = arrs.doclen[c_safe]                             # (Q, C)

@@ -30,13 +30,18 @@ door: a guaranteed L1 hit is answered there at once (``batch_of`` -2) and
 never takes a batch slot; each dispatch peeks again and admission admits
 proven hits on the cache rung, its hit-ratio EWMA fed from every batch.
 
+With live ingest attached, a seeded feed-arrival process runs on the same
+clock: due feed batches are applied (``add_documents``) before each
+arrival and each dispatch, background merges (``merge``) reseal the index
+when the delta fills, and both occupy the server (``ingest_us`` /
+``merge_us``), gated by the admission ladder's feed and merge gates.  The
+event log records them under the ``INGEST_EVENT`` / ``MERGE_EVENT`` ids.
+
 The port of ``repro.serving.online.simulator``: the loop, its event-log
 tuples and its sums in the reference's order, so the event log equals the
-reference's tuple for tuple.  The reference's live-ingest and telemetry
-branches are not here: a system whose spec turns one of those nodes on
-raises ``NotImplementedError`` naming its ROADMAP item.  The
-``INGEST_EVENT`` / ``MERGE_EVENT`` markers keep their values for the
-ingest item.
+reference's tuple for tuple.  The reference's telemetry branches are not
+here: a system whose spec turns telemetry on raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -49,7 +54,9 @@ from repro_torch.serving.latency import over_budget, percentiles
 from repro_torch.serving.online.admission import (FULL, MODE_NAMES, SHED,
                                                   AdmissionController)
 from repro_torch.serving.online.batcher import MicroBatcher, pad_batch
-from repro_torch.serving.online.traffic import arrival_times, zipf_query_mix
+from repro_torch.serving.online.traffic import (arrival_times,
+                                                feed_arrival_times,
+                                                zipf_query_mix)
 from repro_torch.serving.spec import OnlineSpec, TrafficSpec
 
 _NOT_SERVED = -1.0  # sentinel in per-query arrays / the event log (not NaN:
@@ -157,8 +164,70 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
     i = 0
     n_front = 0
 
+    # ---- live ingest: a seeded feed-arrival process on the same virtual
+    # clock.  Feed batches and background merges charge the server's
+    # t_free (they occupy the engine host), and both are gated by the
+    # admission controller's backpressure ladder: merges defer to load,
+    # the feed throttles before queries shed.  With ingest disabled this
+    # whole block is inert — no arrivals, no events, no clock charges.
+    ingest_on = system.delta is not None
+    feed_times = np.zeros(0)
+    full_feed = None
+    fi = 0
+    if ingest_on:
+        from repro_torch.index.corpus import slice_feed, synthesize_feed_docs
+        if system.corpus is None:
+            raise ValueError("online ingest needs the corpus the sealed "
+                             "index was built from")
+        ing = system.cascade_spec.ingest
+        fb = ing.feed_batch
+        horizon = float(arr[-1])
+        n_feed = max(1, int(horizon * ing.feed_qps / 1000.0 * 2.0) + 4)
+        feed_times = feed_arrival_times(ing, n_feed)
+        feed_times = feed_times[feed_times <= horizon]
+        if len(feed_times):
+            full_feed = synthesize_feed_docs(system.corpus,
+                                             int(len(feed_times)) * fb,
+                                             seed=ing.seed)
+
+    def run_ingest(now: float) -> None:
+        """Apply every due feed batch (and any merge it needs) at ``now``."""
+        nonlocal fi, t_free
+        if not ingest_on:
+            return
+        while fi < len(feed_times) and feed_times[fi] <= now:
+            t_feed = float(feed_times[fi])
+            batch = slice_feed(full_feed, fi * fb, (fi + 1) * fb)
+            # merge first when the delta is past its threshold — or cannot
+            # take this batch at all (then the merge is forced through)
+            need = system.delta.admit_count(batch) < batch.n_docs
+            if ((need or system.delta.fill >= ing.merge_threshold)
+                    and system.delta.n_docs):
+                ok = (adm.merge_gate(now, t_free, len(pending), full=need)
+                      if adm is not None else True)
+                if ok:
+                    merged = system.merge()
+                    t_start = max(t_free, now)
+                    t_free = t_start + ing.merge_us
+                    events.append((MERGE_EVENT, MERGE_EVENT, t_feed,
+                                   t_start, 0.0, float(ing.merge_us),
+                                   float(t_free), int(merged)))
+                elif need:
+                    return      # feed blocked until a merge is allowed
+            if adm is not None and not adm.feed_gate(
+                    t_feed, t_free, len(pending), pause_us=ing.ingest_us):
+                return          # throttled: this batch retries later
+            took = system.add_documents(batch)
+            t_start = max(t_free, now)
+            t_free = t_start + ing.ingest_us
+            events.append((INGEST_EVENT, int(fi), t_feed, t_start,
+                           float(t_start - t_feed), float(ing.ingest_us),
+                           float(t_free), int(took)))
+            fi += 1
+
     def admit(qid: int) -> None:
         nonlocal n_front
+        run_ingest(float(arr[qid]))
         if cache_on:
             # front-door lookup at arrival: an exact-result L1 hit is
             # answered from the broker's memory (prediction + probe) and
@@ -203,8 +272,10 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
 
     def dispatch(rows: np.ndarray, t_start: float) -> None:
         nonlocal t_free
-        # a batch never starts before the server is free (the reference's
-        # ingest pauses push it back here; the close already waits for it)
+        run_ingest(t_start)
+        # an ingest/merge pause that ran past the close pushes the batch
+        # start back: the extra wait is real and the admission ladder
+        # prices it (feed work degrades queries honestly, never silently)
         t_start = max(t_start, t_free)
         waits = t_start - arr[rows]
         hits = None
@@ -326,6 +397,14 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
             stats["cache"]["hit_ewma"] = float(adm.hit_ewma)
     if dense_on:
         stats["dense"] = dense_acc
+    if ingest_on:
+        stats["ingest"] = system.stats()["ingest"]
+        stats["ingest"]["feed_batches_due"] = int(len(feed_times))
+        stats["ingest"]["feed_batches_applied"] = int(fi)
+        if adm is not None:
+            for key in ("feed_applied", "feed_throttled", "merges_applied",
+                        "merges_forced", "merge_deferred"):
+                stats["ingest"][key] = int(adm.stats[key])
     if faulted:
         if system.faults.active:
             stats["faults"] = dict(system._fault_counters)
@@ -376,8 +455,10 @@ def fresh_probe(system):
     serving state over the shards, dense engine and Stage-2 arrays it
     shares with ``system``, which serving only reads, so a probe of a
     196,608-doc shard costs no host layout pass and no copy to the card.
-    Like the reference's fresh build, the probe gets an empty cache and a
-    fault injector of its own, whose transient draws start anew."""
+    Like the reference's fresh build, the probe gets an empty cache, a
+    fault injector of its own, whose transient draws start anew, and an
+    empty delta of its own: neither its feed nor its parent's merge
+    reaches the other."""
     return system._fresh_copy()
 
 

@@ -32,9 +32,12 @@ partial-coverage rung), the two-level result cache (``spec.cache``:
 ``repro_torch.serving.cache`` in front of the cascade, ``cache_peek``) and
 fault injection with scatter-gather failover (``spec.fault``:
 ``repro_torch.serving.faults``, the retry chain of ``_fault_plan``, the
-health probes).  A spec that turns on a node the port does not have yet
-(ingest, telemetry) raises ``NotImplementedError`` naming its ROADMAP
-item.
+health probes) and live ingest (``spec.ingest``: a capacity-padded delta
+tile-set, ``repro_torch.index.delta``, scanned by both lexical engines and
+the dense engine as one more segment after the sealed shards;
+``add_documents`` and the background ``merge``).  A spec that turns on
+telemetry, the node the port does not have yet, raises
+``NotImplementedError`` naming its ROADMAP item.
 Models fitted by the reference can also be converted
 (``repro_torch.convert``); so can the two-tower model of the dense
 modality (``convert.two_tower_params``), or the port draws its own.
@@ -56,20 +59,23 @@ from repro_torch.core import features as F
 from repro_torch.core import gbrt
 from repro_torch.dense import (M_BOTH, M_DENSE, M_LEX, DenseEngine,
                                build_embeddings, fuse)
+from repro_torch.dense.embeddings import delta_doc_embeddings
 from repro_torch.index.builder import InvertedIndex, build_index
-from repro_torch.index.corpus import Corpus
+from repro_torch.index.corpus import Corpus, FeedDocs
+from repro_torch.index.delta import DeltaStore
 from repro_torch.index.postings import (ShardLayout, shard_layouts,
                                         shard_ranges, shard_to_device)
 from repro_torch.isn.backend import (merge_shard_topk, query_lane_budget,
                                      resolve_backend, resolve_device)
-from repro_torch.isn.daat import daat_serve
-from repro_torch.isn.saat import saat_serve
+from repro_torch.isn.daat import daat_scan_segments
+from repro_torch.isn.saat import saat_scan_segments
 from repro_torch.ltr.cascade import CascadeResult, rerank_batched
 from repro_torch.ltr.ranker import (LTRModel, ltr_training_set, qd_features,
                                    stage2_arrays, train_ltr)
 from repro_torch.models.recsys import TwoTower
-from repro_torch.serving.cache import (HEALTHY_EPOCH, ServingCache, l1_key,
-                                       l2_key, normalize_query, route_sig)
+from repro_torch.serving.cache import (HEALTHY_EPOCH, ServingCache,
+                                       ingest_epoch, l1_key, l2_key,
+                                       normalize_query, route_sig)
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.latency import (CostModel, budget_attribution,
                                          over_budget, percentiles,
@@ -91,12 +97,8 @@ def _unported(what: str, item: str):
 def refuse_unported_nodes(spec: CascadeSpec) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for the first
     node of ``spec`` the port does not have yet."""
-    for active, what, item in (
-            (spec.ingest.active, "live ingest (IngestSpec)", "Live ingest"),
-            (spec.telemetry.active, "telemetry (TelemetrySpec)",
-             "Telemetry")):
-        if active:
-            raise _unported(what, item)
+    if spec.telemetry.active:
+        raise _unported("telemetry (TelemetrySpec)", "Telemetry")
 
 
 @dataclass
@@ -226,11 +228,12 @@ class SearchSystem:
         return len(self.shards)
 
     def _init_serving_state(self) -> None:
-        """The state serving moves: the replica pool, the fault injector
-        (its transient-draw stream) and the serving clock, the result
-        cache, the fault counters and the routing feedback."""
+        """The state serving moves: the live delta, the replica pool, the
+        fault injector (its transient-draw stream) and the serving clock,
+        the result cache, the fault counters and the routing feedback."""
         spec = self.cascade_spec
         deploy = spec.deploy
+        self._init_ingest()
         self.pool = ReplicaPool(
             PoolConfig(n_partitions=deploy.n_shards,
                        replicas_per_partition=deploy.replicas,
@@ -265,6 +268,54 @@ class SearchSystem:
         # engine times — drives the hedge_deadline adaptation
         self._pinball_ewma: float | None = None
 
+    def _init_ingest(self) -> None:
+        """The live delta (spec.ingest; inert by default): an empty
+        ``DeltaStore`` over the sealed index on the system's device, its
+        counters, and its shape-static scan cost ``_delta_us``, charged at
+        capacity to every served query and to ``worst_case_us``.  With
+        ingest off, ``delta`` is None and every serve path, cache key and
+        timing term is the sealed system's.  With ingest on, the dense
+        engine is this system's own view of the (shared) shard matrices, so
+        a delta set on one system never shows in another that shares its
+        shards."""
+        spec = self.cascade_spec
+        self.delta: DeltaStore | None = None
+        self._delta_us = 0.0
+        self._ingest_counters = {
+            "epoch": 0,          # cache-epoch bumps (feeds + merges)
+            "feed_batches": 0,   # applied ingest batches
+            "docs_ingested": 0,  # docs accepted into the delta
+            "merges": 0,         # background merges (reseals)
+            "docs_merged": 0,    # docs folded into the sealed index
+        }
+        if not spec.ingest.active:
+            return
+        if self.dense is not None:
+            self.dense = copy.copy(self.dense)
+            self.dense.clear_delta()
+        if spec.ingest.delta_docs < self.k_serve:
+            raise ValueError(
+                f"ingest.delta_docs={spec.ingest.delta_docs} is below "
+                f"k_serve={self.k_serve}; the delta segment must be "
+                "able to answer a full candidate list")
+        self.delta = self._new_delta(self.index)
+        self._delta_us = float(
+            self.cost.delta_time(self.delta.capacity_postings))
+        if self.dense is not None:
+            # the dense delta segment is capacity-padded too, so its tile
+            # count — and hence its cost term — is spec-static
+            d_tiles = -(-self.delta.capacity_docs // self.dense.tile_d)
+            self._delta_us += self.cost.dense_tile_us * d_tiles
+
+    def _new_delta(self, index: InvertedIndex) -> DeltaStore:
+        """An empty delta store over the sealed ``index`` at the spec's
+        capacities, on the system's device."""
+        ing = self.cascade_spec.ingest
+        return DeltaStore(index, capacity_docs=ing.delta_docs,
+                          capacity_postings=ing.delta_postings,
+                          tile_d=self.cascade_spec.index.tile_d,
+                          device=self.device)
+
     def _init_routing(self) -> None:
         """The budget reservation and the scheduler for the attached
         stages: with Stage-0 models the scheduler routes on the stage-1
@@ -280,12 +331,13 @@ class SearchSystem:
     def _fresh_copy(self) -> "SearchSystem":
         """The system ``build_system(self.cascade_spec, self.index,
         corpus=..., models=..., ltr=..., cost=..., tower=..., device=...)``
-        builds, without building it: the serving state (pool, fault
-        injector and its draws, clock, an empty cache, counters, routing
-        feedback) starts anew at the live spec, and the
-        structures derived from the index and the models (shards, dense
-        engine, Stage-2 arrays, stacked forests), which serving only
-        reads, are shared."""
+        builds, without building it: the serving state (an empty delta,
+        pool, fault injector and its draws, clock, an empty cache,
+        counters, routing feedback) starts anew at the live spec, and the
+        structures derived from the index and the models (shards, the
+        dense engine's matrices, Stage-2 arrays, stacked forests), which
+        serving only reads, are shared.  A merge in either system replaces
+        its own shards and delta and never touches the other's."""
         new = copy.copy(self)
         new._base_cfg = scheduler_config(self.cascade_spec.routing)
         new._init_serving_state()
@@ -533,7 +585,14 @@ class SearchSystem:
 
     def _jass_split(self, terms, mask, rows, rho, cache: dict | None = None):
         """Resolve the ρ budget to the global impact-level cut and split the
-        cut's work per shard.  Returns (per-shard work list, any_ok).
+        cut's work per segment.  Returns (per-segment work list, any_ok).
+
+        With a live delta attached the list carries one extra trailing
+        entry — the delta segment's slice of the same global cut (its
+        level table takes part in the cut, so ρ budgets the *whole*
+        collection, undigested feed docs included).  Timing and pool
+        consumers slice ``work_s[:n_shards]``: the delta's scan cost is
+        the shape-static ``_delta_us`` term, never its per-query work.
 
         ``cache`` memoizes on (rows, rho) for the duration of one served
         batch — stage-1 budgeting, hedging resolution, and pool feedback
@@ -547,6 +606,9 @@ class SearchSystem:
         m = (mask[rows] > 0)[:, :, None]
         totals = [(lc[terms[rows]] * m).sum(axis=1)       # (R, n_levels)
                   for lc in self._level_cum_host]
+        if self.delta is not None:
+            totals.append((self.delta.level_cum[terms[rows]] * m)
+                          .sum(axis=1))
         total_g = totals[0] if len(totals) == 1 else np.sum(totals, axis=0)
         lstar, any_ok = resolve_level_cut(total_g, rho)
         rr = np.arange(len(rows))
@@ -562,13 +624,26 @@ class SearchSystem:
         def fn(rows, rho):
             work_s, _ = self._jass_split(terms, mask, rows, rho, cache)
             t = np.stack([self.cost.saat_time(w.astype(np.float64))
-                          for w in work_s])
+                          for w in work_s[:self.n_shards]])
             return self.cost.gather_time(t)
         return fn
 
+    def _segments(self):
+        """The segments a route scans, ``(shard, spec, doc_lo)`` in global
+        doc order: the sealed shards, then the live delta when there is
+        one, appended last so merge ties keep breaking toward the lower
+        global doc id."""
+        segs = list(zip(self.shards, self.shard_specs, self.doc_lo))
+        if self.delta is not None:
+            segs.append((self.delta.shard, self.delta.shard_spec,
+                         self.delta.base_docs))
+        return segs
+
     def _merge(self, rows, sc_list, id_list, topk, topk_sc, drop):
-        """Merge one route's per-shard lists into ``topk``/``topk_sc`` at
-        ``rows``, the ``drop`` slots excluded."""
+        """Merge one route's per-segment lists into ``topk``/``topk_sc`` at
+        ``rows``, the ``drop`` slots excluded.  A list past the shards' is
+        the delta segment's: it is local to the merge host, so it is never
+        lost and never dropped by admission."""
         if self._debug_shard_lists is not None:
             self._debug_shard_lists.append(
                 (rows, [a.cpu().numpy() for a in sc_list],
@@ -576,9 +651,11 @@ class SearchSystem:
         if len(sc_list) == 1:
             ids, sc = id_list[0], sc_list[0]
         else:
-            ids, sc = merge_shard_topk(
-                sc_list, id_list, self.k_serve,
-                drop=None if drop is None else drop[:, rows])
+            dr = None if drop is None else drop[:, rows]
+            if dr is not None and len(sc_list) > len(dr):
+                dr = np.concatenate([dr, np.zeros((1, len(rows)), bool)])
+            ids, sc = merge_shard_topk(sc_list, id_list, self.k_serve,
+                                       drop=dr)
         topk[rows] = ids.cpu().numpy()
         topk_sc[rows] = sc.cpu().numpy().astype(np.float32)
         if len(sc_list) == 1 and drop is not None and drop[0, rows].any():
@@ -602,6 +679,11 @@ class SearchSystem:
         merge (``-1`` ids where fewer than ``k_serve`` survive), so a
         degraded query's list is exactly the merge over its surviving
         partitions.
+
+        With a live delta each route also scans the delta pseudo-shard, the
+        last of ``_segments`` (one more launch of its engine's kernels);
+        its time is the static ``_delta_us`` term, charged by
+        ``_serve_direct``.
         """
         q = terms.shape[0]
         ns = self.n_shards
@@ -613,9 +695,10 @@ class SearchSystem:
         if len(routed.jass_rows):
             rows = routed.jass_rows
             rho_rows = routed.rho[rows]
-            if ns > 1:
-                # one global level cut → per-shard budgets that reproduce
-                # exactly the single-shard posting set
+            if ns > 1 or self.delta is not None:
+                # one global level cut → per-segment budgets that reproduce
+                # exactly the single-shard posting set; a live delta is one
+                # more segment of the cut
                 work_s, any_ok = self._jass_split(terms, mask, rows,
                                                   rho_rows, cache)
                 rho_per_shard = [np.where(any_ok, w, -1.0).astype(np.float64)
@@ -624,39 +707,24 @@ class SearchSystem:
                 rho_per_shard = [rho_rows]
             t_rows = self._to_device(terms[rows])
             m_rows = self._to_device(mask[rows])
-            sc_list, id_list = [], []
+            sc_list, id_list, works = saat_scan_segments(
+                self._segments(), t_rows, m_rows,
+                [self._to_device(r) for r in rho_per_shard], k=self.k_serve)
             for s in range(ns):
-                res = saat_serve(self.shards[s], t_rows, m_rows,
-                                 self._to_device(rho_per_shard[s]),
-                                 n_docs=self.shard_specs[s].n_docs,
-                                 k=self.k_serve,
-                                 tile_d=self.shard_specs[s].tile_d)
-                sc_list.append(res.topk_scores)
-                id_list.append(res.topk_docs + self.doc_lo[s])
                 t_shards[s, rows] = self.cost.saat_time(
-                    res.work.cpu().numpy().astype(np.float64))
+                    works[s].cpu().numpy().astype(np.float64))
             self._merge(rows, sc_list, id_list, topk, topk_sc, drop)
 
         if len(routed.bmw_rows):
             rows = routed.bmw_rows
-            t_rows = self._to_device(terms[rows])
-            m_rows = self._to_device(mask[rows])
             theta = torch.ones(len(rows), dtype=torch.float32,
                                device=self.device)
-            sc_list, id_list = [], []
+            sc_list, id_list, works, blocks = daat_scan_segments(
+                self._segments(), self._to_device(terms[rows]),
+                self._to_device(mask[rows]), theta, k=self.k_serve)
             for s in range(ns):
-                spec_s = self.shard_specs[s]
-                res = daat_serve(self.shards[s], t_rows, m_rows, theta,
-                                 n_docs=spec_s.n_docs,
-                                 n_blocks=spec_s.n_blocks,
-                                 block_size=spec_s.block_size,
-                                 k=self.k_serve,
-                                 bcap=spec_s.max_blocks_per_term,
-                                 tile_d=spec_s.tile_d)
-                sc_list.append(res.topk_scores)
-                id_list.append(res.topk_docs + self.doc_lo[s])
                 t_shards[s, rows] = self.cost.daat_time(
-                    res.work.cpu().numpy(), res.blocks.cpu().numpy())
+                    works[s].cpu().numpy(), blocks[s].cpu().numpy())
             self._merge(rows, sc_list, id_list, topk, topk_sc, drop)
             t_bmw[rows] = self.cost.gather_time(t_shards[:, rows])
         return topk, topk_sc, t_bmw, t_shards
@@ -764,7 +832,7 @@ class SearchSystem:
             work_s, _ = self._jass_split(terms, mask, rows,
                                          routed.rho[rows], cache)
             t_h = np.stack([self.cost.saat_time(w.astype(np.float64))
-                            for w in work_s])
+                            for w in work_s[:self.n_shards]])
             for j, i in enumerate(rows):
                 reps = hedge_picks[int(i)]
                 if reps is None:
@@ -944,6 +1012,12 @@ class SearchSystem:
             lat01 = np.where(modality == M_BOTH,
                              pd + np.maximum(lat01 - pd, tdr)
                              + self.cost.fusion_us, lat01)
+        if self.delta is not None:
+            # every served query scans the delta segment; its arrays are
+            # capacity-padded, so the cost is one shape-static term —
+            # charged here, before budget enforcement trims Stage-2, and
+            # identically inside worst_case_us()
+            lat01 = lat01 + self._delta_us
         t0 = np.full(q, self.cost.predict_us)
         stage_latency = {"stage0": t0, "stage1": lat01 - t0}
 
@@ -1094,17 +1168,25 @@ class SearchSystem:
         storm window flag.  Entries only hit inside the epoch they were
         filled in, so serving across a fault transition re-derives from
         the live cascade.  With an inert fault spec this is one constant,
-        and no transient draw is ever consumed here.  (The reference folds
-        the live-ingest counter in too; that waits for the ingest item.)"""
+        and no transient draw is ever consumed here.
+
+        With live ingest attached the epoch also carries the ingest counter
+        (bumped on every applied feed batch and every merge), so entries
+        filled against one delta state never hit after the collection has
+        changed under them."""
         if not self.faults.active:
-            return HEALTHY_EPOCH
-        reps = self.cascade_spec.deploy.replicas
-        up = tuple(self.faults.partition_up(p, reps, now)
-                   for p in range(self.n_shards))
-        sp = self.faults.spec
-        storm = bool(sp.timeout_p > 0
-                     and sp.timeout_start <= now < sp.timeout_end)
-        return up + (storm,)
+            base = HEALTHY_EPOCH
+        else:
+            reps = self.cascade_spec.deploy.replicas
+            up = tuple(self.faults.partition_up(p, reps, now)
+                       for p in range(self.n_shards))
+            sp = self.faults.spec
+            storm = bool(sp.timeout_p > 0
+                         and sp.timeout_start <= now < sp.timeout_end)
+            base = up + (storm,)
+        if self.delta is not None:
+            return ingest_epoch(base, self._ingest_counters["epoch"])
+        return base
 
     def _pure_route(self, pk, pr, pt):
         """Route a batch WITHOUT counting it: ``StageZeroScheduler.route``
@@ -1437,7 +1519,9 @@ class SearchSystem:
         fallback traversal when ``theta_low`` is armed); both + fused (the
         slower engine plus the reserved ``fusion_us``).  With a serving
         cache attached every query also pays the lookup
-        (``cache_hit_us``)."""
+        (``cache_hit_us``), and with live ingest the capacity-padded delta
+        scan (``_delta_us``, lexical and dense tiles) — the same static
+        term the serve path charges."""
         cfg = self.sched.cfg
         base = cfg.worst_case_us(self.cost, self.n_shards)
         if self.dense is not None:
@@ -1452,9 +1536,79 @@ class SearchSystem:
             dense_bound = pd + td + fb
             both_bound = pd + max(base - pd, td) + self.cost.fusion_us
             base = max(base, dense_bound, both_bound)
-        return (base + self._budget_reserve["stage2"]
+        return (base + self._delta_us + self._budget_reserve["stage2"]
                 + (self.cost.cache_hit_us if self.cache is not None
                    else 0.0))
+
+    # ------------------------------------------------------------------
+    # live ingest: feed → delta segment → background merge
+    # ------------------------------------------------------------------
+
+    def _refresh_dense_delta(self) -> None:
+        """Re-embed the delta docs through the sealed quantized source (the
+        system's tower for the two-tower source) and hand the
+        capacity-padded matrix to the dense engine (ghost rows stay zero;
+        the engine masks them after ranking)."""
+        if self.dense is None or self.delta is None:
+            return
+        d = self.delta
+        emb = np.zeros((d.capacity_docs, self.dense.d), np.float32)
+        if d.n_docs:
+            emb[:d.n_docs] = delta_doc_embeddings(
+                self.cascade_spec.dense, n_sealed=d.base_docs,
+                n_new=d.n_docs,
+                vocab=int(np.asarray(self.index.df).shape[0]),
+                topics=d.doc_topics, corpus=self.corpus, tower=self._tower,
+                device=self.device)
+        self.dense.set_delta(emb, d.n_docs, d.base_docs)
+
+    def add_documents(self, feed: FeedDocs) -> int:
+        """Ingest the longest admissible prefix of ``feed`` into the live
+        delta segment; returns the number of docs accepted (0 = the delta
+        is full — call :meth:`merge` to reseal, then re-offer the rest).
+        Served results include the new docs at once (the delta shard is
+        laid out on the host and copied to the device); the cache epoch
+        bumps so no stale entry survives the collection change."""
+        if self.delta is None:
+            raise RuntimeError("live ingest is disabled "
+                               "(spec.ingest.enabled=False)")
+        took = self.delta.add(feed)
+        if took:
+            self._ingest_counters["epoch"] += 1
+            self._ingest_counters["feed_batches"] += 1
+            self._ingest_counters["docs_ingested"] += took
+            self._refresh_dense_delta()
+        return took
+
+    def merge(self) -> int:
+        """Fold the delta into the sealed collection (the background
+        merge): rebuilds the index bit-identically to a from-scratch build
+        over the extended corpus on the host, re-attaches every
+        index-derived serving structure on the device, and starts a new
+        empty delta against the new seal.  Returns the number of docs
+        merged (0 = nothing to do).  The shards, the delta and the dense
+        engine are replaced, never changed in place, so a
+        :meth:`_fresh_copy` taken earlier keeps serving its own state."""
+        if self.delta is None:
+            raise RuntimeError("live ingest is disabled "
+                               "(spec.ingest.enabled=False)")
+        n = self.delta.n_docs
+        if n == 0:
+            return 0
+        if self.corpus is None:
+            raise RuntimeError("merge needs the corpus the sealed index "
+                               "was built from")
+        new_corpus, new_index = self.delta.merged(self.corpus)
+        self.corpus = new_corpus
+        self._attach_index(new_index)
+        self.delta = self._new_delta(new_index)
+        if self.ltr is not None:
+            # Stage-2 ranks against the resealed collection's arrays
+            self.s2 = stage2_arrays(self.index, self.corpus, self.device)
+        self._ingest_counters["epoch"] += 1
+        self._ingest_counters["merges"] += 1
+        self._ingest_counters["docs_merged"] += n
+        return n
 
     def _adapt_routing(self):
         """Close the routing feedback loop from pool EWMAs + scheduler
@@ -1520,6 +1674,11 @@ class SearchSystem:
         }
         if self.faults.active or any(self._fault_counters.values()):
             s["faults"] = dict(self._fault_counters, clock=self._clock)
+        if self.delta is not None:
+            ingest = dict(self.delta.stats())
+            ingest.update(self._ingest_counters)
+            ingest["delta_us"] = self._delta_us
+            s["ingest"] = ingest
         if self._last_stats:
             s["last_batch"] = {k: self._last_stats[k]
                                for k in ("p50", "p99", "p99.99", "max",

@@ -2,16 +2,18 @@
 
 ``python -m repro_torch.launch.serve --device cpu`` against
 ``repro.launch.serve`` at ``--n-docs 2048 --vocab 1024 --queries 128``: the
-printed lines equal, line for line, in seventeen modes (the default
+printed lines equal, line for line, in nineteen modes (the default
 labelled path, ``--pseudo-labels``, ``--no-ltr``, ``--shards 3``,
 ``--preset hybrid_fusion``, ``--dryrun``, ``--online`` under poisson,
 bursty and trace arrivals, at a given ``--qps`` and with ``--zipf-skew``,
 the result cache offline and online (``--preset cached --online
 --zipf-skew 1.2``, ``--cache-bytes``), and fault schedules
 (``--fault-scenario crash_one`` offline, ``timeout_storm`` online on 4
-shards, ``--fault-json``)); ``--spec-json`` files byte-identical; each
-unported flag (live ingest, telemetry) raising with its ROADMAP item; no
-card and no ``--device`` raising.  ``launch/dryrun_cascade``: ``corpus_df``, ``WorkProxies`` and the
+shards, ``--fault-json``), and live ingest online (``--preset
+live_ingest --online``; ``--ingest --delta-docs 300 --delta-postings
+9000``)); ``--spec-json`` files byte-identical; each unported flag
+(telemetry) raising with its ROADMAP item; no card and no ``--device``
+raising.  ``launch/dryrun_cascade``: ``corpus_df``, ``WorkProxies`` and the
 ``dryrun`` dict equal to the reference's, pre-build and post-build, and
 its CLI's output equal.
 
@@ -100,13 +102,17 @@ def _port_main(main, argv, capsys):
                                     "--shards", "4", "--replicas", "3",
                                     "--failover-timeout", "25",
                                     "--max-retries", "2", "--fault-horizon",
-                                    "400", "--online", "--pseudo-labels"]],
+                                    "400", "--online", "--pseudo-labels"],
+                                   ["--preset", "live_ingest", "--online"],
+                                   ["--online", "--ingest", "--delta-docs",
+                                    "300", "--delta-postings", "9000"]],
                          ids=["labels", "pseudo", "no_ltr", "shards3",
                               "hybrid_fusion", "dryrun", "online",
                               "online_bursty", "online_qps",
                               "online_zipf_skew", "online_trace",
                               "cached_online_zipf", "cache_bytes",
-                              "fault_crash_one", "fault_storm_online"])
+                              "fault_crash_one", "fault_storm_online",
+                              "live_ingest_online", "ingest_online_flags"])
 def test_serve_lines_match_reference(flags, tmp_path, monkeypatch, capsys,
                                      ref_tower):
     if None in flags:
@@ -122,6 +128,8 @@ def test_serve_lines_match_reference(flags, tmp_path, monkeypatch, capsys,
         assert any(line.startswith("[serve] cache:") for line in got)
     if "--fault-scenario" in flags:
         assert any(line.startswith("[serve] faults:") for line in got)
+    if "live_ingest" in flags or "--ingest" in flags:
+        assert any(line.startswith("[serve] ingest:") for line in got)
 
 
 def test_run_returns_the_served_system():
@@ -171,9 +179,6 @@ def test_spec_json_bytes_match_reference(flags, tmp_path, fault_json,
 
 
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--ingest"], "Live ingest", id="flags3-Live ingest"),
-    pytest.param(["--delta-postings", "9000"], "Live ingest",
-                 id="flags4-Live ingest"),
     pytest.param(["--metrics-json", "m.json"], "Telemetry",
                  id="flags5-Telemetry"),
     pytest.param(["--trace-slowest", "3"], "Telemetry",

@@ -6,7 +6,9 @@ its Pallas kernel in interpret mode, on grid-quantized embeddings with a
 ragged doc count and embed width, exact ties and k ∈ {1, 33, 128}: scores
 and ids equal bit for bit (the 1/64 grid makes every dot product exact).
 Engine: ``DenseEngine.serve`` at 1 and 3 shards and with a ``drop`` mask,
-equal to the reference engine and to the unsharded ``oracle``.  Fusion:
+equal to the reference engine and to the unsharded ``oracle``, and with
+the live delta attached (``set_delta``; ``delta_doc_embeddings`` for both
+sources) equal to the reference engine.  Fusion:
 the hand cases of ``tests/test_dense.py``.  Embeddings: the synthetic
 tables are equal; the tower forward with the reference's parameters
 carried across by ``convert.two_tower_params`` is within 1e-6 of
@@ -26,6 +28,7 @@ from repro.configs.two_tower_retrieval import REDUCED as REF_REDUCED
 from repro.dense import DenseEngine as RefDenseEngine
 from repro.dense import embeddings as ref_emb
 from repro.dense import fusion as ref_fusion
+from repro.index import corpus as ref_corpus
 from repro.index.postings import shard_ranges as ref_shard_ranges
 from repro.kernels.dense_topk import dense_topk as ref_dense_topk
 from repro.models import recsys as ref_recsys
@@ -196,14 +199,49 @@ def test_engine_single_shard_drop_masks_rows(small_dense):
     np.testing.assert_array_equal(sc[~drop[0]], o_sc[~drop[0]])
 
 
-def test_engine_delta_is_not_ported(small_dense):
-    doc_emb, table, _ = small_dense
-    eng = DenseEngine(doc_emb, table, [(0, 1000)], device="cpu")
-    with pytest.raises(NotImplementedError, match="Live ingest"):
-        eng.set_delta(doc_emb[:8], 4, 1000)
-    with pytest.raises(NotImplementedError, match="Live ingest"):
-        delta_doc_embeddings(DenseSpec(enabled=True), n_sealed=10, n_new=2,
-                             vocab=8)
+@pytest.mark.parametrize("source", ["synthetic", "two_tower"])
+def test_engine_delta_matches_reference(small_collection, tower_pair,
+                                        source):
+    """The live delta's dense rows (``delta_doc_embeddings``, the two-tower
+    rows through the reference's tower carried across) equal the
+    reference's, and ``set_delta`` serving (the capacity ranked whole,
+    ghost rows masked, at 1 and 2 shards, with and without a drop mask)
+    equals the reference engine's; ``clear_delta`` drops it."""
+    corpus, _, ql = small_collection
+    _, tower = tower_pair
+    n, m, cap = corpus.n_docs, 24, 64
+    spec = DenseSpec(enabled=True, source=source)
+    rspec = RefDenseSpec(enabled=True, source=source)
+    topics = ref_corpus.synthesize_feed_docs(corpus, m, seed=5).doc_topics
+    rows = delta_doc_embeddings(spec, n_sealed=n, n_new=m,
+                                vocab=corpus.vocab, topics=topics,
+                                corpus=corpus, tower=tower)
+    want = ref_emb.delta_doc_embeddings(rspec, n_sealed=n, n_new=m,
+                                        vocab=corpus.vocab, topics=topics,
+                                        corpus=corpus)
+    np.testing.assert_array_equal(rows, want)
+    sealed, table = ref_emb.build_embeddings(rspec, corpus, n_docs=n,
+                                             vocab=corpus.vocab)
+    pad = np.zeros((cap, sealed.shape[1]), np.float32)
+    pad[:m] = rows
+    q_emb = ref_emb.embed_queries(table, ql.terms, ql.mask)
+    drop = np.zeros((2, len(q_emb)), bool)
+    drop[0, ::3] = True
+    for ranges in ([(0, n)], ref_shard_ranges(n, 2)):
+        eng = DenseEngine(sealed, table, ranges, device="cpu")
+        ref = RefDenseEngine(sealed, table, ranges)
+        for e in (eng, ref):
+            e.set_delta(pad, m, n)
+        assert eng.delta_tiles() == ref.delta_tiles()
+        for dr in (None, drop[:len(ranges)]):
+            ids, sc = eng.serve(q_emb, 32, drop=dr)
+            r_ids, r_sc = ref.serve(q_emb, 32, drop=dr)
+            np.testing.assert_array_equal(ids, np.asarray(r_ids))
+            np.testing.assert_array_equal(sc, np.asarray(r_sc))
+            assert int(ids.max()) < n + m
+        eng.clear_delta()
+        assert eng.delta_tiles() == 0 and int(eng.serve(q_emb, 32)[0]
+                                              .max()) < n
 
 
 # ---------------------------------------------------------------------------

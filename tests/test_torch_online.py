@@ -27,9 +27,9 @@
 * the reference's own claims of ``tests/test_online.py`` on the port:
   determinism, micro-batch parity, response accounting, overload sheds but
   never violates; ``fresh_probe`` keeps the device and the tower;
-* the loop's cache branches (front door, dispatch peek, hit EWMA) and its
-  fault branch on both packages; its refusal of live ingest and
-  telemetry;
+* the loop's cache branches (front door, dispatch peek, hit EWMA), its
+  fault branch and its ingest branch (without admission) on both
+  packages; its refusal of telemetry;
 * ``chip_smoke.online_flow("cpu")`` against the reference's
   ``benchmarks/bench_online.run_online`` (its artifact write stubbed), at
   a reduced size.
@@ -608,13 +608,38 @@ def test_fresh_probe_is_a_fresh_build(small_collection, port_collection,
     assert cap > 0 and b.stats()["batches"] == 1
 
 
-def test_unported_nodes_raise_in_the_loop(small_collection, port_system):
-    """The loop refuses a spec whose live-ingest or telemetry node is on
-    (the cache and fault branches are served: ``test_cached_and_faulted
-    _online_match_reference``)."""
+def test_ingest_online_matches_reference(small_collection, port_collection,
+                                         fitted):
+    """The loop's ingest branch without admission (``run_ingest``: due feed
+    batches before each arrival and dispatch, merges past the threshold,
+    no feed or merge gate; the gated ladder is held in
+    ``test_torch_ingest.py``): event log, arrays, ``stats["ingest"]`` and
+    ``stats()`` equal the reference's."""
     ql = small_collection[2]
-    for node, item in (("ingest", "Live ingest"),
-                       ("telemetry", "Telemetry")):
+    kw = dict(enabled=True, delta_docs=64, delta_postings=2048,
+              feed_qps=40.0, feed_batch=8, merge_threshold=0.5, seed=4)
+    specs = [dataclasses.replace(_online_spec(mod, admission=False),
+                                 ingest=mod.IngestSpec(**kw))
+             for mod in (ref_spec, port_spec)]
+    a, b = _pair(small_collection, port_collection, fitted, specs[0])
+    assert b.cascade_spec.ingest == specs[1].ingest
+    traffic = [mod.TrafficSpec(arrival="poisson", qps=120.0, seed=6)
+               for mod in (ref_spec, port_spec)]
+    rows = slice(0, 48)
+    ra, rb = [s_.serve_online(ql.terms[rows], ql.mask[rows], ql.topic[rows],
+                              traffic=t) for s_, t in zip((a, b), traffic)]
+    _assert_same_online(ra, rb)
+    _assert_same_stats(a, b)
+    s = rb.stats["ingest"]
+    assert s["feed_batches_applied"] > 0 and s["merges"] > 0
+
+
+def test_unported_nodes_raise_in_the_loop(small_collection, port_system):
+    """The loop refuses a spec whose telemetry node is on (the cache, fault
+    and ingest branches are served: ``test_cached_and_faulted
+    _online_match_reference``, ``test_ingest_online_matches_reference``)."""
+    ql = small_collection[2]
+    for node, item in (("telemetry", "Telemetry"),):
         system = port_system()
         spec = system.cascade_spec
         system.cascade_spec = dataclasses.replace(spec, **{

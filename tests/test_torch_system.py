@@ -138,14 +138,12 @@ def test_spec_json_round_trips_between_packages():
 
 
 def test_unported_nodes_raise(fitted_reference):
-    """Live ingest and telemetry still raise, naming their items (the
-    cache and fault nodes are served:
-    ``test_cached_and_fault_tolerant_presets_match_reference``)."""
+    """Telemetry still raises, naming its item (the cache, fault and
+    ingest nodes are served:
+    ``test_cached_and_fault_tolerant_presets_match_reference``,
+    ``test_live_ingest_preset_matches_reference``)."""
     _, _, _, ref, pcorpus, pindex, _, _ = fitted_reference
     spec = CascadeSpec.from_json(ref.cascade_spec.to_json())
-    with pytest.raises(NotImplementedError, match="Live ingest"):
-        build_system(get_preset("live_ingest"), pindex, corpus=pcorpus,
-                     device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*Telemetry"):
         build_system(dataclasses.replace(spec, telemetry=dataclasses.replace(
             spec.telemetry, enabled=True)), pindex, corpus=pcorpus,
@@ -201,6 +199,50 @@ def test_cached_and_fault_tolerant_presets_match_reference(fitted_reference,
     else:
         assert sum(sb["faults"][k] for k in ("retries", "lost_partitions")) \
             > 0
+
+
+def test_live_ingest_preset_matches_reference(fitted_reference):
+    """The ``live_ingest`` preset at the fitted thresholds: batches of 32
+    served between feed batches of 16 docs and one merge, ``topk``,
+    ``final``, latency, the batch stats and ``stats()`` (its ingest
+    section) equal the reference's; the worst case is the sealed bound plus
+    the delta scan's capacity term, 266.2592."""
+    from repro.index.corpus import slice_feed as ref_slice
+    from repro.index.corpus import synthesize_feed_docs as ref_feed
+    from repro_torch.index.corpus import slice_feed, synthesize_feed_docs
+    corpus, index, ql, ref, pcorpus, pindex, models, ltr = fitted_reference
+    preset = ref_get_preset("live_ingest")
+    spec = dataclasses.replace(
+        preset, backend=BackendSpec(backend="jnp"),
+        routing=dataclasses.replace(preset.routing,
+                                    t_k=ref.cascade_spec.routing.t_k,
+                                    t_time=ref.cascade_spec.routing.t_time))
+    a = ref_build_system(spec, index, corpus=corpus, models=ref.models,
+                         ltr=ref.ltr)
+    b = build_system(convert.cascade_spec(spec), pindex, corpus=pcorpus,
+                     models=models, ltr=ltr, device="cpu")
+    assert b.worst_case_us() == a.worst_case_us() == pytest.approx(
+        266.2592, abs=1e-9)
+    feed, pfeed = ref_feed(corpus, 64, seed=3), synthesize_feed_docs(
+        pcorpus, 64, seed=3)
+    for step, i in enumerate(range(0, len(ql.terms), BATCH)):
+        if step == 2:
+            assert b.merge() == a.merge() > 0
+        lo = 16 * step
+        took = b.add_documents(slice_feed(pfeed, lo, lo + 16))
+        assert took == a.add_documents(ref_slice(feed, lo, lo + 16)) == 16
+        sl = slice(i, i + BATCH)
+        ra = a.serve(ql.terms[sl], ql.mask[sl], ql.topic[sl])
+        rb = b.serve(ql.terms[sl], ql.mask[sl], ql.topic[sl])
+        for key in ("topk", "final", "latency"):
+            np.testing.assert_array_equal(getattr(rb, key), getattr(ra, key),
+                                          err_msg=key)
+        assert rb.stats == ra.stats
+        assert (rb.topk >= b.delta.base_docs).any()
+    sb = b.stats()
+    assert sb.pop("device") == "cpu"
+    assert sb == a.stats()
+    assert sb["ingest"]["merges"] == 1 and sb["ingest"]["delta_docs"] == 16
 
 
 def test_stats_and_worst_case_match_reference(fitted_reference):
