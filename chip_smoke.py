@@ -8,7 +8,8 @@ order, it
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
    kernels from the sources under ``src/repro_torch``, in a thread while
-   the host builds the corpus and the index of step 2: one for each of the
+   the host builds the corpus, the index and the shard's host layout of
+   step 2: one for each of the
    nine TPU kernels, kernels 8 and 9 each with a bf16 kernel on the tensor
    cores and an fp32 one on the CUDA cores, and the fit's two;
 2. builds the ``paper_200ms`` cascade at one shard of 196,608 docs (the
@@ -196,7 +197,24 @@ order, it
    50)): a result filled healthy never hits inside the outage, results
    inside it are never filled, and after it heals the cache refills and
    hits;
-14. ingest phase (live ingest: ``index/delta``, the delta segments of
+14. obs phase (telemetry: ``serving/telemetry``, the serve path's and
+   the loop's hooks, ``snapshot``): (a) the observability gate's flow
+   (``obs_flow``, ``benchmarks/obs_diff.py:197-276``) at its defaults on
+   the card (4,096 docs, ``paper_200ms`` fitted from 256 queries with seed
+   7, telemetry on, capacity from ``estimate_capacity``, one offline batch
+   and a bursty trace at 0.7 x capacity, ``max_batch`` 8): its four gates
+   (the snapshot clean against itself, an injected regression flagged,
+   ``results/BENCH_obs_baseline.json`` present, read and never written,
+   and no regression against it); (b) on the cli phase's index and fit, a
+   telemetry-on system (snapshots every 20 units) on the card and on the
+   CPU and a telemetry-off one on the card, over the first 64 queries
+   offline and a bursty trace of the first 64 at 0.8 x capacity: the
+   snapshot, the periodic snapshots and the Prometheus text equal on the
+   card and the CPU (as dicts and as bytes), results, event logs and
+   stats equal on and off, and kernels 1-3 launched as often on as off;
+   (c) ``hybrid_fusion`` on and off: one batch equal, kernels 1-3 and 6
+   launched as often;
+15. ingest phase (live ingest: ``index/delta``, the delta segments of
    both engines and of the dense engine, ``add_documents``, ``merge``):
    (a) on the fit's 196,608-doc shard, ``live_ingest``'s delta (256 docs,
    8,192 postings) on the card and the CPU systems (the shared host
@@ -218,7 +236,7 @@ order, it
    index: 64 feed docs, 64 queries card = CPU (modality flags too),
    kernel 6 launched on the delta at k = n (against its plain version), no
    ghost row surfacing, and one merge clearing the delta;
-15. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
+16. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
    the retrieval systems are freed:
    a. cross-check: a 2-layer Yi-6B at full width in fp32, drawn once on
       the host and copied to the card, runs ``prefill`` on 2 prompts of
@@ -263,7 +281,7 @@ order, it
       1e-5 of it on average) on the recorded fp32 model calls (the same
       near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
       above it (a one-ulp rounding flip is 2^-8 to 2^-7 relative);
-16. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
+17. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
     the nine TPU kernels and ``level_histogram``; the launches of kernels
     1-3 are step 7's; the library time of kernels 1 and 2 an
     ``index_add_`` over the (query, lane) pairs each adds), then the card
@@ -463,6 +481,30 @@ INGEST_ARTIFACT = ROOT / "results" / "BENCH_ingest.json"
 INGEST_FIGURES = ("parity", "capacity_qps", "accounting", "inert", "sweep",
                   "gates")
 WORST_CASE_ON = 266.2592      # results/BENCH_ingest.json, accounting
+# obs phase: the observability gate's flow (benchmarks/obs_diff.py:197-276,
+# ``obs_flow``) at its defaults, diffed against OBS_BASELINE (read, never
+# written) under OBS_TOL; then on the cli phase's index a telemetry-on
+# system against its CPU twin and a telemetry-off system over the first
+# OBS_CROSS queries offline and a bursty trace of the first OBS_ONLINE
+# (snapshots every OBS_EVERY units on the virtual clock)
+OBS_BASELINE = ROOT / "results" / "BENCH_obs_baseline.json"
+OBS_CROSS, OBS_ONLINE, OBS_EVERY = 64, 64, 20.0
+OBS_FIGURES = ("gates", "snapshot", "findings", "capacity_qps",
+               "traces_kept")
+OBS_QUANTILES = ("p50", "p95", "p99", "p99.99")
+OBS_TOL = {"latency_rel": 0.25, "latency_abs_us": 2.0, "count_rel": 0.25,
+           "count_abs": 2.0, "hit_ratio_drop": 0.10}
+# histogram name substrings whose growth is a regression; counters where
+# more is worse (exact names, or a mirrored section and its key substrings)
+OBS_LATENCY_HISTS = ("latency", "wait")
+OBS_BAD_COUNTERS = ("budget_violations", "shed_queries", "stage2_trimmed",
+                    "stage2_skipped")
+OBS_BAD_SECTION_KEYS = {
+    "admission": ("shed_",),
+    "scheduler": ("over_budget", "late_hedged"),
+    "faults": ("retries", "lost_partitions", "transient", "degraded"),
+    "ingest": ("feed_throttled", "merges_forced"),
+}
 # the BENCH_tail flow (benchmarks/bench_tail.py:43-130) and the figures it
 # reports, as results/BENCH_tail.json names them
 TAIL_ARTIFACT = ROOT / "results" / "BENCH_tail.json"
@@ -3404,6 +3446,154 @@ def ingest_flow(device, q_batch=384, n_docs=4096, seed=7,
             "gates": gates}
 
 
+def _obs_latency_hist(key):
+    name = key.split("{", 1)[0]
+    return any(s in name for s in OBS_LATENCY_HISTS)
+
+
+def _obs_bad_counter(key):
+    name, _, rest = key.partition("{")
+    if name in OBS_BAD_COUNTERS:
+        return True
+    return any(name == section and any(s in rest for s in subs)
+               for section, subs in OBS_BAD_SECTION_KEYS.items())
+
+
+def diff_snapshots(base, cur, tol=None):
+    """Regressions of snapshot ``cur`` against ``base`` (empty: none), as
+    ``benchmarks/obs_diff.diff_snapshots`` finds them: latency quantiles
+    that grew past a relative plus an absolute slack, bad-event counters
+    that went from zero to any or grew past the slack, a cache hit ratio
+    that fell, a metric of ``base`` missing from ``cur``.  Each finding is
+    ``{"metric", "field", "base", "cur", "limit", "rule"}``."""
+    t = dict(OBS_TOL, **(tol or {}))
+    out = []
+
+    def flag(metric, field, b, c, limit, rule):
+        out.append({"metric": metric, "field": field, "base": float(b),
+                    "cur": float(c), "limit": float(limit), "rule": rule})
+
+    c_h = cur.get("histograms", {})
+    for key, bh in sorted(base.get("histograms", {}).items()):
+        if not _obs_latency_hist(key) or not bh.get("count"):
+            continue
+        ch = c_h.get(key)
+        if ch is None:
+            flag(key, "present", 1, 0, 1, "missing")
+            continue
+        for q in OBS_QUANTILES:
+            if q not in bh or q not in ch:
+                continue
+            limit = bh[q] * (1.0 + t["latency_rel"]) + t["latency_abs_us"]
+            if ch[q] > limit:
+                flag(key, q, bh[q], ch[q], limit, "latency")
+    b_c, c_c = base.get("counters", {}), cur.get("counters", {})
+    for key in sorted(set(b_c) | set(c_c)):
+        if not _obs_bad_counter(key):
+            continue
+        bv, cv = b_c.get(key, 0), c_c.get(key)
+        if cv is None:
+            if bv > 0:
+                flag(key, "present", 1, 0, 1, "missing")
+            continue
+        if bv == 0:
+            if cv > 0:
+                flag(key, "total", bv, cv, 0, "zero_to_nonzero")
+            continue
+        limit = bv * (1.0 + t["count_rel"]) + t["count_abs"]
+        if cv > limit:
+            flag(key, "total", bv, cv, limit, "count")
+    b_g, c_g = base.get("gauges", {}), cur.get("gauges", {})
+    if "cache_hit_ratio" in b_g:
+        cv = c_g.get("cache_hit_ratio")
+        limit = b_g["cache_hit_ratio"] - t["hit_ratio_drop"]
+        if cv is None:
+            flag("cache_hit_ratio", "present", 1, 0, 1, "missing")
+        elif cv < limit:
+            flag("cache_hit_ratio", "value", b_g["cache_hit_ratio"], cv,
+                 limit, "hit_ratio")
+    return out
+
+
+def inject_regression(snap):
+    """A tampered copy of ``snap`` that a sound gate must flag: doubled
+    service-latency quantiles and five invented budget violations."""
+    import copy
+    bad = copy.deepcopy(snap)
+    h = bad.get("histograms", {}).get("service_latency_us")
+    if h:
+        for q in OBS_QUANTILES:
+            if q in h:
+                h[q] *= 2.0
+    c = bad.setdefault("counters", {})
+    c["budget_violations"] = c.get("budget_violations", 0) + 5
+    return bad
+
+
+def format_findings(findings):
+    lines = [f"{len(findings)} regression(s):"]
+    for f in findings:
+        lines.append(f"  {f['metric']} {f['field']}: {f['base']:g} -> "
+                     f"{f['cur']:g} (limit {f['limit']:g}, "
+                     f"rule={f['rule']})")
+    return "\n".join(lines)
+
+
+def obs_figures(payload):
+    """The figures of a BENCH_obs payload (``obs_diff.run_gate``'s or
+    ``obs_flow``'s)."""
+    return {k: payload[k] for k in OBS_FIGURES}
+
+
+def obs_flow(device, q_batch=256, n_docs=4096, seed=7, max_batch=8,
+             load=0.7, baseline=OBS_BASELINE):
+    """The observability gate of ``benchmarks/obs_diff.py:197-276`` with
+    the port on ``device``: ``bench_build``'s ``paper_200ms`` system with
+    telemetry on, capacity from ``estimate_capacity`` on the fit's system,
+    one offline batch and one bursty trace at ``load`` x capacity through
+    the instrumented system, then the gates: the snapshot diffs clean
+    against itself, an injected regression is flagged by the latency and
+    zero-to-nonzero rules, and the snapshot has no regression against the
+    committed ``baseline`` (read, never written).  Returns
+    ``obs_figures``."""
+    from repro_torch.serving.online import estimate_capacity
+    from repro_torch.serving.spec import TelemetrySpec, TrafficSpec
+    from repro_torch.serving.system import build_system
+
+    corpus, base, ql, fit_sys = bench_build(device, "paper_200ms", q_batch,
+                                            n_docs, seed, max_batch)
+    spec = dataclasses.replace(base, telemetry=TelemetrySpec(enabled=True))
+    system = build_system(spec, fit_sys.index, corpus=corpus,
+                          models=fit_sys.models, ltr=fit_sys.ltr,
+                          cost=fit_sys.cost, device=device)
+    capacity = estimate_capacity(fit_sys, ql.terms, ql.mask, ql.topic)
+    system.serve(ql.terms, ql.mask, ql.topic)
+    traffic = TrafficSpec(arrival="bursty", qps=load * capacity,
+                          seed=seed + 1)
+    system.serve_online(ql.terms, ql.mask, ql.topic, traffic=traffic)
+    snap = system.snapshot()
+    injected = diff_snapshots(snap, inject_regression(snap))
+    present = Path(baseline).exists()
+    findings = []
+    if present:
+        want = json.loads(Path(baseline).read_text())
+        findings = diff_snapshots(want.get("snapshot", want), snap)
+    return {
+        "gates": {
+            "self_check_clean": not diff_snapshots(snap, snap),
+            "self_check_flags_regression": bool(injected) and {
+                "latency", "zero_to_nonzero"} <= {f["rule"]
+                                                  for f in injected},
+            "baseline_present": present,
+            "no_regressions_vs_baseline": not findings,
+        },
+        "snapshot": {k: v for k, v in snap.items() if k != "traces"},
+        "findings": findings,
+        "capacity_qps": float(capacity),
+        "traces_kept": len(snap["traces"]),
+    }
+
+
 def cli_build(card, cpu, device, spec, gather=None, layouts=None):
     """A system of the cli phase's index and corpus for ``spec`` on
     ``device`` with the card's fit (on the CPU, the CPU system's, which is
@@ -3746,6 +3936,133 @@ def faults_phase(dev, card, cpu):
           f"faults epoch: the healed epoch does not hit {ctr}")
     log(f"faults (c, d): the empty schedule replays the fault-free run and "
         f"armed = disarmed offline; the cache's epochs: {ctr}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def obs_phase(dev, card, cpu):
+    """Telemetry on the card (module docstring, step 14): the observability
+    gate's flow, then on the cli phase's index and fit a telemetry-on
+    system against its CPU twin (snapshots equal as dicts and as JSON
+    bytes) and against a telemetry-off system (equal results, event logs
+    and kernel launches a batch), and ``hybrid_fusion`` on and off."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.cascade_presets import get_preset
+    from repro_torch.configs.two_tower_retrieval import REDUCED
+    from repro_torch.index.postings import shard_layouts
+    from repro_torch.models.recsys import TwoTower
+    from repro_torch.serving.online import estimate_capacity, fresh_probe
+    from repro_torch.serving.spec import TelemetrySpec, TrafficSpec
+    from repro_torch.serving.system import build_system
+    from repro_torch.serving.telemetry.export import render_json
+    t0 = time.perf_counter()
+
+    # (a) the gate's flow at its defaults
+    flow = obs_flow(dev)
+    for gate, ok in flow["gates"].items():
+        check(ok, f"obs flow: gate {gate} fails")
+    snap = flow["snapshot"]
+    svc = snap["histograms"]["service_latency_us"]
+    n_metrics = sum(len(snap[k]) for k in ("counters", "gauges",
+                                            "histograms"))
+    log(f"obs (a): gate flow in {time.perf_counter() - t0:.2f} s: gates "
+        f"{flow['gates']}; capacity {flow['capacity_qps']!r} qps, traces "
+        f"kept {flow['traces_kept']}, {n_metrics} metrics; service "
+        f"p50/p99/p99.99 {svc['p50']!r}/{svc['p99']!r}/"
+        f"{svc['p99.99']!r} of {svc['count']}, findings against "
+        f"{OBS_BASELINE.relative_to(ROOT)}: {len(flow['findings'])}")
+
+    # (b) the cli index: telemetry on (card, CPU twin) and off (card)
+    t = time.perf_counter()
+    ql, fitted = card.ql, card.fitted
+    spec_on = dataclasses.replace(fitted, telemetry=TelemetrySpec(
+        enabled=True, snapshot_every_us=OBS_EVERY))
+    layouts = shard_layouts(card.system.index, 1, fitted.index.tile_d)
+    off = cli_build(card, cpu, dev, fitted, layouts=layouts)
+    on, twin = [cli_build(card, cpu, d, spec_on, layouts=layouts)
+                for d in (dev, "cpu")]
+    sub = slice(0, OBS_CROSS)
+    terms, mask, topics = ql.terms[sub], ql.mask[sub], ql.topic[sub]
+    res, counts = {}, {}
+    for label, system in (("off", off), ("on", on)):
+        kernels.reset_launches()
+        res[label] = system.serve(terms, mask, topics)
+        torch.cuda.synchronize()
+        counts[label] = launched()
+    same_batch("obs offline on vs off", res["on"], res["off"])
+    same_batch("obs offline card vs CPU", res["on"],
+               twin.serve(terms, mask, topics))
+    check(counts["on"] == counts["off"]
+          and all(v > 0 for v in counts["on"].values()),
+          f"obs offline: launches on {counts['on']}, off {counts['off']}")
+    capacity = estimate_capacity(fresh_probe(off), ql.terms, ql.mask,
+                                 ql.topic)
+    traffic = TrafficSpec(arrival="bursty", qps=ONLINE_LOAD * capacity,
+                          seed=ONLINE_SEED)
+    rows = slice(0, OBS_ONLINE)
+    runs = {}
+    for label, system in (("off", off), ("on", on)):
+        kernels.reset_launches()
+        runs[label], wall = timed_online(system, ql.terms[rows],
+                                         ql.mask[rows], ql.topic[rows],
+                                         traffic)
+        counts[label] = launched()
+        online_line(f"obs online ({label})", runs[label], wall,
+                    counts[label])
+    a, b = runs["on"], runs["off"]
+    check(a.event_log == b.event_log
+          and {k: v for k, v in a.stats.items() if k != "telemetry"}
+          == b.stats, "obs online: telemetry on and off differ")
+    check(counts["on"] == counts["off"],
+          f"obs online: launches on {counts['on']}, off {counts['off']}")
+    same_online("obs online card vs CPU", a, timed_online(
+        twin, ql.terms[rows], ql.mask[rows], ql.topic[rows], traffic)[0])
+    s_card, s_cpu = on.snapshot(), twin.snapshot()
+    periodic = on.telemetry.snapshots
+    check(s_card == s_cpu and render_json(s_card) == render_json(s_cpu),
+          "obs: the card's snapshot differs from the CPU's")
+    check(len(periodic) > 0 and periodic == twin.telemetry.snapshots
+          and [render_json(x) for x in periodic]
+          == [render_json(x) for x in twin.telemetry.snapshots],
+          "obs: the periodic snapshots differ on the card and the CPU")
+    check(on.render_snapshot("prom") == twin.render_snapshot("prom"),
+          "obs: the Prometheus text differs on the card and the CPU")
+    c = s_card["counters"]
+    log(f"obs (b): {OBS_CROSS} queries offline + a bursty trace of "
+        f"{OBS_ONLINE} at {ONLINE_LOAD} x {capacity:.2f} qps: card = CPU "
+        f"(snapshot of {len(render_json(s_card))} JSON bytes, "
+        f"{len(periodic)} periodic snapshots, {len(s_card['traces'])} "
+        f"traces, queries_served {c['queries_served']!r}, batches_served "
+        f"{c['batches_served']!r}); on = off (results, event log, launches "
+        f"{counts['on']}); {time.perf_counter() - t:.2f} s")
+
+    # (c) hybrid_fusion: kernel 6's launches a batch, on and off
+    t = time.perf_counter()
+    spec_h = get_preset("hybrid_fusion")
+    spec_h = dataclasses.replace(spec_h, routing=dataclasses.replace(
+        spec_h.routing, t_k=fitted.routing.t_k,
+        t_time=fitted.routing.t_time))
+    tower = TwoTower.init(REDUCED, spec_h.dense.seed, device="cpu")
+    g = card.system
+    names = CASCADE_KERNELS + ("dense_topk_tiles",)
+    for label, spec in (("off", spec_h), ("on", dataclasses.replace(
+            spec_h, telemetry=TelemetrySpec(enabled=True)))):
+        system = build_system(spec, g.index, corpus=card.corpus,
+                              models=g.models, ltr=g.ltr, cost=g.cost,
+                              tower=tower, device=dev, layouts=layouts)
+        kernels.reset_launches()
+        res[label] = system.serve(terms, mask, topics)
+        torch.cuda.synchronize()
+        counts[label] = launched(names)
+    same_batch("obs hybrid_fusion on vs off", res["on"], res["off"],
+               dense=True)
+    check(counts["on"] == counts["off"]
+          and counts["on"]["dense_topk_tiles"] > 0,
+          f"obs hybrid_fusion: launches on {counts['on']}, off "
+          f"{counts['off']}")
+    log(f"obs (c): hybrid_fusion {res['on'].stats['dense']}: on = off, "
+        f"launches {counts['on']}; {time.perf_counter() - t:.2f} s; phase "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -4241,17 +4558,18 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     log(f"corpus {n_docs} docs in {t_corpus:.1f} s, index "
         f"{index.n_postings} postings in "
         f"{time.perf_counter() - t - t_corpus:.1f} s")
-    build_thread.join()
-    if "error" in built:
-        raise built["error"]
-    log(f"kernels built in {built['s']:.1f} s, beside the host build")
     ql = build_queries(corpus, n_batches * BATCH, stop_k=spec.index.stop_k)
-    # the shard's host layout, built once: the card and CPU systems of the
-    # fit and of hybrid_fusion each copy it to their device
+    # the shard's host layout, built once (beside the kernels' build too):
+    # the card and CPU systems of the fit and of hybrid_fusion each copy it
+    # to their device
     t = time.perf_counter()
     layouts = shard_layouts(index, spec.deploy.n_shards, spec.index.tile_d)
     log(f"host layout of the shard: {time.perf_counter() - t:.1f} s, shared "
         "by the four systems built from it")
+    build_thread.join()
+    if "error" in built:
+        raise built["error"]
+    log(f"kernels built in {built['s']:.1f} s, beside the host build")
     lap("build")
 
     # fit: the card's and the CPU's systems, each fitted on its own device
@@ -4384,6 +4702,11 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     lap("cache")
     faults_phase(dev, served, cli_cpu)
     lap("faults")
+
+    # telemetry: the gate's flow, then card = CPU and on = off on the cli
+    # phase's index
+    obs_phase(dev, served, cli_cpu)
+    lap("obs")
 
     # live ingest on the fit's shard and on the cli phase's index
     ingest_phase(dev, shard, served, cli_cpu)

@@ -105,20 +105,21 @@ def _per_term_stats(term_ids, scores, offsets, df, vocab):
     hmean = nz / np.maximum(sinv, 1e-12)
     std = np.sqrt(np.maximum(s2 / nz - amean ** 2, 0.0))
 
-    # max + median from a per-term sort of the values: each value's global
-    # rank under the term id gives one int64 key, so one integer sort stands
-    # in for the (term, value) lexsort (tied values are interchangeable)
-    p = len(shifted)
-    by_value = np.argsort(shifted)
-    rank = np.empty(p, np.int64)
-    rank[by_value] = np.arange(p)
-    key = term_ids.astype(np.int64) * p + rank
-    sorted_s = shifted[by_value[np.sort(key) % p]]
+    # max + median over each term's own slice: the postings are term-sorted,
+    # so the max is one segmented reduction and the median the
+    # ((df - 1) // 2)-th smallest value of the slice (a selection, not a
+    # sort of all P values; tied values are interchangeable)
     has = df > 0
-    last = np.maximum(offsets[1:] - 1, 0)
-    mx = np.where(has, sorted_s[np.minimum(last, len(sorted_s) - 1)], 0.0)
-    mid = offsets[:-1] + np.maximum((df - 1) // 2, 0)
-    med = np.where(has, sorted_s[np.minimum(mid, len(sorted_s) - 1)], 0.0)
+    present = np.flatnonzero(has)
+    mx = np.zeros(vocab)
+    med = np.zeros(vocab)
+    if len(present):
+        starts = offsets[present]
+        mx[present] = np.maximum.reduceat(shifted, starts)
+        for t, lo, hi, k in zip(present.tolist(), starts.tolist(),
+                                offsets[present + 1].tolist(),
+                                ((df[present] - 1) // 2).tolist()):
+            med[t] = np.partition(shifted[lo:hi], k)[k]
 
     cols = np.stack([mx, amean, gmean, hmean, med, std], axis=1)
     return np.where(has[:, None], cols, 0.0).astype(np.float32)

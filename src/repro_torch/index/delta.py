@@ -29,7 +29,7 @@ The port of ``repro.index.delta`` (NumPy on the host, as the reference's
 is): every ``_rebuild`` lays the delta shard out on the host
 (``postings.shard_layout`` with the capacity overrides) and copies it with
 ``shard_to_device`` to the store's device (the card unless the caller asks
-for the CPU).  ``export_metrics`` belongs to Telemetry and is not here.
+for the CPU).
 """
 
 from __future__ import annotations
@@ -250,3 +250,9 @@ class DeltaStore:
             "fill": float(self.fill),
             "base_docs": int(self.base_docs),
         }
+
+    def export_metrics(self, reg) -> None:
+        """Mirror delta occupancy into a telemetry registry (the ingest
+        backpressure surface: fill drives the feed/merge gates)."""
+        for k, v in self.stats().items():
+            reg.gauge("ingest", key=k).set(v)

@@ -26,14 +26,15 @@ in front of the cascade, and ``--fault-scenario`` / ``--fault-json`` serve
 under a fault schedule; ``--ingest`` (``--feed-qps``, ``--delta-docs``,
 ``--delta-postings``) serves while a seeded document feed lands in the
 live delta and background merges reseal the index (online mode); each
-prints the reference's cache, fault or ingest line.  Flags that need a
-node the port does not have yet (telemetry) raise ``NotImplementedError``
-naming its ROADMAP item, when set to anything but their defaults;
-``--spec-json`` still writes the spec they describe, as the reference
-does.
+prints the reference's cache, fault or ingest line.  ``--metrics-json``,
+``--metrics-prom`` and ``--trace-slowest N`` turn telemetry on and, after
+the summary lines, write the snapshot (deterministic JSON, or Prometheus
+text) and print the N slowest traces with their why-slow attribution, as
+the reference does.
 
 ``run(argv)`` does the work and returns a :class:`Served`; ``main`` prints
-its result.  Tests and ``chip_smoke.py`` call ``run`` in-process.
+its result and writes the telemetry exports.  Tests and ``chip_smoke.py``
+call ``run`` in-process.
 """
 
 from __future__ import annotations
@@ -57,13 +58,31 @@ from repro_torch.serving.online import (OnlineResult, estimate_capacity,
                                         fresh_probe)
 from repro_torch.serving.spec import CascadeSpec, FaultSpec, TrafficSpec
 from repro_torch.serving.system import (PipelineResult, SearchSystem,
-                                        _unported, build_system)
+                                        build_system)
+from repro_torch.serving.telemetry import why_slow
 
-# flags whose nodes are not ported, by the ROADMAP item that ports them;
-# each raises when set to anything but its default
-UNPORTED = {
-    "Telemetry": ("metrics_json", "metrics_prom", "trace_slowest"),
-}
+
+def _emit_telemetry(system, args):
+    """Write/print the requested telemetry exports after a serve."""
+    if system.telemetry is None:
+        return
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            f.write(system.render_snapshot("json"))
+        print(f"[serve] wrote metrics snapshot to {args.metrics_json}")
+    if args.metrics_prom:
+        with open(args.metrics_prom, "w") as f:
+            f.write(system.render_snapshot("prom"))
+        print(f"[serve] wrote prometheus metrics to {args.metrics_prom}")
+    if args.trace_slowest:
+        traces = system.telemetry.traces.slowest(args.trace_slowest)
+        print(f"[serve] {len(traces)} slowest traces "
+              f"(of {system.telemetry.traces.offered} offered):")
+        for tr in traces:
+            w = why_slow(tr)
+            mark = " VIOLATION" if tr.violation else ""
+            print(f"[serve]   qid={tr.qid} latency={tr.latency_us:.1f} "
+                  f"mode={tr.meta.get('mode', '?')}{mark}: {w['detail']}")
 
 
 @dataclass
@@ -82,6 +101,7 @@ class Served:
     online: OnlineResult | None = None    # the --online serve
     dryrun: dict | None = None
     walls: dict = dataclasses.field(default_factory=dict)   # seconds
+    args: argparse.Namespace | None = None    # the parsed flags
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -198,11 +218,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="trace horizon (cost units) named scenarios are "
                          "sized against")
     ap.add_argument("--metrics-json", default=None,
-                    help="telemetry snapshot: not ported (raises)")
+                    help="write the telemetry snapshot (deterministic "
+                         "JSON) to this path after serving (enables "
+                         "telemetry)")
     ap.add_argument("--metrics-prom", default=None,
-                    help="telemetry in Prometheus format (not ported)")
+                    help="write the snapshot in Prometheus text format to "
+                         "this path after serving (enables telemetry)")
     ap.add_argument("--trace-slowest", type=int, default=0,
-                    help="slowest query traces (not ported)")
+                    help="print the N slowest/violating query traces with "
+                         "a why-slow attribution (enables telemetry)")
     return ap
 
 
@@ -286,32 +310,21 @@ def _resolve_spec(args) -> CascadeSpec:
     ).validate()
 
 
-def _check_ported(ap: argparse.ArgumentParser, args) -> None:
-    for item, dests in UNPORTED.items():
-        given = [d for d in dests if getattr(args, d) != ap.get_default(d)]
-        if given:
-            flags = ", ".join("--" + d.replace("_", "-") for d in given)
-            raise _unported(flags, item)
-
-
 def run(argv=None, say=print) -> Served:
     """Parse ``argv``, then build, fit and serve as the reference's CLI
     does; ``say`` gets each progress line.  Returns the run's
     :class:`Served` (``walls``: host seconds of the corpus, the build,
     the labels, the fit, the capacity probe (``--online``) and the serve,
     each ending on a synchronized device)."""
-    ap = _parser()
-    args = ap.parse_args(argv)
+    args = _parser().parse_args(argv)
     spec = _resolve_spec(args)
     if args.spec_json:
         with open(args.spec_json, "w") as f:
             f.write(spec.to_json() + "\n")
         say(f"[serve] wrote spec to {args.spec_json}")
-        return Served(spec)
-    if not args.dryrun:
-        _check_ported(ap, args)
+        return Served(spec, args=args)
     device = resolve_device(args.device)
-    out = Served(spec)
+    out = Served(spec, args=args)
 
     def lap(name, t0):
         if device.type == "cuda":
@@ -507,6 +520,7 @@ def main(argv=None) -> None:
     elif out.system is not None:
         for line in report(out):
             print(line)
+        _emit_telemetry(out.system, out.args)
 
 
 if __name__ == "__main__":

@@ -42,9 +42,7 @@ A copy of ``repro.serving.cache`` (the port imports nothing of the
 reference package).  Keys and byte charges are the reference's: keys are
 the bytes of host NumPy rows, and cached values are host NumPy copies,
 never device tensors (``entry_nbytes`` charges an array its ``nbytes`` and
-anything else 8 B, so a tensor would bend byte-capped eviction).  Its
-``ServingCache.export_metrics``, a telemetry hook, waits for the
-telemetry item.
+anything else 8 B, so a tensor would bend byte-capped eviction).
 """
 
 from __future__ import annotations
@@ -318,6 +316,20 @@ class ServingCache:
                        {"entries": len(lru), "nbytes": lru.nbytes,
                         **lru.stats})
         return s
+
+    def export_metrics(self, reg) -> None:
+        """Mirror cache counters + per-level occupancy into a telemetry
+        registry."""
+        for k, v in self.counters.items():
+            reg.counter("cache", key=k).set_total(v)
+        reg.gauge("cache_hit_ratio").set(self.hit_ratio())
+        for name, lru in (("l1", self.l1), ("l2", self.l2)):
+            if lru is None:
+                continue
+            reg.gauge("cache_entries", level=name).set(len(lru))
+            reg.gauge("cache_nbytes", level=name).set(lru.nbytes)
+            for k, v in lru.stats.items():
+                reg.counter("cache_level", level=name, key=k).set_total(v)
 
 
 def ingest_epoch(epoch: tuple, counter: int) -> tuple:

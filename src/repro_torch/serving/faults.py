@@ -30,9 +30,7 @@ shared by the benchmark, the tests, and ``launch/serve.py
 A copy of ``repro.serving.faults`` (the port imports nothing of the
 reference package): the same schedule, and the transient draws from the
 same ``np.random.RandomState(spec.seed)`` stream in the same order, so a
-system on the card consumes exactly the draws of one on the CPU.  Its
-``FaultInjector.export_metrics``, a telemetry hook, waits for the
-telemetry item.
+system on the card consumes exactly the draws of one on the CPU.
 """
 
 from __future__ import annotations
@@ -105,6 +103,18 @@ class FaultInjector:
             return False
         self.draws += 1
         return bool(self.rng.rand() < sp.timeout_p)
+
+    def export_metrics(self, reg) -> None:
+        """Mirror the schedule shape + draw count into a telemetry
+        registry (outcome counters live in SearchSystem._fault_counters)."""
+        reg.gauge("fault_schedule_active").set(1.0 if self.active else 0.0)
+        reg.gauge("fault_schedule", kind="crashes").set(
+            len(self.spec.crashes))
+        reg.gauge("fault_schedule", kind="stragglers").set(
+            len(self.spec.stragglers))
+        reg.gauge("fault_schedule", kind="outages").set(
+            len(self.spec.outages))
+        reg.counter("fault_transient_draws").set_total(self.draws)
 
 
 # ---------------------------------------------------------------------------

@@ -57,8 +57,7 @@ including a sudden drop to 0 (the EWMA re-learns, dispatch never lies).
 
 A copy of ``repro.serving.online.admission`` (the port imports nothing of
 the reference package), float64 NumPy in the reference's order of
-operations and with its ``1e-9`` slacks: a mode flips on one ulp.  Its
-``export_metrics``, a telemetry hook, waits for the telemetry item.
+operations and with its ``1e-9`` slacks: a mode flips on one ulp.
 """
 
 from __future__ import annotations
@@ -141,6 +140,16 @@ class AdmissionController:
                       "feed_applied": 0, "feed_throttled": 0,
                       "merges_applied": 0, "merges_forced": 0,
                       "merge_deferred": 0}
+
+    def export_metrics(self, reg) -> None:
+        """Mirror the ladder's decision counters + live estimators into a
+        telemetry registry."""
+        for k, v in self.stats.items():
+            reg.counter("admission", key=k).set_total(v)
+        reg.gauge("admission_occupancy_ewma_us").set(self.occupancy_ewma)
+        reg.gauge("admission_hit_ewma").set(self.hit_ewma)
+        reg.gauge("response_budget_us").set(self.response_budget)
+        reg.gauge("admission_stage1_bound_us").set(self.stage1_bound)
 
     # ------------------------------------------------------------------
     def observe_batch(self, occupancy: float, alpha: float = 0.2) -> None:

@@ -20,8 +20,7 @@ a query's top-k is bit-identical whether it is served alone, in any batch,
 or next to pad rows — certified by ``benchmarks/bench_online.py``.
 
 A copy of ``repro.serving.online.batcher`` (the port imports nothing of the
-reference package).  Its ``export_metrics``, a telemetry hook, waits for
-the telemetry item.
+reference package).
 """
 
 from __future__ import annotations
@@ -69,6 +68,16 @@ class MicroBatcher:
     def __init__(self, cfg: OnlineSpec):
         cfg.validate()
         self.cfg = cfg
+
+    def export_metrics(self, reg) -> None:
+        """Mirror the batching policy knobs into a telemetry registry (so
+        a snapshot names the operating point it was taken under)."""
+        reg.gauge("batcher", key="max_batch").set(self.cfg.max_batch)
+        reg.gauge("batcher", key="batch_deadline_us").set(
+            self.cfg.batch_deadline_us)
+        reg.gauge("batcher", key="bucket_q").set(
+            1.0 if self.cfg.bucket_q else 0.0)
+        reg.gauge("batcher", key="dispatch_us").set(self.cfg.dispatch_us)
 
     def deadline(self, oldest_arrival: float, server_free: float) -> float:
         """Latest close time for a non-full batch headed by a query that

@@ -37,11 +37,15 @@ when the delta fills, and both occupy the server (``ingest_us`` /
 ``merge_us``), gated by the admission ladder's feed and merge gates.  The
 event log records them under the ``INGEST_EVENT`` / ``MERGE_EVENT`` ids.
 
+With telemetry attached, the loop feeds the system's registry (queue
+depth and wait, response latency, batch occupancy, served modes, sheds and
+front-door hits, each shed's trace) and takes the periodic snapshots of
+``TelemetrySpec.snapshot_every_us`` on the virtual clock; with it off
+(``system.telemetry is None``) every hook is skipped.
+
 The port of ``repro.serving.online.simulator``: the loop, its event-log
 tuples and its sums in the reference's order, so the event log equals the
-reference's tuple for tuple.  The reference's telemetry branches are not
-here: a system whose spec turns telemetry on raises
-``NotImplementedError`` naming its ROADMAP item.
+reference's tuple for tuple.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from repro_torch.serving.online.traffic import (arrival_times,
                                                 feed_arrival_times,
                                                 zipf_query_mix)
 from repro_torch.serving.spec import OnlineSpec, TrafficSpec
+from repro_torch.serving.telemetry import QueryTrace, Span
 
 _NOT_SERVED = -1.0  # sentinel in per-query arrays / the event log (not NaN:
                     # the determinism contract is tuple equality)
@@ -91,8 +96,6 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
              topics: np.ndarray | None, traffic: TrafficSpec,
              online: OnlineSpec | None = None) -> OnlineResult:
     """Serve the whole query log through the online event loop."""
-    from repro_torch.serving.system import refuse_unported_nodes
-    refuse_unported_nodes(system.cascade_spec)
     online = online if online is not None else system.cascade_spec.online
     online.validate()
     q = len(terms)
@@ -163,6 +166,29 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
     t_free = 0.0
     i = 0
     n_front = 0
+
+    # ---- telemetry (inert when the spec leaves it disabled: tel is None
+    # and every hook below is skipped, so the event log, per-query arrays
+    # and stats keys are bit-identical to the uninstrumented loop)
+    tel = system.telemetry
+    if tel is not None:
+        tel.attach_online(adm, batcher)
+        tel.registry.gauge("response_budget_us").set(budget_r)
+
+    def tel_shed(qid: int, where: str, w: float, now: float) -> None:
+        """Shed counters + a minimal trace naming the admission rung.
+        A shed is a failure to serve -- it ranks as a violation in the
+        trace reservoir (else zero-latency shed rows could never compete
+        with served queries for a slot)."""
+        tel.registry.counter("shed_queries", where=where).inc()
+        if tel.traces.would_keep(w, True):
+            root = Span("query")
+            root.child("admission", 0.0, 0.0, decision="shed", where=where)
+            tel.traces.offer(QueryTrace(
+                qid=int(qid), clock_us=float(now), latency_us=float(w),
+                budget_us=budget_r, violation=True, root=root,
+                meta={"mode": "shed", "where": where,
+                      "wait_us": float(w), "service_us": 0.0}))
 
     # ---- live ingest: a seeded feed-arrival process on the same virtual
     # clock.  Feed batches and background merges charge the server's
@@ -239,8 +265,18 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
             hit = system.cache_peek(terms[qid:qid + 1], mask[qid:qid + 1],
                                     tq, now=t_arr)
             if bool(hit[0]):
+                if tel is not None:
+                    tel.batch_context = {"qid": np.array([qid]),
+                                         "wait": np.zeros(1),
+                                         "mode": np.array(["full"]),
+                                         "budget": budget_r}
                 res = system.serve(terms[qid:qid + 1], mask[qid:qid + 1],
                                    tq, now=t_arr)
+                if tel is not None:
+                    tel.batch_context = None
+                    tel.registry.counter("front_door_hits").inc()
+                    tel.registry.histogram("response_latency_us").observe(
+                        res.latency[0])
                 svc = float(res.latency[0])
                 mode[qid] = FULL
                 wait[qid] = 0.0
@@ -269,6 +305,8 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
         else:
             events.append((qid, -1, float(arr[qid]), _NOT_SERVED,
                            _NOT_SERVED, _NOT_SERVED, _NOT_SERVED, SHED))
+            if tel is not None:
+                tel_shed(qid, "arrival", 0.0, float(arr[qid]))
 
     def dispatch(rows: np.ndarray, t_start: float) -> None:
         nonlocal t_free
@@ -298,10 +336,35 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
         for r, w in zip(rows[~keep], waits[~keep]):
             events.append((int(r), -1, float(arr[r]), float(t_start),
                            float(w), _NOT_SERVED, _NOT_SERVED, SHED))
+            if tel is not None:
+                tel_shed(int(r), "dispatch", float(w), float(t_start))
         if not keep.any():
             return
         served = rows[keep]
         padded, n_real = pad_batch(served, online.max_batch, online.bucket_q)
+        if tel is not None:
+            # queue state at batch close: this batch + whatever is still
+            # waiting behind it
+            depth = len(rows) + len(pending)
+            tel.registry.gauge("queue_depth").set(depth)
+            tel.registry.histogram("queue_depth_at_close").observe(depth)
+            n_pad = len(padded) - n_real
+            w_k = waits[keep]
+            m_k = m[keep]
+            # pad rows replicate a real query: qid=-1 keeps them out of
+            # the trace reservoir (their metrics rows are sliced off by
+            # [:n_real] everywhere else)
+            qids = padded.copy()
+            qids[n_real:] = -1
+            tel.batch_context = {
+                "wait": np.concatenate([w_k, np.full(n_pad, w_k[0])]),
+                "mode": np.array(
+                    [MODE_NAMES[int(x)] for x in
+                     np.concatenate([m_k,
+                                     np.full(n_pad, m_k[0], np.int64)])]),
+                "qid": qids,
+                "budget": budget_r,
+            }
         cap_p = None
         if cap is not None and k_serve is not None:
             cap_k = cap[keep]
@@ -350,6 +413,16 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
         t_free = t_start + occupancy
         if adm is not None:
             adm.observe_batch(occupancy)
+        if tel is not None:
+            tel.batch_context = None
+            reg = tel.registry
+            reg.histogram("queue_wait_us").observe(waits[keep])
+            reg.histogram("response_latency_us").observe(
+                waits[keep] + online.dispatch_us + svc)
+            reg.histogram("batch_occupancy_us").observe(occupancy)
+            for x in m[keep]:
+                reg.counter("served_mode", mode=MODE_NAMES[int(x)]).inc()
+            tel.maybe_snapshot(system, t_free)
 
     while i < q or pending:
         if not pending:
@@ -435,6 +508,10 @@ def simulate(system, terms: np.ndarray, mask: np.ndarray,
                           "mean_size": float(sizes.mean()),
                           "max_size": int(sizes.max()),
                           "mean_occupancy": float(occ.mean())}
+    if tel is not None:
+        stats["telemetry"] = {"snapshots": len(tel.snapshots),
+                              "traces_kept": len(tel.traces),
+                              "traces_offered": tel.traces.offered}
     return OnlineResult(arrival=arr, wait=wait, service=service,
                         completion=completion, response=resp, mode=mode,
                         batch_of=batch_of, topk=topk, final=final,
@@ -456,9 +533,10 @@ def fresh_probe(system):
     shares with ``system``, which serving only reads, so a probe of a
     196,608-doc shard costs no host layout pass and no copy to the card.
     Like the reference's fresh build, the probe gets an empty cache, a
-    fault injector of its own, whose transient draws start anew, and an
-    empty delta of its own: neither its feed nor its parent's merge
-    reaches the other."""
+    fault injector of its own, whose transient draws start anew, an empty
+    delta of its own (neither its feed nor its parent's merge reaches the
+    other) and, with telemetry on, a registry and trace store of its own,
+    so its batches never land in its parent's snapshot."""
     return system._fresh_copy()
 
 

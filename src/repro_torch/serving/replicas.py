@@ -225,3 +225,15 @@ class ReplicaPool:
                                 default=0),
             "ewma_latency": self.mirror_ewma(),
         }
+
+    def export_metrics(self, reg) -> None:
+        """Mirror pool health into a telemetry registry."""
+        s = self.stats()
+        reg.counter("pool_served").set_total(s["served"])
+        for k in ("replicas", "healthy", "jass", "bmw", "jass_fraction",
+                  "max_inflight"):
+            reg.gauge("pool", key=k).set(s[k])
+        for m, name in ((JASS, "jass"), (BMW, "bmw")):
+            v = s["ewma_latency"][m]
+            if v is not None:
+                reg.gauge("pool_ewma_latency_us", mirror=name).set(v)

@@ -16,9 +16,8 @@ fleet.  ``replace``-style evolution works through ``dataclasses.replace``.
 
 A copy of ``repro.serving.spec`` (the port imports nothing of the reference
 package), so a spec written by either package reads back in the other:
-``CascadeSpec.from_json(ref_spec.to_json())`` round-trips.  The port serves
-only the inert defaults of the cache, fault, dense, ingest and telemetry
-nodes; ``SearchSystem`` refuses a spec that turns one on.
+``CascadeSpec.from_json(ref_spec.to_json())`` round-trips.  The port's
+``SearchSystem`` serves every node of the tree.
 """
 
 from __future__ import annotations

@@ -35,9 +35,10 @@ fault injection with scatter-gather failover (``spec.fault``:
 health probes) and live ingest (``spec.ingest``: a capacity-padded delta
 tile-set, ``repro_torch.index.delta``, scanned by both lexical engines and
 the dense engine as one more segment after the sealed shards;
-``add_documents`` and the background ``merge``).  A spec that turns on
-telemetry, the node the port does not have yet, raises
-``NotImplementedError`` naming its ROADMAP item.
+``add_documents`` and the background ``merge``) and telemetry
+(``spec.telemetry``: ``repro_torch.serving.telemetry``'s registry and
+trace store, fed by every served batch on the host from arrays already
+copied off the device; ``snapshot`` and ``render_snapshot`` export it).
 Models fitted by the reference can also be converted
 (``repro_torch.convert``); so can the two-tower model of the dense
 modality (``convert.two_tower_params``), or the port draws its own.
@@ -84,21 +85,19 @@ from repro_torch.serving.replicas import BMW, JASS, PoolConfig, ReplicaPool
 from repro_torch.serving.scheduler import (RoutedBatch, SchedulerConfig,
                                            StageZeroScheduler)
 from repro_torch.serving.spec import CascadeSpec, RoutingSpec
+from repro_torch.serving.telemetry import QueryTrace, Span, Telemetry
+from repro_torch.serving.telemetry.export import (legacy_stats_view,
+                                                  render_json,
+                                                  render_prometheus)
 
 SCORE_FILL = float(np.finfo(np.float32).min)
 
 
 def _unported(what: str, item: str):
+    """The error for a call that needs a node of a later ROADMAP item."""
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet "
         f"(ROADMAP.md, section 1: {item})")
-
-
-def refuse_unported_nodes(spec: CascadeSpec) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP item for the first
-    node of ``spec`` the port does not have yet."""
-    if spec.telemetry.active:
-        raise _unported("telemetry (TelemetrySpec)", "Telemetry")
 
 
 @dataclass
@@ -197,7 +196,6 @@ class SearchSystem:
             spec = replace(spec, index=replace(spec.index,
                                                block_size=index.block_size))
         spec.validate()
-        refuse_unported_nodes(spec)
         self.device = resolve_device(device)
         self.backend = resolve_backend(spec.backend.backend, self.device)
         self.cascade_spec = spec
@@ -230,7 +228,8 @@ class SearchSystem:
     def _init_serving_state(self) -> None:
         """The state serving moves: the live delta, the replica pool, the
         fault injector (its transient-draw stream) and the serving clock,
-        the result cache, the fault counters and the routing feedback."""
+        the result cache, the telemetry registry and trace store, the fault
+        counters and the routing feedback."""
         spec = self.cascade_spec
         deploy = spec.deploy
         self._init_ingest()
@@ -249,6 +248,14 @@ class SearchSystem:
         # default): None keeps every serve path bit-identical to the
         # uncached system
         self.cache = ServingCache(spec.cache) if spec.cache.active else None
+        # deterministic observability (spec.telemetry; inert by default):
+        # None keeps every serve path bit-identical to the uninstrumented
+        # system -- every hook guards on `self.telemetry is None`
+        self.telemetry = (Telemetry(spec.telemetry, spec.routing.budget)
+                          if spec.telemetry.active else None)
+        self._tel_suppress = False    # True inside a cache-miss sub-serve
+                                      # so batch metrics aren't double-fed
+        self._tel_cache_tag = None    # "miss" tags sub-serve traces
         self._debug_shard_lists = None   # tests: set to [] to capture the
                                          # per-shard candidate lists
         self._fault_counters = {
@@ -332,12 +339,13 @@ class SearchSystem:
         """The system ``build_system(self.cascade_spec, self.index,
         corpus=..., models=..., ltr=..., cost=..., tower=..., device=...)``
         builds, without building it: the serving state (an empty delta,
-        pool, fault injector and its draws, clock, an empty cache,
-        counters, routing feedback) starts anew at the live spec, and the
-        structures derived from the index and the models (shards, the
-        dense engine's matrices, Stage-2 arrays, stacked forests), which
-        serving only reads, are shared.  A merge in either system replaces
-        its own shards and delta and never touches the other's."""
+        pool, fault injector and its draws, clock, an empty cache, a
+        registry and trace store of its own, counters, routing feedback)
+        starts anew at the live spec, and the structures derived from the
+        index and the models (shards, the dense engine's matrices, Stage-2
+        arrays, stacked forests), which serving only reads, are shared.  A
+        merge in either system replaces its own shards and delta and never
+        touches the other's."""
         new = copy.copy(self)
         new._base_cfg = scheduler_config(self.cascade_spec.routing)
         new._init_serving_state()
@@ -1087,6 +1095,16 @@ class SearchSystem:
         stats = self._build_stats(lat, stage_latency, trimmed, skipped,
                                   faulted, coverage, now,
                                   dense_info=dense_info)
+        if self.telemetry is not None:
+            self._record_traces(
+                q=q, now=now, lat=lat, stage_latency=stage_latency,
+                pk=pk, pr=pr, pt=pt, routed=routed, modality=modality,
+                theta_skip=theta_skip, fallback=fallback, used=used,
+                t_shards=t_shards, faulted=faulted,
+                delay=delay if faulted else None,
+                mult=mult if faulted else None,
+                lost=lost if faulted else None,
+                dropped=dropped if faulted else None, coverage=coverage)
         return PipelineResult(topk=topk, final=final, candidates_used=used,
                               latency=lat, stage_latency=stage_latency,
                               stats=stats, coverage=coverage,
@@ -1379,14 +1397,33 @@ class SearchSystem:
         miss_rows = np.flatnonzero(~(l1_hit | l2_hit))
         sub = None
         if len(miss_rows):
-            sub = self._serve_direct(
-                terms[miss_rows], mask[miss_rows],
-                None if topics is None else topics[miss_rows],
-                stage2_cap=(None if stage2_cap is None
-                            else np.asarray(stage2_cap)[miss_rows]),
-                shard_cap=(None if shard_cap is None
-                           else np.asarray(shard_cap)[miss_rows]),
-                now=now)
+            tel = self.telemetry
+            outer_ctx = tel.batch_context if tel is not None else None
+            if tel is not None:
+                # the sub-serve records the miss rows' traces (it is the
+                # real cascade execution) tagged "miss", but must not
+                # re-feed batch metrics: this batch feeds them once below
+                if outer_ctx is not None:
+                    tel.batch_context = {
+                        k: (v[miss_rows] if isinstance(v, np.ndarray)
+                            else v)
+                        for k, v in outer_ctx.items()}
+                self._tel_suppress = True
+                self._tel_cache_tag = "miss"
+            try:
+                sub = self._serve_direct(
+                    terms[miss_rows], mask[miss_rows],
+                    None if topics is None else topics[miss_rows],
+                    stage2_cap=(None if stage2_cap is None
+                                else np.asarray(stage2_cap)[miss_rows]),
+                    shard_cap=(None if shard_cap is None
+                               else np.asarray(shard_cap)[miss_rows]),
+                    now=now)
+            finally:
+                if tel is not None:
+                    tel.batch_context = outer_ctx
+                    self._tel_suppress = False
+                    self._tel_cache_tag = None
             topk[miss_rows] = sub.topk
             if self.ltr is not None:
                 for j, i in enumerate(miss_rows):
@@ -1443,20 +1480,25 @@ class SearchSystem:
         stats = self._build_stats(
             lat, stage_latency, trimmed, skipped, faulted, coverage, now,
             dense_info=dense_info, cache_stats=cache.stats())
+        if self.telemetry is not None:
+            self._record_hit_traces(l1_hit, l2_hit, lat, t0, t2, hit_us,
+                                    now)
         return PipelineResult(topk=topk, final=final, candidates_used=used,
                               latency=lat, stage_latency=stage_latency,
                               stats=stats, coverage=coverage,
                               dense=dense_info)
 
     # ------------------------------------------------------------------
-    # batch stats
+    # batch stats + telemetry
     # ------------------------------------------------------------------
 
     def _build_stats(self, lat, stage_latency, trimmed, skipped, faulted,
                      coverage, now, *, dense_info=None,
                      cache_stats=None) -> dict:
-        """The per-batch stats dict both serve paths report (the
-        reference's, minus the telemetry feed)."""
+        """The per-batch stats dict both serve paths report -- one builder
+        so the direct and cached paths cannot drift -- plus the telemetry
+        feed (per-query/per-stage histograms and degradation counters)
+        when a registry is attached."""
         stats = dict(self.sched.stats)
         stats.update(percentiles(lat))
         n_over, pct = over_budget(lat, self.budget)
@@ -1504,8 +1546,226 @@ class SearchSystem:
                 "theta_skips": int(dense_info["theta_skip"].sum()),
                 "fallbacks": int(dense_info["fallback"].sum()),
             }
+        tel = self.telemetry
+        if tel is not None and not self._tel_suppress:
+            # micro-batch pads carry qid=-1 in the batch context: real
+            # device work, but not queries -- keep them out of the
+            # per-query latency histograms and counters
+            ctx_q = (tel.batch_context or {}).get("qid")
+            keep = (np.asarray(ctx_q) >= 0 if ctx_q is not None
+                    else slice(None))
+            tel.record_batch(lat[keep],
+                             {k: v[keep] for k, v in stage_latency.items()},
+                             self.budget, trimmed=trimmed, skipped=skipped)
+            if dense_info is not None:
+                d = stats["dense"]
+                for k in ("lexical", "dense_only", "fused"):
+                    tel.registry.counter("modality", route=k).inc(d[k])
+                tel.registry.counter("theta_skips").inc(d["theta_skips"])
+                tel.registry.counter("dense_fallbacks").inc(d["fallbacks"])
         self._last_stats = stats
         return stats
+
+    def _tel_context(self, q: int):
+        """Resolve the per-row trace context: the online simulator sets
+        ``telemetry.batch_context`` with queue waits, admission modes and
+        real query ids around ``serve``; offline serves synthesize
+        sequential qids and zero wait."""
+        tel = self.telemetry
+        ctx = tel.batch_context or {}
+        wait = ctx.get("wait")
+        modes = ctx.get("mode")
+        qids = ctx.get("qid")
+        budget = float(ctx.get("budget", self.budget))
+        if qids is None:
+            qids = tel.query_seq + np.arange(q)
+            tel.query_seq += q
+        return wait, modes, qids, budget
+
+    def _record_traces(self, *, q, now, lat, stage_latency, pk, pr, pt,
+                       routed, modality, theta_skip, fallback, used,
+                       t_shards, faulted, delay, mult, lost, dropped,
+                       coverage) -> None:
+        """Build span trees for the rows the trace store would retain
+        (slowest / budget-violating first; ``would_keep`` prunes the rest
+        so trace building stays off the common path).  Every array read
+        here is a host NumPy array the serve path already holds, so a row
+        costs no device sync."""
+        tel = self.telemetry
+        if tel.traces.capacity == 0:
+            return
+        wait, modes, qids, budget = self._tel_context(q)
+        is_jass = np.zeros(q, bool)
+        is_jass[routed.jass_rows] = True
+        is_hedge = np.zeros(q, bool)
+        is_hedge[routed.hedged_rows] = True
+        timeout = self.sched.cfg.failover_timeout
+        mod_name = {M_LEX: "lexical", M_DENSE: "dense", M_BOTH: "fused"}
+        for r in range(q):
+            if int(qids[r]) < 0:
+                continue   # micro-batch pad row, not a query
+            w = float(wait[r]) if wait is not None else 0.0
+            total = float(lat[r]) + w
+            violation = total > budget
+            if not tel.traces.would_keep(total, violation):
+                continue
+            t0r = float(stage_latency["stage0"][r])
+            root = Span("query")
+            root.child("stage0", 0.0, t0r, pred_k=float(pk[r]),
+                       pred_rho=float(pr[r]), pred_t=float(pt[r]))
+            mirror = "jass" if is_jass[r] else "bmw"
+            if is_hedge[r]:
+                mirror += "+hedge"
+            rmeta = dict(mirror=mirror, rho=float(routed.rho[r]),
+                         k=int(routed.k[r]))
+            if modality is not None:
+                rmeta["modality"] = mod_name[int(modality[r])]
+            root.child("route", t0r, 0.0, **rmeta)
+            s1 = root.child("stage1", t0r,
+                            float(stage_latency["stage1"][r]))
+            for s in range(self.n_shards):
+                smeta: dict = {"shard": s}
+                dur = float(t_shards[s, r])
+                if faulted:
+                    d = float(delay[s, r])
+                    if d > 0:
+                        smeta["retry_wait_us"] = d
+                        smeta["attempts_failed"] = (
+                            int(round(d / timeout)) if timeout else 0)
+                    if lost[s, r]:
+                        smeta["lost"] = True
+                    if dropped[s, r]:
+                        smeta["dropped"] = True
+                    if mult[s, r] != 1.0:
+                        smeta["slowdown"] = float(mult[s, r])
+                    dur = (0.0 if dropped[s, r] else
+                           d + (0.0 if lost[s, r]
+                                else float(t_shards[s, r] * mult[s, r])))
+                s1.child("shard", t0r, dur, **smeta)
+            if modality is not None and int(modality[r]) == M_BOTH:
+                s1.child("fusion", 0.0, float(self.cost.fusion_us))
+            if fallback is not None and fallback[r]:
+                s1.child("dense_fallback", 0.0, 0.0)
+            if self.delta is not None:
+                s1.child("delta_scan", 0.0, float(self._delta_us))
+            s2dur = float(stage_latency["stage2"][r])
+            s2meta: dict = {}
+            if used is not None:
+                s2meta["candidates"] = int(used[r])
+                if used[r] == 0:
+                    s2meta["skipped"] = True
+            if theta_skip is not None and theta_skip[r]:
+                s2meta["theta_skip"] = True
+            root.child("stage2", float(lat[r]) - s2dur, s2dur, **s2meta)
+            meta = {
+                "wait_us": w,
+                "service_us": float(lat[r]),
+                "reserve_us": float(
+                    self._budget_reserve.get("stage2", 0.0)),
+            }
+            if modes is not None:
+                meta["mode"] = str(modes[r])
+            if self._tel_cache_tag is not None:
+                meta["cache"] = self._tel_cache_tag
+            if faulted:
+                meta["coverage"] = float(coverage[r])
+            tel.traces.offer(QueryTrace(
+                qid=int(qids[r]), clock_us=now, latency_us=total,
+                budget_us=budget, violation=violation, root=root,
+                meta=meta))
+
+    def _record_hit_traces(self, l1_hit, l2_hit, lat, t0, t2, hit_us,
+                           now) -> None:
+        """Traces for cache-hit rows (miss rows were traced by the
+        sub-serve with a ``cache: miss`` tag)."""
+        tel = self.telemetry
+        if tel.traces.capacity == 0:
+            return
+        q = len(lat)
+        wait, modes, qids, budget = self._tel_context(q)
+        for r in np.flatnonzero(l1_hit | l2_hit):
+            level = "l1" if l1_hit[r] else "l2"
+            w = float(wait[r]) if wait is not None else 0.0
+            total = float(lat[r]) + w
+            violation = total > budget
+            if not tel.traces.would_keep(total, violation):
+                continue
+            root = Span("query")
+            root.child("stage0", 0.0, float(t0[r]))
+            root.child("cache_lookup", float(t0[r]), float(hit_us),
+                       level=level, hit=True)
+            if t2[r] > 0:
+                root.child("stage2", float(lat[r]) - float(t2[r]),
+                           float(t2[r]))
+            meta = {"wait_us": w, "service_us": float(lat[r]),
+                    "cache": level,
+                    "reserve_us": float(
+                        self._budget_reserve.get("stage2", 0.0))}
+            if modes is not None:
+                meta["mode"] = str(modes[r])
+            tel.traces.offer(QueryTrace(
+                qid=int(qids[r]), clock_us=now, latency_us=total,
+                budget_us=budget, violation=violation, root=root,
+                meta=meta))
+
+    def _export_metrics(self) -> None:
+        """Mirror every cumulative stats dict and subsystem counter into
+        the registry (``key=`` labels preserve the legacy key names so
+        ``legacy_stats_view`` can reconstruct the old sections)."""
+        reg = self.telemetry.registry
+        for k, v in self.sched.stats.items():
+            reg.counter("scheduler", key=k).set_total(v)
+        for k, v in self._fault_counters.items():
+            reg.counter("faults", key=k).set_total(v)
+        reg.gauge("faults", key="clock").set(self._clock)
+        for k, v in self._ingest_counters.items():
+            reg.counter("ingest", key=k).set_total(v)
+        reg.gauge("n_shards").set(self.n_shards)
+        reg.gauge("batches").set(self._batches)
+        reg.gauge("budget_us").set(self.budget)
+        reg.gauge("worst_case_us").set(self.worst_case_us())
+        reg.gauge("clock_us").set(self._clock)
+        self.pool.export_metrics(reg)
+        self.faults.export_metrics(reg)
+        if self.cache is not None:
+            self.cache.export_metrics(reg)
+        if self.delta is not None:
+            self.delta.export_metrics(reg)
+            reg.gauge("ingest", key="delta_us").set(self._delta_us)
+        self.telemetry.export_online()
+
+    def snapshot(self, now: float | None = None) -> dict:
+        """One scrapeable observability snapshot: every counter, gauge and
+        histogram in the registry plus the retained slowest/violating
+        traces with their ``why_slow`` attribution.  Deterministic -- two
+        same-seed runs render byte-identical JSON, on the card and on the
+        CPU alike.  Requires an enabled
+        :class:`~repro_torch.serving.spec.TelemetrySpec`."""
+        if self.telemetry is None:
+            raise RuntimeError(
+                "telemetry is disabled (spec.telemetry.enabled=False); "
+                "enable it to export snapshots")
+        self._export_metrics()
+        snap = self.telemetry.registry.snapshot()
+        snap["version"] = 1
+        snap["spec"] = self.cascade_spec.name
+        snap["clock_us"] = float(self._clock if now is None else now)
+        snap["budget_us"] = float(self.budget)
+        snap["worst_case_us"] = float(self.worst_case_us())
+        snap["traces"] = [t.to_dict()
+                          for t in self.telemetry.traces.slowest()]
+        return snap
+
+    def render_snapshot(self, fmt: str = "json",
+                        now: float | None = None) -> str:
+        """Render :meth:`snapshot` as ``json`` (byte-deterministic) or
+        ``prom`` (Prometheus text exposition; traces are JSON-only)."""
+        snap = self.snapshot(now=now)
+        if fmt == "json":
+            return render_json(snap)
+        if fmt == "prom":
+            return render_prometheus(snap)
+        raise ValueError(f"unknown snapshot format {fmt!r}")
 
     def worst_case_us(self) -> float:
         """The hard analytic bound on any served query's cascade latency:
@@ -1657,7 +1917,25 @@ class SearchSystem:
 
     def stats(self) -> dict:
         """Deployment-level health: spec identity, shard layout, scheduler
-        counters, replica-pool health, and the last batch's tail."""
+        counters, replica-pool health, and the last batch's tail.
+
+        With telemetry enabled the scalar counter sections (scheduler /
+        faults / ingest) are *derived from the registry snapshot* -- the
+        registry is the one source of truth and this dict is a thin
+        compat view over it; with telemetry disabled the legacy dicts are
+        reported directly (identical values either way)."""
+        tel = self.telemetry
+        if tel is not None:
+            self._export_metrics()
+            snap = tel.registry.snapshot()
+            scheduler = legacy_stats_view(snap, "scheduler")
+            fault_ctr = legacy_stats_view(snap, "faults")
+            ingest = legacy_stats_view(snap, "ingest")
+        else:
+            scheduler = dict(self.sched.stats)
+            fault_ctr = dict(self._fault_counters)
+            fault_ctr["clock"] = self._clock
+            ingest = None
         s = {
             "spec": self.cascade_spec.name,
             "device": str(self.device),
@@ -1665,7 +1943,7 @@ class SearchSystem:
             "shard_docs": [sp.n_docs for sp in self.shard_specs],
             "replicas": self.cascade_spec.deploy.replicas,
             "batches": self._batches,
-            "scheduler": dict(self.sched.stats),
+            "scheduler": scheduler,
             "budget": {"total": self.budget,
                        "reserve": dict(self._budget_reserve),
                        "enforce": self.sched.cfg.enforce_budget,
@@ -1673,11 +1951,12 @@ class SearchSystem:
             "pool": self.pool.stats(),
         }
         if self.faults.active or any(self._fault_counters.values()):
-            s["faults"] = dict(self._fault_counters, clock=self._clock)
+            s["faults"] = fault_ctr
         if self.delta is not None:
-            ingest = dict(self.delta.stats())
-            ingest.update(self._ingest_counters)
-            ingest["delta_us"] = self._delta_us
+            if ingest is None:
+                ingest = dict(self.delta.stats())
+                ingest.update(self._ingest_counters)
+                ingest["delta_us"] = self._delta_us
             s["ingest"] = ingest
         if self._last_stats:
             s["last_batch"] = {k: self._last_stats[k]

@@ -11,11 +11,12 @@ the result cache offline and online (``--preset cached --online
 (``--fault-scenario crash_one`` offline, ``timeout_storm`` online on 4
 shards, ``--fault-json``), and live ingest online (``--preset
 live_ingest --online``; ``--ingest --delta-docs 300 --delta-postings
-9000``)); ``--spec-json`` files byte-identical; each unported flag
-(telemetry) raising with its ROADMAP item; no card and no ``--device``
-raising.  ``launch/dryrun_cascade``: ``corpus_df``, ``WorkProxies`` and the
-``dryrun`` dict equal to the reference's, pre-build and post-build, and
-its CLI's output equal.
+9000``)); ``--spec-json`` files byte-identical; the telemetry flags
+(``--metrics-json``, ``--metrics-prom``, ``--trace-slowest``) offline and
+online, their lines and written files byte for byte; no card and no
+``--device`` raising.  ``launch/dryrun_cascade``: ``corpus_df``,
+``WorkProxies`` and the ``dryrun`` dict equal to the reference's,
+pre-build and post-build, and its CLI's output equal.
 
 ``hybrid_fusion`` embeds with a two-tower model: the reference draws it
 from ``jax.random``, the port from a ``torch.Generator``, so the port's
@@ -178,17 +179,35 @@ def test_spec_json_bytes_match_reference(flags, tmp_path, fault_json,
         == spec.to_json()
 
 
-@pytest.mark.parametrize("flags,item", [
-    pytest.param(["--metrics-json", "m.json"], "Telemetry",
+@pytest.mark.parametrize("flags", [
+    pytest.param(["--metrics-json", "{d}/m.json", "--metrics-prom",
+                  "{d}/m.prom", "--trace-slowest", "2"],
                  id="flags5-Telemetry"),
-    pytest.param(["--trace-slowest", "3"], "Telemetry",
+    pytest.param(["--online", "--preset", "cached", "--zipf-skew", "1.2",
+                  "--metrics-json", "{d}/m.json", "--trace-slowest", "3"],
                  id="flags6-Telemetry")])
-def test_unported_flags_raise_with_their_item(flags, item, capsys):
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP\.md, section 1: {item}\)"):
-        serve.run(["--device", "cpu"] + SMALL + flags)
-    # nothing was built: the raise comes before the first progress line
-    assert capsys.readouterr().out == ""
+def test_unported_flags_raise_with_their_item(flags, tmp_path, monkeypatch,
+                                              capsys):
+    """The telemetry flags are served, offline and online: the ``[serve]``
+    lines (the exports' lines and the why-slow listing included) equal the
+    reference's, and the files it writes equal its bytes."""
+    dirs = {}
+    for side in ("want", "got"):
+        dirs[side] = tmp_path / side
+        dirs[side].mkdir()
+    argv = {side: ["--pseudo-labels"] + SMALL
+            + [f.format(d=d) for f in flags] for side, d in dirs.items()}
+    want = _ref_main(ref_serve, argv["want"], monkeypatch, capsys)
+    got = _port_main(serve.main, ["--device", "cpu"] + argv["got"], capsys)
+    assert [s.replace(str(dirs["got"]), "") for s in got] \
+        == [s.replace(str(dirs["want"]), "") for s in want]
+    assert any("slowest traces (of" in line for line in got)
+    names = sorted(f.name for f in dirs["want"].iterdir())
+    assert names == sorted(f.name for f in dirs["got"].iterdir())
+    assert "m.json" in names
+    for name in names:
+        assert (dirs["got"] / name).read_bytes() \
+            == (dirs["want"] / name).read_bytes(), name
 
 
 def test_active_fault_json_raises_and_no_card_raises(fault_json,

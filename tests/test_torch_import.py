@@ -61,6 +61,8 @@ assert set("repro_torch.serving.online." + m for m in
 assert set("repro_torch.serving." + m for m in ("cache", "faults")) \
     <= set(names)
 assert "repro_torch.index.delta" in names
+assert set("repro_torch.serving.telemetry" + m for m in
+           ("", ".metrics", ".trace", ".export")) <= set(names)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -71,7 +73,7 @@ assert not bad, bad
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 77
+    assert n_modules >= 81
 
 
 def test_sources_import_nothing_of_jax_or_reference():

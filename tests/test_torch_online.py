@@ -28,8 +28,8 @@
   determinism, micro-batch parity, response accounting, overload sheds but
   never violates; ``fresh_probe`` keeps the device and the tower;
 * the loop's cache branches (front door, dispatch peek, hit EWMA), its
-  fault branch and its ingest branch (without admission) on both
-  packages; its refusal of telemetry;
+  fault branch, its ingest branch (without admission) and its telemetry
+  branch on both packages;
 * ``chip_smoke.online_flow("cpu")`` against the reference's
   ``benchmarks/bench_online.run_online`` (its artifact write stubbed), at
   a reduced size.
@@ -634,20 +634,23 @@ def test_ingest_online_matches_reference(small_collection, port_collection,
     assert s["feed_batches_applied"] > 0 and s["merges"] > 0
 
 
-def test_unported_nodes_raise_in_the_loop(small_collection, port_system):
-    """The loop refuses a spec whose telemetry node is on (the cache, fault
-    and ingest branches are served: ``test_cached_and_faulted
-    _online_match_reference``, ``test_ingest_online_matches_reference``)."""
-    ql = small_collection[2]
-    for node, item in (("telemetry", "Telemetry"),):
-        system = port_system()
-        spec = system.cascade_spec
-        system.cascade_spec = dataclasses.replace(spec, **{
-            node: dataclasses.replace(getattr(spec, node), enabled=True)})
-        with pytest.raises(NotImplementedError,
-                           match=rf"ROADMAP\.md, section 1: {item}\)"):
-            system.serve_online(ql.terms, ql.mask, ql.topic,
-                                traffic=port_spec.TrafficSpec())
+def test_unported_nodes_raise_in_the_loop(small_collection,
+                                          port_collection, fitted):
+    """The loop's telemetry branch is served: with ``spec.telemetry`` on
+    (snapshots every 60 units) the event log, arrays, stats (its
+    ``telemetry`` section included) and the periodic and final snapshots
+    equal the reference's."""
+    kw = dict(enabled=True, snapshot_every_us=60.0)
+    specs = [dataclasses.replace(_online_spec(mod),
+                                 telemetry=mod.TelemetrySpec(**kw))
+             for mod in (ref_spec, port_spec)]
+    a, b = _pair(small_collection, port_collection, fitted, specs[0])
+    assert b.cascade_spec.telemetry == specs[1].telemetry
+    ra, rb = _serve_online_pair(a, b, small_collection[2],
+                                dict(arrival="bursty", qps=400.0, seed=9))
+    assert rb.stats["telemetry"]["snapshots"] > 0
+    assert b.telemetry.snapshots == a.telemetry.snapshots
+    assert b.render_snapshot() == a.render_snapshot()
 
 
 @pytest.mark.parametrize("node", ["cache", "fault"])

@@ -20,7 +20,8 @@ worst-case bound, one shard against three): ``topk``, ``final``,
 ``stats["dense"]``, the stage budgets and ``worst_case_us`` must be equal.
 
 The ``cached`` preset and ``fault_tolerant`` under two named fault
-schedules serve equal to the reference; live ingest and telemetry raise.
+schedules serve equal to the reference, and so does a system with
+telemetry on, whose snapshot equals the reference's.
 """
 
 import dataclasses
@@ -138,16 +139,29 @@ def test_spec_json_round_trips_between_packages():
 
 
 def test_unported_nodes_raise(fitted_reference):
-    """Telemetry still raises, naming its item (the cache, fault and
-    ingest nodes are served:
-    ``test_cached_and_fault_tolerant_presets_match_reference``,
-    ``test_live_ingest_preset_matches_reference``)."""
-    _, _, _, ref, pcorpus, pindex, _, _ = fitted_reference
-    spec = CascadeSpec.from_json(ref.cascade_spec.to_json())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Telemetry"):
-        build_system(dataclasses.replace(spec, telemetry=dataclasses.replace(
-            spec.telemetry, enabled=True)), pindex, corpus=pcorpus,
-            device="cpu")
+    """Telemetry is served: ``build_system`` with ``spec.telemetry`` on
+    builds a registry, serves equal to the reference, and its snapshot
+    equals the reference's as a dict and as JSON and Prometheus bytes."""
+    from repro_torch.serving.telemetry.export import render_prometheus
+    ql, a, b = _pair(fitted_reference, "paper_200ms", 1)
+    spec = dataclasses.replace(a.cascade_spec, telemetry=dataclasses.replace(
+        a.cascade_spec.telemetry, enabled=True))
+    corpus, index, _, ref, pcorpus, pindex, models, ltr = fitted_reference
+    a = ref_build_system(spec, index, corpus=corpus, models=ref.models,
+                         ltr=ref.ltr)
+    b = build_system(convert.cascade_spec(spec), pindex, corpus=pcorpus,
+                     models=models, ltr=ltr, device="cpu")
+    assert b.telemetry is not None
+    rows = slice(0, 32)
+    ra = a.serve(ql.terms[rows], ql.mask[rows], ql.topic[rows])
+    rb = b.serve(ql.terms[rows], ql.mask[rows], ql.topic[rows])
+    np.testing.assert_array_equal(rb.topk, ra.topk)
+    np.testing.assert_array_equal(rb.final, ra.final)
+    np.testing.assert_array_equal(rb.latency, ra.latency)
+    sa, sb = a.snapshot(), b.snapshot()
+    assert sb == sa and sb["counters"]["queries_served"] == 32
+    assert b.render_snapshot("json") == a.render_snapshot("json")
+    assert render_prometheus(sb) == a.render_snapshot("prom")
 
 
 @pytest.mark.parametrize("name,scenario", [("cached", None),
