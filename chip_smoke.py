@@ -22,8 +22,10 @@ order, it
    the card's fit counted from 0 and its ``level_histogram`` and
    ``boost_update`` calls recorded; requires the four forests (feat,
    thresh, leaf, base, bin edges) and ``t_k``/``t_time`` bit-equal, and
-   prints both fit walls (``--profile``: one more card fit under the
-   profiler, host time per fit stage);
+   prints both fit walls; then one small quantile GBRT fit with column and
+   row sampling (``colsample`` 0.5, ``subsample`` 0.8; ``sampled_fit``) on
+   the card and the CPU, bit-equal (``--profile``: one more card fit
+   under the profiler, host time per fit stage);
 3. serves one batch of 32 queries on both (the CPU runs the kernels'
    plain versions) and requires ``topk``, ``final`` and the modeled
    ``latency`` to be equal, while recording every kernel call's inputs;
@@ -236,7 +238,27 @@ order, it
    index: 64 feed docs, 64 queries card = CPU (modality flags too),
    kernel 6 launched on the delta at k = n (against its plain version), no
    ghost row surfacing, and one merge clearing the delta;
-16. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
+16. isn phase (the distributed ISN step: ``isn/shard.hybrid_serve_fn``
+   over ``launch/mesh.make_local_mesh``): (a) a (1, 1) mesh on the card
+   (NCCL, world size 1) and the step at the production per-chip cell of
+   ``configs/paper_isn.CONFIG`` on its 16 x 16 mesh (the fit's 196,608-doc
+   shard, 256 queries of 8 terms, k_shard 1,024, ρ_max 131,072, the
+   caps of ``build_serve_cell``, t_k 1,000, t_time 150; k_global cut to
+   1,024) with the fit's three Stage-0 GBRTs as one ``ForestArrays``
+   (their bin edges required equal), warmed once, then counted from 0:
+   kernel 1 once and kernel 2 twice a block of 64 queries, no other
+   kernel, no plain version on CUDA tensors; the step equal to
+   ``saat_serve`` and ``daat_serve`` called directly with its routes and
+   ρ (ids, scores, work, routes), JASS rows' work within ρ_max; Stage-0
+   (pk, prho, pt) of the 256 queries and ``xla_expm1`` over 2.36 M values
+   (both branches, every 4,099th bit pattern) on the card equal to the
+   CPU's bit for bit; prints the route mix, the work, the step's wall
+   (CUDA events) and the card line; (b) the step on the cli phase's index
+   over its first 32 queries on the card and, on a gloo mesh, on the CPU
+   with the CPU system's fit: ids, work and routes exact, scores within
+   1e-4 (JASS rows exact), pk / prho / pt bit-equal; the process group
+   ended at the phase's end;
+17. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
    the retrieval systems are freed:
    a. cross-check: a 2-layer Yi-6B at full width in fp32, drawn once on
       the host and copied to the card, runs ``prefill`` on 2 prompts of
@@ -281,7 +303,7 @@ order, it
       1e-5 of it on average) on the recorded fp32 model calls (the same
       near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
       above it (a one-ulp rounding flip is 2^-8 to 2^-7 relative);
-17. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
+18. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
     the nine TPU kernels and ``level_histogram``; the launches of kernels
     1-3 are step 7's; the library time of kernels 1 and 2 an
     ``index_add_`` over the (query, lane) pairs each adds), then the card
@@ -481,6 +503,17 @@ INGEST_ARTIFACT = ROOT / "results" / "BENCH_ingest.json"
 INGEST_FIGURES = ("parity", "capacity_qps", "accounting", "inert", "sweep",
                   "gates")
 WORST_CASE_ON = 266.2592      # results/BENCH_ingest.json, accounting
+# isn phase: the distributed ISN step (repro_torch.isn.shard) at the
+# production per-chip cell of configs/paper_isn.CONFIG on its 16 x 16 mesh
+# (ISN_DATA_RANKS query ranks: 4,096 / 16 = 256 queries a step) at world
+# size 1; k_global cut from 4,096 to k_shard (1,024), the candidates one
+# model rank has; the CPU twin on the cli phase's index over ISN_CHECKED
+# queries (a CPU step on the 196,608-doc shard runs both engines on every
+# query: seconds a batch of 32)
+ISN_DATA_RANKS = 16
+ISN_CHECKED = 32
+# the sampled card fit of the fit phase (GBRT colsample / subsample < 1)
+SAMPLED_FIT = dict(n=2048, n_feat=32, seed=3)
 # obs phase: the observability gate's flow (benchmarks/obs_diff.py:197-276,
 # ``obs_flow``) at its defaults, diffed against OBS_BASELINE (read, never
 # written) under OBS_TOL; then on the cli phase's index a telemetry-on
@@ -2113,9 +2146,40 @@ def fit_phase(spec, index, corpus, dev, layouts, profile=False):
         f"{r.t_time!r}; the four forests bit-equal on the card and the CPU")
     for name in FIT_KERNELS:
         check(launches[name] > 0, f"fit: kernel {name} never launched")
+    sampled_fit(dev)
     if profile:
         profile_fit(spec, index, corpus, ql, dev)
     return gpu, cpu, launches, rec.calls, ql
+
+
+def sampled_fit(dev):
+    """One small quantile GBRT fit with column and row sampling
+    (``colsample`` 0.5, ``subsample`` 0.8: each tree's feature mask and row
+    weights drawn from the seed as the reference draws them) on the card
+    and on the CPU from the same seeded rows; requires the forests, base
+    and bin edges bit-equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gbrt
+    rng = np.random.RandomState(SAMPLED_FIT["seed"])
+    x = rng.randn(SAMPLED_FIT["n"], SAMPLED_FIT["n_feat"]).astype(np.float32)
+    y = (x[:, 0] + np.sin(3 * x[:, 1]) + 0.1 * rng.randn(len(x))).astype(
+        np.float32)
+    p = gbrt.GBRTParams(n_trees=16, depth=5, loss="quantile", tau=0.75,
+                        colsample=0.5, subsample=0.8)
+    t = time.perf_counter()
+    card = gbrt.fit(x, y, p, seed=SAMPLED_FIT["seed"], device=dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t
+    t = time.perf_counter()
+    host = gbrt.fit(x, y, p, seed=SAMPLED_FIT["seed"], device="cpu")
+    same_forest("sampled fit", card, host)
+    fmask, w = gbrt.tree_draws(SAMPLED_FIT["seed"], len(x), x.shape[1], p)
+    log(f"sampled fit (quantile, 16 trees, colsample 0.5, subsample 0.8, "
+        f"{len(x)} x {x.shape[1]}; {fmask.sum(1).min()}-{fmask.sum(1).max()}"
+        f" features and {int(w.sum(1).min())}-{int(w.sum(1).max())} rows a "
+        f"tree): card {t_card:.2f} s, CPU {time.perf_counter() - t:.2f} s, "
+        "forest, base and bin edges bit-equal")
 
 
 def level_histogram_edge_calls(device):
@@ -4077,7 +4141,7 @@ def delta_call_times(name, kern, args, kw):
 
 
 def ingest_phase(dev, shard, card, cpu):
-    """Live ingest on the card (module docstring, step 14): (a) the
+    """Live ingest on the card (module docstring, step 15): (a) the
     ``live_ingest`` delta on the fit's 196,608-doc shard, fed and served
     batch by batch, card = CPU on the checked batches; (b) the
     BENCH_ingest flow on the card, its offline figures on the CPU too;
@@ -4298,6 +4362,257 @@ def ingest_phase(dev, shard, card, cpu):
         f"modality, theta_skip, fallback); one merge ({merged} docs) clears "
         f"it; part {time.perf_counter() - t1:.1f} s, phase "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+class PlainWatch:
+    """Counts the calls of kernels 1 and 2's plain versions (and their
+    plain twins) that are given a CUDA tensor: the wrappers must launch the
+    kernel there, never the plain version."""
+
+    NAMES = {"impact_accumulate_batched": ("impact_accumulate_plain",
+                                           "impact_accumulate_grouped"),
+             "blockmax_score_batched": ("blockmax_score_plain",
+                                        "blockmax_score_grouped")}
+
+    def __init__(self):
+        mods = kernel_modules()
+        self.sites = [(mods[k], n) for k, names in self.NAMES.items()
+                      for n in names]
+        self.on_card, self.orig = 0, []
+
+    def __enter__(self):
+        import torch
+        for mod, name in self.sites:
+            fn = getattr(mod, name)
+            self.orig.append(fn)
+
+            def watched(*args, _fn=fn, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda
+                       for a in (*args, *kw.values())):
+                    self.on_card += 1
+                return _fn(*args, **kw)
+            setattr(mod, name, watched)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.sites, self.orig):
+            setattr(mod, name, fn)
+
+
+def isn_sizes(shard_spec):
+    """``hybrid_serve_fn``'s sizes for one model rank holding a shard of
+    ``shard_spec``'s docs under ``paper_isn.CONFIG`` (its k_shard, ρ_max,
+    block size, tile width, t_k and t_time; the caps of
+    ``build_serve_cell``), k_global cut to k_shard."""
+    from repro_torch.configs import paper_isn
+    cfg = paper_isn.CONFIG
+    check(shard_spec.block_size == cfg.block_size
+          and shard_spec.tile_d == cfg.tile_d,
+          f"isn: the shard's block size / tile width {shard_spec.block_size}"
+          f" / {shard_spec.tile_d}, not the config's")
+    n_docs, k_shard = shard_spec.n_docs, min(cfg.k_max // 4, 1024)
+    n_blocks = n_docs // cfg.block_size
+    sizes = dict(n_docs_shard=n_docs, n_model=1, k_shard=k_shard,
+                 k_global=k_shard, rho_max=cfg.rho_max,
+                 daat_cap=min(n_docs, 1 << 19),
+                 daat_bcap=min(n_blocks, 1 << 14), n_blocks=n_blocks,
+                 block_size=cfg.block_size, t_k=1000.0, t_time=150.0,
+                 tile_d=cfg.tile_d)
+    check(sizes["daat_cap"] >= shard_spec.max_df
+          and sizes["daat_bcap"] >= shard_spec.max_blocks_per_term
+          and sizes["n_blocks"] == shard_spec.n_blocks,
+          f"isn: caps {sizes} do not cover the shard {shard_spec}")
+    return sizes
+
+
+def same_bits(label, a, b):
+    """Require two float tensors equal bit for bit (nan to nan)."""
+    import torch
+    a, b = a.cpu(), b.cpu()
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    bad = (a.view(torch.int32) != b.view(torch.int32)) & ~both_nan
+    check(a.shape == b.shape and not bool(bad.any()),
+          f"{label}: {int(bad.sum())} of {a.numel()} values differ")
+
+
+def isn_phase(dev, shard, card, cpu, card_name):
+    """The distributed ISN step on the card (module docstring, step 16):
+    ``make_local_mesh()`` (NCCL, world size 1, mesh (1, 1)), the step at
+    the production per-chip cell of ``paper_isn.CONFIG`` on the fit's
+    196,608-doc shard with the fit's three Stage-0 GBRTs, counted from 0,
+    against the engines called directly; Stage-0 and ``xla_expm1`` card =
+    CPU; then the card's step against its CPU twin (gloo) on the cli
+    phase's index.  ``shard`` as for ``ingest_phase``; ``card`` / ``cpu``
+    the cli phase's card run and CPU system."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs import paper_isn
+    from repro_torch.core import features
+    from repro_torch.index.corpus import build_queries
+    from repro_torch.index.postings import shard_to_device
+    from repro_torch.isn import shard as isn
+    from repro_torch.isn.daat import daat_serve
+    from repro_torch.isn.saat import saat_serve
+    from repro_torch.launch.mesh import (backend_for, make_local_mesh,
+                                         mesh_info)
+    t0 = time.perf_counter()
+    index, layout = shard["index"], shard["layouts"][0]
+    sizes = isn_sizes(layout.spec)
+    # one query rank's rows of the global step (the serve phases' log at
+    # their default size)
+    q = paper_isn.CONFIG.queries_per_step // ISN_DATA_RANKS
+    ql = build_queries(shard["corpus"], q,
+                       max_len=paper_isn.CONFIG.query_len,
+                       stop_k=shard["spec"].index.stop_k)
+    models = shard["card_models"][0]
+    edges = [models[n].bin_edges for n in isn.STAGE0_TARGETS]
+    check(all(torch.equal(e, edges[0]) for e in edges[1:]),
+          "isn: the three Stage-0 models bin their features with other "
+          "edges")
+    fa = isn.stage0_forest(models)
+    depth = models["k"].params.depth
+    check(depth == 5, f"isn: Stage-0 forests of depth {depth}")
+    t_k32, t_time32 = (float(np.float32(sizes[k])) for k in ("t_k", "t_time"))
+
+    def routes(fa_, ts_, df, terms_, mask_):
+        pk, prho, pt = isn._stage0(fa_, ts_, df, terms_, mask_, depth)
+        rho = torch.clamp(prho, 1024, sizes["rho_max"]).to(torch.int32)
+        return (pk, prho, pt), (pk > t_k32) | (pt > t_time32), rho
+
+    try:
+        mesh = make_local_mesh(device=dev)
+        info = mesh_info(mesh)
+        check(info == {"axes": {"data": 1, "model": 1}, "n_devices": 1}
+              and dist.get_backend() == backend_for(dev)
+              and mesh.device_type == dev.type,
+              f"isn: mesh {info} on {mesh.device_type}, backend "
+              f"{dist.get_backend()}")
+        s, spec = shard_to_device(layout, dev)
+        ts = torch.from_numpy(index.term_stats).to(dev)
+        terms = torch.from_numpy(ql.terms[:q]).to(dev)
+        mask = torch.from_numpy(ql.mask[:q]).to(dev)
+        serve = isn.hybrid_serve_fn(mesh, forest_depth=depth, **sizes)
+        serve(s, fa, ts, terms, mask)       # NCCL's communicator, caches
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with PlainWatch() as watch:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ids, sc, work, route = serve(s, fa, ts, terms, mask)
+            end.record()
+            torch.cuda.synchronize()
+        wall = start.elapsed_time(end)
+        got = dict(kernels.LAUNCHES)
+        blocks = -(-q // 64)
+        want = {name: 0 for name in got}
+        want.update(impact_accumulate_batched=blocks,
+                    blockmax_score_batched=2 * blocks)
+        check(got == want, f"isn step: launches {got}, want {want}")
+        check(watch.on_card == 0, f"isn step: {watch.on_card} plain-version "
+              "calls on CUDA tensors")
+        check(ids.shape == (q, sizes["k_global"]) and ids.dtype == torch.int32
+              and work.dtype == torch.int32 and route.dtype == torch.bool
+              and bool(torch.isfinite(sc).all())
+              and bool(((ids >= 0) & (ids < spec.n_docs)).all()),
+              "isn step: output shapes, dtypes or ids invalid")
+        n_j = int(route.sum())
+        jass_max = int(work[route].max()) if n_j else 0
+        check(jass_max <= sizes["rho_max"],
+              f"isn step: JASS work {jass_max} over rho_max")
+
+        # the same step's engines called directly, no collective
+        _, r_j, rho = routes(fa, ts, s.df, terms, mask)
+        a = saat_serve(s, terms, mask, rho, n_docs=sizes["n_docs_shard"],
+                       k=sizes["k_shard"], tile_d=sizes["tile_d"])
+        b = daat_serve(s, terms, mask, torch.ones(q, device=dev),
+                       n_docs=sizes["n_docs_shard"],
+                       n_blocks=sizes["n_blocks"],
+                       block_size=sizes["block_size"], k=sizes["k_shard"],
+                       bcap=sizes["daat_bcap"], tile_d=sizes["tile_d"])
+        check(torch.equal(route, r_j)
+              and torch.equal(ids, torch.where(r_j[:, None], a.topk_docs,
+                                               b.topk_docs))
+              and torch.equal(sc, torch.where(r_j[:, None], a.topk_scores,
+                                              b.topk_scores))
+              and torch.equal(work, torch.where(r_j, a.work,
+                                                b.work.to(torch.int32))),
+              "isn step: differs from saat_serve / daat_serve called "
+              "directly")
+        # Stage-0 of the whole step on the CPU, bit for bit
+        fa_cpu = isn.ForestArrays(*(t.cpu() for t in fa))
+        pred, _, _ = routes(fa, ts, s.df, terms, mask)
+        pred_cpu, _, _ = routes(fa_cpu, torch.from_numpy(index.term_stats),
+                                torch.from_numpy(layout.arrays.df),
+                                torch.from_numpy(ql.terms[:q]),
+                                torch.from_numpy(ql.mask[:q]))
+        for name, u, v in zip(("pk", "prho", "pt"), pred, pred_cpu):
+            same_bits(f"isn Stage-0 {name} card vs CPU", u, v)
+        # xla_expm1 over both branches, card vs CPU
+        rng = np.random.RandomState(SEED % 10_000)
+        sweep = np.concatenate([
+            rng.uniform(lo, hi, n).astype(np.float32) for lo, hi, n in
+            ((-2, 13, 1 << 20), (-0.5, 0.5, 1 << 18))] + [
+            np.arange(0, 1 << 32, 4099, dtype=np.uint64).astype(np.uint32)
+            .view(np.float32)])
+        x = torch.from_numpy(sweep)
+        same_bits("xla_expm1 card vs CPU", features.xla_expm1(x.to(dev)),
+                  features.xla_expm1(x))
+        log(f"isn step (paper_isn.CONFIG's per-chip cell: {spec.n_docs} "
+            f"docs, {q} x {ql.terms.shape[1]} queries, {sizes}; mesh "
+            f"{info}, NCCL): wall {wall:.3f} ms (CUDA events); routes jass "
+            f"{n_j} / bmw {q - n_j}; max work {int(work.max())} (JASS rows "
+            f"{jass_max} <= rho_max {sizes['rho_max']}); launches "
+            f"{ {k: v for k, v in got.items() if v} }, no plain version on "
+            "the card; equal to saat_serve / daat_serve called directly; "
+            f"Stage-0 (pk, prho, pt) card = CPU bit for bit; xla_expm1 card "
+            f"= CPU on {len(sweep)} values; {card_name}")
+
+        # the card's step against its CPU twin on the cli phase's index
+        g = card.system
+        cli = isn_sizes(g.shard_specs[0])
+        rows = slice(0, ISN_CHECKED)
+        step_in = [(g.shards[0], isn.stage0_forest(g.models), dev),
+                   (cpu.shards[0], isn.stage0_forest(cpu.models), "cpu")]
+        outs, walls = [], []
+        for i, (s_, fa_, d) in enumerate(step_in):
+            if i:
+                dist.destroy_process_group()
+                mesh = make_local_mesh(device="cpu")
+                check(dist.get_backend() == "gloo",
+                      f"isn: CPU mesh on {dist.get_backend()}")
+            ts_ = torch.from_numpy(g.index.term_stats).to(d)
+            terms_ = torch.from_numpy(card.ql.terms[rows]).to(d)
+            mask_ = torch.from_numpy(card.ql.mask[rows]).to(d)
+            t = time.perf_counter()
+            out = isn.hybrid_serve_fn(mesh, forest_depth=depth, **cli)(
+                s_, fa_, ts_, terms_, mask_)
+            if d == dev:
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            pred, _, _ = routes(fa_, ts_, s_.df, terms_, mask_)
+            outs.append([t_.cpu() for t_ in (*out, *pred)])
+        (ids, sc, work, route, *pred), (ids_c, sc_c, work_c, route_c,
+                                        *pred_c) = outs
+        check(torch.equal(ids, ids_c) and torch.equal(work, work_c)
+              and torch.equal(route, route_c)
+              and torch.equal(sc[route], sc_c[route])
+              and float((sc - sc_c).abs().max()) <= 1e-4,
+              "isn step on the cli index: card and CPU differ")
+        for name, u, v in zip(("pk", "prho", "pt"), pred, pred_c):
+            same_bits(f"isn cli Stage-0 {name} card vs CPU", u, v)
+        log(f"isn step on the cli index ({g.shard_specs[0].n_docs} docs, "
+            f"first {ISN_CHECKED} queries, {cli}): card (NCCL) = CPU (gloo):"
+            f" ids, work, routes (jass {int(route.sum())}) exact, JASS "
+            f"scores exact, BMW within 1e-4 (max "
+            f"{float((sc - sc_c).abs().max())}), pk/prho/pt bit-equal; walls "
+            f"card {walls[0]:.3f} s, CPU {walls[1]:.3f} s; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -4710,8 +5025,13 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
 
     # live ingest on the fit's shard and on the cli phase's index
     ingest_phase(dev, shard, served, cli_cpu)
-    del served, cli_cpu, shard
     lap("ingest")
+
+    # the distributed ISN step at the production per-chip cell, then its
+    # CPU twin on the cli phase's index
+    isn_phase(dev, shard, served, cli_cpu, card)
+    del served, cli_cpu, shard
+    lap("isn")
 
     # the LM serving path, with the retrieval systems freed
     torch.cuda.empty_cache()

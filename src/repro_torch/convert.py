@@ -18,7 +18,9 @@ unless the caller asks for the CPU):
 * the reference's LM params (``transformer.init(c, key)``: ``embed``,
   ``unembed``, ``final_ln``, stacked ``layers``) → the port's tree of
   tensors (``repro_torch.models.transformer``);
-* a reference ``CascadeSpec`` → the port's, through its JSON.
+* a reference ``CascadeSpec`` → the port's, through its JSON;
+* the reference's in-step Stage-0 ensemble (``repro.isn.shard.ForestArrays``)
+  → the port's ``repro_torch.isn.shard.ForestArrays``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from repro_torch.core.linreg import LinRegModel
 from repro_torch.core.random_forest import RFModel, RFParams
 from repro_torch.core.trees import Forest
 from repro_torch.isn.backend import resolve_device
+from repro_torch.isn.shard import ForestArrays
 from repro_torch.ltr.ranker import LTRModel
 from repro_torch.models.recsys import SIDES, TwoTower
 from repro_torch.models.transformer import LAYER_KEYS
@@ -124,6 +127,17 @@ def lm_params(ref_params, device=None, dtype=None) -> dict:
 def cascade_spec(ref_spec) -> CascadeSpec:
     """A reference ``CascadeSpec`` as the port's, through its JSON."""
     return CascadeSpec.from_json(ref_spec.to_json())
+
+
+def forest_arrays(ref_fa, device=None) -> ForestArrays:
+    """The reference's ``ForestArrays`` (three targets' trees, bases and the
+    shared bin edges) as the port's on ``device``."""
+    dev = resolve_device(device)
+    return ForestArrays(feat=_tensor(ref_fa.feat, np.int32, dev),
+                        thresh=_tensor(ref_fa.thresh, np.int32, dev),
+                        leaf=_tensor(ref_fa.leaf, np.float32, dev),
+                        base=_tensor(ref_fa.base, np.float32, dev),
+                        bin_edges=_tensor(ref_fa.bin_edges, np.float32, dev))
 
 
 def system_models(ref_system, device=None) -> tuple[dict, LTRModel | None]:

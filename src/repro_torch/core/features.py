@@ -18,7 +18,10 @@ keeps the reference's float32 arithmetic step for step: the reductions
 over query terms run left to right, as the reference's compiled sums do,
 and ``log1p`` is ``xla_log1p``, the float32 polynomial the reference's
 compiled program evaluates (not the platform's ``log1p``, which differs in
-the last bit on about 1 % of inputs).
+the last bit on about 1 % of inputs).  ``xla_exp`` and ``xla_expm1`` do
+the same for the compiled ``exp`` and ``expm1`` that the distributed ISN
+step (``isn/shard``) applies to its Stage-0 predictions: one ulp there
+flips a route or the integer part of ρ.
 """
 
 from __future__ import annotations
@@ -60,6 +63,31 @@ _L1P_DEN = [_f32(h) for h in (
     "402E2035A0000000", "4054C30B60000000", "406BB865A0000000",
     "4073519460000000", "406B0DB140000000", "404E0F3040000000")]
 _L1P_SMALL = _f32("3FDA8279A0000000")
+
+
+def _round32(v: float) -> float:
+    """A float64 constant rounded to float32, as the compiler reads it."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
+# Cephes-style exp: range reduction by n·ln 2 in two parts, then a
+# polynomial for e^r on (-ln 2 / 2, ln 2 / 2)
+_EXP_LO, _EXP_HI = _round32(-87.8), _round32(88.8)
+_LOG2E = _round32(1.44269504088896341)
+_EXP_C1, _EXP_C2 = _round32(0.693359375), _round32(-2.12194440e-4)
+_EXP_P = [_round32(v) for v in (1.9875691500e-4, 1.3981999507e-3,
+                                8.3334519073e-3, 4.1665795894e-2,
+                                1.6666665459e-1, 5.0000001201e-1)]
+# rational tanh, exact ±1 at the clamp; x itself below _TANH_SMALL
+_TANH_CLAMP = _round32(7.99881172180175781)
+_TANH_SMALL = _round32(0.0004)
+_TANH_NUM = [_round32(v) for v in (
+    -2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+    5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+    4.89352455891786e-03)]
+_TANH_DEN = [_round32(v) for v in (
+    1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+    4.89352518554385e-03)]
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -110,6 +138,58 @@ def xla_log1p(x: torch.Tensor) -> torch.Tensor:
     x2 = x * x
     small = x + _fma(x2, -0.5, (x * x2) * (num / den))
     return torch.where(x.abs() < _L1P_SMALL, small, big)
+
+
+def _flush(v: torch.Tensor) -> torch.Tensor:
+    """A subnormal result flushed to +0, as the compiled program's
+    flush-to-zero mode does."""
+    return torch.where(v.abs() < _MIN_NORMAL, 0.0, v)
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp`` as the reference's compiled program evaluates it, bit
+    for bit: the input clamped to [-87.8, 88.8], n = floor(x·log2 e + 0.5)
+    clamped to [-127, 127], r = x - n·ln 2 (two fused steps), a degree-5
+    polynomial for e^r, times 2^n built from its exponent bits; subnormal
+    results flushed to 0, nan through."""
+    x = x.float()
+    c = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(_fma(c, _LOG2E, 0.5)), -127.0, 127.0)
+    r = _fma(n, -_EXP_C2, _fma(n, -_EXP_C1, c))
+    z = _fma(r, _EXP_P[0], _EXP_P[1])
+    for p in _EXP_P[2:]:
+        z = _fma(z, r, p)
+    z = _fma(z, r * r, r) + 1.0
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return _flush(z * pow2)
+
+
+def _xla_tanh(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``tanh`` of the compiled program: a rational function of the
+    clamped input in fused steps, x itself where |x| < 0.0004."""
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    num = torch.full_like(x, _TANH_NUM[0])
+    for c in _TANH_NUM[1:]:
+        num = _fma(x2, num, c)
+    den = torch.full_like(x, _TANH_DEN[0])
+    for c in _TANH_DEN[1:]:
+        den = _fma(x2, den, c)
+    return torch.where(x.abs() < _TANH_SMALL, x, (xc * num) / den)
+
+
+def xla_expm1(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``expm1`` as the reference's compiled program evaluates it,
+    bit for bit: ``xla_exp(x) - 1`` where |x| > 0.5, else
+    tanh(x/2)·(exp(x) + 1); x itself where x/2 flushes to 0 (±0 and
+    |x| < 2^-125).  Neither branch is the platform's ``expm1`` (which
+    differs on about 14 % of [-2, 13])."""
+    x = x.float()
+    half = _flush(x * 0.5)
+    e = xla_exp(x)
+    small = _xla_tanh(half) * (e + 1.0)
+    out = torch.where(x.abs() > 0.5, e - 1.0, small)
+    return torch.where(half == 0, x, out)
 
 
 def _sum_terms(x: torch.Tensor) -> torch.Tensor:

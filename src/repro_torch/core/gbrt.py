@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core import trees as T
 from repro_torch.isn.backend import resolve_device
 from repro_torch.kernels.level_histogram import ops as lh
@@ -78,15 +79,29 @@ def _quantile(y: torch.Tensor, tau: float) -> torch.Tensor:
     return base.to(y.device)
 
 
-def _fit_binned(xbt: torch.Tensor, y: torch.Tensor, p: GBRTParams
-                ) -> tuple[T.Forest, torch.Tensor]:
+def tree_draws(seed: int, n: int, n_feat: int, p: GBRTParams
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """Each tree's (F,) feature mask and (n,) float32 0/1 row weights,
+    drawn as the reference's ``_fit_binned`` draws them: the seed's key
+    split into one key a tree, that key split into (k1, k2); the mask
+    ``uniform(k1) < colsample``, the weights ``uniform(k2) < subsample``.
+    Each draw is made only when its fraction is below 1 (all True / all
+    1.0 otherwise).  Returns (T, F) and (T, n)."""
+    fmask = np.ones((p.n_trees, n_feat), bool)
+    w = np.ones((p.n_trees, n), np.float32)
+    keys = prng.split(prng.split(prng.PRNGKey(seed), p.n_trees))
+    if p.colsample < 1.0:
+        fmask = prng.uniform(keys[:, 0], (n_feat,)) < np.float32(p.colsample)
+    if p.subsample < 1.0:
+        w = (prng.uniform(keys[:, 1], (n,)) < np.float32(p.subsample)
+             ).astype(np.float32)
+    return fmask, w
+
+
+def _fit_binned(xbt: torch.Tensor, y: torch.Tensor, p: GBRTParams,
+                seed: int = 0) -> tuple[T.Forest, torch.Tensor]:
     """The boosting loop on pre-binned, transposed (F, n) features, a
     Python loop over trees in place of the reference's ``lax.scan``."""
-    if p.colsample < 1.0 or p.subsample < 1.0:
-        raise NotImplementedError(
-            "GBRT column or row sampling (colsample/subsample < 1) is not "
-            "ported to repro_torch yet (ROADMAP.md, section 1: "
-            "LM/GNN/recsys/training stack, item 11)")
     n_feat, n = xbt.shape
     dev = xbt.device
     tp = T.TreeParams(p.depth, p.n_bins, p.min_child_weight, p.l2)
@@ -100,12 +115,12 @@ def _fit_binned(xbt: torch.Tensor, y: torch.Tensor, p: GBRTParams
         base = T.times_reciprocal(total, n)
     else:
         base = _quantile(y, p.tau)
-    fmask = torch.ones((n_feat,), dtype=torch.bool, device=dev)
-    w = torch.ones((n,), dtype=torch.float32, device=dev)
+    fmasks, weights = (torch.from_numpy(a).to(dev)
+                       for a in tree_draws(seed, n, n_feat, p))
     lr = float(np.float32(p.learning_rate))
     f = base.expand(n).contiguous()
     feats, threshs, leaves = [], [], []
-    for _ in range(p.n_trees):
+    for fmask, w in zip(fmasks, weights):
         g = _pseudo_gradient(y, f, p.loss, p.tau)
         feat, thresh, leaf_id = T.build_tree(xbt, g, w, fmask, tp)
         raw = _leaf_values(leaf_id, y, f, w, n_leaves, p)
@@ -125,11 +140,12 @@ def fit(x, y, params: GBRTParams, seed: int = 0,
     """Fit a GBRT to (n, F) features ``x`` and (n,) targets ``y`` (arrays
     or tensors) on ``device`` (the card unless the caller names the CPU;
     raises when no CUDA device is present and none is named).  ``seed`` is
-    the reference's; no random draw enters while ``colsample`` and
-    ``subsample`` are 1."""
+    the reference's: it draws each tree's feature mask (``colsample`` < 1)
+    and row weights (``subsample`` < 1) as the reference does
+    (``tree_draws``)."""
     xbt, yt, edges = T.fit_inputs(x, y, params.n_bins,
                                   resolve_device(device))
-    forest, base = _fit_binned(xbt, yt, params)
+    forest, base = _fit_binned(xbt, yt, params, seed)
     return GBRTModel(forest, base, edges, params)
 
 

@@ -242,15 +242,9 @@ def test_gbrt_fit_matches_reference(loss, tau, n, n_feat, depth, lr):
     _eq(gbrt.predict(got, _t(x)), ref_gbrt.predict(want, jnp.asarray(x)))
 
 
-def test_fit_refuses_sampling_and_a_missing_card(monkeypatch):
+def test_fit_refuses_a_missing_card(monkeypatch):
     x = np.zeros((40, 3), np.float32)
     y = np.zeros(40, np.float32)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gbrt.fit(x, y, gbrt.GBRTParams(n_trees=2, colsample=0.5),
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gbrt.fit(x, y, gbrt.GBRTParams(n_trees=2, subsample=0.5),
-                 device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gbrt.fit(x, y, gbrt.GBRTParams(n_trees=2))

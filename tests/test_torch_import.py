@@ -27,7 +27,9 @@ from repro_torch.core.random_forest import RFParams
 from repro_torch.index.builder import build_index
 from repro_torch.index.corpus import CorpusParams, build_corpus
 from repro_torch.index.postings import shard_from_index
+from repro_torch.convert import forest_arrays
 from repro_torch.isn.backend import resolve_backend, resolve_device
+from repro_torch.isn.shard import forest_specs
 from repro_torch.kernels.blockmax_score import ops as bm_ops
 from repro_torch.kernels.dense_topk import ops as dt_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -35,6 +37,7 @@ from repro_torch.kernels.impact_accumulate import ops as ia_ops
 from repro_torch.kernels.level_histogram import ops as lh_ops
 from repro_torch.kernels.qd_feature_gather import ops as qd_ops
 from repro_torch.kernels.score_histogram import ops as sh_ops
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import transformer
 from repro_torch.serving.pipeline import CascadePipeline
 from repro_torch.serving.scheduler import SchedulerConfig
@@ -63,6 +66,8 @@ assert set("repro_torch.serving." + m for m in ("cache", "faults")) \
 assert "repro_torch.index.delta" in names
 assert set("repro_torch.serving.telemetry" + m for m in
            ("", ".metrics", ".trace", ".export")) <= set(names)
+assert set(["repro_torch.isn.shard", "repro_torch.launch.mesh",
+            "repro_torch.configs.paper_isn"]) <= set(names)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -73,7 +78,7 @@ assert not bad, bad
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 81
+    assert n_modules >= 84
 
 
 def test_sources_import_nothing_of_jax_or_reference():
@@ -124,6 +129,10 @@ def test_entry_points_refuse_without_cuda(no_cuda):
         transformer.init(yi_6b.REDUCED, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init_cache(yi_6b.REDUCED, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_local_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        forest_arrays(forest_specs())
 
 
 def test_resolve_backend_follows_the_device():
