@@ -286,7 +286,7 @@ order, it
       model would take on the recorded calls (the serve warm-up's layer 0
       and the cross-check's calls), and against ``attention_ref`` /
       ``decode_ref`` on edge cases (ragged S and T, causal and not, GQA
-      groups 1/4/8, head widths 16-128, fp32 and bf16, the bf16 kernel's
+      groups 1/3/4/8, head widths 16-128, fp32 and bf16, the bf16 kernel's
       tile edges S = 1, 127, 128, 129 and 4,097, kv_len 0, 1, 512, 513, T,
       decode GQA groups 1 to 32, the ``decode_32k`` cache of 8 x 32,768),
       every bf16 prefill output also against ``attention_tc_plain`` (the
@@ -303,7 +303,47 @@ order, it
       1e-5 of it on average) on the recorded fp32 model calls (the same
       near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
       above it (a one-ulp rounding flip is 2^-8 to 2^-7 relative);
-18. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
+18. MoE and MLA phase (``models/moe``, ``mla_*``, the MoE and MLA branches
+   of ``models/transformer``), once Yi-6B's memory is freed, for
+   granite-MoE 3B-A800M (40 experts, top-8; GQA of 24 query heads over 8
+   kv heads, D 64), Moonlight-16B-A3B (``moonshot_v1_16b_a3b``: 64 experts,
+   top-6, 2 shared experts; D 128) and MiniCPM3-4B (MLA: q/k width 64 + 32,
+   v width 64, a latent cache of 256 + 32 a position):
+   a. cross-check: each at full width, 2 layers, fp32, drawn once on the
+      card with each layer matrix at 1/√(its fan-in) and copied to the
+      host, ``prefill`` of 2 prompts of 256 tokens and 4 greedy
+      ``decode_step``s on the card and the CPU, as in 17a and under its
+      tolerances; for the MoE models also the experts and the capacity
+      drops of every token in layer 0 of the prefill equal on both, with
+      the smallest gap between a token's k-th and (k+1)-th gate logged;
+      every kernel call recorded.  The reference's 1/√L weight scale
+      (which ``init`` keeps) gives attention logits of spread d_model /
+      L: 768 for granite at L = 2, 48 at its 32 layers.  Such a
+      near-argmax softmax turns the card's and the CPU's fp32 rounding of
+      q (~1e-6) into logit errors of 1e-4 to 1e-2 wherever a row's top two
+      keys nearly tie, past 17a's tolerances at either depth; at
+      1/√(fan-in) the logits are O(1), as in a trained model, and the
+      comparison measures the port's arithmetic;
+   b. serve: each in bf16 drawn on the card, granite's 32 layers (≈ 3.4 B
+      parameters), MiniCPM3's 62 (≈ 4.3 B) and 12 of Moonlight's 48 (≈ 7.7
+      B: all 48 would be ≈ 57.8 GB of weights; its 64 experts, 2 shared
+      experts and 163,840-token vocabulary kept), a warm-up and then a
+      counted pass of prefill (4 x 1,024 tokens) and 8 greedy steps:
+      finite logits, ``flash_attention`` once a layer, ``flash_decode``
+      once a layer and step for the MoE models and never for MiniCPM3
+      (its decode is the reference's absorbed form in torch products);
+      prints the prefill wall, the step walls and device memory;
+   c. kernel rows: every recorded call of a and b against the model's
+      plain path (bf16 also against ``attention_tc_plain``, decode also
+      against ``merge_splits``), kernel 8 at MLA's width pair on the edge
+      cases of ``mla_edge_calls`` against ``attention_ref`` (S = 1, 127,
+      128, 129, 700 and 4,097 causal and not, Sq != Sk, Hkv = H and GQA
+      groups of 4, fp32 and bf16, the strided views ``mla_forward``
+      passes), under the tolerances of 17c, and the largest bf16 MLA call
+      timed beside the plain path and SDPA, with its TFLOP/s and share of
+      the bound on a line of its own (the ``kernels`` line keeps kernel 8's
+      Yi-6B row);
+19. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
     the nine TPU kernels and ``level_histogram``; the launches of kernels
     1-3 are step 7's; the library time of kernels 1 and 2 an
     ``index_add_`` over the (query, lane) pairs each adds), then the card
@@ -311,7 +351,9 @@ order, it
 
 Any failed check exits non-zero without the result line.  ``--n-docs``
 and ``--batches`` shrink the retrieval phases for a quick check,
-``--lm-layers``, ``--lm-prompt`` and ``--lm-steps`` the LM phase;
+``--lm-layers``, ``--lm-prompt`` and ``--lm-steps`` the LM phase (and,
+below their defaults, the MoE and MLA phase: each model at most
+``--lm-layers`` layers, prompts and steps at most those given);
 ``--profile`` adds a ``torch.profiler`` breakdown of one more served batch
 of each preset (wall, device busy time, host time per cascade stage,
 busiest device kernels) and of one more LM prefill and decode step.
@@ -323,6 +365,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -417,6 +460,17 @@ XC_LOGIT_TOL = 1e-4           # of the largest |logit|, from one cache
 XC_CACHE_TOL, XC_CACHE_MEAN_TOL = 1e-3, 1e-5  # of the largest |cache|
 MODEL_F32_TOL = 5e-3          # of the largest |output|, recorded fp32 calls
 BF16_TOL = 2e-2               # below magnitude 1 absolute, above relative
+# MoE and MLA phase: granite-MoE (GQA, 24 heads over 8, D 64), Moonlight
+# (MHA, D 128, 2 shared experts), MiniCPM3 (MLA: q/k 96, v 64); the fp32
+# cross-check's prompt length and steps (2 prompts, 2 layers), the bf16
+# serve's (LM_BATCH prompts), and the layers served: all of granite's and
+# MiniCPM3's, 12 of Moonlight's 48 (48 would be ≈ 57.8 GB of weights)
+MOE_MLA_CONFIGS = ("granite_moe_3b_a800m", "moonshot_v1_16b_a3b",
+                   "minicpm3_4b")
+MM_XC_LEN, MM_XC_STEPS = 256, 4
+MM_PROMPT, MM_STEPS = 1024, 8
+MM_LAYERS = {"granite_moe_3b_a800m": 32, "moonshot_v1_16b_a3b": 12,
+             "minicpm3_4b": 62}
 # fit phase: the query log the systems are fitted from, and the fit's seed
 FIT_QUERIES, FIT_SEED = 4096, 5
 # cli phase: the serving CLI at the reference CLI's defaults (paper_200ms,
@@ -683,9 +737,10 @@ def log_redesign(label, ms, fn):
 
 def lm_work(name, args, kw):
     """(bytes, ops, ops per second) of an attention call.  Prefill: q, k, v
-    read once and the output written once; 4·D operations (two FMAs) per
-    (query, key) pair it must score — the pairs on or below the diagonal
-    when causal.  Decode: the cache positions below kv_len (k and v) read
+    read once and the output (at v's width) written once; 2·(D + Dv)
+    operations (one FMA a q/k width for the logit, one a v width for P·V;
+    4·D at equal widths) per (query, key) pair it must score — the pairs on
+    or below the diagonal when causal.  Decode: the cache positions below kv_len (k and v) read
     once, q and the output once; 4·D operations per (query head, valid
     position).  bf16 inputs at the bf16 tensor-core rate, fp32 at the fp32
     rate."""
@@ -696,11 +751,11 @@ def lm_work(name, args, kw):
     if name == "flash_attention":
         _, k, v = args
         b, h, sq, d = q.shape
-        sk = k.shape[2]
+        sk, dv = k.shape[2], v.shape[-1]
         pairs = (b * h * sq * (sq + 1) // 2 if kw.get("causal", True)
                  else b * h * sq * sk)
-        return el * (2 * q.numel() + k.numel() + v.numel()), 4 * pairs * d, \
-            rate
+        return (el * (q.numel() + k.numel() + v.numel() + b * h * sq * dv),
+                2 * pairs * (d + dv), rate)
     _, k, v, kv_len = args
     b, h, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
@@ -1617,142 +1672,221 @@ def _rel_err(a, b):
     return float((a.to(b.device) - b).abs().max() / b.abs().max())
 
 
-def lm_cross_check(dev, xc_len):
-    """A 2-layer Yi-6B at full width in fp32, drawn on the host, on the card
-    and on the CPU: prefill of 2 prompts and ``XC_STEPS`` greedy steps on
-    each, and the card's steps once more from the CPU's prefill cache and
-    tokens, which separates the decode path's own error from what it
-    inherits from the caches (module docstring, 8a).  Every number is
-    logged before any check.  Returns the card's recorded kernel calls."""
+class FirstMoEInput:
+    """Keeps the tokens (T, d) of the first MoE FFN call (a prefill's layer
+    0) while passing every call through, and the layer's router with it."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tr
+        self.tr, self.orig, self.x = tr, tr.moe_forward, None
+
+        def wrapped(p, x, cfg, *args, **kw):
+            if self.x is None:
+                self.x, self.router, self.cfg = x.clone(), p["router"], cfg
+            return self.orig(p, x, cfg, *args, **kw)
+        tr.moe_forward = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.tr.moe_forward = self.orig
+
+    def routes(self):
+        """(each token's top-k experts, which of them took it, each
+        token's gap between its k-th and (k+1)-th gate) on the host."""
+        from repro_torch.models import moe
+        gates, _, tope = moe.route(self.router, self.x, self.cfg)
+        kept = moe.kept(tope, self.cfg.n_experts,
+                        moe.capacity(self.x.shape[0], self.cfg))
+        top = gates.sort(dim=-1, descending=True).values
+        k = self.cfg.top_k
+        return tope.cpu(), kept.cpu(), (top[:, k - 1] - top[:, k]).cpu()
+
+
+def fan_in_scale(params):
+    """Rescale, in place, each stacked layer matrix of ``params`` (leaves
+    (L, ..., fan-in, fan-out), drawn at the reference's 1/√L) to 1/√(its
+    fan-in); the MoE router (0.02) and the norms stay."""
+    for group in ("attn", "ffn"):
+        for key, w in params["layers"][group].items():
+            if w.dim() > 2 and key != "router":
+                w.mul_(math.sqrt(w.shape[0] / w.shape[-2]))
+    return params
+
+
+def lm_cross_check(dev, xc_len, c=None, label="LM", steps=XC_STEPS,
+                   draw="cpu", fan_in=False):
+    """A 2-layer model at full width in fp32 (``c``; Yi-6B by default),
+    drawn on the host, on the card and on the CPU: prefill of
+    ``XC_PROMPTS`` prompts of ``xc_len`` tokens and ``steps`` greedy steps
+    on each, and the card's steps once more from the CPU's prefill cache
+    and tokens, which separates the decode path's own error from what it
+    inherits from the caches (module docstring, 17a); for an MoE model
+    also the experts and capacity drops of every token in layer 0 of the
+    prefill, card = CPU, and the smallest gap between a token's k-th and
+    (k+1)-th gate.  The weights are drawn on ``draw`` (the host, or the
+    card: faster for a large model) and copied to the other device; with
+    ``fan_in``, each layer matrix at 1/√(its fan-in) (``fan_in_scale``)
+    in place of the reference's 1/√L.  Every number is logged before any
+    check.  Returns the card's recorded kernel calls."""
     import numpy as np
     import torch
     from repro_torch.configs import yi_6b
     from repro_torch.models import transformer as tr
-    c = dataclasses.replace(yi_6b.CONFIG, n_layers=2, dtype="float32")
+    if c is None:
+        c = dataclasses.replace(yi_6b.CONFIG, n_layers=2, dtype="float32")
     t = time.perf_counter()
-    host = tr.init(c, seed=SEED, device="cpu")
-    card = tree_to(host, dev)
-    log(f"LM cross-check: 2-layer Yi-6B fp32, {c.param_count()} parameters, "
-        f"drawn on the host and copied in {time.perf_counter() - t:.1f} s")
+    drawn = tr.init(c, seed=SEED, device=draw)
+    if fan_in:
+        fan_in_scale(drawn)
+    if drawn["embed"].is_cuda:
+        card, host = drawn, tree_to(drawn, "cpu")
+    else:
+        host, card = drawn, tree_to(drawn, dev)
+    log(f"{label} cross-check: 2-layer {c.name} fp32, {c.param_count()} "
+        f"parameters, drawn on the {'card' if drawn is card else 'host'} "
+        + ("at 1/√(fan-in) " if fan_in else "")
+        + f"and copied in {time.perf_counter() - t:.1f} s")
     toks = np.random.RandomState(SEED).randint(0, c.vocab,
                                                (XC_PROMPTS, xc_len))
     toks = torch.from_numpy(toks)
-    with Recorder(LM_KERNELS, clone=True) as rec:
+    with Recorder(LM_KERNELS, clone=True) as rec, FirstMoEInput() as a_moe:
         a_outs, a_fed, a_cache, a_prefill, _ = greedy(card, c, toks.to(dev),
-                                                      XC_STEPS)
+                                                      steps)
     t = time.perf_counter()
-    logits, cache, _ = prefill_padded(host, c, toks)
+    with FirstMoEInput() as b_moe:
+        logits, cache, _ = prefill_padded(host, c, toks)
     start = {k: v.clone() for k, v in cache.items()}
     b_outs, b_fed, b_cache, _ = decode_greedy(host, c, logits, cache, xc_len,
-                                              XC_STEPS)
-    log(f"LM cross-check: card prefill {a_prefill:.3f} s (first call), CPU "
-        f"prefill and {XC_STEPS} steps {time.perf_counter() - t:.1f} s")
+                                              steps)
+    log(f"{label} cross-check: card prefill {a_prefill:.3f} s (first call), "
+        f"CPU prefill and {steps} steps {time.perf_counter() - t:.1f} s")
     iso_outs, _, _, _ = decode_greedy(card, c, logits.to(dev),
-                                      tree_to(start, dev), xc_len, XC_STEPS,
+                                      tree_to(start, dev), xc_len, steps,
                                       feed=b_fed)
+    routes_same = True
+    if c.moe is not None:
+        (a_e, a_k, _), (b_e, b_k, gap) = a_moe.routes(), b_moe.routes()
+        routes_same = torch.equal(a_e, b_e) and torch.equal(a_k, b_k)
+        log(f"{label} cross-check: layer 0 of the prefill routes "
+            f"{a_e.shape[0]} tokens to {c.moe.top_k} of {c.moe.n_experts} "
+            f"experts: card = CPU {routes_same} (experts "
+            f"{torch.equal(a_e, b_e)}, drops {torch.equal(a_k, b_k)}), "
+            f"{int((~b_k).sum())} pairs dropped; smallest gap between a "
+            f"token's k-th and (k+1)-th gate {float(gap.min()):.3e} "
+            f"(median {float(gap.median()):.3e})")
     e_prefill = _rel_err(a_outs[0], logits)
     e_own = [_rel_err(x, y) for x, y in zip(a_outs[1:], b_outs)]
     e_iso = [_rel_err(x, y) for x, y in zip(iso_outs, b_outs)]
     same = [torch.equal(x.cpu(), y) for x, y in zip(a_fed, b_fed)]
-    log(f"LM cross-check: logits error over their largest magnitude: "
+    log(f"{label} cross-check: logits error over their largest magnitude: "
         f"prefill {e_prefill:.3e}; steps from each device's own cache "
         + " ".join(f"{e:.3e}" for e in e_own)
         + "; steps from the CPU's cache " + " ".join(f"{e:.3e}" for e in e_iso))
     cache_errs = {}
-    for key in ("k", "v"):
-        y = b_cache[key]
+    for key, y in b_cache.items():
         d = (a_cache[key].cpu() - y).abs()
         top = float(y.abs().max())
         cache_errs[key] = (float(d.max()) / top, float(d.mean()) / top)
-        log(f"LM cross-check: {key} cache max error {cache_errs[key][0]:.3e},"
-            f" mean {cache_errs[key][1]:.3e} of its largest magnitude "
-            f"{top:.2f}")
-    log(f"LM cross-check: greedy tokens equal per step {same} "
+        log(f"{label} cross-check: {key} cache max error "
+            f"{cache_errs[key][0]:.3e}, mean {cache_errs[key][1]:.3e} of its "
+            f"largest magnitude {top:.2f}")
+    log(f"{label} cross-check: greedy tokens equal per step {same} "
         f"({[x.tolist() for x in a_fed]})")
-    check(e_prefill <= XC_LOGIT_TOL, f"LM cross-check: prefill logits differ "
-          f"by {e_prefill} of their largest magnitude")
-    check(max(e_iso) <= XC_LOGIT_TOL, "LM cross-check: decode logits from "
-          "the same cache differ beyond the tolerance")
-    check(max(e_own) <= XC_CACHE_TOL, "LM cross-check: decode logits from "
-          "each device's cache differ beyond the caches' tolerance")
-    check(all(same), "LM cross-check: greedy tokens differ")
+    check(routes_same, f"{label} cross-check: layer 0's experts or drops "
+          f"differ")
+    check(e_prefill <= XC_LOGIT_TOL, f"{label} cross-check: prefill logits "
+          f"differ by {e_prefill} of their largest magnitude")
+    check(max(e_iso) <= XC_LOGIT_TOL, f"{label} cross-check: decode logits "
+          f"from the same cache differ beyond the tolerance")
+    check(max(e_own) <= XC_CACHE_TOL, f"{label} cross-check: decode logits "
+          f"from each device's cache differ beyond the caches' tolerance")
+    check(all(same), f"{label} cross-check: greedy tokens differ")
     for key, (e, mean) in cache_errs.items():
         check(e <= XC_CACHE_TOL and mean <= XC_CACHE_MEAN_TOL,
-              f"LM cross-check: {key} cache differs by {e} (mean {mean})")
+              f"{label} cross-check: {key} cache differs by {e} (mean "
+              f"{mean})")
     return rec.calls
 
 
-def lm_serve(dev, n_layers, prompt, steps, profile=False):
-    """Yi-6B (``n_layers`` of it) in bf16 on the card: a warm-up pass
-    (prefill of ``LM_BATCH`` prompts, ``steps`` greedy steps) that records
-    layer 0's kernel calls, then the counted pass (module docstring, 8b);
-    with ``profile``, one more prefill and one more step under
-    ``torch.profiler``.  Returns (launches of the counted pass, the
-    recorded calls)."""
+def lm_serve(dev, n_layers, prompt, steps, profile=False, c=None,
+             label="LM"):
+    """A model in bf16 on the card (``c``, Yi-6B by default; ``n_layers``
+    of it): a warm-up pass (prefill of ``LM_BATCH`` prompts, ``steps``
+    greedy steps) that records layer 0's kernel calls, then the counted
+    pass (module docstring, 17b and 18b): ``flash_attention`` once a layer,
+    ``flash_decode`` once a layer and step (none with MLA, whose decode is
+    the absorbed form); with ``profile``, one more prefill and one more
+    step under ``torch.profiler``.  Returns (launches of the counted pass,
+    the recorded calls)."""
     import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch.configs import yi_6b
     from repro_torch.models import transformer as tr
-    c = dataclasses.replace(yi_6b.CONFIG, n_layers=n_layers)
+    c = dataclasses.replace(c or yi_6b.CONFIG, n_layers=n_layers)
     t = time.perf_counter()
     params = tr.init(c, seed=SEED, device=dev)
     torch.cuda.synchronize()
-    log(f"LM serve: Yi-6B, {n_layers} layers, bf16, {c.param_count()} "
-        f"parameters drawn on the card in {time.perf_counter() - t:.1f} s; "
-        f"{torch.cuda.memory_allocated()} B in use")
+    log(f"{label} serve: {c.name}, {n_layers} layers, bf16, "
+        f"{c.param_count()} parameters drawn on the card in "
+        f"{time.perf_counter() - t:.1f} s; {torch.cuda.memory_allocated()} B"
+        f" in use")
     toks = np.random.RandomState(SEED + 1).randint(0, c.vocab,
                                                    (LM_BATCH, prompt))
     toks = torch.from_numpy(toks).to(dev)
     with Recorder(LM_KERNELS, first=True, clone=True) as rec:
         warm = greedy(params, c, toks, steps)
-    log(f"LM serve: warm-up prefill {warm[3]:.3f} s, first step "
+    log(f"{label} serve: warm-up prefill {warm[3]:.3f} s, first step "
         f"{1e3 * warm[4][0]:.2f} ms")
     del warm
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     outs, fed, cache, t_prefill, walls = greedy(params, c, toks, steps)
     launches = dict(kernels.LAUNCHES)
-    log(f"LM serve: launches {launches}")
+    log(f"{label} serve: launches {launches}")
     check(all(bool(torch.isfinite(o).all()) for o in outs),
-          "LM serve: non-finite logits")
+          f"{label} serve: non-finite logits")
     check(launches["flash_attention"] == n_layers,
-          f"LM serve: flash_attention launched {launches['flash_attention']}"
-          f" times, not once a layer ({n_layers})")
-    check(launches["flash_decode"] == n_layers * steps,
-          f"LM serve: flash_decode launched {launches['flash_decode']} "
-          f"times, not once a layer and step ({n_layers * steps})")
+          f"{label} serve: flash_attention launched "
+          f"{launches['flash_attention']} times, not once a layer "
+          f"({n_layers})")
+    n_decode = 0 if c.attention == "mla" else n_layers * steps
+    check(launches["flash_decode"] == n_decode,
+          f"{label} serve: flash_decode launched {launches['flash_decode']} "
+          f"times, not {n_decode} (once a layer and step, none with MLA)")
     med = statistics.median(walls)
-    log(f"LM serve: prefill {LM_BATCH} x {prompt} tokens in "
+    log(f"{label} serve: prefill {LM_BATCH} x {prompt} tokens in "
         f"{t_prefill:.4f} s ({LM_BATCH * prompt / t_prefill:.0f} tokens/s)")
-    log(f"LM serve: decode ms per step ({LM_BATCH} sequences, cache "
+    log(f"{label} serve: decode ms per step ({LM_BATCH} sequences, cache "
         f"{prompt + DECODE_ROOM}): "
         + " ".join(f"{1e3 * w:.2f}" for w in walls)
         + f" (median {1e3 * med:.3f}, {LM_BATCH / med:.1f} tokens/s)")
-    log(f"LM serve: device memory {torch.cuda.memory_allocated()} B in use, "
-        f"{torch.cuda.max_memory_allocated()} B peak in the counted pass; "
-        f"cache {sum(v.numel() * v.element_size() for v in cache.values())} "
-        f"B; last greedy tokens {fed[-1].tolist()}")
+    log(f"{label} serve: device memory {torch.cuda.memory_allocated()} B in "
+        f"use, {torch.cuda.max_memory_allocated()} B peak in the counted "
+        f"pass; cache "
+        f"{sum(v.numel() * v.element_size() for v in cache.values())} B; "
+        f"last greedy tokens {fed[-1].tolist()}")
     if profile:
         prof, wall = run_profiled(lambda: tr.prefill(params, c, toks))
-        log_profile(prof, wall, "profile LM prefill")
+        log_profile(prof, wall, f"profile {label} prefill")
         nxt = outs[-1][:, :c.vocab].argmax(dim=-1).to(torch.int32)
         kv = torch.full((LM_BATCH,), prompt + steps, dtype=torch.int32,
                         device=dev)
         prof, wall = run_profiled(lambda: tr.decode_step(params, c, nxt,
                                                          cache, kv))
-        log_profile(prof, wall, "profile LM decode step")
+        log_profile(prof, wall, f"profile {label} decode step")
     return launches, rec.calls
 
 
 def lm_edge_calls(dev):
     """Seeded edge inputs of the two attention kernels, drawn on the card:
-    ragged S (200, 700) causal and not, Sq != Sk, GQA groups 1, 4 and 8,
+    ragged S (200, 700) causal and not, Sq != Sk, GQA groups 1, 3, 4 and 8,
     head widths 16 to 128, fp32 and bf16, a strided q/k/v as the model
     passes them; in bf16 also the tensor-core kernel's 128-row and 128-key
     tile edges (S = 1, 127, 128, 129, 4,097), D = 16 and 128, Sq != Sk and
     a strided GQA-8 view; for decode ragged T, kv_len 0, 1, 512, 513 and T,
-    GQA groups 1 to 32 and head widths 16 to 128 in both types, and
+    GQA groups 1 to 32 (3 among them) and head widths 16 to 128 in both
+    types, and
     ``decode_32k``'s cache (B = 8, T = 32,768, bf16).  Lists of (args,
     kwargs) per kernel."""
     import torch
@@ -1779,13 +1913,19 @@ def lm_edge_calls(dev):
             (2, 8, 2, 129, 129, 128, bf16, False),
             (2, 4, 4, 129, 129, 16, bf16, True),
             (1, 8, 1, 4097, 4097, 128, bf16, True),
-            (1, 8, 2, 100, 300, 128, bf16, False)):
+            (1, 8, 2, 100, 300, 128, bf16, False),
+            # GQA groups of 3 (granite: 24 query heads over 8 kv heads)
+            (1, 6, 2, 300, 300, 64, bf16, True),
+            (2, 24, 8, 200, 200, 64, bf16, False),
+            (1, 12, 4, 129, 129, 64, f32, True),
+            (2, 6, 2, 700, 700, 64, f32, False)):
         prefill.append(((randn((b, h, sq, d), dt, 0.4),
                       randn((b, hkv, sk, d), dt, 0.4),
                       randn((b, hkv, sk, d), dt)), dict(causal=causal)))
     # (B, S, H, D) viewed as (B, H, S, D), as the model passes q, k, v
     for b, s, h, hkv, d, dt in ((1, 300, 8, 2, 64, f32),
-                                (2, 300, 32, 4, 128, bf16)):
+                                (2, 300, 32, 4, 128, bf16),
+                                (1, 300, 24, 8, 64, bf16)):
         prefill.append(((randn((b, s, h, d), dt, 0.4).transpose(1, 2),
                          randn((b, s, hkv, d), dt, 0.4).transpose(1, 2),
                          randn((b, s, hkv, d), dt).transpose(1, 2)),
@@ -1811,11 +1951,58 @@ def lm_edge_calls(dev):
             (1, 32, 2, 777, 64, f32, (700,)),
             (1, 32, 1, 600, 128, bf16, (600,)),
             (2, 8, 1, 96, 32, f32, (96, 95)),
-            (2, 8, 8, 64, 16, bf16, (64, 0))):
+            (2, 8, 8, 64, 16, bf16, (64, 0)),
+            # GQA groups of 3, ragged T
+            (2, 24, 8, 700, 64, bf16, (1, 700)),
+            (2, 6, 2, 1100, 64, f32, (513, 1100)),
+            (1, 12, 4, 520, 128, bf16, (519,))):
         decode.append(((randn((b, h, d), dt, 0.4),
                      randn((b, hkv, t, d), dt, 0.4), randn((b, hkv, t, d), dt),
                      torch.tensor(lens, dtype=torch.int32, device=dev)), {}))
     return {"flash_attention": prefill, "flash_decode": decode}
+
+
+def mla_edge_calls(dev):
+    """Seeded edge inputs of the prefill kernels at MLA's width pair (q/k
+    96, v 64), drawn on the card: S = 1, 127, 128, 129, 700 and 4,097
+    causal and not, Sq != Sk (not causal), Hkv = H and GQA groups of 4, fp32
+    and bf16, and the strided views ``mla_forward`` passes ((B, S, H, .)
+    tensors transposed to (B, H, S, .), q and k concatenated from their
+    no-rope and rope parts).  A list of (args, kwargs)."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+
+    def randn(shape, dt, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale).to(dt)
+
+    calls = []
+    for b, h, hkv, sq, sk, dt, causal in (
+            (1, 8, 8, 1, 1, bf16, True), (1, 8, 2, 1, 1, f32, False),
+            (2, 8, 8, 127, 127, bf16, True), (2, 8, 2, 127, 127, f32, False),
+            (1, 8, 2, 128, 128, bf16, False), (1, 8, 8, 128, 128, f32, True),
+            (2, 4, 4, 129, 129, bf16, True), (2, 4, 1, 129, 129, bf16, False),
+            (1, 8, 8, 129, 129, f32, True),
+            (1, 8, 8, 700, 700, bf16, True), (1, 8, 2, 700, 700, bf16, False),
+            (1, 4, 4, 700, 700, f32, True), (1, 4, 1, 700, 700, f32, False),
+            (1, 4, 4, 4097, 4097, bf16, True),
+            (1, 4, 1, 4097, 4097, bf16, False),
+            (1, 4, 4, 4097, 4097, f32, True),
+            (1, 8, 2, 100, 300, bf16, False), (1, 8, 8, 100, 300, f32, False)):
+        calls.append(((randn((b, h, sq, 96), dt, 0.4),
+                       randn((b, hkv, sk, 96), dt, 0.4),
+                       randn((b, hkv, sk, 64), dt)), dict(causal=causal)))
+    for b, s, h, dt in ((2, 300, 8, bf16), (1, 700, 4, f32)):
+        q = torch.cat([randn((b, s, h, 64), dt, 0.4),
+                       randn((b, s, h, 32), dt, 0.4)], dim=-1)
+        k = torch.cat([randn((b, s, h, 64), dt, 0.4),
+                       randn((b, s, 1, 32), dt, 0.4).expand(b, s, h, 32)],
+                      dim=-1)
+        calls.append(((q.transpose(1, 2), k.transpose(1, 2),
+                       randn((b, s, h, 64), dt).transpose(1, 2)),
+                      dict(causal=True, scale=96 ** -0.5)))
+    return calls
 
 
 def decode_32k_call(dev):
@@ -1845,7 +2032,7 @@ def bf16_rel_err(got, want):
 
 def compare_attention(label, got, want, model=False):
     """Max abs error of an attention output against its plain version or
-    oracle; raises beyond the stated tolerance (module docstring, 8c)."""
+    oracle; raises beyond the stated tolerance (module docstring, 17c)."""
     import torch
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{label}: kernel output {tuple(got.shape)} {got.dtype} vs "
@@ -1893,7 +2080,7 @@ def attention_library_calls():
 
 
 def lm_kernel_phase(recorded, launches, dev):
-    """Rows of kernels 8 and 9 (module docstring, 8c): every recorded call
+    """Rows of kernels 8 and 9 (module docstring, 17c): every recorded call
     against the model's plain path, the edge cases against the oracles,
     every bf16 prefill call also against ``attention_tc_plain`` (the
     tensor-core kernel's own arithmetic), the ``decode_32k`` call, and the
@@ -1923,6 +2110,8 @@ def lm_kernel_phase(recorded, launches, dev):
             torch.cuda.synchronize()
             if got.dtype == torch.bfloat16:
                 worst_bf16 = max(worst_bf16, bf16_rel_err(got, want))
+                if name == "flash_attention":
+                    attention_diagnosis(name, got, want, args, kw)
             errs[got.dtype] = max(
                 errs[got.dtype], compare_attention(name, got, want, True),
                 tc_plain_error(name, got, args, kw),
@@ -1998,6 +2187,149 @@ def lm_kernel_phase(recorded, launches, dev):
     return rows
 
 
+def attention_diagnosis(label, got, want, args, kw):
+    """For a bf16 prefill call held to the plain path ``want``: at the
+    element where the kernel is furthest from it (what ``BF16_TOL``
+    bounds), the kernel's, the plain path's, ``attention_tc_plain``'s and
+    ``attention_ref``'s errors on that (b, h) slice against each other and
+    against the attention computed in fp64 from the same bf16 inputs, and
+    the row's largest logit (scaled, masked) with the gap between its two
+    largest; logged, and returned as a dict.  A kernel fault shows as the
+    kernel far from ``attention_tc_plain`` and from the fp64 attention
+    while they agree; an ill-conditioned row (a near-tie of its top logits,
+    at logits in the thousands) as every path, the fp32 ones too, far from
+    the fp64 attention."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    q, k, v = args
+    causal = kw.get("causal", True)
+    scale = kw.get("scale") or q.shape[-1] ** -0.5
+    g, w = got.float(), want.float()
+    rel = (g - w).abs() / w.abs().clamp(min=1.0)
+    b, h, r, col = (int(i) for i in np.unravel_index(int(rel.argmax()),
+                                                     tuple(rel.shape)))
+    kvh = h // (q.shape[1] // k.shape[1])
+    qs, ks, vs = q[b:b + 1, h:h + 1], k[b:b + 1, kvh:kvh + 1], \
+        v[b:b + 1, kvh:kvh + 1]
+    outs = {"kernel": got[b:b + 1, h:h + 1], "plain": want[b:b + 1, h:h + 1],
+            "tc_plain": fa.attention_tc_plain(qs, ks, vs, **kw),
+            "ref": fa.attention_ref(qs, ks, vs, **kw)}
+    lg = qs.double() @ ks.double().transpose(-1, -2) * scale
+    if causal:
+        lg = torch.where(torch.ones(lg.shape[-2:], dtype=torch.bool,
+                                    device=lg.device).tril(), lg, -1e300)
+    outs["fp64"] = torch.softmax(lg, dim=-1) @ vs.double()
+    n = r + 1 if causal else k.shape[2]
+    logits = (q[b, h, r].float() @ k[b, kvh, :n].float().T) * scale
+    top = logits.topk(min(2, n)).values
+    errs = {f"{x} vs {y}": bf16_rel_err(outs[x], outs[y])
+            for x, y in (("kernel", "plain"), ("kernel", "tc_plain"),
+                         ("kernel", "ref"), ("tc_plain", "ref"),
+                         ("plain", "ref"), ("tc_plain", "plain"),
+                         ("kernel", "fp64"), ("plain", "fp64"),
+                         ("tc_plain", "fp64"), ("ref", "fp64"))}
+    out = dict(at=(b, h, r, col), largest_logit=float(top[0]),
+               gap=float(top[0] - top[-1]), **errs)
+    log(f"{label} {tuple(q.shape)} diagnosis at (b, h, row, col) "
+        f"{out['at']}: errors of max(1, |y|) "
+        + ", ".join(f"{key} {e:.4g}" for key, e in errs.items())
+        + f"; the row's largest logit {out['largest_logit']:.6g}, gap to "
+        f"the second {out['gap']:.4g}")
+    return out
+
+
+def moe_mla_phase(dev, lm_layers, lm_prompt, lm_steps, profile=False):
+    """The MoE and MLA phase (module docstring, 18): for granite-MoE,
+    Moonlight and MiniCPM3, the fp32 cross-check of 2 layers at full width,
+    then the bf16 serve; then kernel 8 at MLA's width pair.  A quick run
+    (``lm_layers`` below Yi-6B's 32) cuts each model to ``lm_layers``
+    layers, and ``lm_prompt`` / ``lm_steps`` cut the prompts and steps."""
+    import importlib
+
+    import torch
+    from repro_torch.configs import yi_6b
+    recorded = {n: [] for n in LM_KERNELS}
+    for name in MOE_MLA_CONFIGS:
+        t = time.perf_counter()
+        c = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+        n_layers = MM_LAYERS[name]
+        if lm_layers < yi_6b.CONFIG.n_layers:
+            n_layers = min(n_layers, lm_layers)
+        xc = lm_cross_check(
+            dev, min(MM_XC_LEN, lm_prompt),
+            dataclasses.replace(c, n_layers=2, dtype="float32"), c.name,
+            min(MM_XC_STEPS, lm_steps), draw=dev, fan_in=True)
+        torch.cuda.empty_cache()
+        _, calls = lm_serve(dev, n_layers, min(MM_PROMPT, lm_prompt),
+                            min(MM_STEPS, lm_steps), profile, c, c.name)
+        torch.cuda.empty_cache()
+        for n in LM_KERNELS:
+            recorded[n] += calls[n] + xc[n]
+        log(f"{c.name}: cross-check and serve in "
+            f"{time.perf_counter() - t:.1f} s")
+    mla_kernel_rows(recorded, dev)
+
+
+def mla_kernel_rows(recorded, dev):
+    """Kernels 8 and 9 on the MoE and MLA models' recorded calls against
+    the model's plain path (and, in bf16, ``attention_tc_plain``; decode
+    also against ``merge_splits``), kernel 8 at MLA's (96, 64) on the edge
+    cases of ``mla_edge_calls`` against ``attention_ref``, and the largest
+    bf16 MLA call timed beside the plain path and SDPA (module docstring,
+    18c)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import attention as attn
+    kern = {"flash_attention": fa.flash_attention,
+            "flash_decode": fa.flash_decode}
+    plain = {"flash_attention": attn.chunked_attention_plain,
+             "flash_decode": attn.gqa_decode_plain}
+    mla_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name in LM_KERNELS:
+        for args, kw in recorded[name]:
+            got = kern[name](*args, **kw)
+            want = plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            if name == "flash_attention" and got.dtype == torch.bfloat16:
+                attention_diagnosis(name, got, want, args, kw)
+            e = max(compare_attention(name, got, want, True),
+                    tc_plain_error(name, got, args, kw),
+                    split_merge_error(name, got, args, kw, True))
+            if name == "flash_attention" and args[0].shape[-1] == 96:
+                mla_err[got.dtype] = max(mla_err[got.dtype], e)
+    n_rec = {n: len(recorded[n]) for n in LM_KERNELS}
+    edges = mla_edge_calls(dev)
+    for args, kw in edges:
+        got = fa.flash_attention(*args, **kw)
+        want = fa.attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        mla_err[got.dtype] = max(
+            mla_err[got.dtype],
+            compare_attention("flash_attention MLA edge", got, want),
+            tc_plain_error("flash_attention MLA edge", got, args, kw))
+    log(f"MoE and MLA kernel rows: {n_rec} recorded calls against the plain"
+        f" path, {len(edges)} edge cases at (96, 64) against attention_ref; "
+        f"largest absolute error at (96, 64): fp32 {mla_err[torch.float32]},"
+        f" bf16 {mla_err[torch.bfloat16]}")
+    mla = [c for c in recorded["flash_attention"]
+           if c[0][0].shape[-1] == 96 and c[0][0].dtype == torch.bfloat16]
+    check(mla, "flash_attention: the MLA serve never called it at (96, 64)")
+    args, kw = max(mla, key=lambda c: work_of("flash_attention", *c)[0])
+    row = kernel_row("flash_attention", fa.flash_attention,
+                     attn.chunked_attention_plain,
+                     attention_library_calls()["flash_attention"], args, kw,
+                     mla_err[torch.bfloat16],
+                     f"MLA (96, 64) bf16 {tuple(args[0].shape)} q, "
+                     f"{tuple(args[2].shape)} v")
+    ops = work_of("flash_attention", args, kw)[1]
+    log(f"kernel flash_attention MLA (96, 64) ({tuple(args[0].shape)}, "
+        f"tensor cores): {ops / row['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; SDPA "
+        f"{ops / row['library_ms'] / 1e9:.1f} TFLOP/s, "
+        f"{100 * row['bound_ms'] / row['library_ms']:.1f} %")
+
+
 def split_merge_error(label, got, args, kw, model=False):
     """For a decode call: the kernel's output, merged on the card, against
     ``merge_splits`` of ``decode_partials_plain`` (the split and merge
@@ -2028,7 +2360,7 @@ def tc_plain_error(label, got, args, kw):
 
 
 def lm_phase(dev, n_layers, prompt, steps, profile=False):
-    """The LM phase (module docstring, 8): cross-check, serve, kernel rows.
+    """The LM phase (module docstring, 17): cross-check, serve, kernel rows.
     Returns the rows of kernels 8 and 9."""
     xc_calls = lm_cross_check(dev, min(XC_LEN, prompt))
     launches, serve_calls = lm_serve(dev, n_layers, prompt, steps, profile)
@@ -5037,6 +5369,11 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     torch.cuda.empty_cache()
     rows.update(lm_phase(dev, lm_layers, lm_prompt, lm_steps, profile))
     lap("lm")
+
+    # MoE and MLA, once Yi-6B's memory is freed
+    torch.cuda.empty_cache()
+    moe_mla_phase(dev, lm_layers, lm_prompt, lm_steps, profile)
+    lap("moe_mla")
     log("phase walls s: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                       walls.items()))
     return card, rows
@@ -5047,11 +5384,14 @@ def main(argv=None):
     ap.add_argument("--n-docs", type=int, default=196_608)
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--lm-layers", type=int, default=32,
-                    help="Yi-6B layers served in the LM phase")
+                    help="Yi-6B layers served in the LM phase; below 32, "
+                         "also the most layers of each MoE and MLA model")
     ap.add_argument("--lm-prompt", type=int, default=LM_PROMPT,
-                    help="prompt tokens a request in the LM phase")
+                    help="prompt tokens a request in the LM phase (and at "
+                         "most, in the MoE and MLA phase)")
     ap.add_argument("--lm-steps", type=int, default=LM_STEPS,
-                    help="greedy decode steps in the LM phase")
+                    help="greedy decode steps in the LM phase (and at "
+                         "most, in the MoE and MLA phase)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (torch.profiler)")
     args = ap.parse_args(argv)

@@ -16,8 +16,9 @@ unless the caller asks for the CPU):
 * the reference's two-tower params (``recsys.init(REDUCED, key)``: tables
   and per-side MLP dicts) → ``repro_torch.models.recsys.TwoTower``;
 * the reference's LM params (``transformer.init(c, key)``: ``embed``,
-  ``unembed``, ``final_ln``, stacked ``layers``) → the port's tree of
-  tensors (``repro_torch.models.transformer``);
+  ``unembed``, ``final_ln``, stacked ``layers`` with GQA or MLA attention
+  and a dense or MoE FFN) → the port's tree of tensors
+  (``repro_torch.models.transformer``);
 * a reference ``CascadeSpec`` → the port's, through its JSON;
 * the reference's in-step Stage-0 ensemble (``repro.isn.shard.ForestArrays``)
   → the port's ``repro_torch.isn.shard.ForestArrays``.
@@ -36,7 +37,7 @@ from repro_torch.isn.backend import resolve_device
 from repro_torch.isn.shard import ForestArrays
 from repro_torch.ltr.ranker import LTRModel
 from repro_torch.models.recsys import SIDES, TwoTower
-from repro_torch.models.transformer import LAYER_KEYS
+from repro_torch.models.transformer import ATTN_KEYS, FFN_KEYS
 from repro_torch.serving.spec import CascadeSpec
 
 
@@ -110,12 +111,20 @@ def _lm_leaf(a, device, dtype) -> torch.Tensor:
 
 
 def lm_params(ref_params, device=None, dtype=None) -> dict:
-    """The reference's dense-GQA LM parameter tree as the port's, on
-    ``device``, each leaf read by key (``dtype`` None keeps each leaf's)."""
+    """The reference's LM parameter tree as the port's, on ``device``, each
+    leaf read by key (``dtype`` None keeps each leaf's): GQA or MLA
+    attention (MLA's tree holds ``wdq``), a dense or MoE FFN (MoE's holds
+    ``router``, and ``shared_gate`` with shared experts)."""
     dev = resolve_device(device)
     lay = ref_params["layers"]
-    layers = {group: {k: _lm_leaf(lay[group][k], dev, dtype) for k in keys}
-              for group, keys in LAYER_KEYS.items()}
+    ffn = FFN_KEYS["dense"]
+    if "router" in lay["ffn"]:
+        ffn = FFN_KEYS["moe"] + (FFN_KEYS["shared"]
+                                 if "shared_gate" in lay["ffn"] else ())
+    keys = {"attn": ATTN_KEYS["mla" if "wdq" in lay["attn"] else "gqa"],
+            "ffn": ffn}
+    layers = {group: {k: _lm_leaf(lay[group][k], dev, dtype) for k in ks}
+              for group, ks in keys.items()}
     for k in ("ln1", "ln2"):
         layers[k] = _lm_leaf(lay[k], dev, dtype)
     params = {k: _lm_leaf(ref_params[k], dev, dtype)

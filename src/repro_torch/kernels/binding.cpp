@@ -46,17 +46,18 @@ int histogram_topk_launch(const int* scores, int* hist, int* values,
                           cudaStream_t stream);
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int b, int h, int hkv, int sq, int sk,
-                           int d, long long qsb, long long qsh, long long qss,
-                           long long ksb, long long ksh, long long kss,
-                           long long vsb, long long vsh, long long vss,
-                           float scale, int causal, cudaStream_t stream);
+                           int d, int dv, long long qsb, long long qsh,
+                           long long qss, long long ksb, long long ksh,
+                           long long kss, long long vsb, long long vsh,
+                           long long vss, float scale, int causal,
+                           cudaStream_t stream);
 int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 void* out, int b, int h, int hkv, int sq,
-                                int sk, int d, long long qsb, long long qsh,
-                                long long qss, long long ksb, long long ksh,
-                                long long kss, long long vsb, long long vsh,
-                                long long vss, float scale, int causal,
-                                cudaStream_t stream);
+                                int sk, int d, int dv, long long qsb,
+                                long long qsh, long long qss, long long ksb,
+                                long long ksh, long long kss, long long vsb,
+                                long long vsh, long long vss, float scale,
+                                int causal, cudaStream_t stream);
 void level_histogram_launch(const uint8_t* xbt, const int* node,
                             const float* gw, const float* w, float* hist_g,
                             float* hist_w, int n, int n_feat, int n_nodes,
@@ -200,23 +201,30 @@ void boost_update(const torch::Tensor& f, const torch::Tensor& raw,
 }
 
 using PrefillLaunch = int (*)(const void*, const void*, const void*, void*,
-                             int, int, int, int, int, int, long long,
+                             int, int, int, int, int, int, int, long long,
                              long long, long long, long long, long long,
                              long long, long long, long long, long long,
                              float, int, cudaStream_t);
 
+// q, k of width d and v of width dv: the launch function takes the pairs it
+// was built for and refuses any other (rc -1).
 void prefill(PrefillLaunch launch, const char* name, const torch::Tensor& q,
              const torch::Tensor& k, const torch::Tensor& v,
              torch::Tensor out, double scale, bool causal) {
   const c10::cuda::CUDAGuard guard(q.device());
+  TORCH_CHECK(k.size(3) == q.size(3) && out.size(3) == v.size(3), name,
+              ": k's width must be q's and the output's v's");
   const int rc = launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
       static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
       static_cast<int>(k.size(1)), static_cast<int>(q.size(2)),
-      static_cast<int>(k.size(2)), static_cast<int>(q.size(3)), q.stride(0),
-      q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-      v.stride(0), v.stride(1), v.stride(2), static_cast<float>(scale),
-      causal ? 1 : 0, c10::cuda::getCurrentCUDAStream());
+      static_cast<int>(k.size(2)), static_cast<int>(q.size(3)),
+      static_cast<int>(v.size(3)), q.stride(0), q.stride(1), q.stride(2),
+      k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
+      v.stride(2), static_cast<float>(scale), causal ? 1 : 0,
+      c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc != -1, name, ": widths (", q.size(3), ", ", v.size(3),
+              ") are not a pair the kernel is built for");
   TORCH_CHECK(rc == 0, name, ": launch refused (", rc, ")");
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

@@ -4,9 +4,10 @@
 // Replaces the two Pallas kernels of repro/kernels/flash_attention/kernel.py:
 //
 // * `flash_attention` (body `_flash_kernel`) on fp32 inputs:
-//   softmax(q kᵀ · scale) v for q (B, H, Sq, D) and k, v (B, Hkv, Sk, D),
-//   causal or not, GQA through the kv head h / (H / Hkv), fp32 math and
-//   output.  bf16 inputs go to the tensor-core kernel of
+//   softmax(q kᵀ · scale) v for q (B, H, Sq, D), k (B, Hkv, Sk, D) and v
+//   (B, Hkv, Sk, Dv), causal or not, GQA through the kv head h / (H /
+//   Hkv), fp32 math and output (B, H, Sq, Dv); built for D = Dv at 16 to
+//   128 and for (D, Dv) = (96, 64), MLA's prefill.  bf16 inputs go to the tensor-core kernel of
 //   flash_attention_sm90.cu.  The TPU kernel walks KV tiles along a
 //   sequential grid axis and carries (m, l, acc) in VMEM from one grid
 //   step to the next; blocks on the card run in no order, so here one
@@ -14,7 +15,7 @@
 //   tiles itself, stopping at the diagonal when causal.  Q, each K tile (transposed) and then each V
 //   tile are staged in shared memory as fp32, K and V read straight from
 //   the kv head's rows, so no GQA copy is made.  Each of the 256 threads
-//   holds a 4 x 4 block of the 64 x 64 score tile and a 4-row x 4·⌈D/64⌉
+//   holds a 4 x 4 block of the 64 x 64 score tile and a 4-row x 4·⌈Dv/64⌉
 //   block of the fp32 accumulator in registers, with its rows' running
 //   max and sum; row reductions are shuffles over the 16 threads that
 //   share the rows.  P stays fp32 (no bf16 rounding, no TF32), logits are
@@ -44,10 +45,10 @@
 //   output is unchanged.  With kv_len[b] <= 0 every position is masked and
 //   every split is read, which gives the reference's uniform average.
 
-// What bounds them on this card.  Prefill is operations: 4·B·H·Sq·Sk·D
-// (halved when causal), held on fp32 inputs to the 67 TFLOP/s of the fp32
-// CUDA cores, since the tensor cores would take fp32 only as TF32 (ROADMAP
-// rule b).  The kernel keeps every operand of the inner products in
+// What bounds them on this card.  Prefill is operations:
+// 2·B·H·Sq·Sk·(D + Dv) (halved when causal), held on fp32 inputs to the 67
+// TFLOP/s of the fp32 CUDA cores, since the tensor cores would take fp32
+// only as TF32 (ROADMAP rule b).  The kernel keeps every operand of the inner products in
 // shared memory or registers (16 FMAs per two 16-byte shared loads in the
 // score loop) and skips the tiles above the diagonal.  The bf16 prefill
 // of the served model runs on the tensor cores (wgmma fed by TMA) in
@@ -104,18 +105,25 @@ struct Strides {
   long long b, h, s;  // element strides of the (B, H, S) axes; D is unit
 };
 
-template <typename T, int D>
+// The shared-memory floats of a block at q/k width D and v width DV: Q
+// transposed, one K (transposed) or V tile, the P tile.
+template <int D, int DV>
+constexpr int attention_smem_floats() {
+  return D * kLd + (D * kLd > kBK * DV ? D * kLd : kBK * DV) + kBQ * kLd;
+}
+
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            Strides qs, Strides ks, Strides vs, int n_heads,
                            int group, int sq, int sk, float scale,
                            int causal) {
-  constexpr int kNU = (D + 63) / 64;  // 4-wide accumulator column groups
+  constexpr int kNU = (DV + 63) / 64;  // 4-wide accumulator column groups
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [D][kLd], rows as columns
-  float* kv = qt + D * kLd;                     // K as [D][kLd] or V [kBK][D]
-  float* ps = kv + (D * kLd > kBK * D ? D * kLd : kBK * D);  // [kBQ][kLd]
+  float* kv = qt + D * kLd;                    // K as [D][kLd] or V [kBK][DV]
+  float* ps = kv + (D * kLd > kBK * DV ? D * kLd : kBK * DV);  // [kBQ][kLd]
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
@@ -202,9 +210,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // kt fully read, ps written
 
     // V tile: kv[j][d]
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int j = i / D, d = i % D;
-      kv[j * D + d] = k0 + j < sk ? to_f32(vb[(k0 + j) * vs.s + d]) : 0.f;
+    for (int i = tid; i < kBK * DV; i += kThreads) {
+      const int j = i / DV, d = i % DV;
+      kv[j * DV + d] = k0 + j < sk ? to_f32(vb[(k0 + j) * vs.s + d]) : 0.f;
     }
     __syncthreads();
 
@@ -225,9 +233,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int u = 0; u < kNU; ++u) {
           const int d0 = tx * 4 + 64 * u;
-          if (d0 < D) {
+          if (d0 < DV) {
             const float4 w =
-                *reinterpret_cast<const float4*>(&kv[(j4 + jj) * D + d0]);
+                *reinterpret_cast<const float4*>(&kv[(j4 + jj) * DV + d0]);
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               acc[i][4 * u + 0] += pr[i][jj] * w.x;
@@ -242,7 +250,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();  // kv and ps are rewritten by the next tile
   }
 
-  T* ob = out + (static_cast<long long>(b) * n_heads + hh) * sq * D;
+  T* ob = out + (static_cast<long long>(b) * n_heads + hh) * sq * DV;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
@@ -251,10 +259,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int u = 0; u < kNU; ++u) {
       const int d0 = tx * 4 + 64 * u;
-      if (d0 < D) {
+      if (d0 < DV) {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          store_as(&ob[static_cast<long long>(row) * D + d0 + c],
+          store_as(&ob[static_cast<long long>(row) * DV + d0 + c],
                    acc[i][4 * u + c] * inv);
       }
     }
@@ -727,14 +735,13 @@ __global__ void __launch_bounds__(D)
   store_as(&out[bh * D + d], a / fmaxf(denom, 1e-30f));
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int attention_d(const void* q, const void* k, const void* v, void* out,
                 int b, int h, int hkv, int sq, int sk, Strides qs,
                 Strides ks, Strides vs, float scale, int causal,
                 cudaStream_t stream) {
-  const int ld = D * kLd > kBK * D ? D * kLd : kBK * D;
-  const size_t smem = sizeof(float) * (D * kLd + ld + kBQ * kLd);
-  auto kern = flash_attention_kernel<T, D>;
+  const size_t smem = sizeof(float) * attention_smem_floats<D, DV>();
+  auto kern = flash_attention_kernel<T, D, DV>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -747,22 +754,24 @@ int attention_d(const void* q, const void* k, const void* v, void* out,
   return 0;
 }
 
+// The built (q/k width, v width) pairs: equal widths 16 to 128, and (96, 64)
+// for MLA's prefill.
 template <typename T>
-int attention_t(int d, const void* q, const void* k, const void* v,
+int attention_t(int d, int dv, const void* q, const void* k, const void* v,
                 void* out, int b, int h, int hkv, int sq, int sk, Strides qs,
                 Strides ks, Strides vs, float scale, int causal,
                 cudaStream_t stream) {
-  switch (d) {
-    case 16: return attention_d<T, 16>(q, k, v, out, b, h, hkv, sq, sk, qs,
-                                       ks, vs, scale, causal, stream);
-    case 32: return attention_d<T, 32>(q, k, v, out, b, h, hkv, sq, sk, qs,
-                                       ks, vs, scale, causal, stream);
-    case 64: return attention_d<T, 64>(q, k, v, out, b, h, hkv, sq, sk, qs,
-                                       ks, vs, scale, causal, stream);
-    case 128: return attention_d<T, 128>(q, k, v, out, b, h, hkv, sq, sk,
-                                         qs, ks, vs, scale, causal, stream);
-    default: return -1;
-  }
+#define FA_CASE(D, DV)                                                      \
+  if (d == D && dv == DV)                                                   \
+    return attention_d<T, D, DV>(q, k, v, out, b, h, hkv, sq, sk, qs, ks,   \
+                                 vs, scale, causal, stream);
+  FA_CASE(16, 16)
+  FA_CASE(32, 32)
+  FA_CASE(64, 64)
+  FA_CASE(128, 128)
+  FA_CASE(96, 64)
+#undef FA_CASE
+  return -1;
 }
 
 // Launches a split kernel over (split, kv head, b) with `smem` bytes of
@@ -833,20 +842,21 @@ int decode_t(int d, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Prefill attention on fp32 inputs: one 256-thread block per (64-row query
-// tile, h, b).  q, k, v: fp32, unit stride along D, the given element
-// strides along (B, H, S); out (B, H, Sq, D) contiguous fp32.
-// Returns 0 when launched (the caller checks the launch), -1 for a head
-// width it is not built for, or the CUDA error of the shared-memory
-// attribute.
+// tile, h, b).  q, k (width d), v (width dv): fp32, unit stride along the
+// width, the given element strides along (B, H, S); out (B, H, Sq, dv)
+// contiguous fp32.  Returns 0 when launched (the caller checks the
+// launch), -1 for a width pair it is not built for, or the CUDA error of
+// the shared-memory attribute.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int b, int h, int hkv, int sq, int sk,
-                           int d, long long qsb, long long qsh, long long qss,
-                           long long ksb, long long ksh, long long kss,
-                           long long vsb, long long vsh, long long vss,
-                           float scale, int causal, cudaStream_t stream) {
+                           int d, int dv, long long qsb, long long qsh,
+                           long long qss, long long ksb, long long ksh,
+                           long long kss, long long vsb, long long vsh,
+                           long long vss, float scale, int causal,
+                           cudaStream_t stream) {
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
-  return attention_t<float>(d, q, k, v, out, b, h, hkv, sq, sk, qs, ks, vs,
-                            scale, causal, stream);
+  return attention_t<float>(d, dv, q, k, v, out, b, h, hkv, sq, sk, qs, ks,
+                            vs, scale, causal, stream);
 }
 
 // Split-KV decode: one 256-thread block per (512-position split, kv head,

@@ -2,17 +2,19 @@
 //
 // Replaces the Pallas kernel `flash_attention` of
 // src/repro/kernels/flash_attention/kernel.py:77 (body `_flash_kernel`,
-// :34-70) for bf16 inputs: softmax(q kᵀ · scale) v for q (B, H, Sq, D) and
-// k, v (B, Hkv, Sk, D), causal or not, GQA through the kv head h / (H /
-// Hkv), output in bf16.  As there, the logits are scaled after the dot,
-// masked logits are -1e30, the running max and sum are carried in fp32
-// and the final sum is floored at 1e-30.  Rows and keys past Sq / Sk are
+// :34-70) for bf16 inputs: softmax(q kᵀ · scale) v for q (B, H, Sq, D),
+// k (B, Hkv, Sk, D) and v (B, Hkv, Sk, Dv), causal or not, GQA through the
+// kv head h / (H / Hkv), output (B, H, Sq, Dv) in bf16.  The kernel is a
+// template on the pair (D, Dv): D = Dv at 16, 32, 64 and 128, and (96, 64),
+// the width pair of MLA's prefill (q/k 64 + 32 rope, v 64).  As there, the
+// logits are scaled after the dot, masked logits are -1e30, the running
+// max and sum are carried in fp32 and the final sum is floored at 1e-30.  Rows and keys past Sq / Sk are
 // masked, so any S is taken (the TPU wrapper's `s // tq` drops a ragged
 // tail).  fp32 inputs stay on the CUDA-core kernel of flash_attention.cu:
 // the tensor cores would take them only as TF32 (ROADMAP rule b).
 //
-// What bounds it on this card: operations.  4·D per (query, key) pair it
-// must score, halved when causal — 5.4989e11 a layer at the Yi-6B prefill
+// What bounds it on this card: operations.  2·(D + Dv) per (query, key)
+// pair it must score (4·D at equal widths), halved when causal — 5.4989e11 a layer at the Yi-6B prefill
 // shape (4 x 32 x 4,096² x 128) — at the 989 TFLOP/s dense bf16 rate is
 // 0.556 ms; its 302 MB of q, k, v and output take 0.090 ms at 3.35 TB/s.
 // So the design keeps the two products on the tensor cores and everything
@@ -28,9 +30,11 @@
 //   so the loads of tile j+1 overlap the math on tile j.  Operands stay
 //   bf16 in shared memory, in the swizzled layout the wgmma descriptors
 //   read (128-byte swizzle at D = 64 and 128, 64 and 32 bytes at D = 32
-//   and 16).  The tensor maps are 4-D over the caller's (B, H, S, D)
-//   strides (the model passes transposed views), K and V at the kv head:
-//   no GQA copy.  TMA zero-fills rows past Sq and Sk.
+//   and 16; at D = 96 three 32-wide column blocks with the 64-byte swizzle,
+//   so S = Q·Kᵀ takes six k-steps of 16).  V and O take their own width's
+//   geometry; where it differs from Q's, O is staged in a tile of its own.
+//   The tensor maps are 4-D over the caller's (B, H, S, D) strides (the
+//   model passes transposed views), K and V at the kv head: no GQA copy.  TMA zero-fills rows past Sq and Sk.
 // * S = Q·Kᵀ by wgmma m64n128k16 from shared memory into fp32 registers;
 //   scale, then mask only the tiles that cross the diagonal or Sk; online
 //   softmax in registers, the row max reduced over the 4 threads that
@@ -44,8 +48,9 @@
 //   small, which the model's 1/√L weight scale makes (PERF.md §6).
 //   The split costs one more P·V product, a third more tensor-core work.
 // * The epilogue divides by max(l, 1e-30), writes bf16 into the
-//   warpgroup's rows of the query tile's shared memory in the same swizzle
-//   and stores them with one TMA store, which clips rows past Sq.
+//   warpgroup's rows of the output tile in shared memory (at equal widths
+//   the query tile, in the same swizzle) and stores them with one TMA
+//   store, which clips rows past Sq.
 //
 // wgmma, TMA and mbarriers are written as inline PTX; no CuTe or CUTLASS.
 
@@ -67,16 +72,33 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory geometry at head width D: a tile is `kAtoms` column blocks
-// of `kBox` elements, each [rows][kW bytes] with the kW-byte swizzle.
+// of `kBox` elements, each [rows][kW bytes] with the kW-byte swizzle.  At D
+// = 96 that is three 32-wide blocks with the 64-byte swizzle.
 template <int D>
 struct Geo {
-  static constexpr int kBox = D < 64 ? D : 64;
+  static constexpr int kBox = D % 64 == 0 ? 64 : D < 64 ? D : 32;
   static constexpr int kW = kBox * 2;
   static constexpr int kAtoms = D / kBox;
   static constexpr int kTile = kBN * D * 2;  // a 128-row tile (Q, K or V)
-  static constexpr int kSmem = 5 * kTile + 1024 + 64;  // Q, 2 x (K, V)
   // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
   static constexpr uint64_t kLayout = kW == 128 ? 1 : kW == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                 : CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
+// Shared memory of a block at q/k width DQK and v width DV: Q, then two ring
+// stages of (K, V), then the output staging tile when the widths differ
+// (at equal widths the epilogue writes into each warpgroup's own Q rows,
+// whose layout is the output's), then the mbarriers.
+template <int DQK, int DV>
+struct Smem {
+  static constexpr int kQ = Geo<DQK>::kTile;
+  static constexpr int kStage = Geo<DQK>::kTile + Geo<DV>::kTile;
+  static constexpr int kO = DQK == DV ? 0 : Geo<DV>::kTile;
+  static constexpr int kBars = kQ + 2 * kStage + kO;
+  static constexpr int kBytes = kBars + 1024 + 64;  // + alignment, barriers
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -310,7 +332,7 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 const __grid_constant__ CUtensorMap tm_k,
@@ -318,14 +340,18 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 const __grid_constant__ CUtensorMap tm_o,
                                 int group, int sq, int sk, float scale,
                                 int causal) {
-  using G = Geo<D>;
+  using G = Geo<DQK>;   // Q and K tiles
+  using GV = Geo<DV>;   // V and output tiles
+  using SM = Smem<DQK, DV>;
   constexpr int W = G::kW;
+  constexpr int WV = GV::kW;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle patterns repeat every 1,024 bytes of shared address
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base;
-  const uint32_t kv_s = base + G::kTile;  // stage s: K at +2s, V at +2s+1
-  const uint32_t bars = base + 5 * G::kTile;
+  const uint32_t kv_s = base + SM::kQ;  // stage s: K, then V, at s * kStage
+  const uint32_t o_s = SM::kO ? kv_s + 2 * SM::kStage : q_s;
+  const uint32_t bars = base + SM::kBars;
   const uint32_t bar_q = bars;
   // full_k[s] = bars + 8 (1 + s), full_v[s] = bars + 8 (3 + s),
   // empty[s] = bars + 8 (5 + s)
@@ -365,18 +391,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j & 1;
         if (j >= 2) mbar_wait(bars + 8 * (5 + s), ((j >> 1) - 1) & 1);
-        const uint32_t k_dst = kv_s + 2 * s * G::kTile;
+        const uint32_t k_dst = kv_s + s * SM::kStage;
         const uint32_t v_dst = k_dst + G::kTile;
         mbar_expect_tx(bars + 8 * (1 + s), G::kTile);
 #pragma unroll
         for (int a = 0; a < G::kAtoms; ++a)
           tma_load(k_dst + a * kBN * W, &tm_k, a * G::kBox, j * kBN, kvh, b,
                    bars + 8 * (1 + s));
-        mbar_expect_tx(bars + 8 * (3 + s), G::kTile);
+        mbar_expect_tx(bars + 8 * (3 + s), GV::kTile);
 #pragma unroll
-        for (int a = 0; a < G::kAtoms; ++a)
-          tma_load(v_dst + a * kBN * W, &tm_v, a * G::kBox, j * kBN, kvh, b,
-                   bars + 8 * (3 + s));
+        for (int a = 0; a < GV::kAtoms; ++a)
+          tma_load(v_dst + a * kBN * WV, &tm_v, a * GV::kBox, j * kBN, kvh,
+                   b, bars + 8 * (3 + s));
       }
     }
     return;
@@ -393,17 +419,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int row = q0 + r_loc;
   const int c_loc = 2 * (lane & 3);
   const uint32_t q_wg = q_s + 64 * cw * W;
+  const uint32_t o_wg = o_s + 64 * cw * WV;
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   mbar_wait(bar_q, 0);
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j & 1;
     const uint32_t parity = (j >> 1) & 1;
-    const uint32_t k_s = kv_s + 2 * s * G::kTile;
+    const uint32_t k_s = kv_s + s * SM::kStage;
     const uint32_t v_s = k_s + G::kTile;
     const int k0 = j * kBN;
 
@@ -414,7 +441,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(bars + 8 * (1 + s), parity);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       const int a = kk / (G::kBox / 16);
       const uint32_t off = a * kBM * W + (kk % (G::kBox / 16)) * 32;
       wgmma_ss_n128(sacc, make_desc(q_wg + off, 16, 8 * W, G::kLayout),
@@ -466,7 +493,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         split_bf16(p[2 * r], p[2 * r + 1], pa[kk][r], pb[kk][r]);
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     // O += P V (64 x D per warpgroup); V tile [keys][D] is MN-major
     mbar_wait(bars + 8 * (3 + s), parity);
@@ -474,9 +501,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
       const uint64_t dv =
-          make_desc(v_s + kk * 16 * W, kBN * W, 8 * W, G::kLayout);
-      wgmma_pv<D>(o, pa[kk], dv);
-      wgmma_pv<D>(o, pb[kk], dv);
+          make_desc(v_s + kk * 16 * WV, kBN * WV, 8 * WV, GV::kLayout);
+      wgmma_pv<DV>(o, pa[kk], dv);
+      wgmma_pv<DV>(o, pb[kk], dv);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -490,8 +517,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // epilogue: O / max(l, 1e-30) in bf16 into this warpgroup's rows of the
-  // query tile's shared memory (same swizzle), then one TMA store a column
-  // block, clipped at Sq
+  // output tile in shared memory (the query tile's at equal widths; the V
+  // tiles' swizzle), then one TMA store a column block, clipped at Sq
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -500,22 +527,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     inv[h] = 1.f / fmaxf(l[h], 1e-30f);
   }
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < DV / 2; i += 2) {
     const int h = (i >> 1) & 1;
     const int col = 8 * (i >> 2) + c_loc;
-    const uint32_t off = (col / G::kBox) * kBM * W + (r_loc + 8 * h) * W +
-                         (col % G::kBox) * 2;
-    const uint32_t phys = off ^ ((off >> 3) & (W - 16));
+    const uint32_t off = (col / GV::kBox) * kBM * WV + (r_loc + 8 * h) * WV +
+                         (col % GV::kBox) * 2;
+    const uint32_t phys = off ^ ((off >> 3) & (WV - 16));
     const uint32_t v = pack_bf16(o[i] * inv[h], o[i + 1] * inv[h]);
-    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(q_s + phys), "r"(v)
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(o_s + phys), "r"(v)
                  : "memory");
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
   if (t == 0 && q0 + 64 * cw < sq) {
 #pragma unroll
-    for (int a = 0; a < G::kAtoms; ++a)
-      tma_store(&tm_o, q_wg + a * kBM * W, a * G::kBox, q0 + 64 * cw, hh, b);
+    for (int a = 0; a < GV::kAtoms; ++a)
+      tma_store(&tm_o, o_wg + a * kBM * WV, a * GV::kBox, q0 + 64 * cw, hh,
+                b);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
@@ -569,61 +597,65 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, int s, int h, int b,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQK, int DV>
 int attention_sm90_d(const void* q, const void* k, const void* v, void* out,
                      int b, int h, int hkv, int sq, int sk, long long qsb,
                      long long qsh, long long qss, long long ksb,
                      long long ksh, long long kss, long long vsb,
                      long long vsh, long long vss, float scale, int causal,
                      cudaStream_t stream) {
-  using G = Geo<D>;
-  const CUtensorMapSwizzle swz = G::kW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : G::kW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  using G = Geo<DQK>;
+  using GV = Geo<DV>;
+  constexpr int kSmem = Smem<DQK, DV>::kBytes;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, q, D, sq, h, b, qss, qsh, qsb, G::kBox, 64, swz) ||
-      !make_map(&tk, k, D, sk, hkv, b, kss, ksh, ksb, G::kBox, kBN, swz) ||
-      !make_map(&tv, v, D, sk, hkv, b, vss, vsh, vsb, G::kBox, kBN, swz) ||
-      !make_map(&to, out, D, sq, h, b, D, static_cast<long long>(sq) * D,
-                static_cast<long long>(h) * sq * D, G::kBox, 64, swz))
+  if (!make_map(&tq, q, DQK, sq, h, b, qss, qsh, qsb, G::kBox, 64,
+                G::kSwizzle) ||
+      !make_map(&tk, k, DQK, sk, hkv, b, kss, ksh, ksb, G::kBox, kBN,
+                G::kSwizzle) ||
+      !make_map(&tv, v, DV, sk, hkv, b, vss, vsh, vsb, GV::kBox, kBN,
+                GV::kSwizzle) ||
+      !make_map(&to, out, DV, sq, h, b, DV, static_cast<long long>(sq) * DV,
+                static_cast<long long>(h) * sq * DV, GV::kBox, 64,
+                GV::kSwizzle))
     return -2;
-  auto kern = flash_attention_sm90_kernel<D>;
+  auto kern = flash_attention_sm90_kernel<DQK, DV>;
   const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(h, b, (sq + kBM - 1) / kBM);
-  kern<<<grid, kThreads, G::kSmem, stream>>>(tq, tk, tv, to, h / hkv, sq, sk,
-                                             scale, causal);
+  kern<<<grid, kThreads, kSmem, stream>>>(tq, tk, tv, to, h / hkv, sq, sk,
+                                          scale, causal);
   return 0;
 }
 
 }  // namespace
 
 // Prefill attention on bf16 inputs: one 384-thread block per (h, b,
-// 128-row query tile).  q, k, v bf16 with unit stride along D and the given
-// element strides along (B, H, S) — 16-byte-aligned bases and strides, as
-// TMA takes them (the wrapper checks); out (B, H, Sq, D) contiguous bf16.
-// Returns 0 when launched (the caller checks the launch), -1 for a head
-// width it is not built for, -2 when a tensor map cannot be made, or the
-// CUDA error of the shared-memory attribute.
+// 128-row query tile).  q, k (q/k width d) and v (width dv) bf16 with unit
+// stride along the width and the given element strides along (B, H, S) —
+// 16-byte-aligned bases and strides, as TMA takes them (the wrapper
+// checks); out (B, H, Sq, dv) contiguous bf16.  Built for the width pairs
+// (16, 16), (32, 32), (64, 64), (128, 128) and (96, 64) (MLA: 64 + 32
+// q/k, 64 v).  Returns 0 when launched (the caller checks the launch), -1
+// for a width pair it is not built for, -2 when a tensor map cannot be
+// made, or the CUDA error of the shared-memory attribute.
 int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 void* out, int b, int h, int hkv, int sq,
-                                int sk, int d, long long qsb, long long qsh,
-                                long long qss, long long ksb, long long ksh,
-                                long long kss, long long vsb, long long vsh,
-                                long long vss, float scale, int causal,
-                                cudaStream_t stream) {
-#define FA_SM90_CASE(D)                                                      \
-  case D:                                                                    \
-    return attention_sm90_d<D>(q, k, v, out, b, h, hkv, sq, sk, qsb, qsh,    \
-                               qss, ksb, ksh, kss, vsb, vsh, vss, scale,     \
-                               causal, stream);
-  switch (d) {
-    FA_SM90_CASE(16)
-    FA_SM90_CASE(32)
-    FA_SM90_CASE(64)
-    FA_SM90_CASE(128)
-    default: return -1;
-  }
+                                int sk, int d, int dv, long long qsb,
+                                long long qsh, long long qss, long long ksb,
+                                long long ksh, long long kss, long long vsb,
+                                long long vsh, long long vss, float scale,
+                                int causal, cudaStream_t stream) {
+#define FA_SM90_CASE(DQK, DV)                                                \
+  if (d == DQK && dv == DV)                                                  \
+    return attention_sm90_d<DQK, DV>(q, k, v, out, b, h, hkv, sq, sk, qsb,   \
+                                     qsh, qss, ksb, ksh, kss, vsb, vsh, vss, \
+                                     scale, causal, stream);
+  FA_SM90_CASE(16, 16)
+  FA_SM90_CASE(32, 32)
+  FA_SM90_CASE(64, 64)
+  FA_SM90_CASE(128, 128)
+  FA_SM90_CASE(96, 64)
 #undef FA_SM90_CASE
+  return -1;
 }

@@ -16,7 +16,9 @@ tensors.  Both compute the functions of the Pallas kernels
 reference holds to the same two oracles (``ref.py``): softmax attention in
 fp32 math with -1e30 masking, output in q's type, GQA by kv head
 ``h // (H / Hkv)``.  Unlike the Pallas wrappers they take any sequence or
-cache length (those drop a ragged tail of S or T).
+cache length (those drop a ragged tail of S or T).  The prefill's v may be
+narrower than q and k (MLA's q/k 96 and v 64); its kernels are built for
+the width pairs of ``PREFILL_WIDTHS``, the decode kernels for one width.
 
 ``attention`` and ``decode_attention`` are the reference's public ops
 (``ops.py``); its ``use_kernel`` switch is replaced by the port's rule: the
@@ -31,6 +33,9 @@ from repro_torch import kernels
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)   # head widths the kernels are built for
+# the (q/k width, v width) pairs of the prefill kernels: the equal widths,
+# and MLA's (64 + 32 rope, 64)
+PREFILL_WIDTHS = tuple((d, d) for d in HEAD_DIMS) + ((96, 64),)
 SPLIT = 512                     # cache positions a decode block reduces
 TC_TILE = 128                   # query rows and keys of a bf16 prefill tile
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -42,8 +47,9 @@ def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def attention_ref(q, k, v, causal: bool = True, scale: float | None = None):
-    """(B, H, S, D) x (B, Hkv, S, D) -> (B, H, S, D), fp32 math; the plain
-    version of the prefill kernel (the reference's ``attention_ref``)."""
+    """q (B, H, S, D), k (B, Hkv, S, D), v (B, Hkv, S, Dv) -> (B, H, S, Dv),
+    fp32 math; the plain version of the prefill kernel (the reference's
+    ``attention_ref``)."""
     b, h, s, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     k = _expand_kv(k, h).float()
@@ -65,20 +71,20 @@ def attention_tc_plain(q, k, v, causal: bool = True,
     logits scaled after the dot and masked to -1e30, P split into bf16 hi
     + lo halves for P·V (``p_halves=1``: rounded once to bf16, which the
     kernel does not do) while its fp32 values are summed, and the sum
-    floored at 1e-30; output in q's type."""
+    floored at 1e-30; output (B, H, Sq, Dv) in q's type."""
     b, h, sq, d = q.shape
-    sk = k.shape[2]
+    sk, dv = k.shape[2], v.shape[-1]
     scale = scale if scale is not None else d ** -0.5
     k = _expand_kv(k, h).float()
     v = _expand_kv(v, h).float()
-    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, sq, dv), dtype=torch.float32, device=q.device)
     for q0 in range(0, sq, TC_TILE):
         q1 = min(q0 + TC_TILE, sq)
         rows = torch.arange(q0, q1, device=q.device)[:, None]
         qf = q[:, :, q0:q1].float()
         m = torch.full((b, h, q1 - q0), NEG_INF, device=q.device)
         l = torch.zeros((b, h, q1 - q0), device=q.device)
-        acc = torch.zeros((b, h, q1 - q0, d), device=q.device)
+        acc = torch.zeros((b, h, q1 - q0, dv), device=q.device)
         for k0 in range(0, q1 if causal else sk, TC_TILE):
             k1 = min(k0 + TC_TILE, sk)
             s = torch.einsum("bhqd,bhkd->bhqk", qf, k[:, :, k0:k1]) * scale
@@ -156,22 +162,36 @@ def merge_splits(acc, m, l, dtype):
     return ((acc * w[..., None]).sum(dim=2) / denom).to(dtype)
 
 
-def _check_kernel_inputs(name: str, q, k, v) -> None:
+def _check_kernel_inputs(name: str, q, k, v, pairs=None) -> None:
     """Raise on what the kernels do not take: a dtype other than fp32 or
-    bf16 (or mixed), a head width outside ``HEAD_DIMS``, a v width other
-    than q's, a non-unit stride along the head width."""
+    bf16 (or mixed), a k width other than q's, a non-unit stride along the
+    width, and widths the kernel is not built for: with ``pairs`` (the
+    prefill kernels) a (q/k width, v width) pair outside it, without (the
+    decode kernels) a head width outside ``HEAD_DIMS`` or a v width other
+    than q's."""
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{name}: dtype must be float32 or bfloat16, got "
                          f"{q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: q, k and v must share one dtype")
-    d = q.shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head width {d} is not one the kernel is "
-                         f"built for {HEAD_DIMS}")
-    if k.shape[-1] != d or v.shape[-1] != d:
-        raise ValueError(f"{name}: k and v widths must equal q's ({d}), got "
-                         f"{k.shape[-1]} and {v.shape[-1]}")
+    d, dv = q.shape[-1], v.shape[-1]
+    if pairs is not None:
+        if k.shape[-1] != d:
+            raise ValueError(f"{name}: k's width must equal q's ({d}), got "
+                             f"{k.shape[-1]}")
+        if (d, dv) not in pairs:
+            raise ValueError(
+                f"{name}: head widths (q/k {d}, v {dv}) are not a pair the "
+                f"kernel is built for: widths must equal, at one of "
+                f"{HEAD_DIMS}, or be "
+                + " or ".join(str(p) for p in pairs if p[0] != p[1]))
+    else:
+        if d not in HEAD_DIMS:
+            raise ValueError(f"{name}: head width {d} is not one the kernel "
+                             f"is built for {HEAD_DIMS}")
+        if k.shape[-1] != d or dv != d:
+            raise ValueError(f"{name}: k and v widths must equal q's ({d}), "
+                             f"got {k.shape[-1]} and {dv}")
     for key, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name}: {key} must be a CUDA tensor")
@@ -203,10 +223,11 @@ def _check_heads(name: str, h: int, hkv: int) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None):
-    """Attention of q (B, H, Sq, D) over k, v (B, Hkv, Sk, D) -> (B, H, Sq,
-    D) in q's type: for CUDA tensors the tensor-core kernel on bf16 and the
-    CUDA-core kernel on fp32, ``attention_ref`` for CPU tensors.  Causal
-    mode needs Sq == Sk."""
+    """Attention of q (B, H, Sq, D) over k (B, Hkv, Sk, D) and v (B, Hkv,
+    Sk, Dv) -> (B, H, Sq, Dv) in q's type: for CUDA tensors the tensor-core
+    kernel on bf16 and the CUDA-core kernel on fp32, each built for the
+    width pairs ``PREFILL_WIDTHS``; ``attention_ref`` for CPU tensors.
+    Causal mode needs Sq == Sk."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D")
     b, h, sq, d = q.shape
@@ -219,7 +240,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if causal and sq != sk:
         raise ValueError(f"flash_attention: causal mode needs Sq == Sk, got "
                          f"{sq} and {sk}")
-    _check_kernel_inputs("flash_attention", q, k, v)
+    _check_kernel_inputs("flash_attention", q, k, v, PREFILL_WIDTHS)
     if sq < 1 or sk < 1:
         raise ValueError("flash_attention: empty sequence")
     if b > 65535 or h > 65535:
@@ -229,7 +250,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         _check_tma("flash_attention", q, k, v)
         if -(-sq // TC_TILE) > 65535:
             raise ValueError("flash_attention: Sq must fit the grid")
-    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, h, sq, v.shape[-1]), dtype=q.dtype, device=q.device)
     ext = kernels.extension()
     launch = ext.flash_attention_sm90 if tensor_cores else ext.flash_attention
     launch(q, k, v, out, float(scale if scale is not None else d ** -0.5),

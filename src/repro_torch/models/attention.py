@@ -9,22 +9,31 @@
 * ``gqa_decode`` — single-token attention over a KV cache masked by
   ``kv_len``: the split-KV decode kernel (``ops.flash_decode``) for CUDA
   tensors, the reference's masked softmax for CPU tensors.
-* MLA (``mla_params`` / ``mla_forward`` / ``mla_decode``) is not ported
-  (ROADMAP §1 item 11); ``MLAConfig`` is copied so that configurations
-  carrying it load.
+* MLA (``mla_params`` / ``mla_forward`` / ``mla_decode``), the
+  DeepSeek/MiniCPM3 multi-head latent attention: queries and KV are
+  low-rank compressed.  ``mla_forward`` (prefill) decompresses K and V per
+  head and attends through ``chunked_attention`` — on the card the prefill
+  kernel at the width pair (q/k ``qk_nope_dim + qk_rope_dim``, v
+  ``v_head_dim``), (96, 64) for MiniCPM3.  ``mla_decode`` is the absorbed
+  form: the query is projected into the KV latent space and attends over
+  the compressed cache in fp32 products, which the reference computes
+  outside any kernel.  As in the reference, RoPE rotates with the default
+  θ in both, whatever the configuration's ``rope_theta`` says, and the
+  logits are scaled by (qk_nope_dim + qk_rope_dim)^-0.5.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import common
 
 NEG_INF = -1e30
-_MLA = "MLA attention is not ported yet (ROADMAP §1 item 11)"
 
 
 def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -113,13 +122,100 @@ class MLAConfig(NamedTuple):
     v_head_dim: int = 64
 
 
-def mla_params(*args, **kwargs):
-    raise NotImplementedError(_MLA)
+def mla_params(gen, d_model: int, n_heads: int, cfg: MLAConfig,
+               dtype=torch.float32, device="cpu", stack=()) -> dict:
+    """The reference's ``mla_params`` tree drawn from ``gen``: dense leaves
+    normal × 1/√(their first dimension) — with a leading ``stack`` of (L,),
+    as the reference stacks layer leaves, that is L — the norms ones."""
+    h, qn, qr, vd = n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    shapes = {"wdq": (d_model, cfg.q_lora_rank),
+              "q_norm": (cfg.q_lora_rank,),
+              "wuq": (cfg.q_lora_rank, h * (qn + qr)),
+              "wdkv": (d_model, cfg.kv_lora_rank + qr),
+              "kv_norm": (cfg.kv_lora_rank,),
+              "wuk": (cfg.kv_lora_rank, h * qn),
+              "wuv": (cfg.kv_lora_rank, h * vd),
+              "wo": (h * vd, d_model)}
+    params = {}
+    for name, shape in shapes.items():
+        full = tuple(stack) + shape
+        if name.endswith("_norm"):
+            params[name] = torch.ones(full, dtype=dtype, device=device)
+        else:
+            w = torch.randn(full, generator=gen, dtype=dtype, device=device)
+            params[name] = w.mul_(1.0 / math.sqrt(max(full[0], 1)))
+    return params
 
 
-def mla_forward(*args, **kwargs):
-    raise NotImplementedError(_MLA)
+def mla_latents(p, x, positions, cfg: MLAConfig):
+    """What the MLA cache holds for x (B, S, d): the normed KV latent c_kv
+    (B, S, kv_lora_rank) and the rotated shared rope key (B, S,
+    qk_rope_dim), RoPE at the default θ."""
+    dkv = x @ p["wdkv"]
+    c_kv = common.rms_norm(dkv[..., :cfg.kv_lora_rank], p["kv_norm"])
+    k_rope = common.rope(dkv[..., cfg.kv_lora_rank:], positions)
+    return c_kv, k_rope
 
 
-def mla_decode(*args, **kwargs):
-    raise NotImplementedError(_MLA)
+def mla_forward(p, x, positions, n_heads: int, cfg: MLAConfig,
+                causal: bool = True, latents=None):
+    """Prefill MLA of x (B, S, d_model) at ``positions`` (B, S): decompress
+    K and V per head and attend (``chunked_attention``).  ``latents`` may
+    pass ``mla_latents``' (c_kv, k_rope) when the caller has them."""
+    b, s, _ = x.shape
+    h, qn, qr, vd = n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    cq = common.rms_norm(x @ p["wdq"], p["q_norm"])
+    q = (cq @ p["wuq"]).reshape(b, s, h, qn + qr)
+    q_rope = common.rope(q[..., qn:].transpose(1, 2),
+                         positions[:, None, :]).transpose(1, 2)
+    c_kv, k_rope = latents if latents is not None else mla_latents(
+        p, x, positions, cfg)
+    k_nope = (c_kv @ p["wuk"]).reshape(b, s, h, qn)
+    v = (c_kv @ p["wuv"]).reshape(b, s, h, vd)
+    # q and k materialised as (B, S, H, qn + qr), as the reference's
+    # concatenate does, and viewed as (B, H, S, .): strides the prefill
+    # kernel's TMA takes; the shared rope key broadcast to every head
+    qh = torch.cat([q[..., :qn], q_rope], dim=-1).transpose(1, 2)
+    kh = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, qr)],
+                   dim=-1).transpose(1, 2)
+    out = chunked_attention(qh, kh, v.transpose(1, 2), causal=causal,
+                            scale=(qn + qr) ** -0.5)
+    return out.transpose(1, 2).reshape(b, s, h * vd) @ p["wo"]
+
+
+def mla_decode(p, x, c_cache, rope_cache, kv_len, n_heads: int,
+               cfg: MLAConfig, q_pos=None):
+    """Absorbed-matmul decode: the query is projected into the KV latent
+    space, so attention runs against the compressed cache directly.
+
+    x: (B, d_model) current token; c_cache: (B, S, kv_lora_rank);
+    rope_cache: (B, S, qk_rope_dim); kv_len: (B,) valid cache entries
+    (including the current token); q_pos: (B,) RoPE position of the query
+    (default kv_len - 1, the current token's position).
+    """
+    b, _ = x.shape
+    h, qn, qr, vd = n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    s = c_cache.shape[1]
+    pos = (q_pos if q_pos is not None else kv_len - 1).float()
+
+    cq = common.rms_norm(x @ p["wdq"], p["q_norm"])
+    q = (cq @ p["wuq"]).reshape(b, h, qn + qr)
+    q_rope = common.rope(q[..., qn:][:, :, None, :],
+                         pos[:, None, None])[:, :, 0]
+    # W_uk absorbed into the query: q_lat (B, H, r)
+    q_lat = torch.einsum("bhn,rhn->bhr", q[..., :qn],
+                         p["wuk"].reshape(r, h, qn))
+    c32 = c_cache.float()
+    logits = (torch.einsum("bhr,bsr->bhs", q_lat.float(), c32)
+              + torch.einsum("bhr,bsr->bhs", q_rope.float(),
+                             rope_cache.float()))
+    logits = logits * ((qn + qr) ** -0.5)
+    mask = torch.arange(s, device=x.device)[None, None, :] \
+        < kv_len[:, None, None]
+    w = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", w, c32)
+    # W_uv absorbed on the way out
+    out = torch.einsum("bhr,rhv->bhv", ctx.to(x.dtype),
+                       p["wuv"].reshape(r, h, vd))
+    return out.reshape(b, h * vd) @ p["wo"]

@@ -1,33 +1,40 @@
-"""Decoder-only transformer of the LM family, dense GQA (Yi-6B, Minitron-8B):
+"""Decoder-only transformer of the LM family: dense GQA (Yi-6B,
+Minitron-8B), MLA (MiniCPM3-4B) and MoE (granite-MoE, Moonlight):
 ``init``, ``forward``, and the serving entry points ``prefill`` and
-``decode_step`` over a KV cache.
+``decode_step`` over a KV cache (GQA) or a latent cache (MLA).
 
 A port of the reference's ``models/transformer.py`` with the same
 parameter tree (``embed``, ``unembed``, ``final_ln`` and ``layers`` whose
 leaves carry a leading (L,) axis) and the same numerics; its
 ``lax.scan`` over layers is a Python loop.  Attention goes through
 ``models.attention``: on the card the prefill and decode kernels, on the
-CPU their plain versions.
+CPU their plain versions; MLA's decode is the reference's absorbed form in
+torch products.  The FFN is a SwiGLU, or ``models.moe.moe_forward`` (the
+reference's branch for no mesh) whose router losses ``forward`` sums.
 
 Kept from the reference on purpose: ``decode_step`` rotates q and k with
 RoPE's default θ = 10,000 whatever ``rope_theta`` says, while ``forward``
 and ``prefill`` use ``rope_theta`` (ROADMAP §3).  The port reproduces the
-reference and does not fix it.
+reference and does not fix it.  (MLA rotates with the default θ
+everywhere, as the reference's ``mla_*`` do.)
 
-One change of form: ``decode_step`` writes the new token's k and v into
-``cache`` in place (one indexed store a layer) and returns the same dict,
-where the reference rebuilds the whole cache with a select.  The values
-are the same.
+One change of form: ``decode_step`` writes the new token's cache rows
+(k and v, or MLA's latent and rope key) into ``cache`` in place (one
+indexed store a layer) and returns the same dict, where the reference
+rebuilds the whole cache.  The values are the same: a GQA write past the
+cache is dropped, as the reference's select drops it; an MLA write at or
+past the cache's end lands on its last row, as ``dynamic_update_slice``
+clamps it.
 
-Not ported (ROADMAP §1 item 11): MoE and MLA configurations raise
-``NotImplementedError``; ``forward_hidden``, ``loss_fn`` and training.
+Not ported (ROADMAP §1 item 11): ``forward_hidden``, ``loss_fn`` and
+training, and MoE under a mesh; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
@@ -35,6 +42,7 @@ from repro_torch.isn.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models.attention import MLAConfig
+from repro_torch.models.moe import MoEConfig, moe_forward, moe_params
 
 _UNPORTED = "is not ported yet (ROADMAP §1 item 11)"
 
@@ -51,7 +59,7 @@ class LMConfig:
     head_dim: int = 128
     attention: str = "gqa"                # "gqa" | "mla"
     mla: Optional[MLAConfig] = None
-    moe: Optional[Any] = None             # the reference's MoEConfig
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
@@ -91,25 +99,37 @@ class LMConfig:
             ff = 3 * c.d_model * c.d_ff
         return embed + c.n_layers * (a + ff + 2 * c.d_model)
 
-
-def _require_dense_gqa(c: LMConfig) -> None:
-    if c.moe is not None:
-        raise NotImplementedError(f"MoE ({c.name}) {_UNPORTED}")
-    if c.attention != "gqa":
-        raise NotImplementedError(f"{c.attention} attention ({c.name}) "
-                                  f"{_UNPORTED}")
+    def active_param_count(self) -> int:
+        """Active parameters a token (MoE: only the routed experts count),
+        counted as the reference counts them."""
+        if self.moe is None:
+            return self.param_count()
+        c, m = self, self.moe
+        f = 3 * c.d_model * m.d_ff_expert
+        dense_ff = (m.top_k + m.n_shared) * f + c.d_model * m.n_experts
+        full = self.param_count()
+        all_ff = m.n_experts * f + m.n_shared * f + c.d_model * m.n_experts
+        return full - c.n_layers * (all_ff - dense_ff)
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-LAYER_KEYS = {"attn": ("wq", "wk", "wv", "wo"),
-              "ffn": ("w_gate", "w_up", "w_down")}
+# the per-layer leaves by group: attention by kind, FFN dense or MoE (and
+# its shared experts)
+ATTN_KEYS = {"gqa": ("wq", "wk", "wv", "wo"),
+             "mla": ("wdq", "q_norm", "wuq", "wdkv", "kv_norm", "wuk", "wuv",
+                     "wo")}
+FFN_KEYS = {"dense": ("w_gate", "w_up", "w_down"),
+            "moe": ("router", "w_gate", "w_up", "w_down"),
+            "shared": ("shared_gate", "shared_up", "shared_down")}
+LAYER_KEYS = {"attn": ATTN_KEYS["gqa"], "ffn": FFN_KEYS["dense"]}
 
 
 def _layer_shapes(c: LMConfig) -> dict:
-    """Shapes of the per-layer matrices, without the leading (L,) axis."""
+    """Shapes of the dense GQA attention and FFN matrices, without the
+    leading (L,) axis."""
     dm, hd = c.d_model, c.head_dim
     return {"wq": (dm, c.n_heads * hd), "wk": (dm, c.n_kv_heads * hd),
             "wv": (dm, c.n_kv_heads * hd), "wo": (c.n_heads * hd, dm),
@@ -124,8 +144,8 @@ def init(c: LMConfig, seed: int = 0, device=None) -> dict:
     Shapes, scales and layout are the reference's (``ParamFactory``): a
     dense leaf is normal × 1/√(its first dimension) — for the stacked
     layer leaves that is the layer count, as in the reference — the
-    embedding normal × 0.02, the norms ones.  The draws differ from JAX's."""
-    _require_dense_gqa(c)
+    embedding and the MoE router normal × 0.02, the norms ones.  The draws
+    differ from JAX's."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -142,10 +162,17 @@ def init(c: LMConfig, seed: int = 0, device=None) -> dict:
 
     n = c.n_layers
     shapes = _layer_shapes(c)
-    layers = {group: {k: dense((n,) + shapes[k]) for k in keys}
-              for group, keys in LAYER_KEYS.items()}
-    layers["ln1"] = ones((n, c.d_model))
-    layers["ln2"] = ones((n, c.d_model))
+    if c.attention == "mla":
+        attn_p = attn.mla_params(gen, c.d_model, c.n_heads, c.mla, dt, dev,
+                                 stack=(n,))
+    else:
+        attn_p = {k: dense((n,) + shapes[k]) for k in ATTN_KEYS["gqa"]}
+    if c.moe is not None:
+        ffn_p = moe_params(gen, c.d_model, c.moe, dt, dev, stack=(n,))
+    else:
+        ffn_p = {k: dense((n,) + shapes[k]) for k in FFN_KEYS["dense"]}
+    layers = {"attn": attn_p, "ffn": ffn_p,
+              "ln1": ones((n, c.d_model)), "ln2": ones((n, c.d_model))}
     return {
         "embed": dense((c.padded_vocab, c.d_model), scale=0.02),
         "unembed": dense((c.d_model, c.padded_vocab)),
@@ -184,15 +211,23 @@ def _attn_out(p, o, c: LMConfig):
 
 
 def _attn_block(p, x, positions, c: LMConfig, causal=True):
+    if c.attention == "mla":
+        return attn.mla_forward(p, x, positions, c.n_heads, c.mla,
+                                causal=causal)
     q, k, v = _qkv(p, x, positions, c)
     o = attn.chunked_attention(q, k, v, causal=causal)
     return _attn_out(p, o, c)
 
 
 def _ffn(lp, x, c: LMConfig):
+    """x + the FFN of its norm, and the layer's router loss (None for a
+    dense FFN); x is (..., d_model), the MoE's tokens all of its rows."""
     h = common.rms_norm(x, lp["ln2"], c.norm_eps)
     f = lp["ffn"]
-    return x + common.swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+    if c.moe is None:
+        return x + common.swiglu(h, f["w_gate"], f["w_up"], f["w_down"]), None
+    y, aux = moe_forward(f, h.reshape(-1, h.shape[-1]), c.moe)
+    return x + y.reshape(h.shape), aux
 
 
 def _layer_fwd(lp, x, positions, c: LMConfig, causal=True):
@@ -210,54 +245,84 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def forward(params, c: LMConfig, tokens, causal=True):
-    """tokens (B, S) -> (logits (B, S, V_pad), aux 0.0)."""
-    _require_dense_gqa(c)
+    """tokens (B, S) -> (logits (B, S, V_pad), the layers' summed router
+    loss: an fp32 scalar, 0.0 without MoE)."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _embed(params, tokens, c)
+    aux = torch.zeros((), device=x.device)
     for i in range(c.n_layers):
-        x = _layer_fwd(layer(params, i), x, positions, c, causal)
+        x, a = _layer_fwd(layer(params, i), x, positions, c, causal)
+        if a is not None:
+            aux = aux + a
     x = common.rms_norm(x, params["final_ln"], c.norm_eps)
-    return x @ params["unembed"], torch.zeros((), device=x.device)
+    return x @ params["unembed"], aux
+
+
+def forward_hidden(*args, **kwargs):
+    raise NotImplementedError(f"forward_hidden {_UNPORTED}")
+
+
+def loss_fn(*args, **kwargs):
+    raise NotImplementedError(f"loss_fn (training) {_UNPORTED}")
 
 
 def prefill(params, c: LMConfig, tokens):
     """Run the prompt through the model, building the decode cache.
 
-    Returns (last-token logits (B, V_pad), cache) — cache {"k", "v"} of
-    (L, B, Hkv, S, hd), the layout of ``init_cache``, so ``decode_step``
-    can continue from it (once padded to the decode length).
+    Returns (last-token logits (B, V_pad), cache) — the layout of
+    ``init_cache`` (GQA: {"k", "v"} of (L, B, Hkv, S, hd); MLA: {"c",
+    "rope"} of (L, B, S, kv_lora_rank) and (L, B, S, qk_rope_dim)), so
+    ``decode_step`` can continue from it (once padded to the decode
+    length).
     """
-    _require_dense_gqa(c)
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = _embed(params, tokens, c)
-    shape = (c.n_layers, b, c.n_kv_heads, s, c.head_dim)
-    cache = {key: torch.empty(shape, dtype=x.dtype, device=x.device)
-             for key in ("k", "v")}
+    cache = {key: torch.empty((c.n_layers,) + shape, dtype=x.dtype,
+                              device=x.device)
+             for key, shape in _cache_shapes(c, b, s).items()}
     for i in range(c.n_layers):
         lp = layer(params, i)
         h = common.rms_norm(x, lp["ln1"], c.norm_eps)
-        q, k, v = _qkv(lp["attn"], h, positions, c)
-        o = attn.chunked_attention(q, k, v, causal=True)
-        cache["k"][i] = k
-        cache["v"][i] = v
-        x = _ffn(lp, x + _attn_out(lp["attn"], o, c), c)
+        if c.attention == "mla":
+            lat = attn.mla_latents(lp["attn"], h, positions, c.mla)
+            o = attn.mla_forward(lp["attn"], h, positions, c.n_heads, c.mla,
+                                 latents=lat)
+            cache["c"][i], cache["rope"][i] = lat
+        else:
+            q, k, v = _qkv(lp["attn"], h, positions, c)
+            o = _attn_out(lp["attn"], attn.chunked_attention(q, k, v,
+                                                             causal=True), c)
+            cache["k"][i] = k
+            cache["v"][i] = v
+        x, _ = _ffn(lp, x + o, c)
     x = common.rms_norm(x[:, -1], params["final_ln"], c.norm_eps)
     return x @ params["unembed"], cache
 
 
 # ---------------------------------------------------------------------------
-# decode (KV cache)
+# decode (KV / latent cache)
 # ---------------------------------------------------------------------------
 
+def _cache_shapes(c: LMConfig, batch: int, length: int) -> dict:
+    """One layer's cache shapes: GQA k and v (B, Hkv, S, hd); MLA the latent
+    c (B, S, kv_lora_rank) and the rope key (B, S, qk_rope_dim)."""
+    if c.attention == "mla":
+        return {"c": (batch, length, c.mla.kv_lora_rank),
+                "rope": (batch, length, c.mla.qk_rope_dim)}
+    kv = (batch, c.n_kv_heads, length, c.head_dim)
+    return {"k": kv, "v": kv}
+
+
 def init_cache(c: LMConfig, batch: int, max_len: int, device=None) -> dict:
-    """Zero k/v caches (L, B, Hkv, max_len, hd) on ``device``."""
-    _require_dense_gqa(c)
+    """Zero caches of ``max_len`` positions on ``device``: GQA k/v (L, B,
+    Hkv, max_len, hd); MLA c (L, B, max_len, kv_lora_rank) and rope (L, B,
+    max_len, qk_rope_dim)."""
     dev = resolve_device(device)
-    shape = (c.n_layers, batch, c.n_kv_heads, max_len, c.head_dim)
-    return {key: torch.zeros(shape, dtype=c.torch_dtype, device=dev)
-            for key in ("k", "v")}
+    return {key: torch.zeros((c.n_layers,) + shape, dtype=c.torch_dtype,
+                             device=dev)
+            for key, shape in _cache_shapes(c, batch, max_len).items()}
 
 
 def _cache_insert(cache, new, kv_len):
@@ -276,32 +341,53 @@ def _cache_insert(cache, new, kv_len):
     return cache
 
 
+def _cache_insert_2d(cache, new, kv_len):
+    """Write new (B, R) into cache (B, S, R) at position kv_len (B,), in
+    place, clamped to [0, S - 1] as the reference's
+    ``dynamic_update_slice`` clamps it: at kv_len >= S the last row is
+    overwritten."""
+    b, s, _ = cache.shape
+    rows = torch.arange(b, device=cache.device)
+    cache[rows, kv_len.long().clamp(0, s - 1)] = new.to(cache.dtype)
+    return cache
+
+
 def decode_step(params, c: LMConfig, token, cache, kv_len):
     """One autoregressive step.
 
     token: (B,) int; kv_len: (B,) current cache fill.  Writes the token's
-    k and v at ``kv_len`` into ``cache`` in place and returns (logits (B,
-    V_pad), cache).  RoPE rotates with the default θ (the reference's
+    cache rows at ``kv_len`` into ``cache`` in place and returns (logits
+    (B, V_pad), cache).  RoPE rotates with the default θ (the reference's
     behaviour, see the module docstring).
     """
-    _require_dense_gqa(c)
     b = token.shape[0]
     hd = c.head_dim
     x = _embed(params, token, c)                         # (B, d)
-    pos = kv_len.float()[:, None, None]
+    pos = kv_len.float()
     for i in range(c.n_layers):
         lp = layer(params, i)
         p = lp["attn"]
         h = common.rms_norm(x, lp["ln1"], c.norm_eps)
-        q = (h @ p["wq"]).reshape(b, c.n_heads, hd)
-        kk = (h @ p["wk"]).reshape(b, c.n_kv_heads, hd)
-        vv = (h @ p["wv"]).reshape(b, c.n_kv_heads, hd)
-        q = common.rope(q[:, :, None, :], pos)[:, :, 0]
-        kk = common.rope(kk[:, :, None, :], pos)[:, :, 0]
-        k_cache = _cache_insert(cache["k"][i], kk, kv_len)
-        v_cache = _cache_insert(cache["v"][i], vv, kv_len)
-        o = attn.gqa_decode(q, k_cache, v_cache, kv_len + 1)
-        x = x + o.reshape(b, c.n_heads * hd) @ p["wo"]
-        x = _ffn(lp, x, c)
+        if c.attention == "mla":
+            r = c.mla.kv_lora_rank
+            dkv = h @ p["wdkv"]
+            c_new = common.rms_norm(dkv[..., :r], p["kv_norm"])
+            rope_new = common.rope(dkv[..., r:][:, None, :],
+                                   pos[:, None])[:, 0]
+            c_cache = _cache_insert_2d(cache["c"][i], c_new, kv_len)
+            rope_cache = _cache_insert_2d(cache["rope"][i], rope_new, kv_len)
+            x = x + attn.mla_decode(p, h, c_cache, rope_cache, kv_len + 1,
+                                    c.n_heads, c.mla)
+        else:
+            q = (h @ p["wq"]).reshape(b, c.n_heads, hd)
+            kk = (h @ p["wk"]).reshape(b, c.n_kv_heads, hd)
+            vv = (h @ p["wv"]).reshape(b, c.n_kv_heads, hd)
+            q = common.rope(q[:, :, None, :], pos[:, None, None])[:, :, 0]
+            kk = common.rope(kk[:, :, None, :], pos[:, None, None])[:, :, 0]
+            k_cache = _cache_insert(cache["k"][i], kk, kv_len)
+            v_cache = _cache_insert(cache["v"][i], vv, kv_len)
+            o = attn.gqa_decode(q, k_cache, v_cache, kv_len + 1)
+            x = x + o.reshape(b, c.n_heads * hd) @ p["wo"]
+        x, _ = _ffn(lp, x, c)
     x = common.rms_norm(x, params["final_ln"], c.norm_eps)
     return x @ params["unembed"], cache

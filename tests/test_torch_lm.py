@@ -7,8 +7,9 @@ logits, ``prefill`` logits and cache, 12 ``decode_step``s from an empty
 cache and 4 from a prefill cache, against the reference, all on the CPU
 (where attention runs its plain versions); ``chunked_attention`` and
 ``gqa_decode`` against the reference's; the reference's decode RoPE fault
-reproduced; the configurations and parameter counts copied; MoE and MLA
-refused.
+reproduced; the configurations and parameter counts copied; what still
+waits (``forward_hidden``, ``loss_fn``, MoE under a mesh) refused.  MoE and
+MLA have their own files (``test_torch_moe.py``, ``test_torch_mla.py``).
 
 Tolerance: 1e-4 of the compared tensor's largest magnitude.  Both sides
 compute in fp32 and add in other orders (matmuls, the softmax sums); the
@@ -27,15 +28,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs import minitron_8b as ref_minitron
-from repro.configs import moonshot_v1_16b_a3b as ref_moonshot
 from repro.configs import yi_6b as ref_yi
 from repro.models import attention as ref_attn
 from repro.models import common as ref_common
 from repro.models import transformer as ref_tr
 from repro_torch import convert
-from repro_torch.configs import minitron_8b, yi_6b
+from repro_torch.configs import minitron_8b, moonshot_v1_16b_a3b, yi_6b
 from repro_torch.models import attention as attn
-from repro_torch.models import common
+from repro_torch.models import common, moe
 from repro_torch.models import transformer as tr
 
 ARCHS = {"yi_6b": (ref_yi, yi_6b), "minitron_8b": (ref_minitron, minitron_8b)}
@@ -306,20 +306,17 @@ def test_numerics_match_reference(dtype):
                                        err_msg=name)
 
 
-def test_moe_and_mla_are_refused():
-    moe = dataclasses.replace(yi_6b.REDUCED, moe=ref_moonshot.REDUCED.moe)
-    mla = dataclasses.replace(yi_6b.REDUCED, attention="mla",
-                              mla=attn.MLAConfig())
+def test_what_waits_raises_naming_item_11():
+    """MoE and MLA serve (``test_torch_moe.py``, ``test_torch_mla.py``);
+    ``forward_hidden``, ``loss_fn`` (training) and the expert-parallel MoE
+    branch under a mesh still wait for item 11 and say so."""
+    c = moonshot_v1_16b_a3b.REDUCED
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    for c in (moe, mla):
-        calls = (lambda: tr.init(c, device="cpu"),
-                 lambda: tr.init_cache(c, 1, 4, device="cpu"),
-                 lambda: tr.forward({}, c, tok),
-                 lambda: tr.prefill({}, c, tok),
-                 lambda: tr.decode_step({}, c, tok[:, 0], {}, tok[:, 0]))
-        for call in calls:
-            with pytest.raises(NotImplementedError, match="item 11"):
-                call()
-    for fn in (attn.mla_params, attn.mla_forward, attn.mla_decode):
+    params = tr.init(c, device="cpu")
+    for call in (lambda: tr.forward_hidden(params, c, tok),
+                 lambda: tr.loss_fn(params, c, tok, tok),
+                 lambda: moe.moe_forward(tr.layer(params, 0)["ffn"],
+                                         torch.zeros((4, c.d_model)), c.moe,
+                                         mesh=object())):
         with pytest.raises(NotImplementedError, match="item 11"):
-            fn()
+            call()
