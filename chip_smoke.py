@@ -343,9 +343,47 @@ order, it
       timed beside the plain path and SDPA, with its TFLOP/s and share of
       the bound on a line of its own (the ``kernels`` line keeps kernel 8's
       Yi-6B row);
-19. prints the total elapsed time, the ``kernels`` JSON line (ten rows:
-    the nine TPU kernels and ``level_histogram``; the launches of kernels
-    1-3 are step 7's; the library time of kernels 1 and 2 an
+19. train phase (LM training: ``forward_hidden`` and ``loss_fn`` of
+   ``models/transformer``, ``train/*``, ``data/*``, kernel 8's backward),
+   once the served models are freed:
+   a. card = CPU: Yi-6B, granite-MoE and MiniCPM3 at full width, 2 layers,
+      fp32, ``remat="full"``, drawn once on the card at 1/√(fan-in) and
+      copied to the host; three ``make_train_step`` steps (default AdamW)
+      of 2 x 64 tokens from ``lm_batches`` on each: losses and grad norms
+      within 1e-5 (relative), the parameters within 4 x Σ lr of the CPU's
+      (AdamW moves an entry about lr a step whatever its gradient's size,
+      so a near-zero gradient whose sign differs by rounding moves it the
+      other way; the count of entries past 1e-6 is logged), the MoE
+      model's layer-0 experts and capacity drops equal; the card's first
+      kernel-8 backward call recorded;
+   b. full width: Yi-6B in bf16 at its published widths, 8 of its 32
+      layers (32 layers' parameters, grads and fp32 moments alone would
+      be ≈ 72.7 GB), ``remat="full"``, three ``make_train_step`` steps of
+      2 x 4,096 tokens from ``lm_batches`` through ``PrefetchingLoader``,
+      counted from 0: kernel 8's forward twice a layer and step (the
+      forward, then its recomputation), its backward once, no decode;
+      finite losses and grad norms, the parameters moved; prints each
+      step's wall (CUDA events), tokens a second and peak memory;
+   c. the loop: ``train_loop.run`` at Yi-6B's REDUCED size on the card,
+      checkpoints every 5 of 12 steps in a temporary directory, a crash at
+      step 7, then a resume from step 5 (data from
+      ``data_cursor_after_restart``) to the end: its losses within 1e-5 of
+      the same steps of an uninterrupted run;
+   d. kernel 8's backward row: the recorded calls of a and b and edge
+      cases at every built width pair in fp32 and bf16 (GQA groups 1, 3
+      and 8, causal and not, ragged S 1, 129, 200, 300 and 1,000) against
+      ``flash_attention_backward_plain`` on dq, dk and dv (fp32 within 1e-4
+      of max(1, |want|), bf16 within ``BF16_TOL``), every call launched
+      twice with the same bits, the forward's log-sum-exp against
+      ``attention_ref``'s; the bf16 Yi-6B call timed beside the plain
+      version and ``scaled_dot_product_attention``'s backward (k and v
+      repeated to every head outside the timed call), with its TFLOP/s and
+      share of the bound, and the fp32 kernels on the fp32 call on a line
+      of their own;
+20. prints the total elapsed time, the ``kernels`` JSON line (eleven
+    rows: the nine TPU kernels, kernel 8's backward and
+    ``level_histogram``; the launches of kernels 1-3 are step 7's, the
+    backward's step 19b's; the library time of kernels 1 and 2 an
     ``index_add_`` over the (query, lane) pairs each adds), then the card
     line, then the result.
 
@@ -353,7 +391,9 @@ Any failed check exits non-zero without the result line.  ``--n-docs``
 and ``--batches`` shrink the retrieval phases for a quick check,
 ``--lm-layers``, ``--lm-prompt`` and ``--lm-steps`` the LM phase (and,
 below their defaults, the MoE and MLA phase: each model at most
-``--lm-layers`` layers, prompts and steps at most those given);
+``--lm-layers`` layers, prompts and steps at most those given; and the
+train phase's full-width run: at most ``--lm-layers`` layers and
+``--lm-prompt`` tokens a sequence);
 ``--profile`` adds a ``torch.profiler`` breakdown of one more served batch
 of each preset (wall, device busy time, host time per cascade stage,
 busiest device kernels) and of one more LM prefill and decode step.
@@ -422,6 +462,14 @@ KERNELS = {
     "flash_decode": dict(
         source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:136"),
+    # training's backward of kernel 8: the reference differentiates its
+    # jnp chunked_attention (no Pallas backward kernel)
+    "flash_attention_backward": dict(
+        source="src/repro_torch/kernels/flash_attention/"
+               "flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:77 (its "
+                 "backward: jax.grad of src/repro/models/attention.py:35 "
+                 "chunked_attention; no Pallas kernel)"),
     # the fit's split histograms: no TPU kernel, but a float scatter-add
     # whose order the card must keep (ROADMAP rule d)
     "level_histogram": dict(
@@ -435,6 +483,7 @@ LAXMAP_KERNELS = ("impact_accumulate_bucketed", "blockmax_score_bucketed",
                   "score_histogram")
 LM_KERNELS = ("flash_attention", "flash_decode")
 FIT_KERNELS = ("level_histogram", "boost_update")
+TRAIN_KERNELS = ("flash_attention", "flash_attention_backward")
 # kernels 1 and 2 (one block per tile and query group over the shard's
 # mirror) and 3 (one cluster per query, match records), and the plain twins
 # of their arithmetic, in the same modules
@@ -449,7 +498,8 @@ TWINS = {"impact_accumulate_batched": "impact_accumulate_grouped",
 # histogram alone), behind score_histogram and histogram_topk
 WRAPPERS = {"score_histogram": "histogram_select"}
 SERVE_KERNELS = tuple(n for n in KERNELS
-                      if n not in LAXMAP_KERNELS + LM_KERNELS + FIT_KERNELS)
+                      if n not in LAXMAP_KERNELS + LM_KERNELS + FIT_KERNELS
+                      + TRAIN_KERNELS)
 RETRIEVAL_KERNELS = SERVE_KERNELS + LAXMAP_KERNELS
 
 # LM phase (Yi-6B)
@@ -471,6 +521,19 @@ MM_XC_LEN, MM_XC_STEPS = 256, 4
 MM_PROMPT, MM_STEPS = 1024, 8
 MM_LAYERS = {"granite_moe_3b_a800m": 32, "moonshot_v1_16b_a3b": 12,
              "minicpm3_4b": 62}
+# train phase: the fp32 card-vs-CPU steps (2 layers at full width, batch x
+# sequence, steps) of three configurations, the bf16 Yi-6B steps (layers,
+# batch, sequence, steps: 8 of 32 layers, as 32 layers' parameters, grads
+# and fp32 moments alone would be ≈ 72.7 GB), the crash-resume loop at
+# REDUCED size, and the tolerances: the card's fp32 losses and grad norms
+# against the CPU's (relative); the backward kernel against its plain
+# version in fp32, of max(1, |want|) (bf16: BF16_TOL)
+TRAIN_XC_CONFIGS = ("yi_6b", "granite_moe_3b_a800m", "minicpm3_4b")
+TRAIN_XC = dict(batch=2, seq=64, steps=3)
+TRAIN_FULL = dict(layers=8, batch=2, seq=4096, steps=3)
+TRAIN_LOOP = dict(steps=12, ckpt_every=5, fail_at=7, batch=4, seq=64)
+TRAIN_LOSS_TOL = 1e-5
+BWD_F32_TOL = 1e-4
 # fit phase: the query log the systems are fitted from, and the fit's seed
 FIT_QUERIES, FIT_SEED = 4096, 5
 # cli phase: the serving CLI at the reference CLI's defaults (paper_200ms,
@@ -643,7 +706,8 @@ def kernel_modules():
             "qd_feature_gather_lanes": qd, "dense_topk_tiles": dt,
             "impact_accumulate_bucketed": ia, "blockmax_score_bucketed": bm,
             "score_histogram": sh, "flash_attention": fa,
-            "flash_decode": fa, "level_histogram": lh, "boost_update": lh}
+            "flash_decode": fa, "level_histogram": lh, "boost_update": lh,
+            "flash_attention_backward": fa}
 
 
 class Recorder:
@@ -764,6 +828,26 @@ def lm_work(name, args, kw):
             4 * h * d * valid, rate)
 
 
+def bwd_work(args, kw):
+    """(bytes, ops, ops per second) of kernel 8's backward: q, k, v, o, dO
+    and the log-sum-exp read once, dQ, dK and dV written once; five
+    products a (query, key) pair it must score — S and dQ and dK at the
+    q/k width, dP and dV at the v width: 2·(3·D + 2·Dv) operations — the
+    pairs on or below the diagonal when causal; bf16 inputs at the bf16
+    tensor-core rate, fp32 at the fp32 rate."""
+    import torch
+    q, k, v, o, lse, do = args
+    rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    b, h, sq, d = q.shape
+    sk, dv = k.shape[2], v.shape[-1]
+    pairs = (b * h * sq * (sq + 1) // 2 if kw.get("causal", True)
+             else b * h * sq * sk)
+    el = q.element_size()
+    nbytes = el * 2 * (q.numel() + k.numel() + v.numel() + o.numel()) \
+        + 4 * lse.numel()
+    return nbytes, 2 * pairs * (3 * d + 2 * dv), rate
+
+
 def work_of(name, args, kw):
     """(bytes, ops, ops per second) the call must move and do on these
     inputs.  Kernels 1 and 2: ``batched_work``.  Stage-2 gather:
@@ -788,6 +872,8 @@ def work_of(name, args, kw):
                 FP32_FLOPS_PER_S)
     if name in LM_KERNELS:
         return lm_work(name, args, kw)
+    if name == "flash_attention_backward":
+        return bwd_work(args, kw)
     if name == "impact_accumulate_bucketed":
         docs_b, imps_b, lstar, *lens = args     # the row lengths, if given
         n_tiles, tile_d = docs_b.shape[0], kw["tile_d"]
@@ -2357,6 +2443,413 @@ def tc_plain_error(label, got, args, kw):
     want = fa.attention_tc_plain(*args, **kw)
     torch.cuda.synchronize()
     return compare_attention(f"{label} (tensor-core plain)", got, want)
+
+
+# ---------------------------------------------------------------------------
+# LM training: card = CPU steps, Yi-6B at full width, kernel 8's backward,
+# the crash-resume loop
+# ---------------------------------------------------------------------------
+
+def train_batches(c, batch, seq, device, start_index=0):
+    """``lm_batches`` of ``c``'s vocabulary through the prefetching loader
+    onto ``device``."""
+    from repro_torch.data import synthetic
+    from repro_torch.data.pipeline import PrefetchingLoader
+    return PrefetchingLoader(synthetic.lm_batches(
+        c.vocab, batch, seq, seed=SEED % 10_000, start_index=start_index),
+        device=device)
+
+
+def lm_step_fn(c):
+    """``make_train_step`` over ``loss_fn`` of ``c`` at the default AdamW
+    settings."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import train_loop
+    return train_loop.make_train_step(
+        lambda p, b: tr.loss_fn(p, c, b["tokens"], b["labels"]),
+        train_loop.TrainConfig())
+
+
+def train_cross_check(dev, name):
+    """A 2-layer model of ``name`` at full width in fp32, ``remat="full"``,
+    drawn once on the card at 1/√(fan-in) and copied to the host: three
+    ``make_train_step`` steps on each device from the same parameters and
+    batches (module docstring, 19a).  The losses and grad norms of every
+    step within ``TRAIN_LOSS_TOL`` of the CPU's; the parameters after the
+    last step within 4 × Σ lr of the CPU's at every entry (AdamW moves an
+    entry by about lr a step whatever its gradient's size, so a gradient
+    near 0 whose sign differs by rounding moves it the other way; every
+    other entry agrees far closer, logged); for an MoE model the experts
+    and capacity drops of layer 0 in the first forward equal.  Returns
+    the card's first kernel-8 backward call and the CPU side's wall."""
+    import importlib
+
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import optimizer
+    from repro_torch.train.tree import leaves
+    c = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+    c = dataclasses.replace(c, n_layers=2, dtype="float32", remat="full")
+    card = fan_in_scale(tr.init(c, seed=SEED, device=dev))
+    host = tree_to(card, "cpu")
+    gen = synthetic.lm_batches(c.vocab, TRAIN_XC["batch"], TRAIN_XC["seq"],
+                               seed=SEED % 10_000)
+    batches = [next(gen) for _ in range(TRAIN_XC["steps"])]
+    step = lm_step_fn(c)
+    walls, runs = {}, {}
+    for side, params in (("card", card), ("cpu", host)):
+        dv = dev if side == "card" else "cpu"
+        opt = optimizer.init(params)
+        losses, norms, lrs = [], [], []
+        rec = Recorder(("flash_attention_backward",), first=True, clone=True)
+        moe = FirstMoEInput()
+        t = time.perf_counter()
+        with rec, moe:
+            for i, b in enumerate(batches):
+                b = {k: torch.from_numpy(v).to(dv) for k, v in b.items()}
+                params, opt, loss, m = step(params, opt, b)
+                losses.append(float(loss))
+                norms.append(float(m["grad_norm"]))
+                lrs.append(float(m["lr"]))
+        walls[side] = time.perf_counter() - t
+        with torch.no_grad():
+            routes = moe.routes() if c.moe is not None else None
+        runs[side] = dict(params=params, losses=losses, norms=norms,
+                          lrs=lrs, routes=routes, calls=rec.calls)
+    a, b = runs["card"], runs["cpu"]
+    e_loss = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                     b["losses"]))
+    e_norm = max(abs(x - y) / abs(y) for x, y in zip(a["norms"], b["norms"]))
+    bound = 4 * sum(b["lrs"])
+    e_par, n_far, n_all = 0.0, 0, 0
+    for x, y in zip(leaves(a["params"]), leaves(b["params"])):
+        d = (x.cpu() - y).abs()
+        e_par = max(e_par, float(d.max()))
+        n_far += int((d > 1e-6 * y.abs().clamp(min=1.0)).sum())
+        n_all += d.numel()
+    log(f"train cross-check {c.name}: 2 layers fp32 remat=full, "
+        f"{c.param_count()} parameters, {TRAIN_XC['steps']} steps of "
+        f"{TRAIN_XC['batch']} x {TRAIN_XC['seq']} tokens: losses card "
+        f"{a['losses']} CPU {b['losses']} (largest relative difference "
+        f"{e_loss:.3e}), grad norms {e_norm:.3e} apart; parameters at most "
+        f"{e_par:.3e} apart (bound 4 x sum lr = {bound:.3e}), {n_far} of "
+        f"{n_all} entries beyond 1e-6 of max(1, |cpu|); walls card "
+        f"{walls['card']:.2f} s (first calls), CPU {walls['cpu']:.2f} s")
+    if c.moe is not None:
+        (ae, ak, _), (be, bk, gap) = a["routes"], b["routes"]
+        log(f"train cross-check {c.name}: layer 0 routes card = CPU "
+            f"experts {torch.equal(ae, be)}, drops {torch.equal(ak, bk)}, "
+            f"{int((~bk).sum())} pairs dropped, smallest gate gap "
+            f"{float(gap.min()):.3e}")
+        check(torch.equal(ae, be) and torch.equal(ak, bk),
+              f"train cross-check {c.name}: layer 0's experts or drops "
+              f"differ")
+    check(e_loss <= TRAIN_LOSS_TOL and e_norm <= TRAIN_LOSS_TOL,
+          f"train cross-check {c.name}: losses or grad norms differ by "
+          f"{e_loss} / {e_norm}")
+    check(e_par <= bound, f"train cross-check {c.name}: parameters differ "
+          f"by {e_par} > {bound}")
+    calls = a["calls"]["flash_attention_backward"]
+    check(calls, f"train cross-check {c.name}: kernel 8's backward never "
+          f"ran on the card")
+    return calls[0], walls["cpu"]
+
+
+def train_full_width(dev, n_layers, seq):
+    """Yi-6B in bf16 at its published widths, ``n_layers`` of its 32 layers,
+    ``remat="full"``, drawn on the card at 1/√(fan-in): three
+    ``make_train_step`` steps of ``TRAIN_FULL["batch"]`` x ``seq`` tokens
+    from ``lm_batches`` through the prefetching loader (module docstring,
+    19b), counted from 0: kernel 8's forward twice a layer and step (the
+    forward, then its recomputation), its backward once, no decode.
+    Finite losses and grad norms, the parameters moved; logs each step's
+    wall (CUDA events), tokens a second and peak memory.  Returns the
+    recorded backward call of the first step."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import yi_6b
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import optimizer
+    from repro_torch.train.tree import leaves
+    c = dataclasses.replace(yi_6b.CONFIG, n_layers=n_layers)
+    t = time.perf_counter()
+    params = fan_in_scale(tr.init(c, seed=SEED, device=dev))
+    opt = optimizer.init(params)
+    wq0 = params["layers"]["attn"]["wq"][0, :4].clone()
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in leaves(params))
+    log(f"train Yi-6B: {n_layers} of 32 layers, bf16, remat=full, "
+        f"{n_par} parameters drawn in {time.perf_counter() - t:.1f} s")
+    step = lm_step_fn(c)
+    loader = train_batches(c, TRAIN_FULL["batch"], seq, dev)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, norms = [], [], []
+    rec = Recorder(("flash_attention_backward",), first=True, clone=True)
+    with rec:
+        for _ in range(TRAIN_FULL["steps"]):
+            batch = next(loader)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, opt, loss, m = step(params, opt, batch)
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(start.elapsed_time(end))
+            losses.append(float(loss))
+            norms.append(float(m["grad_norm"]))
+    loader.close()
+    launches = dict(kernels.LAUNCHES)
+    tokens = TRAIN_FULL["batch"] * seq
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"train Yi-6B: {TRAIN_FULL['steps']} steps of "
+        f"{TRAIN_FULL['batch']} x {seq} tokens: walls ms "
+        + " ".join(f"{w:.1f}" for w in walls)
+        + f" (CUDA events), {tokens / (min(walls[1:] or walls) / 1e3):.0f} "
+        f"tokens/s at the fastest later step, losses {losses}, grad norms "
+        f"{norms}, peak memory {peak:.2f} GB; launches {launches}")
+    moved = not torch.equal(params["layers"]["attn"]["wq"][0, :4], wq0)
+    n = n_layers * TRAIN_FULL["steps"]
+    check(all(math.isfinite(x) for x in losses + norms),
+          "train Yi-6B: non-finite loss or grad norm")
+    check(moved, "train Yi-6B: the parameters did not move")
+    check(launches["flash_attention"] == 2 * n
+          and launches["flash_attention_backward"] == n
+          and launches["flash_decode"] == 0,
+          f"train Yi-6B: launches {launches}, want flash_attention {2 * n}, "
+          f"flash_attention_backward {n}")
+    calls = rec.calls["flash_attention_backward"]
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return calls[0], launches["flash_attention_backward"]
+
+
+def train_loop_check(dev):
+    """``train_loop.run`` on the card at Yi-6B's REDUCED size with
+    checkpoints every ``TRAIN_LOOP["ckpt_every"]`` steps (module docstring,
+    19c): a run that crashes at ``fail_at`` after its checkpoint, then a
+    run that resumes from it (its data from ``data_cursor_after_restart``)
+    to the end and saves; its losses equal, within ``TRAIN_LOSS_TOL``, to
+    those of the same steps of an uninterrupted run; both launch kernel 8
+    and its backward."""
+    import tempfile
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import yi_6b
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import elastic, train_loop
+    from repro_torch.train.checkpoint import CheckpointManager
+    c = yi_6b.REDUCED
+    cfg = dict(steps=TRAIN_LOOP["steps"], ckpt_every=TRAIN_LOOP["ckpt_every"],
+               log_every=TRAIN_LOOP["ckpt_every"])
+    bs, seq = TRAIN_LOOP["batch"], TRAIN_LOOP["seq"]
+
+    def loss_fn(p, b):
+        return tr.loss_fn(p, c, b["tokens"], b["labels"])
+
+    def params():
+        return tr.init(c, seed=SEED, device=dev)
+    kernels.reset_launches()
+    loaders = []
+
+    def data(start=0):
+        loaders.append(train_batches(c, bs, seq, dev, start))
+        return loaders[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = train_loop.TrainConfig(ckpt_dir=f"{tmp}/whole", **cfg)
+        _, _, ref = train_loop.run(params(), loss_fn, data(), whole)
+        split = train_loop.TrainConfig(ckpt_dir=f"{tmp}/split", **cfg)
+        crashed = None
+        try:
+            train_loop.run(params(), loss_fn, data(), split,
+                           fail_at=TRAIN_LOOP["fail_at"])
+        except RuntimeError as e:
+            crashed = str(e)
+        check(crashed is not None,
+              "train loop: the injected failure did not fire")
+        log(f"train loop: {crashed}")
+        steps = CheckpointManager(split.ckpt_dir).list_steps()
+        resume_at = steps[-1]
+        cursor = elastic.data_cursor_after_restart(resume_at, bs)
+        _, opt, losses = train_loop.run(params(), loss_fn, data(cursor),
+                                        split)
+        final = CheckpointManager(split.ckpt_dir).list_steps()
+    for loader in loaders:
+        loader.close()
+    launches = dict(kernels.LAUNCHES)
+    e = max(abs(x - y) / abs(y) for x, y in zip(losses, ref[resume_at:]))
+    log(f"train loop: {c.name} on the card, {cfg['steps']} steps, "
+        f"checkpoints {steps} before the crash, resumed at {resume_at} "
+        f"(cursor {cursor}), {len(losses)} steps to {final}; losses "
+        f"{losses} against the uninterrupted run's {ref[resume_at:]} "
+        f"(largest relative difference {e:.3e}); launches {launches}")
+    check(resume_at == TRAIN_LOOP["ckpt_every"] and int(opt.step) ==
+          cfg["steps"] and final[-1] == cfg["steps"],
+          f"train loop: resumed at {resume_at}, ended at {int(opt.step)}, "
+          f"checkpoints {final}")
+    check(e <= TRAIN_LOSS_TOL, f"train loop: the resumed losses differ by "
+          f"{e}")
+    check(launches["flash_attention"] > 0
+          and launches["flash_attention_backward"] > 0,
+          f"train loop: launches {launches}")
+
+
+def bwd_edge_calls(dev):
+    """Seeded edge inputs of kernel 8's backward, drawn on the card, at
+    every built width pair in fp32 and bf16: GQA groups 1, 3 and 8, causal
+    and not, ragged S (1, 129, 200, 300), one of 1,000 keys; each as
+    (q, k, v, dO) with its forward from the kernel."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+
+    def randn(shape, dt, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale).to(dt)
+    calls = []
+    for dt in (torch.float32, torch.bfloat16):
+        for d, dv in fa.PREFILL_WIDTHS:
+            for b, h, hkv, s, causal in ((2, 4, 4, 129, True),
+                                         (1, 6, 2, 200, False),
+                                         (1, 8, 1, 300, True),
+                                         (2, 3, 1, 1, False)):
+                calls.append(((randn((b, h, s, d), dt, 0.5),
+                               randn((b, hkv, s, d), dt, 0.5),
+                               randn((b, hkv, s, dv), dt),
+                               randn((b, h, s, dv), dt)), causal))
+        calls.append(((randn((1, 8, 1000, 128), dt, 0.5),
+                       randn((1, 1, 1000, 128), dt, 0.5),
+                       randn((1, 1, 1000, 128), dt),
+                       randn((1, 8, 1000, 128), dt)), True))
+    return calls
+
+
+def bwd_error(label, got, want):
+    """The largest error of (dq, dk, dv) against the plain version, of
+    max(1, |want|); raises beyond ``BF16_TOL`` (bf16) or ``BWD_F32_TOL``
+    (fp32)."""
+    import torch
+    err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{label}: {name} {tuple(g.shape)} {g.dtype} vs "
+              f"{tuple(w.shape)} {w.dtype}")
+        check(bool(torch.isfinite(g.float()).all()), f"{label}: non-finite "
+              f"{name}")
+        err = max(err, bf16_rel_err(g, w))
+    tol = BF16_TOL if got[0].dtype == torch.bfloat16 else BWD_F32_TOL
+    check(err <= tol, f"{label}: error {err} of max(1, |want|) > {tol}")
+    return err
+
+
+def bwd_check(label, args, kw):
+    """One backward call: the kernel twice (the same bits), the plain
+    version; returns the error."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    got = fa.flash_attention_backward(*args, **kw)
+    again = fa.flash_attention_backward(*args, **kw)
+    want = fa.flash_attention_backward_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{label}: two launches on the same inputs differ")
+    return bwd_error(label, got, want)
+
+
+def sdpa_backward_call(args, kw):
+    """``scaled_dot_product_attention``'s backward on the call's q, k, v
+    and dO, k and v repeated to every query head outside the timed call
+    (with ``enable_gqa`` PyTorch takes its math path for a backward); a
+    yardstick, used nowhere in the port."""
+    import torch
+    q, k, v, _, _, do = args
+    group = q.shape[1] // k.shape[1]
+    leaves = [q.detach().requires_grad_(True),
+              k.repeat_interleave(group, 1).requires_grad_(True),
+              v.repeat_interleave(group, 1).requires_grad_(True)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=kw.get("causal", True), scale=kw.get("scale"))
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def bwd_kernel_row(dev, recorded, launches):
+    """Kernel 8's backward row (module docstring, 19d): the recorded calls
+    (the fp32 cross-checks' and the bf16 Yi-6B step's), the edge cases and
+    each built width pair against ``flash_attention_backward_plain``, two
+    launches bit-equal; the forward's log-sum-exp against
+    ``attention_ref``'s; the bf16 Yi-6B call timed beside the plain
+    version and SDPA's backward."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for args, kw in recorded:
+        errs[args[0].dtype] = max(errs[args[0].dtype], bwd_check(
+            f"flash_attention_backward {tuple(args[0].shape)}", args, kw))
+    edges = bwd_edge_calls(dev)
+    e_lse = 0.0
+    for (q, k, v, do), causal in edges:
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        _, lse_ref = fa.attention_ref(q, k, v, causal=causal,
+                                      return_lse=True)
+        e_lse = max(e_lse, float(((lse - lse_ref).abs()
+                                  / lse_ref.abs().clamp(min=1.0)).max()))
+        errs[q.dtype] = max(errs[q.dtype], bwd_check(
+            f"flash_attention_backward edge {tuple(q.shape)} "
+            f"{tuple(v.shape)} causal={causal}", (q, k, v, o, lse, do),
+            dict(causal=causal)))
+    log(f"kernel flash_attention_backward: {len(recorded)} recorded calls "
+        f"and {len(edges)} edge cases, every built width pair "
+        f"{fa.PREFILL_WIDTHS}, two launches bit-equal on each; worst error "
+        f"of max(1, |want|) fp32 {errs[torch.float32]:.3e} (bar "
+        f"{BWD_F32_TOL}), bf16 {errs[torch.bfloat16]:.3e} (bar {BF16_TOL}); "
+        f"forward log-sum-exp against attention_ref {e_lse:.3e}")
+    check(e_lse <= BWD_F32_TOL, f"flash_attention lse: error {e_lse}")
+    args, kw = max((c for c in recorded if c[0][0].dtype == torch.bfloat16),
+                   key=lambda c: bwd_work(*c)[1])
+    row = kernel_row("flash_attention_backward", fa.flash_attention_backward,
+                     fa.flash_attention_backward_plain, sdpa_backward_call,
+                     args, kw, errs[torch.bfloat16],
+                     f"the bf16 Yi-6B training call {tuple(args[0].shape)}")
+    ops = bwd_work(args, kw)[1]
+    log(f"kernel flash_attention_backward ({tuple(args[0].shape)}, bf16, "
+        f"mma.sync): {ops / row['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; SDPA's "
+        f"backward {ops / row['library_ms'] / 1e9:.1f} TFLOP/s, "
+        f"{100 * row['bound_ms'] / row['library_ms']:.1f} %")
+    fp32 = max((c for c in recorded if c[0][0].dtype == torch.float32),
+               key=lambda c: bwd_work(*c)[1])
+    kernel_row("flash_attention_backward", fa.flash_attention_backward,
+               fa.flash_attention_backward_plain, sdpa_backward_call, *fp32,
+               errs[torch.float32], f"fp32 CUDA-core kernels on the fp32 "
+               f"cross-check's call {tuple(fp32[0][0].shape)}")
+    row["launches"] = launches
+    return row
+
+
+def train_phase(dev, lm_layers, lm_prompt):
+    """The train phase (module docstring, 19): the fp32 card-vs-CPU steps of
+    Yi-6B, granite-MoE and MiniCPM3, the bf16 Yi-6B steps at full width
+    (``lm_layers`` and ``lm_prompt`` cut its depth and sequence in a quick
+    run), the crash-resume loop, and kernel 8's backward row."""
+    import torch
+    from repro_torch.configs import yi_6b
+    recorded, cpu_s = [], 0.0
+    for name in TRAIN_XC_CONFIGS:
+        call, wall = train_cross_check(dev, name)
+        recorded.append(call)
+        cpu_s += wall
+        torch.cuda.empty_cache()
+    log(f"train cross-checks: the CPU side took {cpu_s:.1f} s")
+    n_layers = TRAIN_FULL["layers"]
+    if lm_layers < yi_6b.CONFIG.n_layers:
+        n_layers = min(n_layers, lm_layers)
+    call, launches = train_full_width(dev, n_layers,
+                                      min(TRAIN_FULL["seq"], lm_prompt))
+    recorded.append(call)
+    train_loop_check(dev)
+    return bwd_kernel_row(dev, recorded, launches)
 
 
 def lm_phase(dev, n_layers, prompt, steps, profile=False):
@@ -5374,6 +5867,13 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     torch.cuda.empty_cache()
     moe_mla_phase(dev, lm_layers, lm_prompt, lm_steps, profile)
     lap("moe_mla")
+
+    # LM training: card = CPU, Yi-6B at full width, kernel 8's backward,
+    # the crash-resume loop
+    torch.cuda.empty_cache()
+    rows["flash_attention_backward"] = train_phase(dev, lm_layers,
+                                                   lm_prompt)
+    lap("train")
     log("phase walls s: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                       walls.items()))
     return card, rows

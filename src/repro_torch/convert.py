@@ -19,6 +19,9 @@ unless the caller asks for the CPU):
   ``unembed``, ``final_ln``, stacked ``layers`` with GQA or MLA attention
   and a dense or MoE FFN) → the port's tree of tensors
   (``repro_torch.models.transformer``);
+* the reference's AdamW state (``train.optimizer.OptState``: fp32 moment
+  trees beside the parameters, an int32 step) → the port's
+  ``repro_torch.train.optimizer.OptState``;
 * a reference ``CascadeSpec`` → the port's, through its JSON;
 * the reference's in-step Stage-0 ensemble (``repro.isn.shard.ForestArrays``)
   → the port's ``repro_torch.isn.shard.ForestArrays``.
@@ -39,6 +42,7 @@ from repro_torch.ltr.ranker import LTRModel
 from repro_torch.models.recsys import SIDES, TwoTower
 from repro_torch.models.transformer import ATTN_KEYS, FFN_KEYS
 from repro_torch.serving.spec import CascadeSpec
+from repro_torch.train.optimizer import OptState
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -131,6 +135,23 @@ def lm_params(ref_params, device=None, dtype=None) -> dict:
               for k in ("embed", "unembed", "final_ln")}
     params["layers"] = layers
     return params
+
+
+def opt_state(ref_opt, device=None, like=None) -> OptState:
+    """The reference's AdamW state as the port's on ``device``: each moment
+    leaf as an fp32 tensor, read by the keys of ``like`` (the port's
+    parameter tree; the reference's moment tree when None), and the step
+    as an int32 scalar."""
+    dev = resolve_device(device)
+
+    def tree(ref, shape):
+        return {k: tree(ref[k], v) if isinstance(v, dict)
+                else _lm_leaf(ref[k], dev, torch.float32)
+                for k, v in shape.items()}
+    like = like if like is not None else ref_opt.m
+    step = torch.tensor(int(np.asarray(ref_opt.step)), dtype=torch.int32,
+                        device=dev)
+    return OptState(tree(ref_opt.m, like), tree(ref_opt.v, like), step)
 
 
 def cascade_spec(ref_spec) -> CascadeSpec:

@@ -5,11 +5,12 @@ level histograms and boosting update (``level_histogram``).
 
 Each package holds ``<name>.cu`` (the CUDA C++ kernel and a plain-C launch
 function; ``flash_attention`` has a second, ``flash_attention_sm90.cu``,
-for bf16 prefill on the tensor cores) and ``ops.py`` (the wrapper the
-engines import, and the plain PyTorch version of the same function over
-the same layout).  A wrapper
-launches the kernel for CUDA tensors and runs the plain version for CPU
-tensors; there is no fallback between the two.  ``term_table.cuh`` and
+for bf16 prefill on the tensor cores, and a third,
+``flash_attention_bwd.cu``, for the prefill's backward in training) and
+``ops.py`` (the wrapper the engines import, and the plain PyTorch version
+of the same function over the same layout).  A wrapper launches the
+kernel for CUDA tensors and runs the plain version for CPU tensors; there
+is no fallback between the two.  ``term_table.cuh`` and
 ``term_table.py`` hold the query-group term table that the batched mirror
 kernels (``impact_accumulate``, ``blockmax_score``) build in shared
 memory, and its PyTorch form for their plain twins; ``topk_select.cuh``
@@ -37,7 +38,7 @@ KERNEL_NAMES = ("impact_accumulate_batched", "blockmax_score_batched",
                 "qd_feature_gather_lanes", "dense_topk_tiles",
                 "impact_accumulate_bucketed", "blockmax_score_bucketed",
                 "score_histogram", "flash_attention", "flash_decode",
-                "level_histogram", "boost_update")
+                "level_histogram", "boost_update", "flash_attention_backward")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _HERE = Path(__file__).resolve().parent
@@ -49,6 +50,7 @@ SOURCES = (_HERE / "binding.cpp",
            _HERE / "score_histogram" / "score_histogram.cu",
            _HERE / "flash_attention" / "flash_attention.cu",
            _HERE / "flash_attention" / "flash_attention_sm90.cu",
+           _HERE / "flash_attention" / "flash_attention_bwd.cu",
            _HERE / "level_histogram" / "level_histogram.cu")
 BUILD_DIR = _HERE.parents[2] / "build" / "kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")

@@ -50,14 +50,23 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long qss, long long ksb, long long ksh,
                            long long kss, long long vsb, long long vsh,
                            long long vss, float scale, int causal,
-                           cudaStream_t stream);
+                           float* lse, cudaStream_t stream);
 int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 void* out, int b, int h, int hkv, int sq,
                                 int sk, int d, int dv, long long qsb,
                                 long long qsh, long long qss, long long ksb,
                                 long long ksh, long long kss, long long vsb,
                                 long long vsh, long long vss, float scale,
-                                int causal, cudaStream_t stream);
+                                int causal, float* lse, cudaStream_t stream);
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
+                               const void* o, const void* dout,
+                               const float* lse, float* delta, void* dq,
+                               void* dk, void* dv_out, int bf16_in, int b,
+                               int h, int hkv, int sq, int sk, int d, int dv,
+                               long long qsb, long long qsh, long long qss,
+                               long long ksb, long long ksh, long long kss,
+                               long long vsb, long long vsh, long long vss,
+                               float scale, int causal, cudaStream_t stream);
 void level_histogram_launch(const uint8_t* xbt, const int* node,
                             const float* gw, const float* w, float* hist_g,
                             float* hist_w, int n, int n_feat, int n_nodes,
@@ -204,13 +213,15 @@ using PrefillLaunch = int (*)(const void*, const void*, const void*, void*,
                              int, int, int, int, int, int, int, long long,
                              long long, long long, long long, long long,
                              long long, long long, long long, long long,
-                             float, int, cudaStream_t);
+                             float, int, float*, cudaStream_t);
 
 // q, k of width d and v of width dv: the launch function takes the pairs it
-// was built for and refuses any other (rc -1).
+// was built for and refuses any other (rc -1).  With `lse` (B, H, Sq) fp32
+// the kernel also writes each row's log-sum-exp, for the backward.
 void prefill(PrefillLaunch launch, const char* name, const torch::Tensor& q,
              const torch::Tensor& k, const torch::Tensor& v,
-             torch::Tensor out, double scale, bool causal) {
+             torch::Tensor out, double scale, bool causal,
+             const std::optional<torch::Tensor>& lse) {
   const c10::cuda::CUDAGuard guard(q.device());
   TORCH_CHECK(k.size(3) == q.size(3) && out.size(3) == v.size(3), name,
               ": k's width must be q's and the output's v's");
@@ -222,6 +233,7 @@ void prefill(PrefillLaunch launch, const char* name, const torch::Tensor& q,
       static_cast<int>(v.size(3)), q.stride(0), q.stride(1), q.stride(2),
       k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
       v.stride(2), static_cast<float>(scale), causal ? 1 : 0,
+      lse.has_value() ? lse->data_ptr<float>() : nullptr,
       c10::cuda::getCurrentCUDAStream());
   TORCH_CHECK(rc != -1, name, ": widths (", q.size(3), ", ", v.size(3),
               ") are not a pair the kernel is built for");
@@ -231,16 +243,44 @@ void prefill(PrefillLaunch launch, const char* name, const torch::Tensor& q,
 
 void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
                      const torch::Tensor& v, torch::Tensor out, double scale,
-                     bool causal) {
+                     bool causal, const std::optional<torch::Tensor>& lse) {
   prefill(flash_attention_launch, "flash_attention", q, k, v, out, scale,
-          causal);
+          causal, lse);
 }
 
 void flash_attention_sm90(const torch::Tensor& q, const torch::Tensor& k,
                           const torch::Tensor& v, torch::Tensor out,
-                          double scale, bool causal) {
+                          double scale, bool causal,
+                          const std::optional<torch::Tensor>& lse) {
   prefill(flash_attention_sm90_launch, "flash_attention_sm90", q, k, v, out,
-          scale, causal);
+          scale, causal, lse);
+}
+
+// The backward of either prefill kernel (the inputs' type picks the
+// tensor-core or the CUDA-core kernels); `delta` is fp32 scratch of B·H·Sq.
+void flash_attention_backward(const torch::Tensor& q, const torch::Tensor& k,
+                              const torch::Tensor& v, const torch::Tensor& o,
+                              const torch::Tensor& dout,
+                              const torch::Tensor& lse, torch::Tensor delta,
+                              torch::Tensor dq, torch::Tensor dk,
+                              torch::Tensor dv, double scale, bool causal) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int rc = flash_attention_bwd_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+      dout.data_ptr(), lse.data_ptr<float>(), delta.data_ptr<float>(),
+      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+      q.scalar_type() == at::kBFloat16 ? 1 : 0, static_cast<int>(q.size(0)),
+      static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+      static_cast<int>(q.size(2)), static_cast<int>(k.size(2)),
+      static_cast<int>(q.size(3)), static_cast<int>(v.size(3)), q.stride(0),
+      q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+      v.stride(0), v.stride(1), v.stride(2), static_cast<float>(scale),
+      causal ? 1 : 0, c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc != -1, "flash_attention_backward: widths (", q.size(3),
+              ", ", v.size(3), ") are not a pair the kernel is built for");
+  TORCH_CHECK(rc == 0, "flash_attention_backward: launch refused (", rc,
+              ")");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 void flash_decode(const torch::Tensor& q, const torch::Tensor& k,
@@ -283,9 +323,14 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("boost_update", &boost_update,
         "f + raw[leaf] * lr as one fused multiply-add a row");
   m.def("flash_attention", &flash_attention,
-        "tiled online-softmax attention on fp32 inputs (GQA, causal or not)");
+        "tiled online-softmax attention on fp32 inputs (GQA, causal or not), "
+        "and each row's log-sum-exp when given a tensor for it");
   m.def("flash_attention_sm90", &flash_attention_sm90,
-        "online-softmax attention on bf16 inputs, wgmma fed by TMA");
+        "online-softmax attention on bf16 inputs, wgmma fed by TMA, and each "
+        "row's log-sum-exp when given a tensor for it");
+  m.def("flash_attention_backward", &flash_attention_backward,
+        "dq, dk, dv of prefill attention from its saved log-sum-exp (no "
+        "float atomics)");
   m.def("flash_decode", &flash_decode,
         "split-KV single-token attention and the merge of its splits");
 }

@@ -118,7 +118,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                            const T* __restrict__ v, T* __restrict__ out,
                            Strides qs, Strides ks, Strides vs, int n_heads,
                            int group, int sq, int sk, float scale,
-                           int causal) {
+                           int causal, float* __restrict__ lse) {
   constexpr int kNU = (DV + 63) / 64;  // 4-wide accumulator column groups
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [D][kLd], rows as columns
@@ -256,6 +256,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    // the row's log-sum-exp, for the backward (flash_attention_bwd.cu)
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * n_heads + hh) * sq + row] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
 #pragma unroll
     for (int u = 0; u < kNU; ++u) {
       const int d0 = tx * 4 + 64 * u;
@@ -738,7 +742,7 @@ __global__ void __launch_bounds__(D)
 template <typename T, int D, int DV>
 int attention_d(const void* q, const void* k, const void* v, void* out,
                 int b, int h, int hkv, int sq, int sk, Strides qs,
-                Strides ks, Strides vs, float scale, int causal,
+                Strides ks, Strides vs, float scale, int causal, float* lse,
                 cudaStream_t stream) {
   const size_t smem = sizeof(float) * attention_smem_floats<D, DV>();
   auto kern = flash_attention_kernel<T, D, DV>;
@@ -750,7 +754,7 @@ int attention_d(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, h, h / hkv,
-      sq, sk, scale, causal);
+      sq, sk, scale, causal, lse);
   return 0;
 }
 
@@ -759,12 +763,12 @@ int attention_d(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 int attention_t(int d, int dv, const void* q, const void* k, const void* v,
                 void* out, int b, int h, int hkv, int sq, int sk, Strides qs,
-                Strides ks, Strides vs, float scale, int causal,
+                Strides ks, Strides vs, float scale, int causal, float* lse,
                 cudaStream_t stream) {
 #define FA_CASE(D, DV)                                                      \
   if (d == D && dv == DV)                                                   \
     return attention_d<T, D, DV>(q, k, v, out, b, h, hkv, sq, sk, qs, ks,   \
-                                 vs, scale, causal, stream);
+                                 vs, scale, causal, lse, stream);
   FA_CASE(16, 16)
   FA_CASE(32, 32)
   FA_CASE(64, 64)
@@ -844,7 +848,9 @@ int decode_t(int d, const void* q, const void* k, const void* v,
 // Prefill attention on fp32 inputs: one 256-thread block per (64-row query
 // tile, h, b).  q, k (width d), v (width dv): fp32, unit stride along the
 // width, the given element strides along (B, H, S); out (B, H, Sq, dv)
-// contiguous fp32.  Returns 0 when launched (the caller checks the
+// contiguous fp32; lse, when not null, (B, H, Sq) fp32 takes each row's
+// log-sum-exp of its scaled, masked logits (max + log(max(sum, 1e-30))),
+// which the backward reads.  Returns 0 when launched (the caller checks the
 // launch), -1 for a width pair it is not built for, or the CUDA error of
 // the shared-memory attribute.
 int flash_attention_launch(const void* q, const void* k, const void* v,
@@ -853,10 +859,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long qss, long long ksb, long long ksh,
                            long long kss, long long vsb, long long vsh,
                            long long vss, float scale, int causal,
-                           cudaStream_t stream) {
+                           float* lse, cudaStream_t stream) {
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   return attention_t<float>(d, dv, q, k, v, out, b, h, hkv, sq, sk, qs, ks,
-                            vs, scale, causal, stream);
+                            vs, scale, causal, lse, stream);
 }
 
 // Split-KV decode: one 256-thread block per (512-position split, kv head,

@@ -339,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 const __grid_constant__ CUtensorMap tm_v,
                                 const __grid_constant__ CUtensorMap tm_o,
                                 int group, int sq, int sk, float scale,
-                                int causal) {
+                                int causal, float* __restrict__ lse) {
   using G = Geo<DQK>;   // Q and K tiles
   using GV = Geo<DV>;   // V and output tiles
   using SM = Smem<DQK, DV>;
@@ -525,6 +525,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+    // the row's log-sum-exp, for the backward (flash_attention_bwd.cu)
+    if (lse != nullptr && (lane & 3) == 0 && row + 8 * h < sq)
+      lse[(static_cast<long long>(b) * gridDim.x + hh) * sq + row + 8 * h] =
+          m[h] + logf(fmaxf(l[h], 1e-30f));
   }
 #pragma unroll
   for (int i = 0; i < DV / 2; i += 2) {
@@ -603,7 +607,7 @@ int attention_sm90_d(const void* q, const void* k, const void* v, void* out,
                      long long qsh, long long qss, long long ksb,
                      long long ksh, long long kss, long long vsb,
                      long long vsh, long long vss, float scale, int causal,
-                     cudaStream_t stream) {
+                     float* lse, cudaStream_t stream) {
   using G = Geo<DQK>;
   using GV = Geo<DV>;
   constexpr int kSmem = Smem<DQK, DV>::kBytes;
@@ -624,7 +628,7 @@ int attention_sm90_d(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(h, b, (sq + kBM - 1) / kBM);
   kern<<<grid, kThreads, kSmem, stream>>>(tq, tk, tv, to, h / hkv, sq, sk,
-                                          scale, causal);
+                                          scale, causal, lse);
   return 0;
 }
 
@@ -634,7 +638,9 @@ int attention_sm90_d(const void* q, const void* k, const void* v, void* out,
 // 128-row query tile).  q, k (q/k width d) and v (width dv) bf16 with unit
 // stride along the width and the given element strides along (B, H, S) —
 // 16-byte-aligned bases and strides, as TMA takes them (the wrapper
-// checks); out (B, H, Sq, dv) contiguous bf16.  Built for the width pairs
+// checks); out (B, H, Sq, dv) contiguous bf16; lse, when not null, (B, H,
+// Sq) fp32 takes each row's log-sum-exp (max + log(max(sum, 1e-30)) of the
+// scaled, masked logits) for the backward.  Built for the width pairs
 // (16, 16), (32, 32), (64, 64), (128, 128) and (96, 64) (MLA: 64 + 32
 // q/k, 64 v).  Returns 0 when launched (the caller checks the launch), -1
 // for a width pair it is not built for, -2 when a tensor map cannot be
@@ -645,12 +651,12 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 long long qsh, long long qss, long long ksb,
                                 long long ksh, long long kss, long long vsb,
                                 long long vsh, long long vss, float scale,
-                                int causal, cudaStream_t stream) {
+                                int causal, float* lse, cudaStream_t stream) {
 #define FA_SM90_CASE(DQK, DV)                                                \
   if (d == DQK && dv == DV)                                                  \
     return attention_sm90_d<DQK, DV>(q, k, v, out, b, h, hkv, sq, sk, qsb,   \
                                      qsh, qss, ksb, ksh, kss, vsb, vsh, vss, \
-                                     scale, causal, stream);
+                                     scale, causal, lse, stream);
   FA_SM90_CASE(16, 16)
   FA_SM90_CASE(32, 32)
   FA_SM90_CASE(64, 64)

@@ -20,6 +20,16 @@ cache length (those drop a ragged tail of S or T).  The prefill's v may be
 narrower than q and k (MLA's q/k 96 and v 64); its kernels are built for
 the width pairs of ``PREFILL_WIDTHS``, the decode kernels for one width.
 
+Training adds the backward of the prefill (kernel 8's backward, which the
+reference does not have: its models train through autodiff of a jnp scan).
+``flash_attention(..., return_lse=True)`` also returns each row's
+log-sum-exp (fp32, (B, H, Sq)), which the forward kernels write only when
+asked; ``flash_attention_backward`` launches the kernels of
+``flash_attention_bwd.cu`` (a pre-pass for D = rowsum(dO ∘ O), then the dQ
+and the dK/dV kernels, no float atomics) for CUDA tensors and runs
+``flash_attention_backward_plain`` — the same tile recurrence from the
+saved log-sum-exp in plain PyTorch — for CPU tensors.
+
 ``attention`` and ``decode_attention`` are the reference's public ops
 (``ops.py``); its ``use_kernel`` switch is replaced by the port's rule: the
 tensors' device decides.
@@ -46,10 +56,12 @@ def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(k, n_heads // k.shape[1], dim=1)
 
 
-def attention_ref(q, k, v, causal: bool = True, scale: float | None = None):
+def attention_ref(q, k, v, causal: bool = True, scale: float | None = None,
+                  return_lse: bool = False):
     """q (B, H, S, D), k (B, Hkv, S, D), v (B, Hkv, S, Dv) -> (B, H, S, Dv),
     fp32 math; the plain version of the prefill kernel (the reference's
-    ``attention_ref``)."""
+    ``attention_ref``).  With ``return_lse`` also each row's log-sum-exp of
+    its scaled, masked logits (B, H, S) fp32."""
     b, h, s, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     k = _expand_kv(k, h).float()
@@ -58,9 +70,13 @@ def attention_ref(q, k, v, causal: bool = True, scale: float | None = None):
     if causal:
         mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         logits = torch.where(mask[None, None], logits, NEG_INF)
-    w = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    w = w / w.sum(dim=-1, keepdim=True)
-    return torch.einsum("bhqk,bhkd->bhqd", w, v).to(q.dtype)
+    mx = logits.amax(dim=-1, keepdim=True)
+    w = torch.exp(logits - mx)
+    total = w.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", w / total, v).to(q.dtype)
+    if return_lse:
+        return out, (mx + torch.log(total.clamp(min=1e-30)))[..., 0]
+    return out
 
 
 def attention_tc_plain(q, k, v, causal: bool = True,
@@ -222,12 +238,14 @@ def _check_heads(name: str, h: int, hkv: int) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: float | None = None):
+                    scale: float | None = None, return_lse: bool = False):
     """Attention of q (B, H, Sq, D) over k (B, Hkv, Sk, D) and v (B, Hkv,
     Sk, Dv) -> (B, H, Sq, Dv) in q's type: for CUDA tensors the tensor-core
     kernel on bf16 and the CUDA-core kernel on fp32, each built for the
     width pairs ``PREFILL_WIDTHS``; ``attention_ref`` for CPU tensors.
-    Causal mode needs Sq == Sk."""
+    Causal mode needs Sq == Sk.  With ``return_lse``, (output, each row's
+    log-sum-exp (B, H, Sq) fp32), which the backward reads; without it the
+    kernel writes none."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D")
     b, h, sq, d = q.shape
@@ -236,7 +254,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if k.shape[0] != b or v.shape[:3] != k.shape[:3]:
         raise ValueError("flash_attention: k and v must be (B, Hkv, Sk, .)")
     if kernels.on_cpu(q, k, v):
-        return attention_ref(q, k, v, causal=causal, scale=scale)
+        return attention_ref(q, k, v, causal=causal, scale=scale,
+                             return_lse=return_lse)
     if causal and sq != sk:
         raise ValueError(f"flash_attention: causal mode needs Sq == Sk, got "
                          f"{sq} and {sk}")
@@ -251,12 +270,107 @@ def flash_attention(q, k, v, *, causal: bool = True,
         if -(-sq // TC_TILE) > 65535:
             raise ValueError("flash_attention: Sq must fit the grid")
     out = torch.empty((b, h, sq, v.shape[-1]), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     ext = kernels.extension()
     launch = ext.flash_attention_sm90 if tensor_cores else ext.flash_attention
     launch(q, k, v, out, float(scale if scale is not None else d ** -0.5),
-           bool(causal))
+           bool(causal), lse)
     kernels.LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal: bool,
+                                   scale: float | None = None,
+                                   chunk: int = 512):
+    """The backward kernels' recurrence in plain PyTorch: over
+    ``chunk``-wide KV tiles, P = exp(scale · q kᵀ - lse) (0 where masked),
+    dP = dO vᵀ, dS = P (dP - D) with D = rowsum(dO ∘ O), dQ += scale · dS
+    k, and each tile's dK = scale · dSᵀ q and dV = Pᵀ dO, a kv head's summed
+    over its group of query heads in head order.  Inputs as
+    ``flash_attention_backward``'s; fp32 math, outputs in the inputs'
+    types."""
+    b, h, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    kx, vx = _expand_kv(k, h).float(), _expand_kv(v, h).float()
+    qf, dof = q.float(), do.float()
+    delta = (dof * o.float()).sum(dim=-1)
+    dq = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    dkx = torch.empty((b, h, sk, d), dtype=torch.float32, device=q.device)
+    dvx = torch.empty((b, h, sk, dv), dtype=torch.float32, device=q.device)
+    rows = torch.arange(sq, device=q.device)[:, None]
+    for base in range(0, sk, chunk):
+        kc, vc = kx[:, :, base:base + chunk], vx[:, :, base:base + chunk]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kc) * scale
+        p = torch.exp(s - lse[..., None])
+        if causal:
+            cols = base + torch.arange(kc.shape[2], device=q.device)[None, :]
+            p = torch.where(rows >= cols, p, 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vc)
+        ds = p * (dp - delta[..., None])
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kc) * scale
+        dkx[:, :, base:base + chunk] = torch.einsum(
+            "bhqk,bhqd->bhkd", ds, qf) * scale
+        dvx[:, :, base:base + chunk] = torch.einsum("bhqk,bhqd->bhkd", p,
+                                                     dof)
+    group = h // hkv
+    dk = dkx.reshape(b, hkv, group, sk, d).sum(dim=2)
+    dvv = dvx.reshape(b, hkv, group, sk, dv).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
+                             scale: float | None = None):
+    """Gradients (dq, dk, dv) of ``flash_attention`` given its inputs, its
+    output o (B, H, Sq, Dv), its log-sum-exp lse (B, H, Sq) fp32 and the
+    output's gradient do: for CUDA tensors the kernels of
+    ``flash_attention_bwd.cu`` (bf16 on the tensor cores through
+    ``mma.sync``, fp32 on the CUDA cores), for CPU tensors
+    ``flash_attention_backward_plain``.  dq is (B, H, Sq, D) and dk, dv
+    (B, Hkv, Sk, .), contiguous, in the inputs' type.  Takes what the
+    forward kernels take (widths, strides, TMA's alignment on bf16)."""
+    if any(t.dim() != 4 for t in (q, k, v, o, do)):
+        raise ValueError("flash_attention_backward: q, k, v, o, do must be "
+                         "4-D")
+    b, h, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    _check_heads("flash_attention_backward", h, hkv)
+    if k.shape[0] != b or v.shape[:3] != k.shape[:3]:
+        raise ValueError("flash_attention_backward: k and v must be (B, "
+                         "Hkv, Sk, .)")
+    if tuple(o.shape) != (b, h, sq, dv) or do.shape != o.shape:
+        raise ValueError(f"flash_attention_backward: o and do must be "
+                         f"{(b, h, sq, dv)}")
+    if tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"flash_attention_backward: lse must be "
+                         f"{(b, h, sq)}")
+    if kernels.on_cpu(q, k, v, o, lse, do):
+        return flash_attention_backward_plain(q, k, v, o, lse, do,
+                                              causal=causal, scale=scale)
+    if causal and sq != sk:
+        raise ValueError(f"flash_attention_backward: causal mode needs Sq "
+                         f"== Sk, got {sq} and {sk}")
+    _check_kernel_inputs("flash_attention_backward", q, k, v, PREFILL_WIDTHS)
+    if sq < 1 or sk < 1:
+        raise ValueError("flash_attention_backward: empty sequence")
+    if b > 65535 or h > 65535:
+        raise ValueError("flash_attention_backward: B and H must fit the "
+                         "grid")
+    if q.dtype == torch.bfloat16:
+        _check_tma("flash_attention_backward", q, k, v)
+    kernels.check_cuda_args(
+        "flash_attention_backward", {"o": o, "do": do, "lse": lse},
+        {"o": q.dtype, "do": q.dtype, "lse": torch.float32})
+    dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, sk, d), dtype=q.dtype, device=q.device)
+    dvv = torch.empty((b, hkv, sk, dv), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    kernels.extension().flash_attention_backward(
+        q, k, v, o, do, lse, delta, dq, dk, dvv,
+        float(scale if scale is not None else d ** -0.5), bool(causal))
+    kernels.LAUNCHES["flash_attention_backward"] += 1
+    return dq, dk, dvv
 
 
 def flash_decode(q, k, v, kv_len, *, scale: float | None = None):

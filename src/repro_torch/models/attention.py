@@ -5,7 +5,14 @@
   prefill kernel (``kernels.flash_attention.ops.flash_attention``), the
   device form the reference's docstring names for it; for CPU tensors a
   loop over the chunks in place of the reference's ``lax.scan``, with q
-  scaled before the dot as the reference does it.
+  scaled before the dot as the reference does it.  Where a gradient is
+  needed it goes through ``ChunkedAttention``, a ``torch.autograd.Function``
+  whose forward also keeps each row's log-sum-exp and whose backward is
+  kernel 8's backward (``ops.flash_attention_backward``) on CUDA tensors
+  and its plain version on CPU tensors; the reference differentiates its
+  checkpointed scan instead, which computes the same gradients.  With no
+  gradient needed the call is the serving path's: one prefill launch, no
+  log-sum-exp written.
 * ``gqa_decode`` — single-token attention over a KV cache masked by
   ``kv_len``: the split-KV decode kernel (``ops.flash_decode``) for CUDA
   tensors, the reference's masked softmax for CPU tensors.
@@ -54,16 +61,53 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int = 512,
     if n_chunks * chunk != sk:
         raise TypeError(f"cannot reshape keys of length {sk} into "
                         f"{n_chunks} chunks of {chunk}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return ChunkedAttention.apply(q, k, v, causal, chunk, scale)
+    return _attend(q, k, v, causal, chunk, scale, False)
+
+
+def _attend(q, k, v, causal, chunk, scale, return_lse):
+    """The prefill kernel for CUDA tensors, the plain loop for CPU ones;
+    without ``return_lse`` the serving path's call, word for word."""
+    lse = dict(return_lse=True) if return_lse else {}
     if not kernels.on_cpu(q, k, v):
-        return fa_ops.flash_attention(q, k, v, causal=causal, scale=scale)
+        return fa_ops.flash_attention(q, k, v, causal=causal, scale=scale,
+                                      **lse)
     return chunked_attention_plain(q, k, v, causal=causal, chunk=chunk,
-                                   scale=scale)
+                                   scale=scale, **lse)
+
+
+class ChunkedAttention(torch.autograd.Function):
+    """``chunked_attention`` with a gradient: the forward keeps q, k, v,
+    the output and each row's log-sum-exp; the backward is kernel 8's
+    backward on CUDA tensors and ``flash_attention_backward_plain`` on CPU
+    tensors (``ops.flash_attention_backward`` picks by device; there is no
+    fallback between the two)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, chunk, scale):
+        out, lse = _attend(q, k, v, causal, chunk, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fa_ops.flash_attention_backward(
+            q, k, v, out, lse, do.contiguous(), causal=ctx.causal,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def chunked_attention_plain(q, k, v, *, causal: bool, chunk: int = 512,
-                            scale: float | None = None):
+                            scale: float | None = None,
+                            return_lse: bool = False):
     """The plain version of ``chunked_attention`` on any device: a loop
-    over ``chunk``-wide KV chunks (Sk a multiple of it)."""
+    over ``chunk``-wide KV chunks (Sk a multiple of it).  With
+    ``return_lse`` also each row's log-sum-exp, max + log(max(sum,
+    1e-30)), fp32 (B, H, Sq)."""
     b, h, sq, d = q.shape
     sk, dv = k.shape[2], v.shape[-1]
     chunk = min(chunk, sk)
@@ -88,8 +132,10 @@ def chunked_attention_plain(q, k, v, *, causal: bool, chunk: int = 512,
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vc)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    if return_lse:
+        return out, m + torch.log(torch.clamp(l, min=1e-30))
+    return out
 
 
 def gqa_decode(q, k_cache, v_cache, kv_len, scale: float | None = None):

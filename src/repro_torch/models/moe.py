@@ -26,6 +26,13 @@ The numerics follow the reference line by line:
   which the reference leaves to XLA outside any kernel;
 * the router's auxiliary loss is computed in fp32.
 
+Training differentiates this branch as the reference's autodiff does: the
+gradient reaches x, the experts and the router through the products, the
+normalised top-k gates and the auxiliary loss's mean gate; the routes,
+the capacity drops and the dispatch order are integers and carry none
+(the scatter into the expert buckets and the gathers back are index
+operations whose backward routes each row's gradient to its source).
+
 Not ported (ROADMAP §1 item 11): the expert-parallel ``shard_map`` branch
 (``moe.py:139-179``) waits for the launch stack's ``mesh_context``; called
 with a mesh, ``moe_forward`` raises ``NotImplementedError``.

@@ -1,7 +1,8 @@
 """Decoder-only transformer of the LM family: dense GQA (Yi-6B,
 Minitron-8B), MLA (MiniCPM3-4B) and MoE (granite-MoE, Moonlight):
-``init``, ``forward``, and the serving entry points ``prefill`` and
-``decode_step`` over a KV cache (GQA) or a latent cache (MLA).
+``init``, ``forward``, the training entry points ``forward_hidden`` and
+``loss_fn``, and the serving entry points ``prefill`` and ``decode_step``
+over a KV cache (GQA) or a latent cache (MLA).
 
 A port of the reference's ``models/transformer.py`` with the same
 parameter tree (``embed``, ``unembed``, ``final_ln`` and ``layers`` whose
@@ -26,25 +27,37 @@ cache is dropped, as the reference's select drops it; an MLA write at or
 past the cache's end lands on its last row, as ``dynamic_update_slice``
 clamps it.
 
-Not ported (ROADMAP §1 item 11): ``forward_hidden``, ``loss_fn`` and
-training, and MoE under a mesh; they raise ``NotImplementedError``.
+Training: ``forward_hidden`` runs the layers under the configuration's
+``remat`` — ``"full"`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant: its activations are
+recomputed in the backward, so the attention kernel runs twice a layer and
+step), ``"dots"`` saves only the outputs of the plain (unbatched) matrix
+products, as the reference's ``dots_with_no_batch_dims_saveable`` policy
+does, ``"none"`` saves everything.  ``loss_fn`` is the reference's
+sequence-chunked cross-entropy: each ``ce_chunk`` of the sequence is
+unembedded and reduced under a checkpoint of its own, so the full (B, S,
+V) logits never exist.  Gradients reach the stacked layer leaves through
+one ``unbind`` a leaf.
+
+Not ported (ROADMAP §1 item 11): MoE under a mesh, which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.isn.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common
-from repro_torch.models.attention import MLAConfig
+from repro_torch.models.attention import NEG_INF, MLAConfig
 from repro_torch.models.moe import MoEConfig, moe_forward, moe_params
-
-_UNPORTED = "is not ported yet (ROADMAP §1 item 11)"
 
 
 @dataclass(frozen=True)
@@ -259,12 +272,101 @@ def forward(params, c: LMConfig, tokens, causal=True):
     return x @ params["unembed"], aux
 
 
-def forward_hidden(*args, **kwargs):
-    raise NotImplementedError(f"forward_hidden {_UNPORTED}")
+def _layers(params) -> list:
+    """Every layer's leaves, from one ``unbind`` of each stacked leaf (its
+    backward stacks the layers' gradients once)."""
+    lay = params["layers"]
+    groups = {g: {k: w.unbind(0) for k, w in lay[g].items()}
+              for g in ("attn", "ffn")}
+    ln1, ln2 = lay["ln1"].unbind(0), lay["ln2"].unbind(0)
+    return [{"attn": {k: w[i] for k, w in groups["attn"].items()},
+             "ffn": {k: w[i] for k, w in groups["ffn"].items()},
+             "ln1": ln1[i], "ln2": ln2[i]} for i in range(len(ln1))]
 
 
-def loss_fn(*args, **kwargs):
-    raise NotImplementedError(f"loss_fn (training) {_UNPORTED}")
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of plain matrix products (no batch dimension),
+    recompute the rest: the reference's ``dots_with_no_batch_dims_saveable``."""
+    if op in _MATMULS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the configuration's rematerialisation policy."""
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    if remat == "none":
+        return fn
+    raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
+
+
+def forward_hidden(params, c: LMConfig, tokens, causal=True):
+    """Like ``forward`` but stops at the final hidden states: (x (B, S,
+    d_model) after the final norm, the layers' summed router loss, fp32),
+    each layer under ``c.remat``."""
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    x = _embed(params, tokens, c)
+    aux = torch.zeros((), device=x.device)
+    body = _remat(functools.partial(_layer_fwd, c=c, causal=causal), c.remat)
+    for lp in _layers(params):
+        x, a = body(lp, x, positions)
+        if a is not None:
+            aux = aux + a
+    return common.rms_norm(x, params["final_ln"], c.norm_eps), aux
+
+
+def _ce_sum(logits, labels, vocab: int):
+    """(Σ over unmasked positions of logsumexp - gold logit, their count),
+    fp32: padded-vocabulary columns at -1e30, labels < 0 masked."""
+    logits = logits.float()
+    if logits.shape[-1] > vocab:
+        pad = torch.arange(logits.shape[-1], device=logits.device) < vocab
+        logits = torch.where(pad, logits, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])
+    mask = (labels >= 0).float()
+    return ((lse - gold[..., 0]) * mask).sum(), mask.sum()
+
+
+def _ce_chunk(x, unembed, labels, vocab: int):
+    return _ce_sum(x @ unembed, labels, vocab)
+
+
+def loss_fn(params, c: LMConfig, tokens, labels, ce_chunk: int = 512):
+    """Mean next-token cross-entropy plus the summed router loss, fp32.
+
+    The sequence is cut into chunks of ``ce_chunk`` (at most S); each
+    chunk's (B, chunk, V) logits are computed and reduced under a
+    checkpoint, so the backward recomputes them and the full logits never
+    exist.  Raises, as the reference's reshape does, when S is not a
+    multiple of the chunk."""
+    x, aux = forward_hidden(params, c, tokens)
+    s = x.shape[1]
+    ce_chunk = min(ce_chunk, s)
+    n_chunks = s // ce_chunk
+    if n_chunks * ce_chunk != s:
+        raise TypeError(f"cannot reshape a sequence of {s} into {n_chunks} "
+                        f"chunks of {ce_chunk}")
+    loss_sum = torch.zeros((), device=x.device)
+    count = torch.zeros((), device=x.device)
+    for i in range(n_chunks):
+        sl = slice(i * ce_chunk, (i + 1) * ce_chunk)
+        part, n = ckpt.checkpoint(_ce_chunk, x[:, sl], params["unembed"],
+                                  labels[:, sl], c.vocab,
+                                  use_reentrant=False)
+        loss_sum = loss_sum + part
+        count = count + n
+    return loss_sum / torch.clamp(count, min=1.0) + aux
 
 
 def prefill(params, c: LMConfig, tokens):

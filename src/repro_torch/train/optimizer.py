@@ -1,0 +1,97 @@
+"""AdamW with its schedule and gradient clipping, on trees of tensors.
+
+A port of the reference's ``train/optimizer.py``: the moments are fp32
+whatever the parameter's type, the update is computed in fp32 and cast back
+to the parameter's type, and ``global_norm`` sums the leaves in the
+reference's leaf order (dict keys sorted).  The state mirrors the parameter
+tree.  ``apply`` builds new tensors and leaves its inputs as they were, as
+the reference's pure function does; inside the update each new tensor is
+finished in place (a multiply-add may round once where the reference
+rounds twice), which halves the full-size buffers an update allocates.
+
+Not ported (ROADMAP §1 item 11): ``abstract_init`` (the dry run's shapes),
+which goes with the launch stack.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.train.tree import leaves, map_tree, part
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+
+
+class OptState(NamedTuple):
+    m: dict
+    v: dict
+    step: torch.Tensor      # int32 scalar
+
+
+def init(params) -> OptState:
+    """Zero fp32 moments beside each leaf, on its device; step 0."""
+    zeros = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    dev = leaves(params)[0].device
+    return OptState(m=zeros, v=map_tree(torch.clone, zeros),
+                    step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warm-up, then a cosine from lr down to 0.1 lr, fp32."""
+    s = step.float()
+    warm = torch.clamp(s / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((s - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cosine = 0.5 * (1 + torch.cos(math.pi * t))
+    return cfg.lr * warm * (0.1 + 0.9 * cosine)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """√(Σ of each leaf's Σ x²) in fp32, the leaves in the reference's
+    order."""
+    total = 0
+    for x in leaves(tree):
+        total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def apply(params, grads, opt: OptState, cfg: AdamWConfig):
+    """One AdamW update. Returns (new_params, new_opt, metrics)."""
+    gn = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
+    step = opt.step + 1
+    lr = schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.float()
+    c1, c2 = 1 - b1 ** stepf, 1 - b2 ** stepf
+
+    def upd(p, g, m, v):
+        # the reference's expressions, each new tensor updated in place
+        # where the reference builds a temporary (fewer full-size buffers)
+        g = g.float() * scale
+        m = (m * b1).add_(g, alpha=1 - b1)
+        v = (v * b2).addcmul_(g, g, value=1 - b2)
+        delta = (m / c1).div_((v / c2).sqrt_().add_(cfg.eps))
+        pf = p.float()
+        delta.add_(pf, alpha=cfg.weight_decay)
+        return (pf - delta.mul_(lr)).to(p.dtype), m, v
+
+    out = map_tree(upd, params, grads, opt.m, opt.v)
+    return (part(out, 0), OptState(part(out, 1), part(out, 2), step),
+            {"grad_norm": gn, "lr": lr})

@@ -68,6 +68,12 @@ assert set("repro_torch.serving.telemetry" + m for m in
            ("", ".metrics", ".trace", ".export")) <= set(names)
 assert set(["repro_torch.isn.shard", "repro_torch.launch.mesh",
             "repro_torch.configs.paper_isn"]) <= set(names)
+assert set("repro_torch.train." + m for m in
+           ("checkpoint", "compression", "elastic", "optimizer",
+            "train_loop", "tree")) <= set(names)
+assert set(["repro_torch.data.synthetic", "repro_torch.data.pipeline",
+            "repro_torch.launch.train", "repro_torch.configs.registry"]) \
+    <= set(names)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -78,11 +84,16 @@ assert not bad, bad
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 84
+    assert n_modules >= 96
 
 
 def test_sources_import_nothing_of_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    scanned = {str(p.relative_to(PORT)) for p in files if p.is_relative_to(
+        PORT)}
+    assert {"train/optimizer.py", "train/checkpoint.py",
+            "train/train_loop.py", "data/pipeline.py", "data/synthetic.py",
+            "launch/train.py"} <= scanned
     for path in files:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -214,6 +225,14 @@ def _calls():
         (lh_ops, "boost_update_plain", lambda d: lh_ops.boost_update(
             torch.empty((100,), device=d), torch.empty((32,), device=d),
             torch.empty((100,), dtype=i32, device=d), 0.15)),
+        (fa_ops, "flash_attention_backward_plain", lambda d: fa_ops
+         .flash_attention_backward(
+             torch.empty((1, 4, 64, 64), device=d),
+             torch.empty((1, 2, 64, 64), device=d),
+             torch.empty((1, 2, 64, 64), device=d),
+             torch.empty((1, 4, 64, 64), device=d),
+             torch.empty((1, 4, 64), device=d),
+             torch.empty((1, 4, 64, 64), device=d))),
     ]
 
 
@@ -239,7 +258,8 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch):
                           "impact_accumulate_bucketed",
                           "blockmax_score_bucketed", "score_histogram",
                           "flash_attention", "flash_decode",
-                          "level_histogram", "boost_update"]
+                          "level_histogram", "boost_update",
+                          "flash_attention_backward"]
     assert all(n == 1 for n in kernels.LAUNCHES.values())
     kernels.reset_launches()
 

@@ -8,7 +8,8 @@ cache and 4 from a prefill cache, against the reference, all on the CPU
 (where attention runs its plain versions); ``chunked_attention`` and
 ``gqa_decode`` against the reference's; the reference's decode RoPE fault
 reproduced; the configurations and parameter counts copied; what still
-waits (``forward_hidden``, ``loss_fn``, MoE under a mesh) refused.  MoE and
+waits (MoE under a mesh) refused.  Training has its own file
+(``test_torch_train.py``).  MoE and
 MLA have their own files (``test_torch_moe.py``, ``test_torch_mla.py``).
 
 Tolerance: 1e-4 of the compared tensor's largest magnitude.  Both sides
@@ -307,16 +308,12 @@ def test_numerics_match_reference(dtype):
 
 
 def test_what_waits_raises_naming_item_11():
-    """MoE and MLA serve (``test_torch_moe.py``, ``test_torch_mla.py``);
-    ``forward_hidden``, ``loss_fn`` (training) and the expert-parallel MoE
-    branch under a mesh still wait for item 11 and say so."""
+    """MoE and MLA serve (``test_torch_moe.py``, ``test_torch_mla.py``) and
+    ``forward_hidden`` / ``loss_fn`` train (``test_torch_train.py``); the
+    expert-parallel MoE branch under a mesh still waits for item 11 and
+    says so."""
     c = moonshot_v1_16b_a3b.REDUCED
-    tok = torch.zeros((1, 4), dtype=torch.int32)
     params = tr.init(c, device="cpu")
-    for call in (lambda: tr.forward_hidden(params, c, tok),
-                 lambda: tr.loss_fn(params, c, tok, tok),
-                 lambda: moe.moe_forward(tr.layer(params, 0)["ffn"],
-                                         torch.zeros((4, c.d_model)), c.moe,
-                                         mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        moe.moe_forward(tr.layer(params, 0)["ffn"],
+                        torch.zeros((4, c.d_model)), c.moe, mesh=object())
