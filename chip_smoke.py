@@ -348,14 +348,13 @@ order, it
    once the served models are freed:
    a. card = CPU: Yi-6B, granite-MoE and MiniCPM3 at full width, 2 layers,
       fp32, ``remat="full"``, drawn once on the card at 1/√(fan-in) and
-      copied to the host; three ``make_train_step`` steps (default AdamW)
-      of 2 x 64 tokens from ``lm_batches`` on each: losses and grad norms
-      within 1e-5 (relative), the parameters within 4 x Σ lr of the CPU's
-      (AdamW moves an entry about lr a step whatever its gradient's size,
-      so a near-zero gradient whose sign differs by rounding moves it the
-      other way; the count of entries past 1e-6 is logged), the MoE
-      model's layer-0 experts and capacity drops equal; the card's first
-      kernel-8 backward call recorded;
+      copied to the host; on each, the loss and gradients of 2 x 64 tokens
+      from ``lm_batches`` (``train_loop.value_and_grad``), one AdamW step
+      (``optimizer.apply`` at the peak lr: warm-up 1 step) and the loss of
+      the next 2 x 64 tokens after it: both losses and the grad norm within
+      1e-5 (relative), every gradient leaf within 1e-4 of its largest
+      magnitude on the CPU, the MoE model's layer-0 experts and capacity
+      drops equal; the card's kernel-8 backward call recorded;
    b. full width: Yi-6B in bf16 at its published widths, 8 of its 32
       layers (32 layers' parameters, grads and fp32 moments alone would
       be ≈ 72.7 GB), ``remat="full"``, three ``make_train_step`` steps of
@@ -371,11 +370,14 @@ order, it
       the same steps of an uninterrupted run;
    d. kernel 8's backward row: the recorded calls of a and b and edge
       cases at every built width pair in fp32 and bf16 (GQA groups 1, 3
-      and 8, causal and not, ragged S 1, 129, 200, 300 and 1,000) against
-      ``flash_attention_backward_plain`` on dq, dk and dv (fp32 within 1e-4
-      of max(1, |want|), bf16 within ``BF16_TOL``), every call launched
-      twice with the same bits, the forward's log-sum-exp against
-      ``attention_ref``'s; the bf16 Yi-6B call timed beside the plain
+      and 8, causal and not, ragged S 1, 129, 200, 300 and 1,000, and
+      Yi-6B's training call (2, 32, 4,096, 128) causal in bf16 with a
+      unit-scale dO) against ``flash_attention_backward_plain`` on dq, dk
+      and dv, each of its largest magnitude (a floor of 1e-2 of the largest
+      of the three, for the gradients that are 0 at S = 1; fp32 within
+      1e-4, bf16 within ``BF16_TOL``), every call launched twice with the
+      same bits, the forward's log-sum-exp against ``attention_ref``'s;
+      the bf16 Yi-6B call timed beside the plain
       version and ``scaled_dot_product_attention``'s backward (k and v
       repeated to every head outside the timed call), with its TFLOP/s and
       share of the bound, and the fp32 kernels on the fp32 call on a line
@@ -526,14 +528,18 @@ MM_LAYERS = {"granite_moe_3b_a800m": 32, "moonshot_v1_16b_a3b": 12,
 # batch, sequence, steps: 8 of 32 layers, as 32 layers' parameters, grads
 # and fp32 moments alone would be ≈ 72.7 GB), the crash-resume loop at
 # REDUCED size, and the tolerances: the card's fp32 losses and grad norms
-# against the CPU's (relative); the backward kernel against its plain
-# version in fp32, of max(1, |want|) (bf16: BF16_TOL)
+# against the CPU's (relative) and its gradients (of each leaf's largest
+# magnitude); the backward kernel against its plain version in fp32, of
+# each gradient's largest magnitude (bf16: BF16_TOL), that magnitude
+# floored at BWD_FLOOR of the largest of dq, dk and dv
 TRAIN_XC_CONFIGS = ("yi_6b", "granite_moe_3b_a800m", "minicpm3_4b")
-TRAIN_XC = dict(batch=2, seq=64, steps=3)
+TRAIN_XC = dict(batch=2, seq=64)
 TRAIN_FULL = dict(layers=8, batch=2, seq=4096, steps=3)
 TRAIN_LOOP = dict(steps=12, ckpt_every=5, fail_at=7, batch=4, seq=64)
 TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
 BWD_F32_TOL = 1e-4
+BWD_FLOOR = 1e-2
 # fit phase: the query log the systems are fitted from, and the fit's seed
 FIT_QUERIES, FIT_SEED = 4096, 5
 # cli phase: the serving CLI at the reference CLI's defaults (paper_200ms,
@@ -2472,22 +2478,21 @@ def lm_step_fn(c):
 
 def train_cross_check(dev, name):
     """A 2-layer model of ``name`` at full width in fp32, ``remat="full"``,
-    drawn once on the card at 1/√(fan-in) and copied to the host: three
-    ``make_train_step`` steps on each device from the same parameters and
-    batches (module docstring, 19a).  The losses and grad norms of every
-    step within ``TRAIN_LOSS_TOL`` of the CPU's; the parameters after the
-    last step within 4 × Σ lr of the CPU's at every entry (AdamW moves an
-    entry by about lr a step whatever its gradient's size, so a gradient
-    near 0 whose sign differs by rounding moves it the other way; every
-    other entry agrees far closer, logged); for an MoE model the experts
-    and capacity drops of layer 0 in the first forward equal.  Returns
-    the card's first kernel-8 backward call and the CPU side's wall."""
+    drawn once on the card at 1/√(fan-in) and copied to the host; on each
+    device from the same parameters and batches (module docstring, 19a):
+    the loss and gradients of one batch, one AdamW step at the peak lr, the
+    loss of the next batch after it.  Both losses and the grad norm within
+    ``TRAIN_LOSS_TOL`` of the CPU's, every gradient leaf within
+    ``TRAIN_GRAD_TOL`` of its largest magnitude on the CPU; for an MoE
+    model the experts and capacity drops of layer 0 in the first forward
+    equal.  Returns the card's kernel-8 backward call and the CPU side's
+    wall."""
     import importlib
 
     import torch
     from repro_torch.data import synthetic
     from repro_torch.models import transformer as tr
-    from repro_torch.train import optimizer
+    from repro_torch.train import optimizer, train_loop
     from repro_torch.train.tree import leaves
     c = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
     c = dataclasses.replace(c, n_layers=2, dtype="float32", remat="full")
@@ -2495,47 +2500,52 @@ def train_cross_check(dev, name):
     host = tree_to(card, "cpu")
     gen = synthetic.lm_batches(c.vocab, TRAIN_XC["batch"], TRAIN_XC["seq"],
                                seed=SEED % 10_000)
-    batches = [next(gen) for _ in range(TRAIN_XC["steps"])]
-    step = lm_step_fn(c)
+    batches = [next(gen) for _ in range(2)]
+    opt_cfg = optimizer.AdamWConfig(warmup_steps=1)
+
+    def loss_fn(p, b):
+        return tr.loss_fn(p, c, b["tokens"], b["labels"])
     walls, runs = {}, {}
     for side, params in (("card", card), ("cpu", host)):
         dv = dev if side == "card" else "cpu"
-        opt = optimizer.init(params)
-        losses, norms, lrs = [], [], []
+        b0, b1 = ({k: torch.from_numpy(v).to(dv) for k, v in b.items()}
+                  for b in batches)
         rec = Recorder(("flash_attention_backward",), first=True, clone=True)
         moe = FirstMoEInput()
         t = time.perf_counter()
         with rec, moe:
-            for i, b in enumerate(batches):
-                b = {k: torch.from_numpy(v).to(dv) for k, v in b.items()}
-                params, opt, loss, m = step(params, opt, b)
-                losses.append(float(loss))
-                norms.append(float(m["grad_norm"]))
-                lrs.append(float(m["lr"]))
-        walls[side] = time.perf_counter() - t
+            loss0, grads = train_loop.value_and_grad(loss_fn, params, b0)
+        stepped, _, m = optimizer.apply(params, grads, optimizer.init(params),
+                                        opt_cfg)
         with torch.no_grad():
-            routes = moe.routes() if c.moe is not None else None
-        runs[side] = dict(params=params, losses=losses, norms=norms,
-                          lrs=lrs, routes=routes, calls=rec.calls)
+            loss1 = loss_fn(stepped, b1)
+        runs[side] = dict(losses=[float(loss0), float(loss1)],
+                          norm=float(m["grad_norm"]), lr=float(m["lr"]),
+                          grads=grads, calls=rec.calls)
+        walls[side] = time.perf_counter() - t
+        del stepped
+        with torch.no_grad():
+            runs[side]["routes"] = moe.routes() if c.moe is not None else None
     a, b = runs["card"], runs["cpu"]
     e_loss = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
                                                      b["losses"]))
-    e_norm = max(abs(x - y) / abs(y) for x, y in zip(a["norms"], b["norms"]))
-    bound = 4 * sum(b["lrs"])
-    e_par, n_far, n_all = 0.0, 0, 0
-    for x, y in zip(leaves(a["params"]), leaves(b["params"])):
-        d = (x.cpu() - y).abs()
-        e_par = max(e_par, float(d.max()))
-        n_far += int((d > 1e-6 * y.abs().clamp(min=1.0)).sum())
-        n_all += d.numel()
+    e_norm = abs(a["norm"] - b["norm"]) / abs(b["norm"])
+    e_grad, worst = 0.0, None
+    for (key, x), y in zip(leaves_with_keys(a["grads"]), leaves(b["grads"])):
+        top = float(y.abs().max())
+        d = float((x.cpu() - y).abs().max())
+        e = d / top if top > 0 else (0.0 if d == 0 else math.inf)
+        if e >= e_grad:
+            e_grad, worst = e, key
     log(f"train cross-check {c.name}: 2 layers fp32 remat=full, "
-        f"{c.param_count()} parameters, {TRAIN_XC['steps']} steps of "
-        f"{TRAIN_XC['batch']} x {TRAIN_XC['seq']} tokens: losses card "
-        f"{a['losses']} CPU {b['losses']} (largest relative difference "
-        f"{e_loss:.3e}), grad norms {e_norm:.3e} apart; parameters at most "
-        f"{e_par:.3e} apart (bound 4 x sum lr = {bound:.3e}), {n_far} of "
-        f"{n_all} entries beyond 1e-6 of max(1, |cpu|); walls card "
-        f"{walls['card']:.2f} s (first calls), CPU {walls['cpu']:.2f} s")
+        f"{c.param_count()} parameters, {TRAIN_XC['batch']} x "
+        f"{TRAIN_XC['seq']} tokens: losses before and after one AdamW step "
+        f"(lr {b['lr']:.3e}) card {a['losses']} CPU {b['losses']} (largest "
+        f"relative difference {e_loss:.3e}), grad norms {a['norm']:.6g} / "
+        f"{b['norm']:.6g} ({e_norm:.3e} apart); gradients at most "
+        f"{e_grad:.3e} of their leaf's largest magnitude apart ({worst}); "
+        f"walls card {walls['card']:.2f} s (first calls), CPU "
+        f"{walls['cpu']:.2f} s")
     if c.moe is not None:
         (ae, ak, _), (be, bk, gap) = a["routes"], b["routes"]
         log(f"train cross-check {c.name}: layer 0 routes card = CPU "
@@ -2548,12 +2558,25 @@ def train_cross_check(dev, name):
     check(e_loss <= TRAIN_LOSS_TOL and e_norm <= TRAIN_LOSS_TOL,
           f"train cross-check {c.name}: losses or grad norms differ by "
           f"{e_loss} / {e_norm}")
-    check(e_par <= bound, f"train cross-check {c.name}: parameters differ "
-          f"by {e_par} > {bound}")
+    check(e_grad <= TRAIN_GRAD_TOL, f"train cross-check {c.name}: gradient "
+          f"{worst} differs by {e_grad} of its largest magnitude")
     calls = a["calls"]["flash_attention_backward"]
     check(calls, f"train cross-check {c.name}: kernel 8's backward never "
           f"ran on the card")
     return calls[0], walls["cpu"]
+
+
+def leaves_with_keys(tree, prefix=""):
+    """(dotted key, leaf) of a tree in the order of ``train.tree.leaves``:
+    dict keys sorted, lists and tuples in order."""
+    if isinstance(tree, dict):
+        items = [(key, tree[key]) for key in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return [(prefix, tree)]
+    return [pair for key, sub in items for pair in
+            leaves_with_keys(sub, f"{prefix}.{key}" if prefix else str(key))]
 
 
 def train_full_width(dev, n_layers, seq):
@@ -2699,8 +2722,10 @@ def train_loop_check(dev):
 def bwd_edge_calls(dev):
     """Seeded edge inputs of kernel 8's backward, drawn on the card, at
     every built width pair in fp32 and bf16: GQA groups 1, 3 and 8, causal
-    and not, ragged S (1, 129, 200, 300), one of 1,000 keys; each as
-    (q, k, v, dO) with its forward from the kernel."""
+    and not, ragged S (1, 129, 200, 300), one of 1,000 keys, and in bf16
+    Yi-6B's training call (2, 32, 4,096, 128) causal with a unit-scale dO
+    (the training step's own dO is the gradient of a mean over 8,192
+    tokens); each as (q, k, v, dO) with its forward from the kernel."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     gen = torch.Generator(device=dev)
@@ -2723,30 +2748,44 @@ def bwd_edge_calls(dev):
                        randn((1, 1, 1000, 128), dt, 0.5),
                        randn((1, 1, 1000, 128), dt),
                        randn((1, 8, 1000, 128), dt)), True))
+    dt = torch.bfloat16
+    calls.append(((randn((2, 32, 4096, 128), dt, 0.5),
+                   randn((2, 4, 4096, 128), dt, 0.5),
+                   randn((2, 4, 4096, 128), dt),
+                   randn((2, 32, 4096, 128), dt)), True))
     return calls
 
 
 def bwd_error(label, got, want):
-    """The largest error of (dq, dk, dv) against the plain version, of
-    max(1, |want|); raises beyond ``BF16_TOL`` (bf16) or ``BWD_F32_TOL``
-    (fp32)."""
+    """The largest error of dq, dk and dv against the plain version, each
+    max |got - want| over its own largest |want|, that magnitude floored at
+    ``BWD_FLOOR`` of the largest of the three (dq and dk are 0 at S = 1);
+    so a gradient's scale (the training step's are ~1e-5) cannot hide a
+    wrong tensor.  Raises beyond ``BF16_TOL`` (bf16) or ``BWD_F32_TOL``
+    (fp32).  Returns the error and how many of the three took the
+    floor."""
     import torch
+    tops = [float(w.float().abs().max()) for w in want]
+    floor = BWD_FLOOR * max(tops)
+    check(max(tops) > 0, f"{label}: every gradient of the plain version is 0")
     err = 0.0
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    for name, g, w, top in zip(("dq", "dk", "dv"), got, want, tops):
         check(g.shape == w.shape and g.dtype == w.dtype,
               f"{label}: {name} {tuple(g.shape)} {g.dtype} vs "
               f"{tuple(w.shape)} {w.dtype}")
         check(bool(torch.isfinite(g.float()).all()), f"{label}: non-finite "
               f"{name}")
-        err = max(err, bf16_rel_err(g, w))
+        err = max(err, float((g.float() - w.float()).abs().max())
+                  / max(top, floor))
     tol = BF16_TOL if got[0].dtype == torch.bfloat16 else BWD_F32_TOL
-    check(err <= tol, f"{label}: error {err} of max(1, |want|) > {tol}")
-    return err
+    check(err <= tol, f"{label}: error {err} of the largest |want| > {tol}")
+    return err, sum(top < floor for top in tops)
 
 
 def bwd_check(label, args, kw):
     """One backward call: the kernel twice (the same bits), the plain
-    version; returns the error."""
+    version; returns ``bwd_error``'s error and count of floored
+    gradients."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     got = fa.flash_attention_backward(*args, **kw)
@@ -2784,33 +2823,50 @@ def bwd_kernel_row(dev, recorded, launches):
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for args, kw in recorded:
-        errs[args[0].dtype] = max(errs[args[0].dtype], bwd_check(
-            f"flash_attention_backward {tuple(args[0].shape)}", args, kw))
+    rec = [bwd_check(f"flash_attention_backward {tuple(args[0].shape)}",
+                     args, kw) for args, kw in recorded]
+    rec_errs = [e for e, _ in rec]
+    floored = sum(n for _, n in rec)
+    for (args, _), e in zip(recorded, rec_errs):
+        errs[args[0].dtype] = max(errs[args[0].dtype], e)
     edges = bwd_edge_calls(dev)
-    e_lse = 0.0
+    e_lse, edge_errs = 0.0, []
     for (q, k, v, do), causal in edges:
         o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
         _, lse_ref = fa.attention_ref(q, k, v, causal=causal,
                                       return_lse=True)
         e_lse = max(e_lse, float(((lse - lse_ref).abs()
                                   / lse_ref.abs().clamp(min=1.0)).max()))
-        errs[q.dtype] = max(errs[q.dtype], bwd_check(
+        e, n = bwd_check(
             f"flash_attention_backward edge {tuple(q.shape)} "
             f"{tuple(v.shape)} causal={causal}", (q, k, v, o, lse, do),
-            dict(causal=causal)))
+            dict(causal=causal))
+        edge_errs.append(e)
+        floored += n
+        errs[q.dtype] = max(errs[q.dtype], e)
+    yi_err = edge_errs[-1]      # the last edge case is Yi-6B's call
     log(f"kernel flash_attention_backward: {len(recorded)} recorded calls "
         f"and {len(edges)} edge cases, every built width pair "
         f"{fa.PREFILL_WIDTHS}, two launches bit-equal on each; worst error "
-        f"of max(1, |want|) fp32 {errs[torch.float32]:.3e} (bar "
-        f"{BWD_F32_TOL}), bf16 {errs[torch.bfloat16]:.3e} (bar {BF16_TOL}); "
+        f"of each gradient's largest |want| fp32 {errs[torch.float32]:.3e} "
+        f"(bar {BWD_F32_TOL}), bf16 {errs[torch.bfloat16]:.3e} (bar "
+        f"{BF16_TOL}); Yi-6B's call with a unit-scale dO {yi_err:.3e}; "
+        f"{floored} of {3 * (len(recorded) + len(edges))} gradients held "
+        f"to the floor ({BWD_FLOOR} of the call's largest); "
         f"forward log-sum-exp against attention_ref {e_lse:.3e}")
     check(e_lse <= BWD_F32_TOL, f"flash_attention lse: error {e_lse}")
-    args, kw = max((c for c in recorded if c[0][0].dtype == torch.bfloat16),
-                   key=lambda c: bwd_work(*c)[1])
+
+    def timed(dtype):
+        """The recorded call of ``dtype`` with the most work, and its own
+        error."""
+        i = max((i for i, c in enumerate(recorded)
+                 if c[0][0].dtype == dtype),
+                key=lambda i: bwd_work(*recorded[i])[1])
+        return recorded[i], rec_errs[i]
+    (args, kw), err = timed(torch.bfloat16)
     row = kernel_row("flash_attention_backward", fa.flash_attention_backward,
                      fa.flash_attention_backward_plain, sdpa_backward_call,
-                     args, kw, errs[torch.bfloat16],
+                     args, kw, err,
                      f"the bf16 Yi-6B training call {tuple(args[0].shape)}")
     ops = bwd_work(args, kw)[1]
     log(f"kernel flash_attention_backward ({tuple(args[0].shape)}, bf16, "
@@ -2818,12 +2874,11 @@ def bwd_kernel_row(dev, recorded, launches):
         f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; SDPA's "
         f"backward {ops / row['library_ms'] / 1e9:.1f} TFLOP/s, "
         f"{100 * row['bound_ms'] / row['library_ms']:.1f} %")
-    fp32 = max((c for c in recorded if c[0][0].dtype == torch.float32),
-               key=lambda c: bwd_work(*c)[1])
+    fp32, err = timed(torch.float32)
     kernel_row("flash_attention_backward", fa.flash_attention_backward,
                fa.flash_attention_backward_plain, sdpa_backward_call, *fp32,
-               errs[torch.float32], f"fp32 CUDA-core kernels on the fp32 "
-               f"cross-check's call {tuple(fp32[0][0].shape)}")
+               err, f"fp32 CUDA-core kernels on the fp32 cross-check's call "
+               f"{tuple(fp32[0][0].shape)}")
     row["launches"] = launches
     return row
 

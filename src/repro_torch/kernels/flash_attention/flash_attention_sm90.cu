@@ -332,7 +332,9 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
-template <int DQK, int DV>
+// LSE: write each row's log-sum-exp into ``lse`` (training); the serving
+// instantiation (LSE false) carries no code for it
+template <int DQK, int DV, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 const __grid_constant__ CUtensorMap tm_k,
@@ -526,9 +528,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     inv[h] = 1.f / fmaxf(l[h], 1e-30f);
     // the row's log-sum-exp, for the backward (flash_attention_bwd.cu)
-    if (lse != nullptr && (lane & 3) == 0 && row + 8 * h < sq)
-      lse[(static_cast<long long>(b) * gridDim.x + hh) * sq + row + 8 * h] =
-          m[h] + logf(fmaxf(l[h], 1e-30f));
+    if constexpr (LSE) {
+      if ((lane & 3) == 0 && row + 8 * h < sq)
+        lse[(static_cast<long long>(b) * gridDim.x + hh) * sq + row + 8 * h] =
+            m[h] + logf(fmaxf(l[h], 1e-30f));
+    }
   }
 #pragma unroll
   for (int i = 0; i < DV / 2; i += 2) {
@@ -622,7 +626,8 @@ int attention_sm90_d(const void* q, const void* k, const void* v, void* out,
                 static_cast<long long>(h) * sq * DV, GV::kBox, 64,
                 GV::kSwizzle))
     return -2;
-  auto kern = flash_attention_sm90_kernel<DQK, DV>;
+  auto kern = lse != nullptr ? flash_attention_sm90_kernel<DQK, DV, true>
+                             : flash_attention_sm90_kernel<DQK, DV, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);

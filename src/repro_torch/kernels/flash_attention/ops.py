@@ -80,20 +80,24 @@ def attention_ref(q, k, v, causal: bool = True, scale: float | None = None,
 
 
 def attention_tc_plain(q, k, v, causal: bool = True,
-                       scale: float | None = None, p_halves: int = 2):
+                       scale: float | None = None, p_halves: int = 2,
+                       return_lse: bool = False):
     """The bf16 prefill kernel's arithmetic in plain PyTorch: for each
     128-row query block, an online softmax over 128-key tiles (up to the
     block's diagonal when causal) with fp32 products of the operands,
     logits scaled after the dot and masked to -1e30, P split into bf16 hi
     + lo halves for P·V (``p_halves=1``: rounded once to bf16, which the
     kernel does not do) while its fp32 values are summed, and the sum
-    floored at 1e-30; output (B, H, Sq, Dv) in q's type."""
+    floored at 1e-30; output (B, H, Sq, Dv) in q's type, and with
+    ``return_lse`` each row's log-sum-exp, fp32 (B, H, Sq), as the kernel
+    writes it."""
     b, h, sq, d = q.shape
     sk, dv = k.shape[2], v.shape[-1]
     scale = scale if scale is not None else d ** -0.5
     k = _expand_kv(k, h).float()
     v = _expand_kv(v, h).float()
     out = torch.empty((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     for q0 in range(0, sq, TC_TILE):
         q1 = min(q0 + TC_TILE, sq)
         rows = torch.arange(q0, q1, device=q.device)[:, None]
@@ -118,6 +122,9 @@ def attention_tc_plain(q, k, v, causal: bool = True,
                 "bhqk,bhkd->bhqd", hi, v[:, :, k0:k1])
             m = m_new
         out[:, :, q0:q1] = acc / torch.clamp(l, min=1e-30)[..., None]
+        lse[:, :, q0:q1] = m + torch.log(torch.clamp(l, min=1e-30))
+    if return_lse:
+        return out.to(q.dtype), lse
     return out.to(q.dtype)
 
 

@@ -68,14 +68,12 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int = 512,
 
 
 def _attend(q, k, v, causal, chunk, scale, return_lse):
-    """The prefill kernel for CUDA tensors, the plain loop for CPU ones;
-    without ``return_lse`` the serving path's call, word for word."""
-    lse = dict(return_lse=True) if return_lse else {}
+    """The prefill kernel for CUDA tensors, the plain loop for CPU ones."""
     if not kernels.on_cpu(q, k, v):
         return fa_ops.flash_attention(q, k, v, causal=causal, scale=scale,
-                                      **lse)
+                                      return_lse=return_lse)
     return chunked_attention_plain(q, k, v, causal=causal, chunk=chunk,
-                                   scale=scale, **lse)
+                                   scale=scale, return_lse=return_lse)
 
 
 class ChunkedAttention(torch.autograd.Function):

@@ -8,7 +8,8 @@ from the saved log-sum-exp) and the CPU backward of
 when a gradient is needed) are held to ``jax.grad`` of the reference's
 ``chunked_attention`` on the same inputs: causal and not, GQA groups 1, 2
 and 3, widths (16, 16) and (24, 32), a sequence that is not a multiple of
-the chunk's tile.  The forward's log-sum-exp is held to the reference's
+the chunk's tile.  The forward's log-sum-exp (the plain loop's, the
+wrapper's and ``attention_tc_plain``'s) is held to the reference's
 logits' ``logsumexp``.  No gradient needed, the serving path launches the
 prefill kernel as before and writes no log-sum-exp; on device tensors
 (meta, with a fake extension) the backward wrapper launches its kernel once
@@ -122,6 +123,29 @@ def test_forward_lse_matches_reference_logsumexp(causal):
                                               chunk=chunk, return_lse=True)
         np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-5)
     _, lse = ops.flash_attention(qt, kt, vt, causal=causal, return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_plain_lse_matches_reference_logsumexp(causal):
+    """``attention_tc_plain`` (the bf16 kernel's arithmetic) returns the
+    same output with ``return_lse`` as without, and the reference's
+    logsumexp of the logits, over several of its 128-row query blocks."""
+    b, h, hkv, s, d = 1, 4, 2, 300, 16
+    rng = np.random.RandomState(5)
+    q, k, v = (rng.randn(b, n, s, d).astype(np.float32)
+               for n in (h, hkv, hkv))
+    kx = np.repeat(k, h // hkv, axis=1)
+    logits = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q),
+                        jnp.asarray(kx)) * d ** -0.5
+    if causal:
+        logits = jnp.where(jnp.tril(jnp.ones((s, s), bool)), logits, -1e30)
+    want = np.asarray(jax.nn.logsumexp(logits, axis=-1))
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = ops.attention_tc_plain(qt, kt, vt, causal=causal,
+                                      return_lse=True)
+    assert torch.equal(out, ops.attention_tc_plain(qt, kt, vt,
+                                                   causal=causal))
     np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-5)
 
 
