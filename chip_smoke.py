@@ -382,12 +382,68 @@ order, it
       repeated to every head outside the timed call), with its TFLOP/s and
       share of the bound, and the fp32 kernels on the fp32 call on a line
       of their own;
-20. prints the total elapsed time, the ``kernels`` JSON line (eleven
+20. recsys_gnn phase (``models/{recsys,gnn,embedding}``: the four recsys
+   heads and DimeNet), once the LM is freed:
+   a. card = CPU: DeepFM, xDeepFM, the two-tower model (32 a batch) and
+      DimeNet (128 molecules of 30 nodes and 64 edges) at REDUCED, and
+      BERT4Rec at its CONFIG widths (d 64, 2 heads of 32, 2 blocks, 200
+      positions) with n_items cut to 4,096 and 8 histories (REDUCED's head
+      width 8 is one kernel 8 is not built for, ROADMAP §3 open 2), in
+      fp32, drawn once on the card and copied to the host (BERT4Rec's
+      block matrices at 1/√(fan-in), ``fan_in_scale``: at the reference's
+      1/√n_blocks fp32 alone puts its gradients 6.1e-05 to 3.4e-04 of a
+      leaf's largest from fp64, past the bar, ROADMAP §3 open 12): the
+      loss and gradients of one batch, one AdamW step at the peak lr, the
+      loss after it, under 19a's tolerances; kernel 8 and its backward
+      launched once a block for BERT4Rec, no kernel for the others; for
+      BERT4Rec each attention call's softmax rows logged (the row's
+      largest logit and its gap to the second); ``neighbor_sample``
+      (1,024 seeds, fanouts 15 and 10) and ``build_triplets`` (2 a sampled
+      edge) over a synthetic graph of Reddit's 232,965 nodes and mean
+      degree 492 (a (232,965, 512) int32 padded adjacency drawn on the
+      card) on the card and the CPU from one key, bit-equal;
+   b. serve paths, each counted from 0: the two-tower model at CONFIG
+      (8,000,000 users, 2,000,000 items, towers 1,024-512-256): the item
+      tower over 2,000,000 synthetic items as the candidates, 512 users'
+      towers into ``streaming_topk`` (kernel 6, k 100: one launch), and
+      ``anytime_retrieval`` of one user over the first 1,000,448
+      candidates at k 1,000 and budgets 1,000,448, 131,072 and 500 (one
+      launch each); BERT4Rec at CONFIG (1,000,000 items; the reference's
+      init here and in c): 512 histories of 200 through
+      ``bert4rec_hidden`` (kernel 8 fp32, one launch a block)
+      and the last position into ``streaming_topk`` over the 1,000,192
+      item rows (one launch).  Kernel 6 on each recorded call against
+      ``dense_topk_plain`` (in chunks of 64 queries) on these unquantized
+      embeddings: scores within 1e-5 of max(1, |want|), ids equal except
+      between near-tied scores (counted and logged); on the edge calls
+      (k > n with its (-inf, 0) fill, 777 candidates, budget 0 with no
+      launch); timed beside the plain version and ``torch.topk(q @ embᵀ,
+      k)``.  Kernel 8's fp32 kernel on BERT4Rec's serve call (512, 2, 200,
+      32) non-causal against ``chunked_attention_plain`` (within 1e-4 of
+      the largest |want|), timed beside the plain path and SDPA;
+   c. full-width training steps (``train_loop.value_and_grad`` and
+      ``optimizer.apply`` with the buffers donated), 2 each, counted from
+      0, at each model's CONFIG: DeepFM at its published batch of 65,536;
+      xDeepFM at 8,192 (the CIN's (B, 200, 39, 10) fp32 product is 20.4 GB
+      a layer at 65,536); the two-tower model at 16,384 (parameters,
+      gradients and moments take ≈ 41 GB, the (B, B) logits 17.2 GB at
+      65,536); BERT4Rec at 4,096 histories of 200, 8 masked, 2,048
+      candidates (an FFN activation is 13.4 GB at 65,536): kernel 8 and its
+      backward once a block and step, the recorded training call (4,096,
+      2, 200, 32) held to the plain versions (the backward by
+      ``bwd_check``) and timed beside SDPA's backward; DimeNet on 128
+      molecules and on minibatch_lg's sample (d_feat 602: 168,960 edges,
+      337,920 triplets), its block matrices at 1/√(fan-in) (at the
+      reference's 1/√6 the loss overflows, ROADMAP §3 open 11); each step's
+      wall (CUDA events), peak memory and
+      launches logged; the phase's wall and launches logged;
+21. prints the total elapsed time, the ``kernels`` JSON line (eleven
     rows: the nine TPU kernels, kernel 8's backward and
     ``level_histogram``; the launches of kernels 1-3 are step 7's, the
     backward's step 19b's; the library time of kernels 1 and 2 an
-    ``index_add_`` over the (query, lane) pairs each adds), then the card
-    line, then the result.
+    ``index_add_`` over the (query, lane) pairs each adds; step 20's rows
+    of kernels 6 and 8 are logged lines), then the card line, then the
+    result.
 
 Any failed check exits non-zero without the result line.  ``--n-docs``
 and ``--batches`` shrink the retrieval phases for a quick check,
@@ -399,6 +455,8 @@ train phase's full-width run: at most ``--lm-layers`` layers and
 ``--profile`` adds a ``torch.profiler`` breakdown of one more served batch
 of each preset (wall, device busy time, host time per cascade stage,
 busiest device kernels) and of one more LM prefill and decode step.
+``--only recsys_gnn`` builds the kernels and runs step 20 alone, and
+prints no result.
 """
 
 from __future__ import annotations
@@ -540,6 +598,27 @@ TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
 BWD_F32_TOL = 1e-4
 BWD_FLOOR = 1e-2
+# recsys_gnn phase: the card-vs-CPU checks (REDUCED; BERT4Rec at CONFIG
+# widths with n_items cut to 4,096 and 8 histories) and their batch; the
+# serve calls (512 queries, k 100; anytime_retrieval over 1,000,448
+# candidates at k 1,000 and three budgets); the full-width steps' batches
+# (module docstring, 20c: xDeepFM, two-tower and BERT4Rec cut for memory);
+# the synthetic Reddit-sized graph of minibatch_lg and the molecule batch;
+# kernel 6's bar on unquantized embeddings (of max(1, |want|)) and kernel
+# 8's fp32 bar on the model calls (of the largest |want|)
+RG_HEADS = ("deepfm", "xdeepfm", "two_tower_retrieval", "bert4rec")
+RG_XC = dict(batch=32, bert_items=4096, bert_batch=8)
+RG_SERVE = dict(queries=512, k=100, chunk=64)
+RG_ANYTIME = dict(n=1_000_448, k=1000, budgets=(1_000_448, 131_072, 500))
+RG_STEP_BATCH = {"deepfm": 65_536, "xdeepfm": 8_192,
+                 "two_tower_retrieval": 16_384, "bert4rec": 4_096}
+RG_BERT = dict(n_masked=8, xc_cands=256, cands=2048)
+RG_STEPS = 2
+RG_GRAPH = dict(n_nodes=232_965, max_deg=512, min_deg=472, d_feat=602,
+                seeds=1024, fanouts=(15, 10), trip=2)
+RG_MOLECULE = dict(graphs=128, nodes=30, edges=64, trip=4)
+RG_TOPK_TOL = 1e-5
+RG_F32_TOL = 1e-4
 # fit phase: the query log the systems are fitted from, and the fit's seed
 FIT_QUERIES, FIT_SEED = 4096, 5
 # cli phase: the serving CLI at the reference CLI's defaults (paper_200ms,
@@ -1794,13 +1873,20 @@ class FirstMoEInput:
         return tope.cpu(), kept.cpu(), (top[:, k - 1] - top[:, k]).cpu()
 
 
-def fan_in_scale(params):
+def fan_in_scale(params, stacked=None, keep=("router",)):
     """Rescale, in place, each stacked layer matrix of ``params`` (leaves
     (L, ..., fan-in, fan-out), drawn at the reference's 1/√L) to 1/√(its
-    fan-in); the MoE router (0.02) and the norms stay."""
-    for group in ("attn", "ffn"):
-        for key, w in params["layers"][group].items():
-            if w.dim() > 2 and key != "router":
+    fan-in); the leaves named in ``keep`` (the MoE router, 0.02) and the
+    norms stay.  ``stacked`` names another dict of stacked leaves, nested
+    dicts included, to rescale in place of the LM's layers (the ``blocks``
+    of BERT4Rec and DimeNet)."""
+    groups = ([stacked] if stacked is not None else
+              [params["layers"][group] for group in ("attn", "ffn")])
+    for leaves_ in groups:
+        for key, w in leaves_.items():
+            if isinstance(w, dict):
+                fan_in_scale(params, w, keep)
+            elif w.dim() > 2 and key not in keep:
                 w.mul_(math.sqrt(w.shape[0] / w.shape[-2]))
     return params
 
@@ -2905,6 +2991,609 @@ def train_phase(dev, lm_layers, lm_prompt):
     recorded.append(call)
     train_loop_check(dev)
     return bwd_kernel_row(dev, recorded, launches)
+
+
+# ---------------------------------------------------------------------------
+# recsys and GNN: card = CPU, the serve paths' kernel calls, full-width steps
+# ---------------------------------------------------------------------------
+
+def rg_config(name, reduced=True):
+    """``name``'s configuration in the port's registry: REDUCED or
+    CONFIG."""
+    from repro_torch.configs import registry
+    return (registry.get_reduced if reduced else registry.get_arch)(name)[0]
+
+
+def rg_host_batch(name, c, batch, seed, n_cands=RG_BERT["cands"]):
+    """A batch of ``name`` as NumPy arrays: ``data/synthetic``'s CTR,
+    masked-sequence and molecule generators; for the two-tower model NumPy
+    draws (each side's ids, full masks, a small logQ)."""
+    import numpy as np
+    from repro_torch.data import synthetic
+    if name in ("deepfm", "xdeepfm"):
+        return next(synthetic.ctr_batches(c.n_sparse, c.rows_per_field,
+                                          batch, seed=seed))
+    if name == "bert4rec":
+        return next(synthetic.seqrec_batches(
+            c.n_items, batch, c.seq_len, n_masked=RG_BERT["n_masked"],
+            n_cands=n_cands, seed=seed))
+    if name == "dimenet":
+        m = RG_MOLECULE
+        return synthetic.make_molecule_batch(
+            np.random.RandomState(seed), m["graphs"], m["nodes"], m["edges"],
+            c.d_feat, m["trip"])
+    rng = np.random.RandomState(seed)
+    return {"user_ids": rng.randint(0, c.n_users, (batch, c.n_user_feats))
+            .astype(np.int32),
+            "user_mask": np.ones((batch, c.n_user_feats), np.float32),
+            "item_ids": rng.randint(0, c.n_items, (batch, c.n_item_feats))
+            .astype(np.int32),
+            "item_mask": np.ones((batch, c.n_item_feats), np.float32),
+            "log_q": (rng.randn(batch) * 0.1).astype(np.float32)}
+
+
+def to_device(host, dev):
+    import torch
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def rg_loss(name, c):
+    """``name``'s training loss as fn(params, batch)."""
+    from repro_torch.models import gnn, recsys
+    fn = {"deepfm": recsys.ctr_loss, "xdeepfm": recsys.ctr_loss,
+          "two_tower_retrieval": recsys.two_tower_loss,
+          "bert4rec": recsys.bert4rec_loss, "dimenet": gnn.loss_fn}[name]
+    return lambda p, b: fn(p, c, b)
+
+
+def rg_init(name, c, dev, fan_in=False, seed=SEED):
+    """Parameters of ``c`` drawn on ``dev``; with ``fan_in`` the stacked
+    block matrices rescaled to 1/√(their fan-in) (``fan_in_scale``;
+    DimeNet's bilinear tensor keeps its 1/√(h · n_bilinear)).  DimeNet
+    takes it at CONFIG: there the reference's scale overflows (ROADMAP §3
+    open 11: a loss of 2.7e29 and an infinite grad norm on a molecule
+    batch).  BERT4Rec's card-vs-CPU check takes it: at the reference's
+    1/√n_blocks the CPU's own fp32 gradients lie 6.1e-05 to 3.4e-04 of a
+    leaf's largest from fp64 (ROADMAP §3 open 12), past the check's 1e-4;
+    its serve and full-width steps run at the reference's init."""
+    from repro_torch.models import gnn, recsys
+    mod = gnn if name == "dimenet" else recsys
+    params = mod.init(c, seed=seed, device=dev)
+    if fan_in:
+        fan_in_scale(params, params["blocks"], keep=("bilinear",))
+    return params
+
+
+def rg_cross_check(dev, name, seed=SEED, fan_in=False):
+    """One head, or DimeNet on a molecule batch, on the card and on the CPU
+    from the same parameters (drawn on the card, copied to the host) and
+    batch (module docstring, 20a): the loss and gradients, one AdamW step
+    at the peak lr, the loss after it.  Both losses within
+    ``TRAIN_LOSS_TOL``, each gradient leaf within ``TRAIN_GRAD_TOL`` of its
+    largest magnitude on the CPU; the card's launches counted: kernel 8
+    and its backward once a block for BERT4Rec's gradient (and kernel 8
+    again for the loss after the step), no kernel for the others.  ``seed``
+    draws the parameters and the batch; ``fan_in`` rescales the block
+    matrices (``rg_init``).  Returns the CPU side's wall."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.train import optimizer, train_loop
+    from repro_torch.train.tree import leaves
+    if name == "bert4rec":
+        c = dataclasses.replace(rg_config(name, reduced=False),
+                                n_items=RG_XC["bert_items"])
+        batch = RG_XC["bert_batch"]
+    else:
+        c, batch = rg_config(name), RG_XC["batch"]
+    card = rg_init(name, c, dev, fan_in, seed)
+    host = tree_to(card, "cpu")
+    hb = rg_host_batch(name, c, batch, seed % 10_000, RG_BERT["xc_cands"])
+    loss_fn = rg_loss(name, c)
+    cfg = optimizer.AdamWConfig(warmup_steps=1)
+    runs, walls = {}, {}
+    rec = Recorder(("flash_attention",), clone=True)
+    for side, params in (("card", card), ("cpu", host)):
+        b = to_device(hb, dev if side == "card" else "cpu")
+        kernels.reset_launches()
+        t = time.perf_counter()
+        with rec if side == "card" else contextlib.nullcontext():
+            loss0, grads = train_loop.value_and_grad(loss_fn, params, b)
+        stepped, _, _ = optimizer.apply(params, grads, optimizer.init(params),
+                                        cfg)
+        with torch.no_grad():
+            loss1 = loss_fn(stepped, b)
+        runs[side] = dict(losses=[float(loss0), float(loss1)], grads=grads,
+                          launches=dict(kernels.LAUNCHES))
+        walls[side] = time.perf_counter() - t
+    a, b = runs["card"], runs["cpu"]
+    e_loss = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                     b["losses"]))
+    e_grad, worst = 0.0, None
+    for (key, x), y in zip(leaves_with_keys(a["grads"]), leaves(b["grads"])):
+        top = float(y.abs().max())
+        d = float((x.cpu() - y).abs().max())
+        e = d / top if top > 0 else (0.0 if d == 0 else math.inf)
+        if e >= e_grad:
+            e_grad, worst = e, key
+    launched = {k: n for k, n in a["launches"].items() if n}
+    want = ({"flash_attention": 2 * c.n_blocks,
+             "flash_attention_backward": c.n_blocks}
+            if name == "bert4rec" else {})
+    log(f"recsys_gnn cross-check {c.name}: batch {batch}, "
+        f"{sum(x.numel() for x in leaves(card))} parameters; losses before "
+        f"and after one AdamW step card {a['losses']} CPU {b['losses']} "
+        f"(largest relative difference {e_loss:.3e}); gradients at most "
+        f"{e_grad:.3e} of their leaf's largest magnitude apart ({worst}); "
+        f"card launches {launched}; walls card {walls['card']:.2f} s, CPU "
+        f"{walls['cpu']:.2f} s")
+    if name == "bert4rec":
+        log_logit_spread(c.name, rec.calls["flash_attention"])
+    check(e_loss <= TRAIN_LOSS_TOL, f"recsys_gnn cross-check {c.name}: "
+          f"losses differ by {e_loss}")
+    check(e_grad <= TRAIN_GRAD_TOL, f"recsys_gnn cross-check {c.name}: "
+          f"gradient {worst} differs by {e_grad} of its largest magnitude")
+    check(launched == want, f"recsys_gnn cross-check {c.name}: launches "
+          f"{launched}, want {want}")
+    return walls["cpu"]
+
+
+def log_logit_spread(label, calls):
+    """For each recorded attention call (a block of the loss's forward):
+    each softmax row's largest logit q·k · scale and its gap to the row's
+    second largest, over all rows: the largest and median of the one, the
+    smallest and median of the other, and the rows whose gap is under
+    1e-3 (where an fp32 rounding could swap the two)."""
+    import torch
+    for i, (args, kw) in enumerate(calls):
+        q, k = args[0].float(), args[1].float()
+        scale = kw.get("scale") or q.shape[-1] ** -0.5
+        top = torch.topk(q @ k.transpose(-1, -2) * scale, 2, dim=-1).values
+        big, gap = top[..., 0].flatten(), (top[..., 0] - top[..., 1]).flatten()
+        log(f"recsys_gnn cross-check {label}: attention call {i} "
+            f"{tuple(q.shape)}: row-largest logit max {float(big.max()):.4f} "
+            f"median {float(big.median()):.4f}; top-2 gap min "
+            f"{float(gap.min()):.3e} median {float(gap.median()):.4f}, "
+            f"{int((gap < 1e-3).sum())} of {gap.numel()} rows under 1e-3")
+
+
+def rg_graph(dev):
+    """minibatch_lg's synthetic graph on ``dev`` from a seed: Reddit's
+    232,965 nodes as a (N, 512) int32 padded adjacency (row i's first
+    degree[i] slots its neighbors, drawn uniformly; the rest 0), degrees
+    uniform in [472, 512] (mean 492, Reddit's), and a generator for what
+    follows."""
+    import torch
+    g = RG_GRAPH
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    n, width = g["n_nodes"], g["max_deg"]
+    deg = torch.randint(g["min_deg"], width + 1, (n,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    nbr = torch.randint(0, n, (n, width), generator=gen, device=dev,
+                        dtype=torch.int32)
+    nbr.masked_fill_(torch.arange(width, device=dev)[None, :]
+                     >= deg[:, None], 0)
+    return nbr, deg, gen
+
+
+def rg_samplers(dev):
+    """``neighbor_sample`` (1,024 seeds, fanouts 15 and 10) and
+    ``build_triplets`` (2 a sampled edge) on the card and, from the graph
+    copied to the host, on the CPU, from one ``PRNGKey``: every output
+    bit-equal (module docstring, 20a).  Returns minibatch_lg's DimeNet
+    batch on the card: the sampled edges' nodes relabelled 0…n-1, their
+    features (d 602) and positions drawn there, the loss on the seeds."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import gnn
+    g = RG_GRAPH
+    nbr, deg, gen = rg_graph(dev)
+    seeds = torch.randperm(g["n_nodes"], generator=gen, device=dev)[
+        :g["seeds"]]
+    k_nbr, k_trip = prng.split(prng.PRNGKey(SEED % 10_000))
+    out, walls = {}, {}
+    for side, graph in (("card", (nbr, deg, seeds)),
+                        ("cpu", tuple(t.cpu() for t in (nbr, deg, seeds)))):
+        _sync(graph[0])
+        t = time.perf_counter()
+        sub = gnn.neighbor_sample(*graph, g["fanouts"], k_nbr)
+        kj, ji, tm = gnn.build_triplets(sub["edge_src"], sub["edge_dst"],
+                                        g["trip"] * sub["edge_src"].shape[0],
+                                        k_trip)
+        _sync(kj)
+        walls[side] = time.perf_counter() - t
+        out[side] = dict(sub, trip_kj=kj, trip_ji=ji, trip_mask=tm)
+    for key, want in out["cpu"].items():
+        got = out["card"][key]
+        check(got.dtype == want.dtype and torch.equal(got.cpu(), want),
+              f"recsys_gnn samplers: {key} differs on the card and the CPU")
+    sub = out["card"]
+    e = sub["edge_src"].shape[0]
+    nodes, inv = torch.unique(torch.cat([sub["edge_src"], sub["edge_dst"]]),
+                              return_inverse=True)
+    n = nodes.shape[0]
+    c = dataclasses.replace(rg_config("dimenet", reduced=False),
+                            d_feat=g["d_feat"])
+    batch = dict(
+        feat=torch.randn((n, c.d_feat), generator=gen, device=dev).mul_(0.3),
+        pos=torch.randn((n, 3), generator=gen, device=dev).mul_(1.5),
+        edge_src=inv[:e], edge_dst=inv[e:], trip_kj=sub["trip_kj"],
+        trip_ji=sub["trip_ji"], edge_mask=sub["edge_mask"],
+        trip_mask=sub["trip_mask"],
+        node_mask=torch.isin(nodes, seeds.long()).float(),
+        target=torch.randn((n,), generator=gen, device=dev))
+    log(f"recsys_gnn samplers: graph {g['n_nodes']} nodes x {g['max_deg']} "
+        f"slots ({nbr.numel() * 4 / 1e6:.0f} MB int32, mean degree "
+        f"{float(deg.float().mean()):.1f}); {g['seeds']} seeds, fanouts "
+        f"{g['fanouts']}: {e} edges ({int(sub['edge_mask'].sum())} live), "
+        f"{sub['trip_kj'].shape[0]} triplets ({int(sub['trip_mask'].sum())} "
+        f"live), {n} nodes; card = CPU bit for bit; walls card "
+        f"{walls['card']:.3f} s, CPU {walls['cpu']:.3f} s")
+    return c, batch
+
+
+def dense_plain_rows(q_emb, doc_emb, k):
+    """``dense_topk_plain`` over ``RG_SERVE["chunk"]`` queries at a time:
+    the same function, whose (Q, N) stable sort at once would take tens of
+    GB at the serve calls."""
+    import torch
+    from repro_torch.kernels.dense_topk import ops as dt
+    step = RG_SERVE["chunk"]
+    parts = [dt.dense_topk_plain(q_emb[i:i + step], doc_emb, k)
+             for i in range(0, q_emb.shape[0], step)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def topk_library(args, kw):
+    """``torch.topk(q @ embᵀ, k)``: the one PyTorch call of kernel 6's
+    function at these sizes (not tie-stable); a yardstick, used nowhere in
+    the port."""
+    import torch
+    q_emb, doc_emb, k = args
+    return lambda: torch.topk(q_emb @ doc_emb.T, k, dim=1)
+
+
+def topk_check(label, got, want, q_emb, doc_emb):
+    """Kernel 6's (scores, ids) against the plain version's on unquantized
+    embeddings: scores within ``RG_TOPK_TOL`` of max(1, |want|); where the
+    ids differ, the kernel's id scored anew (fp32) within that bar of the
+    plain score there (a near-tie).  Returns (the error, the positions
+    whose ids differ)."""
+    import torch
+    (gv, gi), (wv, wi) = got, want
+    check(gv.shape == wv.shape and gi.dtype == wi.dtype == torch.int64,
+          f"{label}: kernel output {tuple(gv.shape)} {gi.dtype} vs plain "
+          f"{tuple(wv.shape)} {wi.dtype}")
+    check(bool(torch.isfinite(gv).all()), f"{label}: non-finite scores")
+    bar = RG_TOPK_TOL * wv.abs().clamp(min=1.0)
+    err = float(((gv - wv).abs() / wv.abs().clamp(min=1.0)).max())
+    check(err <= RG_TOPK_TOL, f"{label}: scores differ by {err} of max(1, "
+          f"|want|)")
+    diff = gi != wi
+    n_diff = int(diff.sum())
+    if n_diff:
+        rows = torch.nonzero(diff)[:, 0]
+        own = (q_emb[rows] * doc_emb[gi[diff]]).sum(dim=-1)
+        check(bool(((own - wv[diff]).abs() <= bar[diff]).all()),
+              f"{label}: {n_diff} ids differ, not all between near-tied "
+              f"scores")
+        check(all(len(set(r.tolist())) == len(r) for r in gi[rows.unique()]),
+              f"{label}: a row holds an id twice")
+    return err, n_diff
+
+
+def rg_topk_row(label, args, launches):
+    """Kernel 6 on one call of a serve path against its plain version
+    (``topk_check``), timed beside the plain version and
+    ``topk_library``."""
+    from repro_torch.kernels.dense_topk import ops as dt
+    got = dt.dense_topk_tiles(*args)
+    want = dense_plain_rows(*args)
+    err, n_diff = topk_check(f"dense_topk_tiles {label}", got, want, *args[:2])
+    q_emb, doc_emb, k = args
+    del got, want
+    row = kernel_row("dense_topk_tiles", dt.dense_topk_tiles,
+                     dense_plain_rows, topk_library, args, {}, err,
+                     f"{label}: Q {q_emb.shape[0]} x N {doc_emb.shape[0]} x "
+                     f"d {doc_emb.shape[1]}, k {k}; {n_diff} of "
+                     f"{q_emb.shape[0] * k} ids differ between near-tied "
+                     f"scores; plain in chunks of {RG_SERVE['chunk']} "
+                     f"queries; library torch.topk(q @ embᵀ, k)")
+    row["launches"] = launches
+    return row
+
+
+def events():
+    import torch
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def rg_topk_edges(dev, q_emb, cand):
+    """Kernel 6's edge calls through the port's entry points: k > n
+    (``streaming_topk`` of 100 over 50 candidates: the kernel at k = 50,
+    then (-inf, id 0) fills), a candidate count off the 256-doc tile (777),
+    ``anytime_retrieval`` at budget 0 (no launch, every slot filled)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import recsys
+    k = RG_SERVE["k"]
+    err, q = 0.0, q_emb[:16]
+    for n in (50, 777):
+        vals, ids = recsys.streaming_topk(q, cand[:n], k)
+        m = min(k, n)
+        e, _ = topk_check(f"dense_topk_tiles edge n={n}",
+                          (vals[:, :m], ids[:, :m]),
+                          dense_plain_rows(q, cand[:n], m), q, cand[:n])
+        err = max(err, e)
+        check(bool((vals[:, m:] == -math.inf).all() and (ids[:, m:] == 0)
+                   .all()), f"streaming_topk k > n={n}: wrong fill")
+    kernels.reset_launches()
+    vals, ids = recsys.anytime_retrieval(q[:1], cand, 0, k)
+    check(kernels.LAUNCHES["dense_topk_tiles"] == 0
+          and bool((vals == -math.inf).all())
+          and torch.equal(ids, torch.arange(k, device=ids.device)),
+          "anytime_retrieval at budget 0: wrong fill or a launch")
+    return err
+
+
+def rg_two_tower(dev):
+    """The two-tower model at CONFIG on the card (module docstring, 20b,
+    20c): the item tower over 2,000,000 synthetic items (each its own id
+    and 7 feature rows drawn from a seed) gives the candidates; counted
+    from 0, the user tower over 512 users' bags into ``streaming_topk``
+    (kernel 6, k 100); counted from 0, ``anytime_retrieval`` of the first
+    user over the first 1,000,448 candidates at k 1,000 and three budgets;
+    kernel 6's rows and edge calls; then the full-width training steps.
+    Returns (the launches of both paths, the rows)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import recsys
+    c = rg_config("two_tower_retrieval", reduced=False)
+    params = recsys.init(c, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    step = 1 << 18
+    with torch.no_grad():
+        cand = torch.empty((c.n_items, c.tower_mlp[-1]), device=dev)
+        for lo in range(0, c.n_items, step):
+            hi = min(lo + step, c.n_items)
+            ids = torch.randint(0, c.n_items, (hi - lo, c.n_item_feats),
+                                generator=gen, device=dev)
+            ids[:, 0] = torch.arange(lo, hi, device=dev)
+            cand[lo:hi] = recsys.tower_embed(
+                params, c, "item_table", "item_mlp", ids,
+                torch.ones(ids.shape, device=dev))
+        uids = torch.randint(0, c.n_users, (RG_SERVE["queries"],
+                                            c.n_user_feats),
+                             generator=gen, device=dev)
+        start, end = events()
+        kernels.reset_launches()
+        with Recorder(("dense_topk_tiles",)) as rec:
+            start.record()
+            u = recsys.tower_embed(params, c, "user_table", "user_mlp",
+                                   uids, torch.ones(uids.shape, device=dev))
+            vals, ids = recsys.streaming_topk(u, cand, RG_SERVE["k"])
+            end.record()
+            torch.cuda.synchronize()
+        launches = {"serve": kernels.LAUNCHES["dense_topk_tiles"]}
+        check(launches["serve"] == 1 and bool(torch.isfinite(vals).all())
+              and vals.shape == (RG_SERVE["queries"], RG_SERVE["k"]),
+              f"two-tower serve: launches {launches}, scores finite "
+              f"{bool(torch.isfinite(vals).all())}")
+        log(f"recsys_gnn two-tower serve: {c.n_items} item-tower outputs, "
+            f"{RG_SERVE['queries']} users' towers into streaming_topk (k "
+            f"{RG_SERVE['k']}): {start.elapsed_time(end):.3f} ms (CUDA "
+            f"events), kernel 6 launched {launches['serve']} time")
+        a = RG_ANYTIME
+        kernels.reset_launches()
+        with Recorder(("dense_topk_tiles",)) as rec_a:
+            for budget in a["budgets"]:
+                v, i = recsys.anytime_retrieval(
+                    u[:1], cand[:a["n"]], torch.tensor(budget, device=dev),
+                    a["k"])
+                live = min(budget, a["k"])
+                check(v.shape == (a["k"],) and bool((i[:live] < budget).all())
+                      and bool(torch.isfinite(v[:live]).all())
+                      and bool((v[live:] == -math.inf).all())
+                      and torch.equal(i[live:], torch.arange(
+                          budget, budget + a["k"] - live, device=dev)),
+                      f"anytime_retrieval at budget {budget}: wrong ids or "
+                      f"fill")
+        launches["anytime"] = kernels.LAUNCHES["dense_topk_tiles"]
+        check(launches["anytime"] == len(a["budgets"]),
+              f"anytime_retrieval: {launches['anytime']} launches")
+        rows = [rg_topk_row("two-tower serve", rec.calls[
+            "dense_topk_tiles"][0][0], launches["serve"])]
+        for args, _ in rec_a.calls["dense_topk_tiles"]:
+            rows.append(rg_topk_row(
+                f"anytime_retrieval budget {args[1].shape[0]}", args,
+                launches["anytime"]))
+        err = rg_topk_edges(dev, u, cand)
+        log(f"kernel dense_topk_tiles: edge calls (k > n, n = 777, budget "
+            f"0) within {err:.3e} of max(1, |want|)")
+    del cand, rec, rec_a, u, args
+    torch.cuda.empty_cache()
+    rg_steps(dev, "two_tower_retrieval", c, params, {})
+    return launches, rows
+
+
+def rg_steps(dev, name, c, params, want, host=None):
+    """``RG_STEPS`` full-width training steps of ``name`` on the card
+    (module docstring, 20c): ``train_loop.value_and_grad`` of its loss and
+    ``optimizer.apply`` with the buffers donated, on one batch of
+    ``RG_STEP_BATCH`` (or ``host``), counted from 0.  Finite losses and
+    grad norms, the launches ``want`` (no other kernel); logs each step's
+    wall (CUDA events) and the peak memory.  Returns the first recorded
+    calls of kernel 8 and its backward."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.train import optimizer, train_loop
+    from repro_torch.train.tree import leaves
+    if host is None:
+        host = rg_host_batch(name, c, RG_STEP_BATCH[name], SEED % 10_000)
+    batch = to_device(host, dev) if not isinstance(
+        next(iter(host.values())), torch.Tensor) else host
+    n_par = sum(x.numel() for x in leaves(params))
+    loss_fn = rg_loss(name, c)
+    opt = optimizer.init(params)
+    cfg = optimizer.AdamWConfig()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, norms = [], [], []
+    rec = Recorder(("flash_attention", "flash_attention_backward"),
+                   first=True, clone=True)
+    with rec:
+        for _ in range(RG_STEPS):
+            start, end = events()
+            start.record()
+            loss, grads = train_loop.value_and_grad(loss_fn, params, batch)
+            params, opt, m = optimizer.apply(params, grads, opt, cfg,
+                                             donate=True)
+            del grads
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(start.elapsed_time(end))
+            losses.append(float(loss))
+            norms.append(float(m["grad_norm"]))
+    launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    size = {k: tuple(v.shape) for k, v in batch.items()
+            if k in ("ids", "user_ids", "items", "edge_src", "trip_kj",
+                     "feat")}
+    log(f"recsys_gnn step {c.name}: {n_par} parameters, batch {size}: walls "
+        f"ms " + " ".join(f"{w:.1f}" for w in walls) + f" (CUDA events), "
+        f"losses {losses}, grad norms {norms}, peak memory {peak:.2f} GB; "
+        f"launches {launched}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"recsys_gnn step {c.name}: non-finite loss or grad norm")
+    check(launched == want, f"recsys_gnn step {c.name}: launches "
+          f"{launched}, want {want}")
+    calls = dict(rec.calls)
+    del params, opt, batch, rec
+    torch.cuda.empty_cache()
+    return calls
+
+
+def rg_bert4rec(dev):
+    """BERT4Rec at CONFIG (1,000,000 items) on the card (module docstring,
+    20b, 20c): counted from 0, 512 histories of 200 (the last slot the mask
+    token) through ``bert4rec_hidden`` (kernel 8 in fp32, one launch a
+    block) and the last position's hidden state into ``streaming_topk``
+    over the 1,000,192 item rows (kernel 6, k 100); kernel 6's row and
+    kernel 8's fp32 forward row at the serve call; then the full-width
+    steps (kernel 8 and its backward once a block and step) and the
+    backward's row at the training call.  Returns the serve's launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import attention as attn
+    from repro_torch.models import recsys
+    c = rg_config("bert4rec", reduced=False)
+    params = rg_init("bert4rec", c, dev)
+    host = rg_host_batch("bert4rec", c, RG_SERVE["queries"], SEED % 10_000)
+    items = torch.from_numpy(host["items"]).to(dev)
+    items[:, -1] = c.n_items                 # the mask token: predict next
+    start, end = events()
+    kernels.reset_launches()
+    with Recorder(("flash_attention", "dense_topk_tiles")) as rec, \
+            torch.no_grad():
+        start.record()
+        h = recsys.bert4rec_hidden(params, c, items)
+        vals, ids = recsys.streaming_topk(h[:, -1], params["item_embed"],
+                                          RG_SERVE["k"])
+        end.record()
+        torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in ("flash_attention",
+                                                 "dense_topk_tiles")}
+    log(f"recsys_gnn BERT4Rec serve: {RG_SERVE['queries']} histories of "
+        f"{c.seq_len} into streaming_topk over {c.padded_items} item rows "
+        f"(k {RG_SERVE['k']}): {start.elapsed_time(end):.3f} ms (CUDA "
+        f"events), launches {launches}")
+    check(launches == {"flash_attention": c.n_blocks, "dense_topk_tiles": 1}
+          and bool(torch.isfinite(vals).all()),
+          f"BERT4Rec serve: launches {launches}")
+    with torch.no_grad():
+        rows = [rg_topk_row("BERT4Rec serve",
+                            rec.calls["dense_topk_tiles"][0][0], 1)]
+        args, kw = rec.calls["flash_attention"][0]
+        got = fa.flash_attention(*args, **kw)
+        want = attn.chunked_attention_plain(*args, **kw)
+        err = float((got - want).abs().max() / want.abs().max())
+        check(err <= RG_F32_TOL, f"flash_attention fp32 BERT4Rec serve call: "
+              f"error {err} of the largest |want|")
+        del got, want
+        rows.append(kernel_row(
+            "flash_attention", fa.flash_attention,
+            attn.chunked_attention_plain,
+            attention_library_calls()["flash_attention"], args, kw, err,
+            f"fp32 kernel (flash_attention.cu) on BERT4Rec's serve call "
+            f"{tuple(args[0].shape)} non-causal, the strided views the "
+            f"model passes; error of the largest |want|"))
+        rows[-1]["launches"] = launches["flash_attention"]
+    del rec, h, items, args
+    torch.cuda.empty_cache()
+    n = c.n_blocks * RG_STEPS
+    calls = rg_steps(dev, "bert4rec", c, params,
+                     {"flash_attention": n, "flash_attention_backward": n})
+    del params
+    (args, kw), = calls["flash_attention"]
+    got, lse = fa.flash_attention(*args, **kw)
+    want, lse_want = attn.chunked_attention_plain(*args, **kw)
+    err = float((got - want).abs().max() / want.abs().max())
+    check(err <= RG_F32_TOL, f"flash_attention fp32 BERT4Rec training call: "
+          f"error {err} of the largest |want|")
+    log(f"kernel flash_attention fp32 at BERT4Rec's training call "
+        f"{tuple(args[0].shape)}: error {err:.3e} of the largest |want|, "
+        f"log-sum-exp {float((lse - lse_want).abs().max()):.3e}")
+    del got, want, lse, lse_want
+    (args, kw), = calls["flash_attention_backward"]
+    e_bwd, floored = bwd_check("flash_attention_backward BERT4Rec", args, kw)
+    rows.append(kernel_row(
+        "flash_attention_backward", fa.flash_attention_backward,
+        fa.flash_attention_backward_plain, sdpa_backward_call, args, kw,
+        e_bwd, f"fp32 kernels on BERT4Rec's training call "
+        f"{tuple(args[0].shape)} non-causal ({floored} gradients held to "
+        f"the floor)"))
+    rows[-1]["launches"] = n
+    del calls, args
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def recsys_gnn_phase(dev):
+    """The recsys_gnn phase (module docstring, 20): the card-vs-CPU checks,
+    the samplers, the serve paths with their kernel rows, the full-width
+    steps.  Returns the rows (logged; the ``kernels`` line keeps the serve
+    and LM phases' rows of kernels 6 and 8)."""
+    import torch
+    t = time.perf_counter()
+    cpu_s = sum(rg_cross_check(dev, name, fan_in=name == "bert4rec")
+                for name in RG_HEADS + ("dimenet",))
+    mb_config, mb_batch = rg_samplers(dev)
+    torch.cuda.empty_cache()
+    tt_launches, rows = rg_two_tower(dev)
+    bert_launches, bert_rows = rg_bert4rec(dev)
+    rows += bert_rows
+    for name in ("deepfm", "xdeepfm"):
+        c = rg_config(name, reduced=False)
+        rg_steps(dev, name, c, rg_init(name, c, dev), {})
+    c = rg_config("dimenet", reduced=False)
+    rg_steps(dev, "dimenet", c, rg_init("dimenet", c, dev, fan_in=True), {},
+             host=rg_host_batch("dimenet", c, None, SEED % 10_000))
+    rg_steps(dev, "dimenet", mb_config,
+             rg_init("dimenet", mb_config, dev, fan_in=True), {},
+             host=mb_batch)
+    del mb_batch
+    torch.cuda.empty_cache()
+    log(f"recsys_gnn: launches dense_topk_tiles two-tower {tt_launches}, "
+        f"BERT4Rec {bert_launches['dense_topk_tiles']}; flash_attention "
+        f"BERT4Rec serve {bert_launches['flash_attention']}, steps "
+        f"{2 * RG_STEPS}; flash_attention_backward steps {2 * RG_STEPS}; "
+        f"cross-checks' CPU sides {cpu_s:.1f} s; phase "
+        f"{time.perf_counter() - t:.1f} s")
+    return rows
 
 
 def lm_phase(dev, n_layers, prompt, steps, profile=False):
@@ -5929,9 +6618,30 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     rows["flash_attention_backward"] = train_phase(dev, lm_layers,
                                                    lm_prompt)
     lap("train")
+
+    # recsys and the GNN: card = CPU, the serve paths' calls of kernels 6
+    # and 8, the full-width steps
+    torch.cuda.empty_cache()
+    recsys_gnn_phase(dev)
+    lap("recsys_gnn")
     log("phase walls s: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                       walls.items()))
     return card, rows
+
+
+def run_alone(phase):
+    """``--only``: the card line, the kernels' build, then ``phase`` alone
+    with its wall; no result line."""
+    import torch
+    from repro_torch import kernels
+    print(card_line(), flush=True)
+    t = time.perf_counter()
+    kernels.extension()
+    log(f"kernels built in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    {"recsys_gnn": recsys_gnn_phase}[phase](torch.device(DEVICE))
+    log(f"{phase} alone: {time.perf_counter() - t:.1f} s")
+    return 0
 
 
 def main(argv=None):
@@ -5949,6 +6659,9 @@ def main(argv=None):
                          "most, in the MoE and MLA phase)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (torch.profiler)")
+    ap.add_argument("--only", choices=("recsys_gnn",),
+                    help="build the kernels and run this phase alone; "
+                         "prints no result")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
@@ -5966,6 +6679,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
+        if args.only:
+            return run_alone(args.only)
         card, rows = run(args.n_docs, args.batches, args.lm_layers,
                          args.lm_prompt, args.lm_steps, args.profile)
     except SmokeFailure as e:

@@ -19,6 +19,10 @@ unless the caller asks for the CPU):
   ``unembed``, ``final_ln``, stacked ``layers`` with GQA or MLA attention
   and a dense or MoE FFN) → the port's tree of tensors
   (``repro_torch.models.transformer``);
+* the reference's recsys parameter trees (``recsys.init(c, key)`` of each
+  kind: DeepFM, xDeepFM, two-tower, BERT4Rec) and DimeNet's
+  (``gnn.init(c, key)``) → the port's trees of tensors, leaf by leaf
+  (``repro_torch.models.recsys``, ``repro_torch.models.gnn``);
 * the reference's AdamW state (``train.optimizer.OptState``: fp32 moment
   trees beside the parameters, an int32 step) → the port's
   ``repro_torch.train.optimizer.OptState``;
@@ -135,6 +139,24 @@ def lm_params(ref_params, device=None, dtype=None) -> dict:
               for k in ("embed", "unembed", "final_ln")}
     params["layers"] = layers
     return params
+
+
+def _tree(ref, device, dtype=None):
+    """A nested dict of arrays as the same dict of tensors (each leaf read
+    by key, ``dtype`` None keeping each leaf's)."""
+    if isinstance(ref, dict):
+        return {k: _tree(v, device, dtype) for k, v in ref.items()}
+    return _lm_leaf(ref, device, dtype)
+
+
+def recsys_params(ref_params, device=None, dtype=None) -> dict:
+    """The reference's recsys parameter tree (any kind) as the port's, on
+    ``device``."""
+    return _tree(ref_params, resolve_device(device), dtype)
+
+
+# DimeNet's tree is a nested dict of arrays too, carried over the same way
+gnn_params = recsys_params
 
 
 def opt_state(ref_opt, device=None, like=None) -> OptState:

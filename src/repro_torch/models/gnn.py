@@ -1,0 +1,251 @@
+"""DimeNet (directional message passing, arXiv:2003.03123) and the neighbor
+sampler of the ``minibatch_lg`` shape.
+
+A port of the reference's ``models/gnn.py`` with the same configuration
+(``DimeNetConfig``), parameter tree (``blocks`` leaves keep their leading
+(n_blocks,) axis) and numerics.  Message passing scatters over explicit
+edge and triplet index arrays: the reference's ``jax.ops.segment_sum`` is
+``index_add_`` (on the card its float adds run in no fixed order; the
+reference computes it outside any Pallas kernel, and so does the port: no
+kernel of this module's path is hand-written yet).  The einsum
+``th,tb,hbo->to`` of the interaction block may contract in another order
+than XLA's.
+
+The samplers draw from ``repro_torch.core.prng`` (JAX's ``threefry2x32``
+bit for bit, on the host), so ``neighbor_sample`` and ``build_triplets``
+given the same ``PRNGKey`` sample the reference's edges and triplets
+exactly; the index arithmetic runs on the device of the graph's arrays.
+Edge and triplet ids come back as int64, masks as float32.
+
+Not ported (ROADMAP §1 item 11, the launch stack): ``loss_fn_partitioned``
+(a ``psum`` inside ``shard_map``), which raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import prng
+from repro_torch.isn.backend import resolve_device
+from repro_torch.models.common import dense, draw, mlp, mlp_shapes
+
+
+@dataclass(frozen=True)
+class DimeNetConfig:
+    name: str = "dimenet"
+    n_blocks: int = 6
+    d_hidden: int = 128
+    n_bilinear: int = 8
+    n_spherical: int = 7
+    n_radial: int = 6
+    d_feat: int = 16            # input node-feature dim
+    cutoff: float = 5.0
+    d_out: int = 1
+    dtype: str = "float32"
+    cost_exact: bool = False
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# basis functions
+# ---------------------------------------------------------------------------
+
+def bessel_rbf(d, n_radial: int, cutoff: float):
+    """sin(nπ d/c) / d radial Bessel basis. d: (E,) -> (E, n_radial)."""
+    d = torch.clamp(d, min=1e-6)
+    n = torch.arange(1, n_radial + 1, dtype=torch.float32, device=d.device)
+    x = d[:, None] / cutoff
+    # the reference's float32 sqrt of the float32 2/c
+    coef = float(np.sqrt(np.float32(2.0 / cutoff)))
+    return coef * torch.sin(n * math.pi * x) / d[:, None]
+
+
+def angular_sbf(d_kj, angle, n_spherical: int, n_radial: int, cutoff: float):
+    """Simplified spherical basis: radial Bessel ⊗ cos(l·α).
+    -> (T, n_spherical * n_radial)."""
+    rad = bessel_rbf(d_kj, n_radial, cutoff)                  # (T, R)
+    l = torch.arange(n_spherical, dtype=torch.float32, device=d_kj.device)
+    ang = torch.cos(l[None, :] * angle[:, None])              # (T, L)
+    return (rad[:, None, :] * ang[:, :, None]).reshape(
+        d_kj.shape[0], n_spherical * n_radial)
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def param_shapes(c: DimeNetConfig) -> dict:
+    """The tree of ``init(c)`` as ``Leaf`` shapes and fills, in the
+    reference's layout."""
+    h, sb, n = c.d_hidden, c.n_spherical * c.n_radial, c.n_blocks
+    return {
+        "feat_proj": dense((c.d_feat, h)),
+        "rbf_proj": dense((c.n_radial, h)),
+        "embed_mlp": mlp_shapes((3 * h, h, h)),
+        "blocks": {
+            "w_msg": dense((n, h, h)),
+            "rbf_gate": dense((n, c.n_radial, h)),
+            "sbf_proj": dense((n, sb, c.n_bilinear)),
+            "bilinear": dense((n, h, c.n_bilinear, h),
+                              1.0 / math.sqrt(h * c.n_bilinear)),
+            "update": mlp_shapes((h, h, h), stack=(n,)),
+        },
+        "out_mlp": mlp_shapes((h, h, c.d_out)),
+    }
+
+
+def init(c: DimeNetConfig, seed: int = 0, device=None) -> dict:
+    """Parameters of ``c`` drawn from ``torch.Generator(seed)`` on
+    ``device`` (the card unless the caller names the CPU), at the
+    reference's scales: each dense leaf 1/√(its first dimension) — n_blocks
+    for the stacked ``blocks`` leaves — the bilinear tensor 1/√(h ·
+    n_bilinear), biases zeros.  The draws differ from JAX's."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return draw(param_shapes(c), gen, c.torch_dtype, dev)
+
+
+def _segment_sum(data, segment_ids, num_segments: int):
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
+                      dtype=data.dtype, device=data.device)
+    return out.index_add(0, segment_ids, data)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def forward(params, c: DimeNetConfig, feat, pos, edge_src, edge_dst,
+            trip_kj, trip_ji, edge_mask, trip_mask, node_mask):
+    """DimeNet forward.
+
+    feat: (N, F) node features; pos: (N, 3); edge_src/dst: (E,) ids;
+    trip_kj/ji: (T,) indices into edges forming (k→j, j→i) pairs;
+    masks: 1.0 valid / 0.0 padding. Returns per-node outputs (N, d_out).
+    """
+    n, e = feat.shape[0], edge_src.shape[0]
+    edge_src, edge_dst = edge_src.long(), edge_dst.long()
+    trip_kj, trip_ji = trip_kj.long(), trip_ji.long()
+
+    vec = pos[edge_src] - pos[edge_dst]                     # (E, 3)
+    dist = torch.sqrt((vec * vec).sum(dim=-1) + 1e-12)
+    rbf = bessel_rbf(dist, c.n_radial, c.cutoff) * edge_mask[:, None]
+
+    # triplet geometry: angle between edge kj and ji at node j
+    v1 = vec[trip_kj]
+    v2 = vec[trip_ji]
+    cosang = (v1 * v2).sum(dim=-1) / (
+        torch.linalg.norm(v1, dim=-1) * torch.linalg.norm(v2, dim=-1) + 1e-9)
+    angle = torch.arccos(torch.clamp(cosang, -1.0, 1.0))
+    sbf = angular_sbf(dist[trip_kj], angle, c.n_spherical, c.n_radial,
+                      c.cutoff) * trip_mask[:, None]
+
+    x = feat @ params["feat_proj"]                          # (N, H)
+    m = mlp(params["embed_mlp"],
+            torch.cat([x[edge_src], x[edge_dst],
+                       rbf @ params["rbf_proj"]], dim=-1), F.silu)
+    m = m * edge_mask[:, None]
+
+    blocks = params["blocks"]
+    for i in range(c.n_blocks):
+        bp = {k: (w[i] if isinstance(w, torch.Tensor)
+                  else {kk: ww[i] for kk, ww in w.items()})
+              for k, w in blocks.items()}
+        t = (m @ bp["w_msg"])[trip_kj]                      # (T, H)
+        sp = sbf @ bp["sbf_proj"]                           # (T, B)
+        t2 = torch.einsum("th,tb,hbo->to", t, sp, bp["bilinear"])
+        agg = _segment_sum(t2 * trip_mask[:, None], trip_ji, e)
+        gate = rbf @ bp["rbf_gate"]
+        m_new = m + mlp(bp["update"], (m + agg) * gate, F.silu)
+        m = m_new * edge_mask[:, None]
+
+    node_acc = _segment_sum(m, edge_dst, n)
+    out = mlp(params["out_mlp"], node_acc, F.silu)
+    return out * node_mask[:, None]
+
+
+def loss_fn(params, c: DimeNetConfig, batch):
+    out = forward(params, c, batch["feat"], batch["pos"], batch["edge_src"],
+                  batch["edge_dst"], batch["trip_kj"], batch["trip_ji"],
+                  batch["edge_mask"], batch["trip_mask"], batch["node_mask"])
+    err = (out[:, 0] - batch["target"]) * batch["node_mask"]
+    return (err * err).sum() / torch.clamp(batch["node_mask"].sum(), min=1.0)
+
+
+def loss_fn_partitioned(params, c: DimeNetConfig, batch, psum_axes):
+    """The partitioned-graph loss inside ``shard_map``: not ported."""
+    raise NotImplementedError(
+        "loss_fn_partitioned (a psum inside shard_map) is not ported yet "
+        "(ROADMAP §1 item 11, the launch stack)")
+
+
+# ---------------------------------------------------------------------------
+# neighbor sampler (minibatch_lg)
+# ---------------------------------------------------------------------------
+
+def _draw(key, shape, minval: int, maxval: int, device) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` on the host, as an
+    int64 tensor on ``device``."""
+    bits = prng.randint(key, shape, minval, maxval)
+    return torch.from_numpy(bits.astype(np.int64)).to(device)
+
+
+def neighbor_sample(neighbors: torch.Tensor, degrees: torch.Tensor,
+                    seeds: torch.Tensor, fanouts: tuple, rng) -> dict:
+    """Uniform fanout sampling over a padded adjacency (GraphSAGE-style),
+    with replacement.
+
+    neighbors: (N, max_deg) padded neighbor ids; degrees: (N,); seeds:
+    (S,); rng: a ``prng.PRNGKey``.  Returns flat edge lists (dst, src) per
+    hop, concatenated, with masks.
+    """
+    frontier = seeds.long()
+    dev = frontier.device
+    f_mask = torch.ones(frontier.shape, dtype=torch.float32, device=dev)
+    edges_src, edges_dst, masks = [], [], []
+    for fanout in fanouts:
+        rng, sub = prng.split(rng)
+        deg_f = degrees[frontier].long()
+        draw_ = _draw(sub, (frontier.shape[0], fanout), 0, 1 << 30, dev)
+        idx = draw_ % torch.clamp(deg_f, min=1)[:, None]
+        src = neighbors[frontier[:, None], idx].long()
+        dst = frontier[:, None].expand(src.shape)
+        m = (f_mask * (deg_f > 0))[:, None].expand(src.shape).float()
+        edges_src.append(src.reshape(-1))
+        edges_dst.append(dst.reshape(-1))
+        masks.append(m.reshape(-1))
+        frontier = src.reshape(-1)
+        f_mask = m.reshape(-1)
+    return {"edge_src": torch.cat(edges_src),
+            "edge_dst": torch.cat(edges_dst),
+            "edge_mask": torch.cat(masks)}
+
+
+def build_triplets(edge_src, edge_dst, budget: int, rng):
+    """Sample up to ``budget`` triplets (k→j, j→i): pairs of edges sharing
+    j, uniformly over ji edges, kj by binary search into the edges sorted
+    (stably) by destination.  Returns (trip_kj, trip_ji, trip_mask)."""
+    edge_src, edge_dst = edge_src.long(), edge_dst.long()
+    dev = edge_src.device
+    e = edge_src.shape[0]
+    sorted_dst, order = torch.sort(edge_dst, stable=True)
+    rng, s1 = prng.split(rng)
+    ji = _draw(s1, (budget,), 0, e, dev)
+    j = edge_src[ji]
+    lo = torch.searchsorted(sorted_dst, j, side="left")
+    hi = torch.searchsorted(sorted_dst, j, side="right")
+    rng, s2 = prng.split(rng)
+    off = _draw(s2, (budget,), 0, 1 << 30, dev)
+    span = torch.clamp(hi - lo, min=1)
+    kj = order[torch.clamp(lo + off % span, max=e - 1)]
+    valid = (hi > lo) & (kj != ji)
+    return kj, ji, valid.float()

@@ -326,8 +326,9 @@ def test_elastic_and_registry_match_reference():
             assert dataclasses.asdict(pc) == dataclasses.asdict(rc)
     assert registry.get_reduced("paper_isn")[1] == "isn"
     for arch in ("dimenet", "bert4rec", "deepfm", "xdeepfm"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            registry.get_arch(arch)
+        (pc, pf), (rc, rf) = registry.get_arch(arch), ref_registry.get_arch(
+            arch)
+        assert pf == rf and dataclasses.asdict(pc) == dataclasses.asdict(rc)
 
 
 def test_make_train_step_with_microbatches_matches_reference():
