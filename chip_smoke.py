@@ -401,7 +401,14 @@ order, it
       (1,024 seeds, fanouts 15 and 10) and ``build_triplets`` (2 a sampled
       edge) over a synthetic graph of Reddit's 232,965 nodes and mean
       degree 492 (a (232,965, 512) int32 padded adjacency drawn on the
-      card) on the card and the CPU from one key, bit-equal;
+      card) on the card and the CPU from one key, bit-equal; the repeat
+      check (``rg_repeat``): a DimeNet ``value_and_grad`` at CONFIG on
+      the molecule batch and on minibatch_lg's sample, and a ragged
+      EmbeddingBag of 65,536 bags of 40 rows of a 1,000,000 x 64 table
+      forward and backward, each run twice on the card with the loss or
+      output and every gradient bit-equal (their segment sums sort once and
+      sum in row order; the ``index_add_`` they replaced is run twice
+      beside them and its differing sums logged);
    b. serve paths, each counted from 0: the two-tower model at CONFIG
       (8,000,000 users, 2,000,000 items, towers 1,024-512-256): the item
       tower over 2,000,000 synthetic items as the candidates, 512 users'
@@ -437,7 +444,27 @@ order, it
       reference's 1/√6 the loss overflows, ROADMAP §3 open 11); each step's
       wall (CUDA events), peak memory and
       launches logged; the phase's wall and launches logged;
-21. prints the total elapsed time, the ``kernels`` JSON line (eleven
+21. mesh phase (the model code under a mesh: ``launch/mesh.mesh_context``
+   over ``make_local_mesh``'s (1, 1) mesh, NCCL at world size 1): (a)
+   granite-MoE at CONFIG widths in bf16, at the MoE and MLA phase's depth
+   (32 layers), the prefill of 4 x 1,024 tokens under the mesh (its MoE
+   through the expert-parallel branch, the ``prefill_32k`` rules) equal
+   bit for bit to the prefill without one (logits and cache), counted
+   from 0: ``flash_attention`` once a layer; (b) ``reshard_tree`` of that
+   tree under ``rules_for("lm", LM_SHAPES["train_4k"])``, every local
+   shard equal to its leaf, and a ``restore_latest(shardings=)`` round
+   trip of its first ``MESH_RESTORE_LAYERS`` layer with the embeddings
+   (every kind of leaf; the 32 layers' 6.8 GB would spend a minute on
+   disk and sha1 work), every restored shard a DTensor equal to its
+   leaf; (c) step 20b's two-tower serve (the
+   same user towers and candidates) through ``sharded_streaming_topk``:
+   its ids equal ``streaming_topk``'s, kernel 6 launched once; (d)
+   ``sharded_lookup_manual`` over the candidate rows equal to
+   ``table[ids]``; (e) DimeNet at CONFIG (1/√(fan-in) blocks) on the
+   molecule batch, one rank holding every edge: ``loss_fn_partitioned``'s
+   loss within 1e-5 and every gradient leaf within 1e-4 of its largest
+   of ``loss_fn``'s; the process group ended at the phase's end;
+22. prints the total elapsed time, the ``kernels`` JSON line (eleven
     rows: the nine TPU kernels, kernel 8's backward and
     ``level_histogram``; the launches of kernels 1-3 are step 7's, the
     backward's step 19b's; the library time of kernels 1 and 2 an
@@ -455,8 +482,9 @@ train phase's full-width run: at most ``--lm-layers`` layers and
 ``--profile`` adds a ``torch.profiler`` breakdown of one more served batch
 of each preset (wall, device busy time, host time per cascade stage,
 busiest device kernels) and of one more LM prefill and decode step.
-``--only recsys_gnn`` builds the kernels and runs step 20 alone, and
-prints no result.
+``--only recsys_gnn`` and ``--only mesh`` build the kernels and run step 20
+or step 21 alone (the mesh phase then draws the two-tower serve's inputs
+itself), and print no result.
 """
 
 from __future__ import annotations
@@ -614,6 +642,9 @@ RG_STEP_BATCH = {"deepfm": 65_536, "xdeepfm": 8_192,
                  "two_tower_retrieval": 16_384, "bert4rec": 4_096}
 RG_BERT = dict(n_masked=8, xc_cands=256, cands=2048)
 RG_STEPS = 2
+RG_BAG = dict(rows=1_000_000, dim=64, bags=65_536, per_bag=40)
+MESH_RESTORE_LAYERS = 1       # granite layers saved and restored (of 32)
+MESH_LOOKUP = (512, 16)       # ids of the lookup over the candidate rows
 RG_GRAPH = dict(n_nodes=232_965, max_deg=512, min_deg=472, d_feat=602,
                 seeds=1024, fanouts=(15, 10), trip=2)
 RG_MOLECULE = dict(graphs=128, nodes=30, edges=64, trip=4)
@@ -3345,28 +3376,13 @@ def rg_two_tower(dev):
     (kernel 6, k 100); counted from 0, ``anytime_retrieval`` of the first
     user over the first 1,000,448 candidates at k 1,000 and three budgets;
     kernel 6's rows and edge calls; then the full-width training steps.
-    Returns (the launches of both paths, the rows)."""
+    Returns (the launches of both paths, the rows, the serve's user towers,
+    candidates and top-k ids, which the mesh phase serves again)."""
     import torch
     from repro_torch import kernels
     from repro_torch.models import recsys
-    c = rg_config("two_tower_retrieval", reduced=False)
-    params = recsys.init(c, seed=SEED, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 11)
-    step = 1 << 18
+    c, params, cand, uids = two_tower_candidates(dev)
     with torch.no_grad():
-        cand = torch.empty((c.n_items, c.tower_mlp[-1]), device=dev)
-        for lo in range(0, c.n_items, step):
-            hi = min(lo + step, c.n_items)
-            ids = torch.randint(0, c.n_items, (hi - lo, c.n_item_feats),
-                                generator=gen, device=dev)
-            ids[:, 0] = torch.arange(lo, hi, device=dev)
-            cand[lo:hi] = recsys.tower_embed(
-                params, c, "item_table", "item_mlp", ids,
-                torch.ones(ids.shape, device=dev))
-        uids = torch.randint(0, c.n_users, (RG_SERVE["queries"],
-                                            c.n_user_feats),
-                             generator=gen, device=dev)
         start, end = events()
         kernels.reset_launches()
         with Recorder(("dense_topk_tiles",)) as rec:
@@ -3412,10 +3428,11 @@ def rg_two_tower(dev):
         err = rg_topk_edges(dev, u, cand)
         log(f"kernel dense_topk_tiles: edge calls (k > n, n = 777, budget "
             f"0) within {err:.3e} of max(1, |want|)")
-    del cand, rec, rec_a, u, args
+    serve = dict(u=u, cand=cand, ids=ids)
+    del rec, rec_a, args
     torch.cuda.empty_cache()
     rg_steps(dev, "two_tower_retrieval", c, params, {})
-    return launches, rows
+    return launches, rows, serve
 
 
 def rg_steps(dev, name, c, params, want, host=None):
@@ -3564,16 +3581,18 @@ def rg_bert4rec(dev):
 
 def recsys_gnn_phase(dev):
     """The recsys_gnn phase (module docstring, 20): the card-vs-CPU checks,
-    the samplers, the serve paths with their kernel rows, the full-width
-    steps.  Returns the rows (logged; the ``kernels`` line keeps the serve
-    and LM phases' rows of kernels 6 and 8)."""
+    the samplers, the repeat check, the serve paths with their kernel rows,
+    the full-width steps.  Returns (the rows, logged: the ``kernels`` line
+    keeps the serve and LM phases' rows of kernels 6 and 8; the two-tower
+    serve's inputs and ids, for the mesh phase)."""
     import torch
     t = time.perf_counter()
     cpu_s = sum(rg_cross_check(dev, name, fan_in=name == "bert4rec")
                 for name in RG_HEADS + ("dimenet",))
     mb_config, mb_batch = rg_samplers(dev)
+    rg_repeat(dev, mb_config, mb_batch)
     torch.cuda.empty_cache()
-    tt_launches, rows = rg_two_tower(dev)
+    tt_launches, rows, serve = rg_two_tower(dev)
     bert_launches, bert_rows = rg_bert4rec(dev)
     rows += bert_rows
     for name in ("deepfm", "xdeepfm"):
@@ -3593,7 +3612,289 @@ def recsys_gnn_phase(dev):
         f"{2 * RG_STEPS}; flash_attention_backward steps {2 * RG_STEPS}; "
         f"cross-checks' CPU sides {cpu_s:.1f} s; phase "
         f"{time.perf_counter() - t:.1f} s")
-    return rows
+    return rows, serve
+
+
+def rg_repeat(dev, mb_config, mb_batch):
+    """The sums in a fixed order (module docstring, 20a): one DimeNet step
+    (``value_and_grad``) on a molecule batch and on minibatch_lg's sample,
+    and one ragged EmbeddingBag forward and backward (``RG_BAG``), each run
+    twice on the card: the loss or output and every gradient bit-equal.
+    Logs the checks' wall and, beside them, how many of the bag's sums the
+    float-atomic ``index_add_`` they replaced gives differently in two
+    runs."""
+    import torch
+    from repro_torch.models import embedding, gnn
+    from repro_torch.train import train_loop
+    from repro_torch.train.tree import leaves
+    t = time.perf_counter()
+    c = rg_config("dimenet", reduced=False)
+    runs = (("molecule", c, rg_init("dimenet", c, dev, fan_in=True),
+             to_device(rg_host_batch("dimenet", c, None, SEED % 10_000),
+                       dev)),
+            ("minibatch_lg", mb_config,
+             rg_init("dimenet", mb_config, dev, fan_in=True), mb_batch))
+    for label, c_, params, batch in runs:
+        outs = [train_loop.value_and_grad(
+            lambda p, b: gnn.loss_fn(p, c_, b), params, batch)
+            for _ in range(2)]
+        (l0, g0), (l1, g1) = outs
+        check(torch.equal(l0, l1) and all(
+            torch.equal(a, b) for a, b in zip(leaves(g0), leaves(g1))),
+            f"recsys_gnn repeat: DimeNet {label} step differs between two "
+            f"runs on the card")
+    del runs, outs, g0, g1
+    b = RG_BAG
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    table = torch.randn((b["rows"], b["dim"]), generator=gen,
+                        device=dev).requires_grad_()
+    n = b["bags"] * b["per_bag"]
+    flat = torch.randint(0, b["rows"], (n,), generator=gen, device=dev)
+    bags = torch.randint(0, b["bags"], (n,), generator=gen, device=dev)
+    weights = torch.rand((n,), generator=gen, device=dev).requires_grad_()
+    probe = torch.randn((b["bags"], b["dim"]), generator=gen, device=dev)
+    got = []
+    for _ in range(2):
+        out = embedding.ragged_embedding_bag(table, flat, bags, b["bags"],
+                                             weights)
+        gt, gw = torch.autograd.grad((out * probe).sum(), (table, weights))
+        got.append((out.detach(), gt, gw))
+    check(all(torch.equal(x, y) for x, y in zip(*got)),
+          "recsys_gnn repeat: the ragged bag or its gradients differ between "
+          "two runs on the card")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    with torch.no_grad():
+        rows = table[flat] * weights[:, None]
+        atomic = [torch.zeros_like(got[0][0]).index_add_(0, bags, rows)
+                  for _ in range(2)]
+    log(f"recsys_gnn repeat: DimeNet steps (molecule, minibatch_lg) and a "
+        f"ragged bag ({b['bags']} bags of {b['per_bag']} rows of a "
+        f"{b['rows']} x {b['dim']} table) bit-equal in two runs on the card "
+        f"({wall:.2f} s); index_add_ in their place: "
+        f"{int((atomic[0] != atomic[1]).sum())} of {atomic[0].numel()} sums "
+        f"differ between two runs")
+    del table, weights, got, rows, atomic
+    torch.cuda.empty_cache()
+
+
+def two_tower_candidates(dev):
+    """The two-tower model at CONFIG drawn on the card, its item tower over
+    2,000,000 synthetic items (each its own id and 7 feature rows drawn
+    from a seed) as the candidates, and 512 users' feature ids: (config,
+    parameters, candidates, user ids)."""
+    import torch
+    from repro_torch.models import recsys
+    c = rg_config("two_tower_retrieval", reduced=False)
+    params = recsys.init(c, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    step = 1 << 18
+    with torch.no_grad():
+        cand = torch.empty((c.n_items, c.tower_mlp[-1]), device=dev)
+        for lo in range(0, c.n_items, step):
+            hi = min(lo + step, c.n_items)
+            ids = torch.randint(0, c.n_items, (hi - lo, c.n_item_feats),
+                                generator=gen, device=dev)
+            ids[:, 0] = torch.arange(lo, hi, device=dev)
+            cand[lo:hi] = recsys.tower_embed(
+                params, c, "item_table", "item_mlp", ids,
+                torch.ones(ids.shape, device=dev))
+        uids = torch.randint(0, c.n_users, (RG_SERVE["queries"],
+                                            c.n_user_feats),
+                             generator=gen, device=dev)
+    return c, params, cand, uids
+
+
+def mesh_serve_inputs(dev):
+    """The two-tower serve's inputs as ``rg_two_tower`` draws them (for
+    ``--only mesh``): the 512 user towers, the 2,000,000 item-tower
+    outputs, and ``streaming_topk``'s ids over them."""
+    import torch
+    from repro_torch.models import recsys
+    c, params, cand, uids = two_tower_candidates(dev)
+    with torch.no_grad():
+        u = recsys.tower_embed(params, c, "user_table", "user_mlp", uids,
+                               torch.ones(uids.shape, device=dev))
+        _, ids = recsys.streaming_topk(u, cand, RG_SERVE["k"])
+    return dict(u=u, cand=cand, ids=ids)
+
+
+def mesh_phase(dev, lm_layers, lm_prompt, serve=None):
+    """The mesh phase (module docstring, 21): the model code under a (1, 1)
+    mesh over NCCL at world size 1 (``launch/mesh.make_local_mesh``),
+    through ``mesh_context``.  ``serve`` is the recsys_gnn phase's
+    two-tower serve (drawn here when the phase runs alone)."""
+    import tempfile
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import granite_moe_3b_a800m, yi_6b
+    from repro_torch.configs.shapes import LM_SHAPES, rules_for
+    from repro_torch.launch.mesh import make_local_mesh, mesh_context
+    from repro_torch.models import embedding, gnn, recsys
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import elastic, train_loop
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.tree import leaves, map_tree
+    t0 = time.perf_counter()
+    if serve is None:
+        serve = mesh_serve_inputs(dev)
+        torch.cuda.synchronize()
+        log(f"mesh: the two-tower serve's inputs drawn in "
+            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(device=dev)
+    walls = {}
+    try:
+        # granite-MoE's prefill, its MoE through the mesh branch
+        t = time.perf_counter()
+        n_layers = MM_LAYERS["granite_moe_3b_a800m"]
+        if lm_layers < yi_6b.CONFIG.n_layers:
+            n_layers = min(n_layers, lm_layers)
+        c = dataclasses.replace(granite_moe_3b_a800m.CONFIG,
+                                n_layers=n_layers)
+        params = tr.init(c, seed=SEED, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 23)
+        toks = torch.randint(0, c.vocab, (LM_BATCH, min(MM_PROMPT,
+                                                        lm_prompt)),
+                             generator=gen, device=dev)
+        ms = {}
+        with torch.no_grad():
+            # a warm-up under the mesh (its first collectives set up NCCL's
+            # communicators), then each side timed
+            with mesh_context(mesh):
+                tr.prefill(params, c, toks)
+            for side in ("mesh", "none"):
+                if side == "mesh":
+                    kernels.reset_launches()
+                start, end = events()
+                start.record()
+                with (mesh_context(mesh) if side == "mesh"
+                      else contextlib.nullcontext()):
+                    out = tr.prefill(params, c, toks, rules=rules_for(
+                        "lm", LM_SHAPES["prefill_32k"]))
+                end.record()
+                torch.cuda.synchronize()
+                ms[side] = start.elapsed_time(end)
+                if side == "mesh":
+                    launched = dict(kernels.LAUNCHES)
+                    got, cache = out
+        want, want_cache = out
+        check(torch.equal(got, want) and all(
+            torch.equal(cache[k], want_cache[k]) for k in cache),
+            "mesh: granite-MoE's prefill under the (1, 1) mesh differs from "
+            "the prefill without one")
+        check(launched["flash_attention"] == n_layers,
+              f"mesh: flash_attention launched {launched['flash_attention']} "
+              f"times in the prefill, not once a layer ({n_layers})")
+        log(f"mesh: granite-MoE, {n_layers} layers bf16, prefill of "
+            f"{tuple(toks.shape)} tokens under the (1, 1) mesh bit-equal to "
+            f"the prefill without one (logits and cache); walls under the "
+            f"mesh {ms['mesh']:.1f} ms, without {ms['none']:.1f} ms (CUDA "
+            f"events); launches under the mesh "
+            f"{ {k: n for k, n in launched.items() if n} }")
+        del want, want_cache, got, cache, out
+        walls["moe"] = time.perf_counter() - t
+
+        # reshard granite's tree under the train_4k rules, then a restore
+        # onto the same shardings of its first MESH_RESTORE_LAYERS layers
+        t = time.perf_counter()
+        rules = rules_for("lm", LM_SHAPES["train_4k"])
+        placed = elastic.reshard_tree(params, tr.param_names(c), rules,
+                                      mesh)
+        check(all(torch.equal(d.to_local(), w) for d, w in
+                  zip(leaves(placed), leaves(params))),
+              "mesh: a local shard after reshard_tree differs from its leaf")
+        del placed
+        walls["reshard"] = time.perf_counter() - t
+        t = time.perf_counter()
+        c_cut = dataclasses.replace(c, n_layers=MESH_RESTORE_LAYERS)
+        cut = dict(params, layers=map_tree(
+            lambda w: w[:MESH_RESTORE_LAYERS].clone(), params["layers"]))
+        del params
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = CheckpointManager(tmp)
+            mgr.save(1, cut)
+            step, back, _ = mgr.restore_latest(
+                cut, device=dev, shardings=elastic.sharding_tree(
+                    cut, tr.param_names(c_cut), rules, mesh))
+        check(step == 1 and all(
+            isinstance(d, torch.distributed.tensor.DTensor)
+            and torch.equal(d.to_local(), w)
+            for d, w in zip(leaves(back), leaves(cut))),
+            "mesh: a shard restored onto its sharding differs from its leaf")
+        n_bytes = sum(w.numel() * w.element_size() for w in leaves(cut))
+        del back, cut
+        walls["restore"] = time.perf_counter() - t
+        log(f"mesh: reshard_tree of granite's {n_layers} layers under "
+            f"train_4k's rules ({walls['reshard']:.2f} s) and a "
+            f"restore_latest(shardings=) round trip of {MESH_RESTORE_LAYERS} "
+            f"layer ({n_bytes} B, {walls['restore']:.2f} s): every local "
+            f"shard bit-equal to its leaf")
+
+        # the two-tower serve through sharded_streaming_topk
+        t = time.perf_counter()
+        u, cand = serve["u"], serve["cand"]
+        kernels.reset_launches()
+        with torch.no_grad(), mesh_context(mesh):
+            _, ids = recsys.sharded_streaming_topk(u, cand, RG_SERVE["k"])
+        torch.cuda.synchronize()
+        diff = int((ids != serve["ids"]).sum())
+        check(kernels.LAUNCHES["dense_topk_tiles"] == 1 and diff == 0,
+              f"mesh: sharded_streaming_topk launched kernel 6 "
+              f"{kernels.LAUNCHES['dense_topk_tiles']} times, {diff} ids "
+              f"differ from streaming_topk's")
+        log(f"mesh: two-tower serve ({u.shape[0]} x {cand.shape[0]} x "
+            f"{cand.shape[1]}, k {RG_SERVE['k']}) through "
+            f"sharded_streaming_topk: {diff} of {ids.numel()} ids differ "
+            f"from streaming_topk's; kernel 6 launched "
+            f"{kernels.LAUNCHES['dense_topk_tiles']} time")
+
+        # the lookup over the candidate rows
+        ids = torch.randint(0, cand.shape[0], MESH_LOOKUP, generator=gen,
+                            device=dev)
+        with torch.no_grad(), mesh_context(mesh):
+            rows = embedding.sharded_lookup_manual(cand, ids, "model",
+                                                   cand.shape[0])
+        check(torch.equal(rows, cand[ids]),
+              "mesh: sharded_lookup_manual differs from table[ids]")
+        log(f"mesh: sharded_lookup_manual of {tuple(ids.shape)} ids over the "
+            f"{tuple(cand.shape)} rows bit-equal to table[ids]")
+        del rows, u, cand, serve
+        walls["serve"] = time.perf_counter() - t
+
+        # DimeNet's partitioned loss, one rank holding every edge
+        t = time.perf_counter()
+        c = rg_config("dimenet", reduced=False)
+        params = rg_init("dimenet", c, dev, fan_in=True)
+        batch = to_device(rg_host_batch("dimenet", c, None, SEED % 10_000),
+                          dev)
+        loss, grads = train_loop.value_and_grad(
+            lambda p, b: gnn.loss_fn(p, c, b), params, batch)
+        with mesh_context(mesh):
+            loss_p, grads_p = train_loop.value_and_grad(
+                lambda p, b: gnn.loss_fn_partitioned(p, c, b,
+                                                     ("data", "model")),
+                params, batch)
+        loss_err = abs(float(loss_p) - float(loss)) / abs(float(loss))
+        grad_err = max(_rel_err(a, b) for a, b in
+                       zip(leaves(grads_p), leaves(grads)))
+        check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL,
+              f"mesh: DimeNet's partitioned loss {loss_err:.3e} or gradients "
+              f"{grad_err:.3e} off loss_fn's")
+        walls["dimenet"] = time.perf_counter() - t
+        log(f"mesh: DimeNet at CONFIG (1/sqrt(fan-in) blocks), "
+            f"{batch['edge_src'].shape[0]} edges on one rank: "
+            f"loss_fn_partitioned's loss {loss_err:.3e} and gradients "
+            f"{grad_err:.3e} (of each leaf's largest) from loss_fn's")
+    finally:
+        torch.distributed.destroy_process_group()
+    log("mesh: walls s " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                      walls.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s")
 
 
 def lm_phase(dev, n_layers, prompt, steps, profile=False):
@@ -6622,14 +6923,21 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     # recsys and the GNN: card = CPU, the serve paths' calls of kernels 6
     # and 8, the full-width steps
     torch.cuda.empty_cache()
-    recsys_gnn_phase(dev)
+    _, serve = recsys_gnn_phase(dev)
     lap("recsys_gnn")
+
+    # the model code under a (1, 1) mesh: MoE, the two-tower serve again,
+    # DimeNet's partitioned loss, the lookup, resharding and restoring
+    torch.cuda.empty_cache()
+    mesh_phase(dev, lm_layers, lm_prompt, serve)
+    del serve
+    lap("mesh")
     log("phase walls s: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                       walls.items()))
     return card, rows
 
 
-def run_alone(phase):
+def run_alone(phase, lm_layers, lm_prompt):
     """``--only``: the card line, the kernels' build, then ``phase`` alone
     with its wall; no result line."""
     import torch
@@ -6639,7 +6947,11 @@ def run_alone(phase):
     kernels.extension()
     log(f"kernels built in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    {"recsys_gnn": recsys_gnn_phase}[phase](torch.device(DEVICE))
+    dev = torch.device(DEVICE)
+    if phase == "mesh":
+        mesh_phase(dev, lm_layers, lm_prompt)
+    else:
+        recsys_gnn_phase(dev)
     log(f"{phase} alone: {time.perf_counter() - t:.1f} s")
     return 0
 
@@ -6659,7 +6971,7 @@ def main(argv=None):
                          "most, in the MoE and MLA phase)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (torch.profiler)")
-    ap.add_argument("--only", choices=("recsys_gnn",),
+    ap.add_argument("--only", choices=("recsys_gnn", "mesh"),
                     help="build the kernels and run this phase alone; "
                          "prints no result")
     args = ap.parse_args(argv)
@@ -6680,7 +6992,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     try:
         if args.only:
-            return run_alone(args.only)
+            return run_alone(args.only, args.lm_layers, args.lm_prompt)
         card, rows = run(args.n_docs, args.batches, args.lm_layers,
                          args.lm_prompt, args.lm_steps, args.profile)
     except SmokeFailure as e:

@@ -3,9 +3,8 @@
 A port of the reference's ``configs/registry.py``: one module per
 architecture under ``repro_torch/configs/`` (the LM family, DimeNet, the
 four recsys heads and the paper's ISN), each with the reference's
-``FAMILY``, ``CONFIG`` and ``REDUCED``.  ``all_cells`` and
-``configs/shapes`` go with the dry run of the launch stack (ROADMAP §1
-item 11).
+``FAMILY``, ``CONFIG`` and ``REDUCED``; ``all_cells`` lists every (arch,
+shape) cell of ``configs/shapes``.
 """
 
 from __future__ import annotations
@@ -36,3 +35,14 @@ def get_arch(arch_id: str):
 def get_reduced(arch_id: str):
     mod = _module(arch_id)
     return mod.REDUCED, mod.FAMILY
+
+
+def all_cells():
+    """Every (arch × shape) dry-run cell (40 assigned + paper ISN extras)."""
+    from repro_torch.configs.shapes import FAMILY_SHAPES
+    cells = []
+    for a in ARCH_IDS:
+        _, family = get_arch(a)
+        for s in FAMILY_SHAPES[family]:
+            cells.append((a, s))
+    return cells

@@ -10,12 +10,16 @@ device.
 The device resolves as everywhere in the port: the card unless the caller
 names the CPU (``isn.backend.resolve_device``), raising when no CUDA
 device is present.  NCCL carries the card's collectives, gloo the CPU's.
-``mesh_context`` (the reference enters JAX's abstract mesh for the model
-code) goes with the model stack (ROADMAP item 11).
+``mesh_context`` puts a mesh in scope for the model code, as the
+reference enters JAX's abstract mesh: inside it
+``models.common.get_abstract_mesh_or_none()`` returns the mesh, and the
+model code takes its mesh branches (MoE's, ``sharded_streaming_topk``'s)
+and its ``constrain`` calls.
 """
 
 from __future__ import annotations
 
+import contextlib
 from datetime import timedelta
 
 import torch
@@ -23,9 +27,18 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.isn.backend import resolve_device
+from repro_torch.models.common import use_mesh
 
 # how long a collective of a locally created group may wait for its peers
 LOCAL_TIMEOUT = timedelta(seconds=120)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh: DeviceMesh):
+    """Put ``mesh`` in scope for the model code (the reference enters the
+    physical and the abstract mesh; a ``DeviceMesh`` is both here)."""
+    with use_mesh(mesh):
+        yield mesh
 
 
 def backend_for(device: torch.device) -> str:

@@ -166,29 +166,34 @@ class MLAConfig(NamedTuple):
     v_head_dim: int = 64
 
 
+def mla_shapes(d_model: int, n_heads: int, cfg: MLAConfig,
+               stack=()) -> dict:
+    """The reference's ``mla_params`` tree as ``Leaf`` shapes, fills and
+    logical names: dense leaves normal × 1/√(their first dimension) — with
+    a leading ``stack`` of (L,), as the reference stacks layer leaves, that
+    is L — the norms ones."""
+    h, qn, qr, vd = n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r, kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {
+        "wdq": common.dense((d_model, r), ("embed", "qk"), stack=stack),
+        "q_norm": common.ones((r,), ("qk",), stack=stack),
+        "wuq": common.dense((r, h * (qn + qr)), ("qk", "heads"),
+                            stack=stack),
+        "wdkv": common.dense((d_model, kv + qr), ("embed", "qk"),
+                             stack=stack),
+        "kv_norm": common.ones((kv,), ("qk",), stack=stack),
+        "wuk": common.dense((kv, h * qn), ("qk", "heads"), stack=stack),
+        "wuv": common.dense((kv, h * vd), ("qk", "heads"), stack=stack),
+        "wo": common.dense((h * vd, d_model), ("heads", "embed"),
+                           stack=stack),
+    }
+
+
 def mla_params(gen, d_model: int, n_heads: int, cfg: MLAConfig,
                dtype=torch.float32, device="cpu", stack=()) -> dict:
-    """The reference's ``mla_params`` tree drawn from ``gen``: dense leaves
-    normal × 1/√(their first dimension) — with a leading ``stack`` of (L,),
-    as the reference stacks layer leaves, that is L — the norms ones."""
-    h, qn, qr, vd = n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    shapes = {"wdq": (d_model, cfg.q_lora_rank),
-              "q_norm": (cfg.q_lora_rank,),
-              "wuq": (cfg.q_lora_rank, h * (qn + qr)),
-              "wdkv": (d_model, cfg.kv_lora_rank + qr),
-              "kv_norm": (cfg.kv_lora_rank,),
-              "wuk": (cfg.kv_lora_rank, h * qn),
-              "wuv": (cfg.kv_lora_rank, h * vd),
-              "wo": (h * vd, d_model)}
-    params = {}
-    for name, shape in shapes.items():
-        full = tuple(stack) + shape
-        if name.endswith("_norm"):
-            params[name] = torch.ones(full, dtype=dtype, device=device)
-        else:
-            w = torch.randn(full, generator=gen, dtype=dtype, device=device)
-            params[name] = w.mul_(1.0 / math.sqrt(max(full[0], 1)))
-    return params
+    """``mla_shapes``' tree drawn from ``gen``."""
+    return common.draw(mla_shapes(d_model, n_heads, cfg, stack), gen, dtype,
+                       device)
 
 
 def mla_latents(p, x, positions, cfg: MLAConfig):

@@ -5,11 +5,11 @@ A port of the reference's ``models/gnn.py`` with the same configuration
 (``DimeNetConfig``), parameter tree (``blocks`` leaves keep their leading
 (n_blocks,) axis) and numerics.  Message passing scatters over explicit
 edge and triplet index arrays: the reference's ``jax.ops.segment_sum`` is
-``index_add_`` (on the card its float adds run in no fixed order; the
-reference computes it outside any Pallas kernel, and so does the port: no
-kernel of this module's path is hand-written yet).  The einsum
-``th,tb,hbo->to`` of the interaction block may contract in another order
-than XLA's.
+``common.segment_sum`` (a stable sort of the segment ids, then each
+segment summed in row order: the reference's order, the same bits on every
+run, no float atomics; the reference computes it outside any Pallas
+kernel, and so does the port).  The einsum ``th,tb,hbo->to`` of the
+interaction block may contract in another order than XLA's.
 
 The samplers draw from ``repro_torch.core.prng`` (JAX's ``threefry2x32``
 bit for bit, on the host), so ``neighbor_sample`` and ``build_triplets``
@@ -17,8 +17,10 @@ given the same ``PRNGKey`` sample the reference's edges and triplets
 exactly; the index arithmetic runs on the device of the graph's arrays.
 Edge and triplet ids come back as int64, masks as float32.
 
-Not ported (ROADMAP §1 item 11, the launch stack): ``loss_fn_partitioned``
-(a ``psum`` inside ``shard_map``), which raises ``NotImplementedError``.
+``loss_fn_partitioned`` is the partitioned-graph loss on one rank of the
+mesh in scope: edge-local arrays, one differentiable sum of the node
+aggregation over the named axes, and the gradients of the reference's
+``shard_map``ped loss.
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import prng
 from repro_torch.isn.backend import resolve_device
-from repro_torch.models.common import dense, draw, mlp, mlp_shapes
+from repro_torch.models import common
+from repro_torch.models.common import (dense, draw, leaf_names, mlp,
+                                      mlp_shapes, segment_sum)
 
 
 @dataclass(frozen=True)
@@ -83,23 +87,30 @@ def angular_sbf(d_kj, angle, n_spherical: int, n_radial: int, cutoff: float):
 # ---------------------------------------------------------------------------
 
 def param_shapes(c: DimeNetConfig) -> dict:
-    """The tree of ``init(c)`` as ``Leaf`` shapes and fills, in the
-    reference's layout."""
-    h, sb, n = c.d_hidden, c.n_spherical * c.n_radial, c.n_blocks
+    """The tree of ``init(c)`` as ``Leaf`` shapes, fills and logical names,
+    in the reference's layout (every name unsharded; the ``blocks`` leaves
+    stacked)."""
+    h, sb, n = c.d_hidden, c.n_spherical * c.n_radial, (c.n_blocks,)
     return {
-        "feat_proj": dense((c.d_feat, h)),
-        "rbf_proj": dense((c.n_radial, h)),
+        "feat_proj": dense((c.d_feat, h), (None, None)),
+        "rbf_proj": dense((c.n_radial, h), (None, None)),
         "embed_mlp": mlp_shapes((3 * h, h, h)),
         "blocks": {
-            "w_msg": dense((n, h, h)),
-            "rbf_gate": dense((n, c.n_radial, h)),
-            "sbf_proj": dense((n, sb, c.n_bilinear)),
-            "bilinear": dense((n, h, c.n_bilinear, h),
-                              1.0 / math.sqrt(h * c.n_bilinear)),
-            "update": mlp_shapes((h, h, h), stack=(n,)),
+            "w_msg": dense((h, h), (None, None), stack=n),
+            "rbf_gate": dense((c.n_radial, h), (None, None), stack=n),
+            "sbf_proj": dense((sb, c.n_bilinear), (None, None), stack=n),
+            "bilinear": dense((h, c.n_bilinear, h), (None, None, None),
+                              1.0 / math.sqrt(h * c.n_bilinear), stack=n),
+            "update": mlp_shapes((h, h, h), stack=n),
         },
         "out_mlp": mlp_shapes((h, h, c.d_out)),
     }
+
+
+def param_names(c: DimeNetConfig) -> dict:
+    """The logical names of ``init(c)``'s leaves, congruent with its tree
+    (the reference's ``names_tree_of(*init(c, abstract=True))``)."""
+    return leaf_names(param_shapes(c))
 
 
 def init(c: DimeNetConfig, seed: int = 0, device=None) -> dict:
@@ -114,24 +125,14 @@ def init(c: DimeNetConfig, seed: int = 0, device=None) -> dict:
     return draw(param_shapes(c), gen, c.torch_dtype, dev)
 
 
-def _segment_sum(data, segment_ids, num_segments: int):
-    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    return out.index_add(0, segment_ids, data)
-
-
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
-def forward(params, c: DimeNetConfig, feat, pos, edge_src, edge_dst,
-            trip_kj, trip_ji, edge_mask, trip_mask, node_mask):
-    """DimeNet forward.
-
-    feat: (N, F) node features; pos: (N, 3); edge_src/dst: (E,) ids;
-    trip_kj/ji: (T,) indices into edges forming (k→j, j→i) pairs;
-    masks: 1.0 valid / 0.0 padding. Returns per-node outputs (N, d_out).
-    """
+def _node_acc(params, c: DimeNetConfig, feat, pos, edge_src, edge_dst,
+              trip_kj, trip_ji, edge_mask, trip_mask):
+    """The message passing up to the node aggregation: (N, H) sums of the
+    final edge messages by destination node."""
     n, e = feat.shape[0], edge_src.shape[0]
     edge_src, edge_dst = edge_src.long(), edge_dst.long()
     trip_kj, trip_ji = trip_kj.long(), trip_ji.long()
@@ -163,29 +164,68 @@ def forward(params, c: DimeNetConfig, feat, pos, edge_src, edge_dst,
         t = (m @ bp["w_msg"])[trip_kj]                      # (T, H)
         sp = sbf @ bp["sbf_proj"]                           # (T, B)
         t2 = torch.einsum("th,tb,hbo->to", t, sp, bp["bilinear"])
-        agg = _segment_sum(t2 * trip_mask[:, None], trip_ji, e)
+        agg = segment_sum(t2 * trip_mask[:, None], trip_ji, e)
         gate = rbf @ bp["rbf_gate"]
         m_new = m + mlp(bp["update"], (m + agg) * gate, F.silu)
         m = m_new * edge_mask[:, None]
 
-    node_acc = _segment_sum(m, edge_dst, n)
+    return segment_sum(m, edge_dst, n)
+
+
+_EDGE_KEYS = ("feat", "pos", "edge_src", "edge_dst", "trip_kj", "trip_ji",
+              "edge_mask", "trip_mask")
+
+
+def forward(params, c: DimeNetConfig, feat, pos, edge_src, edge_dst,
+            trip_kj, trip_ji, edge_mask, trip_mask, node_mask):
+    """DimeNet forward.
+
+    feat: (N, F) node features; pos: (N, 3); edge_src/dst: (E,) ids;
+    trip_kj/ji: (T,) indices into edges forming (k→j, j→i) pairs;
+    masks: 1.0 valid / 0.0 padding. Returns per-node outputs (N, d_out).
+    """
+    node_acc = _node_acc(params, c, feat, pos, edge_src, edge_dst, trip_kj,
+                         trip_ji, edge_mask, trip_mask)
     out = mlp(params["out_mlp"], node_acc, F.silu)
     return out * node_mask[:, None]
 
 
-def loss_fn(params, c: DimeNetConfig, batch):
-    out = forward(params, c, batch["feat"], batch["pos"], batch["edge_src"],
-                  batch["edge_dst"], batch["trip_kj"], batch["trip_ji"],
-                  batch["edge_mask"], batch["trip_mask"], batch["node_mask"])
+def _mse(out, batch):
     err = (out[:, 0] - batch["target"]) * batch["node_mask"]
     return (err * err).sum() / torch.clamp(batch["node_mask"].sum(), min=1.0)
 
 
+def loss_fn(params, c: DimeNetConfig, batch):
+    out = forward(params, c, *(batch[k] for k in _EDGE_KEYS),
+                  batch["node_mask"])
+    return _mse(out, batch)
+
+
 def loss_fn_partitioned(params, c: DimeNetConfig, batch, psum_axes):
-    """The partitioned-graph loss inside ``shard_map``: not ported."""
-    raise NotImplementedError(
-        "loss_fn_partitioned (a psum inside shard_map) is not ported yet "
-        "(ROADMAP §1 item 11, the launch stack)")
+    """The partitioned-graph loss of one rank: the reference's
+    ``shard_map`` of its ``loss_fn_partitioned`` over the mesh in scope,
+    with ``params`` replicated in and the loss replicated out (as
+    ``launch/steps.py:298-313`` builds it).
+
+    ``batch``: feat / pos / node_mask / target whole (N, ...) on every
+    rank; the edge and triplet arrays this rank's slice, with *global*
+    node ids and *local* edge indices (triplets sampled inside the
+    partition).  The one collective of the forward is the sum of the node
+    aggregation over ``psum_axes``.
+
+    Its gradients are JAX's ``value_and_grad`` of the ``shard_map``ped
+    loss on every rank: the loss's cotangent enters each rank divided by
+    the ranks of ``psum_axes`` (the transpose of a replicated out-spec),
+    the node aggregation's sum transposes to a sum, and each parameter's
+    gradient is summed over the ranks (the transpose of a replicated
+    in-spec), so a replicated parameter's gradient is the one-device
+    gradient, not that times the rank count."""
+    mesh = common.get_abstract_mesh_or_none()
+    params = common.replicate_in(params, mesh, psum_axes)
+    node_acc = _node_acc(params, c, *(batch[k] for k in _EDGE_KEYS))
+    node_acc = common.psum(node_acc, mesh, psum_axes)       # the collective
+    out = mlp(params["out_mlp"], node_acc, F.silu)
+    return common.replicate_out(_mse(out, batch), mesh, psum_axes)
 
 
 # ---------------------------------------------------------------------------

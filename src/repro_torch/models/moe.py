@@ -1,8 +1,8 @@
 """Mixture-of-experts FFN with sort-based dispatch (granite-MoE, Moonlight).
 
-A port of the reference's ``models/moe.py`` for one device: ``moe_forward``
-is its branch for no mesh (``mesh is None``, ``moe.py:121-137``), which
-routes every local token, buckets the routed (token, expert) pairs into
+A port of the reference's ``models/moe.py``: ``moe_forward`` with no mesh
+in scope is its branch for no mesh (``moe.py:121-137``), which routes
+every local token, buckets the routed (token, expert) pairs into
 (E, capacity, d), runs the experts as batched products and combines the
 weighted outputs.  Tokens beyond an expert's capacity are dropped exactly as
 the reference drops them (Switch/GShard semantics).  Shared (always-on)
@@ -33,9 +33,18 @@ the capacity drops and the dispatch order are integers and carry none
 (the scatter into the expert buckets and the gathers back are index
 operations whose backward routes each row's gradient to its source).
 
-Not ported (ROADMAP §1 item 11): the expert-parallel ``shard_map`` branch
-(``moe.py:139-179``) waits for the launch stack's ``mesh_context``; called
-with a mesh, ``moe_forward`` raises ``NotImplementedError``.
+Under a mesh (``launch/mesh.mesh_context``), ``moe_forward`` takes the
+reference's expert-parallel branch (``moe.py:139-179``) on each rank with
+its choices (``mesh_plan``): the experts split over "model" when it is
+larger than 1 and divides them, else the tokens over every axis; trailing
+token axes dropped until T divides; the capacity from the local token
+count, so a split mesh drops other tokens than no mesh, as the reference
+does.  The reference's ``shard_map`` collectives are ``torch.distributed``
+calls on the mesh's groups: the sum of y over "model", the mean of the
+router loss over the token axes, and an all-gather of the token blocks
+that gives every rank the whole (T, d) back.  At a (1, 1) mesh the branch
+computes exactly what no mesh computes.  It is forward only (serving):
+under autograd it raises.
 """
 
 from __future__ import annotations
@@ -44,10 +53,9 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
-_EP = ("the expert-parallel MoE branch (a mesh) is not ported yet (ROADMAP "
-       "§1 item 11)")
-
+from repro_torch.models import common
 
 class MoEConfig(NamedTuple):
     n_experts: int
@@ -58,24 +66,30 @@ class MoEConfig(NamedTuple):
     router_aux_weight: float = 0.01
 
 
-def moe_params(gen, d_model: int, cfg: MoEConfig, dtype=torch.float32,
-               device="cpu", stack=()) -> dict:
-    """The reference's ``moe_params`` tree drawn from ``gen``: each leaf
-    normal × 1/√(its first dimension) — with a leading ``stack`` of (L,),
-    as the reference stacks layer leaves, that is L — the router × 0.02."""
+def moe_shapes(d_model: int, cfg: MoEConfig, stack=()) -> dict:
+    """The reference's ``moe_params`` tree as ``Leaf`` shapes, fills and
+    logical names: each leaf normal × 1/√(its first dimension) — with a
+    leading ``stack`` of (L,), as the reference stacks layer leaves, that
+    is L — the router × 0.02 and unsharded, the experts on "experts"."""
     e, f, fs = cfg.n_experts, cfg.d_ff_expert, cfg.d_ff_expert * cfg.n_shared
-    shapes = {"router": (d_model, e), "w_gate": (e, d_model, f),
-              "w_up": (e, d_model, f), "w_down": (e, f, d_model)}
+    tree = {
+        "router": common.dense((d_model, e), (None, None), 0.02, stack),
+        "w_gate": common.dense((e, d_model, f), ("experts", "embed", "ffn"),
+                               stack=stack),
+        "w_up": common.dense((e, d_model, f), ("experts", "embed", "ffn"),
+                             stack=stack),
+        "w_down": common.dense((e, f, d_model), ("experts", "ffn", "embed"),
+                               stack=stack),
+    }
     if cfg.n_shared:
-        shapes.update(shared_gate=(d_model, fs), shared_up=(d_model, fs),
-                      shared_down=(fs, d_model))
-    params = {}
-    for name, shape in shapes.items():
-        full = tuple(stack) + shape
-        w = torch.randn(full, generator=gen, dtype=dtype, device=device)
-        params[name] = w.mul_(0.02 if name == "router"
-                              else 1.0 / math.sqrt(max(full[0], 1)))
-    return params
+        tree.update(
+            shared_gate=common.dense((d_model, fs), ("embed", "ffn"),
+                                     stack=stack),
+            shared_up=common.dense((d_model, fs), ("embed", "ffn"),
+                                   stack=stack),
+            shared_down=common.dense((fs, d_model), ("ffn", "embed"),
+                                     stack=stack))
+    return tree
 
 
 def capacity(t: int, cfg: MoEConfig) -> int:
@@ -93,24 +107,31 @@ def route(router, x, cfg: MoEConfig):
     return gates, topv[:, :cfg.top_k], tope[:, :cfg.top_k]
 
 
-def dispatch(tope, n_experts: int, cap: int):
-    """The bucketing of the (token, expert) pairs: (order, the pairs in
-    expert order (stable); pos, each sorted pair's place in its expert's
-    bucket; fits, pos < cap; slot, its row of the (E·cap + 1) buffer, the
-    last row the ghost row of the dropped pairs)."""
+def dispatch(tope, n_experts: int, cap: int, e_off: int = 0,
+             e_local: int | None = None):
+    """The bucketing of the (token, expert) pairs onto the experts
+    [e_off, e_off + e_local) (by default all ``n_experts``): (order, the
+    pairs in local-expert order (stable), the other experts' pairs last, in
+    a ghost bucket; pos, each sorted pair's place in its bucket; fits, a
+    pair of a local expert at pos < cap; slot, its row of the (e_local·cap
+    + 1) buffer, the last row the ghost row of the pairs that do not
+    fit)."""
+    e_local = n_experts if e_local is None else e_local
     n = tope.numel()
-    local = tope.reshape(-1)
+    local = tope.reshape(-1) - e_off
+    local = torch.where((local >= 0) & (local < e_local), local,
+                        torch.full_like(local, e_local))
     order = torch.argsort(local, stable=True)
     l_s = local[order]
     # integer adds (no host sync, unlike ``bincount`` on the card)
-    counts = torch.zeros(n_experts, dtype=l_s.dtype,
+    counts = torch.zeros(e_local + 1, dtype=l_s.dtype,
                          device=l_s.device).scatter_add_(
                              0, l_s, torch.ones_like(l_s))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(n, device=tope.device) - starts[l_s]
-    fits = pos < cap
+    fits = (pos < cap) & (l_s < e_local)
     slot = torch.where(fits, l_s * cap + pos,
-                       torch.full_like(pos, n_experts * cap))
+                       torch.full_like(pos, e_local * cap))
     return order, pos, fits, slot
 
 
@@ -124,11 +145,14 @@ def kept(tope, n_experts: int, cap: int):
 
 
 def _dispatch_compute(router, w_gate, w_up, w_down, x, cfg: MoEConfig,
-                      cap: int):
-    """Route the tokens, bucket them into (E, cap, d), compute, combine.
-    Returns (y (T, d) in x's type, aux fp32 scalar)."""
+                      cap: int, e_off: int = 0):
+    """Route the tokens, bucket the pairs of the experts [e_off, e_off +
+    E_local) (``w_gate``'s first extent) into (E_local, cap, d), compute,
+    combine.  Returns (y (T, d) in x's type, zero where the token's experts
+    are elsewhere; aux fp32 scalar)."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    e_local = w_gate.shape[0]
     gates, topv, tope = route(router, x, cfg)
     topv = topv / torch.clamp(topv.sum(dim=-1, keepdim=True), min=1e-9)
 
@@ -137,23 +161,24 @@ def _dispatch_compute(router, w_gate, w_up, w_down, x, cfg: MoEConfig,
         dim=0) / k
     aux = cfg.router_aux_weight * e * (me * ce).sum()
 
-    order, _, fits, slot = dispatch(tope, e, cap)
+    order, _, fits, slot = dispatch(tope, e, cap, e_off, e_local)
     t_s = torch.arange(t, device=x.device).repeat_interleave(k)[order]
-    xe = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    xe = torch.zeros((e_local * cap + 1, d), dtype=x.dtype, device=x.device)
     # only the ghost row takes several writes, and it is dropped
     xe[slot] = x[t_s]
-    xe = xe[:-1].reshape(e, cap, d)
+    xe = xe[:-1].reshape(e_local, cap, d)
 
     h = torch.nn.functional.silu(torch.bmm(xe, w_gate)) \
         * torch.bmm(xe, w_up)
     ye = torch.bmm(h, w_down)
 
-    y_flat = torch.cat([ye.reshape(e * cap, d),
+    y_flat = torch.cat([ye.reshape(e_local * cap, d),
                         torch.zeros((1, d), dtype=x.dtype, device=x.device)])
     w_s = topv.reshape(-1).to(x.dtype)[order]
     contrib = torch.where(fits[:, None], y_flat[slot] * w_s[:, None], 0)
-    # each token's k contributions in the sorted order (its experts
-    # ascending), summed from zero one add at a time in x's type
+    # each token's k contributions in its experts' ascending order (another
+    # rank's expert adds a zero), summed from zero one add at a time in x's
+    # type
     per_tok = torch.empty_like(contrib)
     per_tok[order] = contrib
     per_tok = per_tok.reshape(t, k, d)
@@ -165,15 +190,101 @@ def _dispatch_compute(router, w_gate, w_up, w_down, x, cfg: MoEConfig,
     return y, aux
 
 
-def moe_forward(p, x, cfg: MoEConfig, mesh=None):
-    """x: (T, d_model) -> ((T, d_model) in x's type, router aux loss fp32),
-    the reference's branch for no mesh."""
-    if mesh is not None:
-        raise NotImplementedError(_EP)
-    t = x.shape[0]
-    y, aux = _dispatch_compute(p["router"], p["w_gate"], p["w_up"],
-                               p["w_down"], x, cfg, capacity(t, cfg))
-    if cfg.n_shared:
-        y = y + (torch.nn.functional.silu(x @ p["shared_gate"])
-                 * (x @ p["shared_up"])) @ p["shared_down"]
+class MeshPlan(NamedTuple):
+    """How the mesh branch splits the work (the reference's
+    ``moe.py:139-151``): expert-parallel over "model" or not, the token
+    axes, the local token count, the experts a rank serves, the
+    capacity from the local count."""
+    ep: bool
+    tok_axes: tuple
+    t_local: int
+    e_local: int
+    cap: int
+
+
+def mesh_plan(t: int, cfg: MoEConfig, sizes: dict) -> MeshPlan:
+    """The split of ``t`` tokens on a mesh of ``sizes`` ({axis: size}):
+    experts over "model" when it is larger than 1 and divides the experts,
+    else tokens over every axis; trailing token axes dropped until T
+    divides evenly."""
+    e = cfg.n_experts
+    model_ways = sizes.get("model", 1)
+    ep = e % model_ways == 0 and model_ways > 1
+    tok_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    if not ep and "model" in sizes:
+        tok_axes = tok_axes + ("model",)
+    while tok_axes and t % math.prod(sizes[a] for a in tok_axes) != 0:
+        tok_axes = tok_axes[:-1]
+    t_local = t // math.prod(sizes[a] for a in tok_axes)
+    return MeshPlan(ep, tok_axes, t_local, e // model_ways if ep else e,
+                    capacity(t_local, cfg))
+
+
+def _replicated(w, mesh, spec):
+    """A leaf as this rank uses it: a DTensor redistributed to ``spec`` (the
+    region's in-spec) and its local shard; a plain tensor as it is."""
+    if isinstance(w, DTensor):
+        return w.redistribute(mesh, common.placements(spec, mesh)).to_local()
+    return w
+
+
+def _with_shared(y, p, x, cfg: MoEConfig):
+    """y plus the shared (always-on) experts' SwiGLU of x, if any."""
+    if not cfg.n_shared:
+        return y
+    return y + (torch.nn.functional.silu(x @ p["shared_gate"])
+                * (x @ p["shared_up"])) @ p["shared_down"]
+
+
+def moe_forward(p, x, cfg: MoEConfig):
+    """x: (T, d_model) -> ((T, d_model) in x's type, router aux loss fp32).
+
+    With no mesh in scope, the reference's branch for no mesh.  Under a
+    mesh (``launch/mesh.mesh_context``), its expert-parallel branch on each
+    rank: this rank's token block (``mesh_plan``) through its experts —
+    the stacked leaves' slice at ``e_off``, or a DTensor leaf's local shard
+    — the outputs summed over "model" when the experts are split, the
+    router loss averaged over the token axes, and the blocks gathered back,
+    so every rank takes and returns the whole (T, d).  The mesh branch is
+    forward only: it raises when autograd would differentiate it."""
+    mesh = common.get_abstract_mesh_or_none()
+    if mesh is None:
+        y, aux = _dispatch_compute(p["router"], p["w_gate"], p["w_up"],
+                                   p["w_down"], x, cfg,
+                                   capacity(x.shape[0], cfg))
+        return _with_shared(y, p, x, cfg), aux
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *p.values())):
+        raise RuntimeError("moe_forward under a mesh has no backward: call "
+                           "it under torch.no_grad()")
+
+    sizes = common.mesh_sizes(mesh)
+    plan = mesh_plan(x.shape[0], cfg, sizes)
+    coords = common.mesh_coords(mesh)
+    blk = 0
+    for a in plan.tok_axes:
+        blk = blk * sizes[a] + coords[a]
+    x_local = x[blk * plan.t_local:(blk + 1) * plan.t_local]
+    e_off = coords["model"] * plan.e_local if plan.ep else 0
+    wspec = common.P("model", None, None) if plan.ep else common.P()
+    w = {}
+    for key in ("w_gate", "w_up", "w_down"):
+        leaf = p[key]
+        if isinstance(leaf, DTensor):
+            w[key] = _replicated(leaf, mesh, wspec)
+        else:
+            w[key] = leaf[e_off:e_off + plan.e_local]
+    router = _replicated(p["router"], mesh, common.P())
+    y, aux = _dispatch_compute(router, w["w_gate"], w["w_up"], w["w_down"],
+                               x_local, cfg, plan.cap, e_off)
+    if plan.ep:
+        y = common.all_reduce_axes(y, mesh, "model")
+    if plan.tok_axes:
+        tok_ways = math.prod(sizes[a] for a in plan.tok_axes)
+        aux = common.all_reduce_axes(aux, mesh, plan.tok_axes) / tok_ways
+    shared = {k: _replicated(v, mesh, common.P()) for k, v in p.items()
+              if k.startswith("shared_")}
+    y = _with_shared(y, shared, x_local, cfg)
+    if plan.tok_axes:
+        y = common.all_gather_axes(y, mesh, plan.tok_axes)
     return y, aux

@@ -24,9 +24,10 @@ keep their leading (n_blocks,) axis) and the same numerics:
 explicit device; the dense Stage-1 modality embeds through it
 (``repro_torch.dense.embeddings``).
 
-Not ported (ROADMAP §1 item 11, the launch stack):
-``sharded_streaming_topk`` (``shard_map`` with an all-gather), which
-raises ``NotImplementedError``.
+``sharded_streaming_topk`` is the reference's distributed top-k on one
+rank of the mesh in scope (``launch/mesh.mesh_context``): a local top-k
+through kernel 6, then a k-sized all-gather over "model" and a stable
+merge.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from repro_torch.isn.backend import resolve_device
 from repro_torch.kernels.dense_topk import ops as dense_ops
 from repro_torch.models import common, embedding
 from repro_torch.models.attention import chunked_attention
-from repro_torch.models.common import Leaf, dense, draw, mlp, mlp_shapes
+from repro_torch.models.common import dense, draw, mlp, mlp_shapes, ones, zeros
 
 TABLE_DIM = 256     # width of both two-tower tables (fixed by the reference)
 SIDES = ("user", "item")
@@ -103,38 +104,53 @@ class RecsysConfig:
 # ---------------------------------------------------------------------------
 
 def param_shapes(c: RecsysConfig) -> dict:
-    """The tree of ``init(c)`` as ``Leaf`` shapes and fills, in the
-    reference's layout."""
+    """The tree of ``init(c)`` as ``Leaf`` shapes, fills and logical names,
+    in the reference's layout: table rows on "rows", BERT4Rec's attention
+    and FFN widths on "heads" and "ffn", the rest unsharded."""
     d = c.embed_dim
     if c.kind in ("deepfm", "xdeepfm"):
         rows = c.n_sparse * c.rows_per_field
-        tree = {"table": dense((rows, d), 0.01),
-                "linear": dense((rows, 1), 0.01),
+        tree = {"table": dense((rows, d), ("rows", None), 0.01),
+                "linear": dense((rows, 1), ("rows", None), 0.01),
                 "mlp": mlp_shapes((c.n_sparse * d,) + tuple(c.mlp) + (1,))}
         if c.kind == "xdeepfm":
             cin, hk = {}, c.n_sparse
             for i, h_next in enumerate(c.cin_layers):
-                cin[f"w{i}"] = dense((hk * c.n_sparse, h_next), 0.05)
+                cin[f"w{i}"] = dense((hk * c.n_sparse, h_next), (None, None),
+                                     0.05)
                 hk = h_next
             tree["cin"] = cin
-            tree["cin_out"] = dense((sum(c.cin_layers), 1))
+            tree["cin_out"] = dense((sum(c.cin_layers), 1), (None, None))
         return tree
     if c.kind == "two_tower":
-        return {"user_table": dense((c.n_users, TABLE_DIM), 0.01),
-                "item_table": dense((c.n_items, TABLE_DIM), 0.01),
+        return {"user_table": dense((c.n_users, TABLE_DIM), ("rows", None),
+                                    0.01),
+                "item_table": dense((c.n_items, TABLE_DIM), ("rows", None),
+                                    0.01),
                 "user_mlp": mlp_shapes((TABLE_DIM,) + tuple(c.tower_mlp)),
                 "item_mlp": mlp_shapes((TABLE_DIM,) + tuple(c.tower_mlp))}
     if c.kind == "bert4rec":
-        n = c.n_blocks
-        blocks = {k: dense((n, d, d)) for k in ("wq", "wk", "wv", "wo")}
-        blocks.update(w1=dense((n, d, 4 * d)), b1=Leaf((n, 4 * d), "zeros"),
-                      w2=dense((n, 4 * d, d)), b2=Leaf((n, d), "zeros"),
-                      ln1=Leaf((n, d), "ones"), ln2=Leaf((n, d), "ones"))
-        return {"item_embed": dense((c.padded_items, d), 0.02),
-                "pos_embed": dense((c.seq_len, d), 0.02),
+        n = (c.n_blocks,)
+        blocks = {k: dense((d, d), (None, "heads"), stack=n)
+                  for k in ("wq", "wk", "wv")}
+        blocks.update(
+            wo=dense((d, d), ("heads", None), stack=n),
+            w1=dense((d, 4 * d), (None, "ffn"), stack=n),
+            b1=zeros((4 * d,), ("ffn",), stack=n),
+            w2=dense((4 * d, d), ("ffn", None), stack=n),
+            b2=zeros((d,), (None,), stack=n),
+            ln1=ones((d,), (None,), stack=n), ln2=ones((d,), (None,), stack=n))
+        return {"item_embed": dense((c.padded_items, d), ("rows", None), 0.02),
+                "pos_embed": dense((c.seq_len, d), (None, None), 0.02),
                 "blocks": blocks,
-                "final_ln": Leaf((d,), "ones")}
+                "final_ln": ones((d,), (None,))}
     raise ValueError(c.kind)
+
+
+def param_names(c: RecsysConfig) -> dict:
+    """The logical names of ``init(c)``'s leaves, congruent with its tree
+    (the reference's ``names_tree_of(*init(c, abstract=True))``)."""
+    return common.leaf_names(param_shapes(c))
 
 
 def init(c: RecsysConfig, seed: int = 0, device=None) -> dict:
@@ -259,10 +275,43 @@ def streaming_topk(q_emb, cand_emb, k: int, tile: int = 16384):
 
 
 def sharded_streaming_topk(q_emb, cand_emb, k: int, tile: int = 8192):
-    """The distributed retrieval top-k over a mesh: not ported."""
-    raise NotImplementedError(
-        "sharded_streaming_topk (shard_map with an all-gather) is not ported "
-        "yet (ROADMAP §1 item 11, the launch stack)")
+    """Distributed retrieval top-k on this rank of the mesh in scope: each
+    "model" rank streams its candidate rows through ``streaming_topk``
+    (kernel 6 on the card), offsets its ids by its first row, all-gathers
+    the k (score, id) pairs of every "model" rank and merges them with a
+    stable top-k (the lower rank, so the lower id, first among equal
+    scores).  Queries split over "pod" and "data" as the reference's
+    ``shard_map`` splits them, and the blocks are gathered back: every rank
+    takes the whole (B, d) and (N, d) and returns the whole (B, k).
+
+    With no mesh, one "model" rank, N not a multiple of the "model" ranks
+    or B not of the query ranks, this is ``streaming_topk`` on the whole
+    input, as the reference's own branch is."""
+    mesh = common.get_abstract_mesh_or_none()
+    sizes = common.mesh_sizes(mesh) if mesh is not None else {}
+    mw = sizes.get("model", 1)
+    b, n = q_emb.shape[0], cand_emb.shape[0]
+    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    bw = math.prod(sizes[a] for a in batch_axes)
+    if mesh is None or mw <= 1 or n % mw or (b % bw if bw else 0):
+        return streaming_topk(q_emb, cand_emb, k, tile)
+    n_local, b_local = n // mw, b // bw
+    coords = common.mesh_coords(mesh)
+    blk = 0
+    for a in batch_axes:
+        blk = blk * sizes[a] + coords[a]
+    q = q_emb[blk * b_local:(blk + 1) * b_local]
+    m = coords["model"]
+    v, i = streaming_topk(q, cand_emb[m * n_local:(m + 1) * n_local], k,
+                          tile)
+    av = common.all_gather_axes(v, mesh, "model", dim=1)
+    ai = common.all_gather_axes(i + m * n_local, mesh, "model", dim=1)
+    v2, p = torch.sort(av, dim=1, descending=True, stable=True)
+    v2, i2 = v2[:, :k], torch.gather(ai, 1, p[:, :k])
+    if batch_axes:
+        v2 = common.all_gather_axes(v2, mesh, batch_axes)
+        i2 = common.all_gather_axes(i2, mesh, batch_axes)
+    return v2, i2
 
 
 def anytime_retrieval(query_emb, cand_emb, prior_order_len, k: int):

@@ -10,8 +10,8 @@ leaves carry a leading (L,) axis) and the same numerics; its
 ``lax.scan`` over layers is a Python loop.  Attention goes through
 ``models.attention``: on the card the prefill and decode kernels, on the
 CPU their plain versions; MLA's decode is the reference's absorbed form in
-torch products.  The FFN is a SwiGLU, or ``models.moe.moe_forward`` (the
-reference's branch for no mesh) whose router losses ``forward`` sums.
+torch products.  The FFN is a SwiGLU, or ``models.moe.moe_forward``
+whose router losses ``forward`` sums.
 
 Kept from the reference on purpose: ``decode_step`` rotates q and k with
 RoPE's default θ = 10,000 whatever ``rope_theta`` says, while ``forward``
@@ -39,14 +39,16 @@ unembedded and reduced under a checkpoint of its own, so the full (B, S,
 V) logits never exist.  Gradients reach the stacked layer leaves through
 one ``unbind`` a leaf.
 
-Not ported (ROADMAP §1 item 11): MoE under a mesh, which raises
-``NotImplementedError``.
+Logical sharding: ``forward``, ``forward_hidden``, ``loss_fn``,
+``prefill`` and ``decode_step`` take the reference's ``rules`` and call
+``common.constrain`` where it does (``transformer.py:166-330``); under a
+mesh that redistributes DTensor activations and leaves each rank's whole
+plain tensors as they are, and MoE takes its mesh branch.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -57,7 +59,7 @@ from repro_torch.isn.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models.attention import NEG_INF, MLAConfig
-from repro_torch.models.moe import MoEConfig, moe_forward, moe_params
+from repro_torch.models.moe import MoEConfig, moe_forward, moe_shapes
 
 
 @dataclass(frozen=True)
@@ -140,14 +142,45 @@ FFN_KEYS = {"dense": ("w_gate", "w_up", "w_down"),
 LAYER_KEYS = {"attn": ATTN_KEYS["gqa"], "ffn": FFN_KEYS["dense"]}
 
 
-def _layer_shapes(c: LMConfig) -> dict:
-    """Shapes of the dense GQA attention and FFN matrices, without the
-    leading (L,) axis."""
-    dm, hd = c.d_model, c.head_dim
-    return {"wq": (dm, c.n_heads * hd), "wk": (dm, c.n_kv_heads * hd),
-            "wv": (dm, c.n_kv_heads * hd), "wo": (c.n_heads * hd, dm),
-            "w_gate": (dm, c.d_ff), "w_up": (dm, c.d_ff),
-            "w_down": (c.d_ff, dm)}
+def param_shapes(c: LMConfig) -> dict:
+    """The tree of ``init(c)`` as ``Leaf`` shapes, fills and logical names,
+    in the reference's layout: the layer leaves stacked on a leading (L,)
+    axis named "stack"."""
+    dm, hd, n = c.d_model, c.head_dim, (c.n_layers,)
+    if c.attention == "mla":
+        attn_s = attn.mla_shapes(dm, c.n_heads, c.mla, stack=n)
+    else:
+        attn_s = {
+            "wq": common.dense((dm, c.n_heads * hd), ("embed", "heads"),
+                               stack=n),
+            "wk": common.dense((dm, c.n_kv_heads * hd), ("embed", "kv_heads"),
+                               stack=n),
+            "wv": common.dense((dm, c.n_kv_heads * hd), ("embed", "kv_heads"),
+                               stack=n),
+            "wo": common.dense((c.n_heads * hd, dm), ("heads", "embed"),
+                               stack=n)}
+    if c.moe is not None:
+        ffn_s = moe_shapes(dm, c.moe, stack=n)
+    else:
+        ffn_s = {
+            "w_gate": common.dense((dm, c.d_ff), ("embed", "ffn"), stack=n),
+            "w_up": common.dense((dm, c.d_ff), ("embed", "ffn"), stack=n),
+            "w_down": common.dense((c.d_ff, dm), ("ffn", "embed"), stack=n)}
+    return {
+        "embed": common.dense((c.padded_vocab, dm), ("vocab", "embed"),
+                              0.02),
+        "unembed": common.dense((dm, c.padded_vocab), ("embed", "vocab")),
+        "final_ln": common.ones((dm,), ("embed",)),
+        "layers": {"attn": attn_s, "ffn": ffn_s,
+                   "ln1": common.ones((dm,), ("embed",), stack=n),
+                   "ln2": common.ones((dm,), ("embed",), stack=n)},
+    }
+
+
+def param_names(c: LMConfig) -> dict:
+    """The logical names of ``init(c)``'s leaves, congruent with its tree
+    (the reference's ``names_tree_of(*init(c, abstract=True))``)."""
+    return common.leaf_names(param_shapes(c))
 
 
 def init(c: LMConfig, seed: int = 0, device=None) -> dict:
@@ -157,41 +190,17 @@ def init(c: LMConfig, seed: int = 0, device=None) -> dict:
     Shapes, scales and layout are the reference's (``ParamFactory``): a
     dense leaf is normal × 1/√(its first dimension) — for the stacked
     layer leaves that is the layer count, as in the reference — the
-    embedding and the MoE router normal × 0.02, the norms ones.  The draws
-    differ from JAX's."""
+    embedding and the MoE router normal × 0.02, the norms ones.  The layer
+    leaves are drawn first, then the embedding and the unembedding.  The
+    draws differ from JAX's."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    dt = c.torch_dtype
-
-    def dense(shape, scale=None):
-        scale = scale if scale is not None else 1.0 / math.sqrt(
-            max(shape[0], 1))
-        w = torch.randn(shape, generator=gen, dtype=dt, device=dev)
-        return w.mul_(scale)
-
-    def ones(shape):
-        return torch.ones(shape, dtype=dt, device=dev)
-
-    n = c.n_layers
-    shapes = _layer_shapes(c)
-    if c.attention == "mla":
-        attn_p = attn.mla_params(gen, c.d_model, c.n_heads, c.mla, dt, dev,
-                                 stack=(n,))
-    else:
-        attn_p = {k: dense((n,) + shapes[k]) for k in ATTN_KEYS["gqa"]}
-    if c.moe is not None:
-        ffn_p = moe_params(gen, c.d_model, c.moe, dt, dev, stack=(n,))
-    else:
-        ffn_p = {k: dense((n,) + shapes[k]) for k in FFN_KEYS["dense"]}
-    layers = {"attn": attn_p, "ffn": ffn_p,
-              "ln1": ones((n, c.d_model)), "ln2": ones((n, c.d_model))}
-    return {
-        "embed": dense((c.padded_vocab, c.d_model), scale=0.02),
-        "unembed": dense((c.d_model, c.padded_vocab)),
-        "final_ln": ones((c.d_model,)),
-        "layers": layers,
-    }
+    shapes = param_shapes(c)
+    layers = common.draw(shapes.pop("layers"), gen, c.torch_dtype, dev)
+    params = common.draw(shapes, gen, c.torch_dtype, dev)
+    params["layers"] = layers
+    return params
 
 
 def layer(params: dict, i: int) -> dict:
@@ -243,10 +252,14 @@ def _ffn(lp, x, c: LMConfig):
     return x + y.reshape(h.shape), aux
 
 
-def _layer_fwd(lp, x, positions, c: LMConfig, causal=True):
+_BSE = ("batch", "seq", "embed")
+
+
+def _layer_fwd(lp, x, positions, c: LMConfig, rules, causal=True):
     h = common.rms_norm(x, lp["ln1"], c.norm_eps)
     x = x + _attn_block(lp["attn"], h, positions, c, causal)
-    return _ffn(lp, x, c)
+    x, aux = _ffn(lp, common.constrain(x, _BSE, rules), c)
+    return common.constrain(x, _BSE, rules), aux
 
 
 def _embed(params, tokens, c: LMConfig):
@@ -257,19 +270,22 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
-def forward(params, c: LMConfig, tokens, causal=True):
+def forward(params, c: LMConfig, tokens, rules=None, causal=True):
     """tokens (B, S) -> (logits (B, S, V_pad), the layers' summed router
     loss: an fp32 scalar, 0.0 without MoE)."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    x = _embed(params, tokens, c)
+    rules = rules or common.DEFAULT_RULES
+    x = common.constrain(_embed(params, tokens, c), _BSE, rules)
     aux = torch.zeros((), device=x.device)
     for i in range(c.n_layers):
-        x, a = _layer_fwd(layer(params, i), x, positions, c, causal)
+        x, a = _layer_fwd(layer(params, i), x, positions, c, rules, causal)
         if a is not None:
             aux = aux + a
     x = common.rms_norm(x, params["final_ln"], c.norm_eps)
-    return x @ params["unembed"], aux
+    logits = common.constrain(x @ params["unembed"], ("batch", "seq", "vocab"),
+                              rules)
+    return logits, aux
 
 
 def _layers(params) -> list:
@@ -309,15 +325,17 @@ def _remat(fn, remat: str):
     raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
 
 
-def forward_hidden(params, c: LMConfig, tokens, causal=True):
+def forward_hidden(params, c: LMConfig, tokens, rules=None, causal=True):
     """Like ``forward`` but stops at the final hidden states: (x (B, S,
     d_model) after the final norm, the layers' summed router loss, fp32),
     each layer under ``c.remat``."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    x = _embed(params, tokens, c)
+    rules = rules or common.DEFAULT_RULES
+    x = common.constrain(_embed(params, tokens, c), _BSE, rules)
     aux = torch.zeros((), device=x.device)
-    body = _remat(functools.partial(_layer_fwd, c=c, causal=causal), c.remat)
+    body = _remat(functools.partial(_layer_fwd, c=c, rules=rules,
+                                    causal=causal), c.remat)
     for lp in _layers(params):
         x, a = body(lp, x, positions)
         if a is not None:
@@ -338,19 +356,26 @@ def _ce_sum(logits, labels, vocab: int):
     return ((lse - gold[..., 0]) * mask).sum(), mask.sum()
 
 
-def _ce_chunk(x, unembed, labels, vocab: int):
-    return _ce_sum(x @ unembed, labels, vocab)
+def _ce_chunk(x, unembed, labels, vocab: int, rules):
+    logits = common.constrain(x @ unembed, ("batch", "seq", "vocab"), rules)
+    return _ce_sum(logits, labels, vocab)
 
 
-def loss_fn(params, c: LMConfig, tokens, labels, ce_chunk: int = 512):
+def loss_fn(params, c: LMConfig, tokens, labels, rules=None,
+            ce_chunk: int = 512):
     """Mean next-token cross-entropy plus the summed router loss, fp32.
 
     The sequence is cut into chunks of ``ce_chunk`` (at most S); each
     chunk's (B, chunk, V) logits are computed and reduced under a
     checkpoint, so the backward recomputes them and the full logits never
     exist.  Raises, as the reference's reshape does, when S is not a
-    multiple of the chunk."""
-    x, aux = forward_hidden(params, c, tokens)
+    multiple of the chunk.  The chunks' logits are constrained under the
+    rules with "vocab" on "model" and the batch on ("pod", "data"), as the
+    reference's."""
+    x, aux = forward_hidden(params, c, tokens, rules)
+    # the reference's CE tiles: vocab-sharded over "model"
+    ce_rules = dict(rules or common.DEFAULT_RULES)
+    ce_rules.update(batch=("pod", "data"), seq=None, vocab="model")
     s = x.shape[1]
     ce_chunk = min(ce_chunk, s)
     n_chunks = s // ce_chunk
@@ -362,14 +387,14 @@ def loss_fn(params, c: LMConfig, tokens, labels, ce_chunk: int = 512):
     for i in range(n_chunks):
         sl = slice(i * ce_chunk, (i + 1) * ce_chunk)
         part, n = ckpt.checkpoint(_ce_chunk, x[:, sl], params["unembed"],
-                                  labels[:, sl], c.vocab,
+                                  labels[:, sl], c.vocab, ce_rules,
                                   use_reentrant=False)
         loss_sum = loss_sum + part
         count = count + n
     return loss_sum / torch.clamp(count, min=1.0) + aux
 
 
-def prefill(params, c: LMConfig, tokens):
+def prefill(params, c: LMConfig, tokens, rules=None):
     """Run the prompt through the model, building the decode cache.
 
     Returns (last-token logits (B, V_pad), cache) — the layout of
@@ -378,9 +403,10 @@ def prefill(params, c: LMConfig, tokens):
     ``decode_step`` can continue from it (once padded to the decode
     length).
     """
+    rules = rules or common.DEFAULT_RULES
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    x = _embed(params, tokens, c)
+    x = common.constrain(_embed(params, tokens, c), _BSE, rules)
     cache = {key: torch.empty((c.n_layers,) + shape, dtype=x.dtype,
                               device=x.device)
              for key, shape in _cache_shapes(c, b, s).items()}
@@ -391,14 +417,18 @@ def prefill(params, c: LMConfig, tokens):
             lat = attn.mla_latents(lp["attn"], h, positions, c.mla)
             o = attn.mla_forward(lp["attn"], h, positions, c.n_heads, c.mla,
                                  latents=lat)
-            cache["c"][i], cache["rope"][i] = lat
+            cache["c"][i] = common.constrain(lat[0],
+                                             ("batch", "kv_seq", "qk"), rules)
+            cache["rope"][i] = lat[1]
         else:
             q, k, v = _qkv(lp["attn"], h, positions, c)
             o = _attn_out(lp["attn"], attn.chunked_attention(q, k, v,
                                                              causal=True), c)
-            cache["k"][i] = k
-            cache["v"][i] = v
+            kv_names = ("batch", "kv_heads", "kv_seq", None)
+            cache["k"][i] = common.constrain(k, kv_names, rules)
+            cache["v"][i] = common.constrain(v, kv_names, rules)
         x, _ = _ffn(lp, x + o, c)
+        x = common.constrain(x, _BSE, rules)
     x = common.rms_norm(x[:, -1], params["final_ln"], c.norm_eps)
     return x @ params["unembed"], cache
 
@@ -454,13 +484,14 @@ def _cache_insert_2d(cache, new, kv_len):
     return cache
 
 
-def decode_step(params, c: LMConfig, token, cache, kv_len):
+def decode_step(params, c: LMConfig, token, cache, kv_len, rules=None):
     """One autoregressive step.
 
     token: (B,) int; kv_len: (B,) current cache fill.  Writes the token's
     cache rows at ``kv_len`` into ``cache`` in place and returns (logits
     (B, V_pad), cache).  RoPE rotates with the default θ (the reference's
-    behaviour, see the module docstring).
+    behaviour, see the module docstring).  ``rules`` is taken as the
+    reference takes it, which constrains nothing in a step.
     """
     b = token.shape[0]
     hd = c.head_dim

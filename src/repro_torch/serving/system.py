@@ -93,13 +93,6 @@ from repro_torch.serving.telemetry.export import (legacy_stats_view,
 SCORE_FILL = float(np.finfo(np.float32).min)
 
 
-def _unported(what: str, item: str):
-    """The error for a call that needs a node of a later ROADMAP item."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet "
-        f"(ROADMAP.md, section 1: {item})")
-
-
 @dataclass
 class PipelineResult:
     """One served batch, end to end."""

@@ -24,9 +24,11 @@ restore a ``"bfloat16"`` entry is read back from those words.  (The
 reference's own restore refuses such an entry: JAX takes no void array;
 ROADMAP §3.)
 
-``restore_latest(template, device=None)`` puts the arrays on ``device``
-(the card unless the caller names another); restoring onto shardings
-needs the launch stack and raises naming ROADMAP §1 item 11.
+``restore_latest(template, device=None, shardings=None)`` puts the arrays
+on ``device`` (the card unless the caller names another); a leaf whose
+path has a ``NamedSharding`` in ``shardings`` comes back as that DTensor
+(``models.common.distribute``: each rank keeps its block of the whole
+array it read).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.isn.backend import resolve_device
+from repro_torch.models.common import distribute
 
 BF16 = "bfloat16"
 
@@ -156,14 +159,14 @@ class CheckpointManager:
         """Restore the newest *valid* checkpoint into ``template``'s
         structure, each array on ``device`` in the type it was written in.
 
+        A leaf whose path appears in ``shardings`` (a tree of
+        ``NamedSharding``, as the template's) is restored as that DTensor.
+
         Returns (step, tree, extra) or (None, None, None) if nothing valid.
         Corrupt checkpoints (checksum/manifest mismatch) are skipped.
         """
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings needs the launch stack, which is "
-                "not ported yet (ROADMAP §1 item 11)")
         dev = resolve_device(device)
+        placed = _flatten(shardings) if shardings is not None else {}
         for step in reversed(self.list_steps()):
             path = os.path.join(self.dir, f"step_{step:010d}")
             try:
@@ -176,23 +179,30 @@ class CheckpointManager:
                     if _checksum(a) != info["sha1"]:
                         raise IOError(f"checksum mismatch for {k}")
                     arrays[k] = (a, info["dtype"])
-                tree = _unflatten(template, arrays, dev)
+                tree = _unflatten(template, arrays, dev, placed)
                 return step, tree, manifest.get("extra", {})
             except Exception as e:
                 print(f"[ckpt] step {step} invalid ({e}); trying older")
         return None, None, None
 
 
-def _unflatten(template, arrays: dict, device, prefix=""):
-    """``template``'s structure with each leaf read from ``arrays``."""
+def _unflatten(template, arrays: dict, device, placed: dict, prefix=""):
+    """``template``'s structure with each leaf read from ``arrays``: onto
+    its sharding in ``placed`` where it has one, else onto ``device``."""
     if isinstance(template, dict):
-        return {k: _unflatten(template[k], arrays, device, f"{prefix}{k}/")
+        return {k: _unflatten(template[k], arrays, device, placed,
+                              f"{prefix}{k}/")
                 for k in template}
     if hasattr(template, "_fields"):
         return type(template)(*(
-            _unflatten(getattr(template, k), arrays, device, f"{prefix}{k}/")
+            _unflatten(getattr(template, k), arrays, device, placed,
+                       f"{prefix}{k}/")
             for k in template._fields))
     if isinstance(template, (list, tuple)):
-        return type(template)(_unflatten(v, arrays, device, f"{prefix}{i}/")
+        return type(template)(_unflatten(v, arrays, device, placed,
+                                         f"{prefix}{i}/")
                               for i, v in enumerate(template))
-    return from_host(*arrays[prefix[:-1]], device)
+    key = prefix[:-1]
+    if key in placed:
+        return distribute(from_host(*arrays[key], "cpu"), placed[key])
+    return from_host(*arrays[key], device)

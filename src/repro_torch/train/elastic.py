@@ -3,19 +3,36 @@ another device count.
 
 A port of the reference's ``train/elastic.py``.  Checkpoints hold whole
 (unsharded) arrays by logical name (``train.checkpoint``), so a restart
-restores them onto its own devices and re-derives the batch split and the
-data cursor.  ``reshard_tree`` places a tree onto a mesh by the logical
-sharding rules of the launch stack, which is not ported yet: it raises
-``NotImplementedError`` naming ROADMAP §1 item 11.
+places them onto its own mesh (``reshard_tree``: each leaf's logical names
+resolved under the rules and fitted to its shape, then a DTensor of that
+spec) and re-derives the batch split and the data cursor.
 """
 
 from __future__ import annotations
 
+from repro_torch.models import common
+
+
+def sharding_tree(tree, names_tree, rules, mesh):
+    """The ``NamedSharding`` of every leaf of ``tree`` on ``mesh``: its
+    names' spec under ``rules``, fitted to the leaf's shape."""
+    if isinstance(tree, dict):
+        return {k: sharding_tree(v, names_tree[k], rules, mesh)
+                for k, v in tree.items()}
+    spec = common.fit_spec_to_shape(
+        common.resolve_pspec(names_tree, rules, mesh), tree.shape, mesh)
+    return common.NamedSharding(mesh, spec)
+
 
 def reshard_tree(tree, names_tree, rules, mesh):
-    raise NotImplementedError(
-        "reshard_tree needs the launch stack's logical-rule sharding, which "
-        "is not ported yet (ROADMAP §1 item 11)")
+    """Place an (unsharded, host) tree onto ``mesh`` per the logical rules:
+    each leaf a DTensor whose local shard is this rank's block, cut from the
+    whole leaf every rank holds (no scatter from another rank)."""
+    if isinstance(tree, dict):
+        return {k: reshard_tree(v, names_tree[k], rules, mesh)
+                for k, v in tree.items()}
+    return common.distribute(tree, sharding_tree(tree, names_tree, rules,
+                                                 mesh))
 
 
 def rebalance_batch_size(global_batch: int, old_ways: int, new_ways: int):

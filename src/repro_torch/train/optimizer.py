@@ -13,7 +13,7 @@ caller gives them up, as a jitted step donates its buffers), which a model
 of embedding tables needs (the two-tower model's 8 M x 256 user table is
 8.2 GB a copy).
 
-Not ported (ROADMAP §1 item 11): ``abstract_init`` (the dry run's shapes),
+Not ported (ROADMAP §1 item 11 (b)): ``abstract_init`` (the dry run's shapes),
 which goes with the launch stack.
 """
 

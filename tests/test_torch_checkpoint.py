@@ -118,12 +118,6 @@ def test_crash_resume(tmp_path):
     assert CheckpointManager(str(tmp_path)).list_steps()[-1] == 30
 
 
-def test_restore_onto_shardings_waits_for_the_launch_stack(tmp_path):
-    mgr = CheckpointManager(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mgr.restore_latest(_tree(), device="cpu", shardings={})
-
-
 def test_gradient_compression_error_feedback():
     g = {"w": torch.from_numpy(np.random.RandomState(0).randn(128) * 3)
          .float()}

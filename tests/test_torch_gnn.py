@@ -236,9 +236,3 @@ def test_molecule_batches_bit_for_bit():
     g = synthetic.make_molecule_batch(np.random.RandomState(5), 2, 30, 64, 16)
     for key in w:
         np.testing.assert_array_equal(g[key], w[key])
-
-
-def test_partitioned_loss_raises_naming_item_11():
-    c, _ = registry.get_reduced("dimenet")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gnn.loss_fn_partitioned({}, c, {}, ("model",))

@@ -7,10 +7,10 @@ logits, ``prefill`` logits and cache, 12 ``decode_step``s from an empty
 cache and 4 from a prefill cache, against the reference, all on the CPU
 (where attention runs its plain versions); ``chunked_attention`` and
 ``gqa_decode`` against the reference's; the reference's decode RoPE fault
-reproduced; the configurations and parameter counts copied; what still
-waits (MoE under a mesh) refused.  Training has its own file
-(``test_torch_train.py``).  MoE and
-MLA have their own files (``test_torch_moe.py``, ``test_torch_mla.py``).
+reproduced; the configurations and parameter counts copied.  Training has
+its own file (``test_torch_train.py``).  MoE and MLA have their own files
+(``test_torch_moe.py``, ``test_torch_mla.py``), and so do the model code
+under a mesh (``test_torch_mesh.py``).
 
 Tolerance: 1e-4 of the compared tensor's largest magnitude.  Both sides
 compute in fp32 and add in other orders (matmuls, the softmax sums); the
@@ -34,9 +34,9 @@ from repro.models import attention as ref_attn
 from repro.models import common as ref_common
 from repro.models import transformer as ref_tr
 from repro_torch import convert
-from repro_torch.configs import minitron_8b, moonshot_v1_16b_a3b, yi_6b
+from repro_torch.configs import minitron_8b, yi_6b
 from repro_torch.models import attention as attn
-from repro_torch.models import common, moe
+from repro_torch.models import common
 from repro_torch.models import transformer as tr
 
 ARCHS = {"yi_6b": (ref_yi, yi_6b), "minitron_8b": (ref_minitron, minitron_8b)}
@@ -305,15 +305,3 @@ def test_numerics_match_reference(dtype):
             scale = (2e-2 if bf16 else 1e-5) * np.abs(want).max()
             np.testing.assert_allclose(_np(got), want, atol=scale,
                                        err_msg=name)
-
-
-def test_what_waits_raises_naming_item_11():
-    """MoE and MLA serve (``test_torch_moe.py``, ``test_torch_mla.py``) and
-    ``forward_hidden`` / ``loss_fn`` train (``test_torch_train.py``); the
-    expert-parallel MoE branch under a mesh still waits for item 11 and
-    says so."""
-    c = moonshot_v1_16b_a3b.REDUCED
-    params = tr.init(c, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        moe.moe_forward(tr.layer(params, 0)["ffn"],
-                        torch.zeros((4, c.d_model)), c.moe, mesh=object())

@@ -363,14 +363,6 @@ def test_two_tower_module_matches_functional_tower(ref):
     assert tower.tables["item"].shape == (c.n_items, recsys.TABLE_DIM)
 
 
-def test_what_waits_raises_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        recsys.sharded_streaming_topk(None, None, 1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        embedding.sharded_lookup_manual(None, None, "model", 1)
-
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_adamw_donated_update_is_bit_equal(ref, dtype):
     """``optimizer.apply(..., donate=True)`` (the full-width steps' update:

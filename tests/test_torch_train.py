@@ -314,8 +314,6 @@ def test_elastic_and_registry_match_reference():
             ref_elastic.rebalance_batch_size(gb, old, new)
         assert elastic.data_cursor_after_restart(gb, new) == \
             ref_elastic.data_cursor_after_restart(gb, new)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        elastic.reshard_tree({}, {}, {}, None)
     assert registry.ARCH_IDS == ref_registry.ARCH_IDS
     for arch in ARCHS:
         for get, ref_get in ((registry.get_arch, ref_registry.get_arch),
