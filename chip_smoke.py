@@ -463,8 +463,31 @@ order, it
    ``table[ids]``; (e) DimeNet at CONFIG (1/√(fan-in) blocks) on the
    molecule batch, one rank holding every edge: ``loss_fn_partitioned``'s
    loss within 1e-5 and every gradient leaf within 1e-4 of its largest
-   of ``loss_fn``'s; the process group ended at the phase's end;
-22. prints the total elapsed time, the ``kernels`` JSON line (eleven
+   of ``loss_fn``'s; (f) granite-MoE's training step at that depth on the
+   train phase's 2 x 64 batch (``lm_batches``), its MoE through the mesh
+   branch and its backward: the loss and every gradient leaf under the
+   mesh equal bit for bit to those without one, counted from 0: kernel 8
+   and its backward launched; the process group ended at the phase's end;
+22. cells phase (the dry-run cells, ``launch/steps.build_cell``, on a
+   (1, 1) NCCL mesh, under ``mesh_context``): (a) Yi-6B x ``decode_32k``
+   at CONFIG widths cut to ``CELLS_DECODE_LAYERS`` layers, the cell's own
+   batch 128 and cache 32,768 (bf16, every sequence at kv_len 32,767):
+   one step of ``Cell.fn`` equal bit for bit to ``decode_step`` called
+   directly on a copy of the same arrays, counted: kernel 9 once a layer;
+   the dry run of the same cell on the (1, 1) mesh
+   (``dryrun.measure``: fake tensors on the card's device type, nothing
+   launched) giving the real arguments' bytes and the FLOPs that
+   ``dryrun.RankCounter`` counts on the real step; its modeled peak
+   logged beside the step's ``max_memory_allocated``; (b) BERT4Rec x
+   ``serve_p99`` at CONFIG on step 20b's parameters and histories (not
+   drawn again): its ids equal the serve's, kernel 8 (fp32) once a block
+   and kernel 6 once; (c) DimeNet x ``molecule`` at CONFIG (1/√(fan-in)
+   blocks), the train cell through the partitioned loss against the same
+   cell with ``partition_gnn`` off on the same batch: the loss within
+   1e-5, the AdamW moments within 1e-4 of each leaf's largest, the
+   parameters within 2.2 lr (the first step moves an entry by about lr ·
+   sign(g));
+23. prints the total elapsed time, the ``kernels`` JSON line (eleven
     rows: the nine TPU kernels, kernel 8's backward and
     ``level_histogram``; the launches of kernels 1-3 are step 7's, the
     backward's step 19b's; the library time of kernels 1 and 2 an
@@ -482,9 +505,10 @@ train phase's full-width run: at most ``--lm-layers`` layers and
 ``--profile`` adds a ``torch.profiler`` breakdown of one more served batch
 of each preset (wall, device busy time, host time per cascade stage,
 busiest device kernels) and of one more LM prefill and decode step.
-``--only recsys_gnn`` and ``--only mesh`` build the kernels and run step 20
-or step 21 alone (the mesh phase then draws the two-tower serve's inputs
-itself), and print no result.
+``--only recsys_gnn``, ``--only mesh`` and ``--only cells`` build the
+kernels and run step 20, 21 or 22 alone (the mesh phase then draws the
+two-tower serve's inputs itself, the cells phase BERT4Rec's parameters
+and histories), and print no result.
 """
 
 from __future__ import annotations
@@ -644,6 +668,7 @@ RG_BERT = dict(n_masked=8, xc_cands=256, cands=2048)
 RG_STEPS = 2
 RG_BAG = dict(rows=1_000_000, dim=64, bags=65_536, per_bag=40)
 MESH_RESTORE_LAYERS = 1       # granite layers saved and restored (of 32)
+CELLS_DECODE_LAYERS = 2       # Yi-6B layers of the decode_32k cell
 MESH_LOOKUP = (512, 16)       # ids of the lookup over the candidate rows
 RG_GRAPH = dict(n_nodes=232_965, max_deg=512, min_deg=472, d_feat=602,
                 seeds=1024, fanouts=(15, 10), trip=2)
@@ -3501,12 +3526,15 @@ def rg_bert4rec(dev):
     over the 1,000,192 item rows (kernel 6, k 100); kernel 6's row and
     kernel 8's fp32 forward row at the serve call; then the full-width
     steps (kernel 8 and its backward once a block and step) and the
-    backward's row at the training call.  Returns the serve's launches."""
+    backward's row at the training call.  Returns the serve's launches,
+    the rows, and the serve (a copy of the parameters as served, the
+    histories and the ids) for the cells phase."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import attention as attn
     from repro_torch.models import recsys
+    from repro_torch.train.tree import map_tree
     c = rg_config("bert4rec", reduced=False)
     params = rg_init("bert4rec", c, dev)
     host = rg_host_batch("bert4rec", c, RG_SERVE["queries"], SEED % 10_000)
@@ -3549,7 +3577,11 @@ def rg_bert4rec(dev):
             f"{tuple(args[0].shape)} non-causal, the strided views the "
             f"model passes; error of the largest |want|"))
         rows[-1]["launches"] = launches["flash_attention"]
-    del rec, h, items, args
+    # the serve as served, for the cells phase (the steps below update the
+    # parameters in place)
+    served = dict(params=map_tree(torch.clone, params), items=items,
+                  ids=ids)
+    del rec, h, args
     torch.cuda.empty_cache()
     n = c.n_blocks * RG_STEPS
     calls = rg_steps(dev, "bert4rec", c, params,
@@ -3576,7 +3608,7 @@ def rg_bert4rec(dev):
     rows[-1]["launches"] = n
     del calls, args
     torch.cuda.empty_cache()
-    return launches, rows
+    return launches, rows, served
 
 
 def recsys_gnn_phase(dev):
@@ -3584,7 +3616,8 @@ def recsys_gnn_phase(dev):
     the samplers, the repeat check, the serve paths with their kernel rows,
     the full-width steps.  Returns (the rows, logged: the ``kernels`` line
     keeps the serve and LM phases' rows of kernels 6 and 8; the two-tower
-    serve's inputs and ids, for the mesh phase)."""
+    serve's inputs and ids, for the mesh phase; BERT4Rec's serve, for the
+    cells phase)."""
     import torch
     t = time.perf_counter()
     cpu_s = sum(rg_cross_check(dev, name, fan_in=name == "bert4rec")
@@ -3593,7 +3626,7 @@ def recsys_gnn_phase(dev):
     rg_repeat(dev, mb_config, mb_batch)
     torch.cuda.empty_cache()
     tt_launches, rows, serve = rg_two_tower(dev)
-    bert_launches, bert_rows = rg_bert4rec(dev)
+    bert_launches, bert_rows, b4r = rg_bert4rec(dev)
     rows += bert_rows
     for name in ("deepfm", "xdeepfm"):
         c = rg_config(name, reduced=False)
@@ -3612,7 +3645,7 @@ def recsys_gnn_phase(dev):
         f"{2 * RG_STEPS}; flash_attention_backward steps {2 * RG_STEPS}; "
         f"cross-checks' CPU sides {cpu_s:.1f} s; phase "
         f"{time.perf_counter() - t:.1f} s")
-    return rows, serve
+    return rows, serve, b4r
 
 
 def rg_repeat(dev, mb_config, mb_batch):
@@ -3732,6 +3765,7 @@ def mesh_phase(dev, lm_layers, lm_prompt, serve=None):
     from repro_torch import kernels
     from repro_torch.configs import granite_moe_3b_a800m, yi_6b
     from repro_torch.configs.shapes import LM_SHAPES, rules_for
+    from repro_torch.data import synthetic
     from repro_torch.launch.mesh import make_local_mesh, mesh_context
     from repro_torch.models import embedding, gnn, recsys
     from repro_torch.models import transformer as tr
@@ -3798,6 +3832,41 @@ def mesh_phase(dev, lm_layers, lm_prompt, serve=None):
             f"{ {k: n for k, n in launched.items() if n} }")
         del want, want_cache, got, cache, out
         walls["moe"] = time.perf_counter() - t
+
+        # granite's training step: the mesh branch's backward (f)
+        t = time.perf_counter()
+        gen_b = synthetic.lm_batches(c.vocab, TRAIN_XC["batch"],
+                                     TRAIN_XC["seq"], seed=SEED % 10_000)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(gen_b).items()}
+
+        def lm_loss(p, b):
+            return tr.loss_fn(p, c, b["tokens"], b["labels"])
+        want_loss, want_grads = train_loop.value_and_grad(lm_loss, params,
+                                                          batch)
+        kernels.reset_launches()
+        with mesh_context(mesh):
+            got_loss, got_grads = train_loop.value_and_grad(lm_loss, params,
+                                                            batch)
+        torch.cuda.synchronize()
+        trained = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        n_diff = sum(not torch.equal(a, b) for a, b in
+                     zip(leaves(got_grads), leaves(want_grads)))
+        check(torch.equal(got_loss, want_loss) and n_diff == 0,
+              f"mesh: granite-MoE's training under the (1, 1) mesh: loss "
+              f"{float(got_loss)} against {float(want_loss)}, {n_diff} "
+              f"gradient leaves differ")
+        check(trained.get("flash_attention", 0) > 0
+              and trained.get("flash_attention_backward", 0) > 0,
+              f"mesh: granite-MoE's training launched {trained}")
+        walls["moe_train"] = time.perf_counter() - t
+        log(f"mesh: granite-MoE, {n_layers} layers bf16, the loss and "
+            f"gradients of a {tuple(batch['tokens'].shape)} batch under the "
+            f"(1, 1) mesh (the MoE branch's backward) bit-equal to those "
+            f"without one ({len(leaves(got_grads))} leaves, loss "
+            f"{float(got_loss):.6f}); launches under the mesh {trained}; "
+            f"{walls['moe_train']:.2f} s")
+        del want_grads, got_grads, batch
 
         # reshard granite's tree under the train_4k rules, then a restore
         # onto the same shardings of its first MESH_RESTORE_LAYERS layers
@@ -3894,6 +3963,182 @@ def mesh_phase(dev, lm_layers, lm_prompt, serve=None):
         torch.distributed.destroy_process_group()
     log("mesh: walls s " + ", ".join(f"{k} {v:.2f}" for k, v in
                                       walls.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s")
+
+
+def cells_serve_inputs(dev):
+    """BERT4Rec's serve as ``rg_bert4rec`` draws it (for ``--only cells``):
+    its parameters, the 512 histories with the mask token last, and
+    ``streaming_topk``'s ids."""
+    import torch
+    from repro_torch.models import recsys
+    c = rg_config("bert4rec", reduced=False)
+    params = rg_init("bert4rec", c, dev)
+    host = rg_host_batch("bert4rec", c, RG_SERVE["queries"], SEED % 10_000)
+    items = torch.from_numpy(host["items"]).to(dev)
+    items[:, -1] = c.n_items
+    with torch.no_grad():
+        h = recsys.bert4rec_hidden(params, c, items)
+        _, ids = recsys.streaming_topk(h[:, -1], params["item_embed"],
+                                       RG_SERVE["k"])
+    return dict(params=params, items=items, ids=ids)
+
+
+def nbytes(tree):
+    from repro_torch.train.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def cells_phase(dev, b4r=None):
+    """The cells phase (module docstring, 22): three dry-run cells built by
+    ``launch/steps.build_cell`` on a (1, 1) NCCL mesh, their ``fn`` under
+    ``mesh_context``.  ``b4r`` is the recsys_gnn phase's BERT4Rec serve
+    (drawn here when the phase runs alone)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import yi_6b
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_local_mesh, mesh_context
+    from repro_torch.models import transformer as tr
+    from repro_torch.train import optimizer
+    from repro_torch.train.tree import leaves, map_tree
+    t0 = time.perf_counter()
+    if b4r is None:
+        b4r = cells_serve_inputs(dev)
+        torch.cuda.synchronize()
+        log(f"cells: BERT4Rec's serve drawn in "
+            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(device=dev)
+    walls = {}
+    try:
+        # (a) Yi-6B x decode_32k at its own batch and cache, 2 layers
+        t = time.perf_counter()
+        c = dataclasses.replace(yi_6b.CONFIG, n_layers=CELLS_DECODE_LAYERS)
+        cell = steps.build_cell("yi_6b", "decode_32k", mesh,
+                                config_override=c)
+        _, token_spec, cache_spec, _ = cell.args
+        b, t_len = token_spec.shape[0], cache_spec["k"].shape[3]
+        params = tr.init(c, seed=SEED, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 41)
+        cache = {k: torch.randn(v.shape, generator=gen, dtype=v.dtype,
+                                device=dev) for k, v in cache_spec.items()}
+        token = torch.randint(0, c.vocab, (b,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        kv_len = torch.full((b,), t_len - 1, dtype=torch.int32, device=dev)
+        args = (params, token, cache, kv_len)
+        arg_bytes = nbytes(args)
+        want_cache = map_tree(torch.clone, cache)
+        with torch.no_grad():
+            want, want_cache = tr.decode_step(params, c, token, want_cache,
+                                              kv_len)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        counter = dryrun.RankCounter()
+        start, end = events()
+        with torch.no_grad(), counter, mesh_context(mesh):
+            start.record()
+            got, got_cache = cell.fn(*args)
+            end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        check(torch.equal(got, want) and all(
+            torch.equal(got_cache[k], want_cache[k]) for k in want_cache),
+            "cells: the decode_32k cell's step differs from decode_step")
+        check(launched == {"flash_decode": CELLS_DECODE_LAYERS},
+              f"cells: the decode_32k cell launched {launched}, not "
+              f"flash_decode once a layer")
+        del want, want_cache, got, got_cache
+        with torch.no_grad():
+            fake = dryrun.measure(cell, mesh, dev.type)
+        mem = fake["memory"]
+        check(mem["argument_size"] == arg_bytes
+              and fake["flops"] == counter.flops,
+              f"cells: the dry run's argument bytes {mem['argument_size']} "
+              f"(real {arg_bytes}) or FLOPs {fake['flops']} (the counter on "
+              f"the real step: {counter.flops}) differ")
+        walls["decode"] = time.perf_counter() - t
+        log(f"cells: Yi-6B x decode_32k, {CELLS_DECODE_LAYERS} layers bf16, "
+            f"batch {b}, cache {t_len} (kv_len {t_len - 1}): Cell.fn "
+            f"bit-equal to decode_step (logits and cache), {step_ms:.3f} ms "
+            f"(CUDA events), launches {launched}; dry run on the (1, 1) mesh "
+            f"in {fake['seconds']:.2f} s: argument bytes {arg_bytes} = the "
+            f"real arguments', FLOPs {fake['flops']} = the counter on the "
+            f"real step, collectives {fake['coll']['total']} B; modeled peak "
+            f"(arguments + temporaries) {mem['argument_size'] + mem['temp_size']} "
+            f"B beside the step's max_memory_allocated {peak} B (two caches "
+            f"held)")
+        del args, params, cache, cell
+        torch.cuda.empty_cache()
+
+        # (b) BERT4Rec x serve_p99 on the recsys_gnn phase's serve
+        t = time.perf_counter()
+        cell = steps.build_cell("bert4rec", "serve_p99", mesh)
+        kernels.reset_launches()
+        start, end = events()
+        with torch.no_grad(), mesh_context(mesh):
+            start.record()
+            vals, ids = cell.fn(b4r["params"], b4r["items"])
+            end.record()
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        diff = int((ids != b4r["ids"]).sum())
+        n_blocks = rg_config("bert4rec", reduced=False).n_blocks
+        check(diff == 0 and launched == {"flash_attention": n_blocks,
+                                         "dense_topk_tiles": 1},
+              f"cells: BERT4Rec's serve cell: {diff} ids differ, launches "
+              f"{launched}")
+        walls["bert4rec"] = time.perf_counter() - t
+        log(f"cells: BERT4Rec x serve_p99 ({tuple(b4r['items'].shape)} "
+            f"histories, k {RG_SERVE['k']}): {diff} of {ids.numel()} ids "
+            f"differ from the recsys_gnn serve's, {start.elapsed_time(end):.3f}"
+            f" ms (CUDA events), launches {launched}")
+        del vals, ids, b4r, cell
+
+        # (c) DimeNet x molecule, partitioned against not
+        t = time.perf_counter()
+        c = rg_config("dimenet", reduced=False)
+        host = rg_host_batch("dimenet", c, None, SEED % 10_000)
+        params = rg_init("dimenet", c, dev, fan_in=True)
+        runs = {}
+        for name, rules in (("partitioned", None),
+                            ("unpartitioned", {"partition_gnn": False})):
+            cell = steps.build_cell("dimenet", "molecule", mesh, rules,
+                                    dataclasses.replace(c))
+            p = map_tree(torch.clone, params)
+            with mesh_context(mesh):
+                runs[name] = cell.fn(p, optimizer.init(p),
+                                     to_device(host, dev))
+        torch.cuda.synchronize()
+        (p_a, o_a, l_a, m_a), (p_b, o_b, l_b, _) = (runs["partitioned"],
+                                                    runs["unpartitioned"])
+        loss_err = abs(float(l_a) - float(l_b)) / abs(float(l_b))
+        errs = [_rel_err(a, w) for a, w in zip(
+            leaves(o_a.m) + leaves(o_a.v), leaves(o_b.m) + leaves(o_b.v))]
+        # AdamW's first step moves an entry by about lr · sign(g): where a
+        # gradient is near 0 its sign may differ, and the entry by 2 lr
+        lr = float(m_a["lr"])
+        p_diff = max(float((a - w).abs().max())
+                     for a, w in zip(leaves(p_a), leaves(p_b)))
+        check(loss_err <= TRAIN_LOSS_TOL and max(errs) <= TRAIN_GRAD_TOL
+              and p_diff <= 2.2 * lr,
+              f"cells: DimeNet's partitioned train step {loss_err:.3e} "
+              f"(loss), {max(errs):.3e} (moments) or {p_diff:.3e} "
+              f"(parameters, lr {lr:.3e}) off the unpartitioned step's")
+        walls["dimenet"] = time.perf_counter() - t
+        log(f"cells: DimeNet x molecule at CONFIG (1/sqrt(fan-in) blocks), "
+            f"{host['edge_src'].shape[0]} edges: the partitioned step's loss "
+            f"{loss_err:.3e} and moments {max(errs):.3e} (of each leaf's "
+            f"largest) from the unpartitioned step's, parameters "
+            f"{p_diff:.3e} apart (lr {lr:.3e})")
+    finally:
+        torch.distributed.destroy_process_group()
+    log("cells: walls s " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                       walls.items())
         + f"; phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -6275,19 +6520,17 @@ def isn_sizes(shard_spec):
     block size, tile width, t_k and t_time; the caps of
     ``build_serve_cell``), k_global cut to k_shard."""
     from repro_torch.configs import paper_isn
+    from repro_torch.isn.shard import serve_cell_sizes
     cfg = paper_isn.CONFIG
     check(shard_spec.block_size == cfg.block_size
           and shard_spec.tile_d == cfg.tile_d,
           f"isn: the shard's block size / tile width {shard_spec.block_size}"
           f" / {shard_spec.tile_d}, not the config's")
-    n_docs, k_shard = shard_spec.n_docs, min(cfg.k_max // 4, 1024)
-    n_blocks = n_docs // cfg.block_size
-    sizes = dict(n_docs_shard=n_docs, n_model=1, k_shard=k_shard,
-                 k_global=k_shard, rho_max=cfg.rho_max,
-                 daat_cap=min(n_docs, 1 << 19),
-                 daat_bcap=min(n_blocks, 1 << 14), n_blocks=n_blocks,
-                 block_size=cfg.block_size, t_k=1000.0, t_time=150.0,
-                 tile_d=cfg.tile_d)
+    # one model rank holding the shard's docs; k_global cut to k_shard (one
+    # rank's candidates cannot fill k_max)
+    sizes = serve_cell_sizes(dataclasses.replace(cfg,
+                                                 n_docs=shard_spec.n_docs), 1)
+    sizes["k_global"] = sizes["k_shard"]
     check(sizes["daat_cap"] >= shard_spec.max_df
           and sizes["daat_bcap"] >= shard_spec.max_blocks_per_term
           and sizes["n_blocks"] == shard_spec.n_blocks,
@@ -6923,7 +7166,7 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     # recsys and the GNN: card = CPU, the serve paths' calls of kernels 6
     # and 8, the full-width steps
     torch.cuda.empty_cache()
-    _, serve = recsys_gnn_phase(dev)
+    _, serve, b4r = recsys_gnn_phase(dev)
     lap("recsys_gnn")
 
     # the model code under a (1, 1) mesh: MoE, the two-tower serve again,
@@ -6932,6 +7175,13 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     mesh_phase(dev, lm_layers, lm_prompt, serve)
     del serve
     lap("mesh")
+
+    # the dry-run cells on the card: a decode cell, BERT4Rec's serve cell
+    # on the recsys_gnn phase's serve, DimeNet's partitioned train cell
+    torch.cuda.empty_cache()
+    cells_phase(dev, b4r)
+    del b4r
+    lap("cells")
     log("phase walls s: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                       walls.items()))
     return card, rows
@@ -6950,6 +7200,8 @@ def run_alone(phase, lm_layers, lm_prompt):
     dev = torch.device(DEVICE)
     if phase == "mesh":
         mesh_phase(dev, lm_layers, lm_prompt)
+    elif phase == "cells":
+        cells_phase(dev)
     else:
         recsys_gnn_phase(dev)
     log(f"{phase} alone: {time.perf_counter() - t:.1f} s")
@@ -6971,7 +7223,7 @@ def main(argv=None):
                          "most, in the MoE and MLA phase)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (torch.profiler)")
-    ap.add_argument("--only", choices=("recsys_gnn", "mesh"),
+    ap.add_argument("--only", choices=("recsys_gnn", "mesh", "cells"),
                     help="build the kernels and run this phase alone; "
                          "prints no result")
     args = ap.parse_args(argv)

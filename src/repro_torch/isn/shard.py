@@ -37,6 +37,7 @@ from repro_torch.index.postings import IndexShard
 from repro_torch.isn.backend import merge_shard_topk, resolve_backend
 from repro_torch.isn.daat import daat_serve
 from repro_torch.isn.saat import saat_serve
+from repro_torch.models import common
 
 STAGE0_TARGETS = ("k", "rho", "t")
 
@@ -235,3 +236,109 @@ def hybrid_serve_fn(mesh, *, n_docs_shard: int, n_model: int, k_shard: int,
 
     return serve
 
+
+
+def serve_cell_sizes(cfg, n_model: int) -> dict:
+    """``hybrid_serve_fn``'s sizes for one model rank of a mesh whose
+    "model" axis has ``n_model`` ranks, under the ISN configuration
+    ``cfg``: the reference's ``build_serve_cell`` arithmetic
+    (``repro/isn/shard.py:167-185``).  ``daat_cap`` bounds the reference's
+    gather backends' lane budget; ``k_global`` is ``k_max``, which only a
+    mesh of ``n_model · k_shard >= k_max`` candidates can take."""
+    n_docs_shard = cfg.n_docs // n_model
+    n_blocks = n_docs_shard // cfg.block_size
+    return dict(n_docs_shard=n_docs_shard, n_model=n_model,
+                k_shard=min(cfg.k_max // 4, 1024), k_global=cfg.k_max,
+                rho_max=cfg.rho_max, daat_cap=min(n_docs_shard, 1 << 19),
+                daat_bcap=min(n_blocks, 1 << 14), n_blocks=n_blocks,
+                block_size=cfg.block_size, t_k=1000.0, t_time=150.0,
+                tile_d=cfg.tile_d)
+
+
+def _stacked_index_specs(cfg, n_model: int) -> IndexShard:
+    """The per-shard index stacked over "model", as ``meta`` tensors of the
+    reference's shapes and types (``repro/isn/shard.py:134-152``)."""
+    v, p, pb = cfg.vocab, cfg.postings_per_shard, cfg.block_entries_per_shard
+    nt = max(1, -(-(cfg.n_docs // n_model) // cfg.tile_d))
+    tc = cfg.tile_cap
+
+    def s(shape, dt=torch.int32):
+        return torch.empty((n_model,) + shape, dtype=dt, device="meta")
+
+    return IndexShard(
+        df=s((v,)), offsets=s((v + 1,)),
+        docs_imp=s((p,)), imp=s((p,)), level_cum=s((v, cfg.n_levels)),
+        docs=s((p,)), score=s((p,), torch.float32),
+        bm_offsets=s((v + 1,)), bm_block_id=s((pb,)),
+        bm_block_max=s((pb,), torch.float32), bm_block_cnt=s((pb,)),
+        tile_docs=s((nt, tc)), tile_terms=s((nt, tc)),
+        tile_scores=s((nt, tc), torch.float32), tile_imps=s((nt, tc)),
+    )
+
+
+def _local(x, mesh, axes, dim=0):
+    """This rank's block of a step input: a DTensor's local shard, or the
+    block of a whole tensor held by every rank."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return x.to_local()
+    idx, n = common.block_index(mesh, axes)
+    size = x.shape[dim] // n
+    return x.narrow(dim, idx * size, size)
+
+
+def build_serve_cell(arch_id, cfg, cell, mesh, rules, CellCls):
+    """The ISN serve cell of ``launch/steps.build_cell``: the reference's
+    ``build_serve_cell`` (``repro/isn/shard.py:155-198``) over this port's
+    step.  Its arguments are the stacked (model, ...) index and term stats,
+    the forest, and the (Q, L) queries; its ``fn`` gives each rank its own
+    slice of each (a DTensor's local shard, or the block of a whole tensor
+    as ``rank_inputs`` cuts it), runs ``hybrid_serve_fn`` with
+    ``serve_cell_sizes`` on the mesh, and returns the results in the
+    out-shardings' layout (DTensors for DTensor inputs; else the query
+    blocks gathered, so every rank returns the whole batch).  The step is
+    built on the first call, so the cell itself needs no process group."""
+    from torch.distributed.tensor import DTensor
+    n_model = common.mesh_sizes(mesh).get("model", 1)
+    sizes = serve_cell_sizes(cfg, n_model)
+    qaxes = tuple(a for a in ("pod", "data") if a in common.mesh_sizes(mesh))
+    # one axis by its name, as JAX's PartitionSpec normalizes a 1-tuple
+    entry = qaxes[0] if len(qaxes) == 1 else (qaxes or None)
+    qspec = common.P(entry, None)
+    q1spec = common.P(entry)
+    built = {}
+
+    def fn(index, fa, term_stats, terms, mask):
+        if "step" not in built:
+            built["step"] = hybrid_serve_fn(mesh, **sizes)
+        shard = IndexShard(*(_local(a, mesh, "model")[0] for a in index))
+        fa_l = ForestArrays(*(a.to_local() if isinstance(a, DTensor) else a
+                              for a in fa))
+        out = built["step"](shard, fa_l, _local(term_stats, mesh, "model")[0],
+                            _local(terms, mesh, qaxes),
+                            _local(mask, mesh, qaxes))
+        if isinstance(terms, DTensor):
+            return tuple(DTensor.from_local(
+                o, mesh, common.placements(sp, mesh), run_check=False)
+                for o, sp in zip(out, (qspec, qspec, q1spec, q1spec)))
+        return tuple(common.all_gather_axes(o, mesh, qaxes) for o in out)
+
+    q = cfg.queries_per_step
+    index = _stacked_index_specs(cfg, n_model)
+    fa = forest_specs()
+    term_stats = torch.empty((n_model, cfg.vocab, 36), dtype=torch.float32,
+                             device="meta")
+    terms = torch.empty((q, cfg.query_len), dtype=torch.int32, device="meta")
+    mask = torch.empty((q, cfg.query_len), dtype=torch.float32,
+                       device="meta")
+    qsh = common.NamedSharding(mesh, qspec)
+    q1 = common.NamedSharding(mesh, q1spec)
+    ish = IndexShard(*[common.NamedSharding(mesh, common.P("model"))]
+                     * len(IndexShard._fields))
+    fsh = ForestArrays(*[common.NamedSharding(mesh, common.P())] * 5)
+    tsh = common.NamedSharding(mesh, common.P("model"))
+    meta = {"n_docs": cfg.n_docs, "postings": cfg.postings_per_shard * n_model,
+            "rho_max": cfg.rho_max, "queries": q}
+    return CellCls(arch_id, cell.name, "isn", "serve", fn,
+                   (index, fa, term_stats, terms, mask),
+                   (ish, fsh, tsh, qsh, qsh), (qsh, qsh, q1, q1), (), meta)

@@ -28,11 +28,24 @@ the checkout.  ``torch.utils.cpp_extension`` is imported inside
 ``LAUNCHES`` counts kernel launches per wrapper.  A wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main
 path went through the kernels.
+
+The kernels that the dry-run cells reach (kernels 1, 2, 6, 8 and its
+backward, 9) are also custom operators (``card_op``), which only fake
+tensors, DTensors and calls under a dispatch mode take (``call``: an
+ordinary tensor goes straight to the launch or the plain version).  Under ``FakeTensorMode`` an op's fake
+runs the launch's input checks but those of the device (so a dry run on
+either device type refuses what the card would) and gives the output
+shapes from static sizes, so a dry run launches nothing and reads
+no data (the plain versions' host reads lie inside the operator too);
+each has a FLOP formula (``torch.utils.flop_counter``) and a DTensor
+sharding rule, so on DTensors it runs on each rank's blocks.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
+
+import torch
 
 KERNEL_NAMES = ("impact_accumulate_batched", "blockmax_score_batched",
                 "qd_feature_gather_lanes", "dense_topk_tiles",
@@ -56,6 +69,7 @@ BUILD_DIR = _HERE.parents[2] / "build" / "kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
 _ext = None
+_ORDINARY = (torch.Tensor, torch.nn.Parameter)
 
 
 def reset_launches() -> None:
@@ -79,20 +93,25 @@ def extension():
     return _ext
 
 
-def check_cuda_args(name: str, args: dict, dtypes: dict) -> None:
+def check_cuda_args(name: str, args: dict, dtypes: dict,
+                    device: bool = True) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of its dtype on
-    one device — the kernels take nothing else."""
-    import torch
-
+    one device — the kernels take nothing else.  Without ``device`` (a
+    kernel's fake, whatever device type its fake tensors take) the dtypes
+    and contiguity only."""
     dev = None
     for key, t in args.items():
-        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        if not isinstance(t, torch.Tensor):
             raise ValueError(f"{name}: {key} must be a CUDA tensor")
         if t.dtype != dtypes[key]:
             raise ValueError(f"{name}: {key} must be {dtypes[key]}, "
                              f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+        if not device:
+            continue
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {key} must be a CUDA tensor")
         # the card's index: an int, cheaper on the host than a device object
         if dev is None:
             dev = t.get_device()
@@ -109,3 +128,85 @@ def on_cpu(*tensors) -> bool:
     if not any(cpu):
         return False
     raise ValueError("kernel arguments mix CPU and device tensors")
+
+
+def card_op(name: str, launch, plain, fake, flops, shardings):
+    """``launch`` (a kernel's launch on CUDA tensors, typed for the
+    operator's schema) as the custom operator ``repro_torch::<name>``, with
+    ``plain`` its implementation on CPU tensors (the kernel's plain
+    version), ``fake`` its implementation under fake tensors (it runs the
+    launch's input checks but the device's), ``flops`` its operation
+    count (a ``torch.utils.flop_counter`` formula over the arguments'
+    shapes: the count of ``PERF.md``'s bound for the call) and
+    ``shardings`` its DTensor strategies (a
+    ``torch.distributed.tensor.experimental.register_sharding`` function:
+    the (output placements, input placements) that run the kernel on each
+    rank's blocks alone).  ``call`` runs it."""
+    from torch.distributed.tensor.experimental import register_sharding
+    from torch.utils.flop_counter import register_flop_formula
+
+    op = torch.library.custom_op(f"repro_torch::{name}", launch,
+                                 mutates_args=())
+    op.register_kernel("cpu", plain)
+    op.register_fake(fake)
+    packet = getattr(torch.ops.repro_torch, name)
+    register_flop_formula(packet)(flops)
+    register_sharding(packet.default)(shardings)
+    _OPS[name] = (packet.default, launch, plain)
+    return op
+
+
+_OPS: dict = {}
+
+
+def call(name: str, *args):
+    """The operator ``repro_torch::<name>`` on ``args``.  Where ``direct``
+    holds, the call skips the dispatcher: CPU tensors take the plain
+    version (what the operator's CPU kernel runs), CUDA tensors the launch
+    (and ``meta`` tensors, the tests' stand-in for device tensors that are
+    not CUDA tensors, the launch's checks).  Fake tensors, DTensors and
+    calls under a dispatch mode take the operator."""
+    op, launch, plain = _OPS[name]
+    cpu = _route(args)
+    if cpu is None:
+        return op(*args)
+    return (plain if cpu else launch)(*args)
+
+
+def direct(*args) -> bool:
+    """True when a kernel call on ``args`` may skip its operator: no tensor
+    is a subclass (a fake tensor, a DTensor; ``torch.Tensor`` and
+    ``torch.nn.Parameter`` only) and no dispatch mode is active (a FLOP
+    counter such as the dry run's ``RankCounter`` sees only the
+    operator)."""
+    return _route(args) is not None
+
+
+def _route(args):
+    """None where the call takes the operator (not ``direct``), else
+    whether every tensor lies on the CPU; one pass, as the wrappers' host
+    cost a call is what the LM layers and the serve batches pay."""
+    if torch._C._len_torch_dispatch_stack():
+        return None
+    cpu = True
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if type(a) not in _ORDINARY:
+                return None
+            if not a.is_cpu:
+                cpu = False
+    return cpu
+
+
+def split_strategies(n_in: int, n_out: int, dims, extra_in=0) -> list:
+    """DTensor strategies for a kernel whose ``n_in`` tensor inputs and
+    ``n_out`` outputs all split along each dimension of ``dims`` (the
+    kernel then runs on each rank's blocks alone), plus all replicated;
+    ``extra_in`` trailing non-tensor arguments take no placement."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [([Replicate()] * n_out,
+            [Replicate()] * n_in + [None] * extra_in)]
+    for d in dims:
+        out.append(([Shard(d)] * n_out, [Shard(d)] * n_in + [None] * extra_in))
+    return out

@@ -154,11 +154,33 @@ def blockmax_score_batched(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
     if tuple(survive_t.shape) != (q, n_tiles):
         raise ValueError(f"survive_t must be {(q, n_tiles)}, "
                          f"got {tuple(survive_t.shape)}")
-    if kernels.on_cpu(tile_docs, tile_terms, tile_scores, qterms, survive_b,
-                      survive_t):
-        return blockmax_score_plain(tile_docs, tile_terms, tile_scores,
-                                    qterms, survive_b, survive_t,
-                                    tile_d=tile_d, block_size=block_size)
+    kernels.on_cpu(tile_docs, tile_terms, tile_scores, qterms, survive_b,
+                   survive_t)
+    return kernels.call("blockmax_score", tile_docs, tile_terms, tile_scores,
+                        qterms, survive_b, survive_t, tile_d, block_size)
+
+
+def _batched_plain(tile_docs, tile_terms, tile_scores, qterms, survive_b,
+                   survive_t, tile_d, block_size):
+    return blockmax_score_plain(tile_docs, tile_terms, tile_scores, qterms,
+                                survive_b, survive_t, tile_d=tile_d,
+                                block_size=block_size)
+
+
+def _batched_fake(tile_docs, tile_terms, tile_scores, qterms, survive_b,
+                  survive_t, tile_d, block_size):
+    """The card call's (Q, n_tiles, tile_d) float32 output, after its input
+    checks but the device's."""
+    _batched_checks(tile_docs, tile_terms, tile_scores, qterms, survive_b,
+                    survive_t, tile_d, block_size, False)
+    return torch.empty((qterms.shape[0], tile_docs.shape[0], tile_d),
+                       dtype=torch.float32, device=tile_docs.device)
+
+
+def _batched_checks(tile_docs, tile_terms, tile_scores, qterms, survive_b,
+                    survive_t, tile_d, block_size, real=True):
+    q, n_terms = qterms.shape
+    bpt = tile_d // block_size
     i32 = torch.int32
     kernels.check_cuda_args(
         "blockmax_score_batched",
@@ -166,7 +188,7 @@ def blockmax_score_batched(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
              tile_scores=tile_scores, qterms=qterms, survive_b=survive_b,
              survive_t=survive_t),
         dict(tile_docs=i32, tile_terms=i32, tile_scores=torch.float32,
-             qterms=i32, survive_b=i32, survive_t=i32))
+             qterms=i32, survive_b=i32, survive_t=i32), real)
     if -(-q // term_table.GROUP) > 65535:
         raise ValueError(f"{q} queries exceed the grid's y limit")
     if n_terms > MAX_TERMS:
@@ -179,13 +201,39 @@ def blockmax_score_batched(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
             term_table.SMEM_OPTIN:
         raise ValueError(f"{n_terms} query terms x tile_d={tile_d} exceed "
                          "one block's shared memory")
-    out = torch.empty((q, n_tiles, tile_d), dtype=torch.float32,
-                      device=tile_docs.device)
+
+
+def _batched_launch(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
+                    tile_scores: torch.Tensor, qterms: torch.Tensor,
+                    survive_b: torch.Tensor, survive_t: torch.Tensor,
+                    tile_d: int, block_size: int) -> torch.Tensor:
+    """Kernel 2's launch on CUDA tensors."""
+    _batched_checks(tile_docs, tile_terms, tile_scores, qterms, survive_b,
+                    survive_t, tile_d, block_size)
+    out = torch.empty((qterms.shape[0], tile_docs.shape[0], tile_d),
+                      dtype=torch.float32, device=tile_docs.device)
     kernels.extension().blockmax_score(tile_docs, tile_terms, tile_scores,
                                        qterms, survive_b, survive_t, out,
                                        block_size)
     kernels.LAUNCHES["blockmax_score_batched"] += 1
     return out
+
+
+def _batched_flops(tile_docs, tile_terms, tile_scores, qterms, survive_b,
+                   survive_t, tile_d, block_size, *args, **kwargs):
+    """One term lookup a lane read, each group of ``term_table.GROUP``
+    queries reading every tile's lanes (the tiles no query keeps and the
+    adds depend on the data, which a fake tensor does not hold)."""
+    return -(-qterms[0] // term_table.GROUP) * tile_docs[0] * tile_docs[1]
+
+
+def _batched_shardings(*args):
+    return kernels.split_strategies(6, 1, (), extra_in=2)
+
+
+kernels.card_op("blockmax_score", _batched_launch, _batched_plain,
+                _batched_fake,
+                _batched_flops, _batched_shardings)
 
 
 def blockmax_score_tiles(tile_docs: torch.Tensor, tile_terms: torch.Tensor,

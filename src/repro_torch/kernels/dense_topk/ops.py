@@ -95,26 +95,67 @@ def dense_topk_tiles(q_emb: torch.Tensor, doc_emb: torch.Tensor, k: int):
         raise ValueError(f"q_emb must be (Q, {d}), got {tuple(q_emb.shape)}")
     if not 1 <= k <= n:
         raise ValueError(f"k={k} must be in [1, n_docs={n}]")
-    if kernels.on_cpu(q_emb, doc_emb):
-        return dense_topk_plain(q_emb, doc_emb, k)
+    kernels.on_cpu(q_emb, doc_emb)
+    return kernels.call("dense_topk", q_emb, doc_emb, k)
+
+
+def check_inputs(q_emb, doc_emb, k: int, real: bool = True) -> None:
+    """What the kernel refuses.  Without ``real`` (a fake's checks) not the
+    device, nor the grid's Q: DTensor runs a fake at the global Q of the
+    queries its strategy splits."""
     f32 = torch.float32
     kernels.check_cuda_args("dense_topk_tiles",
                             dict(q_emb=q_emb, doc_emb=doc_emb),
-                            dict(q_emb=f32, doc_emb=f32))
+                            dict(q_emb=f32, doc_emb=f32), real)
     if k > MAX_K:
         raise ValueError(f"dense_topk_tiles: k={k} exceeds the kernel's "
                          f"limit of {MAX_K}")
-    q = q_emb.shape[0]
-    if q > 65535:
-        raise ValueError(f"Q={q} exceeds the grid's y limit")
-    dev = q_emb.device
-    keys = torch.empty((q, n), dtype=torch.int32, device=dev)
-    scores = torch.empty((q, k), dtype=f32, device=dev)
-    ids = torch.empty((q, k), dtype=torch.int64, device=dev)
+    if real and q_emb.shape[0] > 65535:
+        raise ValueError(f"Q={q_emb.shape[0]} exceeds the grid's y limit")
+
+
+def _outputs(q_emb, k: int):
+    q, dev = q_emb.shape[0], q_emb.device
+    return (torch.empty((q, k), dtype=torch.float32, device=dev),
+            torch.empty((q, k), dtype=torch.int64, device=dev))
+
+
+def _launch(q_emb: torch.Tensor, doc_emb: torch.Tensor, k: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 6's launch on CUDA tensors."""
+    check_inputs(q_emb, doc_emb, k)
+    scores, ids = _outputs(q_emb, k)
+    keys = torch.empty((q_emb.shape[0], doc_emb.shape[0]), dtype=torch.int32,
+                       device=q_emb.device)
     kernels.extension().dense_topk(_aligned(q_emb), _aligned(doc_emb), keys,
                                    scores, ids, 1 << (k - 1).bit_length())
     kernels.LAUNCHES["dense_topk_tiles"] += 1
     return scores, ids
+
+
+def _plain(q_emb, doc_emb, k):
+    return dense_topk_plain(q_emb, doc_emb, k)
+
+
+def _fake(q_emb, doc_emb, k):
+    check_inputs(q_emb, doc_emb, k, False)
+    return _outputs(q_emb, k)
+
+
+def _flops(q_emb, doc_emb, k, *args, **kwargs):
+    """One FMA a (query, doc, dimension) (chip_smoke.work_of)."""
+    return 2 * q_emb[0] * doc_emb[0] * q_emb[1]
+
+
+def _shardings(q_emb, doc_emb, k):
+    """The queries may split; the docs stay whole (a split would need a
+    merge of the ranks' lists)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [([Replicate()] * 2, [Replicate(), Replicate(), None]),
+            ([Shard(0)] * 2, [Shard(0), Replicate(), None])]
+
+
+kernels.card_op("dense_topk", _launch, _plain, _fake, _flops, _shardings)
 
 
 def dense_topk(q_emb, doc_emb: torch.Tensor, k: int):

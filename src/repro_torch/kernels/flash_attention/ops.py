@@ -186,12 +186,23 @@ def merge_splits(acc, m, l, dtype):
 
 
 def _check_kernel_inputs(name: str, q, k, v, pairs=None) -> None:
-    """Raise on what the kernels do not take: a dtype other than fp32 or
-    bf16 (or mixed), a k width other than q's, a non-unit stride along the
-    width, and widths the kernel is not built for: with ``pairs`` (the
-    prefill kernels) a (q/k width, v width) pair outside it, without (the
-    decode kernels) a head width outside ``HEAD_DIMS`` or a v width other
-    than q's."""
+    """Raise on what the kernels do not take: what ``_check_widths``
+    refuses, and a tensor off the card or off q's card."""
+    _check_widths(name, q, k, v, pairs)
+    for key, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {key} must be a CUDA tensor")
+        if t.device != q.device:
+            raise ValueError(f"{name}: all tensors must be on one device")
+
+
+def _check_widths(name: str, q, k, v, pairs=None) -> None:
+    """Raise on a dtype other than fp32 or bf16 (or mixed), a k width other
+    than q's, a non-unit stride along the width, and widths the kernel is
+    not built for: with ``pairs`` (the prefill kernels) a (q/k width, v
+    width) pair outside it, without (the decode kernels) a head width
+    outside ``HEAD_DIMS`` or a v width other than q's.  These hold on
+    either device type, so a kernel's fake checks them too."""
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{name}: dtype must be float32 or bfloat16, got "
                          f"{q.dtype}")
@@ -216,20 +227,17 @@ def _check_kernel_inputs(name: str, q, k, v, pairs=None) -> None:
             raise ValueError(f"{name}: k and v widths must equal q's ({d}), "
                              f"got {k.shape[-1]} and {dv}")
     for key, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
-            raise ValueError(f"{name}: {key} must be a CUDA tensor")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: {key} must have unit stride along D")
-        if t.device != q.device:
-            raise ValueError(f"{name}: all tensors must be on one device")
 
 
-def _check_tma(name: str, q, k, v) -> None:
+def _check_tma(name: str, q, k, v, base: bool = True) -> None:
     """Raise on what TMA does not take: a base address off a 16-byte
-    boundary, or a (B, H, S) stride that is not a multiple of 16 bytes
-    (an axis of extent 1 has no stride to check)."""
+    boundary (with ``base``; a fake tensor has no address), or a (B, H, S)
+    stride that is not a multiple of 16 bytes (an axis of extent 1 has no
+    stride to check)."""
     for key, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
+        if base and t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must start on a 16-byte "
                              f"boundary for TMA")
         for dim in range(3):
@@ -260,31 +268,121 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check_heads("flash_attention", h, hkv)
     if k.shape[0] != b or v.shape[:3] != k.shape[:3]:
         raise ValueError("flash_attention: k and v must be (B, Hkv, Sk, .)")
-    if kernels.on_cpu(q, k, v):
-        return attention_ref(q, k, v, causal=causal, scale=scale,
-                             return_lse=return_lse)
-    if causal and sq != sk:
-        raise ValueError(f"flash_attention: causal mode needs Sq == Sk, got "
-                         f"{sq} and {sk}")
-    _check_kernel_inputs("flash_attention", q, k, v, PREFILL_WIDTHS)
-    if sq < 1 or sk < 1:
-        raise ValueError("flash_attention: empty sequence")
-    if b > 65535 or h > 65535:
-        raise ValueError("flash_attention: B and H must fit the grid")
-    tensor_cores = q.dtype == torch.bfloat16
-    if tensor_cores:
-        _check_tma("flash_attention", q, k, v)
-        if -(-sq // TC_TILE) > 65535:
-            raise ValueError("flash_attention: Sq must fit the grid")
-    out = torch.empty((b, h, sq, v.shape[-1]), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    ext = kernels.extension()
-    launch = ext.flash_attention_sm90 if tensor_cores else ext.flash_attention
-    launch(q, k, v, out, float(scale if scale is not None else d ** -0.5),
-           bool(causal), lse)
-    kernels.LAUNCHES["flash_attention"] += 1
+    kernels.on_cpu(q, k, v)
+    out, lse = kernels.call(
+        "flash_attention", q, k, v, bool(causal),
+        float(scale if scale is not None else d ** -0.5), bool(return_lse))
     return (out, lse) if return_lse else out
+
+
+def _prefill_checks(name: str, q, k, v, causal: bool, real: bool) -> None:
+    """What the prefill kernels and their backward refuse.  ``real``: also
+    the device, the bf16 base addresses and the grid's B and H, which a
+    fake does not check: it stands for the card's tensor on either device
+    type, has no address, and DTensor runs it at the global shapes of the
+    dimensions its strategies split (B and H) to find the output's."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    if causal and sq != sk:
+        raise ValueError(f"{name}: causal mode needs Sq == Sk, got {sq} and "
+                         f"{sk}")
+    (_check_kernel_inputs if real else _check_widths)(name, q, k, v,
+                                                      PREFILL_WIDTHS)
+    if sq < 1 or sk < 1:
+        raise ValueError(f"{name}: empty sequence")
+    if real and (b > 65535 or h > 65535):
+        raise ValueError(f"{name}: B and H must fit the grid")
+    if q.dtype == torch.bfloat16:
+        _check_tma(name, q, k, v, real)
+        if -(-sq // TC_TILE) > 65535:
+            raise ValueError(f"{name}: Sq must fit the grid")
+
+
+def _prefill_outputs(q, v, return_lse: bool):
+    b, h, sq, _ = q.shape
+    out = torch.empty((b, h, sq, v.shape[-1]), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq if return_lse else 0), dtype=torch.float32,
+                      device=q.device)
+    return out, lse
+
+
+def _pairs(q_shape, k_shape, causal: bool) -> int:
+    """The (query, key) pairs a prefill call must score: those on or below
+    the diagonal when causal."""
+    b, h, sq, _ = q_shape
+    return b * h * sq * (sq + 1) // 2 if causal else b * h * sq * k_shape[2]
+
+
+def _prefill_flops(q, k, v, causal, scale, return_lse, *args, **kwargs):
+    """2·(D + Dv) operations a pair (chip_smoke.lm_work)."""
+    return 2 * _pairs(q, k, causal) * (q[-1] + v[-1])
+
+
+def _backward_flops(q, k, v, o, lse, do, causal, scale, *args, **kwargs):
+    """Five products a pair: 2·(3·D + 2·Dv) (chip_smoke.bwd_work)."""
+    return 2 * _pairs(q, k, causal) * (3 * q[-1] + 2 * v[-1])
+
+
+def _decode_flops(q, k, v, kv_len, scale, *args, **kwargs):
+    """4·D operations a (query head, cache position), every position of the
+    cache counted: under fake tensors no ``kv_len`` can be read."""
+    b, h, d = q
+    return 4 * h * d * b * k[2]
+
+
+def _head_dims(q, k) -> tuple:
+    """The dimensions a DTensor may split attention on: the batch, and the
+    heads when every rank would hold whole GQA groups (q's and k's heads
+    both divisible by the mesh's rank count)."""
+    n = q.mesh.size()
+    return (0, 1) if q.shape[1] % n == 0 and k.shape[1] % n == 0 else (0,)
+
+
+def _prefill_shardings(q, k, v, causal, scale, return_lse):
+    return kernels.split_strategies(3, 2, _head_dims(q, k), extra_in=3)
+
+
+def _backward_shardings(q, k, v, o, lse, do, causal, scale):
+    return kernels.split_strategies(6, 3, _head_dims(q, k), extra_in=2)
+
+
+def _decode_shardings(q, k, v, kv_len, scale):
+    from torch.distributed.tensor import Replicate, Shard
+    out = kernels.split_strategies(4, 1, (0,), extra_in=1)
+    if 1 in _head_dims(q, k):
+        out.append(([Shard(1)], [Shard(1)] * 3 + [Replicate(), None]))
+    return out
+
+
+def _flash_attention_launch(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool, scale: float,
+                            return_lse: bool
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 8's launch on CUDA tensors: (output, log-sum-exp (B, H, Sq),
+    or an empty (B, H, 0) tensor without ``return_lse``)."""
+    _prefill_checks("flash_attention", q, k, v, causal, True)
+    out, lse = _prefill_outputs(q, v, return_lse)
+    ext = kernels.extension()
+    launch = (ext.flash_attention_sm90 if q.dtype == torch.bfloat16
+              else ext.flash_attention)
+    launch(q, k, v, out, scale, causal, lse if return_lse else None)
+    kernels.LAUNCHES["flash_attention"] += 1
+    return out, lse
+
+
+def _flash_attention_plain(q, k, v, causal, scale, return_lse):
+    out, lse = attention_ref(q, k, v, causal=causal, scale=scale,
+                             return_lse=True)
+    return out, lse if return_lse else lse[..., :0].contiguous()
+
+
+def _flash_attention_fake(q, k, v, causal, scale, return_lse):
+    _prefill_checks("flash_attention", q, k, v, causal, False)
+    return _prefill_outputs(q, v, return_lse)
+
+
+kernels.card_op("flash_attention", _flash_attention_launch,
+                _flash_attention_plain, _flash_attention_fake, _prefill_flops, _prefill_shardings)
 
 
 def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal: bool,
@@ -352,32 +450,55 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     if tuple(lse.shape) != (b, h, sq):
         raise ValueError(f"flash_attention_backward: lse must be "
                          f"{(b, h, sq)}")
-    if kernels.on_cpu(q, k, v, o, lse, do):
-        return flash_attention_backward_plain(q, k, v, o, lse, do,
-                                              causal=causal, scale=scale)
-    if causal and sq != sk:
-        raise ValueError(f"flash_attention_backward: causal mode needs Sq "
-                         f"== Sk, got {sq} and {sk}")
-    _check_kernel_inputs("flash_attention_backward", q, k, v, PREFILL_WIDTHS)
-    if sq < 1 or sk < 1:
-        raise ValueError("flash_attention_backward: empty sequence")
-    if b > 65535 or h > 65535:
-        raise ValueError("flash_attention_backward: B and H must fit the "
-                         "grid")
-    if q.dtype == torch.bfloat16:
-        _check_tma("flash_attention_backward", q, k, v)
+    kernels.on_cpu(q, k, v, o, lse, do)
+    return kernels.call(
+        "flash_attention_backward", q, k, v, o, lse, do, bool(causal),
+        float(scale if scale is not None else d ** -0.5))
+
+
+def _backward_checks(q, k, v, o, lse, do, causal: bool, real: bool) -> None:
+    _prefill_checks("flash_attention_backward", q, k, v, causal, real)
     kernels.check_cuda_args(
         "flash_attention_backward", {"o": o, "do": do, "lse": lse},
-        {"o": q.dtype, "do": q.dtype, "lse": torch.float32})
-    dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, hkv, sk, d), dtype=q.dtype, device=q.device)
-    dvv = torch.empty((b, hkv, sk, dv), dtype=q.dtype, device=q.device)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        {"o": q.dtype, "do": q.dtype, "lse": torch.float32}, real)
+
+
+def _backward_outputs(q, k, v):
+    b, h, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    return (torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device),
+            torch.empty((b, hkv, sk, d), dtype=q.dtype, device=q.device),
+            torch.empty((b, hkv, sk, dv), dtype=q.dtype, device=q.device))
+
+
+def _flash_attention_backward_launch(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+        lse: torch.Tensor, do: torch.Tensor, causal: bool, scale: float
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 8's backward launch on CUDA tensors: (dq, dk, dv)."""
+    _backward_checks(q, k, v, o, lse, do, causal, True)
+    dq, dk, dvv = _backward_outputs(q, k, v)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     kernels.extension().flash_attention_backward(
-        q, k, v, o, do, lse, delta, dq, dk, dvv,
-        float(scale if scale is not None else d ** -0.5), bool(causal))
+        q, k, v, o, do, lse, delta, dq, dk, dvv, scale, causal)
     kernels.LAUNCHES["flash_attention_backward"] += 1
     return dq, dk, dvv
+
+
+def _flash_attention_backward_plain(q, k, v, o, lse, do, causal, scale):
+    return flash_attention_backward_plain(q, k, v, o, lse, do, causal=causal,
+                                          scale=scale)
+
+
+def _flash_attention_backward_fake(q, k, v, o, lse, do, causal, scale):
+    _backward_checks(q, k, v, o, lse, do, causal, False)
+    return _backward_outputs(q, k, v)
+
+
+kernels.card_op("flash_attention_backward", _flash_attention_backward_launch,
+                _flash_attention_backward_plain,
+                _flash_attention_backward_fake, _backward_flops,
+                _backward_shardings)
 
 
 def flash_decode(q, k, v, kv_len, *, scale: float | None = None):
@@ -396,29 +517,56 @@ def flash_decode(q, k, v, kv_len, *, scale: float | None = None):
         raise ValueError("flash_decode: k and v must be (B, Hkv, T, .)")
     if tuple(kv_len.shape) != (b,):
         raise ValueError(f"flash_decode: kv_len must be ({b},)")
-    if kernels.on_cpu(q, k, v, kv_len):
-        return decode_ref(q, k, v, kv_len, scale=scale)
-    _check_kernel_inputs("flash_decode", q, k, v)
+    kernels.on_cpu(q, k, v, kv_len)
+    return kernels.call(
+        "flash_decode", q, k, v,
+        kv_len.to(device=q.device, dtype=torch.int32).contiguous(),
+        float(scale if scale is not None else d ** -0.5))
+
+
+def _decode_checks(q, k, v, real: bool = True) -> None:
+    """What the decode kernels refuse (``real``: as ``_prefill_checks``'s)."""
+    b, h, _ = q.shape
+    (_check_kernel_inputs if real else _check_widths)("flash_decode", q, k,
+                                                      v)
     for key, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
             raise ValueError(f"flash_decode: {key} must be contiguous")
-    if t < 1 or b > 65535 or h > 65535:
+    if k.shape[2] < 1 or real and (b > 65535 or h > 65535):
         raise ValueError("flash_decode: empty cache, or B / H beyond the "
                          "grid")
+
+
+def _flash_decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len: torch.Tensor, scale: float) -> torch.Tensor:
+    """Kernel 9's launches (split and merge) on CUDA tensors."""
+    _decode_checks(q, k, v)
     for key, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"flash_decode: {key} must start on a 16-byte "
                              "boundary")
-    kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
-    n_sp = -(-t // SPLIT)
+    b, h, d = q.shape
+    n_sp = -(-k.shape[2] // SPLIT)
     part = torch.empty((b * h * n_sp * (d + 2),), dtype=torch.float32,
                        device=q.device)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    kernels.extension().flash_decode(
-        q, k, v, kv_len, part, out,
-        float(scale if scale is not None else d ** -0.5))
+    kernels.extension().flash_decode(q, k, v, kv_len, part, out, scale)
     kernels.LAUNCHES["flash_decode"] += 1
     return out
+
+
+def _flash_decode_plain(q, k, v, kv_len, scale):
+    return decode_ref(q, k, v, kv_len, scale=scale)
+
+
+def _flash_decode_fake(q, k, v, kv_len, scale):
+    _decode_checks(q, k, v, False)
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+kernels.card_op("flash_decode", _flash_decode_launch, _flash_decode_plain,
+                _flash_decode_fake,
+                _decode_flops, _decode_shardings)
 
 
 def attention(q, k, v, causal: bool = True):

@@ -132,26 +132,71 @@ def impact_accumulate_batched(tile_docs: torch.Tensor,
         raise ValueError("tile_docs/tile_terms/tile_imps shapes differ")
     if lstar.shape != (q,):
         raise ValueError(f"lstar must be ({q},), got {tuple(lstar.shape)}")
-    if kernels.on_cpu(tile_docs, tile_terms, tile_imps, qterms, lstar):
-        return impact_accumulate_plain(tile_docs, tile_terms, tile_imps,
-                                       qterms, lstar, tile_d=tile_d)
+    kernels.on_cpu(tile_docs, tile_terms, tile_imps, qterms, lstar)
+    return kernels.call("impact_accumulate", tile_docs, tile_terms, tile_imps,
+                        qterms, lstar, tile_d)
+
+
+def _batched_plain(tile_docs, tile_terms, tile_imps, qterms, lstar, tile_d):
+    return impact_accumulate_plain(tile_docs, tile_terms, tile_imps, qterms,
+                                   lstar, tile_d=tile_d)
+
+
+def _batched_fake(tile_docs, tile_terms, tile_imps, qterms, lstar, tile_d):
+    """The card call's (Q, n_tiles, tile_d) int32 output, after its input
+    checks but the device's."""
+    _batched_checks(tile_docs, tile_terms, tile_imps, qterms, lstar, tile_d,
+                    False)
+    return torch.empty((qterms.shape[0], tile_docs.shape[0], tile_d),
+                       dtype=torch.int32, device=tile_docs.device)
+
+
+def _batched_checks(tile_docs, tile_terms, tile_imps, qterms, lstar, tile_d,
+                    real=True):
     i32 = torch.int32
+    q, n_terms = qterms.shape
     kernels.check_cuda_args(
         "impact_accumulate_batched",
         dict(tile_docs=tile_docs, tile_terms=tile_terms, tile_imps=tile_imps,
              qterms=qterms, lstar=lstar),
         dict(tile_docs=i32, tile_terms=i32, tile_imps=i32, qterms=i32,
-             lstar=i32))
+             lstar=i32), real)
     if -(-q // term_table.GROUP) > 65535:
         raise ValueError(f"{q} queries exceed the grid's y limit")
     if impact_smem_bytes(q, n_terms, tile_d) > term_table.SMEM_OPTIN:
         raise ValueError(f"{n_terms} query terms x tile_d={tile_d} exceed "
                          "one block's shared memory")
-    out = torch.empty((q, n_tiles, tile_d), dtype=i32, device=tile_docs.device)
+
+
+def _batched_launch(tile_docs: torch.Tensor, tile_terms: torch.Tensor,
+                    tile_imps: torch.Tensor, qterms: torch.Tensor,
+                    lstar: torch.Tensor, tile_d: int) -> torch.Tensor:
+    """Kernel 1's launch on CUDA tensors."""
+    _batched_checks(tile_docs, tile_terms, tile_imps, qterms, lstar, tile_d)
+    out = torch.empty((qterms.shape[0], tile_docs.shape[0], tile_d),
+                      dtype=torch.int32, device=tile_docs.device)
     kernels.extension().impact_accumulate(tile_docs, tile_terms, tile_imps,
                                           qterms, lstar, out)
     kernels.LAUNCHES["impact_accumulate_batched"] += 1
     return out
+
+
+def _batched_flops(tile_docs, tile_terms, tile_imps, qterms, lstar, tile_d,
+                   *args, **kwargs):
+    """One term lookup a lane read, each group of ``term_table.GROUP``
+    queries reading every lane of every tile (chip_smoke.batched_work's
+    lookups; its adds depend on the data, which a fake tensor does not
+    hold)."""
+    return -(-qterms[0] // term_table.GROUP) * tile_docs[0] * tile_docs[1]
+
+
+def _batched_shardings(*args):
+    return kernels.split_strategies(5, 1, (), extra_in=1)
+
+
+kernels.card_op("impact_accumulate", _batched_launch, _batched_plain,
+                _batched_fake,
+                _batched_flops, _batched_shardings)
 
 
 def impact_accumulate_tiles(tile_docs: torch.Tensor, tile_terms: torch.Tensor,

@@ -36,8 +36,12 @@ LOCAL_TIMEOUT = timedelta(seconds=120)
 @contextlib.contextmanager
 def mesh_context(mesh: DeviceMesh):
     """Put ``mesh`` in scope for the model code (the reference enters the
-    physical and the abstract mesh; a ``DeviceMesh`` is both here)."""
-    with use_mesh(mesh):
+    physical and the abstract mesh; a ``DeviceMesh`` is both here).  Inside
+    it a plain tensor that meets a DTensor (a constant the model code
+    makes, say the positions) counts as replicated, as a JAX constant is
+    under the reference's mesh."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with use_mesh(mesh), implicit_replication():
         yield mesh
 
 
@@ -48,17 +52,20 @@ def backend_for(device: torch.device) -> str:
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device: str | torch.device | None = None
-                         ) -> DeviceMesh:
+                         device: str | torch.device | None = None,
+                         fake: bool = False) -> DeviceMesh:
     """16×16 single-pod (256 ranks) or 2×16×16 multi-pod (512 ranks).
 
     The default process group is the launcher's (``torchrun`` sets each
     rank's environment, and ``init_device_mesh`` initializes the group from
-    it when none exists); its world size must be the mesh's."""
+    it when none exists); its world size must be the mesh's.  With
+    ``fake`` (the dry run's ``fake`` group) the device type is taken as
+    named, with no card behind it."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh(resolve_device(device).type, shape,
-                            mesh_dim_names=axes)
+    kind = torch.device(device or "cuda").type if fake else \
+        resolve_device(device).type
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
 
 
 def make_local_mesh(model_axis: int = 1,

@@ -35,6 +35,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -68,8 +69,10 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int = 512,
 
 
 def _attend(q, k, v, causal, chunk, scale, return_lse):
-    """The prefill kernel for CUDA tensors, the plain loop for CPU ones."""
-    if not kernels.on_cpu(q, k, v):
+    """The prefill kernel for CUDA tensors, the plain loop for CPU ones;
+    DTensors go to the kernel's operator, which runs on each rank's blocks
+    (its plain version on CPU blocks)."""
+    if isinstance(q, DTensor) or not kernels.on_cpu(q, k, v):
         return fa_ops.flash_attention(q, k, v, causal=causal, scale=scale,
                                       return_lse=return_lse)
     return chunked_attention_plain(q, k, v, causal=causal, chunk=chunk,
@@ -137,8 +140,11 @@ def chunked_attention_plain(q, k, v, *, causal: bool, chunk: int = 512,
 
 
 def gqa_decode(q, k_cache, v_cache, kv_len, scale: float | None = None):
-    """q: (B, H, D); caches (B, Hkv, T, D); kv_len (B,) -> (B, H, D)."""
-    if not kernels.on_cpu(q, k_cache, v_cache, kv_len):
+    """q: (B, H, D); caches (B, Hkv, T, D); kv_len (B,) -> (B, H, D): the
+    decode kernel's operator for CUDA tensors and DTensors, the plain
+    version for CPU tensors."""
+    if isinstance(q, DTensor) or not kernels.on_cpu(q, k_cache, v_cache,
+                                                    kv_len):
         return fa_ops.flash_decode(q, k_cache, v_cache, kv_len, scale=scale)
     return gqa_decode_plain(q, k_cache, v_cache, kv_len, scale=scale)
 
@@ -214,13 +220,13 @@ def mla_forward(p, x, positions, n_heads: int, cfg: MLAConfig,
     b, s, _ = x.shape
     h, qn, qr, vd = n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     cq = common.rms_norm(x @ p["wdq"], p["q_norm"])
-    q = (cq @ p["wuq"]).reshape(b, s, h, qn + qr)
+    q = common.split_last(cq @ p["wuq"], h, qn + qr)
     q_rope = common.rope(q[..., qn:].transpose(1, 2),
                          positions[:, None, :]).transpose(1, 2)
     c_kv, k_rope = latents if latents is not None else mla_latents(
         p, x, positions, cfg)
-    k_nope = (c_kv @ p["wuk"]).reshape(b, s, h, qn)
-    v = (c_kv @ p["wuv"]).reshape(b, s, h, vd)
+    k_nope = common.split_last(c_kv @ p["wuk"], h, qn)
+    v = common.split_last(c_kv @ p["wuv"], h, vd)
     # q and k materialised as (B, S, H, qn + qr), as the reference's
     # concatenate does, and viewed as (B, H, S, .): strides the prefill
     # kernel's TMA takes; the shared rope key broadcast to every head
@@ -229,7 +235,7 @@ def mla_forward(p, x, positions, n_heads: int, cfg: MLAConfig,
                    dim=-1).transpose(1, 2)
     out = chunked_attention(qh, kh, v.transpose(1, 2), causal=causal,
                             scale=(qn + qr) ** -0.5)
-    return out.transpose(1, 2).reshape(b, s, h * vd) @ p["wo"]
+    return common.merge_last(out.transpose(1, 2)) @ p["wo"]
 
 
 def mla_decode(p, x, c_cache, rope_cache, kv_len, n_heads: int,
@@ -249,12 +255,12 @@ def mla_decode(p, x, c_cache, rope_cache, kv_len, n_heads: int,
     pos = (q_pos if q_pos is not None else kv_len - 1).float()
 
     cq = common.rms_norm(x @ p["wdq"], p["q_norm"])
-    q = (cq @ p["wuq"]).reshape(b, h, qn + qr)
+    q = common.split_last(cq @ p["wuq"], h, qn + qr)
     q_rope = common.rope(q[..., qn:][:, :, None, :],
                          pos[:, None, None])[:, :, 0]
     # W_uk absorbed into the query: q_lat (B, H, r)
     q_lat = torch.einsum("bhn,rhn->bhr", q[..., :qn],
-                         p["wuk"].reshape(r, h, qn))
+                         common.split_last(p["wuk"], h, qn))
     c32 = c_cache.float()
     logits = (torch.einsum("bhr,bsr->bhs", q_lat.float(), c32)
               + torch.einsum("bhr,bsr->bhs", q_rope.float(),
@@ -266,5 +272,5 @@ def mla_decode(p, x, c_cache, rope_cache, kv_len, n_heads: int,
     ctx = torch.einsum("bhs,bsr->bhr", w, c32)
     # W_uv absorbed on the way out
     out = torch.einsum("bhr,rhv->bhv", ctx.to(x.dtype),
-                       p["wuv"].reshape(r, h, vd))
-    return out.reshape(b, h * vd) @ p["wo"]
+                       common.split_last(p["wuv"], h, vd))
+    return common.merge_last(out) @ p["wo"]

@@ -19,7 +19,7 @@ Logical sharding is the reference's (``common.py:60-150``): a leaf's names
 resolve under per-run rules to a ``PartitionSpec`` (``resolve_pspec``,
 with its axis dropping), fitted to a shape (``fit_spec_to_shape``), and
 here turned into DTensor placements on a ``DeviceMesh`` (``placements``).
-``use_mesh`` puts a mesh in scope on a thread-local stack (the
+``use_mesh`` puts a mesh in scope on a process-wide stack (the
 ``launch/mesh.mesh_context`` of the model code); ``get_abstract_mesh_or_none``
 reads it.  The collectives of the mesh branches go over the mesh's groups,
 one mesh axis at a time (``all_reduce_axes``, ``all_gather_axes``).
@@ -30,7 +30,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-import threading
 from typing import Any, NamedTuple
 
 import torch
@@ -81,8 +80,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         logits = torch.where(live, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
     labels = labels.long()
-    gold = torch.gather(logits, -1,
-                        torch.clamp(labels, min=0)[..., None])[..., 0]
+    idx = torch.clamp(labels, min=0)[..., None]
+    if isinstance(logits, DTensor):
+        # each rank selects its own columns (one entry plus zeros)
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(cols == idx, logits, 0.0).sum(dim=-1)
+    else:
+        gold = torch.gather(logits, -1, idx)[..., 0]
     mask = (labels >= 0).float()
     return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
@@ -138,6 +142,26 @@ def leaf_names(tree):
     if isinstance(tree, Leaf):
         return tree.names
     return {k: leaf_names(v) for k, v in tree.items()}
+
+
+def abstract(tree, dtype) -> dict:
+    """``meta`` tensors of a ``Leaf`` tree's shapes in ``dtype``: the
+    abstract parameters of the dry run (nothing drawn, nothing
+    allocated)."""
+    if isinstance(tree, dict):
+        return {k: abstract(v, dtype) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=dtype, device="meta")
+
+
+def flat_names(tree, prefix: str = "") -> dict:
+    """{"a/b": logical names} of a ``Leaf`` tree, keyed as the reference's
+    ``ParamFactory.names`` (``names_tree_of`` reads it back)."""
+    if isinstance(tree, Leaf):
+        return {prefix[:-1]: tree.names}
+    out = {}
+    for k, v in tree.items():
+        out.update(flat_names(v, f"{prefix}{k}/"))
+    return out
 
 
 def mlp_shapes(dims, stack=()) -> dict:
@@ -364,26 +388,83 @@ def distribute(x, sharding: NamedSharding) -> DTensor:
         stride=x.stride())
 
 
-_MESH_STACK = threading.local()
+def _whole_unless_even(x: DTensor, dim: int, count: int) -> DTensor:
+    """``x`` with ``dim`` gathered whole unless the ranks that split it
+    (plain or strided shards) divide ``count``."""
+    split = [getattr(pl, "dim", None) == dim for pl in x.placements]
+    ways = math.prod(x.device_mesh.size(i) for i, s in enumerate(split) if s)
+    if count % ways == 0:
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if s else pl for s, pl in zip(split, x.placements)])
+
+
+def split_last(x, heads: int, width: int):
+    """x (..., heads · width) viewed as (..., heads, width).  On a DTensor
+    whose last dimension is split over ranks that do not divide ``heads``,
+    that dimension is gathered first (each rank then holds whole heads, as
+    XLA reshards the reference's reshape)."""
+    if isinstance(x, DTensor):
+        x = _whole_unless_even(x, x.dim() - 1, heads)
+    return x.reshape(*x.shape[:-1], heads, width)
+
+
+def merge_last(x):
+    """x (..., heads, width) viewed as (..., heads · width).  On a DTensor
+    whose heads are split over ranks that do not divide them, the heads are
+    gathered first, and pending sums reduced."""
+    if isinstance(x, DTensor):
+        if any(pl.is_partial() for pl in x.placements):
+            # sums pending over ranks reduced first: the merge would split
+            # the heads to scatter them
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if pl.is_partial() else pl
+                for pl in x.placements])
+        x = _whole_unless_even(x, x.dim() - 2, x.shape[-2])
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+def to_region(x, mesh, spec):
+    """A region's input on this rank (a ``shard_map`` in-spec): a DTensor
+    redistributed to ``spec`` and its local block; a plain tensor (each
+    rank's whole value) cut to its block of ``spec``."""
+    if isinstance(x, DTensor):
+        return x.redistribute(mesh, placements(spec, mesh)).to_local()
+    return x[block_slices(spec, x.shape, mesh, mesh_coords(mesh))]
+
+
+def from_region(x, mesh, spec) -> DTensor:
+    """A region's output (a ``shard_map`` out-spec): this rank's block as a
+    DTensor of ``spec``, replicated over the axes ``spec`` leaves out."""
+    sizes = mesh_sizes(mesh)
+    shape = [dim * math.prod(sizes[a] for a in _entry_axes(entry))
+             for dim, entry in zip(x.shape, tuple(spec) + (None,) * (
+                 x.dim() - len(spec)))]
+    return DTensor.from_local(x, mesh, placements(spec, mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(math.prod(shape[i + 1:])
+                                           for i in range(len(shape))))
+
+
+# the meshes in scope, one process-wide stack: a backward that recomputes
+# a checkpointed layer runs on the autograd engine's device thread, and
+# must take the mesh branches its forward took
+_MESH_STACK: list = []
 
 
 @contextlib.contextmanager
 def use_mesh(mesh):
-    """Put ``mesh`` in scope for the model code on this thread."""
-    stack = getattr(_MESH_STACK, "stack", None)
-    if stack is None:
-        stack = _MESH_STACK.stack = []
-    stack.append(mesh)
+    """Put ``mesh`` in scope for the model code."""
+    _MESH_STACK.append(mesh)
     try:
         yield mesh
     finally:
-        stack.pop()
+        _MESH_STACK.pop()
 
 
 def get_abstract_mesh_or_none():
     """The mesh in scope (``use_mesh``), or None."""
-    stack = getattr(_MESH_STACK, "stack", None)
-    return stack[-1] if stack else None
+    return _MESH_STACK[-1] if _MESH_STACK else None
 
 
 def constrain(x, names: tuple, rules: dict, mesh=None):
@@ -434,6 +515,83 @@ def all_gather_axes(x: torch.Tensor, mesh, axes, dim: int = 0
         dist.all_gather(parts, out, group=group)
         out = torch.cat(parts, dim=dim)
     return out
+
+
+def sum_axes_ordered(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``, added in a fixed order:
+    one axis at a time (in the order given), each axis's blocks gathered
+    and added in rank order, with no float atomics and no reduction order
+    left to the backend.  An axis of one rank adds nothing."""
+    out = x
+    for a in _axes_tuple(axes):
+        group = mesh.get_group(a)
+        n = dist.get_world_size(group)
+        if n == 1:
+            continue
+        parts = [torch.empty_like(out) for _ in range(n)]
+        dist.all_gather(parts, out.contiguous(), group=group)
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+    return out
+
+
+def block_index(mesh, axes) -> tuple[int, int]:
+    """(this rank's block over ``axes``, major to minor, and the block
+    count)."""
+    sizes, coords = mesh_sizes(mesh), mesh_coords(mesh)
+    idx, n = 0, 1
+    for a in _axes_tuple(axes):
+        idx, n = idx * sizes[a] + coords[a], n * sizes[a]
+    return idx, n
+
+
+class _BlockOf(torch.autograd.Function):
+    """This rank's block of a whole tensor held by every rank (a region's
+    in-spec that splits ``dim`` over ``axes``): its backward gathers the
+    blocks' gradients over ``axes``, so every rank holds the whole
+    gradient again."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        idx, n = block_index(mesh, axes)
+        size = x.shape[dim] // n
+        return x.narrow(dim, idx * size, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather_axes(g, ctx.mesh, ctx.axes, ctx.dim), None, None,
+                None)
+
+
+def block_of(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``axes`` (see
+    ``_BlockOf``)."""
+    return _BlockOf.apply(x, mesh, _axes_tuple(axes), dim)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """The ranks' blocks gathered over ``axes`` into the whole tensor on
+    every rank; its backward passes each rank only its own block of the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather_axes(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, n = block_index(ctx.mesh, ctx.axes)
+        size = g.shape[ctx.dim] // n
+        return g.narrow(ctx.dim, idx * size, size), None, None, None
+
+
+def gather_blocks(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The blocks of ``axes`` gathered along ``dim`` (see
+    ``_GatherBlocks``)."""
+    return _GatherBlocks.apply(x, mesh, _axes_tuple(axes), dim)
 
 
 def _need(mesh):

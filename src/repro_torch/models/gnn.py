@@ -113,12 +113,19 @@ def param_names(c: DimeNetConfig) -> dict:
     return leaf_names(param_shapes(c))
 
 
-def init(c: DimeNetConfig, seed: int = 0, device=None) -> dict:
+def init(c: DimeNetConfig, seed: int = 0, device=None,
+         abstract: bool = False):
     """Parameters of ``c`` drawn from ``torch.Generator(seed)`` on
     ``device`` (the card unless the caller names the CPU), at the
     reference's scales: each dense leaf 1/√(its first dimension) — n_blocks
     for the stacked ``blocks`` leaves — the bilinear tensor 1/√(h ·
-    n_bilinear), biases zeros.  The draws differ from JAX's."""
+    n_bilinear), biases zeros.  The draws differ from JAX's.  With
+    ``abstract``, (the tree as ``meta`` tensors, {"a/b": logical names}),
+    as the reference's ``init(c, abstract=True)``: nothing is drawn."""
+    if abstract:
+        shapes = param_shapes(c)
+        return (common.abstract(shapes, c.torch_dtype),
+                common.flat_names(shapes))
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

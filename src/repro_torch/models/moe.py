@@ -43,8 +43,12 @@ does.  The reference's ``shard_map`` collectives are ``torch.distributed``
 calls on the mesh's groups: the sum of y over "model", the mean of the
 router loss over the token axes, and an all-gather of the token blocks
 that gives every rank the whole (T, d) back.  At a (1, 1) mesh the branch
-computes exactly what no mesh computes.  It is forward only (serving):
-under autograd it raises.
+computes exactly what no mesh computes, forward and backward.  The
+backward is JAX's transpose of the ``shard_map`` (``_MeshBranch``): each
+rank differentiates its own token block, each expert's gradient is summed
+over the ranks that used it in a fixed rank order, the router loss is
+counted once, and the gather of the blocks passes back each rank's own
+block.
 """
 
 from __future__ import annotations
@@ -236,6 +240,88 @@ def _with_shared(y, p, x, cfg: MoEConfig):
                 * (x @ p["shared_up"])) @ p["shared_down"]
 
 
+_SHARED = ("shared_gate", "shared_up", "shared_down")
+
+
+class _MeshBranch(torch.autograd.Function):
+    """One rank's part of the expert-parallel region (the reference's
+    ``shard_map`` body, ``moe.py:160-169``, and the shared experts after
+    it) on local tensors: x_local (its token block), the router and the
+    shared leaves whole, the expert leaves of its experts.  The forward
+    sums y over "model" when the experts are split and averages the router
+    loss over the token axes.
+
+    The backward recomputes the rank's block with autograd and returns the
+    gradients of the region's inputs as JAX's transpose of the
+    ``shard_map`` gives them: y's cotangent is the block's own (every rank
+    holds the whole loss); each expert's gradient is summed over the token
+    ranks that used it, the router's and the shared leaves' over every
+    rank of the region, x's over "model" — all in a fixed rank order
+    (``common.sum_axes_ordered``), no float atomics.  Terms that every
+    "model" rank computes alike under expert parallelism (the router loss,
+    the shared experts) take their cotangent on model rank 0 only, so the
+    sums count them once; ranks of a token axis the plan dropped compute
+    the same block and are summed over nowhere."""
+
+    @staticmethod
+    def forward(ctx, mesh, plan, cfg, e_off, x, router, wg, wu, wd,
+                *shared):
+        ctx.mesh, ctx.plan, ctx.cfg, ctx.e_off = mesh, plan, cfg, e_off
+        ctx.save_for_backward(x, router, wg, wu, wd, *shared)
+        # no graph inside (a checkpoint's recomputation of the forward must
+        # save what the first pass saved: these inputs alone)
+        with torch.no_grad():
+            y, aux = _dispatch_compute(router, wg, wu, wd, x, cfg, plan.cap,
+                                       e_off)
+            if plan.ep:
+                y = common.all_reduce_axes(y, mesh, "model")
+            if plan.tok_axes:
+                tok_ways = math.prod(common.mesh_sizes(mesh)[a]
+                                     for a in plan.tok_axes)
+                aux = common.all_reduce_axes(aux, mesh,
+                                             plan.tok_axes) / tok_ways
+            y = _with_shared(y, dict(zip(_SHARED, shared)), x, cfg)
+        return y, aux
+
+    @staticmethod
+    def backward(ctx, ct_y, ct_aux):
+        mesh, plan, cfg = ctx.mesh, ctx.plan, ctx.cfg
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        x, router, wg, wu, wd, *shared = saved
+        sp = dict(zip(_SHARED, shared))
+        sizes = common.mesh_sizes(mesh)
+        if plan.tok_axes:
+            ct_aux = ct_aux / math.prod(sizes[a] for a in plan.tok_axes)
+        with torch.enable_grad():
+            y, aux = _dispatch_compute(router, wg, wu, wd, x, cfg, plan.cap,
+                                       ctx.e_off)
+            if not plan.ep:
+                outs = [_with_shared(y, sp, x, cfg), aux]
+                cts = [ct_y, ct_aux]
+            else:
+                first = common.mesh_coords(mesh)["model"] == 0
+                outs, cts = [y, aux], [ct_y, ct_aux if first
+                                       else torch.zeros_like(ct_aux)]
+                if cfg.n_shared:
+                    outs.append(_with_shared(torch.zeros_like(y), sp, x,
+                                             cfg))
+                    cts.append(ct_y if first else torch.zeros_like(ct_y))
+            grads = torch.autograd.grad(outs, saved, cts, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(saved, grads)]
+        gx, g_router, gwg, gwu, gwd, *g_shared = grads
+        region = plan.tok_axes + (("model",) if plan.ep else ())
+        if plan.ep:
+            gx = common.sum_axes_ordered(gx, mesh, "model")
+        g_router = common.sum_axes_ordered(g_router, mesh, region)
+        g_shared = [common.sum_axes_ordered(g, mesh, region)
+                    for g in g_shared]
+        g_experts = [common.sum_axes_ordered(g, mesh, plan.tok_axes)
+                     for g in (gwg, gwu, gwd)]
+        return (None, None, None, None, gx, g_router, *g_experts,
+                *g_shared)
+
+
 def moe_forward(p, x, cfg: MoEConfig):
     """x: (T, d_model) -> ((T, d_model) in x's type, router aux loss fp32).
 
@@ -244,47 +330,49 @@ def moe_forward(p, x, cfg: MoEConfig):
     rank: this rank's token block (``mesh_plan``) through its experts —
     the stacked leaves' slice at ``e_off``, or a DTensor leaf's local shard
     — the outputs summed over "model" when the experts are split, the
-    router loss averaged over the token axes, and the blocks gathered back,
-    so every rank takes and returns the whole (T, d).  The mesh branch is
-    forward only: it raises when autograd would differentiate it."""
+    router loss averaged over the token axes, and the blocks gathered back.
+    A whole x (a plain tensor, held by every rank) is cut into its block
+    and the blocks gathered back, so every rank takes and returns the
+    whole (T, d); a DTensor x is redistributed to the region's token
+    layout and y (and the router loss, replicated) returned as DTensors in
+    that layout, as the reference's ``with_sharding_constraint`` and
+    ``shard_map`` out-specs place them.
+    The branch is differentiable (``_MeshBranch``): each cut's backward
+    gathers the blocks' gradients, each gather's passes back the rank's
+    own block."""
     mesh = common.get_abstract_mesh_or_none()
     if mesh is None:
         y, aux = _dispatch_compute(p["router"], p["w_gate"], p["w_up"],
                                    p["w_down"], x, cfg,
                                    capacity(x.shape[0], cfg))
         return _with_shared(y, p, x, cfg), aux
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *p.values())):
-        raise RuntimeError("moe_forward under a mesh has no backward: call "
-                           "it under torch.no_grad()")
 
     sizes = common.mesh_sizes(mesh)
     plan = mesh_plan(x.shape[0], cfg, sizes)
     coords = common.mesh_coords(mesh)
-    blk = 0
-    for a in plan.tok_axes:
-        blk = blk * sizes[a] + coords[a]
-    x_local = x[blk * plan.t_local:(blk + 1) * plan.t_local]
+    xspec = common.P(plan.tok_axes or None, None)
+    if isinstance(x, DTensor):
+        x_local = x.redistribute(mesh, common.placements(xspec, mesh)
+                                 ).to_local()
+    else:
+        x_local = common.block_of(x, mesh, plan.tok_axes)
     e_off = coords["model"] * plan.e_local if plan.ep else 0
     wspec = common.P("model", None, None) if plan.ep else common.P()
-    w = {}
+    w = []
     for key in ("w_gate", "w_up", "w_down"):
         leaf = p[key]
         if isinstance(leaf, DTensor):
-            w[key] = _replicated(leaf, mesh, wspec)
+            w.append(_replicated(leaf, mesh, wspec))
+        elif plan.ep:
+            w.append(common.block_of(leaf, mesh, "model"))
         else:
-            w[key] = leaf[e_off:e_off + plan.e_local]
+            w.append(leaf)
     router = _replicated(p["router"], mesh, common.P())
-    y, aux = _dispatch_compute(router, w["w_gate"], w["w_up"], w["w_down"],
-                               x_local, cfg, plan.cap, e_off)
-    if plan.ep:
-        y = common.all_reduce_axes(y, mesh, "model")
-    if plan.tok_axes:
-        tok_ways = math.prod(sizes[a] for a in plan.tok_axes)
-        aux = common.all_reduce_axes(aux, mesh, plan.tok_axes) / tok_ways
-    shared = {k: _replicated(v, mesh, common.P()) for k, v in p.items()
-              if k.startswith("shared_")}
-    y = _with_shared(y, shared, x_local, cfg)
-    if plan.tok_axes:
-        y = common.all_gather_axes(y, mesh, plan.tok_axes)
-    return y, aux
+    shared = [_replicated(p[k], mesh, common.P())
+              for k in _SHARED[:3 if cfg.n_shared else 0]]
+    y, aux = _MeshBranch.apply(mesh, plan, cfg, e_off, x_local, router, *w,
+                               *shared)
+    if isinstance(x, DTensor):
+        return (common.from_region(y, mesh, xspec),
+                common.from_region(aux, mesh, common.P()))
+    return common.gather_blocks(y, mesh, plan.tok_axes), aux

@@ -38,7 +38,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch import kernels
 from repro_torch.isn.backend import resolve_device
 from repro_torch.kernels.dense_topk import ops as dense_ops
 from repro_torch.models import common, embedding
@@ -153,13 +155,20 @@ def param_names(c: RecsysConfig) -> dict:
     return common.leaf_names(param_shapes(c))
 
 
-def init(c: RecsysConfig, seed: int = 0, device=None) -> dict:
+def init(c: RecsysConfig, seed: int = 0, device=None,
+         abstract: bool = False):
     """Parameters of ``c`` drawn from ``torch.Generator(seed)`` on
     ``device`` (the card unless the caller names the CPU).  Shapes, scales
     and layout are the reference's: tables N(0, 0.01²), the CIN 0.05,
     ``item_embed`` and ``pos_embed`` 0.02, every other dense leaf 1/√(its
     first dimension) (for the stacked ``blocks`` leaves that is n_blocks),
-    biases zeros, norms ones.  The draws differ from JAX's."""
+    biases zeros, norms ones.  The draws differ from JAX's.  With
+    ``abstract``, (the tree as ``meta`` tensors, {"a/b": logical names}),
+    as the reference's ``init(c, abstract=True)``: nothing is drawn."""
+    if abstract:
+        shapes = param_shapes(c)
+        return (common.abstract(shapes, c.torch_dtype),
+                common.flat_names(shapes))
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -295,19 +304,25 @@ def sharded_streaming_topk(q_emb, cand_emb, k: int, tile: int = 8192):
     bw = math.prod(sizes[a] for a in batch_axes)
     if mesh is None or mw <= 1 or n % mw or (b % bw if bw else 0):
         return streaming_topk(q_emb, cand_emb, k, tile)
-    n_local, b_local = n // mw, b // bw
-    coords = common.mesh_coords(mesh)
-    blk = 0
-    for a in batch_axes:
-        blk = blk * sizes[a] + coords[a]
-    q = q_emb[blk * b_local:(blk + 1) * b_local]
-    m = coords["model"]
-    v, i = streaming_topk(q, cand_emb[m * n_local:(m + 1) * n_local], k,
-                          tile)
+    n_local = n // mw
+    qspec = common.P(batch_axes or None, None)
+    dtensor = isinstance(q_emb, DTensor) or isinstance(cand_emb, DTensor)
+    if dtensor:
+        # the region's in-specs: the queries' batch block, the rank's rows
+        q = common.to_region(q_emb, mesh, qspec)
+        cand = common.to_region(cand_emb, mesh, common.P("model", None))
+    else:
+        q = common.block_of(q_emb, mesh, batch_axes)
+        cand = common.block_of(cand_emb, mesh, "model")
+    m = common.mesh_coords(mesh)["model"]
+    v, i = streaming_topk(q, cand, k, tile)
     av = common.all_gather_axes(v, mesh, "model", dim=1)
     ai = common.all_gather_axes(i + m * n_local, mesh, "model", dim=1)
     v2, p = torch.sort(av, dim=1, descending=True, stable=True)
     v2, i2 = v2[:, :k], torch.gather(ai, 1, p[:, :k])
+    if dtensor:
+        return (common.from_region(v2, mesh, qspec),
+                common.from_region(i2, mesh, qspec))
     if batch_axes:
         v2 = common.all_gather_axes(v2, mesh, batch_axes)
         i2 = common.all_gather_axes(i2, mesh, batch_axes)
@@ -321,14 +336,28 @@ def anytime_retrieval(query_emb, cand_emb, prior_order_len, k: int):
     ids (k,) int64).  Kernel 6 scores ``cand_emb[:budget]`` at
     min(k, budget); below k the rest are -inf with ids budget, budget +
     1, …, as the reference's ``top_k`` over its -inf-masked scores fills
-    them.  Reading the budget (a tensor or a number) on the host is one
-    synchronisation."""
+    them.  The budget is read on the host: a number as it is, a tensor by
+    one synchronisation.  Where ``kernels.direct`` does not hold (fake
+    tensors, DTensors, a dispatch mode) the call takes the operator
+    ``repro_torch::anytime_topk``, inside which that read lies, so a dry
+    run under fake tensors reads no budget."""
     n = cand_emb.shape[0]
     if not 1 <= k <= n:
         raise ValueError(f"k={k} must be in [1, n_candidates={n}]")
-    budget = min(max(int(torch.as_tensor(prior_order_len).item()), 0), n)
-    kk = min(k, budget)
     q = query_emb[:1].contiguous()
+    kernels.on_cpu(q, cand_emb)
+    if kernels.direct(q, cand_emb):
+        return _anytime(q, cand_emb, prior_order_len, k)
+    return kernels.call("anytime_topk", q, cand_emb, torch.as_tensor(
+        prior_order_len, device=cand_emb.device).reshape(()), k)
+
+
+def _anytime(q, cand_emb, prior_order_len, k: int):
+    """``anytime_retrieval`` of one query row: the budget read on the host,
+    kernel 6 (or its plain version) over the first ``budget`` rows."""
+    n = cand_emb.shape[0]
+    budget = min(max(int(prior_order_len), 0), n)
+    kk = min(k, budget)
     if kk:
         vals, ids = dense_ops.dense_topk_tiles(q, cand_emb[:budget]
                                                .contiguous(), kk)
@@ -338,6 +367,36 @@ def anytime_retrieval(query_emb, cand_emb, prior_order_len, k: int):
     fill = torch.arange(budget, budget + k - kk, device=q.device)
     vals, ids = _fill(vals, ids, k, fill)
     return vals[0], ids[0]
+
+
+def _anytime_launch(q: torch.Tensor, cand_emb: torch.Tensor,
+                    budget: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    vals, ids = _anytime(q, cand_emb, budget, k)
+    return vals.contiguous(), ids.contiguous()
+
+
+def _anytime_fake(q, cand_emb, budget, k):
+    # kernel 6's checks at the whole budget (the launch makes its rows
+    # contiguous)
+    dense_ops.check_inputs(q, cand_emb.contiguous(), k, False)
+    return (torch.empty((k,), dtype=q.dtype, device=q.device),
+            torch.empty((k,), dtype=torch.int64, device=q.device))
+
+
+def _anytime_flops(q, cand_emb, budget, k, *args, **kwargs):
+    """Kernel 6's FMA a (candidate, dimension), every candidate counted:
+    under fake tensors the budget cannot be read."""
+    return 2 * cand_emb[0] * cand_emb[1]
+
+
+def _anytime_shardings(q, cand_emb, budget, k):
+    return kernels.split_strategies(3, 2, (), extra_in=1)
+
+
+kernels.card_op("anytime_topk", _anytime_launch, _anytime_launch,
+                _anytime_fake,
+                _anytime_flops, _anytime_shardings)
 
 
 # ---------------------------------------------------------------------------
@@ -354,14 +413,15 @@ def bert4rec_hidden(params, c: RecsysConfig, items):
 
     def heads(t):
         # (B, S, d) -> a (B, H, S, d / H) view, unit stride along the width
-        return t.reshape(b, s, c.n_heads, -1).transpose(1, 2)
+        return common.split_last(t, c.n_heads, d // c.n_heads).transpose(
+            1, 2)
 
     for i in range(c.n_blocks):
         bp = {k: w[i] for k, w in blocks.items()}
         h = common.rms_norm(x, bp["ln1"])
         o = chunked_attention(heads(h @ bp["wq"]), heads(h @ bp["wk"]),
                               heads(h @ bp["wv"]), causal=False)
-        x = x + o.transpose(1, 2).reshape(b, s, d) @ bp["wo"]
+        x = x + common.merge_last(o.transpose(1, 2)) @ bp["wo"]
         h = common.rms_norm(x, bp["ln2"])
         x = x + common.gelu_mlp(h, bp["w1"], bp["b1"], bp["w2"], bp["b2"])
     return common.rms_norm(x, params["final_ln"])

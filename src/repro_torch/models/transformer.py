@@ -53,6 +53,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.isn.backend import resolve_device
@@ -183,9 +184,12 @@ def param_names(c: LMConfig) -> dict:
     return common.leaf_names(param_shapes(c))
 
 
-def init(c: LMConfig, seed: int = 0, device=None) -> dict:
+def init(c: LMConfig, seed: int = 0, device=None, abstract: bool = False):
     """Parameters of ``c`` drawn from ``torch.Generator(seed)`` on
-    ``device`` (the card unless the caller names the CPU).
+    ``device`` (the card unless the caller names the CPU).  With
+    ``abstract``, (the tree as ``meta`` tensors of each leaf's shape and
+    type, {"a/b": logical names}), as the reference's ``init(c,
+    abstract=True)``: nothing is drawn.
 
     Shapes, scales and layout are the reference's (``ParamFactory``): a
     dense leaf is normal × 1/√(its first dimension) — for the stacked
@@ -193,10 +197,13 @@ def init(c: LMConfig, seed: int = 0, device=None) -> dict:
     embedding and the MoE router normal × 0.02, the norms ones.  The layer
     leaves are drawn first, then the embedding and the unembedding.  The
     draws differ from JAX's."""
+    shapes = param_shapes(c)
+    if abstract:
+        return (common.abstract(shapes, c.torch_dtype),
+                common.flat_names(shapes))
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    shapes = param_shapes(c)
     layers = common.draw(shapes.pop("layers"), gen, c.torch_dtype, dev)
     params = common.draw(shapes, gen, c.torch_dtype, dev)
     params["layers"] = layers
@@ -219,17 +226,16 @@ def _qkv(p, h, positions, c: LMConfig):
     """Projected and rotated q (B, H, S, hd), k and v (B, Hkv, S, hd)."""
     b, s, _ = h.shape
     hd = c.head_dim
-    q = (h @ p["wq"]).reshape(b, s, c.n_heads, hd).transpose(1, 2)
-    k = (h @ p["wk"]).reshape(b, s, c.n_kv_heads, hd).transpose(1, 2)
-    v = (h @ p["wv"]).reshape(b, s, c.n_kv_heads, hd).transpose(1, 2)
+    q = common.split_last(h @ p["wq"], c.n_heads, hd).transpose(1, 2)
+    k = common.split_last(h @ p["wk"], c.n_kv_heads, hd).transpose(1, 2)
+    v = common.split_last(h @ p["wv"], c.n_kv_heads, hd).transpose(1, 2)
     q = common.rope(q, positions[:, None, :], c.rope_theta)
     k = common.rope(k, positions[:, None, :], c.rope_theta)
     return q, k, v
 
 
 def _attn_out(p, o, c: LMConfig):
-    b, _, s, _ = o.shape
-    return o.transpose(1, 2).reshape(b, s, c.n_heads * c.head_dim) @ p["wo"]
+    return common.merge_last(o.transpose(1, 2)) @ p["wo"]
 
 
 def _attn_block(p, x, positions, c: LMConfig, causal=True):
@@ -248,7 +254,17 @@ def _ffn(lp, x, c: LMConfig):
     f = lp["ffn"]
     if c.moe is None:
         return x + common.swiglu(h, f["w_gate"], f["w_up"], f["w_down"]), None
-    y, aux = moe_forward(f, h.reshape(-1, h.shape[-1]), c.moe)
+    if isinstance(h, DTensor) and h.dim() == 3:
+        # a DTensor's tokens flattened batch-major from whole sequences
+        # (a split sequence would flatten to a strided layout), and y back
+        # in that layout
+        h = h.redistribute(h.device_mesh, [
+            Replicate() if pl.is_shard(1) else pl for pl in h.placements])
+        tokens = h.reshape(-1, h.shape[-1])
+        y, aux = moe_forward(f, tokens, c.moe)
+        y = y.redistribute(tokens.device_mesh, tokens.placements)
+    else:
+        y, aux = moe_forward(f, h.reshape(-1, h.shape[-1]), c.moe)
     return x + y.reshape(h.shape), aux
 
 
@@ -351,7 +367,15 @@ def _ce_sum(logits, labels, vocab: int):
         pad = torch.arange(logits.shape[-1], device=logits.device) < vocab
         logits = torch.where(pad, logits, NEG_INF)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])
+    idx = labels.clamp(min=0).long()[..., None]
+    if isinstance(logits, DTensor):
+        # a DTensor split over the vocabulary: each rank selects its own
+        # columns (the one gold entry plus zeros: the same value)
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(cols == idx, logits, 0.0).sum(dim=-1,
+                                                         keepdim=True)
+    else:
+        gold = torch.gather(logits, -1, idx)
     mask = (labels >= 0).float()
     return ((lse - gold[..., 0]) * mask).sum(), mask.sum()
 
@@ -407,9 +431,13 @@ def prefill(params, c: LMConfig, tokens, rules=None):
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = common.constrain(_embed(params, tokens, c), _BSE, rules)
-    cache = {key: torch.empty((c.n_layers,) + shape, dtype=x.dtype,
-                              device=x.device)
-             for key, shape in _cache_shapes(c, b, s).items()}
+    if isinstance(x, DTensor):
+        # DTensor layers: the cache is the stack of the layers' entries
+        cache = {key: [None] * c.n_layers for key in _cache_shapes(c, b, s)}
+    else:
+        cache = {key: torch.empty((c.n_layers,) + shape, dtype=x.dtype,
+                                  device=x.device)
+                 for key, shape in _cache_shapes(c, b, s).items()}
     for i in range(c.n_layers):
         lp = layer(params, i)
         h = common.rms_norm(x, lp["ln1"], c.norm_eps)
@@ -430,6 +458,8 @@ def prefill(params, c: LMConfig, tokens, rules=None):
         x, _ = _ffn(lp, x + o, c)
         x = common.constrain(x, _BSE, rules)
     x = common.rms_norm(x[:, -1], params["final_ln"], c.norm_eps)
+    if isinstance(x, DTensor):
+        cache = {key: torch.stack(v) for key, v in cache.items()}
     return x @ params["unembed"], cache
 
 
@@ -447,20 +477,50 @@ def _cache_shapes(c: LMConfig, batch: int, length: int) -> dict:
     return {"k": kv, "v": kv}
 
 
-def init_cache(c: LMConfig, batch: int, max_len: int, device=None) -> dict:
+# the caches' logical names (the reference's ``init_cache``, :346-356)
+CACHE_NAMES = {"mla": ("stack", "batch", "kv_seq", "qk"),
+               "gqa": ("stack", "batch", "kv_heads", "kv_seq", None)}
+
+
+def init_cache(c: LMConfig, batch: int, max_len: int, device=None,
+               abstract: bool = False):
     """Zero caches of ``max_len`` positions on ``device``: GQA k/v (L, B,
     Hkv, max_len, hd); MLA c (L, B, max_len, kv_lora_rank) and rope (L, B,
-    max_len, qk_rope_dim)."""
+    max_len, qk_rope_dim).  With ``abstract``, (the caches as ``meta``
+    tensors, {key: logical names}), as the reference's ``init_cache(...,
+    abstract=True)``."""
+    if abstract:
+        names = CACHE_NAMES["mla" if c.attention == "mla" else "gqa"]
+        return ({key: torch.empty((c.n_layers,) + shape, dtype=c.torch_dtype,
+                                  device="meta")
+                 for key, shape in _cache_shapes(c, batch, max_len).items()},
+                {key: names for key in _cache_shapes(c, batch, max_len)})
     dev = resolve_device(device)
     return {key: torch.zeros((c.n_layers,) + shape, dtype=c.torch_dtype,
                              device=dev)
             for key, shape in _cache_shapes(c, batch, max_len).items()}
 
 
+def _select_insert(cache, new, at):
+    """The reference's select form of an insert: every position of the
+    cache (B, S, ...) or (B, H, S, D) at ``at`` (B,) takes ``new`` — purely
+    local where the sequence axis is sharded — written back in place.  A
+    DTensor cache takes this form; a position past S matches none."""
+    s_dim = 2 if cache.dim() == 4 else 1
+    shape = [1] * cache.dim()
+    shape[s_dim] = cache.shape[s_dim]
+    pos = torch.arange(cache.shape[s_dim], device=cache.device).view(shape)
+    hit = pos == at.long().view([-1] + [1] * (cache.dim() - 1))
+    new = new.to(cache.dtype).unsqueeze(s_dim)
+    return cache.copy_(torch.where(hit, new, cache))
+
+
 def _cache_insert(cache, new, kv_len):
     """Write new (B, H, D) into cache (B, H, S, D) at position kv_len (B,),
     in place; positions past S are dropped, as the reference's select
     drops them."""
+    if isinstance(cache, DTensor):
+        return _select_insert(cache, new, kv_len)
     b, _, s, _ = cache.shape
     rows = torch.arange(b, device=cache.device)
     pos = kv_len.long()
@@ -479,6 +539,8 @@ def _cache_insert_2d(cache, new, kv_len):
     ``dynamic_update_slice`` clamps it: at kv_len >= S the last row is
     overwritten."""
     b, s, _ = cache.shape
+    if isinstance(cache, DTensor):
+        return _select_insert(cache, new, kv_len.long().clamp(0, s - 1))
     rows = torch.arange(b, device=cache.device)
     cache[rows, kv_len.long().clamp(0, s - 1)] = new.to(cache.dtype)
     return cache
@@ -512,15 +574,15 @@ def decode_step(params, c: LMConfig, token, cache, kv_len, rules=None):
             x = x + attn.mla_decode(p, h, c_cache, rope_cache, kv_len + 1,
                                     c.n_heads, c.mla)
         else:
-            q = (h @ p["wq"]).reshape(b, c.n_heads, hd)
-            kk = (h @ p["wk"]).reshape(b, c.n_kv_heads, hd)
-            vv = (h @ p["wv"]).reshape(b, c.n_kv_heads, hd)
+            q = common.split_last(h @ p["wq"], c.n_heads, hd)
+            kk = common.split_last(h @ p["wk"], c.n_kv_heads, hd)
+            vv = common.split_last(h @ p["wv"], c.n_kv_heads, hd)
             q = common.rope(q[:, :, None, :], pos[:, None, None])[:, :, 0]
             kk = common.rope(kk[:, :, None, :], pos[:, None, None])[:, :, 0]
             k_cache = _cache_insert(cache["k"][i], kk, kv_len)
             v_cache = _cache_insert(cache["v"][i], vv, kv_len)
             o = attn.gqa_decode(q, k_cache, v_cache, kv_len + 1)
-            x = x + o.reshape(b, c.n_heads * hd) @ p["wo"]
+            x = x + common.merge_last(o) @ p["wo"]
         x, _ = _ffn(lp, x, c)
     x = common.rms_norm(x, params["final_ln"], c.norm_eps)
     return x @ params["unembed"], cache

@@ -13,8 +13,7 @@ caller gives them up, as a jitted step donates its buffers), which a model
 of embedding tables needs (the two-tower model's 8 M x 256 user table is
 8.2 GB a copy).
 
-Not ported (ROADMAP §1 item 11 (b)): ``abstract_init`` (the dry run's shapes),
-which goes with the launch stack.
+``abstract_init`` gives the state's shapes for the dry run, on ``meta``.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.train.tree import leaves, map_tree, part
 
@@ -55,6 +55,16 @@ def init(params) -> OptState:
                     step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def abstract_init(params) -> OptState:
+    """The state's shapes and types without storage: fp32 moments of each
+    leaf's shape and an int32 scalar step, all ``meta`` tensors (the
+    reference's ``ShapeDtypeStruct`` state)."""
+    def moment(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return OptState(m=map_tree(moment, params), v=map_tree(moment, params),
+                    step=torch.empty((), dtype=torch.int32, device="meta"))
+
+
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warm-up, then a cosine from lr down to 0.1 lr, fp32."""
     s = step.float()
@@ -74,6 +84,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _layout(x, like):
+    """``x`` in ``like``'s DTensor layout; a plain tensor as it is."""
+    if isinstance(like, DTensor):
+        return x.redistribute(like.device_mesh, like.placements)
+    return x
+
+
 @torch.no_grad()
 def apply(params, grads, opt: OptState, cfg: AdamWConfig,
           donate: bool = False):
@@ -91,14 +108,17 @@ def apply(params, grads, opt: OptState, cfg: AdamWConfig,
 
     def upd(p, g, m, v):
         # the reference's expressions, computed in the given buffers: g
-        # holds g · scale, then √(v / c2) + eps
+        # holds g · scale, then √(v / c2) + eps.  On DTensor leaves the
+        # gradient enters the moments' layout (a reduce-scatter into
+        # ZeRO's shards) and the step the parameter's (an all-gather
+        # back), as the reference's shardings make XLA do
         if not donate:
             p, m, v = p.clone(), m.clone(), v.clone()
-        g = g.to(torch.float32, copy=not donate).mul_(scale)
+        g = _layout(g, m).to(torch.float32, copy=not donate).mul_(scale)
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        delta = torch.div(m, c1).div_(torch.div(v, c2, out=g).sqrt_()
-                                      .add_(cfg.eps))
+        delta = _layout(torch.div(m, c1).div_(
+            torch.div(v, c2, out=g).sqrt_().add_(cfg.eps)), p)
         pf = p.float()
         delta.add_(pf, alpha=cfg.weight_decay)
         if p.dtype == torch.float32:

@@ -27,7 +27,11 @@ the restore onto shardings) against the reference.
   partitioned loss ``loss_fn`` with its gradients.
 * ``common.segment_sum`` against ``jax.ops.segment_sum`` (ids out of range
   dropped, empty segments), and ``constrain``, ``transformer.prefill`` and
-  the MoE branch's refusal under autograd at a (1, 1) gloo mesh.
+  the MoE branch's training gradients at a (1, 1) gloo mesh.
+* MoE's mesh branch differentiated: ``value_and_grad`` of sum(y · r) + aux
+  at every MoE case's mesh, against JAX's, every gradient leaf on every
+  rank (experts stacked and as DTensors); at (1, 1) bit-equal to the
+  branch without a mesh.
 
 Bars: MoE's output within 1e-4 of its largest magnitude and its router
 loss 1e-6 relative (``test_torch_moe.py``'s); the partitioned loss 1e-5
@@ -288,6 +292,8 @@ def _inputs():
                             * 0.5).astype(np.float32)
         moe_cases.append(dict(name=name, mesh=mesh, cfg=cfg, params=params,
                               x=rng.randn(t, D_MODEL).astype(np.float32)))
+    for case in moe_cases:
+        case["r"] = rng.randn(*case["x"].shape).astype(np.float32)
     # quantized scores with rows repeated across "model" ranks: exact ties
     # between ranks and inside one
     cand = (np.round(rng.randn(64, 16) * 4) / 4).astype(np.float32)
@@ -395,6 +401,40 @@ def test_moe_under_a_mesh_matches_reference(runs, name):
                 x, cfg)
         np.testing.assert_array_equal(got["y"], y.numpy())
         np.testing.assert_array_equal(got["aux"], aux.numpy())
+
+
+@pytest.mark.parametrize("name", sorted(MOE_CASES))
+def test_moe_gradients_under_a_mesh_match_reference(runs, name):
+    """``value_and_grad`` of sum(y · r) + aux through the mesh branch: the
+    loss and every gradient leaf (router, experts, shared experts, x) on
+    every rank within the branch's bars of JAX's, the experts given as
+    stacked tensors and as DTensors; at (1, 1) bit-equal to the branch
+    without a mesh."""
+    inputs, port, want = runs
+    mesh, cfg, t = MOE_CASES[name]
+    got = _same_on_every_rank(port[mesh], name)
+    ref = want[name, mesh]
+    np.testing.assert_allclose(got["loss"], ref["loss"],
+                               rtol=AUX_REL, atol=AUX_REL)
+    assert got["grads"].keys() == ref["grads"].keys()
+    for key, g in got["grads"].items():
+        _close(g, ref["grads"][key], REL)
+        _close(got["grads_dtensor"][key], ref["grads"][key], REL)
+    _close(got["grad_x"], ref["grad_x"], REL)
+    _close(got["grad_x_dtensor"], ref["grad_x"], REL)
+    if mesh == (1, 1):
+        case = next(c for c in inputs["moe"] if c["name"] == name)
+        params = {k: torch.tensor(v, requires_grad=True)
+                  for k, v in case["params"].items()}
+        x = torch.tensor(case["x"], requires_grad=True)
+        y, aux = moe.moe_forward(params, x, moe.MoEConfig(**cfg))
+        loss = (y * torch.from_numpy(case["r"])).sum() + aux
+        loss.backward()
+        np.testing.assert_array_equal(got["loss"], loss.detach().numpy())
+        np.testing.assert_array_equal(got["grad_x"], x.grad.numpy())
+        for key, v in params.items():
+            np.testing.assert_array_equal(got["grads"][key], v.grad.numpy(),
+                                          err_msg=key)
 
 
 def test_moe_plans_match_the_cases():
@@ -540,7 +580,8 @@ def test_model_code_at_a_one_rank_mesh(local_mesh):
     """``mesh_context`` puts the mesh in scope; ``constrain`` leaves plain
     tensors and redistributes a DTensor; granite-MoE's prefill under the
     mesh (its MoE mesh branch) equals the prefill without one bit for bit;
-    the mesh branch refuses autograd."""
+    granite-MoE's loss and gradients under the mesh equal those without
+    one bit for bit."""
     assert common.get_abstract_mesh_or_none() is None
     x = torch.randn(4, 6)
     with port_mesh.mesh_context(local_mesh):
@@ -568,8 +609,17 @@ def test_model_code_at_a_one_rank_mesh(local_mesh):
     assert torch.equal(got, want)
     for k in cache:
         assert torch.equal(cache[k], want_cache[k])
-    for leaf in params["layers"]["ffn"].values():
-        leaf.requires_grad_()
-    with port_mesh.mesh_context(local_mesh), pytest.raises(
-            RuntimeError, match="no backward"):
-        tr.loss_fn(params, c, toks, toks)
+    # the branch's backward: loss and every gradient leaf bit-equal to the
+    # training step without a mesh
+    from repro_torch.train import train_loop
+    from repro_torch.train.tree import leaves
+
+    def loss(p, batch):
+        return tr.loss_fn(p, c, batch, batch)
+
+    want_loss, want_grads = train_loop.value_and_grad(loss, params, toks)
+    with port_mesh.mesh_context(local_mesh):
+        got_loss, got_grads = train_loop.value_and_grad(loss, params, toks)
+    assert torch.equal(got_loss, want_loss)
+    for g, w in zip(leaves(got_grads), leaves(want_grads)):
+        assert torch.equal(g, w)

@@ -117,6 +117,33 @@ def port_cases(inputs: dict, mesh, shape: tuple, ckpt_dir: Path) -> dict:
                 "full_equal": all(
                     np.array_equal(d.full_tensor().numpy(), w)
                     for d, w in zip(leaves(placed), leaves(tree["params"])))}
+    # MoE's mesh branch differentiated: sum(y · r) + aux, the experts as
+    # stacked tensors and as DTensors under the train rules
+    for case in inputs["moe"]:
+        if case["mesh"] != shape:
+            continue
+        cfg = moe.MoEConfig(**case["cfg"])
+        x = _t(case["x"], grad=True)
+        params = _t(case["params"], grad=True)
+        with mesh_context(mesh):
+            y, aux = moe.moe_forward(params, x, cfg)
+            loss = (y * _t(case["r"])).sum() + aux
+        loss.backward()
+        placed = elastic.reshard_tree(
+            _t(case["params"]),
+            common.leaf_names(moe.moe_shapes(x.shape[1], cfg)),
+            rules_for("lm", FAMILY_SHAPES["lm"]["train_4k"]), mesh)
+        placed = {k: v.detach().requires_grad_() for k, v in placed.items()}
+        x_d = _t(case["x"], grad=True)
+        with mesh_context(mesh):
+            y_d, aux_d = moe.moe_forward(placed, x_d, cfg)
+            ((y_d * _t(case["r"])).sum() + aux_d).backward()
+        out[case["name"]].update(
+            loss=loss.detach().numpy(), grads=_np(_grads(params)),
+            grad_x=x.grad.numpy(),
+            grads_dtensor={k: v.grad.full_tensor().numpy()
+                           for k, v in placed.items()},
+            grad_x_dtensor=x_d.grad.numpy())
     # the partitioned loss differentiates: no torch.no_grad() here
     g = inputs["gnn"]
     c, _ = registry.get_reduced("dimenet")

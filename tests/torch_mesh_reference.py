@@ -62,12 +62,24 @@ def _walk(tree, prefix=""):
 
 
 def moe_case(case):
+    """The branch's outputs, and ``value_and_grad`` of sum(y · r) + aux
+    with respect to the parameters and x."""
     cfg = moe.MoEConfig(**case["cfg"])
     fn = jax.jit(lambda p, x: moe.moe_forward(p, x, cfg))
+
+    def loss(p, x):
+        y, aux = moe.moe_forward(p, x, cfg)
+        return jnp.sum(y * jnp.asarray(case["r"])) + aux
+
+    grad_fn = jax.jit(jax.value_and_grad(loss, argnums=(0, 1)))
+    params = jax.tree.map(jnp.asarray, case["params"])
     with jax.set_mesh(make_mesh(case["mesh"])):
-        y, aux = fn(jax.tree.map(jnp.asarray, case["params"]),
-                    jnp.asarray(case["x"]))
-    return {"y": np.asarray(y), "aux": np.asarray(aux)}
+        y, aux = fn(params, jnp.asarray(case["x"]))
+        value, (g_params, g_x) = grad_fn(params, jnp.asarray(case["x"]))
+    return {"y": np.asarray(y), "aux": np.asarray(aux),
+            "loss": np.asarray(value),
+            "grads": {k: np.asarray(v) for k, v in g_params.items()},
+            "grad_x": np.asarray(g_x)}
 
 
 def topk_case(case, shape):
