@@ -380,8 +380,10 @@ order, it
       the bf16 Yi-6B call timed beside the plain
       version and ``scaled_dot_product_attention``'s backward (k and v
       repeated to every head outside the timed call), with its TFLOP/s and
-      share of the bound, and the fp32 kernels on the fp32 call on a line
-      of their own;
+      share of the bound, and the fp32 kernel on the fp32 call on a line
+      of its own; and the bf16 rounding of P and dS that the kernel takes
+      (``flash_attention_backward_tc_plain`` at halves 1 and 2 on every
+      bf16 call, ``bwd_measure``'s error against the plain version);
 20. recsys_gnn phase (``models/{recsys,gnn,embedding}``: the four recsys
    heads and DimeNet), once the LM is freed:
    a. card = CPU: DeepFM, xDeepFM, the two-tower model (32 a batch) and
@@ -505,10 +507,10 @@ train phase's full-width run: at most ``--lm-layers`` layers and
 ``--profile`` adds a ``torch.profiler`` breakdown of one more served batch
 of each preset (wall, device busy time, host time per cascade stage,
 busiest device kernels) and of one more LM prefill and decode step.
-``--only recsys_gnn``, ``--only mesh`` and ``--only cells`` build the
-kernels and run step 20, 21 or 22 alone (the mesh phase then draws the
-two-tower serve's inputs itself, the cells phase BERT4Rec's parameters
-and histories), and print no result.
+``--only train``, ``--only recsys_gnn``, ``--only mesh`` and ``--only
+cells`` build the kernels and run step 19, 20, 21 or 22 alone (the mesh
+phase then draws the two-tower serve's inputs itself, the cells phase
+BERT4Rec's parameters and histories), and print no result.
 """
 
 from __future__ import annotations
@@ -2898,36 +2900,46 @@ def bwd_edge_calls(dev):
     return calls
 
 
-def bwd_error(label, got, want):
+def bwd_measure(got, want):
     """The largest error of dq, dk and dv against the plain version, each
     max |got - want| over its own largest |want|, that magnitude floored at
     ``BWD_FLOOR`` of the largest of the three (dq and dk are 0 at S = 1);
     so a gradient's scale (the training step's are ~1e-5) cannot hide a
-    wrong tensor.  Raises beyond ``BF16_TOL`` (bf16) or ``BWD_F32_TOL``
-    (fp32).  Returns the error and how many of the three took the
-    floor."""
-    import torch
+    wrong tensor.  Returns the error and the largest |want| of each."""
     tops = [float(w.float().abs().max()) for w in want]
     floor = BWD_FLOOR * max(tops)
-    check(max(tops) > 0, f"{label}: every gradient of the plain version is 0")
-    err = 0.0
-    for name, g, w, top in zip(("dq", "dk", "dv"), got, want, tops):
+    err = max(float((g.float() - w.float()).abs().max())
+              / (max(top, floor) or 1.0) for g, w, top in zip(got, want, tops))
+    return err, tops
+
+
+def bwd_error(label, got, want):
+    """``bwd_measure``'s error of the kernel's gradients, checked: shapes,
+    types and finite values, and raises beyond ``BF16_TOL`` (bf16) or
+    ``BWD_F32_TOL`` (fp32).  Returns the error and how many of the three
+    took the floor."""
+    import torch
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
         check(g.shape == w.shape and g.dtype == w.dtype,
               f"{label}: {name} {tuple(g.shape)} {g.dtype} vs "
               f"{tuple(w.shape)} {w.dtype}")
         check(bool(torch.isfinite(g.float()).all()), f"{label}: non-finite "
               f"{name}")
-        err = max(err, float((g.float() - w.float()).abs().max())
-                  / max(top, floor))
+    err, tops = bwd_measure(got, want)
+    check(max(tops) > 0, f"{label}: every gradient of the plain version is 0")
+    floor = BWD_FLOOR * max(tops)
     tol = BF16_TOL if got[0].dtype == torch.bfloat16 else BWD_F32_TOL
     check(err <= tol, f"{label}: error {err} of the largest |want| > {tol}")
     return err, sum(top < floor for top in tops)
 
 
-def bwd_check(label, args, kw):
+def bwd_check(label, args, kw, halves=None):
     """One backward call: the kernel twice (the same bits), the plain
-    version; returns ``bwd_error``'s error and count of floored
-    gradients."""
+    version; returns ``bwd_error``'s error and count of floored gradients.
+    With ``halves`` (a dict), a bf16 call also adds ``bwd_measure``'s error
+    of ``flash_attention_backward_tc_plain`` at ``halves`` 1 and 2 (P and
+    dS rounded to bf16 once, or as hi + lo) to ``halves[1]`` and
+    ``halves[2]``: the measure that chooses the kernel's rounding."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     got = fa.flash_attention_backward(*args, **kw)
@@ -2936,6 +2948,11 @@ def bwd_check(label, args, kw):
     torch.cuda.synchronize()
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
           f"{label}: two launches on the same inputs differ")
+    if halves is not None and args[0].dtype == torch.bfloat16:
+        for n in (1, 2):
+            emu = fa.flash_attention_backward_tc_plain(*args, **kw, halves=n)
+            halves[n].append(bwd_measure(emu, want)[0])
+            del emu
     return bwd_error(label, got, want)
 
 
@@ -2955,6 +2972,18 @@ def sdpa_backward_call(args, kw):
     return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 
+def log_bwd_rate(design, args, kw, row):
+    """Kernel 8's backward row as rates: the kernel's and SDPA's backward
+    TFLOP/s on ``bwd_work``'s operations, and their shares of the
+    bound."""
+    ops = bwd_work(args, kw)[1]
+    log(f"kernel flash_attention_backward ({tuple(args[0].shape)}, "
+        f"{design}): {ops / row['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; SDPA's "
+        f"backward {ops / row['library_ms'] / 1e9:.1f} TFLOP/s, "
+        f"{100 * row['bound_ms'] / row['library_ms']:.1f} %")
+
+
 def bwd_kernel_row(dev, recorded, launches):
     """Kernel 8's backward row (module docstring, 19d): the recorded calls
     (the fp32 cross-checks' and the bf16 Yi-6B step's), the edge cases and
@@ -2965,8 +2994,9 @@ def bwd_kernel_row(dev, recorded, launches):
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    halves = {1: [], 2: []}
     rec = [bwd_check(f"flash_attention_backward {tuple(args[0].shape)}",
-                     args, kw) for args, kw in recorded]
+                     args, kw, halves) for args, kw in recorded]
     rec_errs = [e for e, _ in rec]
     floored = sum(n for _, n in rec)
     for (args, _), e in zip(recorded, rec_errs):
@@ -2982,7 +3012,7 @@ def bwd_kernel_row(dev, recorded, launches):
         e, n = bwd_check(
             f"flash_attention_backward edge {tuple(q.shape)} "
             f"{tuple(v.shape)} causal={causal}", (q, k, v, o, lse, do),
-            dict(causal=causal))
+            dict(causal=causal), halves)
         edge_errs.append(e)
         floored += n
         errs[q.dtype] = max(errs[q.dtype], e)
@@ -2996,6 +3026,13 @@ def bwd_kernel_row(dev, recorded, launches):
         f"{floored} of {3 * (len(recorded) + len(edges))} gradients held "
         f"to the floor ({BWD_FLOOR} of the call's largest); "
         f"forward log-sum-exp against attention_ref {e_lse:.3e}")
+    log(f"kernel flash_attention_backward, the bf16 rounding of P and dS "
+        f"(flash_attention_backward_tc_plain, bwd_measure's error against "
+        f"the plain version) over {len(halves[1])} bf16 calls: rounded once "
+        f"worst {max(halves[1]):.3e}, Yi-6B's call {halves[1][-1]:.3e}; "
+        f"hi + lo worst {max(halves[2]):.3e}, Yi-6B's call "
+        f"{halves[2][-1]:.3e} (a single rounding is taken at or below "
+        f"{BF16_TOL / 2} on every call)")
     check(e_lse <= BWD_F32_TOL, f"flash_attention lse: error {e_lse}")
 
     def timed(dtype):
@@ -3010,17 +3047,13 @@ def bwd_kernel_row(dev, recorded, launches):
                      fa.flash_attention_backward_plain, sdpa_backward_call,
                      args, kw, err,
                      f"the bf16 Yi-6B training call {tuple(args[0].shape)}")
-    ops = bwd_work(args, kw)[1]
-    log(f"kernel flash_attention_backward ({tuple(args[0].shape)}, bf16, "
-        f"mma.sync): {ops / row['ms'] / 1e9:.1f} TFLOP/s, "
-        f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; SDPA's "
-        f"backward {ops / row['library_ms'] / 1e9:.1f} TFLOP/s, "
-        f"{100 * row['bound_ms'] / row['library_ms']:.1f} %")
+    log_bwd_rate("bf16, wgmma + TMA", args, kw, row)
     fp32, err = timed(torch.float32)
-    kernel_row("flash_attention_backward", fa.flash_attention_backward,
-               fa.flash_attention_backward_plain, sdpa_backward_call, *fp32,
-               err, f"fp32 CUDA-core kernels on the fp32 cross-check's call "
-               f"{tuple(fp32[0][0].shape)}")
+    log_bwd_rate("fp32, register tiles", *fp32, kernel_row(
+        "flash_attention_backward", fa.flash_attention_backward,
+        fa.flash_attention_backward_plain, sdpa_backward_call, *fp32, err,
+        f"fp32 CUDA-core kernel on the fp32 cross-check's call "
+        f"{tuple(fp32[0][0].shape)}"))
     row["launches"] = launches
     return row
 
@@ -3602,9 +3635,10 @@ def rg_bert4rec(dev):
     rows.append(kernel_row(
         "flash_attention_backward", fa.flash_attention_backward,
         fa.flash_attention_backward_plain, sdpa_backward_call, args, kw,
-        e_bwd, f"fp32 kernels on BERT4Rec's training call "
+        e_bwd, f"fp32 kernel on BERT4Rec's training call "
         f"{tuple(args[0].shape)} non-causal ({floored} gradients held to "
         f"the floor)"))
+    log_bwd_rate("fp32, register tiles", args, kw, rows[-1])
     rows[-1]["launches"] = n
     del calls, args
     torch.cuda.empty_cache()
@@ -7200,6 +7234,8 @@ def run_alone(phase, lm_layers, lm_prompt):
     dev = torch.device(DEVICE)
     if phase == "mesh":
         mesh_phase(dev, lm_layers, lm_prompt)
+    elif phase == "train":
+        train_phase(dev, lm_layers, lm_prompt)
     elif phase == "cells":
         cells_phase(dev)
     else:
@@ -7223,7 +7259,8 @@ def main(argv=None):
                          "most, in the MoE and MLA phase)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (torch.profiler)")
-    ap.add_argument("--only", choices=("recsys_gnn", "mesh", "cells"),
+    ap.add_argument("--only", choices=("train", "recsys_gnn", "mesh",
+                                       "cells"),
                     help="build the kernels and run this phase alone; "
                          "prints no result")
     args = ap.parse_args(argv)

@@ -6,7 +6,8 @@ level histograms and boosting update (``level_histogram``).
 Each package holds ``<name>.cu`` (the CUDA C++ kernel and a plain-C launch
 function; ``flash_attention`` has a second, ``flash_attention_sm90.cu``,
 for bf16 prefill on the tensor cores, and a third,
-``flash_attention_bwd.cu``, for the prefill's backward in training) and
+``flash_attention_bwd.cu``, for the prefill's backward in training; the
+bf16 kernels of both share the Hopper helpers of ``hopper.cuh``) and
 ``ops.py`` (the wrapper the engines import, and the plain PyTorch version
 of the same function over the same layout).  A wrapper launches the
 kernel for CUDA tensors and runs the plain version for CPU tensors; there

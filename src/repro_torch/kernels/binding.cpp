@@ -61,12 +61,13 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
                                const float* lse, float* delta, void* dq,
-                               void* dk, void* dv_out, int bf16_in, int b,
-                               int h, int hkv, int sq, int sk, int d, int dv,
-                               long long qsb, long long qsh, long long qss,
-                               long long ksb, long long ksh, long long kss,
-                               long long vsb, long long vsh, long long vss,
-                               float scale, int causal, cudaStream_t stream);
+                               void* dk, void* dv_out, float* dq_part,
+                               int bf16_in, int b, int h, int hkv, int sq,
+                               int sk, int d, int dv, long long qsb,
+                               long long qsh, long long qss, long long ksb,
+                               long long ksh, long long kss, long long vsb,
+                               long long vsh, long long vss, float scale,
+                               int causal, cudaStream_t stream);
 void level_histogram_launch(const uint8_t* xbt, const int* node,
                             const float* gw, const float* w, float* hist_g,
                             float* hist_w, int n, int n_feat, int n_nodes,
@@ -257,18 +258,22 @@ void flash_attention_sm90(const torch::Tensor& q, const torch::Tensor& k,
 }
 
 // The backward of either prefill kernel (the inputs' type picks the
-// tensor-core or the CUDA-core kernels); `delta` is fp32 scratch of B·H·Sq.
+// tensor-core or the CUDA-core kernels); `delta` is fp32 scratch of B·H·Sq,
+// `dq_part` the fp32 kernel's dQ partials where Sk exceeds its KV tile.
 void flash_attention_backward(const torch::Tensor& q, const torch::Tensor& k,
                               const torch::Tensor& v, const torch::Tensor& o,
                               const torch::Tensor& dout,
                               const torch::Tensor& lse, torch::Tensor delta,
                               torch::Tensor dq, torch::Tensor dk,
-                              torch::Tensor dv, double scale, bool causal) {
+                              torch::Tensor dv,
+                              const std::optional<torch::Tensor>& dq_part,
+                              double scale, bool causal) {
   const c10::cuda::CUDAGuard guard(q.device());
   const int rc = flash_attention_bwd_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
       dout.data_ptr(), lse.data_ptr<float>(), delta.data_ptr<float>(),
       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+      dq_part.has_value() ? dq_part->data_ptr<float>() : nullptr,
       q.scalar_type() == at::kBFloat16 ? 1 : 0, static_cast<int>(q.size(0)),
       static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
       static_cast<int>(q.size(2)), static_cast<int>(k.size(2)),

@@ -25,10 +25,14 @@ reference does not have: its models train through autodiff of a jnp scan).
 ``flash_attention(..., return_lse=True)`` also returns each row's
 log-sum-exp (fp32, (B, H, Sq)), which the forward kernels write only when
 asked; ``flash_attention_backward`` launches the kernels of
-``flash_attention_bwd.cu`` (a pre-pass for D = rowsum(dO ∘ O), then the dQ
-and the dK/dV kernels, no float atomics) for CUDA tensors and runs
-``flash_attention_backward_plain`` — the same tile recurrence from the
-saved log-sum-exp in plain PyTorch — for CPU tensors.
+``flash_attention_bwd.cu`` (a pre-pass for D = rowsum(dO ∘ O), then for
+bf16 the dQ and the dK/dV kernels on ``wgmma`` fed by TMA, for fp32 one
+kernel of register tiles and, past its KV tile, a sum of its dQ partials;
+no float atomics) for CUDA tensors and runs
+``flash_attention_backward_plain`` — the same recurrence from the saved
+log-sum-exp in plain PyTorch — for CPU tensors;
+``flash_attention_backward_tc_plain`` repeats the bf16 kernels' arithmetic
+(P and dS entering their products as bf16, rounded once or as hi + lo).
 
 ``attention`` and ``decode_attention`` are the reference's public ops
 (``ops.py``); its ``use_kernel`` switch is replaced by the port's rule: the
@@ -395,6 +399,33 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal: bool,
     over its group of query heads in head order.  Inputs as
     ``flash_attention_backward``'s; fp32 math, outputs in the inputs'
     types."""
+    return _backward_recurrence(q, k, v, o, lse, do, causal, scale, chunk,
+                                lambda x: x)
+
+
+def flash_attention_backward_tc_plain(q, k, v, o, lse, do, *, causal: bool,
+                                      scale: float | None = None,
+                                      halves: int = 2, chunk: int = 512):
+    """The bf16 backward kernels' arithmetic in plain PyTorch: the
+    recurrence of ``flash_attention_backward_plain`` (fp32 products of the
+    operands, fp32 sums) with P and dS entering dV = Pᵀ dO, dK = scale ·
+    dSᵀ q and dQ = scale · dS k as bf16, rounded once (``halves=1``) or
+    split into hi + lo halves (``halves=2``: hi rounds each value, lo
+    what hi leaves), as ``attention_tc_plain``'s ``p_halves`` does for the
+    forward's P.  Outputs in the inputs' types."""
+    if halves not in (1, 2):
+        raise ValueError(f"halves must be 1 or 2, got {halves}")
+
+    def rounded(x):
+        hi = x.to(torch.bfloat16).float()
+        return hi if halves == 1 else hi + (x - hi).to(torch.bfloat16).float()
+    return _backward_recurrence(q, k, v, o, lse, do, causal, scale, chunk,
+                                rounded)
+
+
+def _backward_recurrence(q, k, v, o, lse, do, causal, scale, chunk, rounded):
+    """dq, dk, dv of the backward's recurrence, P and dS passed through
+    ``rounded`` where they enter the three products that take them."""
     b, h, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = scale if scale is not None else d ** -0.5
@@ -413,7 +444,8 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal: bool,
             cols = base + torch.arange(kc.shape[2], device=q.device)[None, :]
             p = torch.where(rows >= cols, p, 0.0)
         dp = torch.einsum("bhqd,bhkd->bhqk", dof, vc)
-        ds = p * (dp - delta[..., None])
+        ds = rounded(p * (dp - delta[..., None]))
+        p = rounded(p)
         dq += torch.einsum("bhqk,bhkd->bhqd", ds, kc) * scale
         dkx[:, :, base:base + chunk] = torch.einsum(
             "bhqk,bhqd->bhkd", ds, qf) * scale
@@ -430,11 +462,12 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     """Gradients (dq, dk, dv) of ``flash_attention`` given its inputs, its
     output o (B, H, Sq, Dv), its log-sum-exp lse (B, H, Sq) fp32 and the
     output's gradient do: for CUDA tensors the kernels of
-    ``flash_attention_bwd.cu`` (bf16 on the tensor cores through
-    ``mma.sync``, fp32 on the CUDA cores), for CPU tensors
+    ``flash_attention_bwd.cu`` (bf16 on the tensor cores through ``wgmma``
+    fed by TMA, fp32 on the CUDA cores), for CPU tensors
     ``flash_attention_backward_plain``.  dq is (B, H, Sq, D) and dk, dv
     (B, Hkv, Sk, .), contiguous, in the inputs' type.  Takes what the
-    forward kernels take (widths, strides, TMA's alignment on bf16)."""
+    forward kernels take (widths, strides, TMA's alignment on bf16); o and
+    do of any strides (the kernels read contiguous copies of them)."""
     if any(t.dim() != 4 for t in (q, k, v, o, do)):
         raise ValueError("flash_attention_backward: q, k, v, o, do must be "
                          "4-D")
@@ -471,16 +504,38 @@ def _backward_outputs(q, k, v):
             torch.empty((b, hkv, sk, dv), dtype=q.dtype, device=q.device))
 
 
+def f32_key_tile(d: int, dv: int) -> int:
+    """Keys of the fp32 backward kernel's KV tile at widths (d, dv) (its
+    ``F32::kKeys``): a call past it takes per-tile dQ partials."""
+    return 256 if d + dv <= 64 else 128 if d + dv <= 160 else 64
+
+
+def _row_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read o and do: contiguous and on a 16-byte
+    boundary (TMA's), a copy where it is not."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _flash_attention_backward_launch(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
         lse: torch.Tensor, do: torch.Tensor, causal: bool, scale: float
         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel 8's backward launch on CUDA tensors: (dq, dk, dv)."""
+    o, do = _row_ready(o), _row_ready(do)
     _backward_checks(q, k, v, o, lse, do, causal, True)
     dq, dk, dvv = _backward_outputs(q, k, v)
-    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    b, h, sq, d = q.shape
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    part = None
+    if q.dtype == torch.float32:
+        n_kt = -(-k.shape[2] // f32_key_tile(d, v.shape[-1]))
+        if n_kt > 1:
+            part = torch.empty((n_kt * b * h * sq * d,), dtype=torch.float32,
+                               device=q.device)
     kernels.extension().flash_attention_backward(
-        q, k, v, o, do, lse, delta, dq, dk, dvv, scale, causal)
+        q, k, v, o, do, lse, delta, dq, dk, dvv, part, scale, causal)
     kernels.LAUNCHES["flash_attention_backward"] += 1
     return dq, dk, dvv
 
@@ -491,7 +546,8 @@ def _flash_attention_backward_plain(q, k, v, o, lse, do, causal, scale):
 
 
 def _flash_attention_backward_fake(q, k, v, o, lse, do, causal, scale):
-    _backward_checks(q, k, v, o, lse, do, causal, False)
+    _backward_checks(q, k, v, o.contiguous(), lse, do.contiguous(), causal,
+                     False)
     return _backward_outputs(q, k, v)
 
 

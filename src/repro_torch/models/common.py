@@ -204,13 +204,32 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                                 unsafe=True)
 
 
+def promoted(*xs: torch.Tensor) -> tuple:
+    """``xs`` in the type JAX computes a product or einsum of them in
+    (``torch.promote_types`` over theirs): an fp32 activation times a bf16
+    parameter is fp32, and autograd returns the parameter's gradient in
+    bf16, as JAX's.  Tensors already of that type are returned as they
+    are."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return tuple(x.to(dt) for x in xs)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in their promoted type (``promoted``), as ``jnp.matmul``."""
+    a, b = promoted(a, b)
+    return a @ b
+
+
 def mlp(params, x: torch.Tensor, act=torch.relu,
         last_act: bool = False) -> torch.Tensor:
-    """``x @ w_i + b_i`` for each layer, ``act`` between layers (and after
-    the last with ``last_act``), as the reference's ``_mlp``."""
+    """``x @ w_i + b_i`` for each layer (in the promoted type, as JAX's),
+    ``act`` between layers (and after the last with ``last_act``), as the
+    reference's ``_mlp``."""
     n = len([k for k in params if k.startswith("w")])
     for i in range(n):
-        x = x @ params[f"w{i}"] + params[f"b{i}"]
+        x = matmul(x, params[f"w{i}"]) + params[f"b{i}"]
         if i < n - 1 or last_act:
             x = act(x)
     return x

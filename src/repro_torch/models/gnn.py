@@ -35,8 +35,9 @@ import torch.nn.functional as F
 from repro_torch.core import prng
 from repro_torch.isn.backend import resolve_device
 from repro_torch.models import common
-from repro_torch.models.common import (dense, draw, leaf_names, mlp,
-                                      mlp_shapes, segment_sum)
+from repro_torch.models.common import (dense, draw, leaf_names, matmul,
+                                      mlp, mlp_shapes, promoted,
+                                      segment_sum)
 
 
 @dataclass(frozen=True)
@@ -157,10 +158,12 @@ def _node_acc(params, c: DimeNetConfig, feat, pos, edge_src, edge_dst,
     sbf = angular_sbf(dist[trip_kj], angle, c.n_spherical, c.n_radial,
                       c.cutoff) * trip_mask[:, None]
 
-    x = feat @ params["feat_proj"]                          # (N, H)
+    # every product in the promoted type of its operands, as JAX's: bf16
+    # parameters on an fp32 batch compute in fp32
+    x = matmul(feat, params["feat_proj"])                   # (N, H)
     m = mlp(params["embed_mlp"],
             torch.cat([x[edge_src], x[edge_dst],
-                       rbf @ params["rbf_proj"]], dim=-1), F.silu)
+                       matmul(rbf, params["rbf_proj"])], dim=-1), F.silu)
     m = m * edge_mask[:, None]
 
     blocks = params["blocks"]
@@ -168,11 +171,12 @@ def _node_acc(params, c: DimeNetConfig, feat, pos, edge_src, edge_dst,
         bp = {k: (w[i] if isinstance(w, torch.Tensor)
                   else {kk: ww[i] for kk, ww in w.items()})
               for k, w in blocks.items()}
-        t = (m @ bp["w_msg"])[trip_kj]                      # (T, H)
-        sp = sbf @ bp["sbf_proj"]                           # (T, B)
-        t2 = torch.einsum("th,tb,hbo->to", t, sp, bp["bilinear"])
+        t = matmul(m, bp["w_msg"])[trip_kj]                 # (T, H)
+        sp = matmul(sbf, bp["sbf_proj"])                    # (T, B)
+        t2 = torch.einsum("th,tb,hbo->to",
+                          *promoted(t, sp, bp["bilinear"]))
         agg = segment_sum(t2 * trip_mask[:, None], trip_ji, e)
-        gate = rbf @ bp["rbf_gate"]
+        gate = matmul(rbf, bp["rbf_gate"])
         m_new = m + mlp(bp["update"], (m + agg) * gate, F.silu)
         m = m_new * edge_mask[:, None]
 

@@ -99,11 +99,13 @@ NUMBERS = {   # name: (arch, shape, config fields, rules override, mesh)
 # the 256-rank mesh only: on the 512-rank mesh DTensor's redistribution
 # planner searches the layouts of their (batch, sequence) tokens for one
 # to two minutes a cell on one core, past this file's budget; the full
-# dry run records every cell at CONFIG, PERF.md §5)
+# dry run records every cell at CONFIG, PERF.md §5), and DimeNet's bf16
+# cell on the fp32 graph (JAX's type promotion, ROADMAP §3 closed 16)
 DRY = [("yi_6b", "train_4k", True, ("16x16",)),
        ("yi_6b", "prefill_32k", True, ("16x16",)),
        ("yi_6b", "decode_32k", True, ("16x16", "2x16x16")),
        ("dimenet", "molecule", False, ("16x16", "2x16x16")),
+       ("dimenet", "ogb_products", False, ("16x16",)),
        ("deepfm", "train_batch", False, ("16x16", "2x16x16")),
        ("bert4rec", "serve_p99", False, ("16x16", "2x16x16")),
        ("deepfm", "retrieval_cand", False, ("16x16", "2x16x16")),

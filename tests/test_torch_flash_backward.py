@@ -13,7 +13,9 @@ wrapper's and ``attention_tc_plain``'s) is held to the reference's
 logits' ``logsumexp``.  No gradient needed, the serving path launches the
 prefill kernel as before and writes no log-sum-exp; on device tensors
 (meta, with a fake extension) the backward wrapper launches its kernel once
-a call, counted, and refuses what the kernel does not take.
+a call, counted, refuses what the kernel does not take, hands it o and dO
+contiguous (copies where they are not) and, in fp32 past the kernel's KV
+tile, scratch for its dQ partials.
 
 Tolerance: 1e-5 of the compared tensor's largest magnitude.  Both sides
 compute in fp32 on O(1) inputs and sum in other orders (the reference's
@@ -169,17 +171,22 @@ def test_no_grad_path_is_the_serving_call(monkeypatch):
 class _FakeExtension:
     """Stands in for the compiled module: records each launch's name and
     whether it was handed a log-sum-exp tensor (forward) or the widths of
-    its gradients (backward)."""
+    its gradients (backward; and whether o and dO came contiguous, and the
+    size of the fp32 kernel's dQ partials)."""
 
     def __init__(self):
         self.calls = []
+        self.rows = []
 
     def __getattr__(self, name):
         def launch(*args):
             if name == "flash_attention_backward":
-                dq, dk, dv = args[7:10]
+                dq, dk, dv, part = args[7:11]
                 self.calls.append((name, tuple(dq.shape), tuple(dk.shape),
                                    tuple(dv.shape), dq.dtype))
+                self.rows.append((args[3].is_contiguous(),
+                                  args[4].is_contiguous(),
+                                  None if part is None else part.numel()))
             else:
                 self.calls.append((name, args[-1] is not None))
         return launch
@@ -236,4 +243,17 @@ def test_card_wrappers_launch_and_count(monkeypatch, dtype, d, dv):
     with pytest.raises(ValueError, match="lse must be"):
         ops.flash_attention_backward(q, k, v, out, lse[:, :4], out)
     assert len(fake.calls) == 3
+    # o and dO of other strides reach the kernels as contiguous copies; an
+    # fp32 call past the kernel's KV tile takes dQ partials a tile
+    ops.flash_attention_backward(
+        q, k, v, empty(2, 8, dv, 64).transpose(2, 3),
+        lse, empty(2, 64, 8, dv).transpose(1, 2), causal=True)
+    sk = 3 * ops.f32_key_tile(d, dv) - 1
+    long_q, long_k = empty(1, 2, sk, d), empty(1, 1, sk, d)
+    ops.flash_attention_backward(
+        long_q, long_k, empty(1, 1, sk, dv), empty(1, 2, sk, dv),
+        empty(1, 2, sk, dt=torch.float32), empty(1, 2, sk, dv), causal=True)
+    assert fake.rows == [(True, True, None)] * 2 + [
+        (True, True, None if dtype == torch.bfloat16 else 3 * 2 * sk * d)]
+    assert kernels.LAUNCHES["flash_attention_backward"] == 3
     kernels.reset_launches()

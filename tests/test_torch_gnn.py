@@ -9,7 +9,8 @@ and 24 edges, a NumPy seed):
 * the configuration and the registry, the parameter tree's shapes against
   the reference's abstract init at CONFIG and REDUCED;
 * ``bessel_rbf`` and ``angular_sbf``; ``forward``, ``loss_fn`` and its
-  gradients against ``jax.value_and_grad``, leaf by leaf;
+  gradients against ``jax.value_and_grad``, leaf by leaf; the same with
+  bf16 parameters on the fp32 batch (JAX's type promotion);
 * ``neighbor_sample`` and ``build_triplets`` bit-equal to the reference's
   for the same ``PRNGKey`` (``core/prng`` is JAX's threefry bit for bit);
 * ``make_molecule_batch`` and ``molecule_batches`` bit for bit;
@@ -18,8 +19,9 @@ and 24 edges, a NumPy seed):
 
 Tolerances: the bases 1e-6 of max(1, |want|); the forward 1e-5 of its
 largest magnitude; the loss 1e-5 relative; gradients 1e-4 of each leaf's
-largest magnitude (fp32 sums and the bilinear einsum in other orders); the
-samplers and the generators exact.
+largest magnitude (fp32 sums and the bilinear einsum in other orders), bf16
+gradients one bf16 ulp (4e-3) of it; the samplers and the generators
+exact.
 """
 
 import dataclasses
@@ -42,6 +44,7 @@ from repro_torch.models import gnn
 from repro_torch.train import optimizer, train_loop
 
 LOSS_REL, OUT_REL, GRAD_REL, BASIS_TOL = 1e-5, 1e-5, 1e-4, 1e-6
+BF16_GRAD_REL = 4e-3
 FORWARD_KEYS = ("feat", "pos", "edge_src", "edge_dst", "trip_kj", "trip_ji",
                 "edge_mask", "trip_mask", "node_mask")
 
@@ -168,6 +171,47 @@ def test_loss_and_gradients_match_reference(ref):
     assert got.keys() == ref["grads"].keys()
     for key, w in ref["grads"].items():
         assert _rel(got[key], w) <= GRAD_REL, key
+
+
+@pytest.fixture(scope="module")
+def ref_bf16(ref):
+    """The reference's DimeNet at REDUCED with ``dtype="bfloat16"`` (bf16
+    parameters from ``init(c, PRNGKey(0))``) on the same fp32 molecule
+    batch: JAX promotes each fp32 @ bf16 product to fp32, so the loss is
+    fp32 and the gradients bf16."""
+    c = dataclasses.replace(ref_registry.get_reduced("dimenet")[0],
+                            dtype="bfloat16")
+    params = jax.jit(lambda key: ref_gnn.init(c, key)[0])(
+        jax.random.PRNGKey(0))
+    b = jax.tree.map(jnp.asarray, ref["host"])
+    loss, grads = jax.jit(jax.value_and_grad(ref_gnn.loss_fn),
+                          static_argnums=1)(params, c, b)
+    return dict(params=params, loss=loss, grads=grads)
+
+
+def test_bf16_parameters_match_reference(ref, ref_bf16):
+    """bf16 parameters on the fp32 batch (ROADMAP §3 open 16): every
+    product in the promoted type, as JAX's; the loss fp32 within 1e-5
+    relative, every gradient leaf bf16 within one bf16 ulp (4e-3) of its
+    largest magnitude (both sides round fp32 gradients to bf16 once)."""
+    c = dataclasses.replace(registry.get_reduced("dimenet")[0],
+                            dtype="bfloat16")
+    p = convert.gnn_params(ref_bf16["params"], "cpu")
+    assert all(t.dtype == torch.bfloat16 for t in _walk(p).values())
+    b = {k: torch.from_numpy(np.asarray(v)) for k, v in ref["host"].items()}
+    loss, grads = train_loop.value_and_grad(
+        lambda params, batch: gnn.loss_fn(params, c, batch), p, b)
+    assert ref_bf16["loss"].dtype == jnp.float32
+    assert loss.dtype == torch.float32
+    want_loss = float(ref_bf16["loss"])
+    assert abs(float(loss) - want_loss) <= LOSS_REL * abs(want_loss)
+    want = _walk(ref_bf16["grads"])
+    got = _walk(grads)
+    assert got.keys() == want.keys()
+    for key, w in want.items():
+        assert w.dtype == jnp.bfloat16 and got[key].dtype == torch.bfloat16
+        assert _rel(got[key].float().numpy(),
+                    np.asarray(w, np.float32)) <= BF16_GRAD_REL, key
 
 
 def test_adamw_steps_lower_the_loss(ref):
