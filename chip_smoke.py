@@ -11,7 +11,9 @@ order, it
    the host builds the corpus, the index and the shard's host layout of
    step 2: one for each of the
    nine TPU kernels, kernels 8 and 9 each with a bf16 kernel on the tensor
-   cores and an fp32 one on the CUDA cores, and the fit's two;
+   cores and an fp32 one on the CUDA cores, and the fit's four (a tree
+   level's ``level_split`` and ``level_route``, the leaf means'
+   ``level_histogram``, ``boost_update``);
 2. builds the ``paper_200ms`` cascade at one shard of 196,608 docs (the
    per-chip shard of the paper's ISN deployment) on the card and on the
    CPU from one host layout of the shard (``postings.shard_layouts``, built
@@ -19,13 +21,17 @@ order, it
    5 take it too) and fits each on its own device (``SearchSystem.fit`` from 4,096
    queries, seed 5: three Stage-0 quantile GBRTs and the LTR GBRT, the
    routing thresholds from the 60th/75th percentiles of the predictions),
-   the card's fit counted from 0 and its ``level_histogram`` and
-   ``boost_update`` calls recorded; requires the four forests (feat,
-   thresh, leaf, base, bin edges) and ``t_k``/``t_time`` bit-equal, and
-   prints both fit walls; then one small quantile GBRT fit with column and
-   row sampling (``colsample`` 0.5, ``subsample`` 0.8; ``sampled_fit``) on
-   the card and the CPU, bit-equal (``--profile``: one more card fit
-   under the profiler, host time per fit stage);
+   the card's fit counted from 0 (``level_split`` and ``level_route`` the
+   same count) and its ``level_histogram`` and ``boost_update`` calls
+   recorded, and every 40th and the largest ``level_split`` and
+   ``level_route`` call; requires the four forests (feat, thresh, leaf,
+   base, bin edges) and ``t_k``/``t_time`` bit-equal, and prints both fit
+   walls; then one small quantile GBRT fit with column and row sampling
+   (``colsample`` 0.5, ``subsample`` 0.8; ``sampled_fit``) on the card and
+   the CPU, bit-equal; then one card ``build_tree`` at depth 5 on the fit's
+   largest level's inputs under ``torch.profiler``: at most 2 device
+   kernels a level + 4, its tree bit-equal to the CPU's (``--profile``:
+   one more card fit under the profiler, host time per fit stage);
 3. serves one batch of 32 queries on both (the CPU runs the kernels'
    plain versions) and requires ``topk``, ``final`` and the modeled
    ``latency`` to be equal, while recording every kernel call's inputs;
@@ -74,13 +80,19 @@ order, it
    and 7 the device times of the kernel and of its library call (kernel 7:
    a stable ``torch.sort``, whose first k it checks against the kernel's
    on the recorded accumulator), and kernel 7's histogram alone beside
-   ``torch.bincount``; ``level_histogram`` against its plain version
-   (tolerance 0.0) on a sample of the card fit's calls, its largest call
+   ``torch.bincount``; the fit's level kernels against their plain
+   versions (tolerance 0.0): ``level_histogram`` on a sample of the card
+   fit's calls (the LTR's leaf means), the histograms of its largest level
    and edge cases (a constant feature, rows of weight 0, n off the tile,
-   1 to 32 nodes, 256 bins), timed beside the plain version and an fp32
-   ``index_add_`` (float atomics; how many of its sums differ from the
-   ordered ones is logged), and ``boost_update`` against its plain
-   version;
+   1 to 32 nodes, 256 bins), timed at that level beside the plain version,
+   an fp32 ``index_add_`` (float atomics; how many of its sums differ from
+   the ordered ones is logged) and the earlier design's time, and on the
+   worst case (a constant feature at depth 0); ``level_split`` and
+   ``level_route`` on the recorded calls and on ``level_split_edge_calls``
+   (each of those edge cases as one tree, and ties across features, dead
+   nodes, a one-feature mask, 64 trees x 32 nodes), each timed beside its
+   plain version (no one library call computes either); and
+   ``boost_update`` against its plain version;
 7. serve phases: for each preset, sets the launch counts to 0, serves 8
    batches of 32 queries on the card and reads the counts: for
    ``paper_200ms`` both routes must take queries, Stage-2 must re-rank and
@@ -118,12 +130,18 @@ order, it
    reference's defaults (10 folds, 64 trees; QR depth 5 at τ 0.5, RF
    depth 6, LR l2 1.0) of each method on the response-time target
    ``t_bmw`` on the card, the launch counts set to 0 before each method
-   (QR must launch ``level_histogram`` and ``boost_update``, RF
-   ``level_histogram`` alone); prints each method's ``regression_report``
+   (QR must launch ``level_split``, ``level_route`` and ``boost_update``
+   and no ``level_histogram``; RF ``level_split`` and ``level_route`` once
+   a level for all 64 trees of a fit and ``level_histogram`` once a fit for
+   their leaf means, no ``boost_update``); prints each method's
+   ``regression_report``
    (tail quantile 0.95) as ``benchmarks/bench_predict_time.py`` renders
    it, and the walls; fits fold 0 of each method again on the CPU from
    the same rows and requires the QR and RF forests and predictions
-   bit-equal to the card's and LR's within 1e-5 of max(1, |prediction|);
+   bit-equal to the card's and LR's within 1e-5 of max(1, |prediction|),
+   and fits RF's fold 0 once more on the card with its level calls
+   recorded (the forest equal; every call, 64 trees x up to 32 nodes,
+   equal to its plain version);
    serves the first 256 queries on the card through ``HybridServer`` and
    ``CascadePipeline`` (with the LTR model; kernels 1-3 counted from 0,
    each must launch) and through systems built from the equivalent
@@ -489,9 +507,10 @@ order, it
    1e-5, the AdamW moments within 1e-4 of each leaf's largest, the
    parameters within 2.2 lr (the first step moves an entry by about lr ·
    sign(g));
-23. prints the total elapsed time, the ``kernels`` JSON line (eleven
-    rows: the nine TPU kernels, kernel 8's backward and
-    ``level_histogram``; the launches of kernels 1-3 are step 7's, the
+23. prints the total elapsed time, the ``kernels`` JSON line (thirteen
+    rows: the nine TPU kernels, kernel 8's backward, ``level_histogram``,
+    ``level_split`` and ``level_route``, the fit's launches of step 2;
+    the launches of kernels 1-3 are step 7's, the
     backward's step 19b's; the library time of kernels 1 and 2 an
     ``index_add_`` over the (query, lane) pairs each adds; step 20's rows
     of kernels 6 and 8 are logged lines), then the card line, then the
@@ -510,7 +529,10 @@ busiest device kernels) and of one more LM prefill and decode step.
 ``--only train``, ``--only recsys_gnn``, ``--only mesh`` and ``--only
 cells`` build the kernels and run step 19, 20, 21 or 22 alone (the mesh
 phase then draws the two-tower serve's inputs itself, the cells phase
-BERT4Rec's parameters and histories), and print no result.
+BERT4Rec's parameters and histories), and print no result; ``--only fit``
+builds the shard beside the kernels and runs step 2 and the fit's kernel
+rows of step 6 (with ``--profile``, step 2's profiled fit), ``--only
+predict`` the CLI's labelled fit of step 9 and then step 10.
 """
 
 from __future__ import annotations
@@ -590,13 +612,33 @@ KERNELS = {
         source="src/repro_torch/kernels/level_histogram/level_histogram.cu",
         replaces="src/repro/core/trees.py:69 (jax.ops.segment_sum; no "
                  "Pallas kernel)"),
+    # the rest of a tree level: the split choice and the rows' routing
+    # (jnp ops inside the reference's jit; no Pallas kernel)
+    "level_split": dict(
+        source="src/repro_torch/kernels/level_histogram/level_histogram.cu",
+        replaces="src/repro/core/trees.py:102 (build_tree: the histograms, "
+                 "cumsum, gain, masks and argmax of a level; no Pallas "
+                 "kernel)"),
+    "level_route": dict(
+        source="src/repro_torch/kernels/level_histogram/level_histogram.cu",
+        replaces="src/repro/core/trees.py:115 (build_tree: the dead rule "
+                 "and the rows' new nodes; no Pallas kernel)"),
 }
 # the kernels of the per-query Stage-1 path (saat/daat_serve_laxmap), and
 # those of the two served cascades
 LAXMAP_KERNELS = ("impact_accumulate_bucketed", "blockmax_score_bucketed",
                   "score_histogram")
 LM_KERNELS = ("flash_attention", "flash_decode")
-FIT_KERNELS = ("level_histogram", "boost_update")
+FIT_KERNELS = ("level_histogram", "boost_update", "level_split",
+               "level_route")
+# the fit's level calls checked on the card: every FIT_SAMPLE-th and the
+# largest (recorded as copies: a level updates the node ids in place)
+FIT_SAMPLE = 40
+LEVEL_KERNELS = ("level_split", "level_route")
+# device kernels of one card build_tree besides its two a level (the node
+# ids, feat and thresh zeroed)
+TREE_FIXED_KERNELS = 4
+TREE_DEPTH = 5
 TRAIN_KERNELS = ("flash_attention", "flash_attention_backward")
 # kernels 1 and 2 (one block per tile and query group over the shard's
 # mirror) and 3 (one cluster per query, match records), and the plain twins
@@ -816,6 +858,8 @@ EARLIER_MS = {"impact_accumulate_batched": "1.611-1.622",
               "impact_accumulate_bucketed": "device 0.0040-0.0041",
               "blockmax_score_bucketed": "0.0647-0.0723",
               "flash_decode": "0.171-0.267",
+              "level_histogram": "0.3031-0.3143, device 0.1696-0.2827 "
+                                 "(the warp-vote design)",
               "flash_decode decode_32k": "0.655-0.683"}
 
 
@@ -850,7 +894,8 @@ def kernel_modules():
             "impact_accumulate_bucketed": ia, "blockmax_score_bucketed": bm,
             "score_histogram": sh, "flash_attention": fa,
             "flash_decode": fa, "level_histogram": lh, "boost_update": lh,
-            "flash_attention_backward": fa}
+            "flash_attention_backward": fa, "level_split": lh,
+            "level_route": lh}
 
 
 class Recorder:
@@ -858,22 +903,39 @@ class Recorder:
     main path's real inputs) while passing the call through; with
     ``largest``, only the call that moves the most bytes is kept, with
     ``first`` only the first; ``clone`` records copies of the tensors (the
-    KV cache is written in place later)."""
+    KV cache is written in place later).  ``every`` maps a name to k: of
+    that wrapper only every k-th call and each call larger than all before
+    it (by its tensors' sizes, read from shapes alone: no device sync) are
+    recorded, as copies."""
 
     def __init__(self, names=SERVE_KERNELS, largest=False, first=False,
-                 clone=False):
+                 clone=False, every=None):
         mods = kernel_modules()
         self.sites = {name: mods[name] for name in names}
         self.calls = {name: [] for name in self.sites}
         self.largest, self.first, self.clone = largest, first, clone
+        self.every = every or {}
+        self.seen = {name: 0 for name in self.every}
+        self.top = {name: -1 for name in self.every}
         self.orig = {}
 
-    def _copy(self, args):
+    def _copy(self, args, clone=False):
         import torch
-        if not self.clone:
+        if not (self.clone or clone):
             return args
         return tuple(a.clone() if isinstance(a, torch.Tensor) else a
                      for a in args)
+
+    def _sampled(self, name, args, kw):
+        """Whether the ``every`` wrapper ``name``'s call is recorded."""
+        import torch
+        i = self.seen[name]
+        self.seen[name] = i + 1
+        size = kw.get("n_nodes", 1) * sum(
+            a.numel() for a in args if isinstance(a, torch.Tensor))
+        larger = size > self.top[name]
+        self.top[name] = max(self.top[name], size)
+        return i % self.every[name] == 0 or larger
 
     def __enter__(self):
         for name, mod in self.sites.items():
@@ -882,7 +944,10 @@ class Recorder:
 
             def wrapped(*args, _fn=fn, _name=name, **kw):
                 calls = self.calls[_name]
-                if not (self.first and calls):
+                if _name in self.every:
+                    if self._sampled(_name, args, kw):
+                        calls.append((self._copy(args, clone=True), kw))
+                elif not (self.first and calls):
                     calls.append((self._copy(args), kw))
                 if self.largest and len(calls) > 1:
                     calls[:] = [max(calls,
@@ -1005,8 +1070,33 @@ def work_of(name, args, kw):
     read once, the bins and the k values and indices written once, one int32
     increment and one compare per score.  Level histogram: the (F, n) uint8
     bins, the node ids, g·w and w read once, the two float histograms
-    written once; two fp32 adds per (row, feature)."""
+    written once; two fp32 adds per (row, feature).  Level split (T
+    trees): the bins of the features some tree may split on, the (T, n)
+    node ids and weights, g and the masks read once, the (T, n_nodes, F)
+    gains and bins written once; per tree, one multiply a row (g·w), two
+    adds per (row, feature in its mask) and 15 operations per (node,
+    feature in its mask, bin): two prefix-sum adds and the gain's 13.
+    Level route: the candidates read once, each row's node id and the bin
+    of its node's feature read once and its node id written once, each
+    node's feature and threshold written once; one compare per (tree, node,
+    feature) and two operations a row."""
     import torch
+    if name == "level_split":
+        xbt, node, g, w, fmask = args
+        n_feat, n = xbt.shape
+        n_trees, nodes, bins = node.shape[0], kw["n_nodes"], kw["n_bins"]
+        used = int(fmask.sum())
+        cols = int(fmask.any(dim=0).sum())
+        return (cols * n + 8 * n_trees * n + 4 * n + n_trees * n_feat
+                + 8 * n_trees * nodes * n_feat,
+                n_trees * n + 2 * n * used + 15 * used * nodes * bins,
+                FP32_FLOPS_PER_S)
+    if name == "level_route":
+        node, gain = args[1], args[2]
+        n_trees, n = node.shape
+        nodes = gain.shape[1]
+        return (8 * gain.numel() + 9 * n_trees * n + 8 * n_trees * nodes,
+                gain.numel() + 2 * n_trees * n, FP32_FLOPS_PER_S)
     if name == "level_histogram":
         xbt, node, gw, w = args
         n_feat, n = xbt.shape
@@ -4226,8 +4316,8 @@ def same_models(label, a, b):
 def profile_fit(spec, index, corpus, ql, dev):
     """One more card fit, of a fresh system, under ``torch.profiler``: wall,
     device busy time, host time per ``stage:`` (the features, each tree's
-    builder, its leaf values, the level histograms and the boosting update
-    inside them, the LTR set), the busiest device kernels."""
+    builder, its leaf values, the level kernels' wrappers and the boosting
+    update inside them, the LTR set), the busiest device kernels."""
     from torch.profiler import record_function
     from repro_torch.core import features, gbrt, trees
     from repro_torch.kernels.level_histogram import ops as lh
@@ -4235,6 +4325,7 @@ def profile_fit(spec, index, corpus, ql, dev):
     from repro_torch.serving.system import build_system
     sites = [(features, "extract"), (trees, "build_tree"),
              (gbrt, "_leaf_values"), (lh, "level_histogram"),
+             (lh, "level_split"), (lh, "level_route"),
              (lh, "boost_update"), (system_mod, "qd_features")]
     orig = [getattr(mod, name) for mod, name in sites]
     for (mod, name), fn in zip(sites, orig):
@@ -4254,12 +4345,15 @@ def profile_fit(spec, index, corpus, ql, dev):
 
 def fit_phase(spec, index, corpus, dev, layouts, profile=False):
     """``SearchSystem.fit(ql, None, seed=FIT_SEED)`` from a log of
-    FIT_QUERIES queries on the card (counted from 0, every kernel call
-    recorded) and on the CPU (plain versions), both systems built from the
+    FIT_QUERIES queries on the card (counted from 0; every
+    ``level_histogram`` and ``boost_update`` call recorded, and every
+    FIT_SAMPLE-th and the largest ``level_split`` and ``level_route``
+    call) and on the CPU (plain versions), both systems built from the
     shard's shared host ``layouts``; requires the four forests and the
-    routing thresholds bit-equal.  With ``profile``, one more card fit
-    under the profiler.  Returns (card system, CPU system, launches,
-    recorded calls, the query log)."""
+    routing thresholds bit-equal; then ``sampled_fit`` and
+    ``tree_kernels``.  With ``profile``, one more card fit under the
+    profiler.  Returns (card system, CPU system, launches, recorded calls,
+    the query log)."""
     import torch
     from repro_torch import kernels
     from repro_torch.index.corpus import build_queries
@@ -4272,7 +4366,8 @@ def fit_phase(spec, index, corpus, dev, layouts, profile=False):
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t
     kernels.reset_launches()
-    with Recorder(FIT_KERNELS) as rec:
+    every = {name: FIT_SAMPLE for name in LEVEL_KERNELS}
+    with Recorder(FIT_KERNELS, every=every) as rec:
         t = time.perf_counter()
         gpu.fit(ql, None, seed=FIT_SEED)
         torch.cuda.synchronize()
@@ -4295,7 +4390,11 @@ def fit_phase(spec, index, corpus, dev, layouts, profile=False):
         f"{r.t_time!r}; the four forests bit-equal on the card and the CPU")
     for name in FIT_KERNELS:
         check(launches[name] > 0, f"fit: kernel {name} never launched")
+    check(launches["level_split"] == launches["level_route"],
+          "fit: level_split and level_route launched unequally")
     sampled_fit(dev)
+    tree_kernels(max(rec.calls["level_split"],
+                     key=lambda c: work_of("level_split", *c)[0]))
     if profile:
         profile_fit(spec, index, corpus, ql, dev)
     return gpu, cpu, launches, rec.calls, ql
@@ -4331,12 +4430,49 @@ def sampled_fit(dev):
         "forest, base and bin edges bit-equal")
 
 
+def tree_kernels(call, depth=TREE_DEPTH):
+    """One card ``build_tree`` at ``depth`` on a recorded ``level_split``
+    call's bins, target, weights and mask, counted under ``torch.profiler``:
+    at most two device kernels a level plus TREE_FIXED_KERNELS; its tree
+    bit-equal to the CPU's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import trees
+    (xbt, _, g, w, fmask), kw = call
+    params = trees.TreeParams(depth, kw["n_bins"], kw["min_child_weight"],
+                              kw["l2"])
+    run = lambda: trees.build_tree(xbt, g, w[0], fmask[0], params)
+    got = run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    want = trees.build_tree(xbt.cpu(), g.cpu(), w[0].cpu(), fmask[0].cpu(),
+                            params)
+    for a, b in zip(got, want):
+        check(torch.equal(a.cpu(), b), "build_tree: the card's tree differs "
+              "from the CPU's")
+    levels = sum("level_kernel" in n or "level_route_kernel" in n
+                 for n in names)
+    log(f"build_tree at depth {depth} (n {xbt.shape[1]}, F {xbt.shape[0]}):"
+        f" {len(names)} device kernels ({levels} of the level kernels), "
+        f"tree bit-equal to the CPU's; "
+        + ", ".join(sorted({n[:60] for n in names})))
+    check(len(names) <= 2 * depth + TREE_FIXED_KERNELS,
+          f"build_tree: {len(names)} device kernels at depth {depth}, above "
+          f"2 a level + {TREE_FIXED_KERNELS}")
+
+
 def level_histogram_edge_calls(device):
     """Seeded edge cases: a constant feature (every row in one bin, also at
-    depth 0 where one cell takes every row), rows of weight 0, n not a
-    multiple of the 1,024-row tile (37, 1,000, 1,025, 4,097), depth 1 and
-    depth 5 levels (1 and 16 nodes), 32 nodes (two blocks of cells a
-    feature), 256 bins."""
+    depth 0 where one cell takes every row: the longest serial chain), rows
+    of weight 0, n not a multiple of 32 or of the 4,096-row tile (37,
+    1,000, 1,025, 4,097), depth 1 and depth 5 levels (1 and 16 nodes), 32
+    nodes (two node groups a feature at 64 bins), 256 bins (4 and 8 nodes:
+    one and two groups of four)."""
     import numpy as np
     import torch
     rng = np.random.RandomState(SEED % 1000)
@@ -4354,7 +4490,82 @@ def level_histogram_edge_calls(device):
     return [call(4096, 147, 1, constant=True),
             call(4096, 147, 16, constant=True, zeros=0.3),
             call(37, 5, 2), call(1000, 8, 1, zeros=0.5),
-            call(1025, 147, 16), call(4097, 3, 32), call(600, 4, 4, 256)]
+            call(1025, 147, 16), call(4097, 3, 32), call(600, 4, 4, 256),
+            call(600, 4, 8, 256)]
+
+
+def level_split_edge_calls(device):
+    """``level_split``'s edge cases: each of ``level_histogram_edge_calls``
+    as one tree (its g·w as g, every feature in the mask), and four more:
+    equal gains across features (columns 2, 5 and 9 one column, a target
+    two-valued on it: feature 2 must win every node), dead nodes (a
+    min_child_weight few children reach, and one none reaches), a
+    one-feature mask (each of 4 trees its own feature) and 64 trees x 32
+    nodes (the RF's deepest level: 147 features, 1,800 rows, Poisson
+    weights, masks of 0.4)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(SEED % 997)
+    calls = []
+    for (xbt, node, gw, w), kw in level_histogram_edge_calls(device):
+        fmask = torch.ones((1, xbt.shape[0]), dtype=torch.bool, device=device)
+        calls.append(((xbt, node[None], gw, w[None], fmask),
+                      dict(kw, l2=1.0, min_child_weight=10.0)))
+
+    def call(n, n_feat, n_trees, n_nodes, mcw=10.0, ties=False, one=False,
+             p=1.0):
+        xb = rng.randint(0, 64, (n_feat, n)).astype(np.uint8)
+        g = (rng.standard_cauchy(n) * 10).astype(np.float32)
+        if ties:
+            xb[5] = xb[2]
+            xb[9] = xb[2]
+            g = np.where(xb[2] > 31, 1.0, -1.0).astype(np.float32)
+        node = rng.randint(0, n_nodes, (n_trees, n)).astype(np.int32)
+        w = rng.poisson(1.0, (n_trees, n)).astype(np.float32)
+        fmask = rng.rand(n_trees, n_feat) < p
+        if one:
+            fmask[:] = False
+            fmask[np.arange(n_trees), rng.randint(0, n_feat, n_trees)] = True
+        t = [torch.from_numpy(a).to(device) for a in (xb, node, g, w, fmask)]
+        return tuple(t), dict(n_nodes=n_nodes, n_bins=64, l2=1.0,
+                              min_child_weight=mcw)
+
+    return calls + [call(4096, 147, 1, 8, ties=True),
+                    call(4096, 147, 1, 16, mcw=150.0),
+                    call(4096, 20, 2, 4, mcw=1e6),
+                    call(2000, 147, 4, 8, one=True),
+                    call(1800, 147, 64, 32, p=0.4)]
+
+
+def route_args(split_call):
+    """A ``level_route`` call after a ``level_split`` call: the split's
+    plain outputs, and zeroed feat and thresh deep and wide enough for its
+    nodes (the last level)."""
+    import torch
+    from repro_torch.kernels.level_histogram import ops as lh
+    (xbt, node, g, w, fmask), kw = split_call
+    gain, best = lh.level_split_plain(xbt, node, g, w, fmask, **kw)
+    depth = kw["n_nodes"].bit_length()
+    shape = (node.shape[0], depth, 2 ** (depth - 1))
+    feat = torch.zeros(shape, dtype=torch.int32, device=xbt.device)
+    return ((xbt, node.clone(), gain, best, feat, feat.clone()),
+            dict(level=depth - 1, n_bins=kw["n_bins"]))
+
+
+def routed(fn, args, kw):
+    """``fn`` (``level_route`` or its plain version) on copies of the
+    tensors it updates: (node, feat, thresh)."""
+    xbt, node, gain, best, feat, thresh = args
+    out = node.clone(), feat.clone(), thresh.clone()
+    fn(xbt, out[0], gain, best, out[1], out[2], **kw)
+    return out
+
+
+def fresh_nodes(fn, node, count):
+    """``fn`` with each call's node ids a fresh copy of ``node``, ``count``
+    made beforehand (a route updates them in place), for timing."""
+    copies = [node.clone() for _ in range(count)]
+    return lambda xbt, _node, *rest, **kw: fn(xbt, copies.pop(), *rest, **kw)
 
 
 def index_add_histograms(args, kw):
@@ -4376,41 +4587,104 @@ def index_add_histograms(args, kw):
 
 
 def fit_kernel_phase(calls):
-    """``level_histogram`` against its plain version (tolerance 0.0) on a
-    sample of the card fit's own calls, its largest and the edge cases,
-    timed beside the plain version and ``index_add_`` (whose sums are
-    counted where they differ from the ordered ones); ``boost_update``
-    against its plain version on a sample of its calls.  Returns the
-    ``level_histogram`` row."""
+    """The fit's level kernels against their plain versions (tolerance 0.0)
+    on a sample of the card fit's own calls, its largest and the edge
+    cases, each timed beside its plain version: ``level_histogram`` on the
+    fit's calls (the LTR's leaf means) and on the histograms of the fit's
+    largest level (timed there beside ``index_add_``, whose sums are
+    counted where they differ from the ordered ones, and the earlier
+    design), ``level_split`` and ``level_route`` on every recorded call
+    (every FIT_SAMPLE-th and the largest); the constant feature at depth 0
+    (one cell takes every row) timed as the worst case; ``boost_update``
+    on a sample of its calls.  Returns the three level kernels' rows."""
     import torch
     from repro_torch.kernels.level_histogram import ops as lh
-    hist = calls["level_histogram"]
-    check(hist, "level_histogram: the fit never called it")
-    largest = max(hist, key=lambda c: work_of("level_histogram", *c)[0])
-    dev = largest[0][0].device
+    hist, split, route = (calls[name] for name in ("level_histogram",
+                                                   "level_split",
+                                                   "level_route"))
+    check(hist and split and route, "fit: a level kernel was never called")
+    largest = max(split, key=lambda c: work_of("level_split", *c)[0])
+    (xbt, node, g, w, _), kw = largest
+    dev = xbt.device
+    # the histograms of the fit's largest level, as one level_histogram call
+    big = ((xbt, node[0].contiguous(), g * w[0], w[0].contiguous()),
+           dict(n_nodes=kw["n_nodes"], n_bins=kw["n_bins"]))
     edges = level_histogram_edge_calls(dev)
-    sample = hist[::40] + [largest]
+    sample = hist[::FIT_SAMPLE] + hist[-1:] + [big]
     err = 0.0
     for args, kw in sample + edges:
         got = lh.level_histogram(*args, **kw)
         want = lh.level_histogram_plain(*args, **kw)
         torch.cuda.synchronize()
         err = max(err, compare("level_histogram", got, want, 0.0))
-    args, kw = largest
-    note = (f"{len(sample)} of the fit's {len(hist)} calls and "
-            f"{len(edges)} edge cases checked; (nodes, F, n) = "
-            f"({kw['n_nodes']}, {args[0].shape[0]}, {args[0].shape[1]})")
-    row = kernel_row("level_histogram", lh.level_histogram,
-                     lh.level_histogram_plain, index_add_histograms, args, kw,
-                     err, note)
+    args, kw = big
+    note = (f"{len(sample)} of the fit's calls ({len(hist)} leaf means and "
+            f"its largest level) and {len(edges)} edge cases checked; (nodes,"
+            f" F, n) = ({kw['n_nodes']}, {args[0].shape[0]}, "
+            f"{args[0].shape[1]})")
+    rows = {"level_histogram": kernel_row(
+        "level_histogram", lh.level_histogram, lh.level_histogram_plain,
+        index_add_histograms, args, kw, err, note)}
+    kern = lambda: lh.level_histogram(*args, **kw)
+    log_redesign("level_histogram", rows["level_histogram"]["ms"], kern)
     want = torch.stack(lh.level_histogram(*args, **kw), dim=-1).reshape(-1, 2)
     lib = index_add_histograms(args, kw)
     diff = [int((lib() != want).any(dim=1).sum()) for _ in range(REPS)]
-    kern = lambda: lh.level_histogram(*args, **kw)
     log(f"kernel level_histogram: device {device_ms(kern, REPS)} ms a call, "
         f"index_add_ device {device_ms(lib, REPS)} ms (profiler); "
         f"index_add_'s sums differ from the ordered ones in {diff} of "
         f"{want.shape[0]} cells over {REPS} calls")
+    args, kw = edges[0]
+    worst = lambda: lh.level_histogram(*args, **kw)
+    log(f"kernel level_histogram, worst case (a constant feature at depth "
+        f"0, 4,096 rows in one cell, 147 features): "
+        f"{cuda_ms(worst, REPS):.4f} ms, device {device_ms(worst, REPS)} ms")
+
+    split_edges = level_split_edge_calls(dev)
+    err = 0.0
+    for args, kw in split + split_edges:
+        got = lh.level_split(*args, **kw)
+        want = lh.level_split_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, compare("level_split", got, want, 0.0))
+    args, kw = largest
+    note = (f"{len(split)} of the fit's calls (every {FIT_SAMPLE}th and the "
+            f"largest) and {len(split_edges)} edge cases checked; (T, nodes,"
+            f" F, n) = ({args[1].shape[0]}, {kw['n_nodes']}, "
+            f"{args[0].shape[0]}, {args[0].shape[1]})")
+    rows["level_split"] = kernel_row("level_split", lh.level_split,
+                                     lh.level_split_plain, None, args, kw,
+                                     err, note)
+    kern = lambda: lh.level_split(*args, **kw)
+    log(f"kernel level_split: device {device_ms(kern, REPS)} ms a call "
+        "(profiler)")
+    for label, (args, kw) in (("worst case (a constant feature at depth 0)",
+                               split_edges[0]),
+                              ("64 trees x 32 nodes", split_edges[-1])):
+        kern = lambda: lh.level_split(*args, **kw)
+        log(f"kernel level_split, {label}: {cuda_ms(kern, REPS):.4f} ms, "
+            f"device {device_ms(kern, REPS)} ms")
+
+    route_edges = [route_args(c) for c in split_edges]
+    err = 0.0
+    for args, kw in route + route_edges:
+        got = routed(lh.level_route, args, kw)
+        want = routed(lh.level_route_plain, args, kw)
+        torch.cuda.synchronize()
+        err = max(err, compare("level_route", got, want, 0.0))
+    args, kw = max(route, key=lambda c: work_of("level_route", *c)[0])
+    note = (f"{len(route)} of the fit's calls and {len(route_edges)} edge "
+            f"cases checked (node, feat, thresh); (T, nodes, F, n) = "
+            f"({args[1].shape[0]}, {args[2].shape[1]}, {args[0].shape[0]}, "
+            f"{args[0].shape[1]})")
+    rows["level_route"] = kernel_row(
+        "level_route", fresh_nodes(lh.level_route, args[1], REPS + 1),
+        fresh_nodes(lh.level_route_plain, args[1], REPS // 4 + 1), None,
+        args, kw, err, note)
+    kern = fresh_nodes(lh.level_route, args[1], 2 * REPS + 2)
+    log(f"kernel level_route: device "
+        f"{device_ms(lambda: kern(*args, **kw), REPS)} ms a call (profiler)")
+
     boost = calls["boost_update"]
     for args, kw in boost[::16] + boost[-1:]:
         got = lh.boost_update(*args, **kw)
@@ -4418,7 +4692,7 @@ def fit_kernel_phase(calls):
         compare("boost_update", got, lh.boost_update_plain(*args, **kw), 0.0)
     log(f"kernel boost_update: {len(boost[::16]) + 1} of the fit's "
         f"{len(boost)} calls equal to the plain version (tolerance 0.0)")
-    return row
+    return rows
 
 
 def tail_figures(payload):
@@ -4669,6 +4943,42 @@ def cli_phase(dev):
 # the Stage-0 prediction framework and the serve-path shims
 # ---------------------------------------------------------------------------
 
+def rf_level_calls(xtr, ytr, cfg, model, dev):
+    """Fold 0's random forest fitted once more on the card with its level
+    calls recorded (each level larger than the last: all of them) and its
+    leaf means' call: the forest equal to the cross-validation's, and every
+    call equal to its plain version (tolerance 0.0)."""
+    import torch
+    from repro_torch.core import predictors
+    from repro_torch.kernels.level_histogram import ops as lh
+    every = {name: FIT_SAMPLE for name in LEVEL_KERNELS}
+    with Recorder(("level_histogram",) + LEVEL_KERNELS, every=every) as rec:
+        m, _ = predictors._fit_predict("rf", xtr, ytr, xtr[:1], cfg,
+                                       seed=cfg.seed * 100, device=dev)
+    same_forest("predict rf: fold 0 fitted again", m, model)
+    for args, kw in rec.calls["level_split"]:
+        got = lh.level_split(*args, **kw)
+        torch.cuda.synchronize()
+        compare("level_split", got, lh.level_split_plain(*args, **kw), 0.0)
+    for args, kw in rec.calls["level_route"]:
+        got = routed(lh.level_route, args, kw)
+        torch.cuda.synchronize()
+        compare("level_route", got, routed(lh.level_route_plain, args, kw),
+                0.0)
+    for args, kw in rec.calls["level_histogram"]:
+        got = lh.level_histogram(*args, **kw)
+        torch.cuda.synchronize()
+        compare("level_histogram", got,
+                lh.level_histogram_plain(*args, **kw), 0.0)
+    (xbt, node, *_), kw = rec.calls["level_split"][-1]
+    log(f"predict rf: fold 0 fitted again, forest equal; its "
+        f"{len(rec.calls['level_split'])} level_split and level_route calls "
+        f"(the last: {node.shape[0]} trees x {kw['n_nodes']} nodes, "
+        f"{xbt.shape[0]} features, {xbt.shape[1]} rows) and its "
+        f"{len(rec.calls['level_histogram'])} leaf-means call equal to their "
+        "plain versions (tolerance 0.0)")
+
+
 def predict_phase(card, dev):
     """The Stage-0 prediction framework on the cli phase's run (its index,
     query log, oracle labels and the Stage-0 features of its 2,000
@@ -4717,11 +5027,21 @@ def predict_phase(card, dev):
         check(cv.pred.shape == y.shape and np.isfinite(cv.pred).all()
               and len(cv.models) == cfg.n_folds,
               f"predict {method}: cross-validated predictions invalid")
-        want = {"qr": (True, True), "rf": (True, False),
-                "lr": (False, False)}[method]
+        # (level_histogram, boost_update, level_split, level_route): QR's
+        # leaves are quantiles, RF's means of one level_histogram a fit
+        want = {"qr": (False, True, True, True),
+                "rf": (True, False, True, True),
+                "lr": (False, False, False, False)}[method]
         for name, launched in zip(FIT_KERNELS, want):
             check((launches[name] > 0) == launched,
                   f"predict {method}: {launches[name]} {name} launches")
+        if method == "rf":
+            # all the trees of a fit in one launch of each a level
+            levels = cfg.n_folds * cv.models[0].params.depth
+            check(launches["level_split"] == launches["level_route"] == levels
+                  and launches["level_histogram"] == cfg.n_folds,
+                  f"predict rf: {launches} for {cfg.n_folds} fits of depth "
+                  f"{cv.models[0].params.depth}")
         report = predictors.regression_report(y, cv.pred,
                                               tail_quantile=PREDICT_TAIL)
         print(method.upper() + ","
@@ -4753,6 +5073,8 @@ def predict_phase(card, dev):
             same_forest(f"predict {method} fold 0", m_card, m_cpu)
             check(np.array_equal(p_card, p_cpu),
                   f"predict {method}: fold 0's predictions differ")
+            if method == "rf":
+                rf_level_calls(x[~te], target[~te], cfg, m_card, dev)
             same = "forest and predictions bit-equal"
         log(f"predict {method}: 10 card fits and predictions {t_card:.2f} s,"
             f" launches {launches}; CPU fold 0 {t_cpu:.2f} s, {same} "
@@ -6974,28 +7296,17 @@ def serve_phase(system, ql, n_batches, n_docs, spec):
     return launches, routes, dense
 
 
-def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
-    import torch
+def build_shard(n_docs, n_batches):
+    """The kernels' build, in a thread, beside the host's build of the
+    ``paper_200ms`` corpus of ``n_docs`` docs, its index, ``n_batches``
+    batches of queries and the shard's host layout.  Returns (spec, corpus,
+    index, queries, layouts)."""
     from repro_torch import kernels
     from repro_torch.configs.cascade_presets import get_preset
-    from repro_torch.configs.two_tower_retrieval import REDUCED
     from repro_torch.index.builder import build_index
     from repro_torch.index.corpus import (CorpusParams, build_corpus,
                                           build_queries)
     from repro_torch.index.postings import shard_layouts
-    from repro_torch.models.recsys import TwoTower
-    from repro_torch.serving.online import fresh_probe
-    from repro_torch.serving.system import build_system
-
-    card = card_line()
-    print(card, flush=True)
-    dev = torch.device(DEVICE)
-    walls, mark = {}, [time.perf_counter()]
-
-    def lap(name):
-        now = time.perf_counter()
-        walls[name] = now - mark[0]
-        mark[0] = now
 
     # the kernels build (nvcc, in subprocesses) while the host builds the
     # corpus and the index; both are set-up
@@ -7032,6 +7343,29 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     if "error" in built:
         raise built["error"]
     log(f"kernels built in {built['s']:.1f} s, beside the host build")
+    return spec, corpus, index, ql, layouts
+
+
+def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
+    import torch
+    from repro_torch.configs.cascade_presets import get_preset
+    from repro_torch.configs.two_tower_retrieval import REDUCED
+    from repro_torch.index.corpus import build_queries
+    from repro_torch.models.recsys import TwoTower
+    from repro_torch.serving.online import fresh_probe
+    from repro_torch.serving.system import build_system
+
+    card = card_line()
+    print(card, flush=True)
+    dev = torch.device(DEVICE)
+    walls, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name] = now - mark[0]
+        mark[0] = now
+
+    spec, corpus, index, ql, layouts = build_shard(n_docs, n_batches)
     lap("build")
 
     # fit: the card's and the CPU's systems, each fitted on its own device
@@ -7109,8 +7443,9 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     rows = kernel_phase(recorded)
     for name in LAXMAP_KERNELS:
         rows[name]["launches"] = lax_launches[name]
-    rows["level_histogram"] = fit_kernel_phase(fit_calls)
-    rows["level_histogram"]["launches"] = fit_launches["level_histogram"]
+    rows.update(fit_kernel_phase(fit_calls))
+    for name in ("level_histogram",) + LEVEL_KERNELS:
+        rows[name]["launches"] = fit_launches[name]
     del fit_calls
 
     # serve phases: each preset's main path, counted on its own
@@ -7221,18 +7556,40 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     return card, rows
 
 
-def run_alone(phase, lm_layers, lm_prompt):
+def run_alone(phase, lm_layers, lm_prompt, n_docs=None, profile=False):
     """``--only``: the card line, the kernels' build, then ``phase`` alone
-    with its wall; no result line."""
+    with its wall; no result line.  ``fit`` builds the shard of ``n_docs``
+    docs beside the kernels (as the full run does) and runs step 2 and the
+    fit's kernel rows of step 6 (``profile``: step 2's profiled fit);
+    ``predict`` runs the serving CLI's labelled fit (step 9's ``serve.run``,
+    without its CPU cross-checks) and then step 10."""
     import torch
     from repro_torch import kernels
     print(card_line(), flush=True)
+    dev = torch.device(DEVICE)
+    if phase == "fit":
+        spec, corpus, index, _, layouts = build_shard(n_docs, 1)
+        t = time.perf_counter()
+        _, _, launches, calls, _ = fit_phase(spec, index, corpus, dev,
+                                             layouts, profile)
+        rows = fit_kernel_phase(calls)
+        for name in ("level_histogram",) + LEVEL_KERNELS:
+            rows[name]["launches"] = launches[name]
+            log(f"row {json.dumps(rows[name])}")
+        log(f"fit alone: {time.perf_counter() - t:.1f} s")
+        return 0
     t = time.perf_counter()
     kernels.extension()
     log(f"kernels built in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    dev = torch.device(DEVICE)
-    if phase == "mesh":
+    if phase == "predict":
+        from repro_torch.launch import serve
+        card = serve.run(["--device", str(dev)], say=lambda line: None)
+        log(f"predict: the CLI's run (labels and fit) "
+            f"{time.perf_counter() - t:.1f} s; walls s: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in card.walls.items()))
+        predict_phase(card, dev)
+    elif phase == "mesh":
         mesh_phase(dev, lm_layers, lm_prompt)
     elif phase == "train":
         train_phase(dev, lm_layers, lm_prompt)
@@ -7259,8 +7616,8 @@ def main(argv=None):
                          "most, in the MoE and MLA phase)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one served batch (torch.profiler)")
-    ap.add_argument("--only", choices=("train", "recsys_gnn", "mesh",
-                                       "cells"),
+    ap.add_argument("--only", choices=("fit", "predict", "train",
+                                       "recsys_gnn", "mesh", "cells"),
                     help="build the kernels and run this phase alone; "
                          "prints no result")
     args = ap.parse_args(argv)
@@ -7281,7 +7638,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     try:
         if args.only:
-            return run_alone(args.only, args.lm_layers, args.lm_prompt)
+            return run_alone(args.only, args.lm_layers, args.lm_prompt,
+                             args.n_docs, args.profile)
         card, rows = run(args.n_docs, args.batches, args.lm_layers,
                          args.lm_prompt, args.lm_steps, args.profile)
     except SmokeFailure as e:

@@ -5,8 +5,10 @@ The paper's preferred predictor ("QR") is a GBRT minimizing the pinball loss
 to the negative gradient and then refits every leaf to the exact in-leaf
 τ-quantile of the residuals, which makes the ensemble estimate the
 conditional τ-quantile rather than the mean.  The port of
-``repro.core.gbrt``: ``fit`` runs on the card (the ``level_histogram`` and
-``boost_update`` kernels) unless the caller names the CPU, and its forests
+``repro.core.gbrt``: ``fit`` runs on the card (each tree's levels through
+``trees.build_tree``'s ``level_split`` and ``level_route`` kernels, the
+leaf means through ``level_histogram``, ``boost_update``) unless the
+caller names the CPU, and its forests
 are the reference's bit for bit; ``repro_torch.convert`` also carries
 fitted reference models across.  A ``GBRTModel`` holds the forest, the
 base prediction and the bin edges as tensors on one device.

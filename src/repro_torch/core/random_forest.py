@@ -2,14 +2,15 @@
 
 The port of ``repro.core.random_forest``: bagged histogram trees, each
 fitted to Poisson(1) bootstrap weights (the vectorized equivalent of
-sampling with replacement) over a random subset of the features.  The
-reference builds its trees in one ``vmap``; here a Python loop fits them
-one after another through ``trees.build_tree`` and ``trees.leaf_means``
-(the ``level_histogram`` kernel on the card, its plain version on the
-CPU).  The weights and feature masks are the reference's own draws, made
-on the host by ``core.prng`` and copied to the device once a fit, so the
-forests are the reference's bit for bit; ``predict`` averages the trees as
-the reference's compiled ``jnp.mean`` does.
+sampling with replacement) over a random subset of the features.  As the
+reference builds its trees in one ``vmap``, ``trees.build_trees`` builds
+all of them together, one ``level_split`` and one ``level_route`` launch a
+level on the card, and ``trees.leaf_means`` takes every tree's leaves in
+one ``level_histogram`` launch (their plain versions on the CPU).  The
+weights and feature masks are the reference's own draws, made on the host
+by ``core.prng`` and copied to the device once a fit, so the forests are
+the reference's bit for bit; ``predict`` averages the trees as the
+reference's compiled ``jnp.mean`` does.
 """
 
 from __future__ import annotations
@@ -56,17 +57,12 @@ def tree_draws(seed: int, n: int, n_feat: int, p: RFParams
 
 def _fit_binned(xbt: torch.Tensor, y: torch.Tensor, weights: torch.Tensor,
                 fmask: torch.Tensor, p: RFParams) -> T.Forest:
-    """The trees on pre-binned, transposed (F, n) features, one after
-    another (the reference's ``vmap`` over trees)."""
+    """The trees on pre-binned, transposed (F, n) features, all at once
+    (the reference's ``vmap`` over trees): (T, n) weights, (T, F) masks."""
     tp = T.TreeParams(p.depth, p.n_bins, p.min_child_weight, p.l2)
-    feats, threshs, leaves = [], [], []
-    for w, mask in zip(weights, fmask):
-        feat, thresh, leaf_id = T.build_tree(xbt, y, w, mask, tp)
-        feats.append(feat)
-        threshs.append(thresh)
-        leaves.append(T.leaf_means(leaf_id, y, w, 2 ** p.depth, p.l2))
-    return T.Forest(torch.stack(feats), torch.stack(threshs),
-                    torch.stack(leaves))
+    feat, thresh, leaf_id = T.build_trees(xbt, y, weights, fmask, tp)
+    leaves = T.leaf_means(leaf_id, y, weights, 2 ** p.depth, p.l2)
+    return T.Forest(feat, thresh, leaves)
 
 
 def fit(x, y, params: RFParams, seed: int = 0,

@@ -4,8 +4,11 @@ The reference (``repro.core.trees``) stores LightGBM-style complete binary
 trees of fixed depth as dense arrays, so inference is a branch-free
 O(depth) gather chain.  Feature values are quantile-binned to uint8
 (``fit_bins`` / ``apply_bins``) and split thresholds are bin indices.
-Trees are built level by level from split histograms (``build_tree``):
-the ``level_histogram`` kernel on the card, its plain version on the CPU.
+Trees are built level by level (``build_trees``, T trees at once;
+``build_tree`` one): a level is two kernel launches on the card,
+``level_split`` (the split histograms, the bins' prefix sums, the gains,
+each feature's best bin) and ``level_route`` (each node's split, the rows'
+new nodes), and their plain versions, the same torch sequence, on the CPU.
 
 Exactness: every sum a fit compares or stores follows the reference's
 compiled order, so fitted trees are the reference's bit for bit — the
@@ -26,8 +29,6 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.level_histogram import ops as lh
-
-NEG_INF = -1e30
 
 
 class TreeParams(NamedTuple):
@@ -103,35 +104,46 @@ def _level_histograms(xbt: torch.Tensor, node: torch.Tensor,
                               n_nodes=n_nodes, n_bins=n_bins)
 
 
-def _seq_scan(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum over the last axis, left to right."""
-    out = [x[..., 0]]
-    for i in range(1, x.shape[-1]):
-        out.append(out[-1] + x[..., i])
-    return torch.stack(out, dim=-1)
+_bin_cumsum = lh.bin_cumsum
 
 
-def _bin_cumsum(h: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum over the last axis in the order of the
-    reference's compiled ``jnp.cumsum`` (XLA-CPU rewrites a long cumulative
-    sum into windows of 16): each window scanned left to right, the
-    windows' totals scanned the same way, and the running total of the
-    earlier windows added to each element of the next."""
-    n = h.shape[-1]
-    if n <= 16:
-        return _seq_scan(h)
-    pad = -n % 16
-    hp = torch.nn.functional.pad(h, (0, pad))
-    local = _seq_scan(hp.reshape(*h.shape[:-1], -1, 16))
-    carry = _bin_cumsum(local[..., -1])
-    out = torch.cat([local[..., :1, :],
-                     local[..., 1:, :] + carry[..., :-1, None]], dim=-2)
-    return out.reshape(*h.shape[:-1], -1)[..., :n]
+def build_trees(xbt: torch.Tensor, target: torch.Tensor,
+                weights: torch.Tensor, feat_masks: torch.Tensor,
+                params: TreeParams):
+    """Fit T regression trees to one ``target`` with variance-reduction
+    splits, level by level, all trees in each level's two launches (the
+    reference's ``vmap`` of ``build_tree`` over the trees).
+
+    Args:
+      xbt: (F, n) uint8 binned features, transposed.
+      target: (n,) float32 regression target (the boosting pseudo-gradient),
+        shared by the trees.
+      weights: (T, n) float32 sample weights (0 excludes a row).
+      feat_masks: (T, F) bool — features eligible for splitting.
+    Returns:
+      (feat, thresh) int32 arrays of shape (T, depth, 2**(depth-1)) and the
+      final (T, n) int32 leaf assignment in [0, 2**depth).  A node no split
+      can satisfy passes every row left (feature 0, the last bin); among
+      equal gains the lowest (feature, bin) wins.
+    """
+    n_trees, n = weights.shape
+    shape = (n_trees, params.depth, 2 ** (params.depth - 1))
+    node = torch.zeros((n_trees, n), dtype=torch.int32, device=xbt.device)
+    feat = torch.zeros(shape, dtype=torch.int32, device=xbt.device)
+    thresh = torch.zeros(shape, dtype=torch.int32, device=xbt.device)
+    for d in range(params.depth):
+        gain, best = lh.level_split(
+            xbt, node, target, weights, feat_masks, n_nodes=2 ** d,
+            n_bins=params.n_bins, l2=params.l2,
+            min_child_weight=params.min_child_weight)
+        lh.level_route(xbt, node, gain, best, feat, thresh, level=d,
+                       n_bins=params.n_bins)
+    return feat, thresh, node
 
 
 def build_tree(xbt: torch.Tensor, target: torch.Tensor, weight: torch.Tensor,
                feat_mask: torch.Tensor, params: TreeParams):
-    """Fit one regression tree to ``target`` with variance-reduction splits.
+    """Fit one regression tree (``build_trees`` with T = 1).
 
     Args:
       xbt: (F, n) uint8 binned features, transposed.
@@ -140,53 +152,32 @@ def build_tree(xbt: torch.Tensor, target: torch.Tensor, weight: torch.Tensor,
       feat_mask: (F,) bool — features eligible for splitting.
     Returns:
       (feat, thresh) int32 arrays of shape (depth, 2**(depth-1)) and the
-      final (n,) int32 leaf assignment in [0, 2**depth).  A node no split
-      can satisfy passes every row left (feature 0, the last bin); among
-      equal gains the lowest (feature, bin) wins.
+      final (n,) int32 leaf assignment in [0, 2**depth).
     """
-    n_feat, n = xbt.shape
-    nb = params.n_bins
-    width = 2 ** (params.depth - 1)
-    dev = xbt.device
-    rows = torch.arange(n, device=dev)
-    node = torch.zeros((n,), dtype=torch.int32, device=dev)
-    feats, threshs = [], []
-    for d in range(params.depth):
-        n_nodes = 2 ** d
-        hg, hw = _level_histograms(xbt, node, target, weight, n_nodes, nb)
-        cg, cw = _bin_cumsum(torch.stack([hg, hw]))
-        tg = cg[..., -1:]
-        tw = cw[..., -1:]
-        lam = params.l2
-        gain = (cg * cg / (cw + lam) + (tg - cg) * (tg - cg) / (tw - cw + lam)
-                - tg * tg / (tw + lam))
-        ok = ((cw >= params.min_child_weight)
-              & (tw - cw >= params.min_child_weight)
-              & feat_mask[None, :, None])
-        flat = torch.where(ok, gain, NEG_INF).reshape(n_nodes, -1)
-        best = torch.argmax(flat, dim=-1)      # the first maximum
-        best_gain = flat.gather(1, best[:, None])[:, 0]
-        dead = best_gain <= NEG_INF / 2
-        bf = torch.where(dead, 0, best // nb).to(torch.int32)
-        bb = torch.where(dead, nb - 1, best % nb).to(torch.int32)
-        nl = node.long()
-        fx = xbt[bf[nl].long(), rows]
-        node = node * 2 + (fx.to(torch.int32) > bb[nl]).to(torch.int32)
-        feats.append(torch.nn.functional.pad(bf, (0, width - n_nodes)))
-        threshs.append(torch.nn.functional.pad(bb, (0, width - n_nodes)))
-    return torch.stack(feats), torch.stack(threshs), node
+    feat, thresh, node = build_trees(xbt, target, weight[None],
+                                     feat_mask[None], params)
+    return feat[0], thresh[0], node[0]
 
 
 def leaf_means(leaf_id: torch.Tensor, values: torch.Tensor,
                weight: torch.Tensor, n_leaves: int, l2: float = 1.0
                ) -> torch.Tensor:
     """(n_leaves,) Σ values·w / (Σ w + l2) per leaf, rows summed in order
-    (one ``level_histogram`` call: one feature, the leaf as its bin)."""
-    zero = torch.zeros_like(leaf_id)
-    sv, sw = lh.level_histogram(leaf_id.to(torch.uint8)[None], zero,
-                                values * weight, weight, n_nodes=1,
-                                n_bins=n_leaves)
-    return sv[0, 0] / (sw[0, 0] + l2)
+    (one ``level_histogram`` call: one feature, the leaf as its bin).  With
+    a leading tree axis on ``leaf_id`` and ``weight`` ((T, n); ``values``
+    (n,) shared), (T, n_leaves) from the same one call: the tree as the
+    node, each tree's rows in order."""
+    batched = leaf_id.dim() == 2
+    lid = leaf_id if batched else leaf_id[None]
+    wt = weight if batched else weight[None]
+    n_trees, n = lid.shape
+    tree = torch.arange(n_trees, dtype=torch.int32,
+                        device=lid.device).repeat_interleave(n)
+    sv, sw = lh.level_histogram(lid.to(torch.uint8).reshape(1, -1), tree,
+                                (values * wt).reshape(-1), wt.reshape(-1),
+                                n_nodes=n_trees, n_bins=n_leaves)
+    out = sv[:, 0] / (sw[:, 0] + l2)
+    return out if batched else out[0]
 
 
 def leaf_quantiles(leaf_id: torch.Tensor, values: torch.Tensor,

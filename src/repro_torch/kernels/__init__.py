@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for the first-stage (lexical and dense) and
 Stage-2 hot loops, for the per-query Stage-1 path, for the LM serving
-path's attention (prefill and KV-cache decode), and for the GBRT fit's
-level histograms and boosting update (``level_histogram``).
+path's attention (prefill and KV-cache decode), and for the tree fits'
+levels (split histograms, split choice, row routing) and the boosting
+update (``level_histogram``).
 
 Each package holds ``<name>.cu`` (the CUDA C++ kernel and a plain-C launch
 function; ``flash_attention`` has a second, ``flash_attention_sm90.cu``,
@@ -52,7 +53,8 @@ KERNEL_NAMES = ("impact_accumulate_batched", "blockmax_score_batched",
                 "qd_feature_gather_lanes", "dense_topk_tiles",
                 "impact_accumulate_bucketed", "blockmax_score_bucketed",
                 "score_histogram", "flash_attention", "flash_decode",
-                "level_histogram", "boost_update", "flash_attention_backward")
+                "level_histogram", "boost_update", "flash_attention_backward",
+                "level_split", "level_route")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _HERE = Path(__file__).resolve().parent

@@ -68,10 +68,18 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                long long ksh, long long kss, long long vsb,
                                long long vsh, long long vss, float scale,
                                int causal, cudaStream_t stream);
-void level_histogram_launch(const uint8_t* xbt, const int* node,
-                            const float* gw, const float* w, float* hist_g,
-                            float* hist_w, int n, int n_feat, int n_nodes,
-                            int n_bins, cudaStream_t stream);
+int level_histogram_launch(const uint8_t* xbt, const int* node,
+                           const float* gw, const float* w, float* hist_g,
+                           float* hist_w, int n, int n_feat, int n_nodes,
+                           int n_bins, cudaStream_t stream);
+int level_split_launch(const uint8_t* xbt, const int* node, const float* g,
+                       const float* w, const uint8_t* fmask, float* gain,
+                       int* bin, int n_trees, int n, int n_feat, int n_nodes,
+                       int n_bins, float lam, float mcw, cudaStream_t stream);
+int level_route_launch(const uint8_t* xbt, int* node, const float* gain,
+                       const int* bin, int* feat, int* thresh, int n_trees,
+                       int n, int n_feat, int n_nodes, int n_bins, int level,
+                       int depth, int width, cudaStream_t stream);
 void boost_update_launch(const float* f, const float* raw, const int* leaf,
                          float lr, float* out, int n, cudaStream_t stream);
 int flash_decode_launch(const void* q, const void* k, const void* v,
@@ -191,12 +199,48 @@ void level_histogram(const torch::Tensor& xbt, const torch::Tensor& node,
                      const torch::Tensor& gw, const torch::Tensor& w,
                      torch::Tensor hist_g, torch::Tensor hist_w) {
   const c10::cuda::CUDAGuard guard(xbt.device());
-  level_histogram_launch(
+  const int rc = level_histogram_launch(
       xbt.data_ptr<uint8_t>(), node.data_ptr<int>(), gw.data_ptr<float>(),
       w.data_ptr<float>(), hist_g.data_ptr<float>(), hist_w.data_ptr<float>(),
       static_cast<int>(xbt.size(1)), static_cast<int>(xbt.size(0)),
       static_cast<int>(hist_g.size(0)), static_cast<int>(hist_g.size(2)),
       c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc == 0, "level_histogram: launch refused (", rc, ")");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void level_split(const torch::Tensor& xbt, const torch::Tensor& node,
+                 const torch::Tensor& g, const torch::Tensor& w,
+                 const torch::Tensor& fmask, torch::Tensor gain,
+                 torch::Tensor bin, int64_t n_bins, double lam, double mcw) {
+  const c10::cuda::CUDAGuard guard(xbt.device());
+  const int rc = level_split_launch(
+      xbt.data_ptr<uint8_t>(), node.data_ptr<int>(), g.data_ptr<float>(),
+      w.data_ptr<float>(),
+      reinterpret_cast<const uint8_t*>(fmask.data_ptr<bool>()),
+      gain.data_ptr<float>(), bin.data_ptr<int>(),
+      static_cast<int>(node.size(0)), static_cast<int>(xbt.size(1)),
+      static_cast<int>(xbt.size(0)), static_cast<int>(gain.size(1)),
+      static_cast<int>(n_bins), static_cast<float>(lam),
+      static_cast<float>(mcw), c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc == 0, "level_split: launch refused (", rc, ")");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void level_route(const torch::Tensor& xbt, torch::Tensor node,
+                 const torch::Tensor& gain, const torch::Tensor& bin,
+                 torch::Tensor feat, torch::Tensor thresh, int64_t level,
+                 int64_t n_bins) {
+  const c10::cuda::CUDAGuard guard(xbt.device());
+  const int rc = level_route_launch(
+      xbt.data_ptr<uint8_t>(), node.data_ptr<int>(), gain.data_ptr<float>(),
+      bin.data_ptr<int>(), feat.data_ptr<int>(), thresh.data_ptr<int>(),
+      static_cast<int>(node.size(0)), static_cast<int>(node.size(1)),
+      static_cast<int>(xbt.size(0)), static_cast<int>(gain.size(1)),
+      static_cast<int>(n_bins), static_cast<int>(level),
+      static_cast<int>(feat.size(1)), static_cast<int>(feat.size(2)),
+      c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc == 0, "level_route: launch refused (", rc, ")");
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -324,7 +368,15 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "for k > 0, their exact top-k by histogram threshold");
   m.def("level_histogram", &level_histogram,
         "per (node, feature, bin) sums of g*w and w, each cell's rows added "
-        "in row order");
+        "in row order (a stable counting sort a tile)");
+  m.def("level_split", &level_split,
+        "each (tree, node, feature)'s best split of one tree level: the "
+        "histograms, the bins' windowed prefix sums, the gains, the first "
+        "maximum over the bins");
+  m.def("level_route", &level_route,
+        "each (tree, node)'s split (first maximum over the features, dead "
+        "rule) into row `level` of feat and thresh, and the rows' new nodes "
+        "in place");
   m.def("boost_update", &boost_update,
         "f + raw[leaf] * lr as one fused multiply-add a row");
   m.def("flash_attention", &flash_attention,

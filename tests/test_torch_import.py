@@ -233,6 +233,20 @@ def _calls():
              torch.empty((1, 4, 64, 64), device=d),
              torch.empty((1, 4, 64), device=d),
              torch.empty((1, 4, 64, 64), device=d))),
+        (lh_ops, "level_split_plain", lambda d: lh_ops.level_split(
+            torch.empty((3, 100), dtype=torch.uint8, device=d),
+            torch.empty((2, 100), dtype=i32, device=d),
+            torch.empty((100,), device=d), torch.empty((2, 100), device=d),
+            torch.empty((2, 3), dtype=torch.bool, device=d), n_nodes=4,
+            n_bins=64, l2=1.0, min_child_weight=10.0)),
+        (lh_ops, "level_route_plain", lambda d: lh_ops.level_route(
+            torch.empty((3, 100), dtype=torch.uint8, device=d),
+            torch.empty((2, 100), dtype=i32, device=d),
+            torch.empty((2, 4, 3), device=d),
+            torch.empty((2, 4, 3), dtype=i32, device=d),
+            torch.empty((2, 3, 4), dtype=i32, device=d),
+            torch.empty((2, 3, 4), dtype=i32, device=d), level=2,
+            n_bins=64)),
     ]
 
 
@@ -259,7 +273,8 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch):
                           "blockmax_score_bucketed", "score_histogram",
                           "flash_attention", "flash_decode",
                           "level_histogram", "boost_update",
-                          "flash_attention_backward"]
+                          "flash_attention_backward", "level_split",
+                          "level_route"]
     assert all(n == 1 for n in kernels.LAUNCHES.values())
     kernels.reset_launches()
 
