@@ -316,7 +316,17 @@ order, it
       the bf16 kernel on the recorded bf16 call, with its TFLOP/s and
       share of the bound beside SDPA's on a line before, and the fp32
       kernel is timed on the largest fp32 recorded call on a line of its
-      own.  Tolerances: fp32
+      own; every fp32
+      prefill call, recorded and edge, and the fp32 forward's tile edges
+      (``f32_edge_calls``: Sq and Sk of 1, 15, 16, 17, 255, 256, 257 at D
+      16 and 32 causal and not, S of 63 to 129 around a 64-key tile and a
+      128-row block, views whose rows are off a 16-byte boundary, and
+      BERT4Rec's training call with the log-sum-exp) also launched twice
+      with the same bits and held to ``attention_ref`` and
+      ``attention_f32_tiles_plain`` (the fp32 kernel's arithmetic: its
+      query tiles and 32-key softmax steps) by ``f32_check``, the
+      log-sum-exp within ``BWD_F32_TOL`` of max(1, |want|).  Tolerances:
+      fp32
       1e-5 absolute on the edge cases, 5e-3 of the largest output (and
       1e-5 of it on average) on the recorded fp32 model calls (the same
       near-ties); bf16 2e-2 absolute below magnitude 1 and 2e-2 relative
@@ -357,7 +367,8 @@ order, it
       cases of ``mla_edge_calls`` against ``attention_ref`` (S = 1, 127,
       128, 129, 700 and 4,097 causal and not, Sq != Sk, Hkv = H and GQA
       groups of 4, fp32 and bf16, the strided views ``mla_forward``
-      passes), under the tolerances of 17c, and the largest bf16 MLA call
+      passes), under the tolerances of 17c (every fp32 call also through
+      ``f32_check``), and the largest bf16 MLA call
       timed beside the plain path and SDPA, with its TFLOP/s and share of
       the bound on a line of its own (the ``kernels`` line keeps kernel 8's
       Yi-6B row);
@@ -394,7 +405,8 @@ order, it
       and dv, each of its largest magnitude (a floor of 1e-2 of the largest
       of the three, for the gradients that are 0 at S = 1; fp32 within
       1e-4, bf16 within ``BF16_TOL``), every call launched twice with the
-      same bits, the forward's log-sum-exp against ``attention_ref``'s;
+      same bits, the forward's log-sum-exp against ``attention_ref``'s, the
+      forward of every fp32 call through ``f32_check``;
       the bf16 Yi-6B call timed beside the plain
       version and ``scaled_dot_product_attention``'s backward (k and v
       repeated to every head outside the timed call), with its TFLOP/s and
@@ -447,7 +459,8 @@ order, it
       launch); timed beside the plain version and ``torch.topk(q @ embᵀ,
       k)``.  Kernel 8's fp32 kernel on BERT4Rec's serve call (512, 2, 200,
       32) non-causal against ``chunked_attention_plain`` (within 1e-4 of
-      the largest |want|), timed beside the plain path and SDPA;
+      the largest |want|) and through ``f32_check`` (the same bar), timed
+      beside the plain path and SDPA;
    c. full-width training steps (``train_loop.value_and_grad`` and
       ``optimizer.apply`` with the buffers donated), 2 each, counted from
       0, at each model's CONFIG: DeepFM at its published batch of 65,536;
@@ -457,8 +470,10 @@ order, it
       65,536); BERT4Rec at 4,096 histories of 200, 8 masked, 2,048
       candidates (an FFN activation is 13.4 GB at 65,536): kernel 8 and its
       backward once a block and step, the recorded training call (4,096,
-      2, 200, 32) held to the plain versions (the backward by
-      ``bwd_check``) and timed beside SDPA's backward; DimeNet on 128
+      2, 200, 32) held to the plain versions (the forward also through
+      ``f32_check``, the backward by ``bwd_check``), the forward with its
+      log-sum-exp timed beside SDPA and the backward beside SDPA's
+      backward; DimeNet on 128
       molecules and on minibatch_lg's sample (d_feat 602: 168,960 edges,
       337,920 triplets), its block matrices at 1/√(fan-in) (at the
       reference's 1/√6 the loss overflows, ROADMAP §3 open 11); each step's
@@ -665,6 +680,9 @@ DECODE_ROOM = 512             # cache positions past the prompt (4,608)
 XC_LOGIT_TOL = 1e-4           # of the largest |logit|, from one cache
 XC_CACHE_TOL, XC_CACHE_MEAN_TOL = 1e-3, 1e-5  # of the largest |cache|
 MODEL_F32_TOL = 5e-3          # of the largest |output|, recorded fp32 calls
+# Sq and Sk at the fp32 forward's tile edges (16-row warps, 128-row blocks,
+# 32-key steps, 64-key tiles at widths up to 32; ops.f32_forward_tiles)
+F32_TILE_EDGES = (1, 15, 16, 17, 255, 256, 257)
 BF16_TOL = 2e-2               # below magnitude 1 absolute, above relative
 # MoE and MLA phase: granite-MoE (GQA, 24 heads over 8, D 64), Moonlight
 # (MHA, D 128, 2 shared experts), MiniCPM3 (MLA: q/k 96, v 64); the fp32
@@ -2430,6 +2448,7 @@ def lm_kernel_phase(recorded, launches, dev):
         check(calls, f"{name}: the LM path never called it")
         errs = {torch.float32: 0.0, torch.bfloat16: 0.0}   # by dtype
         worst_bf16 = 0.0     # of max(1, |want|), what BF16_TOL bounds
+        n_f32 = 0            # fp32 prefill calls held by f32_check
         for args, kw in calls:
             got = kern[name](*args, **kw)
             want = plain[name](*args, **kw)
@@ -2442,6 +2461,11 @@ def lm_kernel_phase(recorded, launches, dev):
                 errs[got.dtype], compare_attention(name, got, want, True),
                 tc_plain_error(name, got, args, kw),
                 split_merge_error(name, got, args, kw, True))
+            if name == "flash_attention" and got.dtype == torch.float32:
+                n_f32 += 1
+                errs[got.dtype] = max(errs[got.dtype], f32_check(
+                    f"{name} fp32 {tuple(args[0].shape)}", args, kw,
+                    "model"))
             if name == "flash_attention" and got.dtype == torch.bfloat16:
                 once = fa.attention_tc_plain(*args, **kw, p_halves=1)
                 log(f"flash_attention {tuple(args[0].shape)}: the kernel "
@@ -2461,9 +2485,26 @@ def lm_kernel_phase(recorded, launches, dev):
                 compare_attention(f"{name} edge", got, want),
                 tc_plain_error(f"{name} edge", got, args, kw),
                 split_merge_error(f"{name} edge", got, args, kw))
+            if name == "flash_attention" and got.dtype == torch.float32:
+                n_f32 += 1
+                errs[got.dtype] = max(errs[got.dtype], f32_check(
+                    f"{name} fp32 edge {tuple(args[0].shape)}", args, kw))
         if name == "flash_attention":
             log(f"flash_attention bf16: worst error of max(1, |want|) over "
                 f"the recorded and edge calls {worst_bf16}")
+            tile_edges = f32_edge_calls(dev)
+            for args, kw in tile_edges:
+                errs[torch.float32] = max(errs[torch.float32], f32_check(
+                    f"{name} fp32 tile edge {tuple(args[0].shape)} "
+                    f"{tuple(args[1].shape)} {kw}", args, kw))
+            n_f32 += len(tile_edges)
+            del tile_edges
+            log(f"flash_attention fp32: {n_f32} recorded and edge calls "
+                f"({len(F32_TILE_EDGES)} tile edges at D 16 and 32, rows "
+                f"off 16 bytes, BERT4Rec's training call with the "
+                f"log-sum-exp among them) against attention_ref and "
+                f"attention_f32_tiles_plain, two launches bit-equal on "
+                f"each; worst error {errs[torch.float32]}")
         # kernel 8's row holds the bf16 kernel; kernel 9 has one kernel
         err = (errs[torch.bfloat16] if name == "flash_attention"
                else max(errs.values()))
@@ -2622,6 +2663,9 @@ def mla_kernel_rows(recorded, dev):
             e = max(compare_attention(name, got, want, True),
                     tc_plain_error(name, got, args, kw),
                     split_merge_error(name, got, args, kw, True))
+            if name == "flash_attention" and got.dtype == torch.float32:
+                e = max(e, f32_check(f"{name} fp32 {tuple(args[0].shape)}",
+                                     args, kw, "model"))
             if name == "flash_attention" and args[0].shape[-1] == 96:
                 mla_err[got.dtype] = max(mla_err[got.dtype], e)
     n_rec = {n: len(recorded[n]) for n in LM_KERNELS}
@@ -2634,6 +2678,10 @@ def mla_kernel_rows(recorded, dev):
             mla_err[got.dtype],
             compare_attention("flash_attention MLA edge", got, want),
             tc_plain_error("flash_attention MLA edge", got, args, kw))
+        if got.dtype == torch.float32:
+            mla_err[got.dtype] = max(mla_err[got.dtype], f32_check(
+                f"flash_attention fp32 MLA edge {tuple(args[0].shape)}",
+                args, kw))
     log(f"MoE and MLA kernel rows: {n_rec} recorded calls against the plain"
         f" path, {len(edges)} edge cases at (96, 64) against attention_ref; "
         f"largest absolute error at (96, 64): fp32 {mla_err[torch.float32]},"
@@ -2683,6 +2731,106 @@ def tc_plain_error(label, got, args, kw):
     want = fa.attention_tc_plain(*args, **kw)
     torch.cuda.synchronize()
     return compare_attention(f"{label} (tensor-core plain)", got, want)
+
+
+def f32_edge_calls(dev):
+    """Seeded fp32 inputs at the edges of kernel 8's fp32 forward tiles,
+    drawn on the card: Sq and Sk of ``F32_TILE_EDGES`` at D 16 and 32,
+    causal (Sq = Sk, Hkv = H) and not (GQA group 2; at D 32 every (Sq, Sk)
+    pair, at D 16 Sq = Sk and Sq against the list reversed); D 64 and 128
+    across a 32-key tile; S of 63 to 129 around a 64-key tile and a
+    128-row block; views whose rows are off a 16-byte boundary
+    (the kernel's 4-byte copies) at D 32 and 64, causal and not; and
+    BERT4Rec's training call (4,096, 2, 200, 32) as the model passes it
+    ((B, S, H·D) tensors viewed as (B, H, S, D)) with the log-sum-exp.  A
+    list of (args, kwargs)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    def qkv(b, h, hkv, sq, sk, d):
+        return (randn((b, h, sq, d), 0.4), randn((b, hkv, sk, d), 0.4),
+                randn((b, hkv, sk, d)))
+
+    calls = []
+    edges = F32_TILE_EDGES
+    for d in (16, 32):
+        for i, sq in enumerate(edges):
+            calls.append((qkv(1, 2, 2, sq, sq, d), dict(causal=True)))
+            sks = edges if d == 32 else dict.fromkeys((sq, edges[-1 - i]))
+            calls += [(qkv(1, 2, 1, sq, sk, d), dict(causal=False))
+                      for sk in sks]
+    for b, h, hkv, sq, sk, d, causal in ((1, 2, 1, 33, 33, 128, True),
+                                         (1, 2, 2, 31, 65, 64, False),
+                                         (2, 2, 1, 32, 32, 64, True),
+                                         (1, 2, 2, 63, 63, 32, True),
+                                         (1, 2, 2, 65, 65, 32, True),
+                                         (1, 2, 2, 127, 127, 32, True),
+                                         (1, 2, 2, 129, 129, 32, True),
+                                         (1, 2, 1, 129, 65, 16, False),
+                                         (1, 2, 1, 127, 63, 16, False)):
+        calls.append((qkv(b, h, hkv, sq, sk, d), dict(causal=causal)))
+    # rows of H·D + 1 floats from the second: no row on a 16-byte boundary
+    for b, s, h, hkv, d, causal in ((2, 200, 2, 2, 32, False),
+                                    (1, 300, 4, 2, 64, True),
+                                    (1, 257, 2, 1, 32, True)):
+        def view(heads, scale=1.0):
+            x = randn((b, s, heads * d + 1), scale)[..., 1:]
+            return x.view(b, s, heads, d).transpose(1, 2)
+        calls.append(((view(h, 0.4), view(hkv, 0.4), view(hkv)),
+                      dict(causal=causal)))
+    b, s, h, d = 4096, 200, 2, 32
+    q, k, v = (randn((b, s, h * d), 0.5).view(b, s, h, d).transpose(1, 2)
+               for _ in range(3))
+    calls.append(((q, k, v), dict(causal=False, return_lse=True)))
+    return calls
+
+
+def f32_check(label, args, kw, bar="edge"):
+    """An fp32 call of kernel 8's forward: the kernel launched twice (the
+    same bits, the log-sum-exp too where asked), then held to
+    ``attention_ref`` and to ``attention_f32_tiles_plain`` (the kernel's
+    arithmetic) under ``bar``: "edge" 1e-5 absolute, "model"
+    ``compare_attention``'s bar of a recorded call (``MODEL_F32_TOL`` of
+    the largest |want|, mean 1e-5 of it), "rg" ``RG_F32_TOL`` of the
+    largest |want|; the log-sum-exp within ``BWD_F32_TOL`` of max(1,
+    |want|).  Returns the largest output error (of the largest |want| for
+    "rg")."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    with_lse = kw.get("return_lse", False)
+    got = fa.flash_attention(*args, **kw)
+    again = fa.flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    got, again = ((got, again) if with_lse else ((got,), (again,)))
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{label}: two launches on the same inputs differ")
+    err = 0.0
+    for name, plain in (("attention_ref", fa.attention_ref),
+                        ("attention_f32_tiles_plain",
+                         fa.attention_f32_tiles_plain)):
+        want = plain(*args, **kw)
+        want = want if with_lse else (want,)
+        torch.cuda.synchronize()
+        if bar == "rg":
+            e = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+            check(bool(torch.isfinite(got[0]).all()) and e <= RG_F32_TOL,
+                  f"{label} against {name}: error {e} of the largest |want|"
+                  f" > {RG_F32_TOL}")
+        else:
+            e = compare_attention(f"{label} against {name}", got[0], want[0],
+                                  bar == "model")
+        err = max(err, e)
+        if with_lse:
+            e_lse = float(((got[1] - want[1]).abs()
+                           / want[1].abs().clamp(min=1.0)).max())
+            check(e_lse <= BWD_F32_TOL, f"{label} against {name}: "
+                  f"log-sum-exp error {e_lse} > {BWD_F32_TOL}")
+        del want
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -3089,6 +3237,12 @@ def bwd_kernel_row(dev, recorded, launches):
                      args, kw, halves) for args, kw in recorded]
     rec_errs = [e for e, _ in rec]
     floored = sum(n for _, n in rec)
+    # the forward of each fp32 call, with the log-sum-exp the backward read
+    fwd_err = max((f32_check(f"flash_attention fp32 training call "
+                             f"{tuple(args[0].shape)}", args[:3],
+                             dict(kw, return_lse=True), "model")
+                   for args, kw in recorded
+                   if args[0].dtype == torch.float32), default=0.0)
     for (args, _), e in zip(recorded, rec_errs):
         errs[args[0].dtype] = max(errs[args[0].dtype], e)
     edges = bwd_edge_calls(dev)
@@ -3097,6 +3251,10 @@ def bwd_kernel_row(dev, recorded, launches):
         o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
         _, lse_ref = fa.attention_ref(q, k, v, causal=causal,
                                       return_lse=True)
+        if q.dtype == torch.float32:
+            fwd_err = max(fwd_err, f32_check(
+                f"flash_attention fp32 backward edge {tuple(q.shape)}",
+                (q, k, v), dict(causal=causal, return_lse=True)))
         e_lse = max(e_lse, float(((lse - lse_ref).abs()
                                   / lse_ref.abs().clamp(min=1.0)).max()))
         e, n = bwd_check(
@@ -3115,7 +3273,8 @@ def bwd_kernel_row(dev, recorded, launches):
         f"{BF16_TOL}); Yi-6B's call with a unit-scale dO {yi_err:.3e}; "
         f"{floored} of {3 * (len(recorded) + len(edges))} gradients held "
         f"to the floor ({BWD_FLOOR} of the call's largest); "
-        f"forward log-sum-exp against attention_ref {e_lse:.3e}")
+        f"forward log-sum-exp against attention_ref {e_lse:.3e}; the fp32 "
+        f"forward of each fp32 call (f32_check) {fwd_err:.3e}")
     log(f"kernel flash_attention_backward, the bf16 rounding of P and dS "
         f"(flash_attention_backward_tc_plain, bwd_measure's error against "
         f"the plain version) over {len(halves[1])} bf16 calls: rounded once "
@@ -3692,6 +3851,8 @@ def rg_bert4rec(dev):
         check(err <= RG_F32_TOL, f"flash_attention fp32 BERT4Rec serve call: "
               f"error {err} of the largest |want|")
         del got, want
+        err = max(err, f32_check("flash_attention fp32 BERT4Rec serve call",
+                                 args, kw, "rg"))
         rows.append(kernel_row(
             "flash_attention", fa.flash_attention,
             attn.chunked_attention_plain,
@@ -3720,6 +3881,16 @@ def rg_bert4rec(dev):
         f"{tuple(args[0].shape)}: error {err:.3e} of the largest |want|, "
         f"log-sum-exp {float((lse - lse_want).abs().max()):.3e}")
     del got, want, lse, lse_want
+    err = max(err, f32_check("flash_attention fp32 BERT4Rec training call",
+                             args, kw, "rg"))
+    rows.append(kernel_row(
+        "flash_attention", fa.flash_attention, attn.chunked_attention_plain,
+        attention_library_calls()["flash_attention"], args, kw, err,
+        f"fp32 kernel (flash_attention.cu) on BERT4Rec's training call "
+        f"{tuple(args[0].shape)} non-causal with the log-sum-exp, the "
+        f"strided views the model passes (SDPA without it); error of the "
+        f"largest |want|"))
+    rows[-1]["launches"] = n
     (args, kw), = calls["flash_attention_backward"]
     e_bwd, floored = bwd_check("flash_attention_backward BERT4Rec", args, kw)
     rows.append(kernel_row(

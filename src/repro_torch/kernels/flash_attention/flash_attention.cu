@@ -1,5 +1,5 @@
 // Attention of the LM serving path: tiled online-softmax prefill attention
-// and split-KV single-token decode.
+// on fp32 inputs and split-KV single-token decode.
 //
 // Replaces the two Pallas kernels of repro/kernels/flash_attention/kernel.py:
 //
@@ -7,22 +7,36 @@
 //   softmax(q kᵀ · scale) v for q (B, H, Sq, D), k (B, Hkv, Sk, D) and v
 //   (B, Hkv, Sk, Dv), causal or not, GQA through the kv head h / (H /
 //   Hkv), fp32 math and output (B, H, Sq, Dv); built for D = Dv at 16 to
-//   128 and for (D, Dv) = (96, 64), MLA's prefill.  bf16 inputs go to the tensor-core kernel of
-//   flash_attention_sm90.cu.  The TPU kernel walks KV tiles along a
-//   sequential grid axis and carries (m, l, acc) in VMEM from one grid
-//   step to the next; blocks on the card run in no order, so here one
-//   block owns a 64-row query tile of one (b, h) and loops over the KV
-//   tiles itself, stopping at the diagonal when causal.  Q, each K tile (transposed) and then each V
-//   tile are staged in shared memory as fp32, K and V read straight from
-//   the kv head's rows, so no GQA copy is made.  Each of the 256 threads
-//   holds a 4 x 4 block of the 64 x 64 score tile and a 4-row x 4·⌈Dv/64⌉
-//   block of the fp32 accumulator in registers, with its rows' running
-//   max and sum; row reductions are shuffles over the 16 threads that
-//   share the rows.  P stays fp32 (no bf16 rounding, no TF32), logits are
-//   scaled after the dot as the TPU kernel does, masked logits are -1e30
-//   and the final sum is floored at 1e-30, as there.  Rows and keys past
-//   Sq / Sk are masked, so any S is taken (the TPU wrapper's `s // tq`
-//   drops a ragged tail).
+//   128 and for (D, Dv) = (96, 64), MLA's prefill.  bf16 inputs go to the
+//   tensor-core kernel of flash_attention_sm90.cu.  The TPU kernel walks KV
+//   tiles along a sequential grid axis and carries (m, l, acc) in VMEM from
+//   one grid step to the next; blocks on the card run in no order, so here
+//   one block of 8 warps owns a 128-row query tile of one (b, h) and loops
+//   over the KV tiles itself, stopping at the block's diagonal when causal.
+//   The geometry is `Fwd` below (mirrored by ops.f32_forward_tiles): KV
+//   tiles of 64 keys (32 at q/k + v widths from 65 to 160) stream through a
+//   two-stage ring, so the next tile loads while the current one computes,
+//   one barrier a tile, 3 blocks an SM at widths up to 64 (BERT4Rec's 32 /
+//   32).  Q, K and V are staged by 16-byte cp.async (4-byte copies where a
+//   view's rows are not 16-byte aligned; no copy of the view), K and Q
+//   row-major with rows padded to 4 floats mod 32 banks, V unpadded.  Each
+//   warp owns 16 query rows and steps over its keys 32 at a time, an online
+//   softmax step each: lane (rg, g) of the warp computes the scores of rows
+//   rg + 4i and keys g + 8j (i, j < 4) from float4 loads that hit 8
+//   distinct K rows and 4 distinct Q rows (no bank conflict, the rest
+//   broadcast), the row maxima are shuffles over the 8 lanes of a row
+//   group, P goes to the warp's own shared rows (key g + 8j at column 4g +
+//   j, so a float4 of P is 4 keys 8 apart), and the same lane then owns
+//   rows rg + 4i and columns of the (16 x Dv) accumulator: a float4 (a
+//   float2 at Dv = 16) at 4g (2g), repeated every 32 columns, so every lane
+//   has columns at every Dv.  A warp skips its rows past Sq and its keys
+//   past Sk (and past its last row when causal) in groups of 4 rows and 8
+//   keys.  P stays fp32 (no bf16 rounding, no TF32), logits are scaled
+//   after the dot as the TPU kernel does, masked logits are -1e30 and the
+//   final sum is floored at 1e-30, as there; each row's sum is kept as the
+//   8 lanes' parts and added once at the end, in a fixed order (no atomics:
+//   two launches give the same bits).  Any S is taken (the TPU wrapper's
+//   `s // tq` drops a ragged tail).
 //
 // * `flash_decode` (body `_decode_kernel`): one query token per (b, h)
 //   against a cache (B, Hkv, T, D) masked by kv_len (B,).  One block per
@@ -48,17 +62,21 @@
 // What bounds them on this card.  Prefill is operations:
 // 2·B·H·Sq·Sk·(D + Dv) (halved when causal), held on fp32 inputs to the 67
 // TFLOP/s of the fp32 CUDA cores, since the tensor cores would take fp32
-// only as TF32 (ROADMAP rule b).  The kernel keeps every operand of the inner products in
-// shared memory or registers (16 FMAs per two 16-byte shared loads in the
-// score loop) and skips the tiles above the diagonal.  The bf16 prefill
-// of the served model runs on the tensor cores (wgmma fed by TMA) in
-// flash_attention_sm90.cu.  Decode is bytes: the
-// valid part of the cache read once (33.6 MB a layer at 4 x 4,100 Yi-6B
-// positions, 10 µs); the kernel reads it once, with chunks in flight on
-// every block.  Its arithmetic, 4·D operations per head and position, is
-// little beside the bytes, but on the CUDA cores each operation costs its
-// shared-memory loads and conversions too, enough instructions to bound a
-// bf16 call; the tensor cores take that part.
+// only as TF32 (ROADMAP rule b).  The kernel keeps every operand of the
+// inner products in shared memory or registers: a lane's 4 x 4 register
+// tile takes 64 FMAs per eight 16-byte shared loads in both products
+// (scores and P·V at Dv >= 32), and it does only the work the call needs
+// (rows below Sq, keys below Sk, tiles below the diagonal).  On the H100
+// it reaches 28-37 % of that bound: it is latency-bound (more warps an SM
+// helped, fewer loads a FMA at fewer warps did not; PERF.md).  The bf16
+// prefill of the served model runs on the tensor cores (wgmma fed by TMA)
+// in flash_attention_sm90.cu.  Decode is bytes: the valid part of the
+// cache read once (33.6 MB a layer at 4 x 4,100 Yi-6B positions, 10 µs);
+// the kernel reads it once, with chunks in flight on every block.  Its
+// arithmetic, 4·D operations per head and position, is little beside the
+// bytes, but on the CUDA cores each operation costs its shared-memory
+// loads and conversions too, enough instructions to bound a bf16 call; the
+// tensor cores take that part.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,210 +86,20 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBQ = 64;          // query rows of a prefill block
-constexpr int kBK = 64;          // keys of a KV tile
-constexpr int kPad = 4;          // row padding of the transposed tiles
-constexpr int kLd = kBK + kPad;  // row stride of qt / kt / ps (16 B multiple)
-constexpr int kThreads = 256;    // 16 x 16 threads, each 4 rows x 4 keys
 constexpr int kSplit = 512;      // cache positions a decode block reduces
 constexpr int kDecodeThreads = 256;
 constexpr int kDecodeHeads = 8;  // query heads a decode block takes at once
 constexpr int kChunk = 64;       // cache positions of a staged chunk
 constexpr int kStages = 3;       // chunks of the cp.async ring
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// Reductions over the 16 lanes that share a row (lanes 0-15 or 16-31).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 struct Strides {
   long long b, h, s;  // element strides of the (B, H, S) axes; D is unit
 };
-
-// The shared-memory floats of a block at q/k width D and v width DV: Q
-// transposed, one K (transposed) or V tile, the P tile.
-template <int D, int DV>
-constexpr int attention_smem_floats() {
-  return D * kLd + (D * kLd > kBK * DV ? D * kLd : kBK * DV) + kBQ * kLd;
-}
-
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           Strides qs, Strides ks, Strides vs, int n_heads,
-                           int group, int sq, int sk, float scale,
-                           int causal, float* __restrict__ lse) {
-  constexpr int kNU = (DV + 63) / 64;  // 4-wide accumulator column groups
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [D][kLd], rows as columns
-  float* kv = qt + D * kLd;                    // K as [D][kLd] or V [kBK][DV]
-  float* ps = kv + (D * kLd > kBK * DV ? D * kLd : kBK * DV);  // [kBQ][kLd]
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  // heavy (late) causal tiles first, so the short ones fill the tail
-  const int qtile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qtile * kBQ;
-  const int hh = blockIdx.y, b = blockIdx.z;
-  const int kvh = hh / group;
-  const T* qb = q + b * qs.b + hh * qs.h;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    qt[d * kLd + r] = q0 + r < sq ? to_f32(qb[(q0 + r) * qs.s + d]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][4 * kNU];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * kNU; ++c) acc[i][c] = 0.f;
-  }
-
-  int n_tiles = (sk + kBK - 1) / kBK;
-  if (causal) {
-    const int last = (min(q0 + kBQ, sq) - 1) / kBK + 1;
-    n_tiles = min(n_tiles, last);
-  }
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int k0 = jt * kBK;
-    // K tile, transposed: kv[d][j]
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int j = i / D, d = i % D;
-      kv[d * kLd + j] = k0 + j < sk ? to_f32(kb[(k0 + j) * ks.s + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qt[d * kLd + ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&kv[d * kLd + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += av[i] * cv[j];
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        const bool ok = col < sk && (!causal || col <= row);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mt));
-      const float alpha = expf(m[i] - m_new);
-      float p[4], rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[j] = expf(s[i][j] - m_new);
-        rs += p[j];
-      }
-      l[i] = l[i] * alpha + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * kNU; ++c) acc[i][c] *= alpha;
-      *reinterpret_cast<float4*>(&ps[(ty * 4 + i) * kLd + tx * 4]) =
-          make_float4(p[0], p[1], p[2], p[3]);
-    }
-    __syncthreads();  // kt fully read, ps written
-
-    // V tile: kv[j][d]
-    for (int i = tid; i < kBK * DV; i += kThreads) {
-      const int j = i / DV, d = i % DV;
-      kv[j * DV + d] = k0 + j < sk ? to_f32(vb[(k0 + j) * vs.s + d]) : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int j4 = 0; j4 < kBK; j4 += 4) {
-      float pr[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 t =
-            *reinterpret_cast<const float4*>(&ps[(ty * 4 + i) * kLd + j4]);
-        pr[i][0] = t.x;
-        pr[i][1] = t.y;
-        pr[i][2] = t.z;
-        pr[i][3] = t.w;
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int u = 0; u < kNU; ++u) {
-          const int d0 = tx * 4 + 64 * u;
-          if (d0 < DV) {
-            const float4 w =
-                *reinterpret_cast<const float4*>(&kv[(j4 + jj) * DV + d0]);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              acc[i][4 * u + 0] += pr[i][jj] * w.x;
-              acc[i][4 * u + 1] += pr[i][jj] * w.y;
-              acc[i][4 * u + 2] += pr[i][jj] * w.z;
-              acc[i][4 * u + 3] += pr[i][jj] * w.w;
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // kv and ps are rewritten by the next tile
-  }
-
-  T* ob = out + (static_cast<long long>(b) * n_heads + hh) * sq * DV;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    // the row's log-sum-exp, for the backward (flash_attention_bwd.cu)
-    if (lse != nullptr && tx == 0)
-      lse[(static_cast<long long>(b) * n_heads + hh) * sq + row] =
-          m[i] + logf(fmaxf(l[i], 1e-30f));
-#pragma unroll
-    for (int u = 0; u < kNU; ++u) {
-      const int d0 = tx * 4 + 64 * u;
-      if (d0 < DV) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          store_as(&ob[static_cast<long long>(row) * DV + d0 + c],
-                   acc[i][4 * u + c] * inv);
-      }
-    }
-  }
-}
 
 // 16 bytes from global to shared memory, asynchronously (cp.async).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -279,12 +107,337 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                "l"(gmem));
 }
+// 16 (or, with `wide` false, 4) bytes from global to shared memory,
+// asynchronously; with `ok` false the destination is filled with zeros and
+// nothing is read.
+__device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem,
+                                               bool ok, bool wide) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (wide)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(gmem), "r"(ok ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(gmem), "r"(ok ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Butterfly over the 8 lanes of a row group (lanes 8rg .. 8rg + 7): every
+// lane ends with the same bits (each step adds or compares two values that
+// both lanes hold).
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The fp32 prefill's geometry at widths (D, DV), mirrored by
+// ops.f32_forward_tiles.  kWarps warps of kRowsW query rows (kRL a lane);
+// KV tiles of kKeys keys in a ring of kStages, each taken kChunk keys a
+// softmax step; kMinBlocks blocks an SM (the launch bounds; shared memory
+// allows them): 24 warps at D + DV <= 64, 16 up to 160, 8 at (128, 128),
+// whose 64-key tiles take 219 KB.  (On the H100 a 256-key tile staged once
+// at 16 warps, and 8 rows a lane at 8 warps, were slower: the kernel waits
+// on latency more than on shared-memory bandwidth.)  A lane's
+// accumulator: kRL rows x kNU blocks of kVec columns.  Shared floats: Q
+// [kRows][kLQ], the ring's stages (K [kKeys][kLQ], then V [kKeys][DV]),
+// and each warp's P [kRowsW][kLP].
+template <int D, int DV>
+struct Fwd {
+  static constexpr int kRL = 4;
+  static constexpr int kWarps = 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRowsW = 4 * kRL;
+  static constexpr int kRows = kRowsW * kWarps;
+  static constexpr int kChunk = 32;
+  static constexpr int kKeys = D + DV <= 64 || D + DV > 160 ? 64 : 32;
+  static constexpr int kStages = 2;
+  static constexpr int kMinBlocks = D + DV <= 64 ? 3 : D + DV <= 160 ? 2 : 1;
+  static constexpr int kLQ = D + 4;
+  static constexpr int kLP = kChunk + 4;
+  static constexpr int kVec = DV >= 32 ? 4 : DV / 8;
+  static constexpr int kNU = DV / (8 * kVec);
+  static constexpr int kStageFloats = kKeys * (kLQ + DV);
+  static constexpr int kKV = kRows * kLQ;
+  static constexpr int kP = kKV + kStages * kStageFloats;
+  static constexpr int kFloats = kP + kWarps * kRowsW * kLP;
+  static_assert(D % 4 == 0 && DV % (8 * kVec) == 0 && kKeys % kChunk == 0 &&
+                    (kVec == 2 || kVec == 4) && kStages >= 2,
+                "fp32 prefill tiling");
+};
+
+// Rows r0 .. r0 + n - 1 of a (S, W) slice (row stride `ss` floats, unit
+// stride along W) into rows 0 .. n - 1 of a [.][LD] tile by cp.async,
+// rows at or past `limit` zero-filled: 16-byte copies where `wide`, else
+// 4-byte ones.
+template <int W, int LD, int THREADS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long ss, int r0, int n,
+                                           int limit, bool wide) {
+  if (wide) {
+    for (int i = threadIdx.x; i < n * (W / 4); i += THREADS) {
+      const int r = i / (W / 4), c = i % (W / 4) * 4;
+      const bool ok = r0 + r < limit;
+      cp_async_zfill(dst + r * LD + c, ok ? src + (r0 + r) * ss + c : src,
+                     ok, true);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * W; i += THREADS) {
+      const int r = i / W, c = i % W;
+      const bool ok = r0 + r < limit;
+      cp_async_zfill(dst + r * LD + c, ok ? src + (r0 + r) * ss + c : src,
+                     ok, false);
+    }
+  }
+}
+
+// One softmax step of a warp over 32 keys of a staged tile: the scores of
+// its rows (q_w: its first Q row) and the keys at k_c (their K rows, V rows
+// at v_c), the running max m, the lane's part l of each row's sum, and the
+// accumulator rescaled and added to.  row0 / key0: the first row's and
+// key's index in the sequence; n_rows / n_keys: the warp's rows below Sq
+// and the step's keys it needs (FULL: 16 and 32, nothing skipped).
+template <int D, int DV, bool FULL>
+__device__ __forceinline__ void softmax_step(
+    const float* q_w, const float* k_c, const float* v_c, float* p_w,
+    float (&m)[Fwd<D, DV>::kRL], float (&l)[Fwd<D, DV>::kRL],
+    float (&acc)[Fwd<D, DV>::kRL][Fwd<D, DV>::kNU * Fwd<D, DV>::kVec],
+    int row0,
+    int key0, int n_rows, int n_keys, int sk, int causal, float scale,
+    int rg, int g) {
+  using F = Fwd<D, DV>;
+  float s[F::kRL][4];
+#pragma unroll
+  for (int i = 0; i < F::kRL; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 a[F::kRL];
+#pragma unroll
+    for (int i = 0; i < F::kRL; ++i)
+      a[i] = FULL || 4 * i < n_rows ? ld4(q_w + (rg + 4 * i) * F::kLQ + d)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!FULL && 8 * j >= n_keys) continue;
+      const float4 c = ld4(k_c + (g + 8 * j) * F::kLQ + d);
+#pragma unroll
+      for (int i = 0; i < F::kRL; ++i) {
+        if (!FULL && 4 * i >= n_rows) continue;
+        s[i][j] = fmaf(a[i].x, c.x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, c.y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, c.z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, c.w, s[i][j]);
+      }
+    }
+  }
+
+  __syncwarp();  // the last step's P is read
+#pragma unroll
+  for (int i = 0; i < F::kRL; ++i) {
+    if (!FULL && 4 * i >= n_rows) continue;
+    const int row = row0 + rg + 4 * i;
+    float mt = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = key0 + g + 8 * j;
+      const bool ok = (FULL || 8 * j < n_keys) && key < sk &&
+                      (!causal || key <= row);
+      s[i][j] = ok ? s[i][j] * scale : kNegInf;
+      mt = fmaxf(mt, s[i][j]);
+    }
+    const float m_new = fmaxf(m[i], group_max(mt));
+    const float alpha = expf(m[i] - m_new);
+    float p[4], rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      p[j] = expf(s[i][j] - m_new);
+      rs += p[j];
+    }
+    l[i] = l[i] * alpha + rs;
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < F::kNU * F::kVec; ++c) acc[i][c] *= alpha;
+    *reinterpret_cast<float4*>(p_w + (rg + 4 * i) * F::kLP + 4 * g) =
+        make_float4(p[0], p[1], p[2], p[3]);
+  }
+  __syncwarp();  // P is written
+
+  // acc += P V: column 4c + jj of P is key c + 8jj
+  const int n_groups = FULL ? 4 : (n_keys + 7) / 8;
+#pragma unroll 2
+  for (int c = 0; c < 8; ++c) {
+    float pr[F::kRL][4];
+#pragma unroll
+    for (int i = 0; i < F::kRL; ++i) {
+      const float4 x = FULL || 4 * i < n_rows
+                           ? ld4(p_w + (rg + 4 * i) * F::kLP + 4 * c)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      pr[i][0] = x.x;
+      pr[i][1] = x.y;
+      pr[i][2] = x.z;
+      pr[i][3] = x.w;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      if (!FULL && jj >= n_groups) continue;
+      const float* vr = v_c + (c + 8 * jj) * DV + g * F::kVec;
+#pragma unroll
+      for (int u = 0; u < F::kNU; ++u) {
+        float w[4];
+        if constexpr (F::kVec == 4) {
+          const float4 x = ld4(vr + 32 * u);
+          w[0] = x.x;
+          w[1] = x.y;
+          w[2] = x.z;
+          w[3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(vr + 16 * u);
+          w[0] = x.x;
+          w[1] = x.y;
+        }
+#pragma unroll
+        for (int i = 0; i < F::kRL; ++i) {
+          if (!FULL && 4 * i >= n_rows) continue;
+#pragma unroll
+          for (int e = 0; e < F::kVec; ++e)
+            acc[i][u * F::kVec + e] =
+                fmaf(pr[i][jj], w[e], acc[i][u * F::kVec + e]);
+        }
+      }
+    }
+  }
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(Fwd<D, DV>::kThreads,
+                                  Fwd<D, DV>::kMinBlocks)
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, Strides qs, Strides ks,
+                           Strides vs, int n_heads, int group, int sq,
+                           int sk, float scale, int causal, int wide,
+                           float* __restrict__ lse) {
+  using F = Fwd<D, DV>;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = lane >> 3, g = lane & 7;
+  float* p_w = sm + F::kP + warp * F::kRowsW * F::kLP;
+
+  // heavy (late) causal tiles first, so the short ones fill the tail
+  const int qtile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qtile * F::kRows;
+  const int hh = blockIdx.y, b = blockIdx.z;
+  const int kvh = hh / group;
+  const float* qb = q + b * qs.b + hh * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+
+  // the block's rows below Sq and the keys it needs (below Sk, and up to
+  // its last row when causal); a warp's rows and keys
+  const int n_rows = min(F::kRows, sq - q0);
+  const int k_end = causal ? min(sk, q0 + n_rows) : sk;
+  const int n_tiles = (k_end + F::kKeys - 1) / F::kKeys;
+  const int w0 = warp * F::kRowsW;
+  const int w_rows = min(F::kRowsW, n_rows - w0);
+  const int w_end = causal ? min(sk, q0 + w0 + w_rows) : sk;
+
+  // a tile's keys up to the 8-key group that holds its last needed one
+  // (the groups a warp reads), zero past Sk
+  auto stage_kv = [&](int t, int st) {
+    const int k0 = t * F::kKeys;
+    const int n = min(F::kKeys, (k_end - k0 + 7) & ~7);
+    float* k_s = sm + F::kKV + st * F::kStageFloats;
+    stage_rows<D, F::kLQ, F::kThreads>(k_s, kb, ks.s, k0, n, sk, wide);
+    stage_rows<DV, DV, F::kThreads>(k_s + F::kKeys * F::kLQ, vb, vs.s, k0, n,
+                                    sk, wide);
+  };
+  stage_rows<D, F::kLQ, F::kThreads>(sm, qb, qs.s, q0,
+                                     min(F::kRows, (n_rows + 3) & ~3), sq,
+                                     wide);
+#pragma unroll
+  for (int t = 0; t < F::kStages - 1; ++t) {
+    if (t < n_tiles) stage_kv(t, t);
+    cp_async_commit();
+  }
+
+  float m[F::kRL], l[F::kRL], acc[F::kRL][F::kNU * F::kVec];
+#pragma unroll
+  for (int i = 0; i < F::kRL; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < F::kNU * F::kVec; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<F::kStages - 2>();  // tile t (and Q) have landed
+    __syncthreads();
+    // into the stage of tile t - 1, which every warp is done with
+    if (t + F::kStages - 1 < n_tiles)
+      stage_kv(t + F::kStages - 1, (t + F::kStages - 1) % F::kStages);
+    cp_async_commit();
+    if (w_rows <= 0) continue;
+    const int k0 = t * F::kKeys;
+    const float* k_s = sm + F::kKV + (t % F::kStages) * F::kStageFloats;
+    const float* v_s = k_s + F::kKeys * F::kLQ;
+    for (int c0 = 0; c0 < F::kKeys && k0 + c0 < w_end; c0 += F::kChunk) {
+      const int nk = min(F::kChunk, w_end - k0 - c0);
+      if (w_rows == F::kRowsW && nk == F::kChunk)
+        softmax_step<D, DV, true>(sm + w0 * F::kLQ, k_s + c0 * F::kLQ,
+                                  v_s + c0 * DV, p_w, m, l, acc, q0 + w0,
+                                  k0 + c0, w_rows, nk, sk, causal, scale, rg,
+                                  g);
+      else
+        softmax_step<D, DV, false>(sm + w0 * F::kLQ, k_s + c0 * F::kLQ,
+                                   v_s + c0 * DV, p_w, m, l, acc, q0 + w0,
+                                   k0 + c0, w_rows, nk, sk, causal, scale,
+                                   rg, g);
+    }
+  }
+  if (w_rows <= 0) return;
+
+  const long long bh = static_cast<long long>(b) * n_heads + hh;
+#pragma unroll
+  for (int i = 0; i < F::kRL; ++i) {
+    const float sum = fmaxf(group_sum(l[i]), 1e-30f);
+    const int row = q0 + w0 + rg + 4 * i;
+    if (4 * i >= w_rows || row >= sq) continue;
+    // the row's log-sum-exp, for the backward (flash_attention_bwd.cu)
+    if (lse != nullptr && g == 0) lse[bh * sq + row] = m[i] + logf(sum);
+    const float inv = 1.f / sum;
+    float* orow = out + (bh * sq + row) * DV + g * F::kVec;
+#pragma unroll
+    for (int u = 0; u < F::kNU; ++u) {
+      const int c = u * F::kVec;
+      if constexpr (F::kVec == 4)
+        *reinterpret_cast<float4*>(orow + 32 * u) =
+            make_float4(acc[i][c] * inv, acc[i][c + 1] * inv,
+                        acc[i][c + 2] * inv, acc[i][c + 3] * inv);
+      else
+        *reinterpret_cast<float2*>(orow + 16 * u) =
+            make_float2(acc[i][c] * inv, acc[i][c + 1] * inv);
+    }
+  }
 }
 
 // fp32 split-KV decode partials on the CUDA cores.  Block (split, kv head,
@@ -739,36 +892,53 @@ __global__ void __launch_bounds__(D)
   store_as(&out[bh * D + d], a / fmaxf(denom, 1e-30f));
 }
 
-template <typename T, int D, int DV>
+// Whether a (B, H, S, W) view's rows all start on a 16-byte boundary: its
+// base and each stride of an axis longer than 1 (W is unit stride and a
+// multiple of 4).
+bool rows_aligned(const void* p, const Strides& s, int nb, int nh, int ns) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0 &&
+         (nb == 1 || s.b % 4 == 0) && (nh == 1 || s.h % 4 == 0) &&
+         (ns == 1 || s.s % 4 == 0);
+}
+
+template <int D, int DV>
 int attention_d(const void* q, const void* k, const void* v, void* out,
                 int b, int h, int hkv, int sq, int sk, Strides qs,
                 Strides ks, Strides vs, float scale, int causal, float* lse,
                 cudaStream_t stream) {
-  const size_t smem = sizeof(float) * attention_smem_floats<D, DV>();
-  auto kern = flash_attention_kernel<T, D, DV>;
-  const cudaError_t err = cudaFuncSetAttribute(
+  using F = Fwd<D, DV>;
+  const size_t smem = sizeof(float) * F::kFloats;
+  auto kern = flash_attention_kernel<D, DV>;
+  cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, h, h / hkv,
-      sq, sk, scale, causal, lse);
+  // 16-byte copies where every staged row starts on a 16-byte boundary
+  const bool wide = rows_aligned(q, qs, b, h, sq) &&
+                    rows_aligned(k, ks, b, hkv, sk) &&
+                    rows_aligned(v, vs, b, hkv, sk);
+  const dim3 grid((sq + F::kRows - 1) / F::kRows, h, b);
+  kern<<<grid, F::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), qs, ks, vs, h,
+      h / hkv, sq, sk, scale, causal, wide ? 1 : 0, lse);
   return 0;
 }
 
 // The built (q/k width, v width) pairs: equal widths 16 to 128, and (96, 64)
 // for MLA's prefill.
-template <typename T>
-int attention_t(int d, int dv, const void* q, const void* k, const void* v,
-                void* out, int b, int h, int hkv, int sq, int sk, Strides qs,
-                Strides ks, Strides vs, float scale, int causal, float* lse,
-                cudaStream_t stream) {
+int attention_f32(int d, int dv, const void* q, const void* k, const void* v,
+                  void* out, int b, int h, int hkv, int sq, int sk,
+                  Strides qs, Strides ks, Strides vs, float scale, int causal,
+                  float* lse, cudaStream_t stream) {
 #define FA_CASE(D, DV)                                                      \
   if (d == D && dv == DV)                                                   \
-    return attention_d<T, D, DV>(q, k, v, out, b, h, hkv, sq, sk, qs, ks,   \
-                                 vs, scale, causal, lse, stream);
+    return attention_d<D, DV>(q, k, v, out, b, h, hkv, sq, sk, qs, ks, vs,  \
+                              scale, causal, lse, stream);
   FA_CASE(16, 16)
   FA_CASE(32, 32)
   FA_CASE(64, 64)
@@ -845,9 +1015,10 @@ int decode_t(int d, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Prefill attention on fp32 inputs: one 256-thread block per (64-row query
+// Prefill attention on fp32 inputs: one 256-thread block per (128-row query
 // tile, h, b).  q, k (width d), v (width dv): fp32, unit stride along the
-// width, the given element strides along (B, H, S); out (B, H, Sq, dv)
+// width, the given element strides along (B, H, S) (rows off a 16-byte
+// boundary are staged 4 bytes a copy); out (B, H, Sq, dv)
 // contiguous fp32; lse, when not null, (B, H, Sq) fp32 takes each row's
 // log-sum-exp of its scaled, masked logits (max + log(max(sum, 1e-30))),
 // which the backward reads.  Returns 0 when launched (the caller checks the
@@ -861,8 +1032,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long vss, float scale, int causal,
                            float* lse, cudaStream_t stream) {
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
-  return attention_t<float>(d, dv, q, k, v, out, b, h, hkv, sq, sk, qs, ks,
-                            vs, scale, causal, lse, stream);
+  return attention_f32(d, dv, q, k, v, out, b, h, hkv, sq, sk, qs, ks, vs,
+                       scale, causal, lse, stream);
 }
 
 // Split-KV decode: one 256-thread block per (512-position split, kv head,

@@ -5,7 +5,12 @@ versions, and the public ops the model code calls.
 tensor-core kernel of ``flash_attention_sm90.cu`` for bf16, the CUDA-core
 kernel of ``flash_attention.cu`` for fp32, a fixed choice by dtype — and
 runs ``attention_ref`` for CPU tensors; ``attention_tc_plain`` repeats the
-bf16 kernel's arithmetic (its tiles, P as bf16 hi + lo) in plain PyTorch;
+bf16 kernel's arithmetic (its tiles, P as bf16 hi + lo) in plain PyTorch,
+``attention_f32_tiles_plain`` the fp32 kernel's (its query tiles and
+32-key softmax steps, whose geometry ``f32_forward_tiles`` gives: 8 warps
+of 16 rows a block, KV tiles of 64 or 32 keys in a two-stage ring;
+``f32_forward_lanes`` maps each lane of a warp to its rows and
+accumulator columns);
 ``flash_decode`` launches the split-KV decode kernel (bf16 on the tensor
 cores, fp32 on the CUDA cores, by dtype) and the kernel that merges its
 per-split partials (``merge_splits`` of ``decode_partials_plain`` is
@@ -95,6 +100,22 @@ def attention_tc_plain(q, k, v, causal: bool = True,
     floored at 1e-30; output (B, H, Sq, Dv) in q's type, and with
     ``return_lse`` each row's log-sum-exp, fp32 (B, H, Sq), as the kernel
     writes it."""
+    def halves(p):
+        hi = p.to(torch.bfloat16).float()
+        return hi + (p - hi).to(torch.bfloat16).float() if p_halves == 2 \
+            else hi
+    out, lse = _tiled_softmax(q, k, v, causal, scale, TC_TILE, TC_TILE,
+                              halves)
+    return (out, lse) if return_lse else out
+
+
+def _tiled_softmax(q, k, v, causal, scale, rows, keys, weights):
+    """The prefill kernels' online softmax in plain PyTorch: for each
+    ``rows``-row query tile, steps of ``keys`` keys up to the tile's last
+    row when causal, fp32 products of the operands, logits scaled after the
+    dot and masked to -1e30, P's fp32 values summed and ``weights(P)``
+    multiplied into V, the sum floored at 1e-30: (output (B, H, Sq, Dv) in
+    q's type, each row's log-sum-exp m + log(max(l, 1e-30)) fp32)."""
     b, h, sq, d = q.shape
     sk, dv = k.shape[2], v.shape[-1]
     scale = scale if scale is not None else d ** -0.5
@@ -102,34 +123,82 @@ def attention_tc_plain(q, k, v, causal: bool = True,
     v = _expand_kv(v, h).float()
     out = torch.empty((b, h, sq, dv), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    for q0 in range(0, sq, TC_TILE):
-        q1 = min(q0 + TC_TILE, sq)
-        rows = torch.arange(q0, q1, device=q.device)[:, None]
+    for q0 in range(0, sq, rows):
+        q1 = min(q0 + rows, sq)
+        pos = torch.arange(q0, q1, device=q.device)[:, None]
         qf = q[:, :, q0:q1].float()
         m = torch.full((b, h, q1 - q0), NEG_INF, device=q.device)
         l = torch.zeros((b, h, q1 - q0), device=q.device)
         acc = torch.zeros((b, h, q1 - q0, dv), device=q.device)
-        for k0 in range(0, q1 if causal else sk, TC_TILE):
-            k1 = min(k0 + TC_TILE, sk)
+        for k0 in range(0, min(sk, q1) if causal else sk, keys):
+            k1 = min(k0 + keys, sk)
             s = torch.einsum("bhqd,bhkd->bhqk", qf, k[:, :, k0:k1]) * scale
             if causal:
                 cols = torch.arange(k0, k1, device=q.device)[None, :]
-                s = torch.where(cols <= rows, s, NEG_INF)
+                s = torch.where(cols <= pos, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l = l * alpha + p.sum(dim=-1)
-            hi = p.to(torch.bfloat16).float()
-            if p_halves == 2:
-                hi = hi + (p - hi).to(torch.bfloat16).float()
             acc = acc * alpha[..., None] + torch.einsum(
-                "bhqk,bhkd->bhqd", hi, v[:, :, k0:k1])
+                "bhqk,bhkd->bhqd", weights(p), v[:, :, k0:k1])
             m = m_new
         out[:, :, q0:q1] = acc / torch.clamp(l, min=1e-30)[..., None]
         lse[:, :, q0:q1] = m + torch.log(torch.clamp(l, min=1e-30))
-    if return_lse:
-        return out.to(q.dtype), lse
-    return out.to(q.dtype)
+    return out.to(q.dtype), lse
+
+
+def f32_forward_tiles(d: int, dv: int) -> dict:
+    """The fp32 forward kernel's geometry at widths (d, dv) (its ``Fwd``):
+    ``warps`` warps of ``rows_warp`` query rows (``rows_lane`` a lane,
+    ``rows`` a block), KV tiles of ``keys`` keys in a ring of ``stages``,
+    each taken ``chunk`` keys a softmax step; ``min_blocks`` blocks an SM
+    (the launch bounds), ``smem_bytes`` of shared memory a block; a lane's
+    accumulator columns come in ``col_blocks`` blocks of ``vec``
+    (``f32_forward_lanes``)."""
+    rows_lane, warps, chunk, stages = 4, 8, 32, 2
+    keys = 32 if 64 < d + dv <= 160 else 64
+    vec = 4 if dv >= 32 else dv // 8
+    rows_warp = 4 * rows_lane
+    rows = warps * rows_warp
+    floats = (rows * (d + 4) + stages * keys * (d + 4 + dv)
+              + warps * rows_warp * (chunk + 4))
+    return dict(warps=warps, rows_lane=rows_lane, rows_warp=rows_warp,
+                rows=rows, chunk=chunk, keys=keys, stages=stages,
+                min_blocks=3 if d + dv <= 64 else 2 if d + dv <= 160 else 1,
+                vec=vec, col_blocks=dv // (8 * vec), smem_bytes=4 * floats)
+
+
+def f32_forward_lanes(d: int, dv: int) -> list:
+    """For each lane of a warp of the fp32 forward kernel, the (rows,
+    columns) of the warp's (``rows_warp`` x dv) accumulator it owns: lane
+    8·rg + g takes rows rg + 4i and, in each block of 8·``vec`` columns,
+    the ``vec`` at g·``vec`` (the same lane computes the scores of rows rg
+    + 4i and keys g + 8j)."""
+    t = f32_forward_tiles(d, dv)
+    vec = t["vec"]
+    return [([lane // 8 + 4 * i for i in range(t["rows_lane"])],
+             [8 * vec * u + (lane % 8) * vec + e
+              for u in range(t["col_blocks"]) for e in range(vec)])
+            for lane in range(32)]
+
+
+def attention_f32_tiles_plain(q, k, v, causal: bool = True,
+                              scale: float | None = None,
+                              return_lse: bool = False):
+    """The fp32 forward kernel's arithmetic in plain PyTorch: for each query
+    tile of ``f32_forward_tiles``'s ``rows``, an online softmax over
+    ``chunk``-key steps (the kernel's KV tiles cut into them) up to the
+    tile's last row when causal, fp32 products, logits scaled after the dot
+    and masked to -1e30, the sum floored at 1e-30; output (B, H, Sq, Dv)
+    in q's type, and with ``return_lse`` each row's log-sum-exp m +
+    log(max(l, 1e-30)), fp32 (B, H, Sq), as the kernel writes it.  Steps
+    the kernel skips (past a warp's last row) are all masked, which leaves
+    (m, l, acc) as they are."""
+    t = f32_forward_tiles(q.shape[-1], v.shape[-1])
+    out, lse = _tiled_softmax(q, k, v, causal, scale, t["rows"], t["chunk"],
+                              lambda p: p)
+    return (out, lse) if return_lse else out
 
 
 def decode_ref(q, k, v, kv_len=None, scale: float | None = None):
@@ -262,9 +331,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
     Sk, Dv) -> (B, H, Sq, Dv) in q's type: for CUDA tensors the tensor-core
     kernel on bf16 and the CUDA-core kernel on fp32, each built for the
     width pairs ``PREFILL_WIDTHS``; ``attention_ref`` for CPU tensors.
-    Causal mode needs Sq == Sk.  With ``return_lse``, (output, each row's
-    log-sum-exp (B, H, Sq) fp32), which the backward reads; without it the
-    kernel writes none."""
+    The fp32 kernel (``attention_f32_tiles_plain`` is its arithmetic) runs
+    a block of 8 warps on a 128-row query tile; each warp takes 16 rows
+    and its keys 32 a softmax step, a lane 4 rows x 4 keys of the scores
+    and 4 rows of the accumulator at every width; Q, K and V are staged by
+    cp.async (16-byte copies, 4-byte where a view's rows are off a 16-byte
+    boundary; no copy of the view), and rows past Sq and keys past Sk (or
+    the diagonal) are not computed.  Causal mode needs Sq == Sk.  With
+    ``return_lse``, (output, each row's log-sum-exp (B, H, Sq) fp32),
+    which the backward reads; without it the kernel writes none."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D")
     b, h, sq, d = q.shape
