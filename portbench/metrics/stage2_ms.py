@@ -1,0 +1,9 @@
+"""``stage2_ms``: host ms a batch inside Stage-2 (the harness's
+``portbench:stage2`` spans, from ``torch.profiler``), over the traced
+window's batches."""
+
+from portbench.metrics._stage_span import ms_per_batch
+
+
+def read(ctx):
+    return ms_per_batch(ctx, "stage2")
