@@ -538,9 +538,10 @@ below their defaults, the MoE and MLA phase: each model at most
 ``--lm-layers`` layers, prompts and steps at most those given; and the
 train phase's full-width run: at most ``--lm-layers`` layers and
 ``--lm-prompt`` tokens a sequence);
-``--profile`` adds a ``torch.profiler`` breakdown of one more served batch
-of each preset (wall, device busy time, host time per cascade stage,
-busiest device kernels) and of one more LM prefill and decode step.
+``--profile`` adds a ``torch.profiler`` breakdown (wall, device busy time,
+busiest device kernels) of one more LM prefill and decode step; the serve
+path's is ``portbench/``'s traced runs and the port's own spans
+(``repro_torch.serving.telemetry.host``).
 ``--only train``, ``--only recsys_gnn``, ``--only mesh`` and ``--only
 cells`` build the kernels and run step 19, 20, 21 or 22 alone (the mesh
 phase then draws the two-tower serve's inputs itself, the cells phase
@@ -1917,28 +1918,6 @@ def log_profile(prof, wall_ms, label="profile"):
                     reverse=True)[:12]:
         log(f"{label}: device {e.device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:70]}")
-
-
-def profile_batch(system, terms, mask, topics):
-    """One more served batch under ``torch.profiler``: wall time, device
-    busy time, host time per cascade stage, and the busiest device
-    kernels."""
-    from torch.profiler import record_function
-
-    stages = ("stage0", "_stage1_full", "stage2") + (
-        ("_stage1_dense",) if system.dense is not None else ())
-    for name in stages:
-        def timed(*a, _fn=getattr(system, name), _name=name, **kw):
-            with record_function(f"stage:{_name}"):
-                return _fn(*a, **kw)
-        setattr(system, name, timed)
-    try:
-        prof, wall_ms = run_profiled(lambda: system.serve(terms, mask,
-                                                          topics))
-    finally:
-        for name in stages:
-            delattr(system, name)
-    log_profile(prof, wall_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -7635,10 +7614,6 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     check(launches["dense_topk_tiles"] > 0,
           "serve: kernel dense_topk_tiles never launched")
     rows["dense_topk_tiles"]["launches"] = launches["dense_topk_tiles"]
-    if profile:
-        for system in (gpu, gpu_h):
-            log(f"profile of {system.cascade_spec.name}:")
-            profile_batch(system, ql.terms[sl], ql.mask[sl], ql.topic[sl])
     lap("kernels and serve")
 
     # what the ingest phase serves the fit's shard with
@@ -7786,7 +7761,8 @@ def main(argv=None):
                     help="greedy decode steps in the LM phase (and at "
                          "most, in the MoE and MLA phase)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one served batch (torch.profiler)")
+                    help="also profile the LM steps and a fit "
+                         "(torch.profiler)")
     ap.add_argument("--only", choices=("fit", "predict", "train",
                                        "recsys_gnn", "mesh", "cells"),
                     help="build the kernels and run this phase alone; "

@@ -30,6 +30,8 @@ import struct
 
 import torch
 
+from repro_torch.serving.telemetry.host import span
+
 N_SIMS = 6
 N_STATS = 6
 N_TERM_FEATURES = N_SIMS * N_STATS        # 36
@@ -200,6 +202,7 @@ def _sum_terms(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
+@span("stage0.features")
 def extract(term_stats: torch.Tensor, term_df: torch.Tensor,
             query_terms: torch.Tensor, query_mask: torch.Tensor
             ) -> torch.Tensor:

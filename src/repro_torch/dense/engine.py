@@ -28,6 +28,7 @@ import torch
 from repro_torch.dense.embeddings import embed_queries
 from repro_torch.isn.backend import merge_shard_topk, resolve_device
 from repro_torch.kernels.dense_topk.ops import dense_topk, dense_topk_plain
+from repro_torch.serving.telemetry.host import to_card, to_host
 
 SCORE_FILL = float(np.finfo(np.float32).min)
 
@@ -118,16 +119,15 @@ class DenseEngine:
         zero vector scores 0, which would outrank genuinely negative live
         scores, and asking for only k could let ghosts displace live docs.
         """
-        q_t = torch.from_numpy(np.ascontiguousarray(q_emb, np.float32)
-                               ).to(self.device)
+        q_t = to_card(np.ascontiguousarray(q_emb, np.float32), self.device)
         sc_list, id_list = [], []
         for s in range(self.n_shards):
             sc, ids = dense_topk(q_t, self.shard_emb[s], k)
             sc_list.append(sc)
             id_list.append(ids + self.doc_lo[s])
         if self.n_shards == 1 and self.delta_emb is None:
-            ids = id_list[0].cpu().numpy()
-            sc = sc_list[0].cpu().numpy()
+            ids = to_host(id_list[0]).numpy()
+            sc = to_host(sc_list[0]).numpy()
             if drop is not None and drop[0].any():
                 ids[drop[0]] = -1
                 sc[drop[0]] = SCORE_FILL
@@ -143,7 +143,7 @@ class DenseEngine:
                     [np.asarray(drop),
                      np.zeros((1, np.asarray(drop).shape[1]), bool)])
         ids, sc = merge_shard_topk(sc_list, id_list, k, drop=drop)
-        return ids.cpu().numpy(), sc.cpu().numpy()
+        return to_host(ids).numpy(), to_host(sc).numpy()
 
     def oracle(self, q_emb: np.ndarray, k: int):
         """Brute-force ground truth over the unsharded matrix, on the CPU:

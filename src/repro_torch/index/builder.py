@@ -18,6 +18,7 @@ import numpy as np
 
 from repro_torch.index import scoring
 from repro_torch.index.corpus import Corpus
+from repro_torch.serving.telemetry.host import phase
 
 
 @dataclass
@@ -309,6 +310,7 @@ def assemble_index(term: np.ndarray, doc: np.ndarray, tf: np.ndarray,
     )
 
 
+@phase("setup.index")
 def build_index(corpus: Corpus, block_size: int = 64,
                 n_levels: int = 255, stop_k: int = 64) -> InvertedIndex:
     term = corpus.postings_term

@@ -36,6 +36,7 @@ import torch
 from repro_torch.index.builder import (InvertedIndex, impact_order_layout,
                                        pack_tiles)
 from repro_torch.isn.backend import resolve_device
+from repro_torch.serving.telemetry.host import phase
 
 
 class IndexShardSpec(NamedTuple):
@@ -123,6 +124,7 @@ def shard_from_index(index: InvertedIndex, doc_lo: int = 0,
     return shard_to_device(shard_layout(index, doc_lo, doc_hi, tile_d), dev)
 
 
+@phase("setup.layout")
 def shard_layouts(index: InvertedIndex, n_shards: int,
                   tile_d: int = 128) -> list[ShardLayout]:
     """The host layouts of the ``n_shards`` doc-range shards of ``index``
@@ -131,6 +133,7 @@ def shard_layouts(index: InvertedIndex, n_shards: int,
             for lo, hi in shard_ranges(index.n_docs, n_shards)]
 
 
+@phase("setup.to_device")
 def shard_to_device(layout: ShardLayout, device: str | torch.device | None
                     = None) -> tuple[IndexShard, IndexShardSpec]:
     """Copy a host layout to ``device`` (the card unless the caller asks

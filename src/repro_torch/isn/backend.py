@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.serving.telemetry.host import span, to_card
+
 REFERENCE_BACKENDS = ("pallas", "interpret", "jnp")
 
 
@@ -100,6 +102,7 @@ def stable_topk(x: torch.Tensor, k: int):
     return sc[..., :k], idx[..., :k]
 
 
+@span("stage1.topk")
 def topk_from_tiles(acc_tiles: torch.Tensor, k: int,
                     n_docs: int | None = None):
     """Hierarchical top-k over (Q, n_tiles, tile_d) accumulator tiles.
@@ -126,6 +129,7 @@ def topk_from_tiles(acc_tiles: torch.Tensor, k: int,
     return sc, ids.to(torch.int32)
 
 
+@span("stage1.merge")
 def merge_shard_topk(scores: list, ids: list, k: int, drop=None):
     """Scatter-gather merge of per-shard top-k candidate lists.
 
@@ -143,7 +147,7 @@ def merge_shard_topk(scores: list, ids: list, k: int, drop=None):
     di = torch.cat([torch.as_tensor(i) for i in ids], dim=1)
     if drop is not None:
         dead = torch.cat(
-            [torch.as_tensor(np.asarray(drop[s]), device=sc.device)[:, None]
+            [to_card(np.asarray(drop[s]), sc.device)[:, None]
              .expand(scores[s].shape) for s in range(len(scores))], dim=1)
         sc = torch.where(dead, torch.full((), _lowest(sc.dtype),
                                           dtype=sc.dtype, device=sc.device),

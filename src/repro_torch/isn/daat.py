@@ -44,6 +44,7 @@ from repro_torch.isn.backend import (merge_shard_topk, stable_topk,
                                      topk_from_tiles)
 from repro_torch.kernels.blockmax_score.ops import (blockmax_score,
                                                     blockmax_score_tiles)
+from repro_torch.serving.telemetry.host import count, span
 
 
 class DaatResult(NamedTuple):
@@ -146,12 +147,16 @@ def daat_serve(shard: IndexShard, terms: torch.Tensor, mask: torch.Tensor,
     The reference's ``cap``/``qcap`` size its gather paths; the kernel path
     scores every posting of a matched term and takes neither.
     """
-    outs = [_daat_batched(shard, terms[i:i + q_block], mask[i:i + q_block],
-                          theta[i:i + q_block], n_docs=n_docs,
-                          n_blocks=n_blocks, block_size=block_size, k=k,
-                          bcap=bcap, tile_d=tile_d)
-            for i in range(0, max(terms.shape[0], 1), q_block)]
-    return DaatResult(*(torch.cat(parts) for parts in zip(*outs)))
+    with span("stage1.daat"):
+        outs = [_daat_batched(shard, terms[i:i + q_block],
+                              mask[i:i + q_block], theta[i:i + q_block],
+                              n_docs=n_docs, n_blocks=n_blocks,
+                              block_size=block_size, k=k, bcap=bcap,
+                              tile_d=tile_d)
+                for i in range(0, max(terms.shape[0], 1), q_block)]
+        r = DaatResult(*(torch.cat(parts) for parts in zip(*outs)))
+        count("postings", r.work)
+    return r
 
 
 def daat_scan_segments(segments, terms, mask, theta, *, k: int):

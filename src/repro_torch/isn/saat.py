@@ -33,6 +33,7 @@ from repro_torch.isn.backend import merge_shard_topk, topk_from_tiles
 from repro_torch.kernels.impact_accumulate.ops import (impact_accumulate,
                                                        impact_accumulate_tiles)
 from repro_torch.kernels.score_histogram.ops import histogram_topk
+from repro_torch.serving.telemetry.host import count, span
 
 
 class SaatResult(NamedTuple):
@@ -104,11 +105,14 @@ def saat_serve(shard: IndexShard, terms: torch.Tensor, mask: torch.Tensor,
     The reference's static ``cap`` (the ρ_max bound that sizes its gather
     paths) has no role on the kernel path and is not taken.
     """
-    outs = [_saat_batched(shard, terms[i:i + q_block], mask[i:i + q_block],
-                          rho[i:i + q_block], n_docs=n_docs, k=k,
-                          tile_d=tile_d)
-            for i in range(0, max(terms.shape[0], 1), q_block)]
-    return SaatResult(*(torch.cat(parts) for parts in zip(*outs)))
+    with span("stage1.saat"):
+        outs = [_saat_batched(shard, terms[i:i + q_block],
+                              mask[i:i + q_block], rho[i:i + q_block],
+                              n_docs=n_docs, k=k, tile_d=tile_d)
+                for i in range(0, max(terms.shape[0], 1), q_block)]
+        r = SaatResult(*(torch.cat(parts) for parts in zip(*outs)))
+        count("postings", r.work)
+    return r
 
 
 def saat_scan_segments(segments, terms, mask, rhos, *, k: int):

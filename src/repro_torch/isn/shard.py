@@ -38,6 +38,7 @@ from repro_torch.isn.backend import merge_shard_topk, resolve_backend
 from repro_torch.isn.daat import daat_serve
 from repro_torch.isn.saat import saat_serve
 from repro_torch.models import common
+from repro_torch.serving.telemetry.host import span
 
 STAGE0_TARGETS = ("k", "rho", "t")
 
@@ -87,6 +88,7 @@ def stage0_forest(models: dict) -> ForestArrays:
         bin_edges=edges)
 
 
+@span("stage0.forest")
 def _forest_predict(fa: ForestArrays, x: torch.Tensor, target: int,
                     depth: int) -> torch.Tensor:
     """Fixed-depth descent of one target's trees; x: (Q, F) raw features ->
@@ -98,6 +100,7 @@ def _forest_predict(fa: ForestArrays, x: torch.Tensor, target: int,
         trees.forest_leaves(forest, xb, depth))
 
 
+@span("stage0")
 def _stage0(fa, term_stats, df, terms, mask, depth=5):
     """147 features + three GBRT predictions, each through the compiled
     program's ``expm1``."""
@@ -197,41 +200,45 @@ def hybrid_serve_fn(mesh, *, n_docs_shard: int, n_model: int, k_shard: int,
     t_k32, t_time32 = (float(np.float32(t)) for t in (t_k, t_time))
     offset = model_rank * n_docs_shard
 
+    @span("serve")
     def serve(shard: IndexShard, fa: ForestArrays, term_stats, terms, mask):
         if shard.df.device.type != mesh.device_type:
             raise ValueError(f"the shard lies on {shard.df.device}, the mesh "
                              f"on {mesh.device_type}")
         pk, prho, pt = _stage0(fa, term_stats, shard.df, terms, mask,
                                forest_depth)
-        route_jass = (pk > t_k32) | (pt > t_time32)       # Algorithm 2
-        rho = torch.clamp(prho, 1024, rho_max).to(torch.int32)
+        with span("stage1"):
+            route_jass = (pk > t_k32) | (pt > t_time32)   # Algorithm 2
+            rho = torch.clamp(prho, 1024, rho_max).to(torch.int32)
 
-        saat = saat_serve(shard, terms, mask, rho, n_docs=n_docs_shard,
-                          k=k_shard, tile_d=tile_d)
-        theta = torch.ones((terms.shape[0],), dtype=torch.float32,
-                           device=terms.device)
-        daat = daat_serve(shard, terms, mask, theta, n_docs=n_docs_shard,
-                          n_blocks=n_blocks, block_size=block_size,
-                          k=k_shard, bcap=daat_bcap, tile_d=tile_d)
+            saat = saat_serve(shard, terms, mask, rho, n_docs=n_docs_shard,
+                              k=k_shard, tile_d=tile_d)
+            theta = torch.ones((terms.shape[0],), dtype=torch.float32,
+                               device=terms.device)
+            daat = daat_serve(shard, terms, mask, theta, n_docs=n_docs_shard,
+                              n_blocks=n_blocks, block_size=block_size,
+                              k=k_shard, bcap=daat_bcap, tile_d=tile_d)
 
-        ids = torch.where(route_jass[:, None], saat.topk_docs,
-                          daat.topk_docs)
-        sc = torch.where(route_jass[:, None], saat.topk_scores,
-                         daat.topk_scores).contiguous()
-        work = torch.where(route_jass, saat.work,
-                           daat.work.to(torch.int32))
+            ids = torch.where(route_jass[:, None], saat.topk_docs,
+                              daat.topk_docs)
+            sc = torch.where(route_jass[:, None], saat.topk_scores,
+                             daat.topk_scores).contiguous()
+            work = torch.where(route_jass, saat.work,
+                               daat.work.to(torch.int32))
 
-        # globalize doc ids and merge across ISN shards
-        gids = (ids + offset).contiguous()
-        all_sc = [torch.empty_like(sc) for _ in range(n_model)]
-        all_ids = [torch.empty_like(gids) for _ in range(n_model)]
-        dist.all_gather(all_sc, sc, group=group)
-        dist.all_gather(all_ids, gids, group=group)
-        top_ids, top_sc = merge_shard_topk(all_sc, all_ids, k_global)
+            # globalize doc ids and merge across ISN shards
+            gids = (ids + offset).contiguous()
+            all_sc = [torch.empty_like(sc) for _ in range(n_model)]
+            all_ids = [torch.empty_like(gids) for _ in range(n_model)]
+            with span("stage1.gather"):
+                dist.all_gather(all_sc, sc, group=group)
+                dist.all_gather(all_ids, gids, group=group)
+            top_ids, top_sc = merge_shard_topk(all_sc, all_ids, k_global)
 
-        # model rank 0's work and route on every rank
-        wr = torch.stack([work, route_jass.to(torch.int32)], dim=1)
-        dist.broadcast(wr, src=root, group=group)
+            # model rank 0's work and route on every rank
+            wr = torch.stack([work, route_jass.to(torch.int32)], dim=1)
+            with span("stage1.gather"):
+                dist.broadcast(wr, src=root, group=group)
         return top_ids, top_sc, wr[:, 0].contiguous(), wr[:, 1] > 0
 
     return serve

@@ -87,12 +87,15 @@ def extension():
     if _ext is None:
         from torch.utils.cpp_extension import load
 
+        from repro_torch.serving.telemetry.host import phase
+
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        _ext = load(name="repro_torch_kernels",
-                    sources=[str(s) for s in SOURCES],
-                    build_directory=str(BUILD_DIR),
-                    extra_cflags=["-O2"],
-                    extra_cuda_cflags=list(CUDA_FLAGS))
+        with phase("setup.kernels"):
+            _ext = load(name="repro_torch_kernels",
+                        sources=[str(s) for s in SOURCES],
+                        build_directory=str(BUILD_DIR),
+                        extra_cflags=["-O2"],
+                        extra_cuda_cflags=list(CUDA_FLAGS))
     return _ext
 
 

@@ -22,6 +22,7 @@ from repro_torch.core import gbrt
 from repro_torch.isn.backend import stable_topk
 from repro_torch.ltr.ranker import (LTRModel, Stage2Arrays, qd_features,
                                    qd_features_batched)
+from repro_torch.serving.telemetry.host import span, to_card, to_host
 
 
 @dataclass
@@ -76,7 +77,7 @@ def rerank_batched(arrs: Stage2Arrays, ltr: LTRModel, terms, mask, topics,
     dev = arrs.offsets.device
     q, c = np.shape(cand)
     if lane_need is None:
-        off = arrs.offsets.cpu().numpy().astype(np.int64)
+        off = to_host(arrs.offsets).numpy().astype(np.int64)
         t_np = np.asarray(terms)
         df = off[t_np + 1] - off[t_np]
         lane_need = int((df * (np.asarray(mask) > 0)).sum(axis=1).max())
@@ -87,25 +88,28 @@ def rerank_batched(arrs: Stage2Arrays, ltr: LTRModel, terms, mask, topics,
             f"qcap={qcap} does not cover the batch's per-query posting "
             f"total ({lane_need}); size it with "
             f"repro_torch.isn.backend.query_lane_budget")
-    terms_t = torch.as_tensor(np.asarray(terms), device=dev)
-    mask_t = torch.as_tensor(np.asarray(mask), device=dev)
-    topics_t = torch.as_tensor(np.asarray(topics), device=dev)
-    cand_t = torch.as_tensor(np.asarray(cand, np.int32), device=dev)
+    terms_t = to_card(np.asarray(terms), dev)
+    mask_t = to_card(np.asarray(mask), dev)
+    topics_t = to_card(np.asarray(topics), dev)
+    cand_t = to_card(np.asarray(cand, np.int32), dev)
     feats = qd_features_batched(arrs, terms_t, mask_t, topics_t, cand_t,
                                 qcap=qcap, p_tile=p_tile)
-    sc = gbrt.predict(ltr.model, feats.reshape(q * c, -1)).reshape(q, c)
-    k_t = torch.as_tensor(np.asarray(k_per_query, np.int64), device=dev)
-    valid = (cand_t >= 0) & (torch.arange(c, device=dev)[None, :]
-                             < k_t[:, None])
-    sc = torch.where(valid, sc, float("-inf"))
-    kk = min(t_final, c)
-    top_sc, order = stable_topk(sc, kk)
-    picks = torch.gather(cand_t, 1, order)
-    picks = torch.where(torch.isfinite(top_sc), picks, -1)
-    used = valid.sum(dim=1)
-    final = torch.where(used[:, None] > 0, picks, 0)
-    if kk < t_final:
-        final = torch.nn.functional.pad(final, (0, t_final - kk), value=-1)
-        final = torch.where(used[:, None] > 0, final, 0)
-    return CascadeResult(final=final.cpu().numpy().astype(np.int64),
-                         candidates_used=used.cpu().numpy().astype(np.int64))
+    with span("stage2.ltr"):
+        sc = gbrt.predict(ltr.model, feats.reshape(q * c, -1)).reshape(q, c)
+        k_t = to_card(np.asarray(k_per_query, np.int64), dev)
+        valid = (cand_t >= 0) & (torch.arange(c, device=dev)[None, :]
+                                 < k_t[:, None])
+        sc = torch.where(valid, sc, float("-inf"))
+        kk = min(t_final, c)
+        top_sc, order = stable_topk(sc, kk)
+        picks = torch.gather(cand_t, 1, order)
+        picks = torch.where(torch.isfinite(top_sc), picks, -1)
+        used = valid.sum(dim=1)
+        final = torch.where(used[:, None] > 0, picks, 0)
+        if kk < t_final:
+            final = torch.nn.functional.pad(final, (0, t_final - kk),
+                                            value=-1)
+            final = torch.where(used[:, None] > 0, final, 0)
+        return CascadeResult(
+            final=to_host(final).numpy().astype(np.int64),
+            candidates_used=to_host(used).numpy().astype(np.int64))

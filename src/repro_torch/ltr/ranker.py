@@ -29,6 +29,7 @@ import torch
 from repro_torch.core import gbrt
 from repro_torch.isn.backend import compact_lanes
 from repro_torch.kernels.qd_feature_gather.ops import qd_feature_gather
+from repro_torch.serving.telemetry.host import span
 
 N_LTR_FEATURES = 8
 
@@ -121,6 +122,7 @@ def _lane_term_stats(offsets, docs, score, terms, tmask, cand, qcap: int,
     return bm25, mx, cnt.to(torch.float32)
 
 
+@span("stage2.features")
 def qd_features_batched(arrs: Stage2Arrays, terms: torch.Tensor,
                         mask: torch.Tensor, topics: torch.Tensor,
                         cand: torch.Tensor, *, qcap: int,

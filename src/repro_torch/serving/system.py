@@ -89,6 +89,8 @@ from repro_torch.serving.telemetry import QueryTrace, Span, Telemetry
 from repro_torch.serving.telemetry.export import (legacy_stats_view,
                                                   render_json,
                                                   render_prometheus)
+from repro_torch.serving.telemetry.host import (phase, span, to_card,
+                                                to_host)
 
 SCORE_FILL = float(np.finfo(np.float32).min)
 
@@ -134,6 +136,7 @@ def routing_spec(cfg: SchedulerConfig) -> RoutingSpec:
         failover_timeout=cfg.failover_timeout, max_retries=cfg.max_retries)
 
 
+@phase("setup.system")
 def build_system(spec: CascadeSpec, corpus_or_index, *, corpus=None,
                  models: dict | None = None, ltr: LTRModel | None = None,
                  cost: CostModel | None = None,
@@ -431,6 +434,7 @@ class SearchSystem:
         self._init_routing()
         return self
 
+    @phase("setup.fit")
     def fit(self, ql, labels=None, *, seed: int = 0) -> "SearchSystem":
         """Train the spec's Stage-0 predictors (and the Stage-2 LTR model
         when enabled) from a query log, on the system's device, in the
@@ -538,8 +542,9 @@ class SearchSystem:
     # ------------------------------------------------------------------
 
     def _to_device(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), device=self.device)
+        return to_card(np.asarray(a), self.device)
 
+    @span("stage0")
     def stage0(self, terms: np.ndarray, mask: np.ndarray):
         """All three predictions for the batch: (pk, pr, pt) NumPy arrays."""
         if self.models is None:
@@ -548,11 +553,13 @@ class SearchSystem:
         x = F.extract(self.term_stats, self.df, self._to_device(terms),
                       self._to_device(mask))
         if self._stacked is not None:
-            p = np.expm1(gbrt.predict_stacked(
-                self._stacked, x, self._stack_depth).cpu().numpy())
+            with span("stage0.forest"):
+                p = gbrt.predict_stacked(self._stacked, x, self._stack_depth)
+            p = np.expm1(to_host(p).numpy())
             return p[0], p[1], p[2]
-        return tuple(np.expm1(gbrt.predict(self.models[n], x).cpu().numpy())
-                     for n in ("k", "rho", "t"))
+        with span("stage0.forest"):
+            ps = [gbrt.predict(self.models[n], x) for n in ("k", "rho", "t")]
+        return tuple(np.expm1(to_host(p).numpy()) for p in ps)
 
     def _modality(self, pt: np.ndarray) -> np.ndarray:
         """Stage-0 modality dispatch from the predicted lexical time:
@@ -640,6 +647,7 @@ class SearchSystem:
                          self.delta.base_docs))
         return segs
 
+    @span("stage1.merge")
     def _merge(self, rows, sc_list, id_list, topk, topk_sc, drop):
         """Merge one route's per-segment lists into ``topk``/``topk_sc`` at
         ``rows``, the ``drop`` slots excluded.  A list past the shards' is
@@ -657,13 +665,14 @@ class SearchSystem:
                 dr = np.concatenate([dr, np.zeros((1, len(rows)), bool)])
             ids, sc = merge_shard_topk(sc_list, id_list, self.k_serve,
                                        drop=dr)
-        topk[rows] = ids.cpu().numpy()
-        topk_sc[rows] = sc.cpu().numpy().astype(np.float32)
+        topk[rows] = to_host(ids).numpy()
+        topk_sc[rows] = to_host(sc).numpy().astype(np.float32)
         if len(sc_list) == 1 and drop is not None and drop[0, rows].any():
             dead = rows[drop[0, rows]]
             topk[dead] = -1
             topk_sc[dead] = SCORE_FILL
 
+    @span("stage1")
     def _stage1_full(self, terms: np.ndarray, mask: np.ndarray, routed,
                      cache: dict | None = None, drop=None):
         """Fan the routed sub-batches out across every shard's engine and
@@ -713,7 +722,7 @@ class SearchSystem:
                 [self._to_device(r) for r in rho_per_shard], k=self.k_serve)
             for s in range(ns):
                 t_shards[s, rows] = self.cost.saat_time(
-                    works[s].cpu().numpy().astype(np.float64))
+                    to_host(works[s]).numpy().astype(np.float64))
             self._merge(rows, sc_list, id_list, topk, topk_sc, drop)
 
         if len(routed.bmw_rows):
@@ -725,11 +734,12 @@ class SearchSystem:
                 self._to_device(mask[rows]), theta, k=self.k_serve)
             for s in range(ns):
                 t_shards[s, rows] = self.cost.daat_time(
-                    works[s].cpu().numpy(), blocks[s].cpu().numpy())
+                    to_host(works[s]).numpy(), to_host(blocks[s]).numpy())
             self._merge(rows, sc_list, id_list, topk, topk_sc, drop)
             t_bmw[rows] = self.cost.gather_time(t_shards[:, rows])
         return topk, topk_sc, t_bmw, t_shards
 
+    @span("stage2")
     def stage2(self, terms, mask, topics, cand, k_per_query) -> CascadeResult:
         """Batched LTR re-rank of the merged Stage-1 candidate grid (the
         re-ranker sees global doc ids, so it is shard-agnostic)."""
@@ -852,6 +862,7 @@ class SearchSystem:
     # end to end
     # ------------------------------------------------------------------
 
+    @span("serve")
     def serve(self, terms: np.ndarray, mask: np.ndarray,
               topics: np.ndarray | None = None, *,
               stage2_cap: np.ndarray | None = None,
@@ -900,137 +911,147 @@ class SearchSystem:
         if self.faults.active:
             # drive recovery from the serve loop: probe unhealthy replicas
             # against the schedule (a cleared window re-admits the replica)
-            probes, rec = self.pool.probe_unhealthy(
-                lambda r: self.faults.is_up(r.partition, r.replica_id, now))
+            with span("sched.pool"):
+                probes, rec = self.pool.probe_unhealthy(
+                    lambda r: self.faults.is_up(r.partition, r.replica_id,
+                                                now))
             self._fault_counters["probes"] += probes
             self._fault_counters["recovered"] += rec
         pk, pr, pt = self.stage0(terms, mask)
-        routed = self.sched.route(pk, pr, pt)
-        modality = None
-        if self.dense is not None:
-            # modality dispatch: dense-only rows leave the lexical
-            # sub-batches entirely (their replica picks below still pin the
-            # co-located partition replicas the dense engine runs on)
-            modality = self._modality(pt)
-            routed = self._restrict_lexical(routed, modality)
-        # route replicas before the engines run so the pool sees the whole
-        # batch in flight (power-of-two-choices balances against inflight)
-        picks, hedge_picks = self._pool_route(routed, q)
+        with span("sched.route"):
+            routed = self.sched.route(pk, pr, pt)
+            modality = None
+            if self.dense is not None:
+                # modality dispatch: dense-only rows leave the lexical
+                # sub-batches entirely (their replica picks below still pin
+                # the co-located partition replicas the dense engine runs on)
+                modality = self._modality(pt)
+                routed = self._restrict_lexical(routed, modality)
+        with span("sched.pool"):
+            # route replicas before the engines run so the pool sees the
+            # whole batch in flight (power-of-two-choices balances against
+            # inflight)
+            picks, hedge_picks = self._pool_route(routed, q)
 
-        drop = None
-        coverage = None
-        if faulted:
-            # admission-chosen partial coverage: the trailing partitions
-            # are never requested -- release their routed picks
-            dropped = np.zeros((ns, q), bool)
-            if shard_cap is not None:
-                cap = np.clip(np.asarray(shard_cap, np.int64), 1, ns)
-                for i in range(q):
-                    for s in range(int(cap[i]), ns):
-                        r = picks[i][s]
-                        if r is not None:
-                            r.inflight = max(r.inflight - 1, 0)
-                            picks[i][s] = None
-                        dropped[s, i] = True
-            # injected faults: timeout detection, bounded failover, loss
-            delay, mult, lost = self._fault_plan(picks, routed, now)
-            lost &= ~dropped
-            drop = lost | dropped
-            coverage = 1.0 - drop.sum(axis=0) / ns
-            self._fault_counters["degraded_queries"] += int(
-                (coverage < 1.0).sum())
+            drop = None
+            coverage = None
+            if faulted:
+                # admission-chosen partial coverage: the trailing partitions
+                # are never requested -- release their routed picks
+                dropped = np.zeros((ns, q), bool)
+                if shard_cap is not None:
+                    cap = np.clip(np.asarray(shard_cap, np.int64), 1, ns)
+                    for i in range(q):
+                        for s in range(int(cap[i]), ns):
+                            r = picks[i][s]
+                            if r is not None:
+                                r.inflight = max(r.inflight - 1, 0)
+                                picks[i][s] = None
+                            dropped[s, i] = True
+                # injected faults: timeout detection, bounded failover, loss
+                delay, mult, lost = self._fault_plan(picks, routed, now)
+                lost &= ~dropped
+                drop = lost | dropped
+                coverage = 1.0 - drop.sum(axis=0) / ns
+                self._fault_counters["degraded_queries"] += int(
+                    (coverage < 1.0).sum())
 
         split_cache: dict = {}
         topk, topk_sc, t_bmw, t_shards = self._stage1_full(
             terms, mask, routed, split_cache, drop=drop)
         theta_skip, fallback, fb_extra, t_dense_mat = self._stage1_dense(
             terms, mask, routed, modality, topk, topk_sc, split_cache, drop)
-        d_rows = (np.flatnonzero(modality != M_LEX)
-                  if t_dense_mat is not None else None)
-        if faulted:
-            # per-shard completion time under the plan: a served slot pays
-            # its retry wait plus its (straggler-slowed) engine time, a lost
-            # slot the full detection chain, a dropped slot was never
-            # requested; the query waits for its slowest slot and pays
-            # merge fan-out only over the partitions that answered
-            t_fault = np.where(dropped, 0.0,
-                               delay + np.where(lost, 0.0, t_shards * mult))
-            n_live = ns - drop.sum(axis=0)
-            gather_ov = (self.cost.gather_per_shard_us
-                         * np.maximum(n_live - 1, 0))
+        with span("sched.resolve"):
+            d_rows = (np.flatnonzero(modality != M_LEX)
+                      if t_dense_mat is not None else None)
+            if faulted:
+                # per-shard completion time under the plan: a served slot
+                # pays its retry wait plus its (straggler-slowed) engine time,
+                # a lost slot the full detection chain, a dropped slot was
+                # never requested; the query waits for its slowest slot and
+                # pays merge fan-out only over the partitions that answered
+                t_fault = np.where(dropped, 0.0,
+                                   delay + np.where(lost, 0.0,
+                                                    t_shards * mult))
+                n_live = ns - drop.sum(axis=0)
+                gather_ov = (self.cost.gather_per_shard_us
+                             * np.maximum(n_live - 1, 0))
 
-            def _gather_fault(tmat, rows):
-                return tmat.max(axis=0) + gather_ov[rows]
+                def _gather_fault(tmat, rows):
+                    return tmat.max(axis=0) + gather_ov[rows]
 
-            t_bmw = np.zeros(q)
+                t_bmw = np.zeros(q)
+                if len(routed.bmw_rows):
+                    rows = routed.bmw_rows
+                    t_bmw[rows] = _gather_fault(t_fault[:, rows], rows)
+
+                def jass_fault_fn(rows, rho):
+                    work_s, _ = self._jass_split(terms, mask, rows, rho,
+                                                 split_cache)
+                    t = np.stack([self.cost.saat_time(w.astype(np.float64))
+                                  for w in work_s[:ns]])
+                    tf = np.where(dropped[:, rows], 0.0,
+                                  delay[:, rows]
+                                  + np.where(lost[:, rows], 0.0,
+                                             t * mult[:, rows]))
+                    return _gather_fault(tf, rows)
+
+                # the deadline re-issue goes to a fresh healthy replica, so it
+                # pays nominal JASS cost (the retry wait it could still incur
+                # is charged analytically via SchedulerConfig.retry_us())
+                lat01 = self.sched.resolve_times(
+                    routed, t_bmw, jass_fault_fn,
+                    late_jass_fn=self._jass_time(terms, mask, split_cache))
+                t_pool = t_fault
+                if t_dense_mat is not None:
+                    # dense requests ride the same plan as the lexical ones
+                    t_dense_eff = np.where(
+                        dropped, 0.0,
+                        delay + np.where(lost, 0.0, t_dense_mat * mult))
+                    t_pool = np.maximum(t_pool, t_dense_eff)
+                    tdr = np.zeros(q)
+                    tdr[d_rows] = (t_dense_eff[:, d_rows].max(axis=0)
+                                   + gather_ov[d_rows])
+            else:
+                lat01 = self.sched.resolve_times(
+                    routed, t_bmw, self._jass_time(terms, mask, split_cache))
+                t_pool = t_shards
+                if t_dense_mat is not None:
+                    # a partition replica hosting both engines is busy for the
+                    # max of its co-located work
+                    t_pool = np.maximum(t_pool, t_dense_mat)
+                    tdr = np.zeros(q)
+                    tdr[d_rows] = self.cost.gather_time(
+                        t_dense_mat[:, d_rows])
+            if t_dense_mat is not None:
+                # dense-only: predict + dense scatter-gather (+ any theta_low
+                # fallback); both: the two engines run in parallel, the query
+                # waits for the slower and pays the host-side fusion merge
+                pd = self.cost.predict_us
+                lat01 = np.where(modality == M_DENSE, pd + tdr + fb_extra,
+                                 lat01)
+                lat01 = np.where(modality == M_BOTH,
+                                 pd + np.maximum(lat01 - pd, tdr)
+                                 + self.cost.fusion_us, lat01)
+            if self.delta is not None:
+                # every served query scans the delta segment; its arrays are
+                # capacity-padded, so the cost is one shape-static term —
+                # charged here, before budget enforcement trims Stage-2, and
+                # identically inside worst_case_us()
+                lat01 = lat01 + self._delta_us
+            t0 = np.full(q, self.cost.predict_us)
+            stage_latency = {"stage0": t0, "stage1": lat01 - t0}
+
             if len(routed.bmw_rows):
-                rows = routed.bmw_rows
-                t_bmw[rows] = _gather_fault(t_fault[:, rows], rows)
-
-            def jass_fault_fn(rows, rho):
-                work_s, _ = self._jass_split(terms, mask, rows, rho,
-                                             split_cache)
-                t = np.stack([self.cost.saat_time(w.astype(np.float64))
-                              for w in work_s[:ns]])
-                tf = np.where(dropped[:, rows], 0.0,
-                              delay[:, rows]
-                              + np.where(lost[:, rows], 0.0,
-                                         t * mult[:, rows]))
-                return _gather_fault(tf, rows)
-
-            # the deadline re-issue goes to a fresh healthy replica, so it
-            # pays nominal JASS cost (the retry wait it could still incur
-            # is charged analytically via SchedulerConfig.retry_us())
-            lat01 = self.sched.resolve_times(
-                routed, t_bmw, jass_fault_fn,
-                late_jass_fn=self._jass_time(terms, mask, split_cache))
-            t_pool = t_fault
-            if t_dense_mat is not None:
-                # dense requests ride the same plan as the lexical ones
-                t_dense_eff = np.where(dropped, 0.0,
-                                       delay + np.where(lost, 0.0,
-                                                        t_dense_mat * mult))
-                t_pool = np.maximum(t_pool, t_dense_eff)
-                tdr = np.zeros(q)
-                tdr[d_rows] = (t_dense_eff[:, d_rows].max(axis=0)
-                               + gather_ov[d_rows])
-        else:
-            lat01 = self.sched.resolve_times(
-                routed, t_bmw, self._jass_time(terms, mask, split_cache))
-            t_pool = t_shards
-            if t_dense_mat is not None:
-                # a partition replica hosting both engines is busy for the
-                # max of its co-located work
-                t_pool = np.maximum(t_pool, t_dense_mat)
-                tdr = np.zeros(q)
-                tdr[d_rows] = self.cost.gather_time(t_dense_mat[:, d_rows])
-        if t_dense_mat is not None:
-            # dense-only: predict + dense scatter-gather (+ any theta_low
-            # fallback); both: the two engines run in parallel, the query
-            # waits for the slower and pays the host-side fusion merge
-            pd = self.cost.predict_us
-            lat01 = np.where(modality == M_DENSE, pd + tdr + fb_extra, lat01)
-            lat01 = np.where(modality == M_BOTH,
-                             pd + np.maximum(lat01 - pd, tdr)
-                             + self.cost.fusion_us, lat01)
-        if self.delta is not None:
-            # every served query scans the delta segment; its arrays are
-            # capacity-padded, so the cost is one shape-static term —
-            # charged here, before budget enforcement trims Stage-2, and
-            # identically inside worst_case_us()
-            lat01 = lat01 + self._delta_us
-        t0 = np.full(q, self.cost.predict_us)
-        stage_latency = {"stage0": t0, "stage1": lat01 - t0}
-
-        if len(routed.bmw_rows):
-            # online quantile-error signal for the t predictor: pinball
-            # loss of pred_t against the observed BMW engine time — feeds
-            # _adapt_routing's hedge_deadline loop
-            tau = self.cascade_spec.stage0.tau_t
-            e = t_bmw[routed.bmw_rows] - pt[routed.bmw_rows]
-            pin = float(np.mean(np.maximum(tau * e, (tau - 1.0) * e)))
-            self._pinball_ewma = (pin if self._pinball_ewma is None
-                                  else 0.8 * self._pinball_ewma + 0.2 * pin)
+                # online quantile-error signal for the t predictor: pinball
+                # loss of pred_t against the observed BMW engine time — feeds
+                # _adapt_routing's hedge_deadline loop
+                tau = self.cascade_spec.stage0.tau_t
+                e = t_bmw[routed.bmw_rows] - pt[routed.bmw_rows]
+                pin = float(np.mean(np.maximum(tau * e, (tau - 1.0) * e)))
+                self._pinball_ewma = (
+                    pin if self._pinball_ewma is None
+                    else 0.8 * self._pinball_ewma + 0.2 * pin)
 
         final = None
         used = None
@@ -1073,11 +1094,13 @@ class SearchSystem:
         else:
             stage_latency["stage2"] = np.zeros(q)
 
-        self._pool_complete(terms, mask, routed, picks, hedge_picks,
-                            t_pool, split_cache)
+        with span("sched.pool"):
+            self._pool_complete(terms, mask, routed, picks, hedge_picks,
+                                t_pool, split_cache)
         every = self.cascade_spec.routing.adapt_every
         if every and self._batches % every == 0:
-            self._adapt_routing()
+            with span("sched.adapt"):
+                self._adapt_routing()
 
         lat = lat01 + stage_latency["stage2"]
         self._clock = now + (float(lat.max()) if q else 0.0)
@@ -1085,19 +1108,20 @@ class SearchSystem:
         if self.dense is not None:
             dense_info = {"modality": modality, "theta_skip": theta_skip,
                           "fallback": fallback}
-        stats = self._build_stats(lat, stage_latency, trimmed, skipped,
-                                  faulted, coverage, now,
-                                  dense_info=dense_info)
-        if self.telemetry is not None:
-            self._record_traces(
-                q=q, now=now, lat=lat, stage_latency=stage_latency,
-                pk=pk, pr=pr, pt=pt, routed=routed, modality=modality,
-                theta_skip=theta_skip, fallback=fallback, used=used,
-                t_shards=t_shards, faulted=faulted,
-                delay=delay if faulted else None,
-                mult=mult if faulted else None,
-                lost=lost if faulted else None,
-                dropped=dropped if faulted else None, coverage=coverage)
+        with span("sched.stats"):
+            stats = self._build_stats(lat, stage_latency, trimmed, skipped,
+                                      faulted, coverage, now,
+                                      dense_info=dense_info)
+            if self.telemetry is not None:
+                self._record_traces(
+                    q=q, now=now, lat=lat, stage_latency=stage_latency,
+                    pk=pk, pr=pr, pt=pt, routed=routed, modality=modality,
+                    theta_skip=theta_skip, fallback=fallback, used=used,
+                    t_shards=t_shards, faulted=faulted,
+                    delay=delay if faulted else None,
+                    mult=mult if faulted else None,
+                    lost=lost if faulted else None,
+                    dropped=dropped if faulted else None, coverage=coverage)
         return PipelineResult(topk=topk, final=final, candidates_used=used,
                               latency=lat, stage_latency=stage_latency,
                               stats=stats, coverage=coverage,

@@ -1,26 +1,33 @@
-"""Deterministic observability for the serving cascade.
+"""Observability of the serving cascade: the modeled clock's record, and
+the host's wall clock under a profiler.
 
 The :class:`Telemetry` facade owns one :class:`MetricsRegistry`, one
 :class:`TraceStore`, and the ring of periodic online snapshots.  It is
 allocated by ``SearchSystem`` only when ``TelemetrySpec.enabled`` — a
 disabled spec is provably inert: no registry exists and every hook in
-the serving path is guarded on ``system.telemetry is None``.
+the serving path is guarded on ``system.telemetry is None``.  This part is
+a copy of ``repro.serving.telemetry`` (the port imports nothing of the
+reference package): host NumPy on the virtual serving clock, which reads
+no wall clock, draws no random number and launches no kernel, so a system
+on the card and one on the CPU record the same snapshot.
 
-A copy of ``repro.serving.telemetry`` (the port imports nothing of the
-reference package).  Everything here is host NumPy on the virtual serving
-clock: it reads no wall clock, draws no random number and launches no
-kernel, so a system on the card and one on the CPU record the same
-snapshot.
+:mod:`.host` is the port's own: spans and counters on the wall clock that
+``torch.profiler`` uses (where each stage's host time goes, every copy
+between host and card, postings scored, the set-up phases).  Its spans
+and counters are on exactly while a profiler records and cost one flag
+read otherwise; its set-up phases are always recorded.  It imports only
+the standard library and ``torch``, so every layer of the port may use it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from . import host
 from .metrics import Counter, Gauge, LogHistogram, MetricsRegistry
 from .trace import QueryTrace, Span, TraceStore, why_slow
 
-__all__ = ["Telemetry", "MetricsRegistry", "Counter", "Gauge",
+__all__ = ["host", "Telemetry", "MetricsRegistry", "Counter", "Gauge",
            "LogHistogram", "QueryTrace", "Span", "TraceStore", "why_slow"]
 
 
