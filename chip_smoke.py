@@ -264,8 +264,9 @@ order, it
    caps of ``build_serve_cell``, t_k 1,000, t_time 150; k_global cut to
    1,024) with the fit's three Stage-0 GBRTs as one ``ForestArrays``
    (their bin edges required equal), warmed once, then counted from 0:
-   kernel 1 once and kernel 2 twice a block of 64 queries, no other
-   kernel, no plain version on CUDA tensors; the step equal to
+   kernel 1 once and kernel 2 twice a block of 64 queries, each Stage-0
+   kernel once, no other kernel, no plain version on CUDA tensors (Stage-0's
+   calls recorded for step 16a); the step equal to
    ``saat_serve`` and ``daat_serve`` called directly with its routes and
    ρ (ids, scores, work, routes), JASS rows' work within ρ_max; Stage-0
    (pk, prho, pt) of the 256 queries and ``xla_expm1`` over 2.36 M values
@@ -276,6 +277,22 @@ order, it
    with the CPU system's fit: ids, work and routes exact, scores within
    1e-4 (JASS rows exact), pk / prho / pt bit-equal; the process group
    ended at the phase's end;
+16a. Stage-0 phase (``kernels/stage0``): each Stage-0 kernel against its
+   plain version on the card, bit for bit (nan equal to nan), on the
+   recorded calls of the card's fit (the features of its 4,096 queries),
+   of step 7's ``paper_200ms`` serve (each batch one launch of each kernel,
+   required) and of step 16's ISN step, and on the edge cases (one-term
+   and all-padded rows, negative ids, ±0.0 statistics where the
+   reference's max and min decide ties, float df across ``xla_log1p``'s
+   small-|x| cut, every integer df below 2^19; 10 tree counts covering
+   every ``_sum_trees`` branch at depths 3 to 5, per-model and shared
+   edges, Q of 1, 32 and 256, features on an edge and NaN; predictions
+   whose half flushes and around ``xla_expm1``'s 0.5 cut, and 2^20 seeded
+   values and every 4,099th bit pattern through its ``xla_expm1``); times
+   each kernel and its plain version on the ISN step's call and logs the
+   cascade's and the fit's (``--only stage0``: this phase alone on a
+   shard of ``--n-docs`` docs, with its own fit, ``--batches`` served
+   batches and 4 ISN steps);
 17. LM phase (Yi-6B, the prefill and KV-cache decode serving path), once
    the retrieval systems are freed:
    a. cross-check: a 2-layer Yi-6B at full width in fp32, drawn once on
@@ -639,6 +656,16 @@ KERNELS = {
         source="src/repro_torch/kernels/level_histogram/level_histogram.cu",
         replaces="src/repro/core/trees.py:115 (build_tree: the dead rule "
                  "and the rows' new nodes; no Pallas kernel)"),
+    # Stage-0: jnp ops inside the reference's jit (no Pallas kernel)
+    "stage0_features": dict(
+        source="src/repro_torch/kernels/stage0/stage0.cu",
+        replaces="src/repro/core/features.py:36 (extract; no Pallas "
+                 "kernel)"),
+    "stage0_forest": dict(
+        source="src/repro_torch/kernels/stage0/stage0.cu",
+        replaces="src/repro/core/gbrt.py:134 (predict_stacked) and "
+                 "src/repro/isn/shard.py:55 (_forest_predict with expm1; no "
+                 "Pallas kernel)"),
 }
 # the kernels of the per-query Stage-1 path (saat/daat_serve_laxmap), and
 # those of the two served cascades
@@ -656,6 +683,15 @@ LEVEL_KERNELS = ("level_split", "level_route")
 TREE_FIXED_KERNELS = 4
 TREE_DEPTH = 5
 TRAIN_KERNELS = ("flash_attention", "flash_attention_backward")
+# Stage-0's two kernels (features; the stacked forests), checked on the
+# recorded calls of the fits and serves and on STAGE0 edge cases: tree counts
+# over every _sum_trees branch, depths, batch sizes, and the xla_expm1 sweep
+# (random values and every STAGE0["expm1_stride"]-th bit pattern) and the
+# one-term queries over every integer df below STAGE0["log1p_ints"]
+STAGE0_KERNELS = ("stage0_features", "stage0_forest")
+STAGE0 = dict(trees=(1, 8, 12, 16, 24, 32, 33, 48, 64, 100),
+              depths=(3, 4, 5), queries=(1, 32, 256), log1p_ints=1 << 19,
+              expm1_stride=4099, expm1_models=8192, isn_steps=4)
 # kernels 1 and 2 (one block per tile and query group over the shard's
 # mirror) and 3 (one cluster per query, match records), and the plain twins
 # of their arithmetic, in the same modules
@@ -671,7 +707,7 @@ TWINS = {"impact_accumulate_batched": "impact_accumulate_grouped",
 WRAPPERS = {"score_histogram": "histogram_select"}
 SERVE_KERNELS = tuple(n for n in KERNELS
                       if n not in LAXMAP_KERNELS + LM_KERNELS + FIT_KERNELS
-                      + TRAIN_KERNELS)
+                      + TRAIN_KERNELS + STAGE0_KERNELS)
 RETRIEVAL_KERNELS = SERVE_KERNELS + LAXMAP_KERNELS
 
 # LM phase (Yi-6B)
@@ -908,7 +944,9 @@ def kernel_modules():
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.level_histogram import ops as lh
     from repro_torch.kernels.score_histogram import ops as sh
-    return {"impact_accumulate_batched": ia, "blockmax_score_batched": bm,
+    from repro_torch.kernels.stage0 import ops as s0
+    return {"stage0_features": s0, "stage0_forest": s0,
+            "impact_accumulate_batched": ia, "blockmax_score_batched": bm,
             "qd_feature_gather_lanes": qd, "dense_topk_tiles": dt,
             "impact_accumulate_bucketed": ia, "blockmax_score_bucketed": bm,
             "score_histogram": sh, "flash_attention": fa,
@@ -1098,8 +1136,27 @@ def work_of(name, args, kw):
     Level route: the candidates read once, each row's node id and the bin
     of its node's feature read once and its node id written once, each
     node's feature and threshold written once; one compare per (tree, node,
-    feature) and two operations a row."""
+    feature) and two operations a row.  Stage-0 features: each query's
+    term ids, mask, statistic rows and df read once, its 147 features
+    written once; six operations per (slot, statistic) and two log1p's.
+    Stage-0 forests: the features, the edges, the 2^depth - 1 nodes (split
+    feature and threshold) and 2^depth leaves of each tree and the bases
+    read once, the predictions written once; a compare per
+    (query, edge), two operations per (query, tree, level)."""
     import torch
+    if name == "stage0_features":
+        q, slots = args[2].shape
+        return (4 * q * slots * 39 + 4 * q * 147, q * (216 * slots + 60),
+                FP32_FLOPS_PER_S)
+    if name == "stage0_forest":
+        x, edges, feat, thresh, leaf, base = args
+        q = x.shape[0]
+        m, n_trees = feat.shape[:2]
+        nodes = m * n_trees * 2 ** kw["depth"]
+        return (4 * (x.numel() + edges.numel() + 2 * (nodes - m * n_trees)
+                     + nodes + m + m * q),
+                q * (edges.numel() + 2 * m * n_trees * kw["depth"]),
+                FP32_FLOPS_PER_S)
     if name == "level_split":
         xbt, node, g, w, fmask = args
         n_feat, n = xbt.shape
@@ -6987,13 +7044,15 @@ def ingest_phase(dev, shard, card, cpu):
 
 class PlainWatch:
     """Counts the calls of kernels 1 and 2's plain versions (and their
-    plain twins) that are given a CUDA tensor: the wrappers must launch the
-    kernel there, never the plain version."""
+    plain twins) and of Stage-0's that are given a CUDA tensor: the
+    wrappers must launch the kernel there, never the plain version."""
 
     NAMES = {"impact_accumulate_batched": ("impact_accumulate_plain",
                                            "impact_accumulate_grouped"),
              "blockmax_score_batched": ("blockmax_score_plain",
-                                        "blockmax_score_grouped")}
+                                        "blockmax_score_grouped"),
+             "stage0_features": ("stage0_features_plain",),
+             "stage0_forest": ("stage0_forest_plain",)}
 
     def __init__(self):
         mods = kernel_modules()
@@ -7116,7 +7175,7 @@ def isn_phase(dev, shard, card, cpu, card_name):
         serve(s, fa, ts, terms, mask)       # NCCL's communicator, caches
         torch.cuda.synchronize()
         kernels.reset_launches()
-        with PlainWatch() as watch:
+        with PlainWatch() as watch, Recorder(STAGE0_KERNELS) as rec0:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -7128,7 +7187,8 @@ def isn_phase(dev, shard, card, cpu, card_name):
         blocks = -(-q // 64)
         want = {name: 0 for name in got}
         want.update(impact_accumulate_batched=blocks,
-                    blockmax_score_batched=2 * blocks)
+                    blockmax_score_batched=2 * blocks, stage0_features=1,
+                    stage0_forest=1)
         check(got == want, f"isn step: launches {got}, want {want}")
         check(watch.on_card == 0, f"isn step: {watch.on_card} plain-version "
               "calls on CUDA tensors")
@@ -7229,9 +7289,320 @@ def isn_phase(dev, shard, card, cpu, card_name):
             f"{float((sc - sc_c).abs().max())}), pk/prho/pt bit-equal; walls "
             f"card {walls[0]:.3f} s, CPU {walls[1]:.3f} s; phase "
             f"{time.perf_counter() - t0:.1f} s")
+        return rec0.calls
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Stage-0: the features and forest kernels
+# ---------------------------------------------------------------------------
+
+def bits_differ(a, b):
+    """Where two float tensors differ bit for bit (nan equals nan)."""
+    import torch
+    return ((a.view(torch.int32) != b.view(torch.int32))
+            & ~(torch.isnan(a) & torch.isnan(b)))
+
+
+def stage0_feature_edges(dev, term_stats, term_df):
+    """Edge cases of ``stage0_features``: Q of 1, 32 and 256 on the
+    recorded table with one-term and all-padded rows and negative ids; a
+    table of +0.0, -0.0 and mixed rows, under int df and under a float df
+    that ties +0.0 with -0.0; float df and fractional masks across
+    ``xla_log1p``'s small-|x| cut; every integer df below
+    STAGE0["log1p_ints"] as a one-term query."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(SEED % 10_000)
+    vocab, slots = term_stats.shape[0], 8
+    calls = []
+    for q in STAGE0["queries"]:
+        terms = rng.randint(-vocab, vocab, (q, slots)).astype(np.int32)
+        n = rng.randint(0, slots + 1, q)
+        n[0] = 1
+        if q > 1:
+            n[1] = 0
+        mask = (np.arange(slots)[None] < n[:, None]).astype(np.float32)
+        calls.append((term_stats, term_df, torch.from_numpy(terms).to(dev),
+                      torch.from_numpy(mask).to(dev)))
+    zs = torch.zeros((4, 36), device=dev)
+    zs[1] = -0.0
+    zs[2, ::2] = -0.0
+    zs[3] = 1.0
+    terms = torch.tensor([[0, 1, 0], [1, 0, 0], [1, 1, 0], [2, 0, 3],
+                          [2, 1, 2]], dtype=torch.int32, device=dev)
+    mask = torch.tensor([[1, 1, 0], [1, 1, 0], [1, 1, 1], [1, 1, 1],
+                         [1, 0, 1]], dtype=torch.float32, device=dev)
+    calls.append((zs, torch.tensor([0, 3, 7, 1], dtype=torch.int32,
+                                   device=dev), terms, mask))
+    calls.append((zs, torch.tensor([0.0, -0.0, 7.0, -0.0], device=dev),
+                  terms, mask))
+    cut = np.float32(0.41421354)
+    vals = np.array([0.0, -0.0, 1e-30, 1e-8, 0.2, cut, np.nextafter(cut, 1),
+                     np.nextafter(cut, 0), -cut, np.nextafter(-cut, 0), 0.41,
+                     0.42, -0.3, 0.7, 1.0, 3.0, 1e6, 2 ** 24, 1e30],
+                    np.float32)
+    k = len(vals)
+    stats = torch.from_numpy(rng.randn(k, 36).astype(np.float32)).to(dev)
+    df = torch.from_numpy(vals).to(dev)
+    one = torch.arange(k, dtype=torch.int32, device=dev)[:, None]
+    calls.append((stats, df, one, torch.ones((k, 1), device=dev)))
+    pairs = torch.from_numpy(rng.randint(0, k, (64, 2)).astype(np.int32))
+    frac = torch.from_numpy(rng.choice(
+        np.float32([0.0, 0.25, 0.5, 1.0]), (64, 2))).to(dev)
+    calls.append((stats, df, pairs.to(dev), frac))
+    n = STAGE0["log1p_ints"]
+    ints = torch.arange(n, dtype=torch.int32, device=dev)
+    calls.append((torch.zeros((n, 36), device=dev), ints, ints[:, None],
+                  torch.ones((n, 1), device=dev)))
+    return calls
+
+
+def stage0_forest_edges(dev):
+    """Edge cases of ``stage0_forest``: three seeded models at each tree
+    count of STAGE0["trees"] (every ``_sum_trees`` branch) and depth of
+    STAGE0["depths"], per-model and shared edges, Q of STAGE0["queries"],
+    with features exactly on an edge and NaN features, half of them through
+    ``xla_expm1``; and predictions (bases over a -0.0 leaf) whose half
+    flushes and that lie on and beside ``xla_expm1``'s 0.5 cut."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(SEED % 10_000 + 1)
+    n_feat, n_edges, m = 147, 63, 3
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    calls = []
+    for shared in (False, True):
+        for depth in STAGE0["depths"]:
+            for n_trees in STAGE0["trees"]:
+                w = 2 ** (depth - 1)
+                feat = rng.randint(0, n_feat, (m, n_trees, depth, w))
+                thresh = rng.randint(0, n_edges + 1, (m, n_trees, depth, w))
+                leaf = (rng.randn(m, n_trees, 2 ** depth)
+                        * 10.0 ** rng.uniform(-3, 1, (m, n_trees, 1)))
+                base = rng.randn(m)
+                shape = (n_feat, n_edges) if shared else (m, n_feat, n_edges)
+                edges = np.sort(rng.randn(*shape).astype(np.float32), -1)
+                for q in STAGE0["queries"]:
+                    x = rng.randn(q, n_feat).astype(np.float32)
+                    e = edges if shared else edges[rng.randint(m)]
+                    on = rng.randint(0, n_feat, n_feat // 3)
+                    x[0, on] = e[on, rng.randint(0, n_edges, len(on))]
+                    x[-1, ::7] = np.nan
+                    calls.append(((t(x), t(edges), t(feat.astype(np.int32)),
+                                   t(thresh.astype(np.int32)),
+                                   t(leaf.astype(np.float32)),
+                                   t(base.astype(np.float32))),
+                                  dict(depth=depth,
+                                       expm1=bool(rng.rand() < 0.5))))
+    tiny = np.finfo(np.float32).tiny
+    half = np.float32(0.5)
+    vals = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-40, tiny, -tiny, 2 * tiny,
+                     3e-38, -3e-38, half, -half, np.nextafter(half, 1),
+                     np.nextafter(half, 0), -np.nextafter(half, 1), 0.0004,
+                     -0.0004, 0.0008, 88.7, 88.73, -87.4, 89.0, 16.0, 13.0,
+                     -2.0, np.inf, -np.inf, np.nan], np.float32)
+    calls.append(expm1_call(dev, vals))
+    return calls
+
+
+def expm1_call(dev, vals):
+    """``stage0_forest`` on one query whose M predictions are ``vals``: a
+    tree of depth 0 a model, its leaf -0.0 (so base + leaf is the base
+    bit for bit), through ``xla_expm1``."""
+    import torch
+    m = len(vals)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return ((torch.zeros((1, 4), device=dev), torch.zeros((4, 1), device=dev),
+             torch.zeros((m, 1, 1, 1), **i32), torch.zeros((m, 1, 1, 1), **i32),
+             torch.full((m, 1, 1), -0.0, device=dev),
+             torch.as_tensor(vals, device=dev)), dict(depth=0, expm1=True))
+
+
+def expm1_sweep(dev):
+    """``xla_expm1`` in the forest kernel against its plain version over
+    2^20 seeded values of [-2, 13] and [-0.5, 0.5] and every
+    STAGE0["expm1_stride"]-th float32 bit pattern, STAGE0["expm1_models"]
+    predictions a launch.  Returns the count of values."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.stage0 import ops as s0
+    rng = np.random.RandomState(SEED % 10_000 + 2)
+    sweep = np.concatenate([
+        rng.uniform(-2, 13, 1 << 19).astype(np.float32),
+        rng.uniform(-0.5, 0.5, 1 << 19).astype(np.float32),
+        np.arange(0, 1 << 32, STAGE0["expm1_stride"], dtype=np.uint64)
+        .astype(np.uint32).view(np.float32)])
+    step = STAGE0["expm1_models"]
+    for i in range(0, len(sweep), step):
+        args, kw = expm1_call(dev, sweep[i:i + step])
+        got = s0.stage0_forest(*args, **kw)[:, 0]
+        # the plain version's arithmetic here: xla_expm1(base + -0.0), one
+        # model at a time; the same values in one call
+        bad = bits_differ(got, s0.xla_expm1(args[5]))
+        check(not bool(bad.any()), f"stage0_forest: xla_expm1 differs on "
+              f"{int(bad.sum())} of the sweep's values from {i}")
+    return len(sweep)
+
+
+def stage0_check(calls, launches):
+    """Both Stage-0 kernels against their plain versions on the card, bit
+    for bit (nan equal to nan): every recorded call (``calls``: name -> (label,
+    args, kw) of the fits' and serves' Stage-0) and the edge cases.  Times
+    each kernel beside its plain version
+    on the largest recorded serve call (Q = 256, the ISN step's), logs the
+    cascade's Q = 32 call and the fit's, and the device times.
+    ``launches``: name -> the counted serve path's launches.  Returns the
+    two kernel rows."""
+    import torch
+    from repro_torch.kernels.stage0 import ops as s0
+    rows = {}
+    feats, forests = calls["stage0_features"], calls["stage0_forest"]
+    check(feats and forests, "stage0: a kernel's main path was never called")
+    dev = feats[0][1][0].device
+    table = next(a for label, a, _ in feats if label == "isn")[:2]
+    edges_f = [("edge", a, {}) for a in stage0_feature_edges(dev, *table)]
+    for label, args, kw in feats + edges_f:
+        got = s0.stage0_features(*args)
+        want = s0.stage0_features_plain(*args)
+        torch.cuda.synchronize()
+        bad = bits_differ(got, want)
+        check(got.shape == want.shape and not bool(bad.any()),
+              f"stage0_features ({label}, Q={args[2].shape[0]}): "
+              f"{int(bad.sum())} of {got.numel()} values differ")
+    log(f"stage0_features: {len(feats)} recorded calls and {len(edges_f)} "
+        "edge cases bit-equal to the plain version")
+    edges_t = [("edge", a, kw) for a, kw in stage0_forest_edges(dev)]
+    for label, args, kw in forests + edges_t:
+        got = s0.stage0_forest(*args, **kw)
+        want = s0.stage0_forest_plain(*args, **kw)
+        torch.cuda.synchronize()
+        bad = bits_differ(got, want)
+        check(got.shape == want.shape and not bool(bad.any()),
+              f"stage0_forest ({label}, {tuple(args[2].shape)}, Q="
+              f"{args[0].shape[0]}, {kw}): {int(bad.sum())} of "
+              f"{got.numel()} values differ")
+    n_sweep = expm1_sweep(dev)
+    log(f"stage0_forest: {len(forests)} recorded calls, {len(edges_t)} edge "
+        f"cases and xla_expm1 over {n_sweep} values bit-equal to the plain "
+        "version")
+    plain = {"stage0_features": s0.stage0_features_plain,
+             "stage0_forest": s0.stage0_forest_plain}
+    for name, recorded, n_edges in (("stage0_features", feats, len(edges_f)),
+                                    ("stage0_forest", forests,
+                                     len(edges_t))):
+        kern = getattr(s0, name)
+        by_label = {}
+        for label, args, kw in recorded:
+            by_label.setdefault(label, (args, kw))
+        for label, (args, kw) in by_label.items():
+            q = args[2].shape[0] if name == "stage0_features" \
+                else args[0].shape[0]
+            call = lambda: kern(*args, **kw)
+            log(f"kernel {name} ({label}, Q={q}): {cuda_ms(call, REPS):.4f}"
+                f" ms, device {device_ms(call, REPS)} ms a call; plain "
+                f"{cuda_ms(lambda: plain[name](*args, **kw), REPS // 4):.4f}"
+                " ms")
+        args, kw = by_label["isn"]
+        note = (f"{len(recorded)} recorded calls ({', '.join(by_label)}) and"
+                f" {n_edges} edge cases bit-equal; timed at the ISN step's "
+                "call")
+        rows[name] = kernel_row(name, kern, plain[name], None, args, kw, 0.0,
+                                note)
+        rows[name]["launches"] = launches[name]
+    return rows
+
+
+def stage0_serve_isn(dev, index, layout, corpus, spec, models):
+    """The ISN step at ``paper_isn.CONFIG``'s per-chip sizes on ``layout``'s
+    shard with ``models``' Stage-0 forests: one warm step, then
+    STAGE0["isn_steps"] steps of 256 queries counted from 0 with Stage-0's
+    calls recorded.  Requires one launch of each Stage-0 kernel a step and
+    no plain Stage-0 version on CUDA tensors.  Returns the recorded calls
+    (each (args, kw)) by kernel."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs import paper_isn
+    from repro_torch.index.corpus import build_queries
+    from repro_torch.index.postings import shard_to_device
+    from repro_torch.isn import shard as isn
+    from repro_torch.launch.mesh import make_local_mesh
+    sizes = isn_sizes(layout.spec)
+    q, steps = paper_isn.CONFIG.queries_per_step // ISN_DATA_RANKS, \
+        STAGE0["isn_steps"]
+    ql = build_queries(corpus, q * steps, max_len=paper_isn.CONFIG.query_len,
+                       stop_k=spec.index.stop_k, seed=SEED % 10_000)
+    fa = isn.stage0_forest(models)
+    try:
+        mesh = make_local_mesh(device=dev)
+        s, _ = shard_to_device(layout, dev)
+        ts = torch.from_numpy(index.term_stats).to(dev)
+        step = isn.hybrid_serve_fn(mesh, forest_depth=models["k"].params.depth,
+                                   **sizes)
+        batches = [tuple(torch.from_numpy(a[i * q:(i + 1) * q]).to(dev)
+                         for a in (ql.terms, ql.mask)) for i in range(steps)]
+        step(s, fa, ts, *batches[0])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with Recorder(STAGE0_KERNELS) as rec, PlainWatch() as watch:
+            for terms, mask in batches:
+                step(s, fa, ts, terms, mask)
+            torch.cuda.synchronize()
+        got = {name: kernels.LAUNCHES[name] for name in STAGE0_KERNELS}
+        check(got == {name: steps for name in STAGE0_KERNELS},
+              f"stage0: the ISN step's {steps} steps launched {got}")
+        check(watch.on_card == 0, f"stage0: {watch.on_card} plain-version "
+              "calls on CUDA tensors in the ISN step")
+        log(f"stage0: ISN step, {steps} steps of {q} queries: launches {got}")
+        return rec.calls
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def stage0_alone(dev, n_docs, n_batches):
+    """``--only stage0``: the ``paper_200ms`` shard of ``n_docs`` docs, its
+    card fit from FIT_QUERIES queries (seed FIT_SEED) and ``n_batches``
+    served batches of 32, then STAGE0["isn_steps"] ISN steps of 256 on the
+    same shard and forests, every Stage-0 call recorded; each serve
+    counted from 0 (one launch of each kernel a batch, and a step); then
+    ``stage0_check``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.index.corpus import build_queries
+    from repro_torch.serving.system import build_system
+    spec, corpus, index, ql, layouts = build_shard(n_docs, n_batches)
+    fit_ql = build_queries(corpus, FIT_QUERIES, stop_k=spec.index.stop_k,
+                           seed=FIT_SEED)
+    gpu = build_system(spec, index, corpus=corpus, device=dev,
+                       layouts=layouts)
+    with Recorder(STAGE0_KERNELS) as rec:
+        t = time.perf_counter()
+        gpu.fit(fit_ql, None, seed=FIT_SEED)
+        torch.cuda.synchronize()
+        log(f"stage0: card fit {time.perf_counter() - t:.1f} s")
+        fit_calls = {k: list(v) for k, v in rec.calls.items()}
+    with Recorder(STAGE0_KERNELS) as rec, PlainWatch() as watch:
+        launches, _, _ = serve_phase(gpu, ql, n_batches, n_docs, spec)
+    served = {name: launches[name] for name in STAGE0_KERNELS}
+    check(served == {name: n_batches for name in STAGE0_KERNELS}
+          and watch.on_card == 0,
+          f"stage0: {n_batches} served batches launched {served}, "
+          f"{watch.on_card} plain calls on CUDA tensors")
+    isn_calls = stage0_serve_isn(dev, index, layouts[0], corpus, spec,
+                                 gpu.models)
+    calls = {name: [("fit", a, kw) for a, kw in fit_calls[name]]
+             + [("cascade", a, kw) for a, kw in rec.calls[name]]
+             + [("isn", a, kw) for a, kw in isn_calls[name]]
+             for name in STAGE0_KERNELS}
+    rows = stage0_check(calls, served)
+    for name in STAGE0_KERNELS:
+        log(f"row {json.dumps(rows[name])}")
+    kernels.reset_launches()
 
 
 # ---------------------------------------------------------------------------
@@ -7519,8 +7890,13 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     lap("build")
 
     # fit: the card's and the CPU's systems, each fitted on its own device
-    gpu, cpu, fit_launches, fit_calls, fit_ql = fit_phase(
-        spec, index, corpus, dev, layouts, profile)
+    with Recorder(STAGE0_KERNELS) as rec0:
+        gpu, cpu, fit_launches, fit_calls, fit_ql = fit_phase(
+            spec, index, corpus, dev, layouts, profile)
+    # the card fit's Stage-0 calls (the CPU fit's take the plain version)
+    stage0_calls = {name: [("fit", a, kw) for a, kw in calls
+                           if a[0].is_cuda]
+                    for name, calls in rec0.calls.items()}
     spec = gpu.cascade_spec
     # the card system as fitted, kept for the online phase (its shard is
     # shared, not copied)
@@ -7599,9 +7975,16 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     del fit_calls
 
     # serve phases: each preset's main path, counted on its own
-    launches, routes, _ = serve_phase(gpu, ql, n_batches, n_docs, spec)
+    with Recorder(STAGE0_KERNELS) as rec0:
+        launches, routes, _ = serve_phase(gpu, ql, n_batches, n_docs, spec)
     check(routes["jass"] > 0 and routes["bmw"] > 0,
           "paper_200ms serve: both routes must take queries")
+    stage0_launches = {name: launches[name] for name in STAGE0_KERNELS}
+    check(stage0_launches == {name: n_batches for name in STAGE0_KERNELS},
+          f"paper_200ms serve: Stage-0 launched {stage0_launches} in "
+          f"{n_batches} batches")
+    for name, calls in rec0.calls.items():
+        stage0_calls[name] += [("cascade", a, kw) for a, kw in calls]
     for name in ("impact_accumulate_batched", "blockmax_score_batched",
                  "qd_feature_gather_lanes"):
         check(launches[name] > 0, f"serve: kernel {name} never launched")
@@ -7657,9 +8040,13 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
 
     # the distributed ISN step at the production per-chip cell, then its
     # CPU twin on the cli phase's index
-    isn_phase(dev, shard, served, cli_cpu, card)
+    for name, calls in isn_phase(dev, shard, served, cli_cpu, card).items():
+        stage0_calls[name] += [("isn", a, kw) for a, kw in calls]
     del served, cli_cpu, shard
     lap("isn")
+    rows.update(stage0_check(stage0_calls, stage0_launches))
+    del stage0_calls
+    lap("stage0")
 
     # the LM serving path, with the retrieval systems freed
     torch.cuda.empty_cache()
@@ -7702,17 +8089,24 @@ def run(n_docs, n_batches, lm_layers, lm_prompt, lm_steps, profile=False):
     return card, rows
 
 
-def run_alone(phase, lm_layers, lm_prompt, n_docs=None, profile=False):
+def run_alone(phase, lm_layers, lm_prompt, n_docs=None, profile=False,
+              n_batches=8):
     """``--only``: the card line, the kernels' build, then ``phase`` alone
     with its wall; no result line.  ``fit`` builds the shard of ``n_docs``
     docs beside the kernels (as the full run does) and runs step 2 and the
     fit's kernel rows of step 6 (``profile``: step 2's profiled fit);
     ``predict`` runs the serving CLI's labelled fit (step 9's ``serve.run``,
-    without its CPU cross-checks) and then step 10."""
+    without its CPU cross-checks) and then step 10; ``stage0`` runs step
+    16a on its own shard of ``n_docs`` docs (``stage0_alone``)."""
     import torch
     from repro_torch import kernels
     print(card_line(), flush=True)
     dev = torch.device(DEVICE)
+    if phase == "stage0":
+        t = time.perf_counter()
+        stage0_alone(dev, n_docs, n_batches)
+        log(f"stage0 alone: {time.perf_counter() - t:.1f} s")
+        return 0
     if phase == "fit":
         spec, corpus, index, _, layouts = build_shard(n_docs, 1)
         t = time.perf_counter()
@@ -7764,7 +8158,8 @@ def main(argv=None):
                     help="also profile the LM steps and a fit "
                          "(torch.profiler)")
     ap.add_argument("--only", choices=("fit", "predict", "train",
-                                       "recsys_gnn", "mesh", "cells"),
+                                       "recsys_gnn", "mesh", "cells",
+                                       "stage0"),
                     help="build the kernels and run this phase alone; "
                          "prints no result")
     args = ap.parse_args(argv)
@@ -7786,7 +8181,7 @@ def main(argv=None):
     try:
         if args.only:
             return run_alone(args.only, args.lm_layers, args.lm_prompt,
-                             args.n_docs, args.profile)
+                             args.n_docs, args.profile, args.batches)
         card, rows = run(args.n_docs, args.batches, args.lm_layers,
                          args.lm_prompt, args.lm_steps, args.profile)
     except SmokeFailure as e:

@@ -25,6 +25,7 @@ from repro_torch.core import prng
 from repro_torch.core import trees as T
 from repro_torch.isn.backend import resolve_device
 from repro_torch.kernels.level_histogram import ops as lh
+from repro_torch.kernels.stage0 import ops as s0
 
 
 class GBRTParams(NamedTuple):
@@ -164,7 +165,7 @@ def predict(model: GBRTModel, x: torch.Tensor) -> torch.Tensor:
 
 class StackedGBRT(NamedTuple):
     """M same-shaped GBRT ensembles stacked along a leading model axis, so
-    the Stage-0 k/ρ/t predictions run as one batch of tensor ops."""
+    the Stage-0 k/ρ/t predictions run as one kernel launch."""
     forest: T.Forest           # every field carries a leading (M,) axis
     base: torch.Tensor         # (M,)
     bin_edges: torch.Tensor    # (M, F, n_bins - 1)
@@ -193,8 +194,9 @@ def stack_models(models: list[GBRTModel]) -> tuple[StackedGBRT, int]:
 
 def predict_stacked(stacked: StackedGBRT, x: torch.Tensor,
                     depth: int) -> torch.Tensor:
-    """(M, Q) predictions for all stacked models."""
-    x = x.float()
-    xb = torch.stack([T.apply_bins(x, e) for e in stacked.bin_edges])
-    preds = T.forest_predict_stacked(stacked.forest, xb, depth)
-    return stacked.base[:, None] + preds
+    """(M, Q) predictions for all stacked models: on the card one launch
+    of the ``stage0_forest`` kernel (bins, descent, tree sums, base), on
+    the CPU its plain version."""
+    f = stacked.forest
+    return s0.stage0_forest(x.float(), stacked.bin_edges, f.feat, f.thresh,
+                            f.leaf, stacked.base, depth=depth)

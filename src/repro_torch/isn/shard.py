@@ -21,7 +21,8 @@ Exactness: Stage-0 is the reference's float32 arithmetic bit for bit —
 ``features.extract``, bins as int32 counts of ``x > edge``, the tree sum
 in the reference's compiled order (``trees._sum_trees``, base added
 after), and ``features.xla_expm1`` in place of ``expm1`` — since one ulp
-flips a route or the integer part of ρ.
+flips a route or the integer part of ρ.  On the card that is two launches
+a step, ``stage0_features`` and ``stage0_forest`` (``kernels/stage0``).
 """
 
 from __future__ import annotations
@@ -32,11 +33,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import features, trees
+from repro_torch.core import features
 from repro_torch.index.postings import IndexShard
 from repro_torch.isn.backend import merge_shard_topk, resolve_backend
 from repro_torch.isn.daat import daat_serve
 from repro_torch.isn.saat import saat_serve
+from repro_torch.kernels.stage0 import ops as s0
 from repro_torch.models import common
 from repro_torch.serving.telemetry.host import span
 
@@ -85,28 +87,25 @@ def stage0_forest(models: dict) -> ForestArrays:
         thresh=torch.stack([m.forest.thresh for m in ms]),
         leaf=torch.stack([m.forest.leaf for m in ms]),
         base=torch.stack([m.base.float().reshape(()) for m in ms]),
-        bin_edges=edges)
+        bin_edges=edges.contiguous())
 
 
 @span("stage0.forest")
-def _forest_predict(fa: ForestArrays, x: torch.Tensor, target: int,
+def _forest_predict(fa: ForestArrays, x: torch.Tensor,
                     depth: int) -> torch.Tensor:
-    """Fixed-depth descent of one target's trees; x: (Q, F) raw features ->
-    (Q,) predictions, the base added after the tree sum."""
-    xb = (x[:, :, None] > fa.bin_edges[None]).sum(dim=-1).to(torch.int32)
-    forest = trees.Forest(fa.feat[target], fa.thresh[target],
-                          fa.leaf[target])
-    return fa.base[target] + trees._sum_trees(
-        trees.forest_leaves(forest, xb, depth))
+    """Fixed-depth descent of the three targets' trees: x (Q, F) raw
+    features -> (3, Q) predictions, the base added after the tree sum,
+    through ``xla_expm1``.  One ``stage0_forest`` launch on the card."""
+    return s0.stage0_forest(x, fa.bin_edges, fa.feat, fa.thresh, fa.leaf,
+                            fa.base, depth=depth, expm1=True)
 
 
 @span("stage0")
 def _stage0(fa, term_stats, df, terms, mask, depth=5):
     """147 features + three GBRT predictions, each through the compiled
-    program's ``expm1``."""
+    program's ``expm1``: two launches on the card."""
     x = features.extract(term_stats, df, terms, mask)
-    return tuple(features.xla_expm1(_forest_predict(fa, x, t, depth))
-                 for t in range(len(STAGE0_TARGETS)))
+    return tuple(_forest_predict(fa, x, depth))
 
 
 def _query_axes(mesh) -> tuple[str, ...]:

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for the first-stage (lexical and dense) and
+"""Hand-written CUDA kernels for Stage-0 (the features and the stacked
+forests' predictions, ``stage0``), the first-stage (lexical and dense) and
 Stage-2 hot loops, for the per-query Stage-1 path, for the LM serving
 path's attention (prefill and KV-cache decode), and for the tree fits'
 levels (split histograms, split choice, row routing) and the boosting
@@ -32,7 +33,7 @@ it launches its kernel and nowhere else, so a run can show that the main
 path went through the kernels.
 
 The kernels that the dry-run cells reach (kernels 1, 2, 6, 8 and its
-backward, 9) are also custom operators (``card_op``), which only fake
+backward, 9, and Stage-0's two) are also custom operators (``card_op``), which only fake
 tensors, DTensors and calls under a dispatch mode take (``call``: an
 ordinary tensor goes straight to the launch or the plain version).  Under ``FakeTensorMode`` an op's fake
 runs the launch's input checks but those of the device (so a dry run on
@@ -54,7 +55,8 @@ KERNEL_NAMES = ("impact_accumulate_batched", "blockmax_score_batched",
                 "impact_accumulate_bucketed", "blockmax_score_bucketed",
                 "score_histogram", "flash_attention", "flash_decode",
                 "level_histogram", "boost_update", "flash_attention_backward",
-                "level_split", "level_route")
+                "level_split", "level_route", "stage0_features",
+                "stage0_forest")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 _HERE = Path(__file__).resolve().parent
@@ -67,7 +69,8 @@ SOURCES = (_HERE / "binding.cpp",
            _HERE / "flash_attention" / "flash_attention.cu",
            _HERE / "flash_attention" / "flash_attention_sm90.cu",
            _HERE / "flash_attention" / "flash_attention_bwd.cu",
-           _HERE / "level_histogram" / "level_histogram.cu")
+           _HERE / "level_histogram" / "level_histogram.cu",
+           _HERE / "stage0" / "stage0.cu")
 BUILD_DIR = _HERE.parents[2] / "build" / "kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 

@@ -1,4 +1,4 @@
-// Python binding of the serving and LM attention kernels.
+// Python binding of the serving, Stage-0, fit and LM attention kernels.
 //
 // The only source of the extension that includes PyTorch's headers; the
 // kernels live in plain CUDA files with C launch functions.  Each entry
@@ -86,6 +86,16 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
                         const int* kv_len, float* part, void* out, int bf16,
                         int b, int h, int hkv, int t_len, int d, float scale,
                         cudaStream_t stream);
+int stage0_features_launch(const float* stats, const int* df_i,
+                           const float* df_f, const int* terms,
+                           const float* mask, float* out, int n_q,
+                           int n_slots, int vocab, cudaStream_t stream);
+int stage0_forest_launch(const float* x, const float* edges, const int* feat,
+                         const int* thresh, const float* leaf,
+                         const float* base, float* out, int n_q, int n_feat,
+                         int n_edges, int edge_sets, int n_models,
+                         int n_trees, int depth, int levels, int width,
+                         int leaf_width, int expm1, cudaStream_t stream);
 
 namespace {
 
@@ -244,6 +254,40 @@ void level_route(const torch::Tensor& xbt, torch::Tensor node,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void stage0_features(const torch::Tensor& stats, const torch::Tensor& df,
+                     const torch::Tensor& terms, const torch::Tensor& mask,
+                     torch::Tensor out) {
+  const c10::cuda::CUDAGuard guard(stats.device());
+  const bool df_float = df.scalar_type() == torch::kFloat32;
+  const int rc = stage0_features_launch(
+      stats.data_ptr<float>(), df_float ? nullptr : df.data_ptr<int>(),
+      df_float ? df.data_ptr<float>() : nullptr, terms.data_ptr<int>(),
+      mask.data_ptr<float>(), out.data_ptr<float>(),
+      static_cast<int>(terms.size(0)), static_cast<int>(terms.size(1)),
+      static_cast<int>(stats.size(0)), c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc == 0, "stage0_features: launch refused (", rc, ")");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void stage0_forest(const torch::Tensor& x, const torch::Tensor& edges,
+                   const torch::Tensor& feat, const torch::Tensor& thresh,
+                   const torch::Tensor& leaf, const torch::Tensor& base,
+                   torch::Tensor out, int64_t depth, bool expm1) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int rc = stage0_forest_launch(
+      x.data_ptr<float>(), edges.data_ptr<float>(), feat.data_ptr<int>(),
+      thresh.data_ptr<int>(), leaf.data_ptr<float>(), base.data_ptr<float>(),
+      out.data_ptr<float>(), static_cast<int>(x.size(0)),
+      static_cast<int>(x.size(1)), static_cast<int>(edges.size(-1)),
+      edges.dim() == 3 ? static_cast<int>(edges.size(0)) : 1,
+      static_cast<int>(feat.size(0)), static_cast<int>(feat.size(1)),
+      static_cast<int>(depth), static_cast<int>(feat.size(2)),
+      static_cast<int>(feat.size(3)), static_cast<int>(leaf.size(2)),
+      expm1 ? 1 : 0, c10::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(rc == 0, "stage0_forest: launch refused (", rc, ")");
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 void boost_update(const torch::Tensor& f, const torch::Tensor& raw,
                   const torch::Tensor& leaf, double lr, torch::Tensor out) {
   const c10::cuda::CUDAGuard guard(f.device());
@@ -379,6 +423,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "in place");
   m.def("boost_update", &boost_update,
         "f + raw[leaf] * lr as one fused multiply-add a row");
+  m.def("stage0_features", &stage0_features,
+        "the 147 Stage-0 features of a batch of queries, the reference's "
+        "float32 steps bit for bit");
+  m.def("stage0_forest", &stage0_forest,
+        "M stacked GBRTs' predictions: bins, descent, tree sums in the "
+        "reference's order, base, and xla_expm1 where asked");
   m.def("flash_attention", &flash_attention,
         "tiled online-softmax attention on fp32 inputs (GQA, causal or not), "
         "and each row's log-sum-exp when given a tensor for it");

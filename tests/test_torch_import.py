@@ -37,6 +37,7 @@ from repro_torch.kernels.impact_accumulate import ops as ia_ops
 from repro_torch.kernels.level_histogram import ops as lh_ops
 from repro_torch.kernels.qd_feature_gather import ops as qd_ops
 from repro_torch.kernels.score_histogram import ops as sh_ops
+from repro_torch.kernels.stage0 import ops as s0_ops
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import transformer
 from repro_torch.serving.pipeline import CascadePipeline
@@ -247,6 +248,17 @@ def _calls():
             torch.empty((2, 3, 4), dtype=i32, device=d),
             torch.empty((2, 3, 4), dtype=i32, device=d), level=2,
             n_bins=64)),
+        (s0_ops, "stage0_features_plain", lambda d: s0_ops.stage0_features(
+            torch.empty((10, 36), device=d),
+            torch.empty((10,), dtype=i32, device=d),
+            torch.empty((3, 5), dtype=i32, device=d),
+            torch.empty((3, 5), device=d))),
+        (s0_ops, "stage0_forest_plain", lambda d: s0_ops.stage0_forest(
+            torch.empty((3, 147), device=d), torch.empty((147, 63), device=d),
+            torch.empty((3, 4, 5, 16), dtype=i32, device=d),
+            torch.empty((3, 4, 5, 16), dtype=i32, device=d),
+            torch.empty((3, 4, 32), device=d), torch.empty((3,), device=d),
+            depth=5, expm1=True)),
     ]
 
 
@@ -274,9 +286,55 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch):
                           "flash_attention", "flash_decode",
                           "level_histogram", "boost_update",
                           "flash_attention_backward", "level_split",
-                          "level_route"]
+                          "level_route", "stage0_features", "stage0_forest"]
     assert all(n == 1 for n in kernels.LAUNCHES.values())
     kernels.reset_launches()
+    # a call under a dispatch mode (the dry run's counter) and a DTensor
+    # whose blocks lie off the CPU take the kernel's operator (its fake
+    # here, the launch on the card), never the plain sequence
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch import dryrun
+
+    class Seen(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func.name())
+            return func(*args, **(kwargs or {}))
+
+    fake.calls.clear()
+    i32 = torch.int32
+    stage0 = [(plain, call) for mod, plain, call in _calls() if mod is s0_ops]
+    shapes = {"stage0_features_plain": (3, 147),
+              "stage0_forest_plain": (3, 3)}
+    for plain, call in stage0:
+        with Seen() as seen:
+            out = call("meta")
+        assert f"repro_torch::{plain[:-6]}" in seen.ops
+        assert out.shape == shapes[plain]
+    r, s = Replicate(), Shard(0)
+    with dryrun.fake_group(2):
+        mesh = DeviceMesh("cpu", [0, 1])
+
+        def dt(shape, place, dtype=torch.float32):
+            return DTensor.from_local(
+                torch.empty(shape, dtype=dtype, device="meta"), mesh,
+                [place], run_check=False)
+        feats = s0_ops.stage0_features(
+            dt((10, 36), r), dt((10,), r, i32), dt((2, 5), s, i32),
+            dt((2, 5), s))
+        assert feats.placements == (s,) and feats.shape == (4, 147)
+        preds = s0_ops.stage0_forest(
+            dt((2, 147), s), dt((147, 63), r), dt((3, 4, 5, 16), r, i32),
+            dt((3, 4, 5, 16), r, i32), dt((3, 4, 32), r), dt((3,), r),
+            depth=5, expm1=True)
+        assert preds.placements == (Shard(1),) and preds.shape == (3, 4)
+    assert fake.calls == [] and all(n == 0 for n in kernels.LAUNCHES.values())
 
 
 def test_mixed_devices_are_refused():

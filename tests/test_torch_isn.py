@@ -8,9 +8,10 @@ the reference.
   (1,024, ρ_max)) on ``small_collection``: ids, work and routes exact,
   SAAT rows' scores exact, BMW rows' within 1e-4.
 * Stage-0 (``_stage0``: features, ``_forest_predict``, ``xla_expm1``) is
-  bit-equal to the reference's compiled one, ``_forest_predict`` at five
-  tree counts, ``xla_expm1`` / ``xla_exp`` to jitted ``jnp.expm1`` /
-  ``jnp.exp``.
+  bit-equal to the reference's compiled one, each target's raw predictions
+  (``stage0_forest`` on its slice of the stack) to the reference's
+  ``_forest_predict`` at five tree counts, ``xla_expm1`` / ``xla_exp`` to
+  jitted ``jnp.expm1`` / ``jnp.exp``.
 * At (1, 2) over 2 spawned gloo ranks and (2, 2) over 4, the step equals
   the port's world-size-1 step on each shard merged by
   ``merge_shard_topk``; the reference cannot run at two devices on the
@@ -39,6 +40,7 @@ from repro_torch.index.corpus import CorpusParams, build_corpus
 from repro_torch.index.postings import shard_layouts, shard_to_device
 from repro_torch.isn import shard
 from repro_torch.isn.backend import merge_shard_topk
+from repro_torch.kernels.stage0 import ops as s0
 from repro_torch.launch import mesh as port_mesh
 
 from torch_isn_ranks import run_ranks
@@ -190,6 +192,14 @@ def test_stage0_bit_equal_to_reference(setup, forest):
         assert inside.sum() >= Q // 2 and len(np.unique(rho[inside])) > 4
 
 
+def _target_predict(fa, x, target):
+    """Target ``target``'s raw (Q,) predictions: ``stage0_forest`` on its
+    slice of the stack, without the step's ``xla_expm1``."""
+    t = slice(target, target + 1)
+    return s0.stage0_forest(x, fa.bin_edges, fa.feat[t], fa.thresh[t],
+                            fa.leaf[t], fa.base[t], depth=DEPTH)[0]
+
+
 @pytest.mark.parametrize("n_trees", [4, 16, 33, 48, 64])
 def test_forest_predict_bit_equal_to_reference(setup, n_trees):
     f = _seeded_forest(setup["x"], n_trees, seed=n_trees)
@@ -198,8 +208,7 @@ def test_forest_predict_bit_equal_to_reference(setup, n_trees):
         want = jax.jit(ref_shard._forest_predict,
                        static_argnames=("target", "depth"))(
             _ref_fa(f), jnp.asarray(x), target=target, depth=DEPTH)
-        got = shard._forest_predict(_port_fa(f), torch.from_numpy(x),
-                                    target, DEPTH)
+        got = _target_predict(_port_fa(f), torch.from_numpy(x), target)
         np.testing.assert_array_equal(got.numpy().view(np.int32),
                                       np.asarray(want).view(np.int32))
 
@@ -308,7 +317,7 @@ def test_stage0_forest_stacks_fitted_models():
     for i, n in enumerate(("k", "rho", "t")):
         assert torch.equal(fa.leaf[i], models[n].forest.leaf)
         want = gbrt.predict(models[n], torch.from_numpy(x))
-        got = shard._forest_predict(fa, torch.from_numpy(x), i, DEPTH)
+        got = _target_predict(fa, torch.from_numpy(x), i)
         assert torch.equal(got, want)
     moved = models["rho"]._replace(bin_edges=models["rho"].bin_edges + 1.0)
     with pytest.raises(ValueError, match="'rho'"):

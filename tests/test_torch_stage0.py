@@ -40,8 +40,10 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def fitted(small_collection):
+def fit_reference(small_collection):
+    """A reference ``paper_200ms`` system fitted on the fixture (seed 5),
+    the reference's compiled features and the port's, and the reference's
+    Stage-0 models carried to the port (on the CPU)."""
     corpus, index, ql = small_collection
     spec = dataclasses.replace(ref_get_preset("paper_200ms"),
                                backend=BackendSpec(backend="jnp"))
@@ -55,6 +57,11 @@ def fitted(small_collection):
                          torch.from_numpy(ql.terms),
                          torch.from_numpy(ql.mask))
     return index, ql, ref, x_ref, x, convert.stage0_models(ref.models, "cpu")
+
+
+@pytest.fixture(scope="module")
+def fitted(small_collection):
+    return fit_reference(small_collection)
 
 
 def test_extract_matches_reference(fitted):
